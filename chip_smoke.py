@@ -7,17 +7,33 @@ Phases, each of which raises on failure (the run then exits non-zero and
 prints no result line):
 
 1. device   -- the card's name and power limit (nvidia-smi); no CUDA -> exit 1;
-2. build    -- nvcc builds both CUDA kernels from ``epik_tpu_torch/kernels/csrc``;
+2. build    -- nvcc builds every CUDA kernel from ``epik_tpu_torch/kernels/csrc``
+               (one nvcc per source, all at once);
 3. fixture  -- the D652 database (652 leaves, k=10, ~410k k-mers) and a FASTA of
                65,536 150 bp reads plus a few IUPAC and shorter-than-k reads;
-4. kernels  -- each kernel against its plain PyTorch version at the main path's
-               shapes (R = 16,384) and, for the finish, on engineered rows;
+4. kernels  -- the dense path's kernels against their plain PyTorch versions at
+               its shapes (R = 16,384) and, for the finish, on engineered rows;
                CUDA-event times of both; the device step time; place() reads/s;
 5. main     -- ``python -m epik_tpu_torch place`` (in process) over the FASTA,
                with every kernel's launch count zeroed just before and read
-               just after: each must have launched;
+               just after: the dense path's kernels must have launched;
 6. parity   -- the scalar oracle (``ReferencePlacer``) on the first 256 reads
-               against the jplace, score sets within 1e-4.
+               against the jplace, score sets within 1e-4;
+7. big tree -- BASELINE.md config 4 (10,000 leaves, 19,999 branches, k=10,
+               ~644k k-mers) with 32,768 150 bp reads (a few IUPAC reads, so
+               batches split, and short reads) and one batch of 4,096 400 bp
+               reads, which takes the CSR step whole; batches of 4,096:
+               * the tile and CSR kernels against their plain versions on the
+                 inputs the path gives them (recorded from a placement) and on
+                 engineered rows; CUDA-event times; the device step times;
+               * ``TorchPlacer(dense_db="off")`` through ``run_pipeline`` with
+                 the CLI's FASTA reader and the jplace writer, the counts zeroed
+                 before and read after: the packed tile kernel and the CSR
+                 kernel must have launched; then one pass with
+                 ``tile_payload="f32"``: the sums kernel and the finish must
+                 have launched;
+               * both passes against the scalar oracle on 256 reads (IUPAC,
+                 short and 400 bp reads among them), score sets within 1e-4.
 
 Output: progress lines, then the card line, a ``{"kernels": [...]}`` line and,
 last, ``{"ok": true, "device": {...}}``. No JAX is imported.
@@ -42,11 +58,23 @@ N_READS = 65536
 PARITY_READS = 256
 TIMING_REPS = 20
 
+#: the big-tree phase (BASELINE.md config 4, tools/bench_bigtree.py:30,47-55)
+BT_BATCH = 4096
+BT_READS = 32768
+BT_LONG = 4096  # one batch of 400 bp reads: past the packed gate, all on CSR
+BT_IUPAC = 6  # spread over the first batches, so they split tiles + CSR
+
 KERNEL_META = {
     "rowgather_sum": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                       "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "finish_topk": ("epik_tpu_torch/kernels/csrc/finish_topk.cu",
                     "epik_tpu/ops/pallas/accumulate.py:214"),
+    "accumulate_packed_topk": ("epik_tpu_torch/kernels/csrc/accumulate_packed_topk.cu",
+                               "epik_tpu/ops/pallas/accumulate.py:320"),
+    "accumulate_sums": ("epik_tpu_torch/kernels/csrc/accumulate_sums.cu",
+                        "epik_tpu/ops/pallas/accumulate.py:403"),
+    "accumulate_sums_counts": ("epik_tpu_torch/kernels/csrc/accumulate_sums.cu",
+                               "epik_tpu/ops/pallas/accumulate.py:436"),
 }
 
 
@@ -78,24 +106,6 @@ def cuda_ms(torch, fn, reps: int = TIMING_REPS, warmup: int = 3) -> float:
     return statistics.median(times)
 
 
-def engineered_finish_rows(np, R: int, B: int, rng):
-    """Sp/m rows for the finish: exact ties at the K cut, n = 0, n < K, a
-    Q1-wrapped m (read shorter than k) and a Q3 row (10**score underflows)."""
-    Sp = rng.uniform(0.0, 30.0, (R, B)).astype(np.float32)
-    Sp[rng.random((R, B)) > 0.2] = 0.0
-    Sp[0] = 0.0
-    Sp[1] = 0.0
-    Sp[1, [3, B - 1]] = [2.0, 5.0]
-    Sp[2] = 0.0
-    Sp[2, 10:30] = 7.5
-    Sp[3, ::3] = 4.25
-    m = rng.integers(80, 150, R).astype(np.float32)
-    m[4] = np.float32(2.0**64)
-    Sp[4, :5] = 1.0
-    m[5] = 4000.0
-    return Sp, m
-
-
 def check_finish(np, got, want, K: int, B: int, what: str) -> float:
     """The finish criteria: scores bit-equal, live idx equal, every idx in
     [0, B), n and zero_sum equal, log_sum within rtol 1e-6. Returns the
@@ -125,6 +135,280 @@ def write_fasta(path: str, records) -> None:
             f.write(f">{name}\n{seq.decode()}\n")
 
 
+def check_parity(oracle, records, rows_by_name, what: str) -> float:
+    """The scalar oracle on ``records`` against the jplace rows: score sets
+    within 1e-4 for every read. Returns the largest score difference."""
+    ref_out = oracle.place(records)
+    worst = 0.0
+    for q in ref_out.placed_seqs:
+        want = sorted(p.score for p in q.placements)
+        for name in ref_out.sequence_map[q.sequence]:
+            got = sorted(ll for _, ll in rows_by_name[name])
+            if len(got) != len(want):
+                raise AssertionError(f"{what} {name}: {len(got)} placements, "
+                                     f"oracle {len(want)}")
+            d = max((abs(a - b) for a, b in zip(got, want)), default=0.0)
+            if d > 1e-4:
+                raise AssertionError(f"{what} {name}: score sets differ by {d} > 1e-4")
+            worst = max(worst, d)
+    return worst
+
+
+@contextlib.contextmanager
+def recording(module, name: str, calls: list):
+    """Record the arguments of every call of ``module.name`` (a kernel
+    wrapper as a step module imported it) while passing each call through."""
+    fn = getattr(module, name)
+
+    def rec(*args, **kwargs):
+        calls.append((args, kwargs))
+        return fn(*args, **kwargs)
+
+    setattr(module, name, rec)
+    try:
+        yield
+    finally:
+        setattr(module, name, fn)
+
+
+def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict]:
+    """Phase 7 (see the module docstring). Returns the kernel entries of the
+    tile and CSR kernels and the phase's summary numbers."""
+    from epik_tpu.core.tree import parse_newick, to_newick
+    from epik_tpu.engine.pipeline import run_pipeline
+    from epik_tpu.engine.reference import ReferencePlacer
+    from epik_tpu.io.build import reads_from_reference, reference_like_db
+    from epik_tpu.io.jplace import jplace_writer
+    from epik_tpu.tools.jplace_diff import parse_jplace
+
+    from epik_tpu_torch.cli.main import _open_reader
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.accumulate_packed import (
+        accumulate_packed_topk,
+        accumulate_packed_topk_plain,
+        packed_sums_plain,
+    )
+    from epik_tpu_torch.kernels.accumulate_sums import (
+        accumulate_sums,
+        accumulate_sums_counts,
+        accumulate_sums_plain,
+    )
+    from epik_tpu_torch.ops import csr as csr_mod
+    from torch_fixtures import packed_cells
+
+    summary = {}
+    # ---- 7a. fixture ------------------------------------------------------------
+    t0 = time.monotonic()
+    db, ref = reference_like_db(num_leaves=10000, kmer_size=10, ref_length=1_000_000,
+                                mean_posting_len=12.0, seed=10)
+    tree = parse_newick(db.tree())
+    B = tree.get_node_count()
+    summary["db_build_s"] = time.monotonic() - t0
+    reads = reads_from_reference(ref, BT_READS, length=150, mutation_rate=0.02, seed=11)
+    long_reads = reads_from_reference(ref, BT_LONG, length=400, mutation_rate=0.02,
+                                      seed=12)
+    long_reads = [(f"long_{i}", s) for i, (_, s) in enumerate(long_reads)]
+    for i in range(BT_IUPAC):  # one IUPAC read in each of the first batches
+        j = i * BT_BATCH + 7
+        name, seq = reads[j]
+        reads[j] = (f"iupac_{i}", seq[:50 + i] + b"NRYWSK"[i:i + 1] + seq[51 + i:])
+    reads[BT_BATCH + 9] = ("short_9", reads[BT_BATCH + 9][1][:9])
+    reads[BT_BATCH + 10] = ("short_2", b"AC")
+    records = reads + long_reads
+    work = os.path.join(REPO, "build", "chip_smoke_bigtree")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    fasta = os.path.join(work, "q.fasta")
+    write_fasta(fasta, records)
+    parity_records = ([r for r in reads if not r[0].startswith("read_")]
+                      + reads[:200] + long_reads[:256 - 200 - BT_IUPAC - 2])
+    log(f"big tree: {db.num_kmers} k-mers, {db.num_entries} postings, {B} branches "
+        f"(db built in {summary['db_build_s']:.1f} s); {len(records)} reads "
+        f"({BT_READS} x 150 bp with {BT_IUPAC} IUPAC and 2 short, {BT_LONG} x 400 bp)")
+
+    # ---- 7b. placer: the tile and cuckoo builds -----------------------------------
+    t0 = time.monotonic()
+    placer = TorchPlacer(db, tree, config=PlacerConfig(dense_db="off"), device=dev)
+    torch.cuda.synchronize()
+    summary["tile_build_s"] = time.monotonic() - t0
+    ts = placer.tiles
+    if placer.route != "tiles" or not ts.packed:
+        raise AssertionError(f"config 4 took route {placer.route}, packed={ts.packed}")
+    t0 = time.monotonic()
+    cs = placer.csr
+    torch.cuda.synchronize()
+    summary["cuckoo_build_s"] = time.monotonic() - t0
+    log(f"tiles: main ({ts.tiles.shape[0]} x {ts.pt}) + overflow "
+        f"({ts.n_ov + 1} x {ts.pt_ov}) int32, {ts.frac_over:.4f} of keys overflow, "
+        f"{ts.nbytes} bytes on the card (built in {summary['tile_build_s']:.1f} s); "
+        f"cuckoo table {tuple(cs.table.shape)} (built in "
+        f"{summary['cuckoo_build_s']:.1f} s)")
+
+    # ---- 7c. kernels on the inputs the path gives them ------------------------------
+    clean = reads[BT_READS - BT_BATCH:]  # the last batch: no IUPAC or short reads
+    packed_calls, counts_calls, sums_calls = [], [], []
+    with recording(step_mod, "accumulate_packed_topk", packed_calls):
+        placer.place(clean)
+    with recording(csr_mod, "accumulate_sums_counts", counts_calls):
+        placer.place(long_reads)
+    (p, m_f32), kw = packed_calls[0]
+    K = kw["K"]
+    got, sq = accumulate_packed_topk(p, m_f32, **kw, return_sums=True)
+    want = accumulate_packed_topk_plain(p, m_f32, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(sq.long(), packed_sums_plain(p, B)):
+        raise AssertionError("accumulate_packed_topk: integer sums differ from the plain version")
+    err3 = check_finish(np, got.cpu().numpy(), want.cpu().numpy(), K, B,
+                        "accumulate_packed_topk (path)")
+    rng = np.random.default_rng(4)
+    p_e, m_e = packed_cells(rng, 512, p.shape[1], B)
+    p_e, m_e = torch.from_numpy(p_e).to(dev), torch.from_numpy(m_e).to(dev)
+    got_e, sq_e = accumulate_packed_topk(p_e, m_e, **kw, return_sums=True)
+    got_e = got_e.cpu().numpy()
+    if not torch.equal(sq_e.long(), packed_sums_plain(p_e, B)):
+        raise AssertionError("accumulate_packed_topk: engineered integer sums differ")
+    err3 = max(err3, check_finish(np, got_e,
+                                  accumulate_packed_topk_plain(p_e, m_e, **kw).cpu().numpy(),
+                                  K, B, "accumulate_packed_topk (engineered)"))
+    if not (got_e[0, 2 * K + 1] == 0 and got_e[1, 2 * K + 1] == 2
+            and np.array_equal(got_e[2, K:2 * K], np.arange(10, 10 + K))):
+        raise AssertionError("accumulate_packed_topk: engineered rows (n, ties) wrong")
+    ms3 = cuda_ms(torch, lambda: accumulate_packed_topk(p, m_f32, **kw))
+    plain_ms3 = cuda_ms(torch, lambda: accumulate_packed_topk_plain(p, m_f32, **kw))
+    log(f"accumulate_packed_topk {tuple(p.shape)} B={B} K={K}: sums and scores "
+        f"bit-equal, engineered rows pass; kernel {ms3:.4f} ms, plain {plain_ms3:.4f} ms")
+
+    (b_c, s_c), kw_c = counts_calls[0]
+    S_k, C_k = accumulate_sums_counts(b_c, s_c, **kw_c)
+    S_p, C_p = accumulate_sums_plain(b_c, s_c, counts=True, **kw_c)
+    torch.cuda.synchronize()
+    if not (torch.equal(S_k, S_p) and torch.equal(C_k, C_p)):
+        raise AssertionError("accumulate_sums_counts: not bit-equal to the plain version")
+    err5 = float((S_k - S_p).abs().max())
+    ms5 = cuda_ms(torch, lambda: accumulate_sums_counts(b_c, s_c, **kw_c))
+    plain_ms5 = cuda_ms(torch, lambda: accumulate_sums_plain(b_c, s_c, counts=True,
+                                                             **kw_c), reps=5, warmup=1)
+    log(f"accumulate_sums_counts {tuple(b_c.shape)} B={B} (the 400 bp CSR batch): "
+        f"bit-equal; kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms")
+
+    # the device steps, on the clean batch and on the 400 bp batch
+    seqs = list(dict.fromkeys(s for _, s in clean))
+    step, OV, _ = placer._stage_tiles(seqs)
+    summary["tile_step_ms"] = cuda_ms(torch, lambda: step(OV))
+    csr_seqs = list(dict.fromkeys(s for _, s in long_reads))
+    csr_step, P, PA, _ = placer._stage_csr(csr_seqs)
+    summary["csr_step_ms"] = cuda_ms(torch, lambda: csr_step(P, PA), reps=5)
+    log(f"device step, tiles (tokenize + gathers + kernel 3) at R={len(seqs)}, OV={OV}: "
+        f"{summary['tile_step_ms']:.4f} ms; CSR (lookup + cells + kernel 4 with counts "
+        f"+ amb + finish) at R={len(csr_seqs)} x 400 bp, P={P}: "
+        f"{summary['csr_step_ms']:.4f} ms [{card}]")
+
+    # place(): synchronous batches of the 150 bp reads (IUPAC batches split)
+    batches = [reads[i:i + BT_BATCH] for i in range(0, BT_READS, BT_BATCH)]
+    placer.place(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for b in batches:
+        placer.place(b)
+    summary["place_reads_per_s"] = BT_READS / (time.monotonic() - t0)
+    log(f"place(): {BT_READS} reads in synchronous batches of {BT_BATCH}: "
+        f"{summary['place_reads_per_s']:.0f} reads/s [{card}]")
+
+    # ---- 7d. the big-tree path through the pipeline, packed then f32 -------------------
+    oracle = ReferencePlacer(db, tree)
+    newick = to_newick(tree, jplace_edges=True)
+    counts = {}
+    for payload in ("packed", "f32"):
+        if payload == "f32":
+            del placer
+            torch.cuda.empty_cache()
+            t0 = time.monotonic()
+            placer = TorchPlacer(db, tree, config=PlacerConfig(
+                dense_db="off", tile_payload="f32"), device=dev)
+            torch.cuda.synchronize()
+            summary["tile_build_f32_s"] = time.monotonic() - t0
+            if placer.tiles.packed:
+                raise AssertionError("tile_payload='f32' built packed tiles")
+            placer.csr  # built before the timed pass, as for the packed one
+            torch.cuda.synchronize()
+            with recording(step_mod, "accumulate_sums", sums_calls):
+                placer.place(clean)
+        csr_steps = [0]
+        stage_csr = placer._stage_csr
+
+        def counting_stage_csr(seqs, _f=stage_csr, _n=csr_steps):
+            _n[0] += 1
+            return _f(seqs)
+
+        placer._stage_csr = counting_stage_csr
+        placer.overflow_retries = 0
+        out = os.path.join(work, f"placements_{payload}.jplace")
+        writer = jplace_writer(out, "chip_smoke.py", newick, resume=False)
+        writer.start()
+        reader = _open_reader(fasta, BT_BATCH)
+        reset_launch_counts()
+        stats = run_pipeline(placer, reader, writer, inflight=3)
+        torch.cuda.synchronize()
+        counts[payload] = launch_counts()
+        writer.end()
+        del placer._stage_csr
+        need = (["accumulate_packed_topk", "accumulate_sums_counts"] if payload == "packed"
+                else ["accumulate_sums", "finish_topk", "accumulate_sums_counts"])
+        missing = [name for name in need if counts[payload][name] <= 0]
+        if missing:
+            raise AssertionError(f"{payload} pass: kernels never launched: {missing}")
+        rows_by_name = parse_jplace(out)
+        if set(rows_by_name) != {name for name, _ in records}:
+            raise AssertionError(f"{payload} pass: jplace names differ")
+        lls = [ll for rws in rows_by_name.values() for _, ll in rws]
+        if not lls or not all(math.isfinite(x) for x in lls):
+            raise AssertionError(f"{payload} pass: no likelihoods or non-finite ones")
+        t0 = time.monotonic()
+        worst = check_parity(oracle, parity_records, rows_by_name, f"big tree {payload}")
+        rate = stats.num_seq_placed / stats.wall_seconds
+        summary[f"pipeline_{payload}_reads_per_s"] = rate
+        summary[f"overflow_retries_{payload}"] = placer.overflow_retries
+        summary[f"csr_steps_{payload}"] = csr_steps[0]
+        log(f"big tree {payload}: {stats.summary()} = {rate:.0f} reads/s through the "
+            f"pipeline [{card}]; launches {counts[payload]}; overflow_retries "
+            f"{placer.overflow_retries}; CSR steps {csr_steps[0]} of "
+            f"{stats.num_iterations} batches; parity on {len(parity_records)} reads: "
+            f"largest score difference {worst:.3g} ({time.monotonic() - t0:.1f} s)")
+
+    (b_s, s_s), kw_s = sums_calls[0]
+    S4 = accumulate_sums(b_s, s_s, **kw_s)
+    S4_p = accumulate_sums_plain(b_s, s_s, **kw_s)
+    torch.cuda.synchronize()
+    if not torch.equal(S4, S4_p):
+        raise AssertionError("accumulate_sums: not bit-equal to the plain version")
+    err4 = float((S4 - S4_p).abs().max())
+    ms4 = cuda_ms(torch, lambda: accumulate_sums(b_s, s_s, **kw_s))
+    plain_ms4 = cuda_ms(torch, lambda: accumulate_sums_plain(b_s, s_s, **kw_s),
+                        reps=5, warmup=1)
+    log(f"accumulate_sums {tuple(b_s.shape)} B={B} (f32 payload): bit-equal; kernel "
+        f"{ms4:.4f} ms, plain {plain_ms4:.4f} ms")
+    del placer
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+
+    def entry(name, launches, err, ms, plain_ms):
+        return {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
+                "replaces": KERNEL_META[name][1], "launches": launches,
+                "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+    kernels = [
+        entry("accumulate_packed_topk", counts["packed"]["accumulate_packed_topk"],
+              err3, ms3, plain_ms3),
+        entry("accumulate_sums", counts["f32"]["accumulate_sums"], err4, ms4, plain_ms4),
+        entry("accumulate_sums_counts", counts["packed"]["accumulate_sums_counts"],
+              err5, ms5, plain_ms5),
+    ]
+    return kernels, summary
+
+
 def main() -> int:
     import torch
 
@@ -133,6 +417,7 @@ def main() -> int:
         return 1
     import numpy as np
 
+    sys.path.insert(0, os.path.join(REPO, "tests"))
     from epik_tpu.core.tree import parse_newick
     from epik_tpu.engine.reference import ReferencePlacer
     from epik_tpu.io.build import reads_from_reference, reference_like_db
@@ -147,6 +432,7 @@ def main() -> int:
     from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
     from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
     from epik_tpu_torch.ops.tokenize import tokenize_combo
+    from torch_fixtures import finish_rows  # the engineered rows of the kernel tests
 
     # ---- 1. device --------------------------------------------------------------
     card = card_line()
@@ -157,7 +443,8 @@ def main() -> int:
 
     # ---- 2. build ----------------------------------------------------------------
     library()
-    log(f"build: {build_info().build_seconds:.3f} s (nvcc, sm_90a, both kernels)")
+    log(f"build: {build_info().build_seconds:.3f} s (nvcc, sm_90a, "
+        f"{len(build_info().sources())} sources in parallel)")
     for line in build_info().build_log.splitlines():
         if "registers" in line or "spill" in line:
             log("  ptxas: " + line.strip())
@@ -230,7 +517,7 @@ def main() -> int:
     err2 = check_finish(np, f_k, f_p, K, B, "finish_topk (main path)")
     rng = np.random.default_rng(2)
     for R_e, B_e, K_e in ((512, B, K), (64, 40, 40), (16, 20000, 5)):
-        Sp_e, m_e = engineered_finish_rows(np, R_e, B_e, rng)
+        Sp_e, m_e = finish_rows(rng, R_e, B_e)
         Sp_e, m_e = torch.from_numpy(Sp_e).to(dev), torch.from_numpy(m_e).to(dev)
         kw_e = dict(K=K_e, k=placer.k, log_eps=float(placer.log_eps))
         got = finish_topk(Sp_e, m_e, **kw_e).cpu().numpy()
@@ -283,7 +570,7 @@ def main() -> int:
         log("  | " + line)
     if rc != 0:
         raise AssertionError(f"CLI exited with {rc}")
-    missing = [name for name, n in counts.items() if n <= 0]
+    missing = [name for name in ("rowgather_sum", "finish_topk") if counts[name] <= 0]
     if missing:
         raise AssertionError(f"kernels never launched on the main path: {missing}")
     jplace = os.path.join(out_dir, "placements_q.fasta.jplace")
@@ -309,24 +596,16 @@ def main() -> int:
     t0 = time.monotonic()
     db_loaded = load(db_path, mu=1.0, user_omega=1.5)
     oracle = ReferencePlacer(db_loaded, parse_newick(db_loaded.tree()))
-    ref_out = oracle.place(records[:PARITY_READS])
-    worst = 0.0
-    for q in ref_out.placed_seqs:
-        want = sorted(p.score for p in q.placements)
-        for name in ref_out.sequence_map[q.sequence]:
-            got = sorted(ll for _, ll in rows_by_name[name])
-            if len(got) != len(want):
-                raise AssertionError(f"{name}: {len(got)} placements, oracle {len(want)}")
-            d = max((abs(a - b) for a, b in zip(got, want)), default=0.0)
-            if d > 1e-4:
-                raise AssertionError(f"{name}: score sets differ by {d} > 1e-4")
-            worst = max(worst, d)
+    worst = check_parity(oracle, records[:PARITY_READS], rows_by_name, "D652")
     log(f"parity: {PARITY_READS} reads (IUPAC, short, no-hit included) match the "
         f"scalar oracle; largest score difference {worst:.3g} "
         f"({time.monotonic() - t0:.1f} s)")
+    shutil.rmtree(work, ignore_errors=True)
+
+    # ---- 7. the big-tree posting-tile path and its CSR fallback -----------------------
+    bt_kernels, bt = bigtree_phase(torch, np, card, dev)
     if "jax" in sys.modules:
         raise AssertionError("jax was imported")
-    shutil.rmtree(work, ignore_errors=True)
 
     kernels = [
         {"name": "rowgather_sum", "route": "cuda", "source": KERNEL_META["rowgather_sum"][0],
@@ -335,9 +614,11 @@ def main() -> int:
         {"name": "finish_topk", "route": "cuda", "source": KERNEL_META["finish_topk"][0],
          "replaces": KERNEL_META["finish_topk"][1], "launches": counts["finish_topk"],
          "max_abs_err": err2, "ms": ms2, "plain_ms": plain_ms2},
+        *bt_kernels,
     ]
     log(f"summary: plane_bytes={plane_bytes} step_ms={step_ms} "
         f"place_reads_per_s={place_rate} cli_reads_per_s={len(records) / cli_s}")
+    log("summary big tree: " + " ".join(f"{k}={v}" for k, v in bt.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

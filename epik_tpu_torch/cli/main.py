@@ -88,7 +88,7 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
                   input_file, batch_size=2000, keep_at_most=7, keep_factor=0.01,
                   invocation=None, resume=False, verbose=False, inflight=3,
                   precision="exact", plane_mode="shifted", pair_plane="auto",
-                  platform="cuda") -> int:
+                  tile_payload="auto", platform="cuda") -> int:
     """Full pipeline orchestration (reference: main.cpp:237-383)."""
     if not (0.0 <= mu <= 1.0):
         _err("Error: Mu has to a value in [0, 1]")
@@ -139,11 +139,12 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
 
     tree = parse_newick(db.tree())
     cfg = PlacerConfig(host_threads=max(1, threads), precision=precision,
-                       plane_mode=plane_mode, pair_plane=pair_plane)
+                       plane_mode=plane_mode, pair_plane=pair_plane,
+                       tile_payload=tile_payload)
     placer = TorchPlacer(db, tree, keep_at_most=keep_at_most,
                          keep_factor=keep_factor, config=cfg, device=platform)
     n_dev = torch.cuda.device_count() if placer.device.type == "cuda" else 1
-    engine_name = f"torch/{placer.device.type} ({n_dev} device(s))"
+    engine_name = f"torch/{placer.device.type} ({n_dev} device(s), {placer.route})"
 
     tree_as_newick = to_newick(tree, jplace_edges=True)
     jplace_filename = make_output_filename(input_file, outputdir)
@@ -247,6 +248,10 @@ def build_parser() -> argparse.ArgumentParser:
                         "[default: shifted]")
     p.add_argument("--pair-plane", choices=["auto", "on", "off"], default="auto",
                    help="(k+1)-mer pair plane (off is not ported). [default: auto]")
+    p.add_argument("--tile-payload", choices=["auto", "packed", "f32"], default="auto",
+                   help="Posting-tile cell layout (the big-tree path): packed int32 "
+                        "(branch<<16 | quantized score; half the gather bytes) or "
+                        "bit-exact f32 pairs. [default: auto]")
     p.add_argument("input_file", type=_existing_file)
     return ap
 
@@ -260,5 +265,5 @@ def main(argv: list[str] | None = None) -> int:
         keep_factor=args.keep_factor, resume=args.resume, verbose=args.verbose,
         inflight=args.inflight, precision=args.precision,
         plane_mode=args.plane_mode, pair_plane=args.pair_plane,
-        platform=args.platform,
+        tile_payload=args.tile_payload, platform=args.platform,
     )

@@ -1,9 +1,11 @@
 """Placer configuration: the fields of ``epik_tpu.engine.placer.PlacerConfig``.
 
-The port runs one path so far: the dense pair-plane step (f32 shifted plane,
-device tokenizer, combo table). A value that would select another path raises
-``NotImplementedError`` naming the ROADMAP.md queue item that ports it; the
-port never switches to another path on its own.
+The port runs three routes (``TorchPlacer``): the dense pair-plane step, the
+big-tree posting-tile step and the CSR step. A value that would select a path
+not ported yet raises ``NotImplementedError`` naming the ROADMAP.md queue item
+that ports it. ``accumulate`` "auto" and "matmul" both mean the kernel-backed
+engines on any device; as in the JAX package, only "auto" lets the dense
+plane take over.
 
 The memory budgets differ from the JAX package's: its defaults were sizes for
 a 16 GiB TPU v5e. Here ``None`` (the default) means "what the device has
@@ -33,9 +35,7 @@ _CHOICES = {
 
 #: option value -> the ROADMAP queue item that will port its path
 _NOT_YET = {
-    ("accumulate", "matmul"): "queue 1 item 7 (CSR fallback engine)",
-    ("accumulate", "scatter"): "queue 1 item 7 (CSR fallback engine)",
-    ("dense_db", "off"): "queue 1 item 7 (CSR fallback engine)",
+    ("accumulate", "scatter"): "queue 1 item 7 (the XLA scatter-add CSR engine)",
     ("precision", "int16"): "queue 1 item 5 (int16 plane)",
     ("precision", "bf16"): "queue 1 item 5 (bf16 plane)",
     ("lookup_where", "device"): "queue 1 item 5 (device-lookup dense variant)",
@@ -49,13 +49,14 @@ _NOT_YET = {
 class PlacerConfig:
     keep_at_most: int = 7  # reference default: main.cpp:219
     keep_factor: float = 0.01  # reference default: main.cpp:220
-    #: CSR posting-budget headroom (CSR path: not ported yet)
+    #: CSR posting-budget headroom over the average posting length
     budget_headroom: float = 2.0
-    #: CSR minimum padded stream size (CSR path: not ported yet)
+    #: CSR minimum padded key-stream size
     min_bucket: int = 16
     accumulate: str = "auto"
     dense_db: str = "auto"
-    #: bytes the base plane may take; None = the device's free memory
+    #: bytes the base plane -- or, when it is not taken, the posting tiles --
+    #: may take; None = the device's free memory
     dense_db_budget: int | None = None
     #: host threads for the host tokenizer (ambiguous reads only)
     host_threads: int = 1
@@ -67,7 +68,9 @@ class PlacerConfig:
     pair_plane: str = "auto"
     #: bytes the combined (base + pair) plane may take; None = device free
     pair_plane_budget: int | None = None
-    #: posting-tile layout (tiles path: not ported yet; unused by the slice)
+    #: posting-tile cell layout: "packed" int32 (branch << 16) | q (needs
+    #: branch ids < 2**15), "f32" [branch | score-bits] pairs, "auto" packed
+    #: when the branch ids fit
     tile_payload: str = "auto"
 
 

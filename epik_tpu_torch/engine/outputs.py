@@ -1,7 +1,8 @@
 """Host-side result decoding and jplace-row assembly, copied as numpy from
-``epik_tpu/engine/placer.py``: ``unpack_outputs_slim`` (:1553), ``_Pending``
-(:1574) and ``assemble_arrays`` (:2920). The quirk Q2/Q3 fallback and the
-keep-factor filter are unchanged."""
+``epik_tpu/engine/placer.py``: ``unpack_outputs`` (:1501),
+``unpack_outputs_slim`` (:1553), ``_Pending`` (:1574), ``_SplitPending``
+(:1586), the merge of ``_merge_split`` (:2787) and ``assemble_arrays``
+(:2920). The quirk Q2/Q3 fallback and the keep-factor filter are unchanged."""
 
 from __future__ import annotations
 
@@ -12,12 +13,28 @@ import numpy as np
 
 from epik_tpu.engine.types import ArrayPlacedCollection
 
-__all__ = ["POW10_ZERO", "U64", "_Pending", "assemble_arrays", "unpack_outputs_slim"]
+__all__ = ["POW10_ZERO", "U64", "_Pending", "_SplitPending", "assemble_arrays",
+           "merge_split", "unpack_outputs", "unpack_outputs_slim"]
 
 U64 = 1 << 64
 #: exponent below which IEEE-double 10**x rounds to exactly 0.0
 #: (reference computes pow in double: place.h:29, place.cpp:39-48)
 POW10_ZERO = -323.6
+
+
+def unpack_outputs(arr: np.ndarray, K: int):
+    """Host-side inverse of the full (R+1, 4K+2) pack of the CSR step
+    (``ops/csr.py::pack_outputs``)."""
+    body, totals = arr[:-1], arr[-1]
+    scores_k = body[:, 0:K]
+    wr_k = body[:, K : 2 * K].astype(np.float64)
+    idx_k = body[:, 2 * K : 3 * K].astype(np.int32)
+    counts_k = body[:, 3 * K : 4 * K].astype(np.int64)
+    n = body[:, 4 * K].astype(np.int32)
+    zero_sum = body[:, 4 * K + 1] != 0
+    e_total = (int(totals[0]) << 20) + int(totals[1])
+    a_total = (int(totals[2]) << 20) + int(totals[3])
+    return scores_k, idx_k, counts_k, wr_k, n, zero_sum, e_total, a_total
 
 
 def unpack_outputs_slim(arr: np.ndarray, K: int):
@@ -44,14 +61,63 @@ def unpack_outputs_slim(arr: np.ndarray, K: int):
 class _Pending:
     """In-flight batch: device work enqueued, results not yet fetched.
 
-    The JAX version also carries CSR budgets and re-dispatch inputs; the
-    dense pair-plane path never retries, so those fields are left out."""
+    ``budget`` says how ``place_wait`` checks the result and re-runs the
+    step with the same staged inputs when a static budget was too small:
+    None (the dense path: never), ``("tiles_ov", OV, rerun)`` with
+    ``rerun(OV)`` (two-level tiles), or ``("csr", P, PA, rerun)`` with
+    ``rerun(P, PA)`` (the CSR step)."""
 
     sequence_map: dict
     seqs: list
     m_signed: object
-    out: object | None  # (R, 2K+3) f32 tensor, None for an empty batch
+    out: object | None  # f32 result tensor, None for an empty batch
     K: int
+    budget: tuple | None = None
+
+
+@dataclasses.dataclass
+class _SplitPending:
+    """A batch split between two engines (tiles for clean reads, CSR for
+    ambiguous ones); results merge back into original row order."""
+
+    sequence_map: dict
+    seqs: list
+    idx_clean: np.ndarray
+    idx_amb: np.ndarray
+    clean: _Pending
+    amb: _Pending
+
+
+def merge_split(pending: _SplitPending, col_c: ArrayPlacedCollection,
+                col_a: ArrayPlacedCollection) -> ArrayPlacedCollection:
+    """Merge a split batch's two array collections back into the original
+    unique-sequence row order."""
+    R = len(pending.seqs)
+    Kmax = max(col_c.ids.shape[1], col_a.ids.shape[1])
+
+    def alloc(ref):
+        return np.zeros((R, Kmax), ref.dtype)
+
+    ids = alloc(col_c.ids)
+    scores = alloc(col_c.scores)
+    wr = alloc(col_c.wr)
+    counts = alloc(col_c.counts)
+    dist = alloc(col_c.dist)
+    pend = alloc(col_c.pend)
+    keep = np.zeros((R, Kmax), bool)
+    for idx, col in ((pending.idx_clean, col_c), (pending.idx_amb, col_a)):
+        w = col.ids.shape[1]
+        ids[idx, :w] = col.ids
+        scores[idx, :w] = col.scores
+        wr[idx, :w] = col.wr
+        counts[idx, :w] = col.counts
+        dist[idx, :w] = col.dist
+        pend[idx, :w] = col.pend
+        keep[idx, :w] = col.keep
+    return ArrayPlacedCollection(
+        pending.sequence_map, pending.seqs, ids, scores, wr, counts,
+        dist, pend, keep,
+    )
 
 
 def assemble_arrays(

@@ -1,6 +1,7 @@
 """Host-side batch staging, copied as numpy from ``epik_tpu/engine/placer.py``:
-``_bucket``/``_bucket_lmax`` (:163-179), ``pack_reads`` (:882) and the parts
-of ``HostStaging`` (:1598-1735) that the pair-plane path uses.
+``_bucket``/``_bucket_lmax`` (:163-179), ``pack_reads`` (:882), the CSR
+staging helpers ``_pad_u64_split``/``_pad_i32`` (:2310-2335) and the parts of
+``HostStaging`` (:1598-1735) that the ported paths use.
 
 One difference: the JAX package asks ``native_available()``, which never
 builds the native host library; here :meth:`HostStaging._native` calls
@@ -19,7 +20,11 @@ import numpy as np
 from epik_tpu import native
 from epik_tpu.core.kmers import BatchTokens, tokenize_batch
 
-__all__ = ["HostStaging", "_bucket", "_bucket_lmax", "pack_reads"]
+__all__ = ["HostStaging", "_bucket", "_bucket_lmax", "pack_reads", "pad_i32",
+           "pad_u64_split"]
+
+#: padding key of the CSR step's key stream: never a real key, always a miss
+SENTINEL_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
 
 
 def _bucket(n: int, lo: int) -> int:
@@ -56,6 +61,22 @@ def pack_reads(codes: np.ndarray, lens: np.ndarray) -> np.ndarray:
     ll[:, 0] = lens & 0xFF
     ll[:, 1] = lens >> 8
     return np.concatenate([c2, bb, ll], axis=1)
+
+
+def pad_u64_split(keys: np.ndarray, size: int):
+    """uint64 keys padded to ``size`` with the sentinel key, split into
+    (hi, lo) uint32 halves."""
+    padded = np.full(size, SENTINEL_KEY, dtype=np.uint64)
+    padded[: keys.shape[0]] = keys
+    hi = (padded >> np.uint64(32)).astype(np.uint32)
+    lo = (padded & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return hi, lo
+
+
+def pad_i32(arr: np.ndarray, size: int, fill: int) -> np.ndarray:
+    padded = np.full(size, fill, dtype=np.int32)
+    padded[: arr.shape[0]] = arr
+    return padded
 
 
 class HostStaging:

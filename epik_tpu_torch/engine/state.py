@@ -1,12 +1,17 @@
-"""The placer's device state: the combined shifted plane and the combo table.
+"""The placer's device state.
 
-:func:`build_plane_state` builds them from a database as
-``epik_tpu/engine/placer.py`` does (:1892-2026): the shifted cells
-``s - log10(eps)`` with the ``sp <= 0 -> 1e-37`` presence nudge, the width
-padded to a multiple of 128, the all-zero row at ``n_keys``, and the pair rows
-(each the f32 sum of two base rows) after it. :func:`plane_state_from_numpy`
-takes the JAX placer's own arrays instead, so tests can feed both engines the
-same state.
+* The dense route: the combined shifted plane and the combo table.
+  :func:`build_plane_state` builds them from a database as
+  ``epik_tpu/engine/placer.py`` does (:1892-2026): the shifted cells
+  ``s - log10(eps)`` with the ``sp <= 0 -> 1e-37`` presence nudge, the width
+  padded to a multiple of 128, the all-zero row at ``n_keys``, and the pair
+  rows (each the f32 sum of two base rows) after it.
+  :func:`plane_state_from_numpy` takes the JAX placer's own arrays instead,
+  so tests can feed both engines the same state.
+* The CSR step: the cuckoo table over the keys (payload: the key's row) and
+  the postings, as ``JaxPlacer.table``/``_dev_postings``/``_dev_row_off``
+  hold them (:2272-2305), built by :func:`build_csr_state`.
+* The tiles route's state lives in ``tiles.py``.
 """
 
 from __future__ import annotations
@@ -16,10 +21,11 @@ import dataclasses
 import numpy as np
 import torch
 
+from ..ops.hashtable import build_table
 from .tables import build_combo_table, direct_table, enumerate_pairs
 
-__all__ = ["PlaneState", "build_plane_state", "pair_tables", "plane_state_from_numpy",
-           "shifted_cells"]
+__all__ = ["CsrState", "PlaneState", "build_csr_state", "build_plane_state",
+           "pair_tables", "plane_state_from_numpy", "shifted_cells"]
 
 #: pair rows built per device step (bounds the build's extra memory to
 #: one chunk of rows)
@@ -97,3 +103,31 @@ def build_plane_state(db, *, k: int, B: int, log_eps: np.float32, pu, pv, combo,
                                       + plane.index_select(0, pv_t[s:e]))
     return PlaneState(plane=plane,
                       combo=torch.from_numpy(combo).to(device), n_keys=n_keys)
+
+
+@dataclasses.dataclass
+class CsrState:
+    table: torch.Tensor  # int64 (nb, 16) packed cuckoo table, uint32 words
+    seed1: int
+    seed2: int
+    post_b: torch.Tensor  # int32 (n_postings,) branch ids (>= 1 entry)
+    post_s: torch.Tensor  # f32 (n_postings,) stored scores
+    row_off: torch.Tensor  # int64 (n_keys + 1,) CSR offsets
+
+
+def build_csr_state(db, *, device) -> CsrState:
+    """The cuckoo table and postings of ``db`` on ``device``. An empty
+    database gets one dummy posting, so clamped gathers stay in range; no
+    lookup ever reaches it."""
+    n = db.num_kmers
+    lens = np.diff(db.row_off)
+    table = build_table(db.keys, np.arange(n, dtype=np.uint32), lens)
+    post_b = db.branches.astype(np.int32)
+    post_s = db.scores.astype(np.float32)
+    if post_b.size == 0:
+        post_b, post_s = np.zeros(1, np.int32), np.zeros(1, np.float32)
+    return CsrState(
+        table=table.to_device(device), seed1=table.seed1, seed2=table.seed2,
+        post_b=torch.from_numpy(post_b).to(device),
+        post_s=torch.from_numpy(np.require(post_s, requirements=["C", "W"])).to(device),
+        row_off=torch.from_numpy(db.row_off.astype(np.int64)).to(device))

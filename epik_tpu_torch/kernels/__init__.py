@@ -1,20 +1,34 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 * :func:`rowgather.rowgather_sum` -- kernel 1, the row gather + sum;
-* :func:`finish.finish_topk` -- kernel 2, correction + LWR + top-K + pack.
+* :func:`finish.finish_topk` -- kernel 2, correction + LWR + top-K + pack;
+* :func:`accumulate_packed.accumulate_packed_topk` -- kernel 3, the packed
+  posting-tile accumulate fused with the finish;
+* :func:`accumulate_sums.accumulate_sums` and
+  :func:`accumulate_sums.accumulate_sums_counts` -- kernel 4, the segment
+  accumulate of (branch, score) cells, without and with counts.
 
 Each wrapper counts its kernel launches in a ``launches`` attribute;
 :func:`reset_launch_counts` zeroes them and :func:`launch_counts` reads them.
 """
 
+from .accumulate_packed import accumulate_packed_topk
+from .accumulate_sums import accumulate_sums, accumulate_sums_counts
 from .finish import finish_topk
 from .rowgather import rowgather_sum
 
-__all__ = ["KERNELS", "finish_topk", "launch_counts", "reset_launch_counts",
-           "rowgather_sum"]
+__all__ = ["KERNELS", "accumulate_packed_topk", "accumulate_sums",
+           "accumulate_sums_counts", "finish_topk", "launch_counts",
+           "reset_launch_counts", "rowgather_sum"]
 
-#: name -> wrapper, for every kernel of the main path
-KERNELS = {"rowgather_sum": rowgather_sum, "finish_topk": finish_topk}
+#: name -> wrapper, for every kernel of the port
+KERNELS = {
+    "rowgather_sum": rowgather_sum,
+    "finish_topk": finish_topk,
+    "accumulate_packed_topk": accumulate_packed_topk,
+    "accumulate_sums": accumulate_sums,
+    "accumulate_sums_counts": accumulate_sums_counts,
+}
 
 
 def reset_launch_counts() -> None:

@@ -1,9 +1,11 @@
 """Build and load the port's hand-written CUDA kernels.
 
 At first use every ``csrc/*.cu`` source is compiled by ``nvcc`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface, named by a
-hash of the sources and flags (an edited source rebuilds it), under
-``build/epik_tpu_torch/`` at the repository root, and loaded with ``ctypes``.
+(``sm_90a``), one ``nvcc`` process per source, all started together, and the
+objects are linked into one shared library with a plain C interface. The
+library is named by a hash of the sources, the headers and the flags (an
+edited source rebuilds it), lives under ``build/epik_tpu_torch/`` at the
+repository root, and is loaded with ``ctypes``.
 Each C entry point takes pointers, sizes and the stream, launches on that
 stream and returns ``cudaGetLastError()``; :func:`check` raises on a nonzero
 value.
@@ -32,7 +34,7 @@ BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "epik_tpu_torch"
 #: kernel's scores round exactly like the plain PyTorch version's
 NVCC_FLAGS = [
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-    "-shared", "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
+    "-Xcompiler", "-fPIC", "-fmad=false", "-Xptxas", "-v",
 ]
 
 _VP = ctypes.c_void_p
@@ -43,6 +45,12 @@ _PROTOTYPES = {
     # (Sp, ld, m, out, R, B, K, k, log_eps, stream)
     "epik_finish_topk": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT,
                          ctypes.c_float, _VP],
+    # (p, m, out, sq, R, PP, B, K, k, log_eps, scale, stream)
+    "epik_accumulate_packed_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                                    ctypes.c_float, ctypes.c_float, _VP],
+    # (b, s, S, C, R, PP, B, tile_w, counts, stream)
+    "epik_accumulate_sums": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                             _VP],
 }
 
 
@@ -77,19 +85,40 @@ class KernelLibrary:
 
     def path(self) -> Path:
         h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-        for src in self.sources():
+        for src in sorted([*self.sources(), *self.csrc.glob("*.cuh")]):
             h.update(src.name.encode())
             h.update(src.read_bytes())
         return self.build_dir / f"libepik_tpu_torch_{h.hexdigest()[:16]}.so"
 
     def _compile(self, out: Path) -> None:
+        """One nvcc per source, all running at once, then one link."""
         self.build_dir.mkdir(parents=True, exist_ok=True)
-        tmp = out.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, self.sources())]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        self.build_log = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{self.build_log}")
+        tag = f"{out.stem}.{os.getpid()}"
+        nvcc = _nvcc()
+        objs, procs = [], []
+        for src in self.sources():
+            obj = self.build_dir / f"{tag}.{src.stem}.o"
+            objs.append(obj)
+            procs.append(subprocess.Popen(
+                [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        logs = [p.communicate()[0] for p in procs]
+        self.build_log = "".join(logs)
+        failed = [(src.name, p.returncode, log) for src, p, log
+                  in zip(self.sources(), procs, logs) if p.returncode != 0]
+        if not failed:
+            tmp = out.with_suffix(f".{os.getpid()}.tmp")
+            link = subprocess.run(
+                [nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared",
+                 "-o", str(tmp), *map(str, objs)], capture_output=True, text=True)
+            self.build_log += link.stdout + link.stderr
+            if link.returncode != 0:
+                failed.append(("link", link.returncode, link.stdout + link.stderr))
+        for obj in objs:
+            obj.unlink(missing_ok=True)
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(
+                f"{name} ({rc}):\n{log}" for name, rc, log in failed))
         os.replace(tmp, out)  # atomic: another process never loads half a file
 
     def load(self):

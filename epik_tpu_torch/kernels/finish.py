@@ -22,7 +22,7 @@ import torch
 
 from ._build import check, library
 
-__all__ = ["MAX_K", "POW10_ZERO", "finish_topk", "finish_topk_plain"]
+__all__ = ["MAX_K", "POW10_ZERO", "finish_topk", "finish_topk_plain", "lwr_topk_plain"]
 
 #: largest K the finish takes (the tiles kernel's contract is K <= 62)
 MAX_K = 64
@@ -34,25 +34,23 @@ _MAX_SMEM = 227 * 1024 - 1024
 _count_lock = threading.Lock()
 
 
-def finish_topk_plain(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
-                      log_eps: float) -> torch.Tensor:
-    """Plain version, operation for operation the JAX finish.
+def lwr_topk_plain(corrected: torch.Tensor, touched: torch.Tensor,
+                   m_f32: torch.Tensor, *, K: int, k: int, log_eps: float):
+    """LWR over all B branches and the top-K of ``corrected`` (-inf where not
+    ``touched``): ``engine/placer.py::_lwr_topk`` without the counts.
 
-    Divisions use a 0-dim tensor on the same device: PyTorch's CUDA divide by
-    a CPU scalar multiplies by the reciprocal, which rounds differently.
-    Top-K is a stable descending sort: ties go to the lowest branch index,
-    as with ``jax.lax.top_k`` (``torch.topk`` does not promise that)."""
-    dev = Sp.device
+    Returns (scores (R, K), idx (R, K) int64, n (R,) int32, log_sum (R,),
+    zero_sum (R,) bool). Top-K is a stable descending sort: ties go to the
+    lowest branch index, as with ``jax.lax.top_k`` (``torch.topk`` does not
+    promise that)."""
+    dev = corrected.device
     f32 = torch.float32
-    B = Sp.shape[1]
+    B = corrected.shape[1]
     log_eps_t = torch.tensor(log_eps, dtype=f32, device=dev)
     k_t = torch.tensor(float(k), dtype=f32, device=dev)
     ln10 = torch.tensor(math.log(10.0), dtype=f32, device=dev)
     neg_inf = torch.tensor(-math.inf, dtype=f32, device=dev)
     m = m_f32.to(f32)
-
-    touched = Sp > 0
-    corrected = torch.where(touched, (Sp + m[:, None] * log_eps_t) / k_t, neg_inf)
     # ---- LWR over ALL branches (quirk Q4) ------------------------------------
     n = touched.sum(dim=1, dtype=torch.int32)
     npl_exp = m * log_eps_t / k_t
@@ -68,7 +66,26 @@ def finish_topk_plain(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
     zero_sum = (max_c < POW10_ZERO) & ((npl_exp < POW10_ZERO) | (n_not <= 0))
     # ---- top-K -----------------------------------------------------------------
     vals, idx = torch.sort(corrected, dim=1, descending=True, stable=True)
-    return torch.cat([vals[:, :K], idx[:, :K].to(f32), log_sum[:, None],
+    return vals[:, :K], idx[:, :K], n, log_sum, zero_sum
+
+
+def finish_topk_plain(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
+                      log_eps: float) -> torch.Tensor:
+    """Plain version, operation for operation the JAX finish.
+
+    Divisions use a 0-dim tensor on the same device: PyTorch's CUDA divide by
+    a CPU scalar multiplies by the reciprocal, which rounds differently."""
+    dev = Sp.device
+    f32 = torch.float32
+    log_eps_t = torch.tensor(log_eps, dtype=f32, device=dev)
+    k_t = torch.tensor(float(k), dtype=f32, device=dev)
+    neg_inf = torch.tensor(-math.inf, dtype=f32, device=dev)
+    m = m_f32.to(f32)
+    touched = Sp > 0
+    corrected = torch.where(touched, (Sp + m[:, None] * log_eps_t) / k_t, neg_inf)
+    vals, idx, n, log_sum, zero_sum = lwr_topk_plain(corrected, touched, m, K=K, k=k,
+                                                     log_eps=log_eps)
+    return torch.cat([vals, idx.to(f32), log_sum[:, None],
                       n.to(f32)[:, None], zero_sum.to(f32)[:, None]], dim=1)
 
 

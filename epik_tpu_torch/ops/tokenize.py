@@ -1,16 +1,18 @@
-"""On-device slot tokenizer of the pair-plane path, as torch ops.
+"""On-device window tokenizers, as torch ops.
 
-Ports ``epik_tpu/engine/placer.py::_tokenize_core`` (:923) and
-``device_tokenize_combo`` (:1038) with the same slot layout, the same miss
-index and the same odd-tail padding. Keys are built in int64 (torch covers
-few ops for uint32); 4**(k+1) <= 4**13 fits with room to spare.
+Ports ``epik_tpu/engine/placer.py::_tokenize_core`` (:923),
+``device_tokenize_packed`` (:903, the posting-tile path) and
+``device_tokenize_combo`` (:1038, the pair-plane path) with the same slot
+layout, the same miss index and the same odd-tail padding. Keys are built in
+int64 (torch covers few ops for uint32); 4**(k+1) <= 4**13 fits with room to
+spare.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["tokenize_combo", "tokenize_core"]
+__all__ = ["tokenize_combo", "tokenize_core", "tokenize_packed"]
 
 
 def tokenize_core(buf: torch.Tensor, *, k: int, Lmax: int):
@@ -39,6 +41,19 @@ def tokenize_core(buf: torch.Tensor, *, k: int, Lmax: int):
                     torch.cumsum(bad, dim=1)], dim=1)
     ok = (cs[:, k : k + W] - cs[:, :W]) == 0
     return key, ok, codes, lens
+
+
+def tokenize_packed(buf: torch.Tensor, direct: torch.Tensor, *, k: int, Lmax: int,
+                    num_kmers: int):
+    """One row per window through the direct-address table ``direct``
+    (4**k int32 key -> row; on the tiles path the permuted table of the tile
+    build). Windows holding any non-exact character take the miss row
+    ``num_kmers``.
+
+    Returns (rows (R, W) int32, lens (R,) int32)."""
+    key, ok, _, lens = tokenize_core(buf, k=k, Lmax=Lmax)
+    rows = torch.where(ok, direct[key], num_kmers)
+    return rows.to(torch.int32), lens
 
 
 def _pad_cols(x: torch.Tensor, width: int, value) -> torch.Tensor:

@@ -57,6 +57,34 @@ def test_cli_matches_jax_cli(fixture_dir, capsys):
         assert res.clean, res.mismatches[:5]
 
 
+@pytest.mark.parametrize("payload", ["packed", "f32"])
+def test_cli_tiles_route_matches_jax_cli(fixture_dir, capsys, monkeypatch, payload):
+    """A device whose memory holds the posting tiles but not the dense plane:
+    the CLI places through the tiles route (the IUPAC and short reads through
+    CSR) with either ``--tile-payload``, and matches the JAX CLI."""
+    import numpy as np
+
+    from epik_tpu.io.db import load
+    from epik_tpu_torch.engine import placer
+    from epik_tpu_torch.engine.tiles import tile_bytes
+
+    d, names = fixture_dir
+    db = load(str(d / "DB.eptk"), mu=1.0, user_omega=1.5)
+    budget = tile_bytes(db.num_kmers, int(np.diff(db.row_off).max()))
+    monkeypatch.setattr(placer, "device_budget", lambda device: budget)
+    assert _run_port(d, d / f"tiles_{payload}", "--tile-payload", payload) == 0
+    assert "(1 device(s), tiles)" in capsys.readouterr().out
+    port_jp = d / f"tiles_{payload}" / "placements_q.fasta.jplace"
+    jax_jp = d / f"jax_{payload}" / "placements_q.fasta.jplace"
+    jax_jp.parent.mkdir()
+    assert jax_place_queries(str(d / "DB.eptk"), "nucl", 1.5, 1.0, str(jax_jp.parent), 1,
+                             "", str(d / "q.fasta"), batch_size=32, engine="jax") == 0
+    assert set(parse_jplace(str(port_jp))) == set(names)
+    for a, b in ((port_jp, jax_jp), (jax_jp, port_jp)):
+        res = jplace_diff(str(a), str(b))
+        assert res.clean, res.mismatches[:5]
+
+
 def test_cli_errors(fixture_dir, capsys):
     d, _ = fixture_dir
     assert _run_port(d, d / "bad_mu", "--mu", "1.5") == -1
@@ -77,5 +105,6 @@ def test_module_entry_point_help():
                          capture_output=True, text=True, timeout=120,
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
-    for flag in ("--database", "--batch-size", "--platform", "--pair-plane", "--resume"):
+    for flag in ("--database", "--batch-size", "--platform", "--pair-plane", "--resume",
+                 "--tile-payload"):
         assert flag in out.stdout

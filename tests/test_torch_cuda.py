@@ -12,9 +12,19 @@ import pytest
 import torch
 
 from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+from epik_tpu_torch.kernels.accumulate_packed import (
+    accumulate_packed_topk,
+    accumulate_packed_topk_plain,
+    packed_sums_plain,
+)
+from epik_tpu_torch.kernels.accumulate_sums import (
+    accumulate_sums,
+    accumulate_sums_counts,
+    accumulate_sums_plain,
+)
 from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
 from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
-from torch_fixtures import finish_rows
+from torch_fixtures import finish_rows, packed_cells, score_cells
 
 pytestmark = pytest.mark.cuda
 
@@ -70,6 +80,49 @@ def test_finish_matches_plain(cuda, R, B, K):
     np.testing.assert_array_equal(got[2, K:K + kk], np.arange(10, 10 + kk))
 
 
+def _check_pack(got, want, K, B):
+    """The finish criteria: scores, n and zero_sum bit-equal, every index
+    equal (the -inf slots hold the lowest untouched branches in both), and
+    log_sum within rtol 1e-6 (its sum of exponentials runs in another order)."""
+    np.testing.assert_array_equal(got[:, :2 * K], want[:, :2 * K])
+    assert ((got[:, K:2 * K] >= 0) & (got[:, K:2 * K] < B)).all()
+    np.testing.assert_array_equal(got[:, 2 * K + 1:], want[:, 2 * K + 1:])
+    np.testing.assert_allclose(got[:, 2 * K], want[:, 2 * K], rtol=1e-6)
+
+
+@pytest.mark.parametrize("R,PP,B,K", [(64, 2304, 19999, 7), (300, 512, 1303, 7),
+                                      (16, 40, 45, 12), (8, 3000, 32000, 5),
+                                      (5, 7, 130, 3)])
+def test_accumulate_packed_topk_bit_equal(cuda, R, PP, B, K):
+    rng = np.random.default_rng(R + PP)
+    p, m = packed_cells(rng, R, PP, B)
+    p_t, m_t = torch.from_numpy(p).to(cuda), torch.from_numpy(m).to(cuda)
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597, scale=15025.0)
+    got, sq = accumulate_packed_topk(p_t, m_t, **kw, return_sums=True)
+    assert torch.equal(accumulate_packed_topk(p_t, m_t, **kw), got)
+    assert torch.equal(sq.long(), packed_sums_plain(p_t, B))  # the integer sums
+    want = accumulate_packed_topk_plain(p_t, m_t, **kw).cpu().numpy()
+    got = got.cpu().numpy()
+    _check_pack(got, want, K, B)
+    assert want[0, 2 * K + 1] == 0 and want[1, 2 * K + 1] == 2
+    if PP >= 20 and B >= 30:  # the 20 ties go to the lowest branch index
+        np.testing.assert_array_equal(got[2, K:2 * K], np.arange(10, 10 + K))
+
+
+@pytest.mark.parametrize("R,PP,B", [(64, 2304, 19999), (300, 512, 1303),
+                                    (4, 700, 40000), (9, 33, 100), (3, 5000, 7)])
+def test_accumulate_sums_bit_equal(cuda, R, PP, B):
+    rng = np.random.default_rng(R * PP)
+    b, s = score_cells(rng, R, PP, B)
+    b_t, s_t = torch.from_numpy(b).to(cuda), torch.from_numpy(s).to(cuda)
+    S = accumulate_sums(b_t, s_t, B=B)
+    S2, C2 = accumulate_sums_counts(b_t, s_t, B=B)
+    S_p, C_p = accumulate_sums_plain(b_t, s_t, B=B, counts=True)
+    torch.cuda.synchronize()
+    assert torch.equal(S, S_p) and torch.equal(S2, S_p) and torch.equal(C2, C_p)
+    assert int(C_p[0, B - 1]) == PP  # row 0: every cell on one branch
+
+
 def test_finish_strided_rows(cuda):
     """The step hands the finish the (R, B) view of the (R, bw) sums."""
     rng = np.random.default_rng(9)
@@ -85,11 +138,23 @@ def test_finish_strided_rows(cuda):
 def test_launch_counts(cuda):
     plane = torch.zeros((8, 128), device=cuda)
     rows = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    p = torch.zeros((4, 5), dtype=torch.int32, device=cuda)
+    b = torch.zeros((4, 5), dtype=torch.int32, device=cuda)
+    s = torch.zeros((4, 5), device=cuda)
+    m = torch.ones(4, device=cuda)
     reset_launch_counts()
     Sp = rowgather_sum(plane, rows)
-    finish_topk(Sp, torch.ones(4, device=cuda), K=3, k=4, log_eps=-1.0)
-    rowgather_sum_plain(plane, rows)  # the plain version never counts
-    assert launch_counts() == {"rowgather_sum": 1, "finish_topk": 1}
+    finish_topk(Sp, m, K=3, k=4, log_eps=-1.0)
+    accumulate_packed_topk(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
+    accumulate_sums(b, s, B=100)
+    accumulate_sums_counts(b, s, B=100)
+    # the plain versions never count
+    rowgather_sum_plain(plane, rows)
+    accumulate_packed_topk_plain(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
+    accumulate_sums_plain(b, s, B=100, counts=True)
+    assert launch_counts() == {"rowgather_sum": 1, "finish_topk": 1,
+                               "accumulate_packed_topk": 1, "accumulate_sums": 1,
+                               "accumulate_sums_counts": 1}
 
 
 def test_wrappers_raise_on_bad_input(cuda):
@@ -101,6 +166,12 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError):
         finish_topk(torch.ones((4, 100), device=cuda), torch.ones(4, device=cuda),
                     K=65, k=4, log_eps=-1.0)
+    p = torch.zeros((4, 5), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="2\\*\\*15"):
+        accumulate_packed_topk(p, torch.ones(4, device=cuda), B=40000, K=3, k=4,
+                               log_eps=-1.0, scale=2.0)
+    with pytest.raises(ValueError):
+        accumulate_sums(p, torch.zeros((4, 5), device=cuda, dtype=torch.float64), B=9)
 
 
 def test_placer_cuda_matches_cpu(cuda):
@@ -120,7 +191,46 @@ def test_placer_cuda_matches_cpu(cuda):
     want = TorchPlacer(db, tree, device="cpu").place(reads)
     reset_launch_counts()
     got = TorchPlacer(db, tree, device=cuda).place(reads)
-    assert all(v > 0 for v in launch_counts().values())
+    counts = launch_counts()
+    assert counts["rowgather_sum"] > 0 and counts["finish_topk"] > 0
     np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
     np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
                                rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("payload,budget", [("packed", None), ("f32", None),
+                                            ("auto", 1)])
+def test_tiles_and_csr_placer_cuda_matches_cpu(cuda, payload, budget):
+    """The tiles route (both payloads; IUPAC reads split off to CSR, a 400 bp
+    batch wholly on CSR) and the CSR route (``dense_db_budget=1``) on the card
+    against the same routes on the CPU: same edges and counts, scores within
+    f32 rounding of the exp in the ambiguous first hit."""
+    from epik_tpu.core.tree import parse_newick
+    from epik_tpu.io.build import reads_from_reference, reference_like_db
+
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+
+    db, ref = reference_like_db(num_leaves=96, kmer_size=10, ref_length=40_000,
+                                mean_posting_len=6.0, seed=71)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, 60, length=121, mutation_rate=0.05, seed=72)
+    reads += [("amb", reads[0][1][:40] + b"N" + reads[0][1][41:]),
+              ("short", b"AC"), ("nohit", b"T" * 30)]
+    long_reads = reads_from_reference(ref, 5, length=400, mutation_rate=0.05, seed=76)
+    cfg = PlacerConfig(dense_db="off", tile_payload=payload, dense_db_budget=budget)
+    cpu = TorchPlacer(db, tree, config=cfg, device="cpu")
+    reset_launch_counts()
+    gpu = TorchPlacer(db, tree, config=cfg, device=cuda)
+    assert gpu.route == cpu.route == ("csr" if budget else "tiles")
+    for batch in (reads, long_reads):
+        want, got = cpu.place(batch), gpu.place(batch)
+        np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
+        np.testing.assert_array_equal(got.counts[got.keep], want.counts[want.keep])
+        np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
+                                   rtol=1e-6, atol=1e-6)
+    counts = launch_counts()
+    assert counts["accumulate_sums_counts"] > 0  # the CSR step ran
+    if budget is None:
+        kernel = "accumulate_packed_topk" if payload == "packed" else "accumulate_sums"
+        assert counts[kernel] > 0

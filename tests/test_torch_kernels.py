@@ -66,7 +66,9 @@ def test_rowgather_wrapper_cpu_uses_plain_and_counts_nothing():
     rows = torch.from_numpy(rng.integers(0, 20, (6, 7)).astype(np.int32))
     reset_launch_counts()
     assert torch.equal(rowgather_sum(plane, rows), rowgather_sum_plain(plane, rows))
-    assert launch_counts() == {"rowgather_sum": 0, "finish_topk": 0}
+    counts = launch_counts()
+    assert {"rowgather_sum", "finish_topk"} <= set(counts)
+    assert not any(counts.values())
 
 
 def test_rowgather_wrapper_checks_inputs():

@@ -1,5 +1,6 @@
 """Packaging rules of the port: it imports neither jax nor click, and its
-kernel library builds once per process, under a lock, named by its sources."""
+kernel library builds once per process, under a lock, named by its sources
+and headers."""
 
 import subprocess
 import sys
@@ -7,6 +8,8 @@ import threading
 import time
 import types
 from pathlib import Path
+
+import pytest
 
 from epik_tpu_torch.kernels import _build
 
@@ -78,6 +81,40 @@ def test_library_name_follows_sources(tmp_path):
     first = lib.path()
     assert first == lib.path() and first.parent == tmp_path / "build"
     (src / "a.cu").write_text("// two\n")
-    assert lib.path() != first
+    second = lib.path()
+    assert second != first
+    (src / "a.cuh").write_text("// a header the sources include\n")
+    assert lib.path() != second and [p.name for p in lib.sources()] == ["a.cu"]
     assert [p.name for p in _build.KernelLibrary().sources()] == [
-        "finish_topk.cu", "rowgather_sum.cu"]
+        "accumulate_packed_topk.cu", "accumulate_sums.cu", "finish_topk.cu",
+        "rowgather_sum.cu"]
+
+
+def test_compile_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):
+    """A stand-in nvcc records its calls: every source is compiled with -c
+    into its own object before the one link, the objects are removed, and a
+    source that fails to compile raises naming it."""
+    src = tmp_path / "csrc"
+    src.mkdir()
+    for name in ("a.cu", "b.cu", "c.cu"):
+        (src / name).write_text("// kernel\n")
+    log = tmp_path / "calls.txt"
+    fake = tmp_path / "nvcc"
+    fake.write_text(
+        "#!/bin/sh\n"
+        f'echo "$@" >> "{log}"\n'
+        'case "$*" in *bad.cu*) echo "bad.cu: error" >&2; exit 2;; esac\n'
+        'while [ $# -gt 0 ]; do [ "$1" = "-o" ] && out="$2"; shift; done\n'
+        'touch "$out"\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, "_nvcc", lambda: str(fake))
+    lib = _build.KernelLibrary(csrc=src, build_dir=tmp_path / "build")
+    out = lib.path()
+    lib._compile(out)
+    calls = log.read_text().splitlines()
+    assert len(calls) == 4 and all(" -c " in c for c in calls[:3])
+    assert "-shared" in calls[3] and " -c " not in calls[3]
+    assert out.exists() and list(out.parent.glob("*.o")) == []
+    (src / "bad.cu").write_text("// does not compile\n")
+    with pytest.raises(RuntimeError, match="bad.cu"):
+        lib._compile(lib.path())

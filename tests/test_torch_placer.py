@@ -115,8 +115,8 @@ def test_place_dedup_keep_and_empty(fx):
 
 @pytest.mark.parametrize("field,value", [
     ("precision", "int16"), ("precision", "bf16"), ("plane_mode", "classic"),
-    ("pair_plane", "off"), ("dense_db", "off"), ("accumulate", "scatter"),
-    ("accumulate", "matmul"), ("lookup_where", "device"), ("tokenize_where", "host"),
+    ("pair_plane", "off"), ("accumulate", "scatter"),
+    ("lookup_where", "device"), ("tokenize_where", "host"),
 ])
 def test_unported_config_raises(fx, field, value):
     db, tree, _, _, port = fx
@@ -133,9 +133,19 @@ def test_unknown_config_value_raises(fx):
 
 
 def test_over_budget_raises_with_sizes(fx):
+    """A dense plane over the budget routes to the posting tiles when the
+    budget holds the tiles' bytes, and to CSR when it does not; a pair plane
+    over its budget still raises with the sizes."""
+    from epik_tpu_torch.engine.tiles import tile_bytes
+
     db, tree, _, _, _ = fx
-    with pytest.raises(NotImplementedError, match="bytes"):
-        TorchPlacer(db, tree, config=PlacerConfig(dense_db_budget=1), device="cpu")
+    need = tile_bytes(db.num_kmers, int(np.diff(db.row_off).max()))
+    routes = [TorchPlacer(db, tree, config=PlacerConfig(dense_db_budget=b),
+                          device="cpu").route for b in (need, need - 1, 1)]
+    assert routes == ["tiles", "csr", "csr"]
+    with pytest.raises(ValueError, match="bytes"):
+        TorchPlacer(db, tree, config=PlacerConfig(dense_db="on", dense_db_budget=1),
+                    device="cpu")
     with pytest.raises(NotImplementedError, match="pair plane"):
         TorchPlacer(db, tree, config=PlacerConfig(pair_plane_budget=(db.num_kmers + 2) * 512),
                     device="cpu")
