@@ -25,7 +25,11 @@ prints no result line):
                reads, which takes the CSR step whole; batches of 4,096:
                * the tile and CSR kernels against their plain versions on the
                  inputs the path gives them (recorded from a placement) and on
-                 engineered rows; CUDA-event times; the device step times;
+                 engineered rows (kernel 4, with counts and without: bit for
+                 bit, and two launches alike); CUDA-event times; kernel 4's
+                 tiles and threads per block; the share of valid cells in the
+                 400 bp CSR batch; the device step times (packed tiles, f32
+                 tiles, CSR);
                * ``TorchPlacer(dense_db="off")`` through ``run_pipeline`` with
                  the CLI's FASTA reader and the jplace writer, the counts zeroed
                  before and read after: the packed tile kernel and the CSR
@@ -238,6 +242,47 @@ def scatter_sums(torch, b, s, B: int):
     return lambda: torch.scatter_add(zeros, 1, b, s)
 
 
+def check_sums(torch, fn, b, s, B: int, counts: bool, what: str) -> float:
+    """Kernel 4's wrapper ``fn`` against its plain version on (b, s): the
+    sums' bits (-0.0 included) and the counts equal, and a second launch
+    gives the same bytes. Returns the largest absolute difference."""
+    from epik_tpu_torch.kernels.accumulate_sums import accumulate_sums_plain
+
+    def run():
+        out = fn(b, s, B=B)
+        return out if counts else (out, None)
+
+    (S1, C1), (S2, C2) = run(), run()
+    want = accumulate_sums_plain(b, s, B=B, counts=counts)
+    S_p, C_p = want if counts else (want, None)
+    torch.cuda.synchronize()
+    if not torch.equal(S1.view(torch.int32), S_p.view(torch.int32)) or (
+            counts and not torch.equal(C1, C_p)):
+        raise AssertionError(f"{what}: not bit-equal to the plain version")
+    if not torch.equal(S1.view(torch.int32), S2.view(torch.int32)) or (
+            counts and not torch.equal(C1, C2)):
+        raise AssertionError(f"{what}: two launches differ")
+    return float((S1 - S_p).abs().max())
+
+
+def score_cells_on(torch, dev, rng, PP: int, B: int, tile_w: int):
+    """The engineered (branch, score) rows of the kernel tests, 256 reads of
+    ``PP`` cells, on the card."""
+    from torch_fixtures import score_rows
+
+    b, s = score_rows(rng, 256, PP, B, edges=(tile_w,))
+    return torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
+
+
+def bigtree_db():
+    """Config 4's database and its reference sequence (BASELINE.md config 4,
+    tools/bench_bigtree.py:30,47-55)."""
+    from epik_tpu_torch.io.build import reference_like_db
+
+    return reference_like_db(num_leaves=10000, kmer_size=10, ref_length=1_000_000,
+                             mean_posting_len=12.0, seed=10)
+
+
 def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
     """Phase 7 (see the module docstring). Returns the kernel entries of the
     tile and CSR kernels, the phase's summary numbers and its fixture (the
@@ -250,7 +295,7 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
     from epik_tpu_torch.engine.pipeline import run_pipeline
     from epik_tpu_torch.engine.placer import TorchPlacer
     from epik_tpu_torch.engine.reference import ReferencePlacer
-    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+    from epik_tpu_torch.io.build import reads_from_reference
     from epik_tpu_torch.io.jplace import jplace_writer
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels.accumulate_packed import (
@@ -262,6 +307,7 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
         accumulate_sums,
         accumulate_sums_counts,
         accumulate_sums_plain,
+        plan,
     )
     from epik_tpu_torch.ops import csr as csr_mod
     from epik_tpu_torch.tools.jplace_diff import parse_jplace
@@ -270,8 +316,7 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
     summary = {}
     # ---- 7a. fixture ------------------------------------------------------------
     t0 = time.monotonic()
-    db, ref = reference_like_db(num_leaves=10000, kmer_size=10, ref_length=1_000_000,
-                                mean_posting_len=12.0, seed=10)
+    db, ref = bigtree_db()
     tree = parse_newick(db.tree())
     B = tree.get_node_count()
     summary["db_build_s"] = time.monotonic() - t0
@@ -359,21 +404,30 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
         f"bound {bound(*io3)[0]:.4f} ms")
 
     (b_c, s_c), kw_c = counts_calls[0]
-    S_k, C_k = accumulate_sums_counts(b_c, s_c, **kw_c)
-    S_p, C_p = accumulate_sums_plain(b_c, s_c, counts=True, **kw_c)
-    torch.cuda.synchronize()
-    if not (torch.equal(S_k, S_p) and torch.equal(C_k, C_p)):
-        raise AssertionError("accumulate_sums_counts: not bit-equal to the plain version")
-    err5 = float((S_k - S_p).abs().max())
+    err5 = check_sums(torch, accumulate_sums_counts, b_c, s_c, B, True,
+                      "accumulate_sums_counts (the 400 bp CSR batch)")
+    rng = np.random.default_rng(5)
+    how5 = plan(B, True)
+    err5 = max(err5, check_sums(torch, accumulate_sums_counts, *score_cells_on(
+        torch, dev, rng, b_c.shape[1], B, how5.tile_w), B, True,
+        "accumulate_sums_counts (engineered)"))
     ms5 = cuda_ms(torch, lambda: accumulate_sums_counts(b_c, s_c, **kw_c))
     plain_ms5 = cuda_ms(torch, lambda: accumulate_sums_plain(b_c, s_c, counts=True,
                                                              **kw_c), reps=5, warmup=1)
     # the library call computes the sums only, not the counts
     lib_ms5 = cuda_ms(torch, scatter_sums(torch, b_c, s_c, B))
-    io5 = (nbytes(b_c, s_c, S_k, C_k), 2 * b_c.numel())
-    log(f"accumulate_sums_counts {tuple(b_c.shape)} B={B} (the 400 bp CSR batch): "
-        f"bit-equal; kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms, scatter_add (sums "
-        f"only) {lib_ms5:.4f} ms, bound {bound(*io5)[0]:.4f} ms")
+    S_k, C_k = accumulate_sums_counts(b_c, s_c, **kw_c)
+    # only the valid cells' scores need reading: a trash cell is dropped on its branch id
+    n_valid = int((b_c < B).sum())
+    summary["csr_valid_cell_share"] = n_valid / b_c.numel()
+    io5 = (b_c.numel() * 4 + n_valid * 4 + nbytes(S_k, C_k), 2 * n_valid)
+    del S_k, C_k
+    log(f"accumulate_sums_counts {tuple(b_c.shape)} B={B} (the 400 bp CSR batch, "
+        f"{summary['csr_valid_cell_share']:.4f} of its cells valid): bit-equal on the "
+        f"path's and engineered cells, two launches alike; {how5.n_tiles} tile(s) of "
+        f"{how5.tile_w} branches, {how5.threads} threads, {how5.smem} B of shared memory "
+        f"per block; kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms, scatter_add (sums "
+        f"only) {lib_ms5:.4f} ms, bound {bound(*io5)[0]:.4f} ms [{card}]")
 
     # the device steps, on the clean batch and on the 400 bp batch
     seqs = list(dict.fromkeys(s for _, s in clean))
@@ -419,6 +473,12 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
             torch.cuda.synchronize()
             with recording(step_mod, "accumulate_sums", sums_calls):
                 placer.place(clean)
+            step, OV, _ = placer._stage_tiles(seqs)
+            summary["tile_step_f32_ms"] = cuda_ms(torch, lambda: step(OV))
+            log(f"device step, f32 tiles (tokenize + gathers + kernel 4 + finish) at "
+                f"R={len(seqs)}, OV={OV}: {summary['tile_step_f32_ms']:.4f} ms (packed "
+                f"{summary['tile_step_ms']:.4f} ms) [{card}]")
+            del step
         csr_steps = [0]
         stage_csr = placer._stage_csr
 
@@ -461,20 +521,24 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
             f"largest score difference {worst:.3g} (oracle {summary['oracle_s']:.1f} s)")
 
     (b_s, s_s), kw_s = sums_calls[0]
-    S4 = accumulate_sums(b_s, s_s, **kw_s)
-    S4_p = accumulate_sums_plain(b_s, s_s, **kw_s)
-    torch.cuda.synchronize()
-    if not torch.equal(S4, S4_p):
-        raise AssertionError("accumulate_sums: not bit-equal to the plain version")
-    err4 = float((S4 - S4_p).abs().max())
+    err4 = check_sums(torch, accumulate_sums, b_s, s_s, B, False,
+                      "accumulate_sums (f32 payload)")
+    how4 = plan(B, False)
+    err4 = max(err4, check_sums(torch, accumulate_sums, *score_cells_on(
+        torch, dev, rng, b_s.shape[1], B, how4.tile_w), B, False,
+        "accumulate_sums (engineered)"))
     ms4 = cuda_ms(torch, lambda: accumulate_sums(b_s, s_s, **kw_s))
     plain_ms4 = cuda_ms(torch, lambda: accumulate_sums_plain(b_s, s_s, **kw_s),
                         reps=5, warmup=1)
     lib_ms4 = cuda_ms(torch, scatter_sums(torch, b_s, s_s, B))
-    io4 = (nbytes(b_s, s_s, S4), b_s.numel())
-    log(f"accumulate_sums {tuple(b_s.shape)} B={B} (f32 payload): bit-equal; kernel "
-        f"{ms4:.4f} ms, plain {plain_ms4:.4f} ms, scatter_add {lib_ms4:.4f} ms, bound "
-        f"{bound(*io4)[0]:.4f} ms")
+    n_valid = int((b_s < B).sum())
+    io4 = (b_s.numel() * 4 + n_valid * 4 + b_s.shape[0] * B * 4, n_valid)
+    log(f"accumulate_sums {tuple(b_s.shape)} B={B} (f32 payload, {n_valid / b_s.numel():.4f} "
+        f"of its cells valid): bit-equal on the path's and engineered cells, two launches "
+        f"alike; {how4.n_tiles} tile(s) of {how4.tile_w} branches, {how4.threads} threads, "
+        f"{how4.smem} B of shared memory per block; kernel {ms4:.4f} ms, plain "
+        f"{plain_ms4:.4f} ms, scatter_add {lib_ms4:.4f} ms, bound {bound(*io4)[0]:.4f} ms "
+        f"[{card}]")
     del placer
     torch.cuda.empty_cache()
 

@@ -50,9 +50,10 @@ _PROTOTYPES = {
                                     ctypes.c_float, ctypes.c_float, _VP],
     # (p, out, R, PP, B, stream)
     "epik_accumulate_packed_sums": [_VP, _VP, _INT, _INT, _INT, _VP],
-    # (b, s, S, C, R, PP, B, tile_w, counts, stream)
-    "epik_accumulate_sums": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                             _VP],
+    # (b, s, S, C, R, PP, B, counts, stream)
+    "epik_accumulate_sums": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
+    # (B, counts, out int[4])
+    "epik_accumulate_sums_layout": [_INT, _INT, ctypes.POINTER(_INT)],
 }
 
 

@@ -12,20 +12,51 @@ count their launches apart. Cells whose branch is ``>= B`` (the trash column
 ``tile_width(B) - 1`` of padding cells) add nothing to any returned column.
 Each sum is taken in increasing cell order, in the kernel as in the plain
 version, so the two are bit-equal.
+
+The kernel is bound by bytes: it reads each cell once and writes each sum
+and count once. A block keeps one branch tile of one read in shared memory
+and partitions the read's cells among its warps by branch, so that each
+kept cell is added once, in cell order, with no float atomics. The CUDA
+source cuts the branch range and sizes the block itself, from the card's
+shared memory per block: one tile at B = 19,999 with counts.
+:func:`plan` asks it what it takes at a width.
 """
 
 from __future__ import annotations
 
+import ctypes
 import threading
+from typing import NamedTuple
 
 import torch
 
 from ._build import check, library
 
-__all__ = ["accumulate_sums", "accumulate_sums_counts", "accumulate_sums_plain"]
+__all__ = ["Plan", "accumulate_sums", "accumulate_sums_counts", "accumulate_sums_plain",
+           "plan"]
 
-#: shared memory one block's branch tile may take (two blocks fit an SM)
-_TILE_SMEM = 96 * 1024
+
+class Plan(NamedTuple):
+    """How the kernel cuts one call: ``n_tiles`` branch tiles of ``tile_w``
+    branches, one block of ``threads`` threads and ``smem`` bytes of shared
+    memory per (read, tile)."""
+
+    tile_w: int
+    n_tiles: int
+    threads: int
+    smem: int
+
+
+def plan(B: int, counts: bool, device=None) -> Plan:
+    """The tiles and block the kernel takes at width ``B`` on ``device`` (a
+    CUDA device; default the current one), as its CUDA source plans them."""
+    out = (ctypes.c_int * 4)()
+    lib = library()
+    with torch.cuda.device(device):
+        err = lib.epik_accumulate_sums_layout(B, int(counts), out)
+    check(err, "accumulate_sums plan")
+    return Plan(*out)
+
 
 _count_lock = threading.Lock()
 
@@ -69,15 +100,12 @@ def _launch(b: torch.Tensor, s: torch.Tensor, B: int, counts: bool):
     C = torch.empty((R, B), dtype=torch.int32, device=b.device) if counts else None
     if R == 0:
         return S, C
-    per_branch = 8 if counts else 4
-    n_tiles = -(-B * per_branch // _TILE_SMEM)
-    tile_w = -(-B // n_tiles)
     lib = library()
     with torch.cuda.device(b.device):
         stream = torch.cuda.current_stream(b.device).cuda_stream
         err = lib.epik_accumulate_sums(
             b.data_ptr(), s.data_ptr(), S.data_ptr(),
-            C.data_ptr() if counts else None, R, PP, B, tile_w, int(counts), stream)
+            C.data_ptr() if counts else None, R, PP, B, int(counts), stream)
     check(err, "accumulate_sums_counts" if counts else "accumulate_sums")
     return S, C
 

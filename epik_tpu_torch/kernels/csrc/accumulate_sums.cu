@@ -12,22 +12,42 @@
 // of the padding) counts into a column that is sliced away, so here it is
 // simply skipped.
 //
-// Bound on the H100: the cells, PP * 8 bytes per read, read from HBM once
-// and from L1 by the other warps, and one shared-memory read-add-write per
-// cell. A few MB per batch: small next to the work around it.
+// Bound on the H100: bytes. The CSR batch of 4,096 400 bp reads hands it
+// (4,096 x 16,384) cells, 537 MB of branch ids and scores, and takes back
+// 655 MB of sums and counts (B = 19,999): 0.36 ms at the HBM rate. There is
+// about one add per cell, so the operations never bound it. What costs is the
+// order: each sum must be taken in cell order with no float atomics, so the
+// result is bit-equal to the plain version and the same on every run.
 //
-// Design: no float atomics, so the sums are bit-equal to the plain version's
-// column-by-column adds and the same on every run. Block (r, t) owns the
-// branch tile [t * tile_w, (t+1) * tile_w) of read r, with its sums (and
-// counts) in shared memory. Warp w of the block owns the tile's branches
-// j = w (mod warps): each warp scans all the read's cells, 32 at a time, in
-// increasing order. Within a chunk of 32, the lanes whose cells hit the same
-// owned branch form a group (__match_any_sync); the group's lowest lane adds
-// the group's scores to the branch's sum in lane order, i.e. cell order.
-// Different groups touch different branches, and different warps different
-// branches, so every branch's sum is taken in cell order and nothing races.
-// The wrapper sizes the tiles to the shared memory: one tile up to ~24k
-// branches with counts and ~48k without, more tiles beyond.
+// Design: block (r, t) owns the branch tile [t * tile_w, (t+1) * tile_w) of
+// read r, with its sums (and counts) in shared memory; one tile holds B =
+// 19,999 with counts (160 KB), so every cell is read from HBM once. Warp w
+// owns the tile's branches j = w (mod kWarps): only warp w ever adds into
+// branch j, which keeps each branch's adds in the order the warp takes them.
+// The block walks the read's cells in chunks of kChunk:
+//   1. each warp loads its slice of the chunk (kRounds coalesced rounds of 32
+//      cells), drops trash cells and cells outside the tile at the load (a
+//      trash cell costs its branch id's 4 bytes, not its score's), and ranks
+//      each kept cell among the slice's cells of the same owner warp
+//      (__match_any_sync, a per-warp count per owner in shared memory). Lane
+//      l takes cells 32 v + l, not four neighbours in one 16-byte load: each
+//      round is still one 128-byte line per warp, and round order is cell
+//      order, which the rank of step 1 needs;
+//   2. a block-wide exclusive scan over (owner, warp) of those counts gives
+//      each owner a queue in shared memory, and each (warp, owner) its offset
+//      in it;
+//   3. each kept cell is written to its owner's queue at offset + rank: a
+//      stable partition, so every queue is in cell order;
+//   4. each warp drains its own queue 32 entries a step: the lanes whose
+//      entries hit the same branch form a group (__match_any_sync) and the
+//      group's lowest lane adds the group's scores in lane order, i.e. cell
+//      order, then the group's size into the count. Only the owner warp
+//      touches a branch, so the count needs no atomic either.
+// A chunk with no kept cell anywhere in the block skips steps 2-4. The drain
+// of one chunk overlaps the loads of the next in other warps: the barriers of
+// steps 1 and 2 already order the next chunk's queue writes after this
+// chunk's drains. The sums are stored at a shift of (r * B + lo) mod 4 in
+// shared memory so that the write-out moves float4s on both sides.
 
 #include <cuda_runtime.h>
 
@@ -35,94 +55,261 @@
 
 namespace {
 
-constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kRounds = 4;  // rounds of 32 cells per warp and chunk
 
-template <bool kCounts>
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ int warp_inclusive_scan(int x, int lane) {
+#pragma unroll
+  for (int d = 1; d < 32; d <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, d);
+    if (lane >= d) x += y;
+  }
+  return x;
+}
+
+template <int kWarps>
+__host__ __device__ constexpr int chunk_cells() {
+  return kWarps * 32 * kRounds;
+}
+
+// bytes of dynamic shared memory: the tile's sums (and counts), each padded
+// to a multiple of 4 plus 4 for the write-out shift, the queues, the
+// (warp, owner) table and the owner totals
+template <int kWarps, bool kCounts>
+size_t smem_bytes(int tile_w) {
+  const size_t tile = static_cast<size_t>(((tile_w + 3) & ~3) + 4) * 4;
+  return tile * (kCounts ? 2 : 1) + static_cast<size_t>(chunk_cells<kWarps>()) * 8 +
+         static_cast<size_t>(kWarps * kWarps + kWarps) * 4;
+}
+
+template <int kWarps, bool kCounts>
+__global__ void __launch_bounds__(kWarps * 32)
     accumulate_sums_kernel(const int32_t* __restrict__ b,
                            const float* __restrict__ s, float* __restrict__ S,
-                           int32_t* __restrict__ C, int PP, int B,
-                           int tile_w) {
-  extern __shared__ float ssum[];  // tile_w sums, then tile_w counts
-  __shared__ float stage[kWarps][32];
-  int* scnt = reinterpret_cast<int*>(ssum + tile_w);
-  const long long r = blockIdx.x;
-  const int lo = blockIdx.y * tile_w;
+                           int32_t* __restrict__ C, int PP, int B, int tile_w,
+                           int n_tiles) {
+  static_assert(kWarps <= 32 && (kWarps & (kWarps - 1)) == 0,
+                "owners are lanes of one warp and a mask of the branch id");
+  constexpr int kThreads = kWarps * 32;
+  constexpr int kChunk = chunk_cells<kWarps>();
+  extern __shared__ float4 smem[];
+  const int tile4 = ((tile_w + 3) & ~3) + 4;
+  float* sum_base = reinterpret_cast<float*>(smem);
+  int* cnt_base = reinterpret_cast<int*>(sum_base + tile4);
+  int* qj = cnt_base + (kCounts ? tile4 : 0);
+  float* qv = reinterpret_cast<float*>(qj + kChunk);
+  int* hist = reinterpret_cast<int*>(qv + kChunk);  // [warp][owner]
+  int* tot = hist + kWarps * kWarps;                // [owner]
+
+  const long long r = blockIdx.x / n_tiles;
+  const int lo = static_cast<int>(blockIdx.x - r * n_tiles) * tile_w;
   const int n = min(B - lo, tile_w);
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    ssum[j] = 0.f;
-    if (kCounts) scnt[j] = 0;
+  const long long out0 = r * B + lo;  // element offset of the tile's outputs
+  const int shift = static_cast<int>(out0 & 3);
+  float* ssum = sum_base + shift;
+  int* scnt = cnt_base + shift;
+  for (int i = threadIdx.x; i < tile4 / 4; i += kThreads) {
+    smem[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    if (kCounts) reinterpret_cast<int4*>(cnt_base)[i] = make_int4(0, 0, 0, 0);
   }
-  __syncthreads();
+
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const unsigned below = (1u << lane) - 1u;
   const int32_t* brow = b + r * PP;
   const float* srow = s + r * PP;
-  for (int c0 = 0; c0 < PP; c0 += 32) {
-    const int c = c0 + lane;
-    int j = -1;
-    float v = 0.f;
-    if (c < PP) {
-      j = brow[c] - lo;
-      v = srow[c];
-    }
-    const bool mine = j >= 0 && j < n && j % kWarps == warp;
-    // lanes of other warps' branches get distinct keys: they form no group
-    const unsigned key = mine ? static_cast<unsigned>(j) : 0x80000000u | lane;
-    const unsigned grp = __match_any_sync(0xffffffffu, key);
-    stage[warp][lane] = v;
+  for (int c0 = 0; c0 < PP; c0 += kChunk) {
+    // ---- 1. load, drop, rank among the slice's cells of the same owner ----
+    if (lane < kWarps) hist[warp * kWarps + lane] = 0;
     __syncwarp();
-    if (mine && lane == __ffs(grp) - 1) {
-      float acc = ssum[j];
-      for (unsigned g = grp; g != 0; g &= g - 1) {
-        acc = __fadd_rn(acc, stage[warp][__ffs(g) - 1]);
-      }
-      ssum[j] = acc;
-      if (kCounts) scnt[j] += __popc(grp);
+    const int cw = c0 + warp * 32 * kRounds + lane;
+    int jv[kRounds];
+    float vv[kRounds];
+    int rk[kRounds];
+#pragma unroll
+    for (int v = 0; v < kRounds; ++v) {
+      const int c = cw + v * 32;
+      jv[v] = c < PP ? __ldg(brow + c) - lo : -1;
+      if (static_cast<unsigned>(jv[v]) >= static_cast<unsigned>(n)) jv[v] = -1;
     }
-    __syncwarp();  // the chunk's stage is read before the next overwrites it
+#pragma unroll
+    for (int v = 0; v < kRounds; ++v) {
+      vv[v] = jv[v] >= 0 ? __ldg(srow + cw + v * 32) : 0.f;
+    }
+    bool kept_any = false;
+#pragma unroll
+    for (int v = 0; v < kRounds; ++v) {
+      const bool kept = jv[v] >= 0;
+      rk[v] = 0;
+      if (__ballot_sync(0xffffffffu, kept) == 0u) continue;
+      kept_any = true;
+      const int o = jv[v] & (kWarps - 1);
+      // dropped lanes get distinct keys: they form no group
+      const unsigned key = kept ? static_cast<unsigned>(o) : 0x80000000u | lane;
+      const unsigned grp = __match_any_sync(0xffffffffu, key);
+      int* h = hist + warp * kWarps + o;
+      if (kept) rk[v] = *h + __popc(grp & below);
+      __syncwarp();
+      if (kept && lane == __ffs(grp) - 1) *h += __popc(grp);
+      __syncwarp();
+    }
+    if (!__syncthreads_or(kept_any)) continue;  // no kept cell in the chunk
+
+    // ---- 2. warp o scans owner o's counts over the warps: offsets, total ----
+    {
+      const int x = lane < kWarps ? hist[lane * kWarps + warp] : 0;
+      const int incl = warp_inclusive_scan(x, lane);
+      if (lane < kWarps) hist[lane * kWarps + warp] = incl - x;
+      if (lane == 31) tot[warp] = incl;
+    }
+    __syncthreads();
+
+    // ---- 3. the stable partition into the owners' queues -------------------
+    const int cnt = lane < kWarps ? tot[lane] : 0;
+    const int qbase = warp_inclusive_scan(cnt, lane) - cnt;  // owner `lane`'s queue
+    const int start = lane < kWarps ? qbase + hist[warp * kWarps + lane] : 0;
+#pragma unroll
+    for (int v = 0; v < kRounds; ++v) {
+      const int at = __shfl_sync(0xffffffffu, start, jv[v] >= 0 ? jv[v] & (kWarps - 1) : 0);
+      if (jv[v] >= 0) {
+        qj[at + rk[v]] = jv[v];
+        qv[at + rk[v]] = vv[v];
+      }
+    }
+    const int q0 = __shfl_sync(0xffffffffu, qbase, warp);
+    const int qn = __shfl_sync(0xffffffffu, cnt, warp);
+    __syncthreads();
+
+    // ---- 4. each warp drains its own queue, in cell order ------------------
+    for (int i = 0; i < qn; i += 32) {
+      const bool has = i + lane < qn;
+      const int j = has ? qj[q0 + i + lane] : -1;
+      const unsigned key = has ? static_cast<unsigned>(j) : 0x80000000u | lane;
+      const unsigned grp = __match_any_sync(0xffffffffu, key);
+      if (has && lane == __ffs(grp) - 1) {
+        float acc = ssum[j];
+        for (unsigned g = grp; g != 0u; g &= g - 1u) {
+          acc = __fadd_rn(acc, qv[q0 + i + __ffs(g) - 1]);
+        }
+        ssum[j] = acc;
+        if (kCounts) scnt[j] += __popc(grp);
+      }
+      __syncwarp();  // this step's sums are written before the next reads them
+    }
   }
   __syncthreads();
-  float* Srow = S + r * B + lo;
-  int32_t* Crow = kCounts ? C + r * B + lo : nullptr;
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
+
+  // ---- write-out: scalars up to a 16-byte boundary of S, then float4s -------
+  float* Srow = S + out0;
+  int32_t* Crow = kCounts ? C + out0 : nullptr;
+  const int head = min(n, (4 - shift) & 3);
+  for (int j = threadIdx.x; j < head; j += kThreads) {
+    Srow[j] = ssum[j];
+    if (kCounts) Crow[j] = scnt[j];
+  }
+  const int n4 = (n - head) >> 2;
+  for (int i = threadIdx.x; i < n4; i += kThreads) {
+    reinterpret_cast<float4*>(Srow + head)[i] = reinterpret_cast<const float4*>(ssum + head)[i];
+    if (kCounts) {
+      reinterpret_cast<int4*>(Crow + head)[i] = reinterpret_cast<const int4*>(scnt + head)[i];
+    }
+  }
+  for (int j = head + 4 * n4 + threadIdx.x; j < n; j += kThreads) {
     Srow[j] = ssum[j];
     if (kCounts) Crow[j] = scnt[j];
   }
 }
 
-template <bool kCounts>
-int launch(const void* b, const void* s, void* S, void* C, int R, int PP,
-           int B, int tile_w, cudaStream_t stream) {
-  const size_t smem = static_cast<size_t>(tile_w) * (kCounts ? 8 : 4);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        accumulate_sums_kernel<kCounts>,
-        cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
+// How a call at width B is cut: n_tiles tiles of tile_w branches, one block
+// of kWarps * 32 threads and `smem` bytes of shared memory per (read, tile).
+struct Layout {
+  int tile_w;
+  int n_tiles;
+  int threads;
+  size_t smem;
+};
+
+// the fewest tiles whose block fits the current device's opt-in shared
+// memory per block (227 KB on the H100); the tiles are of equal width, the
+// last ragged
+template <int kWarps, bool kCounts>
+cudaError_t plan(int B, Layout* out) {
+  int dev, limit;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
-  const dim3 grid(R, (B + tile_w - 1) / tile_w);
-  accumulate_sums_kernel<kCounts><<<grid, kThreads, smem, stream>>>(
-      static_cast<const int32_t*>(b), static_cast<const float*>(s),
-      static_cast<float*>(S), static_cast<int32_t*>(C), PP, B, tile_w);
+  if (err != cudaSuccess) return err;
+  if (B < 1 || smem_bytes<kWarps, kCounts>(1) > static_cast<size_t>(limit)) {
+    return cudaErrorInvalidValue;
+  }
+  int n_tiles = 1;
+  while (smem_bytes<kWarps, kCounts>((B + n_tiles - 1) / n_tiles) > static_cast<size_t>(limit)) {
+    ++n_tiles;
+  }
+  out->tile_w = (B + n_tiles - 1) / n_tiles;
+  out->n_tiles = (B + out->tile_w - 1) / out->tile_w;
+  out->threads = kWarps * 32;
+  out->smem = smem_bytes<kWarps, kCounts>(out->tile_w);
+  return cudaSuccess;
+}
+
+template <int kWarps, bool kCounts>
+int launch(const void* b, const void* s, void* S, void* C, int R, int PP, int B,
+           cudaStream_t stream) {
+  Layout how;
+  cudaError_t err = plan<kWarps, kCounts>(B, &how);
+  if (err == cudaSuccess && how.smem > 48 * 1024) {
+    err = cudaFuncSetAttribute(accumulate_sums_kernel<kWarps, kCounts>,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(how.smem));
+  }
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const long long blocks = static_cast<long long>(R) * how.n_tiles;
+  if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+  accumulate_sums_kernel<kWarps, kCounts>
+      <<<static_cast<unsigned>(blocks), how.threads, how.smem, stream>>>(
+          static_cast<const int32_t*>(b), static_cast<const float*>(s),
+          static_cast<float*>(S), static_cast<int32_t*>(C), PP, B, how.tile_w,
+          how.n_tiles);
   return 0;
 }
 
+// Owner warps per block. With counts (160 KB of sums and counts at B =
+// 19,999, one block per SM) 32 warps; without (80 KB, two blocks per SM) 16.
+// Each was the faster of 512 and 1,024 threads on the H100 (PERF.md).
+constexpr int kWarpsCounts = 32;
+constexpr int kWarpsSums = 16;
+
 }  // namespace
 
+// The layout epik_accumulate_sums takes at width B on the current device:
+// out = {tile_w, n_tiles, threads per block, shared memory bytes per block}.
+// Returns a cudaError_t (cudaErrorInvalidValue for B < 1).
+extern "C" int epik_accumulate_sums_layout(int B, int counts, int* out) {
+  Layout how;
+  const cudaError_t err = counts ? plan<kWarpsCounts, true>(B, &how)
+                                 : plan<kWarpsSums, false>(B, &how);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  out[0] = how.tile_w;
+  out[1] = how.n_tiles;
+  out[2] = how.threads;
+  out[3] = static_cast<int>(how.smem);
+  return 0;
+}
+
 // b: int32 (R, PP) branch ids (< B, or >= B for trash); s: f32 (R, PP);
-// S: f32 (R, B); C: int32 (R, B), written only when `counts` != 0. The
-// branch range is split into tiles of `tile_w` (the block's shared memory
-// holds tile_w sums, and as many counts). Launches on `stream`; returns
+// S: f32 (R, B) and C: int32 (R, B), both 16-byte aligned; C is written only
+// when `counts` != 0. The branch range is cut as epik_accumulate_sums_layout
+// says, one block per (read, tile). Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int epik_accumulate_sums(const void* b, const void* s, void* S,
-                                    void* C, int R, int PP, int B, int tile_w,
-                                    int counts, void* stream) {
+                                    void* C, int R, int PP, int B, int counts,
+                                    void* stream) {
   if (R > 0 && B > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int err = counts ? launch<true>(b, s, S, C, R, PP, B, tile_w, st)
-                           : launch<false>(b, s, S, C, R, PP, B, tile_w, st);
+    const int err = counts ? launch<kWarpsCounts, true>(b, s, S, C, R, PP, B, st)
+                           : launch<kWarpsSums, false>(b, s, S, C, R, PP, B, st);
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }
+

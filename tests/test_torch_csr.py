@@ -50,7 +50,7 @@ from epik_tpu_torch.ops.csr import (
 )
 from epik_tpu_torch.ops.expand import ragged_expand
 from test_torch_placer import TREE, assert_jplace_close
-from torch_fixtures import score_cells
+from torch_fixtures import MIXED_ROW, cell_order_sums, score_cells, score_rows
 
 CSR = dict(dense_db="off", dense_db_budget=1)  # neither the plane nor the tiles fit
 
@@ -139,15 +139,37 @@ def test_ragged_expand_matches_jax(budget):
     assert int(total) == int(w_total) == lens.sum()
 
 
-@pytest.mark.parametrize("R,PP,B", [(16, 1024, 300), (8, 512, 1303)])
-def test_sums_counts_plain_matches_pallas(R, PP, B):
+@pytest.mark.parametrize("R,PP,B,engineered", [
+    pytest.param(16, 1024, 300, False, id="16-1024-300"),
+    pytest.param(8, 512, 1303, False, id="8-512-1303"),
+    pytest.param(16, 1024, 300, True, id="16-1024-300-engineered"),
+    pytest.param(16, 1536, 1303, True, id="16-1536-1303-engineered"),
+    pytest.param(16, 1024, 40000, True, id="16-1024-40000-engineered"),
+])
+def test_sums_counts_plain_matches_pallas(R, PP, B, engineered):
+    """Kernel 4's plain version with counts against the Pallas kernel in
+    interpret mode and, on the engineered rows (trash interleaved, long runs
+    on one branch, one owner warp, tile edges, mixed magnitudes, -0.0),
+    bit for bit against a loop that adds each row's cells in order: the
+    contract the CUDA kernel is held to."""
     rng = np.random.default_rng(R * B)
-    b, s = score_cells(rng, R, PP, B)
+    if engineered:
+        b, s = score_rows(rng, R, PP, B)
+    else:
+        b, s = score_cells(rng, R, PP, B)
     S, C = accumulate_sums_counts(torch.from_numpy(b), torch.from_numpy(s), B=B)
     w_S, w_C = segment_accumulate(jnp.asarray(b), jnp.asarray(s), B, interpret=True)
-    np.testing.assert_allclose(S.numpy(), np.asarray(w_S), rtol=1e-5, atol=1e-4)
+    # the one-hot matmul adds in another order than cell order, and the
+    # mixed-magnitude row is built so that the order shows in its sums
+    rows = np.arange(R) != MIXED_ROW if engineered else slice(None)
+    np.testing.assert_allclose(S.numpy()[rows], np.asarray(w_S)[rows], rtol=1e-5, atol=1e-4)
     np.testing.assert_array_equal(C.numpy(), np.asarray(w_C))
     assert C.numpy()[0, B - 1] == PP
+    if engineered:
+        want_S, want_C = cell_order_sums(b, s, B)
+        np.testing.assert_array_equal(S.numpy().view(np.int32), want_S.view(np.int32))
+        np.testing.assert_array_equal(C.numpy(), want_C)
+        assert C.numpy()[5].sum() == 0  # the all-trash row
 
 
 def _stage(port, seqs, P, PA):

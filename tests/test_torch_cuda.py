@@ -22,10 +22,11 @@ from epik_tpu_torch.kernels.accumulate_sums import (
     accumulate_sums,
     accumulate_sums_counts,
     accumulate_sums_plain,
+    plan,
 )
 from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
 from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
-from torch_fixtures import finish_rows, packed_cells, score_cells
+from torch_fixtures import cell_order_sums, finish_rows, packed_cells, score_cells, score_rows
 
 pytestmark = pytest.mark.cuda
 
@@ -128,18 +129,52 @@ def test_accumulate_packed_sums_bit_equal(cuda, R, PP, B):
         assert int(got[3, 5]) >= 64 * 64000
 
 
-@pytest.mark.parametrize("R,PP,B", [(64, 2304, 19999), (300, 512, 1303),
-                                    (4, 700, 40000), (9, 33, 100), (3, 5000, 7)])
-def test_accumulate_sums_bit_equal(cuda, R, PP, B):
+def _bits(x):
+    """A float tensor's bits (``torch.equal`` takes -0.0 for 0.0)."""
+    return x.view(torch.int32)
+
+
+@pytest.mark.parametrize("R,PP,B,engineered", [
+    pytest.param(64, 2304, 19999, False, id="64-2304-19999"),
+    pytest.param(300, 512, 1303, False, id="300-512-1303"),
+    pytest.param(4, 700, 40000, False, id="4-700-40000"),
+    pytest.param(9, 33, 100, False, id="9-33-100"),
+    pytest.param(3, 5000, 7, False, id="3-5000-7"),
+    # the CSR batch's width, an odd PP, the 1x4 shard width, two tiles
+    pytest.param(16, 16384, 19999, True, id="16-16384-19999-engineered"),
+    pytest.param(16, 4577, 19999, True, id="16-4577-19999-engineered"),
+    pytest.param(32, 3072, 5120, True, id="32-3072-5120-engineered"),
+    pytest.param(16, 2000, 40000, True, id="16-2000-40000-engineered"),
+    pytest.param(16, 1024, 1303, True, id="16-1024-1303-engineered"),
+])
+def test_accumulate_sums_bit_equal(cuda, R, PP, B, engineered):
+    """Kernel 4, with counts and without, bit for bit against its plain
+    version (and, on the engineered rows, against a loop over each row's
+    cells in order); two launches give the same bytes."""
     rng = np.random.default_rng(R * PP)
-    b, s = score_cells(rng, R, PP, B)
+    if engineered:
+        layouts = plan(B, True), plan(B, False)
+        # with counts, B = 40,000 takes the path past one tile
+        assert layouts[0].n_tiles == (2 if B == 40000 else 1)
+        b, s = score_rows(rng, R, PP, B, edges=tuple(p.tile_w for p in layouts))
+    else:
+        b, s = score_cells(rng, R, PP, B)
     b_t, s_t = torch.from_numpy(b).to(cuda), torch.from_numpy(s).to(cuda)
     S = accumulate_sums(b_t, s_t, B=B)
     S2, C2 = accumulate_sums_counts(b_t, s_t, B=B)
     S_p, C_p = accumulate_sums_plain(b_t, s_t, B=B, counts=True)
+    S_again = accumulate_sums(b_t, s_t, B=B)
+    S2_again, C2_again = accumulate_sums_counts(b_t, s_t, B=B)
     torch.cuda.synchronize()
-    assert torch.equal(S, S_p) and torch.equal(S2, S_p) and torch.equal(C2, C_p)
+    assert torch.equal(_bits(S), _bits(S_p)) and torch.equal(_bits(S2), _bits(S_p))
+    assert torch.equal(C2, C_p)
+    assert torch.equal(_bits(S_again), _bits(S)) and torch.equal(_bits(S2_again), _bits(S2))
+    assert torch.equal(C2_again, C2)
     assert int(C_p[0, B - 1]) == PP  # row 0: every cell on one branch
+    if engineered:
+        want_S, want_C = cell_order_sums(b, s, B)
+        np.testing.assert_array_equal(_bits(S).cpu().numpy(), want_S.view(np.int32))
+        np.testing.assert_array_equal(C2.cpu().numpy(), want_C)
 
 
 def test_finish_strided_rows(cuda):

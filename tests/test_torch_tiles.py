@@ -49,7 +49,7 @@ from epik_tpu_torch.kernels.accumulate_packed import (
 from epik_tpu_torch.kernels.accumulate_sums import accumulate_sums, accumulate_sums_plain
 from epik_tpu_torch.ops.tokenize import tokenize_packed
 from test_torch_placer import assert_jplace_close
-from torch_fixtures import packed_cells, score_cells
+from torch_fixtures import MIXED_ROW, cell_order_sums, packed_cells, score_cells, score_rows
 
 LOG_EPS = -4.2597
 
@@ -175,20 +175,32 @@ def test_packed_wrapper_cpu_uses_plain_and_checks_inputs():
         accumulate_packed_topk(p_t, m_t, **{**kw, "K": 65})
 
 
-@pytest.mark.parametrize("R,PP,B", [(16, 1024, 300), (8, 512, 1303)])
-def test_sums_kernel_plain_matches_pallas(R, PP, B):
+@pytest.mark.parametrize("R,PP,B,engineered", [
+    pytest.param(16, 1024, 300, False, id="16-1024-300"),
+    pytest.param(8, 512, 1303, False, id="8-512-1303"),
+    pytest.param(16, 1024, 300, True, id="16-1024-300-engineered"),
+    pytest.param(16, 2048, 19999, True, id="16-2048-19999-engineered"),
+    pytest.param(16, 512, 60000, True, id="16-512-60000-engineered"),
+])
+def test_sums_kernel_plain_matches_pallas(R, PP, B, engineered):
+    """Kernel 4's plain version without counts against the Pallas kernel in
+    interpret mode and against a loop that adds each row's cells in order:
+    row 3 of the random cells, every engineered row bit for bit."""
     rng = np.random.default_rng(R + B)
-    b, s = score_cells(rng, R, PP, B)
+    if engineered:
+        b, s = score_rows(rng, R, PP, B)
+    else:
+        b, s = score_cells(rng, R, PP, B)
     mine = accumulate_sums(torch.from_numpy(b), torch.from_numpy(s), B=B).numpy()
     ref = np.asarray(segment_accumulate_sums(jnp.asarray(b), jnp.asarray(s), B,
                                              interpret=True))
-    np.testing.assert_allclose(mine, ref, rtol=1e-5, atol=1e-4)
-    # the plain version adds each column in order: row by row, a float loop
-    want = np.zeros(B, np.float32)
-    for c in range(PP):
-        if b[3, c] < B:
-            want[b[3, c]] += s[3, c]
-    np.testing.assert_array_equal(mine[3], want)
+    # the one-hot matmul adds in another order than cell order, and the
+    # mixed-magnitude row is built so that the order shows in its sums
+    rows = np.arange(R) != MIXED_ROW if engineered else slice(None)
+    np.testing.assert_allclose(mine[rows], ref[rows], rtol=1e-5, atol=1e-4)
+    want, _ = cell_order_sums(b, s, B)
+    check = slice(None) if engineered else 3
+    np.testing.assert_array_equal(mine[check].view(np.int32), want[check].view(np.int32))
 
 
 @pytest.mark.parametrize("payload", ["packed", "f32"])

@@ -58,3 +58,78 @@ def score_cells(rng, R, PP, B, fill=0.6):
     s[pad] = 0.0
     b[0] = B - 1
     return b, s
+
+
+#: the row of :func:`score_rows` whose sums depend on the order of the adds
+MIXED_ROW = 6
+
+
+def score_rows(rng, R, PP, B, edges=None):
+    """:func:`score_cells` with engineered rows 1-8 (as far as R allows) that
+    pin the cell-order contract of the segment sums: trash cells interleaved
+    with valid ones; one branch hit by the first 100 cells, and by every 8th
+    cell; every branch a multiple of 32 (one owner warp takes the whole row);
+    cells alternating at the tile edges ``e - 1`` / ``e`` of ``edges``
+    (default: the edge of two equal tiles) and at ``B - 1`` / ``B``; an all-trash row; scores of mixed magnitude (1e8, 1,
+    -1e8) on a few branches, so that another order of the adds gives other
+    bits; ``-0.0`` scores, alone on some branches. Trash cells carry a
+    nonzero score, which must be skipped with them."""
+    b, s = score_cells(rng, R, PP, B)
+    edges = (-(-B // 2),) if edges is None else edges
+    trash = -(-(B + 1) // 128) * 128 - 1
+    col = np.arange(PP)
+
+    def rand_b():
+        return rng.integers(0, B, PP).astype(np.int32)
+
+    def rand_s():
+        return rng.uniform(-4.0, 8.5, PP).astype(np.float32)
+
+    rows = []
+    bb = rand_b()  # 1: trash interleaved: every third cell, and a random tenth
+    bb[(col % 3 == 1) | (rng.random(PP) < 0.1)] = trash
+    rows.append((bb, rand_s()))
+    bb = rand_b()  # 2: a run of 100 cells on one branch, and every 8th cell on another
+    bb[:100] = 5 % B
+    bb[100::8] = 7 % B
+    rows.append((bb, rand_s()))
+    # 3: one owner warp (of 16 or 32) takes every cell
+    rows.append(((rng.integers(0, -(-B // 32), PP) * 32 % B).astype(np.int32), rand_s()))
+    pairs = [x for e in (*edges, B) for x in (e - 1, e)]  # 4: the tile edges
+    bb = np.asarray(pairs, np.int32)[col % len(pairs)]
+    bb[bb >= B] = trash
+    rows.append((bb, rand_s()))
+    rows.append((np.full(PP, trash, np.int32), rand_s()))  # 5: all trash
+    # 6 (MIXED_ROW): mixed magnitudes on 3 branches: 1e8 + 1 rounds back to 1e8
+    mags = np.array([1e8, 1.0, -1e8, 1.0, 3.0, -1e8, 1e8], np.float32)
+    rows.append(((col % 3 * 97 % B).astype(np.int32), mags[col % len(mags)]))
+    ss = rand_s()  # 7: -0.0 scores, alone on branch 11, mixed on branch 12
+    bb = rand_b()
+    bb[::5] = 11 % B
+    ss[::5] = -0.0
+    bb[1::5] = 12 % B
+    ss[1::10] = -0.0
+    rows.append((bb, ss))
+    bb = rand_b()  # 8: a valid prefix, then trash (the CSR step's padding)
+    bb[PP // 3:] = trash
+    rows.append((bb, rand_s()))
+    for i, (bb, ss) in enumerate(rows[:R - 1], start=1):
+        b[i], s[i] = bb, ss
+    s[b >= B] = 7.0
+    return b, s
+
+
+def cell_order_sums(b, s, B):
+    """The segment sums as a Python loop over each row's cells in order: f32
+    sums (each add rounded to f32) and int64 counts of the cells with branch
+    ``< B``."""
+    R, PP = b.shape
+    S = np.zeros((R, B), np.float32)
+    C = np.zeros((R, B), np.int64)
+    for r in range(R):
+        for c in range(PP):
+            j = b[r, c]
+            if j < B:
+                S[r, j] = np.float32(S[r, j] + s[r, c])
+                C[r, j] += 1
+    return S, C
