@@ -11,12 +11,18 @@ prints no result line):
                (one nvcc per source, all at once);
 3. fixture  -- the D652 database (652 leaves, k=10, ~410k k-mers) and a FASTA of
                65,536 150 bp reads plus a few IUPAC and shorter-than-k reads;
-4. kernels  -- the dense path's kernels against their plain PyTorch versions at
-               its shapes (R = 16,384) and, for the finish, on engineered rows;
-               CUDA-event times of both; the device step time; place() reads/s;
+4. kernels  -- the dense path's kernel, the row gather with the ambiguous
+               delta rows and the finish fused in (``rowgather_sum_topk``),
+               against its plain PyTorch version at the path's shapes (R =
+               16,384) on a batch with IUPAC reads and on a clean one, and on
+               the finish's engineered rows, two launches alike; the gather
+               alone (``rowgather_sum``) and the finish alone (``finish_topk``)
+               against theirs at the same shapes; CUDA-event times of all; the
+               device step time; place() reads/s;
 5. main     -- ``python -m epik_tpu_torch place`` (in process) over the FASTA,
                with every kernel's launch count zeroed just before and read
-               just after: the dense path's kernels must have launched;
+               just after: the fused kernel must have launched, the gather
+               and the finish apart never;
 6. parity   -- the scalar oracle (``ReferencePlacer``) on the first 256 reads
                against the jplace, score sets within 1e-4;
 7. big tree -- BASELINE.md config 4 (10,000 leaves, 19,999 branches, k=10,
@@ -25,8 +31,9 @@ prints no result line):
                reads, which takes the CSR step whole; batches of 4,096:
                * the tile and CSR kernels against their plain versions on the
                  inputs the path gives them (recorded from a placement) and on
-                 engineered rows (kernel 4, with counts and without: bit for
-                 bit, and two launches alike); CUDA-event times; kernel 4's
+                 engineered rows (kernel 2: n = 0, n < K, distinct branches,
+                 ties at the K cut, Q1, Q3; kernel 4, with counts and without),
+                 bit for bit, and two launches alike; CUDA-event times; kernel 4's
                  tiles and threads per block; the share of valid cells in the
                  400 bp CSR batch; the device step times (packed tiles, f32
                  tiles, CSR);
@@ -35,7 +42,8 @@ prints no result line):
                  before and read after: the packed tile kernel and the CSR
                  kernel must have launched; then one pass with
                  ``tile_payload="f32"``: the sums kernel and the finish must
-                 have launched;
+                 have launched; the finish against its plain version on that
+                 pass's (4,096 x 19,999) sums, and its time there;
                * both passes against the scalar oracle on 256 reads (IUPAC,
                  short and 400 bp reads among them), score sets within 1e-4;
 8. sharded  -- the column-sharded big-tree path on phase 7's database and reads:
@@ -103,6 +111,8 @@ FINISH_OPS = 7
 KERNEL_META = {
     "rowgather_sum": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                       "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_topk": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                           "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "finish_topk": ("epik_tpu_torch/kernels/csrc/finish_topk.cu",
                     "epik_tpu/ops/pallas/accumulate.py:214"),
     "accumulate_packed_topk": ("epik_tpu_torch/kernels/csrc/accumulate_packed_topk.cu",
@@ -167,15 +177,14 @@ def nbytes(*tensors) -> int:
 
 
 def check_finish(np, got, want, K: int, B: int, what: str) -> float:
-    """The finish criteria: scores bit-equal, live idx equal, every idx in
-    [0, B), n and zero_sum equal, log_sum within rtol 1e-6. Returns the
-    largest absolute difference over the finite entries."""
-    n = want[:, 2 * K + 1].astype(np.int64)
-    live = np.arange(K)[None, :] < np.minimum(n, K)[:, None]
+    """The finish criteria: scores, every index (the -inf slots hold the
+    lowest untouched branches in both), n and zero_sum bit-equal, log_sum
+    within rtol 1e-6 (its sum of exponentials runs in another order). Returns
+    the largest absolute difference over the finite entries."""
     if not np.array_equal(got[:, :K], want[:, :K]):
         raise AssertionError(f"{what}: scores differ from the plain version")
-    if not np.array_equal(got[:, K:2 * K][live], want[:, K:2 * K][live]):
-        raise AssertionError(f"{what}: live top-K indices differ")
+    if not np.array_equal(got[:, K:2 * K], want[:, K:2 * K]):
+        raise AssertionError(f"{what}: top-K indices differ")
     idx = got[:, K:2 * K]
     if not ((idx >= 0) & (idx < B)).all():
         raise AssertionError(f"{what}: an index lies outside [0, {B})")
@@ -187,6 +196,21 @@ def check_finish(np, got, want, K: int, B: int, what: str) -> float:
     if not np.array_equal(np.isfinite(got), np.isfinite(want)):
         raise AssertionError(f"{what}: finite entries differ")
     return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+
+
+def fused_rows_case(torch, np, dev, Sp_e, m_e):
+    """The engineered finish rows ``Sp_e`` (R, B) as a fused-kernel input: a
+    plane holding them (padded to a multiple of 128 columns) and an all-zero
+    last row, and slot rows naming each read's own row, then the zero row, so
+    that the window-order sums are exactly ``Sp_e``."""
+    R, B = Sp_e.shape
+    bw = -(-B // 128) * 128
+    plane = np.zeros((R + 1, bw), np.float32)
+    plane[:R, :B] = Sp_e
+    rows = np.full((R, 3), R, np.int32)
+    rows[:, 0] = np.arange(R)
+    return (torch.from_numpy(plane).to(dev), torch.from_numpy(rows).to(dev),
+            torch.from_numpy(m_e).to(dev))
 
 
 def write_fasta(path: str, records) -> None:
@@ -274,6 +298,26 @@ def score_cells_on(torch, dev, rng, PP: int, B: int, tile_w: int):
     return torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
 
 
+def d652_fixture():
+    """The D652 database (BASELINE.md config 1, bench.py:56-98) and the FASTA
+    records: a few IUPAC, shorter-than-k and no-hit reads, then 65,536
+    150 bp reads."""
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+
+    db, ref = reference_like_db(num_leaves=652, kmer_size=10, ref_length=520_000,
+                                mean_posting_len=12.0, seed=652)
+    reads = reads_from_reference(ref, N_READS, length=150, mutation_rate=0.02, seed=7)
+    extras = [
+        ("iupac_n", reads[0][1][:60] + b"N" + reads[0][1][61:]),
+        ("iupac_ry", reads[1][1][:30] + b"R" + reads[1][1][31:90] + b"Y" + reads[1][1][91:]),
+        ("iupac_w", b"W" + reads[2][1][1:]),
+        ("short_9", reads[3][1][:9]),
+        ("short_2", b"AC"),
+        ("nohit", b"T" * 150),
+    ]
+    return db, extras + reads
+
+
 def bigtree_db():
     """Config 4's database and its reference sequence (BASELINE.md config 4,
     tools/bench_bigtree.py:30,47-55)."""
@@ -283,10 +327,11 @@ def bigtree_db():
                              mean_posting_len=12.0, seed=10)
 
 
-def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
+def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[list, dict, dict]:
     """Phase 7 (see the module docstring). Returns the kernel entries of the
-    tile and CSR kernels, the phase's summary numbers and its fixture (the
-    database, the reads and their FASTA, the oracle's placements), which
+    tile and CSR kernels and of the finish (``finish_err``: its largest
+    difference on earlier inputs), the phase's summary numbers and its fixture
+    (the database, the reads and their FASTA, the oracle's placements), which
     phase 8 reuses."""
     from epik_tpu_torch.cli.main import _open_reader
     from epik_tpu_torch.core.tree import parse_newick, to_newick
@@ -309,9 +354,10 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
         accumulate_sums_plain,
         plan,
     )
+    from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
     from epik_tpu_torch.ops import csr as csr_mod
     from epik_tpu_torch.tools.jplace_diff import parse_jplace
-    from torch_fixtures import packed_cells
+    from torch_fixtures import packed_rows
 
     summary = {}
     # ---- 7a. fixture ------------------------------------------------------------
@@ -366,42 +412,53 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
 
     # ---- 7c. kernels on the inputs the path gives them ------------------------------
     clean = reads[BT_READS - BT_BATCH:]  # the last batch: no IUPAC or short reads
-    packed_calls, counts_calls, sums_calls = [], [], []
+    packed_calls, counts_calls, sums_calls, finish_calls = [], [], [], []
     with recording(step_mod, "accumulate_packed_topk", packed_calls):
         placer.place(clean)
     with recording(csr_mod, "accumulate_sums_counts", counts_calls):
         placer.place(long_reads)
     (p, m_f32), kw = packed_calls[0]
     K = kw["K"]
-    got, sq = accumulate_packed_topk(p, m_f32, **kw, return_sums=True)
-    want = accumulate_packed_topk_plain(p, m_f32, **kw)
-    torch.cuda.synchronize()
-    if not torch.equal(sq.long(), packed_sums_plain(p, B)):
-        raise AssertionError("accumulate_packed_topk: integer sums differ from the plain version")
-    err3 = check_finish(np, got.cpu().numpy(), want.cpu().numpy(), K, B,
-                        "accumulate_packed_topk (path)")
-    rng = np.random.default_rng(4)
-    p_e, m_e = packed_cells(rng, 512, p.shape[1], B)
+
+    def check_packed(p, m, what: str) -> tuple[float, int]:
+        """Kernel 2 against its plain version: the integer sums bit-equal and
+        the pack by check_finish, two launches alike. Returns the largest
+        difference, the pack and the number of touched (read, branch) sums."""
+        got, sq = accumulate_packed_topk(p, m, **kw, return_sums=True)
+        again, sq2 = accumulate_packed_topk(p, m, **kw, return_sums=True)
+        want = accumulate_packed_topk_plain(p, m, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(sq.long(), packed_sums_plain(p, B)):
+            raise AssertionError(f"accumulate_packed_topk ({what}): integer sums differ")
+        if not (torch.equal(got, again) and torch.equal(sq, sq2)):
+            raise AssertionError(f"accumulate_packed_topk ({what}): two launches differ")
+        got = got.cpu().numpy()
+        err = check_finish(np, got, want.cpu().numpy(), K, B, f"accumulate_packed_topk ({what})")
+        return err, got, int((sq > 0).sum())
+
+    err3, _, touched3 = check_packed(p, m_f32, "path")
+    p_e, m_e = packed_rows(np.random.default_rng(4), 512, p.shape[1], B)
     p_e, m_e = torch.from_numpy(p_e).to(dev), torch.from_numpy(m_e).to(dev)
-    got_e, sq_e = accumulate_packed_topk(p_e, m_e, **kw, return_sums=True)
-    got_e = got_e.cpu().numpy()
-    if not torch.equal(sq_e.long(), packed_sums_plain(p_e, B)):
-        raise AssertionError("accumulate_packed_topk: engineered integer sums differ")
-    err3 = max(err3, check_finish(np, got_e,
-                                  accumulate_packed_topk_plain(p_e, m_e, **kw).cpu().numpy(),
-                                  K, B, "accumulate_packed_topk (engineered)"))
-    if not (got_e[0, 2 * K + 1] == 0 and got_e[1, 2 * K + 1] == 2
+    e, got_e, _ = check_packed(p_e, m_e, "engineered")
+    err3 = max(err3, e)
+    n_e = got_e[:, 2 * K + 1]
+    if not (n_e[0] == 0 and n_e[1] == 2 and n_e[5] == min(p.shape[1], B)
+            and got_e[6, 2 * K + 2] == 1 and got_e[4, 2 * K + 2] == 1
             and np.array_equal(got_e[2, K:2 * K], np.arange(10, 10 + K))):
-        raise AssertionError("accumulate_packed_topk: engineered rows (n, ties) wrong")
+        raise AssertionError("accumulate_packed_topk: engineered rows (n, ties, Q1, Q3) wrong")
+    del p_e, m_e
     ms3 = cuda_ms(torch, lambda: accumulate_packed_topk(p, m_f32, **kw))
     plain_ms3 = cuda_ms(torch, lambda: accumulate_packed_topk_plain(p, m_f32, **kw))
     # the cells read once, the pack written once; an add per cell and the
-    # finish's operations per (read, branch); no one library call finishes
+    # finish's operations per touched (read, branch); no one library call
+    # finishes
     io3 = (nbytes(p, m_f32) + p.shape[0] * (2 * K + 3) * 4,
-           p.numel() + FINISH_OPS * p.shape[0] * B)
-    log(f"accumulate_packed_topk {tuple(p.shape)} B={B} K={K}: sums and scores "
-        f"bit-equal, engineered rows pass; kernel {ms3:.4f} ms, plain {plain_ms3:.4f} ms, "
-        f"bound {bound(*io3)[0]:.4f} ms")
+           p.numel() + FINISH_OPS * touched3)
+    summary["packed_touched_per_read"] = touched3 / p.shape[0]
+    log(f"accumulate_packed_topk {tuple(p.shape)} B={B} K={K} ({touched3 / p.shape[0]:.1f} "
+        f"branches touched per read): sums and pack bit-equal but log_sum, engineered rows "
+        f"(n = 0, n < K, distinct branches, ties, Q1, Q3) pass, two launches alike; kernel "
+        f"{ms3:.4f} ms, plain {plain_ms3:.4f} ms, bound {bound(*io3)[0]:.4f} ms [{card}]")
 
     (b_c, s_c), kw_c = counts_calls[0]
     err5 = check_sums(torch, accumulate_sums_counts, b_c, s_c, B, True,
@@ -471,7 +528,8 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
                 raise AssertionError("tile_payload='f32' built packed tiles")
             placer.csr  # built before the timed pass, as for the packed one
             torch.cuda.synchronize()
-            with recording(step_mod, "accumulate_sums", sums_calls):
+            with recording(step_mod, "accumulate_sums", sums_calls), \
+                    recording(step_mod, "finish_topk", finish_calls):
                 placer.place(clean)
             step, OV, _ = placer._stage_tiles(seqs)
             summary["tile_step_f32_ms"] = cuda_ms(torch, lambda: step(OV))
@@ -539,10 +597,35 @@ def bigtree_phase(torch, np, card: str, dev) -> tuple[list, dict, dict]:
         f"{how4.smem} B of shared memory per block; kernel {ms4:.4f} ms, plain "
         f"{plain_ms4:.4f} ms, scatter_add {lib_ms4:.4f} ms, bound {bound(*io4)[0]:.4f} ms "
         f"[{card}]")
-    del placer
+    # the finish on the f32 pass's sums (4,096 x 19,999, few branches touched)
+    (Sp_f, m_ff), kw_f = finish_calls[0]
+    got = finish_topk(Sp_f, m_ff, **kw_f)
+    again = finish_topk(Sp_f, m_ff, **kw_f)
+    want = finish_topk_plain(Sp_f, m_ff, **kw_f)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("finish_topk (f32 pass): two launches differ")
+    err2 = max(finish_err, check_finish(np, got.cpu().numpy(), want.cpu().numpy(),
+                                        kw_f["K"], B, "finish_topk (f32 pass)"))
+    ms2 = cuda_ms(torch, lambda: finish_topk(Sp_f, m_ff, **kw_f))
+    plain_ms2 = cuda_ms(torch, lambda: finish_topk_plain(Sp_f, m_ff, **kw_f), reps=5,
+                        warmup=1)
+    touched2 = int((Sp_f > 0).sum())
+    # the sums and m read once, the pack written once; a compare per branch
+    # and the finish's operations per touched branch
+    io2 = (nbytes(Sp_f, m_ff) + Sp_f.shape[0] * (2 * kw_f["K"] + 3) * 4,
+           Sp_f.numel() + FINISH_OPS * touched2)
+    summary["f32_touched_per_read"] = touched2 / Sp_f.shape[0]
+    log(f"finish_topk {tuple(Sp_f.shape)} K={kw_f['K']} (the f32 pass's sums, "
+        f"{touched2 / Sp_f.shape[0]:.1f} branches touched per read): bit-equal but log_sum, "
+        f"two launches alike; kernel {ms2:.4f} ms, plain {plain_ms2:.4f} ms, bound "
+        f"{bound(*io2)[0]:.4f} ms [{card}]")
+    del placer, Sp_f, m_ff, finish_calls, got, again, want
     torch.cuda.empty_cache()
 
     kernels = [
+        # no one library call computes the finish (correction, LWR, top-K)
+        entry("finish_topk", counts["f32"]["finish_topk"], err2, ms2, plain_ms2, *io2, None),
         entry("accumulate_packed_topk", counts["packed"]["accumulate_packed_topk"],
               err3, ms3, plain_ms3, *io3, None),
         entry("accumulate_sums", counts["f32"]["accumulate_sums"], err4, ms4, plain_ms4,
@@ -737,13 +820,18 @@ def main() -> int:
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine.placer import TorchPlacer
     from epik_tpu_torch.engine.reference import ReferencePlacer
-    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
     from epik_tpu_torch.io.db import load, save
     from epik_tpu_torch.engine.step import place_batch_dense_paired
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels._build import build_info, library
     from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
-    from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
+    from epik_tpu_torch.kernels.rowgather import (
+        rowgather_sum,
+        rowgather_sum_plain,
+        rowgather_sum_topk,
+        rowgather_sum_topk_plain,
+    )
+    from epik_tpu_torch.ops.dense import amb_deltas
     from epik_tpu_torch.ops.tokenize import tokenize_combo
     from epik_tpu_torch.tools.jplace_diff import parse_jplace
     from torch_fixtures import finish_rows  # the engineered rows of the kernel tests
@@ -768,20 +856,9 @@ def main() -> int:
     work = os.path.join(REPO, "build", "chip_smoke")
     shutil.rmtree(work, ignore_errors=True)
     os.makedirs(os.path.join(work, "out"))
-    db, ref = reference_like_db(num_leaves=652, kmer_size=10, ref_length=520_000,
-                                mean_posting_len=12.0, seed=652)
+    db, records = d652_fixture()
     db_path = os.path.join(work, "D652.eptk")
     save(db, db_path)
-    reads = reads_from_reference(ref, N_READS, length=150, mutation_rate=0.02, seed=7)
-    extras = [
-        ("iupac_n", reads[0][1][:60] + b"N" + reads[0][1][61:]),
-        ("iupac_ry", reads[1][1][:30] + b"R" + reads[1][1][31:90] + b"Y" + reads[1][1][91:]),
-        ("iupac_w", b"W" + reads[2][1][1:]),
-        ("short_9", reads[3][1][:9]),
-        ("short_2", b"AC"),
-        ("nohit", b"T" * 150),
-    ]
-    records = extras + reads
     fasta = os.path.join(work, "q.fasta")
     write_fasta(fasta, records)
     tree = parse_newick(db.tree())
@@ -838,10 +915,12 @@ def main() -> int:
     kw = dict(K=K, k=placer.k, log_eps=float(placer.log_eps))
     f_k = finish_topk(Sp, m_f32, **kw).cpu().numpy()
     f_p = finish_topk_plain(Sp, m_f32, **kw).cpu().numpy()
-    err2 = check_finish(np, f_k, f_p, K, B, "finish_topk (main path)")
+    err2 = check_finish(np, f_k, f_p, K, B, "finish_topk (D652 sums)")
     rng = np.random.default_rng(2)
-    for R_e, B_e, K_e in ((512, B, K), (64, 40, 40), (16, 20000, 5)):
-        Sp_e, m_e = finish_rows(rng, R_e, B_e)
+    engineered = [(*finish_rows(rng, R_e, B_e), K_e)
+                  for R_e, B_e, K_e in ((512, B, K), (64, 40, 40), (16, 20000, 5))]
+    for Sp_e, m_e, K_e in engineered:
+        R_e, B_e = Sp_e.shape
         Sp_e, m_e = torch.from_numpy(Sp_e).to(dev), torch.from_numpy(m_e).to(dev)
         kw_e = dict(K=K_e, k=placer.k, log_eps=float(placer.log_eps))
         got = finish_topk(Sp_e, m_e, **kw_e).cpu().numpy()
@@ -851,20 +930,79 @@ def main() -> int:
         kk = min(K_e, 20)
         if not np.array_equal(got[2, K_e:K_e + kk], np.arange(10, 10 + kk)):
             raise AssertionError("finish_topk: exact ties did not go to the lowest index")
-    ms2 = cuda_ms(torch, lambda: finish_topk(Sp, m_f32, **kw))
-    plain_ms2 = cuda_ms(torch, lambda: finish_topk_plain(Sp, m_f32, **kw))
-    io2 = ((Sp.shape[0] * B + Sp.shape[0]) * 4 + Sp.shape[0] * (2 * K + 3) * 4,
-           FINISH_OPS * Sp.shape[0] * B)
-    log(f"finish_topk ({Sp.shape[0]}, {B}) K={K}: scores bit-equal, engineered "
-        f"rows pass; kernel {ms2:.4f} ms, plain {plain_ms2:.4f} ms, bound "
-        f"{bound(*io2)[0]:.4f} ms")
+    ms2_d652 = cuda_ms(torch, lambda: finish_topk(Sp, m_f32, **kw))
+    plain_ms2_d652 = cuda_ms(torch, lambda: finish_topk_plain(Sp, m_f32, **kw))
+    io2_d652 = ((Sp.shape[0] * B + Sp.shape[0]) * 4 + Sp.shape[0] * (2 * K + 3) * 4,
+                FINISH_OPS * Sp.shape[0] * B)
+    log(f"finish_topk ({Sp.shape[0]}, {B}) K={K}: bit-equal but log_sum, engineered "
+        f"rows pass; kernel {ms2_d652:.4f} ms, plain {plain_ms2_d652:.4f} ms, bound "
+        f"{bound(*io2_d652)[0]:.4f} ms; rowgather_sum + finish_topk "
+        f"{ms1 + ms2_d652:.4f} ms [{card}]")
 
-    step_kw = dict(B=B, K=K, Amax=Amax, k=placer.k, Lmax=Lmax,
-                   num_kmers=st.n_keys, log_eps=float(placer.log_eps),
-                   eps=float(placer.eps))
+    # the fused kernel: the sums, the ambiguous delta rows and the finish
+    def check_fused(plane, rows_, m_, amb_read, delta, B_, K_, what):
+        """The fused kernel against its plain version, two launches alike."""
+        fkw = dict(B=B_, K=K_, k=placer.k, log_eps=float(placer.log_eps))
+        want = rowgather_sum_topk_plain(plane, rows_, m_, amb_read, delta, **fkw)
+        want = want.cpu().numpy()
+        got = rowgather_sum_topk(plane, rows_, m_, amb_read, delta, **fkw)
+        again = rowgather_sum_topk(plane, rows_, m_, amb_read, delta, **fkw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"rowgather_sum_topk ({what}): two launches differ")
+        err = check_finish(np, got.cpu().numpy(), want, K_, B_, f"rowgather_sum_topk ({what})")
+        return err, want
+
+    step_kw = dict(k=placer.k, eps=float(placer.eps), log_eps=float(placer.log_eps))
+    amb_read, delta = amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B, **step_kw)
+    if amb_read.numel() == 0:
+        raise AssertionError("the first D652 batch holds no ambiguous read")
+    err1f, want = check_fused(st.plane, rows, m_f32, amb_read, delta, B, K, "IUPAC batch")
+    ar = amb_read.cpu().numpy()
+    if np.array_equal(want[ar], f_p[ar]):
+        raise AssertionError("rowgather_sum_topk: the delta rows changed nothing")
+    clean = list(dict.fromkeys(s for _, s in records[BATCH:2 * BATCH]))
+    buf_c, _, Amax_c, Lmax_c, _ = placer._stage_bytes(clean)
+    if Amax_c != 0:
+        raise AssertionError("the second D652 batch holds an ambiguous read")
+    rows_c, lens_c = tokenize_combo(torch.from_numpy(buf_c).to(dev), st.combo, k=placer.k,
+                                    Lmax=Lmax_c)
+    m_c = (lens_c - (placer.k - 1)).float()
+    err1f = max(err1f, check_fused(st.plane, rows_c, m_c, None, None, B, K,
+                                   "clean batch")[0])
+    del rows_c, lens_c, m_c
+    for Sp_e, m_e, K_e in engineered:
+        R_e, B_e = Sp_e.shape
+        plane_e, rows_e, m_e = fused_rows_case(torch, np, dev, Sp_e, m_e)
+        e, want_e = check_fused(plane_e, rows_e, m_e, None, None, B_e, K_e,
+                                f"engineered {R_e}x{B_e}")
+        err1f = max(err1f, e)
+        want_f = finish_topk_plain(torch.from_numpy(Sp_e).to(dev), m_e, K=K_e, k=placer.k,
+                                   log_eps=float(placer.log_eps)).cpu().numpy()
+        if not np.array_equal(want_e, want_f):
+            raise AssertionError("rowgather_sum_topk_plain: engineered rows differ from "
+                                 "finish_topk_plain")
+    fkw = dict(B=B, **kw)
+    ms1f = cuda_ms(torch, lambda: rowgather_sum_topk(st.plane, rows, m_f32, amb_read, delta,
+                                                      **fkw))
+    plain_ms1f = cuda_ms(torch, lambda: rowgather_sum_topk_plain(
+        st.plane, rows, m_f32, amb_read, delta, **fkw), reps=5, warmup=1)
+    # the distinct plane rows, the row ids, m, the delta rows read once and
+    # the pack written once; an add per gathered float and the finish's
+    # operations per (read, branch); no one library call computes it
+    io1f = (n_distinct * st.plane.shape[1] * 4 + nbytes(rows, m_f32, amb_read, delta)
+            + rows.shape[0] * (2 * K + 3) * 4,
+            rows.numel() * st.plane.shape[1] + FINISH_OPS * rows.shape[0] * B)
+    log(f"rowgather_sum_topk {tuple(rows.shape)} B={B} K={K} ({amb_read.numel()} reads "
+        f"with delta rows): bit-equal but log_sum on the IUPAC and the clean batch and "
+        f"on engineered rows, two launches alike; kernel {ms1f:.4f} ms, plain "
+        f"{plain_ms1f:.4f} ms, bound {bound(*io1f)[0]:.4f} ms; the unfused pair "
+        f"rowgather_sum + finish_topk {ms1 + ms2_d652:.4f} ms [{card}]")
+
+    step_kw = dict(B=B, K=K, Amax=Amax, Lmax=Lmax, num_kmers=st.n_keys, **step_kw)
     step_ms = cuda_ms(torch, lambda: place_batch_dense_paired(
         st.plane, st.combo, buf_t, arows_t, **step_kw))
-    log(f"device step (tokenize + kernel 1 + amb + kernel 2) at R={len(seqs)}: "
+    log(f"device step (tokenize + amb delta rows + fused kernel 1) at R={len(seqs)}: "
         f"{step_ms:.4f} ms ({len(seqs) / step_ms * 1e3:.0f} reads/s) [{card}]")
 
     batches = [records[i:i + BATCH] for i in range(0, N_READS, BATCH)]
@@ -877,7 +1015,7 @@ def main() -> int:
     log(f"place(): {N_READS} reads ({placed} unique) in {place_s:.3f} s = "
         f"{place_rate:.0f} reads/s, synchronous batches of {BATCH} [{card}]")
     plane_bytes = st.nbytes
-    del placer, st, sp_k, sp_p, Sp, rows, buf_t, arows_t
+    del placer, st, sp_k, sp_p, Sp, rows, buf_t, arows_t, amb_read, delta
     torch.cuda.empty_cache()
 
     # ---- 5. the main path, through the CLI ------------------------------------------
@@ -897,9 +1035,10 @@ def main() -> int:
         log("  | " + line)
     if rc != 0:
         raise AssertionError(f"CLI exited with {rc}")
-    missing = [name for name in ("rowgather_sum", "finish_topk") if counts[name] <= 0]
-    if missing:
-        raise AssertionError(f"kernels never launched on the main path: {missing}")
+    if counts["rowgather_sum_topk"] <= 0:
+        raise AssertionError("the fused kernel 1 never launched on the main path")
+    if counts["rowgather_sum"] or counts["finish_topk"]:
+        raise AssertionError(f"the dense path ran the gather or the finish apart: {counts}")
     jplace = os.path.join(out_dir, "placements_q.fasta.jplace")
     with open(jplace) as f:
         content = json.load(f)
@@ -930,7 +1069,7 @@ def main() -> int:
     shutil.rmtree(work, ignore_errors=True)
 
     # ---- 7. the big-tree posting-tile path and its CSR fallback -----------------------
-    bt_kernels, bt, fx = bigtree_phase(torch, np, card, dev)
+    bt_kernels, bt, fx = bigtree_phase(torch, np, card, dev, finish_err=err2)
 
     # ---- 8. the column-sharded big-tree path ---------------------------------------------
     sh_kernels, sh = sharded_phase(torch, np, card, dev, fx)
@@ -941,13 +1080,16 @@ def main() -> int:
         raise AssertionError(f"imported {imported[:5]}")
 
     kernels = [
+        # the gather alone is off the main path now (launches 0 there)
         entry("rowgather_sum", counts["rowgather_sum"], err1, ms1, plain_ms1, *io1, lib_ms1),
-        # no one library call computes the finish (correction, LWR, top-K)
-        entry("finish_topk", counts["finish_topk"], err2, ms2, plain_ms2, *io2, None),
+        # no one library call computes the gather with the finish
+        entry("rowgather_sum_topk", counts["rowgather_sum_topk"], err1f, ms1f, plain_ms1f,
+              *io1f, None),
         *bt_kernels,
         *sh_kernels,
     ]
     log(f"summary: plane_bytes={plane_bytes} step_ms={step_ms} "
+        f"rowgather_sum_ms={ms1} finish_topk_d652_ms={ms2_d652} rowgather_sum_topk_ms={ms1f} "
         f"place_reads_per_s={place_rate} cli_reads_per_s={len(records) / cli_s}")
     log("summary big tree: " + " ".join(f"{k}={v}" for k, v in bt.items()))
     log("summary sharded: " + " ".join(f"{k}={v}" for k, v in sh.items()))

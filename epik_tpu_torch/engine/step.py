@@ -15,6 +15,7 @@ import torch
 from ..kernels.accumulate_packed import accumulate_packed_topk, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
 from ..kernels.finish import finish_topk
+from ..kernels.rowgather import rowgather_sum_topk
 from ..ops.csr import (
     ORDER_INF,
     accumulate_amb_firsthit,
@@ -22,7 +23,7 @@ from ..ops.csr import (
     finish_scores,
     pack_outputs,
 )
-from ..ops.dense import apply_amb, dense_sums_shifted
+from ..ops.dense import amb_deltas
 from ..ops.tokenize import tokenize_combo, tokenize_packed
 from .outputs import U64
 
@@ -42,15 +43,19 @@ def _m_f32(lens: torch.Tensor, k: int) -> torch.Tensor:
 def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: int,
                              k: int, Lmax: int, num_kmers: int, log_eps: float,
                              eps: float) -> torch.Tensor:
-    """Dense shifted step over the pair plane: slot tokenizer, row gather +
-    sum (kernel 1), ambiguous first-hit when ``Amax > 0``, and the finish
-    (kernel 2). Returns the slim (R, 2K+3) f32 pack on the plane's device."""
+    """Dense shifted step over the pair plane: slot tokenizer, the ambiguous
+    first-hit delta rows when ``Amax > 0``, then kernel 1 with the delta add
+    and the finish fused in (``rowgather_sum_topk``, reads in batch order: a
+    read order that groups shared plane rows bought no L2 reuse on the H100,
+    PERF.md). Returns the slim (R, 2K+3) f32 pack on the plane's device."""
     rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
     m_f32 = _m_f32(lens, k)
-    Sp = dense_sums_shifted(plane, rows, B=B)
+    amb_read = delta = None
     if Amax > 0:
-        apply_amb(Sp, plane, arows, zero_row=num_kmers, k=k, eps=eps, log_eps=log_eps)
-    return finish_topk(Sp, m_f32, K=K, k=k, log_eps=log_eps)
+        amb_read, delta = amb_deltas(plane, arows, zero_row=num_kmers, B=B, k=k, eps=eps,
+                                     log_eps=log_eps)
+    return rowgather_sum_topk(plane, rows, m_f32, amb_read, delta, B=B, K=K, k=k,
+                              log_eps=log_eps)
 
 
 def _pad_trash(x: torch.Tensor, value) -> torch.Tensor:

@@ -1,6 +1,8 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
-* :func:`rowgather.rowgather_sum` -- kernel 1, the row gather + sum;
+* :func:`rowgather.rowgather_sum` -- kernel 1, the row gather + sum, and
+  :func:`rowgather.rowgather_sum_topk`, the same with the ambiguous delta rows
+  and the finish fused in (the dense main path);
 * :func:`finish.finish_topk` -- kernel 2, correction + LWR + top-K + pack;
 * :func:`accumulate_packed.accumulate_packed_topk` -- kernel 3, the packed
   posting-tile accumulate fused with the finish, and
@@ -17,15 +19,16 @@ Each wrapper counts its kernel launches in a ``launches`` attribute;
 from .accumulate_packed import accumulate_packed_sums, accumulate_packed_topk
 from .accumulate_sums import accumulate_sums, accumulate_sums_counts
 from .finish import finish_topk
-from .rowgather import rowgather_sum
+from .rowgather import rowgather_sum, rowgather_sum_topk
 
 __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accumulate_sums",
            "accumulate_sums_counts", "finish_topk", "launch_counts",
-           "reset_launch_counts", "rowgather_sum"]
+           "reset_launch_counts", "rowgather_sum", "rowgather_sum_topk"]
 
 #: name -> wrapper, for every kernel of the port
 KERNELS = {
     "rowgather_sum": rowgather_sum,
+    "rowgather_sum_topk": rowgather_sum_topk,
     "finish_topk": finish_topk,
     "accumulate_packed_topk": accumulate_packed_topk,
     "accumulate_packed_sums": accumulate_packed_sums,

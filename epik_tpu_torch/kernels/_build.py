@@ -42,6 +42,9 @@ _INT = ctypes.c_int
 _PROTOTYPES = {
     # (plane, rows, out, R, W, bw, stream)
     "epik_rowgather_sum": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    # (plane, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps, stream)
+    "epik_rowgather_sum_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                _INT, _INT, ctypes.c_float, _VP],
     # (Sp, ld, m, out, R, B, K, k, log_eps, stream)
     "epik_finish_topk": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT,
                          ctypes.c_float, _VP],

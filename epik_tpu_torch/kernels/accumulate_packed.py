@@ -7,8 +7,9 @@ exact integer sums ``Sq[b]`` of ``q`` over the cells ``(branch << 16) | q``
 of branch ``b``, then ``Sp = Sq / scale`` and the finish into the slim pack
 ``[scores K | idx K | log_sum | n | zero_sum]``, float32 (R, 2K+3).
 
-``csrc/accumulate_packed_topk.cu`` records the design. Its sums are integers,
-so they do not depend on the order of the adds; the finish is the one of
+``csrc/accumulate_packed_topk.cu`` records the design: persistent blocks, and
+a finish over the branches each read touches only. Its sums are integers, so
+they do not depend on the order of the adds; the finish is the one of
 ``finish_topk`` (``csrc/finish_row.cuh``), so the pack is bit-equal to the
 plain version below.
 
@@ -23,6 +24,7 @@ bit-equal to the plain version.
 
 from __future__ import annotations
 
+import math
 import threading
 
 import torch
@@ -66,7 +68,8 @@ def accumulate_packed_topk_plain(p: torch.Tensor, m_f32: torch.Tensor, *, B: int
     return finish_topk_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps)
 
 
-def _check_args(p: torch.Tensor, m_f32: torch.Tensor, B: int, K: int) -> None:
+def _check_args(p: torch.Tensor, m_f32: torch.Tensor, B: int, K: int,
+                scale: float) -> None:
     if p.dtype != torch.int32 or p.dim() != 2 or not p.is_contiguous():
         raise ValueError(f"p must be contiguous 2-D int32, got {p.dtype} "
                          f"{tuple(p.shape)}")
@@ -81,6 +84,9 @@ def _check_args(p: torch.Tensor, m_f32: torch.Tensor, B: int, K: int) -> None:
                          f"(padded width {tile_width(B)})")
     if not 1 <= K <= min(MAX_K, B):
         raise ValueError(f"K={K} must lie in [1, min({MAX_K}, B={B})]")
+    # a touched branch (q >= 1) must keep Sp = Sq / scale > 0
+    if not (math.isfinite(scale) and scale > 0):
+        raise ValueError(f"scale={scale} must be finite and positive")
 
 
 def accumulate_packed_topk(p: torch.Tensor, m_f32: torch.Tensor, *, B: int, K: int,
@@ -90,7 +96,7 @@ def accumulate_packed_topk(p: torch.Tensor, m_f32: torch.Tensor, *, B: int, K: i
     m_f32 f32 (R,) window counts -> f32 (R, 2K+3) slim pack; with
     ``return_sums`` also the integer sums Sq (R, B) (int32 from the kernel,
     int64 from the plain version), to check them."""
-    _check_args(p, m_f32, B, K)
+    _check_args(p, m_f32, B, K, scale)
     if p.device.type == "cpu":
         pack = accumulate_packed_topk_plain(p, m_f32, B=B, K=K, k=k,
                                             log_eps=log_eps, scale=scale)

@@ -1,7 +1,8 @@
-// The per-read placement finish, shared by finish_topk.cu and
-// accumulate_packed_topk.cu: score correction, LWR log-sum over all branches
-// and top-K, written into one row of the slim result pack
-// [scores K | idx K | log_sum | n | zero_sum]. Math, per read over b < B:
+// The per-read placement finish, shared by finish_topk.cu,
+// accumulate_packed_topk.cu and rowgather_sum.cu (rowgather_sum_topk): score
+// correction, LWR log-sum over all branches and top-K, written into one row
+// of the slim result pack [scores K | idx K | log_sum | n | zero_sum]. Math,
+// per read over b < B:
 //
 //   corrected[b] = (Sp[b] + m * log_eps) / k   where Sp[b] > 0, else -inf
 //   n            = #touched;  n_not = B - n;  npl_exp = m * log_eps / k
@@ -12,12 +13,22 @@
 //   top-K        ordered by value descending, then branch index ascending
 //                (jax.lax.top_k's tie rule; torch.topk does not promise it)
 //
-// One block finishes one read. `corr` is B floats of shared memory; count,
-// max and sum use warp-shuffle block reductions. Top-K runs as K rounds;
-// round j takes the best element strictly after round j-1's pick in the
-// (value desc, index asc) total order, so -inf slots of a read with n < K
-// still come out with distinct, in-range indices (the lowest untouched
-// branches), as a stable sort gives.
+// Only the touched branches (Sp > 0) carry a score; every untouched branch is
+// -inf and enters the log-sum only through the one (B - n) product. So the
+// finish runs over a list of the touched branch ids, in ascending order:
+//
+// * build_mask / compact_mask: one bit per branch (a warp ballot of Sp > 0,
+//   or bits set by the caller), then one block-wide exclusive scan of the
+//   words' popcounts writes the ids in index order. The list's order does not
+//   depend on the order in which any thread ran, so the log-sum's order of
+//   adds, and with it its bits, is the same from launch to launch.
+// * finish_list: max, exp-sum (warp shuffles, one block reduction each) and
+//   top-K over the list. Each warp runs K rounds of a shuffle arg-best over
+//   its own list entries, each round the best element strictly after the
+//   previous pick in the (value desc, index asc) order; one warp then merges
+//   the warps' K candidates. No block barrier per round. Where n < K the
+//   remaining slots take -inf and the lowest untouched ids in ascending
+//   order, as the plain version's stable sort gives.
 //
 // Rounding: every float operation of the correction is an explicit
 // round-to-nearest intrinsic (and the library is built with -fmad=false), so
@@ -41,6 +52,11 @@ __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
+// the corrected score of a touched branch (s > 0)
+__device__ __forceinline__ float correct(float s, float mr, float kf, float log_eps) {
+  return __fdiv_rn(__fadd_rn(s, __fmul_rn(mr, log_eps)), kf);
+}
+
 __device__ inline float block_sum(float x, float* red) {
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -48,17 +64,6 @@ __device__ inline float block_sum(float x, float* red) {
   if (lane == 0) red[warp] = x;
   __syncthreads();
   x = lane < (blockDim.x >> 5) ? red[lane] : 0.f;
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-__device__ inline int block_sum_int(int x, int* red) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) red[warp] = x;
-  __syncthreads();
-  x = lane < (blockDim.x >> 5) ? red[lane] : 0;
   for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
   return x;
 }
@@ -78,109 +83,201 @@ __device__ inline float block_max(float x, float* red) {
   return x;
 }
 
-// block-wide first element of the (value desc, index asc) order
-__device__ inline void block_best(float& v, int& i, float* red_v, int* red_i) {
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    if (before(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
-    }
-  }
+// Block-wide exclusive prefix sum of x in thread order; `total` gets the sum.
+// `red` is 32 ints of shared scratch. Every thread of the block must call it.
+__device__ inline int block_exclusive_scan(int x, int* red, int& total) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  __syncthreads();
-  if (lane == 0) {
-    red_v[warp] = v;
-    red_i[warp] = i;
+  const int nw = blockDim.x >> 5;
+  int inc = x;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, inc, o);
+    if (lane >= o) inc += y;
   }
+  __syncthreads();  // earlier readers of `red` are done
+  if (lane == 31) red[warp] = inc;
   __syncthreads();
-  if (lane < (blockDim.x >> 5)) {
-    v = red_v[lane];
-    i = red_i[lane];
-  } else {
-    v = -CUDART_INF_F;
-    i = INT_MAX;
+  int w = lane < nw ? red[lane] : 0;
+  int winc = w;
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, winc, o);
+    if (lane >= o) winc += y;
   }
-  for (int o = 16; o > 0; o >>= 1) {
-    const float ov = __shfl_xor_sync(0xffffffffu, v, o);
-    const int oi = __shfl_xor_sync(0xffffffffu, i, o);
-    if (before(ov, oi, v, i)) {
-      v = ov;
-      i = oi;
+  total = __shfl_sync(0xffffffffu, winc, 31);
+  const int before_warp = __shfl_sync(0xffffffffu, winc - w, warp);
+  return before_warp + inc - x;
+}
+
+// mask[w] bit j = touched(32 w + j), for the ceil(B / 32) words; one ballot
+// per word, words spread over the warps. Does not synchronise.
+template <class Touched>
+__device__ void build_mask(Touched touched, int B, unsigned* mask) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int nw = blockDim.x >> 5, nwords = (B + 31) >> 5;
+  constexpr int kUnroll = 8;  // loads in flight per lane
+  for (int w0 = warp * kUnroll; w0 < nwords; w0 += nw * kUnroll) {
+    bool t[kUnroll];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const int b = (w0 + u) * 32 + lane;
+      t[u] = b < B && touched(b);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const unsigned bal = __ballot_sync(0xffffffffu, t[u]);
+      if (lane == 0 && w0 + u < nwords) mask[w0 + u] = bal;
     }
   }
 }
 
-// Finish one read with the whole block. `sp(b)` returns the read's shifted
-// sum at branch b; it may read the same shared memory that `corr` overwrites,
-// since each thread reads index b before it writes index b. `red_f` and
-// `red_i` are 32-entry shared scratch; `orow` is the read's (2K+3) output row.
-template <class ShiftedSum>
-__device__ void finish_row(ShiftedSum sp, float* corr, int B, int K, float mr,
-                           float kf, float log_eps, float* red_f, int* red_i,
-                           float* orow) {
-  const float ninf = -CUDART_INF_F;
-  int n_loc = 0;
-  float max_loc = ninf;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const float s = sp(b);
-    float c = ninf;
-    if (s > 0.f) {
-      c = __fdiv_rn(__fadd_rn(s, __fmul_rn(mr, log_eps)), kf);
-      ++n_loc;
-      max_loc = fmaxf(max_loc, c);
+// The set bits of mask[0 .. nwords) as ids (int, or 16 bits where B <= 2^16)
+// in ascending order; returns their
+// count n (in every thread). Thread t takes a contiguous run of words, so a
+// block scan of the runs' popcounts places every id. With `clear`, the words
+// are zeroed as they are read. Starts and ends synchronised.
+template <class Id>
+__device__ int compact_mask(unsigned* mask, int nwords, Id* ids, int* red, bool clear) {
+  __syncthreads();  // the mask is complete
+  const int per = (nwords + blockDim.x - 1) / blockDim.x;
+  const int w0 = threadIdx.x * per, w1 = min(nwords, w0 + per);
+  int cnt = 0;
+  for (int w = w0; w < w1; ++w) cnt += __popc(mask[w]);
+  int n;
+  int at = block_exclusive_scan(cnt, red, n);
+  for (int w = w0; w < w1; ++w) {
+    unsigned bits = mask[w];
+    if (clear) mask[w] = 0u;
+    while (bits) {
+      ids[at++] = static_cast<Id>(w * 32 + __ffs(bits) - 1);
+      bits &= bits - 1u;
     }
-    corr[b] = c;
   }
-  const int n = block_sum_int(n_loc, red_i);
-  const float max_c = block_max(max_loc, red_f);
+  __syncthreads();
+  return n;
+}
+
+// Scratch of finish_list: a 32-entry reduction array and the warps' top-K
+// candidates (blockDim / 32 * K values and ids).
+struct FinishScratch {
+  float* red_f;
+  float* cand_v;
+  int* cand_i;
+};
+
+// Finish one read with the whole block from its touched list: `ids` holds the
+// n touched branch ids in ascending order, and `corr(i)` returns the corrected
+// score of entry i (finite). `orow` is the read's (2K+3) output row. Ends with
+// the output written by warp 0; the caller synchronises before reusing the
+// list or the scratch.
+template <class Corr, class Id>
+__device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
+                            float mr, float kf, float log_eps, FinishScratch s,
+                            float* orow) {
+  const float ninf = -CUDART_INF_F;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  float max_loc = ninf;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) max_loc = fmaxf(max_loc, corr(i));
+  const float max_c = block_max(max_loc, s.red_f);
 
   // ---- LWR over ALL branches (quirk Q4), underflow flag (quirk Q3) ---------
   const float npl_exp = __fdiv_rn(__fmul_rn(mr, log_eps), kf);
   const float n_not = __fsub_rn(static_cast<float>(B), static_cast<float>(n));
   const float max_t = fmaxf(max_c, n_not > 0.f ? npl_exp : ninf);
   float sum_loc = 0.f;
-  for (int b = threadIdx.x; b < B; b += blockDim.x) {
-    const float c = corr[b];
-    if (c > ninf) sum_loc += expf(__fmul_rn(__fsub_rn(c, max_t), kLn10));
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    sum_loc += expf(__fmul_rn(__fsub_rn(corr(i), max_t), kLn10));
   }
-  const float touched_sum = block_sum(sum_loc, red_f);
-  const float untouched =
-      n_not > 0.f
-          ? __fmul_rn(n_not, expf(__fmul_rn(__fsub_rn(npl_exp, max_t), kLn10)))
-          : 0.f;
-  const float sum10 = __fadd_rn(touched_sum, untouched);
-  const float log_sum = __fadd_rn(max_t, __fdiv_rn(logf(sum10), kLn10));
-  const bool zero_sum =
-      max_c < kPow10Zero && (npl_exp < kPow10Zero || n_not <= 0.f);
+  const float touched_sum = block_sum(sum_loc, s.red_f);
 
-  // ---- top-K: K rounds, each the first element after the previous pick ----
+  // ---- top-K, per warp: K rounds of a shuffle arg-best over its entries -----
   float pv = CUDART_INF_F;
   int pi = -1;
   for (int j = 0; j < K; ++j) {
     float bv = ninf;
     int bi = INT_MAX;
-    for (int b = threadIdx.x; b < B; b += blockDim.x) {
-      const float c = corr[b];
+    for (int i = threadIdx.x; i < n; i += blockDim.x) {
+      const float c = corr(i);
+      const int b = static_cast<int>(ids[i]);
       if (before(pv, pi, c, b) && before(c, b, bv, bi)) {
         bv = c;
         bi = b;
       }
     }
-    block_best(bv, bi, red_f, red_i);
-    if (threadIdx.x == 0) {
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
+      s.cand_v[warp * K + j] = bv;
+      s.cand_i[warp * K + j] = bi;
+    }
+    pv = bv;
+    pi = bi;
+  }
+  __syncthreads();
+  if (warp != 0) return;
+
+  // ---- warp 0 merges the candidates, then fills the slots past n ------------
+  const int nc = (blockDim.x >> 5) * K;
+  const int live = min(n, K);
+  pv = CUDART_INF_F;
+  pi = -1;
+  for (int j = 0; j < live; ++j) {
+    float bv = ninf;
+    int bi = INT_MAX;
+    for (int i = lane; i < nc; i += 32) {
+      const float c = s.cand_v[i];
+      const int b = s.cand_i[i];
+      if (b != INT_MAX && before(pv, pi, c, b) && before(c, b, bv, bi)) {
+        bv = c;
+        bi = b;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) {
       orow[j] = bv;
       orow[K + j] = static_cast<float>(bi);
     }
     pv = bv;
     pi = bi;
   }
-  if (threadIdx.x == 0) {
-    orow[2 * K] = log_sum;
+  if (lane == 0) {
+    // n < K: -inf at the lowest untouched ids, walking the sorted list
+    int j = live, p = 0;
+    for (int b = 0; j < K; ++b) {
+      if (p < n && static_cast<int>(ids[p]) == b) {
+        ++p;
+      } else {
+        orow[j] = ninf;
+        orow[K + j] = static_cast<float>(b);
+        ++j;
+      }
+    }
+    const float untouched =
+        n_not > 0.f
+            ? __fmul_rn(n_not, expf(__fmul_rn(__fsub_rn(npl_exp, max_t), kLn10)))
+            : 0.f;
+    const float sum10 = __fadd_rn(touched_sum, untouched);
+    orow[2 * K] = __fadd_rn(max_t, __fdiv_rn(logf(sum10), kLn10));
     orow[2 * K + 1] = static_cast<float>(n);
-    orow[2 * K + 2] = zero_sum ? 1.f : 0.f;
+    orow[2 * K + 2] =
+        max_c < kPow10Zero && (npl_exp < kPow10Zero || n_not <= 0.f) ? 1.f : 0.f;
   }
+}
+
+// Bytes of dynamic shared memory FinishScratch's candidates take.
+__host__ __device__ inline size_t cand_bytes(int threads, int K) {
+  return static_cast<size_t>(threads / 32) * K * (sizeof(float) + sizeof(int));
 }
 
 }  // namespace epik

@@ -7,10 +7,12 @@ epilogue of the TPU kernel ``ops/pallas/accumulate.py::
 segment_accumulate_packed_topk`` computes on the tiles path: per read,
 ``[scores K | idx K | log_sum | n | zero_sum]`` as float32 (R, 2K+3).
 
-It is small next to the row gather (one read of the (R, B) score matrix plus
-K passes over a row in shared memory); ``csrc/finish_topk.cu`` records the
-design and the rounding rules that make its scores bit-equal to the plain
-version below.
+It runs after the segment sums on the f32-payload tile path; the dense path
+runs the same finish fused into the row gather (``rowgather.rowgather_sum_topk``)
+and the packed tile path fused into its accumulate. It reads the (R, B) score
+matrix once and finishes over the touched branches only;
+``csrc/finish_topk.cu`` and ``csrc/finish_row.cuh`` record the design and the
+rounding rules that make its scores bit-equal to the plain version below.
 """
 
 from __future__ import annotations
@@ -28,8 +30,6 @@ __all__ = ["MAX_K", "POW10_ZERO", "finish_topk", "finish_topk_plain", "lwr_topk_
 MAX_K = 64
 #: exponent below which IEEE-double 10**x rounds to exactly 0.0 (quirk Q3)
 POW10_ZERO = -323.6
-#: dynamic shared memory one block may hold for its B corrected scores
-_MAX_SMEM = 227 * 1024 - 1024
 
 _count_lock = threading.Lock()
 
@@ -113,9 +113,8 @@ def finish_topk(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
     if Sp.device.type != "cuda":
         raise ValueError(f"finish_topk: no kernel for device {Sp.device}")
     R, B = Sp.shape
-    if B * 4 > _MAX_SMEM:
-        raise ValueError(f"finish_topk: B={B} branches exceed one block's "
-                         f"shared memory ({_MAX_SMEM} bytes)")
+    if B > 1 << 16:  # 16-bit branch ids in shared memory
+        raise ValueError(f"finish_topk: B={B} branches, over 2**16")
     out = torch.empty((R, 2 * K + 3), dtype=torch.float32, device=Sp.device)
     if R == 0:
         return out

@@ -1,6 +1,7 @@
-"""Dense shifted-plane sums and the ambiguous first-hit, ported from
-``epik_tpu/engine/placer.py``: ``dense_sums_shifted`` (:790, now kernel 1),
-``dense_amb_from_rows`` (:853) and ``_apply_amb`` (:814, shifted branch).
+"""The dense step's ops around kernel 1, ported from ``epik_tpu/engine/placer.py``:
+the ambiguous first-hit ``dense_amb_from_rows`` (:853) and the delta rows
+``_apply_amb`` (:814, shifted branch) adds (the add itself runs in kernel 1,
+``kernels.rowgather.rowgather_sum_topk``).
 """
 
 from __future__ import annotations
@@ -9,24 +10,13 @@ import math
 
 import torch
 
-from ..kernels.rowgather import rowgather_sum
-
-__all__ = ["ORDER_INF", "apply_amb", "dense_amb_from_rows", "dense_sums_shifted"]
+__all__ = ["ORDER_INF", "amb_deltas", "dense_amb_from_rows"]
 
 #: "no ambiguous hit" marker for the first-order matrix (quirks Q6/Q7)
 ORDER_INF = 2**31 - 1
 #: reads per chunk of the ambiguous gather: keeps (reads, Amax, bw) f32
 #: under ~256 MB whatever the batch
 _AMB_CHUNK_BYTES = 256 << 20
-
-
-def dense_sums_shifted(plane: torch.Tensor, rows: torch.Tensor, *, B: int) -> torch.Tensor:
-    """Single-reduce row gather over the SHIFTED plane: ``Sp[r] = sum_w
-    plane[rows[r, w]]`` (kernel 1), as the (R, B) view of the (R, bw) sums.
-
-    The JAX version pads W to a multiple of 16 with the zero row for XLA's
-    chunked gather; the port skips that, since zero rows add nothing."""
-    return rowgather_sum(plane, rows)[:, :B]
 
 
 def dense_amb_from_rows(plane: torch.Tensor, arows: torch.Tensor, *, B: int):
@@ -46,31 +36,32 @@ def dense_amb_from_rows(plane: torch.Tensor, arows: torch.Tensor, *, B: int):
     return first, sel
 
 
-def apply_amb(Sp: torch.Tensor, plane: torch.Tensor, arows: torch.Tensor, *,
-              zero_row: int, k: int, eps: float, log_eps: float) -> None:
-    """Fold the ambiguous first-hit contribution (quirks Q6/Q7) into the
-    shifted sums ``Sp`` (R, B), IN PLACE (the JAX version returns a new array).
+def amb_deltas(plane: torch.Tensor, arows: torch.Tensor, *, zero_row: int, B: int,
+               k: int, eps: float, log_eps: float):
+    """The ambiguous first-hit contribution (quirks Q6/Q7) of the reads with
+    at least one ambiguous row: (reads int64 (A,), delta f32 (A, B)), where
+    ``_apply_amb(shifted=True)`` returns ``S + delta`` for those reads (and
+    adds 0 to the others).
 
-    The stored score is recovered as sel + log_eps and the contribution
-    lands shifted (V - log_eps), preserving S' = S - C*log_eps. Only reads
-    with at least one ambiguous row are gathered, in chunks."""
+    The stored score is recovered as sel + log_eps and the contribution is
+    shifted (V - log_eps), preserving S' = S - C*log_eps. The reads are
+    gathered in chunks."""
     R, Amax = arows.shape
-    B = Sp.shape[1]
     reads = torch.nonzero((arows != zero_row).any(dim=1)).flatten()
-    if reads.numel() == 0:
-        return
     f32 = torch.float32
-    dev = Sp.device
+    dev = plane.device
     log_eps_t = torch.tensor(log_eps, dtype=f32, device=dev)
     ln10 = torch.tensor(math.log(10.0), dtype=f32, device=dev)
     km1_eps = torch.tensor(float(k - 1), dtype=f32, device=dev) * torch.tensor(
         eps, dtype=f32, device=dev)
     k_t = torch.tensor(float(k), dtype=f32, device=dev)
     chunk = max(1, _AMB_CHUNK_BYTES // max(1, Amax * plane.shape[1] * 4))
+    deltas = []
     for s in range(0, reads.numel(), chunk):
-        rd = reads[s : s + chunk]
-        first, sel = dense_amb_from_rows(plane, arows[rd], B=B)
+        first, sel = dense_amb_from_rows(plane, arows[reads[s : s + chunk]], B=B)
         hit = first < ORDER_INF
         pow10 = torch.exp((sel + log_eps_t) * ln10)
         V = (pow10 + km1_eps) / k_t
-        Sp[rd] = Sp[rd] + torch.where(hit, V - log_eps_t, torch.zeros((), dtype=f32, device=dev))
+        deltas.append(torch.where(hit, V - log_eps_t, torch.zeros((), dtype=f32, device=dev)))
+    delta = torch.cat(deltas) if deltas else torch.zeros((0, B), dtype=f32, device=dev)
+    return reads, delta

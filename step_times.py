@@ -1,26 +1,38 @@
 #!/usr/bin/env python3
-"""CUDA-event times of the big tree's device steps and of kernel 4, for this
-checkout of the port or another one, on one card.
+"""CUDA-event times of the port's device steps and kernels, for this checkout
+of the port or another one, on one card.
 
     python3 step_times.py [--repo PATH] [--profile]
 
+On ``chip_smoke.py``'s D652 database (652 leaves, 1,303 branches, k = 10) with
+its first batch of 16,384 reads (IUPAC reads among them), and
+``TorchPlacer`` on the dense route, it times:
+
+* the dense device step;
+* the gather alone (``rowgather_sum``) and the finish alone (``finish_topk``)
+  on its sums, and their sum: what the dense step ran before the fusion;
+* the fused kernel (``rowgather_sum_topk``).
+
 On ``chip_smoke.py``'s config-4 database (10,000 leaves, 19,999 branches,
 k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
-``TorchPlacer(dense_db="off")`` with packed tiles, then f32 tiles, it times:
+``TorchPlacer(dense_db="off")`` with packed tiles, then f32 tiles:
 
 * the packed and the f32 tile steps on the 150 bp batch;
 * the CSR step on the 400 bp batch;
+* kernel 2 (``accumulate_packed_topk``) on the packed tile step's cells;
 * kernel 4 with counts (``accumulate_sums_counts``) on the CSR step's cells,
-  and without (``accumulate_sums``) on the f32 tile step's cells.
+  and without (``accumulate_sums``) on the f32 tile step's cells;
+* the finish (``finish_topk``) on the f32 tile step's (4,096 x 19,999) sums.
 
 ``--repo`` times the ``epik_tpu_torch`` of another checkout of this
 repository (the fixture and the timing helpers stay this checkout's
-``chip_smoke.py``). To compare two commits on one card, unpack the other one
-under ``build/`` and run this script for it and for ``.`` in turns, in one
-call. ``--profile`` also prints the CSR step's device time by kernel
-(``torch.profiler`` over 20 steps). Prints the card line of
-``nvidia-smi`` and one JSON object. Needs a CUDA device; imports neither JAX
-nor the JAX package.
+``chip_smoke.py``); an entry point that port lacks is skipped and named under
+``"skipped"``. To compare two commits on one card, unpack the other one under
+``build/`` and run this script for it and for ``.`` in turns, in one call.
+``--profile`` also prints the dense and the CSR step's time by operator
+(``torch.profiler`` over 20 steps). Prints the card line of ``nvidia-smi``
+and one JSON object. Needs a CUDA device; imports neither JAX nor the JAX
+package.
 """
 
 from __future__ import annotations
@@ -32,21 +44,86 @@ import sys
 
 import chip_smoke
 from chip_smoke import (
+    BATCH,
     BT_BATCH,
     BT_LONG,
     TIMING_REPS,
     bigtree_db,
     card_line,
     cuda_ms,
+    d652_fixture,
     recording,
 )
+
+
+def print_profile(torch, fn, title: str) -> None:
+    """Device and host time by operator of ``TIMING_REPS`` runs of ``fn``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(TIMING_REPS):
+            fn()
+        torch.cuda.synchronize()
+    print(f"{title}, {TIMING_REPS} steps:")
+    print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15,
+                                    max_name_column_width=60))
+
+
+def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
+    """The D652 dense step and its kernels into ``out``; with ``profile``,
+    print the step's profile."""
+    from epik_tpu_torch import kernels as kernels_mod
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.engine.step import place_batch_dense_paired
+    from epik_tpu_torch.ops import dense as dense_mod
+    from epik_tpu_torch.ops.tokenize import tokenize_combo
+
+    db, records = d652_fixture()
+    tree = parse_newick(db.tree())
+    placer = TorchPlacer(db, tree, device=dev)
+    st = placer.state
+    seqs = list(dict.fromkeys(s for _, s in records[:BATCH]))
+    buf, arows, Amax, Lmax, _ = placer._stage_bytes(seqs)
+    buf_t, arows_t = torch.from_numpy(buf).to(dev), torch.from_numpy(arows).to(dev)
+    B, K, k = placer.B, placer._K(), placer.k
+    kw = dict(K=K, k=k, log_eps=float(placer.log_eps))
+    step_kw = dict(B=B, Amax=Amax, Lmax=Lmax, num_kmers=st.n_keys, eps=float(placer.eps),
+                   **kw)
+    out["dense_R"] = len(seqs)
+    out["dense_step_ms"] = cuda_ms(torch, lambda: place_batch_dense_paired(
+        st.plane, st.combo, buf_t, arows_t, **step_kw))
+    if profile:
+        print_profile(torch, lambda: place_batch_dense_paired(
+            st.plane, st.combo, buf_t, arows_t, **step_kw),
+            f"dense step, R={len(seqs)}, Amax={Amax}")
+    rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
+    m_signed = (lens - (k - 1)).float()
+    m_f32 = torch.where(m_signed >= 0, m_signed, m_signed + float(2**64))
+    Sp = kernels_mod.rowgather_sum(st.plane, rows)[:, :B]
+    out["rowgather_sum_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum(st.plane, rows))
+    out["finish_topk_d652_ms"] = cuda_ms(torch, lambda: kernels_mod.finish_topk(Sp, m_f32,
+                                                                                **kw))
+    out["rowgather_sum_plus_finish_topk_ms"] = (out["rowgather_sum_ms"]
+                                                + out["finish_topk_d652_ms"])
+    if hasattr(kernels_mod, "rowgather_sum_topk"):
+        fused = kernels_mod.rowgather_sum_topk
+        amb_read, delta = dense_mod.amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B,
+                                               k=k, eps=float(placer.eps),
+                                               log_eps=float(placer.log_eps))
+        out["rowgather_sum_topk_ms"] = cuda_ms(
+            torch, lambda: fused(st.plane, rows, m_f32, amb_read, delta, B=B, **kw))
+    else:
+        out["skipped"].append("rowgather_sum_topk: the port has no fused kernel 1")
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=None, help="checkout whose port is timed")
     ap.add_argument("--profile", action="store_true",
-                    help="print the CSR step's device time by kernel")
+                    help="print the dense and the CSR step's time by operator")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo or chip_smoke.REPO))
     import torch
@@ -71,23 +148,27 @@ def main(argv=None) -> int:
     seqs = list(dict.fromkeys(s for _, s in reads))
     long_seqs = list(dict.fromkeys(s for _, s in long_reads))
     out = {"port": os.path.dirname(os.path.abspath(epik_tpu_torch.__file__)),
-           "device": torch.cuda.get_device_name(0), "B": tree.get_node_count()}
+           "device": torch.cuda.get_device_name(0), "B": tree.get_node_count(),
+           "skipped": []}
+    dense_times(torch, dev, out, args.profile)
+    torch.cuda.empty_cache()
 
     placer = TorchPlacer(db, tree, config=PlacerConfig(dense_db="off"), device=dev)
     step, OV, _ = placer._stage_tiles(seqs)
     out["tile_step_ms"] = cuda_ms(torch, lambda: step(OV))
+    calls = []
+    with recording(step_mod, "accumulate_packed_topk", calls):
+        placer.place(reads)
+    (p, m_f32), kw = calls[0]
+    out["accumulate_packed_topk_ms"] = cuda_ms(
+        torch, lambda: kernels_mod.accumulate_packed_topk(p, m_f32, **kw))
+    out["accumulate_packed_topk_shape"] = list(p.shape)
+    del p, m_f32
     csr_step, P, PA, _ = placer._stage_csr(long_seqs)
     out["csr_step_ms"] = cuda_ms(torch, lambda: csr_step(P, PA))
     if args.profile:
-        from torch.profiler import ProfilerActivity, profile
-
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            for _ in range(TIMING_REPS):
-                csr_step(P, PA)
-            torch.cuda.synchronize()
-        print(f"CSR step, {TIMING_REPS} steps, R={len(long_seqs)} x 400 bp, P={P}:")
-        print(prof.key_averages().table(sort_by="cuda_time_total", row_limit=15,
-                                        max_name_column_width=60))
+        print_profile(torch, lambda: csr_step(P, PA),
+                      f"CSR step, R={len(long_seqs)} x 400 bp, P={P}")
     calls = []
     with recording(csr_mod, "accumulate_sums_counts", calls):
         placer.place(long_reads)
@@ -102,13 +183,18 @@ def main(argv=None) -> int:
                          device=dev)
     step, OV, _ = placer._stage_tiles(seqs)
     out["tile_step_f32_ms"] = cuda_ms(torch, lambda: step(OV))
-    calls = []
-    with recording(step_mod, "accumulate_sums", calls):
+    calls, finish_calls = [], []
+    with recording(step_mod, "accumulate_sums", calls), \
+            recording(step_mod, "finish_topk", finish_calls):
         placer.place(reads)
     (b, s), kw = calls[0]
     out["accumulate_sums_ms"] = cuda_ms(
         torch, lambda: kernels_mod.accumulate_sums(b, s, **kw))
     out["accumulate_sums_shape"] = list(b.shape)
+    (Sp, m_f32), kw = finish_calls[0]
+    out["finish_topk_f32_ms"] = cuda_ms(
+        torch, lambda: kernels_mod.finish_topk(Sp, m_f32, **kw))
+    out["finish_topk_f32_shape"] = list(Sp.shape)
     print(card_line())
     print(json.dumps(out))
     return 0

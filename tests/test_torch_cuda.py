@@ -25,8 +25,20 @@ from epik_tpu_torch.kernels.accumulate_sums import (
     plan,
 )
 from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
-from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
-from torch_fixtures import cell_order_sums, finish_rows, packed_cells, score_cells, score_rows
+from epik_tpu_torch.kernels.rowgather import (
+    rowgather_sum,
+    rowgather_sum_plain,
+    rowgather_sum_topk,
+    rowgather_sum_topk_plain,
+)
+from torch_fixtures import (
+    cell_order_sums,
+    finish_rows,
+    packed_cells,
+    packed_rows,
+    score_cells,
+    score_rows,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -82,6 +94,23 @@ def test_finish_matches_plain(cuda, R, B, K):
     np.testing.assert_array_equal(got[2, K:K + kk], np.arange(10, 10 + kk))
 
 
+@pytest.mark.parametrize("R,B,density", [(64, 19999, 0.02), (16, 19999, 1.0),
+                                         (64, 1303, 1.0)])
+def test_finish_few_and_all_touched(cuda, R, B, density):
+    """The finish over the touched list at the f32 tile path's width, with few
+    branches touched and with every one (but the engineered rows); every
+    index equal, two launches alike."""
+    rng = np.random.default_rng(R + B)
+    Sp, m = finish_rows(rng, R, B, density=density)
+    Sp_t, m_t = torch.from_numpy(Sp).to(cuda), torch.from_numpy(m).to(cuda)
+    kw = dict(K=7, k=10, log_eps=-4.2597)
+    got = finish_topk(Sp_t, m_t, **kw)
+    assert torch.equal(finish_topk(Sp_t, m_t, **kw), got)
+    _check_pack(got.cpu().numpy(), finish_topk_plain(Sp_t, m_t, **kw).cpu().numpy(), 7, B)
+    if density == 1.0:
+        assert (got[8:, 2 * 7 + 1] == B).all()
+
+
 def _check_pack(got, want, K, B):
     """The finish criteria: scores, n and zero_sum bit-equal, every index
     equal (the -inf slots hold the lowest untouched branches in both), and
@@ -109,6 +138,32 @@ def test_accumulate_packed_topk_bit_equal(cuda, R, PP, B, K):
     assert want[0, 2 * K + 1] == 0 and want[1, 2 * K + 1] == 2
     if PP >= 20 and B >= 30:  # the 20 ties go to the lowest branch index
         np.testing.assert_array_equal(got[2, K:2 * K], np.arange(10, 10 + K))
+
+
+@pytest.mark.parametrize("R,PP,B,K", [(16, 2816, 19999, 7), (16, 2304, 1303, 7),
+                                      (8, 300, 130, 7), (8, 45, 40, 40), (9, 64, 64, 12),
+                                      (8, 13000, 32767, 7), (8, 32800, 32767, 64)])
+def test_accumulate_packed_topk_engineered(cuda, R, PP, B, K):
+    """Kernel 2 on the engineered rows (n = 0, n < K, every cell on its own
+    branch, exact ties across the K cut, Q3, a Q1 m = 2**64, PP >= B with
+    every branch touched): sums and the whole pack bit-equal but log_sum
+    (rtol 1e-6), two launches alike. The widest B the packed cells allow,
+    with PP past 13,000 and past B, bounds the block's shared memory."""
+    rng = np.random.default_rng(R * PP + B)
+    p, m = packed_rows(rng, R, PP, B)
+    p_t, m_t = torch.from_numpy(p).to(cuda), torch.from_numpy(m).to(cuda)
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597, scale=15025.0)
+    got, sq = accumulate_packed_topk(p_t, m_t, **kw, return_sums=True)
+    again, sq2 = accumulate_packed_topk(p_t, m_t, **kw, return_sums=True)
+    assert torch.equal(again, got) and torch.equal(sq2, sq)
+    assert torch.equal(sq.long(), packed_sums_plain(p_t, B))
+    want = accumulate_packed_topk_plain(p_t, m_t, **kw).cpu().numpy()
+    got = got.cpu().numpy()
+    _check_pack(got, want, K, B)
+    n = got[:, 2 * K + 1]
+    assert n[0] == 0 and n[1] == 2 and n[5] == min(PP, B) and got[6, 2 * K + 2] == 1
+    if PP >= B:
+        assert n[7] == B
 
 
 @pytest.mark.parametrize("R,PP,B", [(64, 2816, 20096), (128, 3072, 5120), (16, 40, 45),
@@ -177,6 +232,43 @@ def test_accumulate_sums_bit_equal(cuda, R, PP, B, engineered):
         np.testing.assert_array_equal(C2.cpu().numpy(), want_C)
 
 
+@pytest.mark.parametrize("n_rows,bw,B,R,W", [
+    (2000, 1408, 1303, 300, 72),  # D652's widths
+    (64, 128, 40, 50, 9),
+    (300, 4608, 4500, 24, 17),  # bw/4 > 1024: threads loop over column chunks
+    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row offsets
+])
+@pytest.mark.parametrize("amb", [False, True])
+def test_rowgather_sum_topk_bit_equal(cuda, n_rows, bw, B, R, W, amb):
+    """Kernel 1 with the finish fused in against its plain version: the
+    whole pack bit-equal but log_sum (rtol 1e-6), with and without delta
+    rows; two launches alike."""
+    rng = np.random.default_rng(n_rows + W)
+    plane_np = _plane(rng, n_rows, bw)
+    plane_np[:, B:] = 0.0
+    plane = torch.from_numpy(plane_np).to(cuda)
+    rows_np = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+    rows_np[rng.random((R, W)) < 0.3] = n_rows - 1
+    rows_np[0] = n_rows - 1  # n == 0
+    rows = torch.from_numpy(rows_np).to(cuda)
+    m_np = rng.integers(W, W + 40, R).astype(np.float32)
+    m_np[1] = np.float32(2.0**64)  # quirk Q1
+    m = torch.from_numpy(m_np).to(cuda)
+    reads = delta = None
+    if amb:
+        reads = torch.from_numpy(rng.choice(R, max(1, R // 3), replace=False)).to(cuda)
+        d = rng.uniform(-2.0, 6.0, (reads.numel(), B)).astype(np.float32)
+        d[rng.random(d.shape) < 0.7] = 0.0
+        delta = torch.from_numpy(d).to(cuda)
+    K = min(7, B)
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
+    got = rowgather_sum_topk(plane, rows, m, reads, delta, **kw)
+    assert torch.equal(rowgather_sum_topk(plane, rows, m, reads, delta, **kw), got)
+    want = rowgather_sum_topk_plain(plane, rows, m, reads, delta, **kw).cpu().numpy()
+    _check_pack(got.cpu().numpy(), want, K, B)
+    assert want[0, 2 * K + 1] == 0
+
+
 def test_finish_strided_rows(cuda):
     """The step hands the finish the (R, B) view of the (R, bw) sums."""
     rng = np.random.default_rng(9)
@@ -198,6 +290,7 @@ def test_launch_counts(cuda):
     m = torch.ones(4, device=cuda)
     reset_launch_counts()
     Sp = rowgather_sum(plane, rows)
+    rowgather_sum_topk(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     finish_topk(Sp, m, K=3, k=4, log_eps=-1.0)
     accumulate_packed_topk(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_packed_sums(p, B=100)
@@ -205,10 +298,11 @@ def test_launch_counts(cuda):
     accumulate_sums_counts(b, s, B=100)
     # the plain versions never count
     rowgather_sum_plain(plane, rows)
+    rowgather_sum_topk_plain(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     accumulate_packed_topk_plain(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_sums_plain(b, s, B=100, counts=True)
     packed_sums_plain(p, 100)
-    assert launch_counts() == {"rowgather_sum": 1, "finish_topk": 1,
+    assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1, "finish_topk": 1,
                                "accumulate_packed_topk": 1, "accumulate_packed_sums": 1,
                                "accumulate_sums": 1, "accumulate_sums_counts": 1}
 
@@ -222,6 +316,14 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError):
         finish_topk(torch.ones((4, 100), device=cuda), torch.ones(4, device=cuda),
                     K=65, k=4, log_eps=-1.0)
+    rows = torch.zeros((4, 3), dtype=torch.int32, device=cuda)
+    m = torch.ones(4, device=cuda)
+    with pytest.raises(ValueError, match="amb_delta"):
+        rowgather_sum_topk(plane, rows, m, torch.tensor([1], device=cuda),
+                           torch.zeros((1, 100)), B=100, K=3, k=4, log_eps=-1.0)  # CPU delta
+    with pytest.raises(ValueError, match="scale"):
+        accumulate_packed_topk(torch.zeros((4, 5), dtype=torch.int32, device=cuda), m,
+                               B=100, K=3, k=4, log_eps=-1.0, scale=0.0)
     p = torch.zeros((4, 5), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="2\\*\\*15"):
         accumulate_packed_topk(p, torch.ones(4, device=cuda), B=40000, K=3, k=4,
@@ -251,7 +353,9 @@ def test_placer_cuda_matches_cpu(cuda):
     reset_launch_counts()
     got = TorchPlacer(db, tree, device=cuda).place(reads)
     counts = launch_counts()
-    assert counts["rowgather_sum"] > 0 and counts["finish_topk"] > 0
+    # the dense path runs the fused kernel, not the gather and finish apart
+    assert counts["rowgather_sum_topk"] > 0
+    assert counts["rowgather_sum"] == 0 and counts["finish_topk"] == 0
     np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
     np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
                                rtol=1e-6, atol=1e-6)

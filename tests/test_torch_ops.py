@@ -1,6 +1,7 @@
 """Host staging, tables and device ops of the port, held to the JAX package on
 the CPU: the slot tokenizer bit-equal to ``device_tokenize_combo``, the
-ambiguous first-hit to ``dense_amb_from_rows`` / ``_apply_amb``, and the
+ambiguous first-hit to ``dense_amb_from_rows`` / ``_apply_amb`` (whose add the
+fused kernel 1 now does: ``amb_deltas`` gives the rows it adds), and the
 numpy copies (``pack_reads``, ``enumerate_pairs``, ``build_combo_table``,
 ``_bucket_lmax``) equal to the originals."""
 
@@ -16,7 +17,7 @@ from epik_tpu.engine import placer as jp
 from epik_tpu.io.build import reference_like_db
 
 from epik_tpu_torch.engine import staging, tables
-from epik_tpu_torch.ops.dense import apply_amb, dense_amb_from_rows
+from epik_tpu_torch.ops.dense import ORDER_INF, amb_deltas, dense_amb_from_rows
 from epik_tpu_torch.ops.tokenize import tokenize_combo
 
 K = 5
@@ -129,6 +130,9 @@ def test_amb_first_hit_equal(seed):
 
 @pytest.mark.parametrize("seed", [0, 1])
 def test_apply_amb_matches_jax(seed):
+    """``amb_deltas`` + the add the fused kernel does (the plain version's
+    ``Sp[reads] + delta``) against ``_apply_amb(shifted=True)``; the reads
+    with no ambiguous row get no delta row, and ``_apply_amb`` adds 0 there."""
     plane, arows, Sp, B = _amb_case(seed)
     k, eps = 10, np.float32(5.499e-5)
     log_eps = float(np.float32(math.log10(eps)))
@@ -136,12 +140,43 @@ def test_apply_amb_matches_jax(seed):
                             jnp.asarray(arows), R=arows.shape[0], B=B,
                             Amax=arows.shape[1], k=k, eps=float(eps),
                             log_eps=log_eps, shifted=True)
-    full = torch.from_numpy(Sp.copy())
-    view = full[:, :B]
-    apply_amb(view, torch.from_numpy(plane), torch.from_numpy(arows),
-              zero_row=plane.shape[0] - 1, k=k, eps=float(eps), log_eps=log_eps)
+    zero_row = plane.shape[0] - 1
+    reads, delta = amb_deltas(torch.from_numpy(plane), torch.from_numpy(arows),
+                              zero_row=zero_row, B=B, k=k, eps=float(eps), log_eps=log_eps)
+    np.testing.assert_array_equal(reads.numpy(),
+                                  np.flatnonzero((arows != zero_row).any(axis=1)))
+    assert 0 not in reads.tolist() and delta.shape == (reads.numel(), B)
+    got = torch.from_numpy(Sp[:, :B].copy())
+    got[reads] = got[reads] + delta
     # exp of the first-hit score: torch's and XLA's f32 exp may differ in the
     # last ulp
-    np.testing.assert_allclose(view.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
-    np.testing.assert_array_equal(full.numpy()[0], Sp[0])  # untouched read
-    np.testing.assert_array_equal(full.numpy()[:, B:], Sp[:, B:])  # in place, view only
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got.numpy()[0], Sp[0, :B])  # untouched read
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_amb_deltas_match_jax_contribution(seed):
+    """The delta rows alone equal ``_apply_amb``'s contribution on zero sums,
+    are 0 exactly where no ambiguous row hits, and a batch with no ambiguous
+    row gives none."""
+    plane, arows, _, B = _amb_case(seed)
+    k, eps = 10, np.float32(5.499e-5)
+    log_eps = float(np.float32(math.log10(eps)))
+    R = arows.shape[0]
+    contrib, _ = jp._apply_amb(jnp.zeros((R, B), jnp.float32), None, jnp.asarray(plane),
+                               jnp.asarray(arows), R=R, B=B, Amax=arows.shape[1], k=k,
+                               eps=float(eps), log_eps=log_eps, shifted=True)
+    contrib = np.asarray(contrib)
+    zero_row = plane.shape[0] - 1
+    reads, delta = amb_deltas(torch.from_numpy(plane), torch.from_numpy(arows),
+                              zero_row=zero_row, B=B, k=k, eps=float(eps), log_eps=log_eps)
+    np.testing.assert_allclose(delta.numpy(), contrib[reads.numpy()], rtol=1e-6, atol=1e-6)
+    first, _ = dense_amb_from_rows(torch.from_numpy(plane), torch.from_numpy(arows[reads]),
+                                   B=B)
+    np.testing.assert_array_equal(delta.numpy() == 0, first.numpy() == ORDER_INF)
+    others = np.setdiff1d(np.arange(R), reads.numpy())
+    np.testing.assert_array_equal(contrib[others], 0.0)
+    none_r, none_d = amb_deltas(torch.from_numpy(plane),
+                                torch.full((4, 3), zero_row, dtype=torch.int32),
+                                zero_row=zero_row, B=B, k=k, eps=float(eps), log_eps=log_eps)
+    assert none_r.numel() == 0 and none_d.shape == (0, B)

@@ -85,6 +85,38 @@ def test_step_matches_jax(fx):
     np.testing.assert_allclose(got[:, 2 * K], want[:, 2 * K], rtol=1e-5)
 
 
+def test_step_is_tokenizer_deltas_and_fused_kernel(fx):
+    """The dense step is the tokenizer, the ambiguous reads' delta rows and
+    the fused kernel 1, nothing else: those three on the step's inputs give
+    its pack bit for bit, ambiguous reads and all; on the CPU no kernel
+    launch is counted."""
+    from epik_tpu_torch.engine.step import _m_f32
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.rowgather import rowgather_sum_topk
+    from epik_tpu_torch.ops.dense import amb_deltas
+    from epik_tpu_torch.ops.tokenize import tokenize_combo
+
+    db, _, reads, _, port = fx
+    seqs = list(dict.fromkeys(s for _, s in reads))
+    buf, arows, Amax, Lmax, _ = port._stage_bytes(seqs)
+    assert Amax > 0
+    st, k = port.state, port.k
+    kw = dict(K=port._K(), k=k, log_eps=float(port.log_eps))
+    buf_t, arows_t = torch.from_numpy(buf), torch.from_numpy(arows)
+    reset_launch_counts()
+    want = place_batch_dense_paired(st.plane, st.combo, buf_t, arows_t, B=port.B, Amax=Amax,
+                                    Lmax=Lmax, num_kmers=st.n_keys, eps=float(port.eps),
+                                    **kw)
+    rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
+    amb_read, delta = amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=port.B, k=k,
+                                 eps=float(port.eps), log_eps=float(port.log_eps))
+    assert amb_read.numel() > 0
+    got = rowgather_sum_topk(st.plane, rows, _m_f32(lens, k), amb_read, delta, B=port.B,
+                             **kw)
+    assert torch.equal(got, want)
+    assert not any(launch_counts().values())
+
+
 def test_place_matches_oracle_and_jax(fx):
     db, tree, reads, jax_p, port = fx
     out = port.place(reads)

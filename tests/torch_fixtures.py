@@ -3,12 +3,13 @@
 import numpy as np
 
 
-def finish_rows(rng, R, B):
+def finish_rows(rng, R, B, density=0.2):
     """Sp/m rows for the finish: exact ties at the K cut, n = 0, n < K, a
     Q1-wrapped m = 2**64 (a read shorter than k) and a Q3 row (every
-    10**score underflows in double)."""
+    10**score underflows in double); the other rows touch about ``density``
+    of the branches."""
     Sp = rng.uniform(0.0, 30.0, (R, B)).astype(np.float32)
-    Sp[rng.random((R, B)) > 0.2] = 0.0
+    Sp[rng.random((R, B)) > density] = 0.0
     Sp[0] = 0.0  # n == 0
     Sp[1] = 0.0
     Sp[1, [3, B - 1]] = [2.0, 5.0]  # n < K
@@ -43,6 +44,26 @@ def packed_cells(rng, R, PP, B, fill=0.5):
         p[3, :64] = (5 << 16) | 64000  # one branch, 64 cells
     m = rng.integers(80, 150, R).astype(np.float32)
     m[4] = np.float32(2.0**64)  # quirk Q1
+    return p, m
+
+
+def packed_rows(rng, R, PP, B):
+    """:func:`packed_cells` with more engineered rows (as far as R allows):
+    5, every cell on its own branch (``min(PP, B)`` branches touched); 6, a
+    Q3 row (m = 4000: every 10**score underflows in double); 7, cells
+    cycling over all B branches (every branch touched when PP >= B)."""
+    p, m = packed_cells(rng, R, PP, B)
+    trash = (-(-(B + 1) // 128) * 128 - 1) << 16
+    q = rng.integers(1, 64001, PP)
+    distinct = np.full(PP, trash, np.int64)
+    nd = min(PP, B)
+    distinct[:nd] = (rng.permutation(B)[:nd] << 16) | q[:nd]
+    if R > 5:
+        p[5] = distinct.astype(np.int32)
+    if R > 6:
+        m[6] = 4000.0  # quirk Q3
+    if R > 7:
+        p[7] = (((np.arange(PP) % B) << 16) | q).astype(np.int32)
     return p, m
 
 
