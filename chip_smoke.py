@@ -60,6 +60,29 @@ prints no result line):
                * a 1x4 mesh laid on the one card (4 shards of 5,120 columns) on
                  8,192 clean reads and the IUPAC and short ones, score sets
                  within 1e-4 of the 1x1 jplace.
+9. dense    -- the rest of the single-device dense engine:
+               * config 4 through ``python -m epik_tpu_torch place`` with no
+                 flags (phase 7's database saved and loaded, its FASTA): the
+                 51.8 GB base plane fits the card and the pair plane does not,
+                 so the CLI takes the unpaired dense route; the fused kernel
+                 at (4,096 x 143) rows and bw 20,096 against its plain
+                 version on the first batch, its time, the device step's; the
+                 launches counted; 256 reads against the oracle, within 1e-4;
+               * D652 under ``--pair-plane off``, ``--plane-mode classic``,
+                 ``--precision int16``, ``--precision bf16`` (the CLI) and
+                 ``lookup_where="device"``, ``tokenize_where="host"`` (the
+                 library, through run_pipeline): each config's kernel (the
+                 fused kernel over the unpaired f32 or the int16 plane, the
+                 sums with counts over the classic f32 or bf16 plane) against
+                 its plain version on the first batch, bit for bit; 256 reads
+                 against the oracle (int16 by the jplace_diff rule, bf16 by
+                 the best edge, as the JAX tests hold them);
+               * a batch of reads shorter than k and a batch with a 65,536 bp
+                 read (the host tokenizer) against the oracle;
+               * the fused kernel at B = 30,000, and past its shared-memory
+                 limit at B = 40,000 (the gather and the finish apart), and
+                 ``finish_topk`` at B = 70,000 (ids in the global workspace),
+                 against their plain versions.
 
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
@@ -123,6 +146,12 @@ KERNEL_META = {
                                "epik_tpu/ops/pallas/accumulate.py:436"),
     "accumulate_packed_sums": ("epik_tpu_torch/kernels/csrc/accumulate_packed_topk.cu",
                                "epik_tpu/ops/pallas/accumulate.py:369"),
+    "rowgather_sum_topk_int16": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                 "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_counts": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                             "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_counts_bf16": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                  "epik_tpu/ops/pallas/rowgather_mq.py:117"),
 }
 
 
@@ -219,23 +248,54 @@ def write_fasta(path: str, records) -> None:
             f.write(f">{name}\n{seq.decode()}\n")
 
 
-def check_parity(ref_out, rows_by_name, what: str) -> float:
-    """The scalar oracle's placements ``ref_out`` against the jplace rows:
-    score sets within 1e-4 for every read. Returns the largest score
-    difference."""
-    worst = 0.0
+def check_parity(ref_out, rows_by_name, what: str, rule: str = "sets") -> float:
+    """The scalar oracle's placements ``ref_out`` against jplace rows (name
+    -> [(edge, likelihood)]), by ``rule``:
+
+    * "sets": score sets within 1e-4 for every read;
+    * "jplace_diff": the rule of ``tools/jplace_diff.py``: a read whose sets
+      differ matches when every edge of either lies within 1e-4 in
+      probability space (a 65,536 bp read's scores near -27,000 keep f32's
+      relative 1e-7; the int16 plane's quantization, docs/QUIRKS.md);
+    * "top_edge": the bf16 plane's rule (``tests/test_jax_engine.py``): the
+      best edge the same for at least 28 of 30 reads, its score within 2e-2.
+
+    Returns the largest difference of the score sets that matched
+    ("top_edge": the share of reads whose best edge agrees)."""
+    worst, agree, n = 0.0, 0, 0
     for q in ref_out.placed_seqs:
-        want = sorted(p.score for p in q.placements)
+        want = {p.branch_id: p.score for p in q.placements}
         for name in ref_out.sequence_map[q.sequence]:
-            got = sorted(ll for _, ll in rows_by_name[name])
-            if len(got) != len(want):
-                raise AssertionError(f"{what} {name}: {len(got)} placements, "
-                                     f"oracle {len(want)}")
-            d = max((abs(a - b) for a, b in zip(got, want)), default=0.0)
-            if d > 1e-4:
-                raise AssertionError(f"{what} {name}: score sets differ by {d} > 1e-4")
-            worst = max(worst, d)
+            got = dict(rows_by_name[name])
+            if rule == "top_edge":
+                if want and got:
+                    n += 1
+                    best_w, best_g = max(want, key=want.get), max(got, key=got.get)
+                    agree += best_w == best_g
+                    if abs(want[best_w] - got[best_g]) > max(2e-2, 2e-2 * abs(want[best_w])):
+                        raise AssertionError(f"{what} {name}: best scores {want[best_w]} "
+                                             f"vs {got[best_g]}")
+                continue
+            sa, sb = sorted(want.values()), sorted(got.values())
+            d = max((abs(a - b) for a, b in zip(sa, sb)), default=0.0)
+            if len(sa) == len(sb) and d <= 1e-4:
+                worst = max(worst, d)
+                continue
+            if rule == "sets" or set(want) != set(got) or any(
+                    abs(10.0 ** want[e] - 10.0 ** got[e]) > 1e-4 for e in want):
+                raise AssertionError(f"{what} {name}: {len(sb)} placements, oracle "
+                                     f"{len(sa)}; score sets differ by {d} > 1e-4")
+    if rule == "top_edge":
+        if agree * 30 < 28 * n:
+            raise AssertionError(f"{what}: the best edge agrees on {agree} of {n} reads")
+        return agree / max(n, 1)
     return worst
+
+
+def placed_rows(out) -> dict:
+    """A placed collection as jplace rows: name -> [(edge, likelihood)]."""
+    return {name: [(p.branch_id, p.score) for p in q.placements]
+            for q in out.placed_seqs for name in out.sequence_map[q.sequence]}
 
 
 @contextlib.contextmanager
@@ -807,6 +867,331 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     return [kernel], summary
 
 
+#: phase 9's D652 configs: name, CLI flags (None: the library, with these
+#: PlacerConfig fields), and the kernel its dense step ends in
+DENSE_CONFIGS = [
+    ("pair_off", ["--pair-plane", "off"], None, "rowgather_sum_topk"),
+    ("classic", ["--plane-mode", "classic"], None, "rowgather_sum_counts"),
+    ("int16", ["--precision", "int16"], None, "rowgather_sum_topk_int16"),
+    ("bf16", ["--precision", "bf16"], None, "rowgather_sum_counts_bf16"),
+    ("lookup_device", None, {"lookup_where": "device"}, "rowgather_sum_counts"),
+    ("tokenize_host", None, {"tokenize_where": "host"}, "rowgather_sum_topk"),
+]
+
+
+def check_dense_kernel(torch, np, name: str, call, what: str):
+    """The dense kernel ``name`` against its plain version on a recorded call
+    of a path: bit-equal (the fused finish: check_finish), two launches
+    alike; CUDA-event times of both and, for the sums with counts, of one
+    ``embedding_bag`` (the sums alone). Returns (err, ms, plain_ms, io,
+    library_ms, shape)."""
+    from epik_tpu_torch.kernels import KERNELS
+    from epik_tpu_torch.kernels.rowgather import (
+        rowgather_sum_counts_plain,
+        rowgather_sum_topk_plain,
+    )
+
+    fn = KERNELS[name]
+    args, kw = call
+    plane, rows = args[0], args[1]
+    bw = plane.shape[1]
+    cell = plane.element_size()
+    n_distinct = int(torch.unique(rows).numel())
+    if name.startswith("rowgather_sum_topk"):
+        m, amb_read, delta = args[2:5]
+        K, B = kw["K"], kw["B"]
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        want = rowgather_sum_topk_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} ({what}): two launches differ")
+        err = check_finish(np, got.cpu().numpy(), want.cpu().numpy(), K, B, f"{name} ({what})")
+        ms = cuda_ms(torch, lambda: fn(*args, **kw))
+        plain_ms = cuda_ms(torch, lambda: rowgather_sum_topk_plain(*args, **kw), reps=3,
+                           warmup=1)
+        amb = nbytes(amb_read, delta) if amb_read is not None else 0
+        io = (n_distinct * bw * cell + nbytes(rows, m) + amb + rows.shape[0] * (2 * K + 3) * 4,
+              rows.numel() * bw + FINISH_OPS * rows.shape[0] * B)
+        return err, ms, plain_ms, io, None, tuple(rows.shape)
+    (S, C), (S2, C2) = fn(plane, rows), fn(plane, rows)
+    S_p, C_p = rowgather_sum_counts_plain(plane, rows)
+    torch.cuda.synchronize()
+    if not (torch.equal(S.view(torch.int32), S_p.view(torch.int32)) and torch.equal(C, C_p)):
+        raise AssertionError(f"{name} ({what}): not bit-equal to the plain version")
+    if not (torch.equal(S.view(torch.int32), S2.view(torch.int32)) and torch.equal(C, C2)):
+        raise AssertionError(f"{name} ({what}): two launches differ")
+    err = float((S - S_p).abs().max())
+    ms = cuda_ms(torch, lambda: fn(plane, rows))
+    plain_ms = cuda_ms(torch, lambda: rowgather_sum_counts_plain(plane, rows), reps=3,
+                       warmup=1)
+    rows_long = rows.long()
+    lib_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane,
+                                                                      mode="sum"))
+    # the distinct rows read once, the row ids, S and C written once; an add
+    # and a compare per gathered cell
+    io = (n_distinct * bw * cell + nbytes(rows, S, C), 2 * rows.numel() * bw)
+    return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
+
+
+def run_cli(torch, argv):
+    """``python -m epik_tpu_torch`` in process: (rc, its output, seconds)."""
+    from epik_tpu_torch.cli.main import main as cli_main
+
+    stdout = io.StringIO()
+    t0 = time.monotonic()
+    with contextlib.redirect_stdout(stdout):
+        rc = cli_main(argv)
+    torch.cuda.synchronize()
+    return rc, stdout.getvalue(), time.monotonic() - t0
+
+
+def placement_ms(cli_out: str) -> int:
+    return int(cli_out.split("Placement time:")[1].split("(")[1].split(" ms")[0])
+
+
+def wide_tree_checks(torch, np, card: str, dev) -> dict:
+    """The kernels at the widths of the big trees, against their plain
+    versions: the fused kernel at B = 30,000 (inside its limit); at B =
+    40,000, past it, the wrapper refusing and the dense step running
+    rowgather_sum + finish_topk (the launches counted); finish_topk at B =
+    70,000, its ids in the global workspace. Returns each kernel's largest
+    difference."""
+    from epik_tpu_torch.engine.step import _shifted_finish
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
+    from epik_tpu_torch.kernels.rowgather import (
+        rowgather_sum_topk,
+        rowgather_sum_topk_plain,
+        topk_fits,
+        topk_smem,
+    )
+    from epik_tpu_torch.ops.dense import amb_deltas
+    from torch_fixtures import finish_rows
+
+    rng = np.random.default_rng(30)
+    kw = dict(K=7, k=10, log_eps=-4.2597)
+    errs = {}
+    for B, n_rows, R, W in ((30000, 300, 256, 72), (40000, 200, 128, 72)):
+        bw = -(-B // 128) * 128
+        plane = rng.uniform(0.0, 8.0, (n_rows, bw)).astype(np.float32)
+        plane[rng.random(plane.shape) > 0.3] = 0.0
+        plane[:, B:] = 0.0
+        plane[-1] = 0.0
+        rows = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+        rows[0] = n_rows - 1
+        arows = np.full((R, 2), n_rows - 1, np.int32)
+        arows[1::5, 0] = rng.integers(0, n_rows - 1, len(range(1, R, 5)))
+        m = rng.integers(W, W + 40, R).astype(np.float32)
+        plane, rows, arows, m = (torch.from_numpy(x).to(dev) for x in (plane, rows, arows, m))
+        amb_read, delta = amb_deltas(plane, arows, zero_row=n_rows - 1, B=B, k=10, eps=5.5e-5,
+                                     log_eps=-4.2597)
+        want = rowgather_sum_topk_plain(plane, rows, m, amb_read, delta, B=B, **kw)
+        need, limit = topk_smem(plane, B, 7)
+        reset_launch_counts()
+        if topk_fits(plane, B, 7):
+            got = rowgather_sum_topk(plane, rows, m, amb_read, delta, B=B, **kw)
+            name = "rowgather_sum_topk"
+        else:
+            try:
+                rowgather_sum_topk(plane, rows, m, amb_read, delta, B=B, **kw)
+            except ValueError:
+                pass
+            else:
+                raise AssertionError(f"rowgather_sum_topk launched at B={B}, past its limit")
+            got = _shifted_finish(plane, rows, m, arows, B=B, Amax=2, zero_row=n_rows - 1,
+                                  eps=5.5e-5, **kw)
+            name = "rowgather_sum"
+        counts = launch_counts()
+        torch.cuda.synchronize()
+        expect = ({"rowgather_sum_topk": 1} if name == "rowgather_sum_topk"
+                  else {"rowgather_sum": 1, "finish_topk": 1})
+        if {n: c for n, c in counts.items() if c} != expect:
+            raise AssertionError(f"B={B}: launches {counts}, expected {expect}")
+        e = check_finish(np, got.cpu().numpy(), want.cpu().numpy(), 7, B,
+                         f"B={B} ({'fused' if name == 'rowgather_sum_topk' else 'apart'})")
+        errs[name] = max(errs.get(name, 0.0), e)
+        log(f"wide tree B={B}, bw={bw}: the fused kernel asks {need} B of shared memory of "
+            f"{limit} [{card}]; {'fused' if need <= limit else 'rowgather_sum + finish_topk'} "
+            f"bit-equal to the fused plain version but log_sum; launches "
+            f"{ {n: c for n, c in counts.items() if c} }")
+    Sp, m = finish_rows(rng, 300, 70000, density=0.05)
+    Sp, m = torch.from_numpy(Sp).to(dev), torch.from_numpy(m).to(dev)
+    got, again = finish_topk(Sp, m, **kw), finish_topk(Sp, m, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError("finish_topk at B=70,000: two launches differ")
+    got = got.cpu().numpy()
+    errs["finish_topk"] = check_finish(np, got, finish_topk_plain(Sp, m, **kw).cpu().numpy(),
+                                       7, 70000, "finish_topk at B=70,000")
+    if not np.array_equal(got[2, 7:14], np.arange(10, 17)):
+        raise AssertionError("finish_topk at B=70,000: ties did not go to the lowest index")
+    ms = cuda_ms(torch, lambda: finish_topk(Sp, m, **kw), reps=5)
+    log(f"finish_topk (300, 70000) K=7, ids in the global workspace: bit-equal but log_sum, "
+        f"two launches alike, ties to the lowest index; {ms:.4f} ms [{card}]")
+    return errs
+
+
+def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, dict, dict]:
+    """Phase 9 (see the module docstring). Returns the kernel entries of the
+    new variants, the phase's summary numbers and each older kernel's largest
+    difference at the wide-tree widths."""
+    from epik_tpu_torch.cli.main import _open_reader
+    from epik_tpu_torch.core.tree import parse_newick, to_newick
+    from epik_tpu_torch.engine import placer as placer_mod
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.pipeline import run_pipeline
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.engine.reference import ReferencePlacer
+    from epik_tpu_torch.io.db import load, save
+    from epik_tpu_torch.io.jplace import jplace_writer
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    summary = {}
+    # ---- 9a. config 4 through the CLI, no flags: the unpaired dense route -------------
+    c4_path = os.path.join(fx["work"], "config4.eptk")
+    t0 = time.monotonic()
+    save(fx["db"], c4_path)
+    c4 = load(c4_path, mu=1.0, user_omega=1.5)
+    summary["config4_save_load_s"] = time.monotonic() - t0
+    same_db = all(np.array_equal(getattr(c4, a), getattr(fx["db"], a))
+                  for a in ("keys", "row_off", "branches", "scores")) and c4.omega == fx["db"].omega
+    oracle_c4 = fx["oracle_out"] if same_db else ReferencePlacer(
+        c4, parse_newick(c4.tree())).place(fx["parity_records"])
+    out_dir = os.path.join(fx["work"], "dense_cli")
+    os.makedirs(out_dir)
+    argv = ["place", "-i", c4_path, "-o", out_dir, "--batch-size", str(BT_BATCH), fx["fasta"]]
+    step_calls, fused_calls = [], []
+    reset_launch_counts()
+    with recording(placer_mod, "place_batch_dense_bytes", step_calls), \
+            recording(step_mod, "rowgather_sum_topk", fused_calls):
+        rc, cli_out, cli_s = run_cli(torch, argv)
+    counts = launch_counts()
+    log("cli: python -m epik_tpu_torch " + " ".join(argv))
+    for line in cli_out.splitlines():
+        log("  | " + line)
+    if rc != 0 or "(1 device(s), dense)" not in cli_out:
+        raise AssertionError(f"config 4 CLI: rc {rc}, not on the dense route")
+    if counts["rowgather_sum_topk"] <= 0 or counts["rowgather_sum"] or counts["finish_topk"]:
+        raise AssertionError(f"config 4 CLI: launches {counts}")
+    rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
+    if set(rows_by_name) != {name for name, _ in fx["records"]}:
+        raise AssertionError("config 4 CLI: jplace names differ")
+    worst = check_parity(oracle_c4, rows_by_name, "config 4 dense")
+    pl_ms = placement_ms(cli_out)
+    n_reads = len(fx["records"])
+    summary.update(config4_cli_s=cli_s, config4_dense_pipeline_reads_per_s=n_reads / pl_ms * 1e3,
+                   config4_fused_launches=counts["rowgather_sum_topk"])
+    (plane, direct, buf, arows), kw_s = step_calls[0][0][:4], step_calls[0][1]
+    log(f"config 4 dense (unpaired shifted plane {tuple(plane.shape)} f32 = "
+        f"{plane.numel() * 4} bytes, {len(step_calls)} steps): {n_reads} reads, pipeline "
+        f"{pl_ms} ms = {n_reads / pl_ms * 1e3:.0f} reads/s, whole CLI {cli_s:.1f} s [{card}]; "
+        f"launches {counts}; parity on {len(fx['parity_records'])} reads (IUPAC, short, "
+        f"400 bp): largest score difference {worst:.3g}")
+    err_c4, ms_c4, plain_c4, io_c4, _, shape_c4 = check_dense_kernel(
+        torch, np, "rowgather_sum_topk", fused_calls[0], "config 4, first batch")
+    summary.update(config4_fused_ms=ms_c4, config4_fused_plain_ms=plain_c4,
+                   config4_fused_bound_ms=bound(*io_c4)[0])
+    step_ms = cuda_ms(torch, lambda: step_mod.place_batch_dense_bytes(
+        plane, direct, buf, arows, **kw_s), reps=5)
+    summary["config4_dense_step_ms"] = step_ms
+    log(f"rowgather_sum_topk {shape_c4} bw={plane.shape[1]} B={kw_s['B']} (config 4, unpaired): "
+        f"bit-equal but log_sum, two launches alike; kernel {ms_c4:.4f} ms, plain "
+        f"{plain_c4:.4f} ms, bound {bound(*io_c4)[0]:.4f} ms ({io_c4[0]} bytes); device step "
+        f"(tokenize + amb delta rows + fused kernel) at R={buf.shape[0]}: {step_ms:.4f} ms "
+        f"[{card}]")
+    del plane, direct, buf, arows, step_calls, fused_calls
+    torch.cuda.empty_cache()
+
+    # ---- 9b. D652 under the six configs ---------------------------------------------------
+    db = d652["db"]
+    tree = parse_newick(db.tree())
+    newick = to_newick(tree, jplace_edges=True)
+    oracle_out = d652["oracle_out"]
+    kernels, seen = [], set()
+    for name, flags, fields, kernel in DENSE_CONFIGS:
+        calls = []
+        out_dir = os.path.join(d652["work"], f"out_{name}")
+        os.makedirs(out_dir)
+        jplace = os.path.join(out_dir, "placements_q.fasta.jplace")
+        reset_launch_counts()
+        with recording(step_mod, kernel, calls):
+            if flags is not None:
+                argv = ["place", "-i", d652["db_path"], "-o", out_dir, "--batch-size",
+                        str(BATCH), *flags, d652["fasta"]]
+                rc, cli_out, wall = run_cli(torch, argv)
+                if rc != 0 or "(1 device(s), dense)" not in cli_out:
+                    raise AssertionError(f"D652 {name}: rc {rc}\n{cli_out}")
+                rate = len(d652["records"]) / placement_ms(cli_out) * 1e3
+                how = "CLI " + " ".join(flags)
+            else:
+                placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
+                writer = jplace_writer(jplace, "chip_smoke.py", newick, resume=False)
+                writer.start()
+                stats = run_pipeline(placer, _open_reader(d652["fasta"], BATCH), writer,
+                                     inflight=3)
+                torch.cuda.synchronize()
+                writer.end()
+                rate = stats.num_seq_placed / stats.wall_seconds
+                how = f"run_pipeline, PlacerConfig({fields})"
+                del placer
+        counts = launch_counts()
+        if counts[kernel] <= 0 or counts["rowgather_sum"] or counts["finish_topk"]:
+            raise AssertionError(f"D652 {name}: launches {counts}")
+        rows_by_name = parse_jplace(jplace)
+        if set(rows_by_name) != {n for n, _ in d652["records"]}:
+            raise AssertionError(f"D652 {name}: jplace names differ")
+        rule = {"int16": "jplace_diff", "bf16": "top_edge"}.get(name, "sets")
+        worst = check_parity(oracle_out, rows_by_name, f"D652 {name}", rule)
+        err, ms, plain_ms, io_k, lib_ms, shape = check_dense_kernel(
+            torch, np, kernel, calls[0], f"D652 {name}")
+        del calls
+        torch.cuda.empty_cache()
+        summary[f"d652_{name}_reads_per_s"] = rate
+        summary[f"d652_{name}_kernel_ms"] = ms
+        log(f"D652 {name} ({how}): {rate:.0f} reads/s through the pipeline [{card}]; "
+            f"launches { {n: c for n, c in counts.items() if c} }; parity on "
+            f"{PARITY_READS} reads by {rule}: "
+            f"{'best edge agrees on a share of ' if rule == 'top_edge' else 'largest score difference '}"
+            f"{worst:.4g}; {kernel} {shape}: bit-equal to its plain version"
+            f"{' but log_sum' if 'topk' in kernel else ''}, two launches alike; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"{'embedding_bag (sums only) ' + format(lib_ms, '.4f') + ' ms, ' if lib_ms else ''}"
+            f"bound {bound(*io_k)[0]:.4f} ms")
+        if kernel not in seen and kernel != "rowgather_sum_topk":
+            seen.add(kernel)
+            kernels.append(entry(kernel, counts[kernel], err, ms, plain_ms, *io_k, lib_ms))
+
+    # ---- 9c. a batch of short reads and a read of 65,536 bp (the host tokenizer) ----------
+    placer = TorchPlacer(db, tree, device=dev)
+    seq0 = d652["records"][10][1]
+    short = [("short_3", b"ACG"), ("empty", b""), ("short_9", seq0[:9])]
+    long = [("long_65536", (seq0 * 500)[:65536]), ("r1", d652["records"][11][1])]
+    t0 = time.monotonic()
+    oracle = ReferencePlacer(db, tree).place(short + long)
+    summary["oracle_long_s"] = time.monotonic() - t0
+    reset_launch_counts()
+    got_s, got_l = placer.place(short), placer.place(long)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    if counts["rowgather_sum_topk"] != 2:
+        raise AssertionError(f"short/long batches: launches {counts}")
+
+    worst = check_parity(oracle, {**placed_rows(got_s), **placed_rows(got_l)},
+                         "short reads and a 65,536 bp read", "jplace_diff")
+    log(f"a batch of 3 reads shorter than k and a batch with a 65,536 bp read: the host "
+        f"tokenizer and the fused kernel (launches {counts['rowgather_sum_topk']}); jplace_diff "
+        f"rule against the oracle, largest matched score difference {worst:.3g} (oracle "
+        f"{summary['oracle_long_s']:.1f} s)")
+    del placer
+    torch.cuda.empty_cache()
+
+    # ---- 9d. the kernels at the widths of bigger trees -----------------------------------------
+    errs = wide_tree_checks(torch, np, card, dev)
+    return kernels, summary, errs
+
+
 def main() -> int:
     import torch
 
@@ -1061,19 +1446,25 @@ def main() -> int:
     # ---- 6. parity with the scalar oracle --------------------------------------------
     t0 = time.monotonic()
     db_loaded = load(db_path, mu=1.0, user_omega=1.5)
-    oracle = ReferencePlacer(db_loaded, parse_newick(db_loaded.tree()))
-    worst = check_parity(oracle.place(records[:PARITY_READS]), rows_by_name, "D652")
+    oracle_d652 = ReferencePlacer(db_loaded, parse_newick(db_loaded.tree())).place(
+        records[:PARITY_READS])
+    worst = check_parity(oracle_d652, rows_by_name, "D652")
     log(f"parity: {PARITY_READS} reads (IUPAC, short, no-hit included) match the "
         f"scalar oracle; largest score difference {worst:.3g} "
         f"({time.monotonic() - t0:.1f} s)")
-    shutil.rmtree(work, ignore_errors=True)
 
     # ---- 7. the big-tree posting-tile path and its CSR fallback -----------------------
     bt_kernels, bt, fx = bigtree_phase(torch, np, card, dev, finish_err=err2)
 
     # ---- 8. the column-sharded big-tree path ---------------------------------------------
     sh_kernels, sh = sharded_phase(torch, np, card, dev, fx)
+
+    # ---- 9. the rest of the dense engine ---------------------------------------------------
+    d652 = {"db": db_loaded, "db_path": db_path, "fasta": fasta, "records": records,
+            "oracle_out": oracle_d652, "work": work}
+    dn_kernels, dn, extra_err = dense_phase(torch, np, card, dev, fx, d652)
     shutil.rmtree(fx["work"], ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
                 if m in ("jax", "epik_tpu") or m.startswith(("jax.", "epik_tpu."))]
     if imported:
@@ -1087,12 +1478,16 @@ def main() -> int:
               *io1f, None),
         *bt_kernels,
         *sh_kernels,
+        *dn_kernels,
     ]
+    for e in kernels:  # the wide-tree checks of phase 9
+        e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0))
     log(f"summary: plane_bytes={plane_bytes} step_ms={step_ms} "
         f"rowgather_sum_ms={ms1} finish_topk_d652_ms={ms2_d652} rowgather_sum_topk_ms={ms1f} "
         f"place_reads_per_s={place_rate} cli_reads_per_s={len(records) / cli_s}")
     log("summary big tree: " + " ".join(f"{k}={v}" for k, v in bt.items()))
     log("summary sharded: " + " ".join(f"{k}={v}" for k, v in sh.items()))
+    log("summary dense engine: " + " ".join(f"{k}={v}" for k, v in dn.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -241,12 +241,15 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--verbose", action="store_true",
                    help="Print the pipeline stage-time breakdown.")
     p.add_argument("--precision", choices=["exact", "int16", "bf16"], default="exact",
-                   help="Dense-plane storage (only exact is ported). [default: exact]")
+                   help="Dense-plane storage: exact f32, int16 (quantized shifted plane, "
+                        "exact int32 sums) or bf16 (classic plane, outside the 1e-4 "
+                        "gate). [default: exact]")
     p.add_argument("--plane-mode", choices=["shifted", "classic"], default="shifted",
-                   help="Dense scoring formulation (only shifted is ported). "
-                        "[default: shifted]")
+                   help="Dense scoring formulation: shifted (one sum per window) or "
+                        "classic (sums and counts). [default: shifted]")
     p.add_argument("--pair-plane", choices=["auto", "on", "off"], default="auto",
-                   help="(k+1)-mer pair plane (off is not ported). [default: auto]")
+                   help="(k+1)-mer pair plane: auto (when it fits), on (or fail), off. "
+                        "[default: auto]")
     p.add_argument("--tile-payload", choices=["auto", "packed", "f32"], default="auto",
                    help="Posting-tile cell layout (the big-tree path): packed int32 "
                         "(branch<<16 | quantized score; half the gather bytes) or "

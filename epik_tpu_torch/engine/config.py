@@ -1,11 +1,12 @@
 """Placer configuration: the fields of ``epik_tpu.engine.placer.PlacerConfig``.
 
-The port runs three routes (``TorchPlacer``): the dense pair-plane step, the
-big-tree posting-tile step and the CSR step. A value that would select a path
-not ported yet raises ``NotImplementedError`` naming the ROADMAP.md queue item
-that ports it. ``accumulate`` "auto" and "matmul" both mean the kernel-backed
-engines on any device; as in the JAX package, only "auto" lets the dense
-plane take over.
+The port runs three routes (``TorchPlacer``): the dense steps (pair plane,
+unpaired, host rows, device lookup; shifted f32 or int16, classic f32 or
+bf16), the big-tree posting-tile step and the CSR step. A value that would
+select a path not ported yet raises ``NotImplementedError`` naming the
+ROADMAP.md queue item that ports it. ``accumulate`` "auto" and "matmul" both
+mean the kernel-backed engines on any device; as in the JAX package, only
+"auto" lets the dense plane take over.
 
 The memory budgets differ from the JAX package's: its defaults were sizes for
 a 16 GiB TPU v5e. Here ``None`` (the default) means "what the device has
@@ -36,12 +37,6 @@ _CHOICES = {
 #: option value -> the ROADMAP queue item that will port its path
 _NOT_YET = {
     ("accumulate", "scatter"): "queue 1 item 7 (the XLA scatter-add CSR engine)",
-    ("precision", "int16"): "queue 1 item 5 (int16 plane)",
-    ("precision", "bf16"): "queue 1 item 5 (bf16 plane)",
-    ("lookup_where", "device"): "queue 1 item 5 (device-lookup dense variant)",
-    ("tokenize_where", "host"): "queue 1 item 5 (_place_batch_dense_rows)",
-    ("plane_mode", "classic"): "queue 1 item 5 (classic plane)",
-    ("pair_plane", "off"): "queue 1 item 5 (_place_batch_dense_bytes)",
 }
 
 
@@ -64,7 +59,8 @@ class PlacerConfig:
     lookup_where: str = "auto"
     tokenize_where: str = "auto"
     plane_mode: str = "shifted"
-    #: "auto" and "on" both build the pair plane; it must fit the budget
+    #: the (k+1)-mer pair plane: "auto" builds it when it fits its budget
+    #: (else the unpaired plane), "on" raises when it does not, "off" never
     pair_plane: str = "auto"
     #: bytes the combined (base + pair) plane may take; None = device free
     pair_plane_budget: int | None = None

@@ -1,12 +1,23 @@
 """``TorchPlacer``: the placement engine of the port on PyTorch.
 
 Ports ``epik_tpu.engine.placer.JaxPlacer`` for DNA databases along three
-routes, chosen at construction by the JAX package's rules (placer.py:1796-1874)
+routes, chosen at construction by the JAX package's rules (placer.py:1796-2026)
 with the port's memory budgets:
 
-* ``dense`` -- the default dense pair-plane path, for a database whose dense
-  plane fits the budget (``dense_db="auto"`` with ``accumulate="auto"``, or
-  ``dense_db="on"``);
+* ``dense`` -- for a database whose dense plane fits the budget
+  (``dense_db="auto"`` with ``accumulate="auto"``, or ``dense_db="on"``).
+  JAX's flags pick the plane and the step: the shifted plane (f32, or int16
+  with ``precision="int16"``) when the rows are resolved on the host
+  (``lookup_where``) and every stored score is >= log10(eps), else the
+  classic plane (f32, or bf16 with ``precision="bf16"``); the device
+  tokenizer (``tokenize_where``, k <= 13) over the pair plane when it is
+  shifted f32, k <= 12 and it fits its budget
+  (``place_batch_dense_paired``), else over the direct key -> row table
+  (``place_batch_dense_bytes``). A batch the device tokenizer cannot take
+  (every read shorter than k, a read over 65,535 bp), and every batch
+  without it, is tokenized on the host: plane rows found on the host
+  (``place_batch_dense_rows``) or, with ``lookup_where="device"``, keys looked
+  up in the cuckoo table on the device (``place_batch_device_densedb``);
 * ``tiles`` -- the big-tree posting-tile path, when the dense plane is not
   taken and the tiles fit: every clean batch runs the tile step (packed or
   f32 payload); a batch holding IUPAC reads splits, its ambiguous reads going
@@ -49,9 +60,17 @@ from .outputs import (
     unpack_outputs,
     unpack_outputs_slim,
 )
-from .staging import HostStaging, _bucket, _bucket_lmax, pad_i32, pad_u64_split
+from .staging import HostStaging, _bucket, _bucket_lmax, key_matrix, pad_i32, pad_u64_split
 from .state import CsrState, PlaneState, build_csr_state, build_plane_state, pair_tables
-from .step import place_batch_csr, place_batch_dense_paired, place_batch_tiles_bytes
+from .step import (
+    place_batch_csr,
+    place_batch_dense_bytes,
+    place_batch_dense_paired,
+    place_batch_dense_rows,
+    place_batch_device_densedb,
+    place_batch_tiles_bytes,
+)
+from .tables import direct_table
 from .tiles import Q_MAX, TileState, build_tile_state, tile_bytes
 from .types import PlacedCollection
 
@@ -63,8 +82,19 @@ _MAX_READ_LEN = 0xFFFF
 _MAX_PAIR_K = 12
 #: largest k with a direct key -> row table (4**13 int32 = 268 MB)
 _MAX_DIRECT_K = 13
+#: keys JAX's radix lookup (the generic-alphabet device tokenizer) takes
+_MAX_RADIX_KEY_BITS = 48
 #: longest posting list the tiles take (placer.py:1844)
 _MAX_TILE_PLEN = 128
+
+
+def _wrapped_m(m_signed: np.ndarray) -> np.ndarray:
+    """The correction term's window count as f32, size_t-wrapped (quirk Q1):
+    float32(2**64 - small) == float32(2**64), so the wrap collapses."""
+    return np.where(
+        m_signed >= 0, m_signed.astype(np.float32),
+        np.float32(float(1 << 64)) + m_signed.astype(np.float32),
+    ).astype(np.float32)
 
 
 def _resolve_device(device) -> torch.device:
@@ -120,9 +150,13 @@ class TorchPlacer(HostStaging):
         self._csr_cache: CsrState | None = None
         self.state: PlaneState | None = None
         self.tiles: TileState | None = None
+        # JAX's dense flags (placer.py:1807-1823, 1881-1890, 1973-1982), set
+        # by _route for the dense route
+        self._host_lookup = self._fast_bytes = self._shifted = self._plane_q = False
+        self._paired = False
         self.route = self._route(state)
 
-    # -- routing (placer.py:1796-1874) ---------------------------------------------
+    # -- routing (placer.py:1796-2026) ---------------------------------------------
 
     def _route(self, state) -> str:
         cfg = self.config
@@ -141,6 +175,9 @@ class TorchPlacer(HostStaging):
         base_bytes = (n_keys + 1) * plane_w * 4
         budget = device_budget(self.device)
         dense_budget = budget if cfg.dense_db_budget is None else cfg.dense_db_budget
+        # shifted-score validity: every stored score >= log10(eps) (the load
+        # contract, quirk Q10) -- hand-built fixtures can violate it
+        shift_ok = db.scores.size == 0 or float(db.scores.min()) >= float(self.log_eps)
         # an explicit accumulate choice pins the tiles/CSR engines; only
         # "auto" lets the dense plane take over
         if cfg.dense_db == "on" or (cfg.dense_db == "auto" and cfg.accumulate == "auto"
@@ -150,13 +187,12 @@ class TorchPlacer(HostStaging):
                     f"dense_db='on' but the dense plane needs {base_bytes} bytes "
                     f"({n_keys + 1} rows x {plane_w} f32), over the budget of "
                     f"{dense_budget} bytes on {self.device}")
-            self._check_dense_db()
+            self._dense_flags(shift_ok)
             self.state = state if state is not None else self._build_state(budget)
+            self._check_state()
             return "dense"
-        # shifted-score validity: every stored score >= log10(eps) (the load
-        # contract, quirk Q10) -- hand-built fixtures can violate it
-        shift_ok = db.scores.size == 0 or float(db.scores.min()) >= float(self.log_eps)
         if (shift_ok and self.k <= _MAX_DIRECT_K and n_keys > 0
+                and cfg.precision == "exact" and cfg.tokenize_where in ("auto", "device")
                 and self._max_plen <= _MAX_TILE_PLEN
                 and tile_bytes(n_keys, self._max_plen) <= dense_budget):
             if packed and cfg.pair_plane == "on" and self.k + 1 <= _MAX_DIRECT_K:
@@ -170,38 +206,70 @@ class TorchPlacer(HostStaging):
             return "tiles"
         return "csr"
 
-    def _check_dense_db(self) -> None:
-        db = self.db
-        if self.k > _MAX_PAIR_K:
+    def _dense_flags(self, shift_ok: bool) -> None:
+        """JAX's flags of the dense route, for DNA (placer.py:1807-1823,
+        1881-1890, 1949-1955): the host row lookup, the device tokenizer, the
+        shifted plane, the int16 plane. The pair plane's fit is decided when
+        it is built (:meth:`_build_state`)."""
+        cfg = self.config
+        self._host_lookup = cfg.lookup_where in ("auto", "host")
+        self._fast_bytes = (cfg.tokenize_where in ("auto", "device")
+                            and self.k <= _MAX_DIRECT_K)
+        # the device-cuckoo dense path stays classic; int16 is shifted-only
+        self._shifted = ((cfg.plane_mode == "shifted" or cfg.precision == "int16")
+                         and cfg.precision in ("exact", "int16")
+                         and self._host_lookup and shift_ok)
+        self._plane_q = self._shifted and cfg.precision == "int16"
+        if (self._shifted and not self._fast_bytes and cfg.tokenize_where != "host"
+                and self.db.num_kmers > 0 and 2 * self.k < _MAX_RADIX_KEY_BITS):
             raise NotImplementedError(
-                f"k={self.k} has no pair plane (k <= {_MAX_PAIR_K}); the unpaired "
-                "and host-lookup dense variants are ROADMAP.md queue 1 item 5")
-        if db.num_kmers == 0:
-            raise NotImplementedError(
-                "an empty database has no pair plane; the unpaired dense path "
-                "is ROADMAP.md queue 1 item 5")
-        # the shift cancels the count term only when every stored score is
-        # >= log10(eps) (the load contract, quirk Q10)
-        if db.scores.size and float(db.scores.min()) < float(self.log_eps):
-            raise NotImplementedError(
-                "scores below log10(eps) need the classic plane: ROADMAP.md "
-                "queue 1 item 5")
+                f"k={self.k} has no direct key -> row table (k <= {_MAX_DIRECT_K}): "
+                "JAX tokenizes such a database on the device through its radix "
+                "lookup (_place_batch_dense_codes), not ported yet: ROADMAP.md "
+                "queue 1 item 8")
 
     def _build_state(self, budget: int) -> PlaneState:
+        """The plane of the dense flags: the pair plane when JAX builds it
+        (placer.py:1973-2026) and it fits ``pair_plane_budget`` (or the
+        device's budget), else the unpaired plane with the direct table for
+        the device tokenizer."""
         cfg = self.config
-        pu, pv, combo = pair_tables(self.db, self.k)
-        n_pairs = int(pu.shape[0])
-        plane_w = -(-self.B // 128) * 128
-        paired_bytes = (self.db.num_kmers + 1 + n_pairs) * plane_w * 4 + combo.nbytes
-        pair_budget = budget if cfg.pair_plane_budget is None else cfg.pair_plane_budget
-        if n_pairs == 0 or paired_bytes > pair_budget:
-            raise NotImplementedError(
-                f"the pair plane ({n_pairs} pair rows, {paired_bytes} bytes with "
-                f"the combo table) does not fit the budget of {pair_budget} bytes "
-                f"on {self.device}; the unpaired dense path is ROADMAP.md queue 1 "
-                "item 5")
-        return build_plane_state(self.db, k=self.k, B=self.B, log_eps=self.log_eps,
-                                 pu=pu, pv=pv, combo=combo, device=self.device)
+        kw = dict(k=self.k, B=self.B, log_eps=self.log_eps, shifted=self._shifted,
+                  precision=cfg.precision, device=self.device)
+        if (self._fast_bytes and self._shifted and not self._plane_q
+                and cfg.pair_plane in ("auto", "on") and self.k <= _MAX_PAIR_K
+                and self.db.num_kmers > 0):
+            pu, pv, combo = pair_tables(self.db, self.k)
+            n_pairs = int(pu.shape[0])
+            plane_w = -(-self.B // 128) * 128
+            paired_bytes = (self.db.num_kmers + 1 + n_pairs) * plane_w * 4 + combo.nbytes
+            pair_budget = budget if cfg.pair_plane_budget is None else cfg.pair_plane_budget
+            if cfg.pair_plane == "on" and paired_bytes > pair_budget:
+                raise ValueError(
+                    f"pair_plane='on' but the pair plane ({n_pairs} pair rows) needs "
+                    f"{paired_bytes} bytes with the combo table, over the budget of "
+                    f"{pair_budget} bytes on {self.device}; use pair_plane='auto'")
+            if n_pairs > 0 and paired_bytes <= pair_budget:
+                self._paired = True
+                return build_plane_state(self.db, pairs=(pu, pv, combo), **kw)
+        direct = (direct_table(self.db.keys, self.k, self.db.num_kmers)
+                  if self._fast_bytes else None)
+        return build_plane_state(self.db, direct=direct, **kw)
+
+    def _check_state(self) -> None:
+        """A state handed in must be the plane the flags choose."""
+        st = self.state
+        want = (torch.int16 if self._plane_q else torch.bfloat16
+                if self.config.precision == "bf16" else torch.float32)
+        self._paired = st.combo is not None
+        if (st.plane.dtype != want or (self._paired and not (self._fast_bytes
+                                                              and self._shifted))
+                or (self._fast_bytes and not self._paired and st.direct is None)):
+            raise ValueError(
+                f"the dense state ({st.plane.dtype} plane, "
+                f"{'pair' if self._paired else 'unpaired'}) is not the plane of this "
+                f"config ({want}, shifted={self._shifted}, device tokenizer="
+                f"{self._fast_bytes})")
 
     @property
     def csr(self) -> CsrState:
@@ -230,7 +298,11 @@ class TorchPlacer(HostStaging):
         if not seqs:
             return _Pending(sequence_map, [], None, None, self._K())
         if self.route == "dense":
-            return self._place_async_dense(sequence_map, seqs)
+            if self._fast_bytes:
+                pending = self._place_async_dense(sequence_map, seqs)
+                if pending is not None:
+                    return pending
+            return self._place_async_dense_host(sequence_map, seqs)
         if self.route == "tiles":
             pending = self._place_async_tiles(sequence_map, seqs)
             if pending is not None:
@@ -240,38 +312,41 @@ class TorchPlacer(HostStaging):
     def _K(self) -> int:
         return min(self.config.keep_at_most, self.B)
 
-    def _place_async_dense(self, sequence_map, seqs) -> _Pending:
-        buf, arows, Amax, Lmax, m_signed = self._stage_bytes(seqs)
+    def _place_async_dense(self, sequence_map, seqs) -> _Pending | None:
+        """The device-tokenizer dense step (JAX ``_place_async_bytes``,
+        placer.py:2447-2476, 2575-2612): the pair plane, or the unpaired
+        plane through the direct table. None for a batch the device tokenizer
+        cannot take; the caller tokenizes it on the host."""
+        staged = self._stage_bytes(seqs)
+        if staged is None:
+            return None
+        buf, arows, Amax, Lmax, m_signed = staged
         dev = self.device
-        K = self._K()
-        out = place_batch_dense_paired(
-            self.state.plane, self.state.combo,
-            torch.from_numpy(buf).to(dev), torch.from_numpy(arows).to(dev),
-            B=self.B, K=K, Amax=Amax, k=self.k, Lmax=Lmax,
-            num_kmers=self.state.n_keys,
-            log_eps=float(self.log_eps), eps=float(self.eps),
-        )
-        return _Pending(sequence_map, seqs, m_signed, out, K)
+        st = self.state
+        buf_t, arows_t = torch.from_numpy(buf).to(dev), torch.from_numpy(arows).to(dev)
+        kw = dict(B=self.B, K=self._K(), Amax=Amax, k=self.k, Lmax=Lmax,
+                  num_kmers=st.n_keys, log_eps=float(self.log_eps), eps=float(self.eps))
+        if self._paired:
+            out = place_batch_dense_paired(st.plane, st.combo, buf_t, arows_t, **kw)
+        else:
+            out = place_batch_dense_bytes(st.plane, st.direct, buf_t, arows_t,
+                                          shifted=self._shifted, plane_scale=st.scale, **kw)
+        return _Pending(sequence_map, seqs, m_signed, out, self._K())
 
     def _stage_bytes(self, seqs):
-        """Host staging of the paired branch (JAX placer.py:2478-2600): one
-        packed uint8 buffer, plus the host-tokenized ambiguity rows of the
-        reads that hold IUPAC characters (quirks Q6/Q7).
+        """Host staging of the device-tokenizer dense steps (JAX
+        placer.py:2478-2612): one packed uint8 buffer, plus the host-tokenized
+        ambiguity rows of the reads that hold IUPAC characters (quirks Q6/Q7).
 
-        Returns (buf, arows, Amax, Lmax, m_signed). Unlike the JAX version,
-        R is not padded to a bucket: eager PyTorch has no compile cache."""
+        Returns (buf, arows, Amax, Lmax, m_signed), or None where JAX returns
+        None (every read shorter than k, or a read longer than the packed
+        format's uint16 length). Unlike the JAX version, R is not padded to a
+        bucket: eager PyTorch has no compile cache."""
         R = len(seqs)
         lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R)
         Lmax_true = int(lens_arr.max())
-        if Lmax_true < self.k:
-            raise NotImplementedError(
-                f"every read in the batch is shorter than k={self.k}: the classic "
-                "host-tokenize path for such batches is ROADMAP.md queue 1 item 5")
-        if Lmax_true > _MAX_READ_LEN:
-            raise NotImplementedError(
-                f"a read of {Lmax_true} bp exceeds the packed format's "
-                f"{_MAX_READ_LEN} bp: the classic host-tokenize path is "
-                "ROADMAP.md queue 1 item 5")
+        if Lmax_true < self.k or Lmax_true > _MAX_READ_LEN:
+            return None
         Lmax = _bucket_lmax(Lmax_true)
         m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R)
@@ -287,6 +362,47 @@ class TorchPlacer(HostStaging):
             Amax = 0
             arows = np.zeros((R, 0), np.int32)
         return buf, arows, Amax, Lmax, m_signed
+
+    def _place_async_dense_host(self, sequence_map, seqs) -> _Pending:
+        """The dense branch of JAX ``_place_async_classic`` (placer.py:2369-2420):
+        the host tokenizer, then the window and ambiguous keys of each read in
+        processing order, as plane rows found on the host
+        (``place_batch_dense_rows``) or, with ``lookup_where="device"``, as
+        keys the device looks up (``place_batch_device_densedb``). A read
+        shorter than k keeps no window and takes the Q1-wrapped m."""
+        R = len(seqs)
+        tokens = self._tokenize(seqs)
+        m_signed = tokens.seq_lengths - self.k + 1  # int64, may be negative
+        m_f32 = torch.from_numpy(_wrapped_m(m_signed)).to(self.device)
+        wpr = int(np.bincount(tokens.exact_read, minlength=R).max()) if tokens.exact_read.size else 1
+        apr = int(np.bincount(tokens.amb_read, minlength=R).max()) if tokens.amb_read.size else 1
+        # JAX pads the window columns to a multiple of 16 (its jit cache);
+        # extra zero-row slots add nothing to a sum
+        Wmax = max(1, wpr)
+        st = self.state
+        kw = dict(B=self.B, K=self._K(), k=self.k, log_eps=float(self.log_eps),
+                  eps=float(self.eps))
+
+        def dev(a: np.ndarray) -> torch.Tensor:
+            return torch.from_numpy(a).to(self.device)
+
+        if self._host_lookup:
+            Amax = _bucket(apr, 8) if tokens.amb_keys.size else 0
+            rows = self._rows_matrix(tokens.exact_keys, tokens.exact_read, R, Wmax)
+            arows = self._rows_matrix(tokens.amb_keys, tokens.amb_read, R, Amax)
+            out = place_batch_dense_rows(st.plane, dev(rows), dev(arows), m_f32, Amax=Amax,
+                                         zero_row=st.n_keys, shifted=self._shifted,
+                                         plane_scale=st.scale, **kw)
+        else:
+            Amax = _bucket(apr, 8)
+            e_hi, e_lo = key_matrix(tokens.exact_keys, tokens.exact_read, R, Wmax)
+            a_hi, a_lo = key_matrix(tokens.amb_keys, tokens.amb_read, R, Amax)
+            cs = self.csr
+            out = place_batch_device_densedb(
+                cs.table, cs.seed1, cs.seed2, st.plane, *(dev(a.astype(np.int64)) for a in
+                                                         (e_hi, e_lo, a_hi, a_lo)),
+                m_f32, zero_row=st.n_keys, **kw)
+        return _Pending(sequence_map, seqs, m_signed, out, self._K())
 
     def _place_async_tiles(self, sequence_map, seqs):
         """The tiles branch of JAX ``_place_async_bytes`` (placer.py:2447-2476).
@@ -366,13 +482,8 @@ class TorchPlacer(HostStaging):
         cfg = self.config
         R = len(seqs)
         tokens = self._tokenize(seqs)
-        # the correction term uses the size_t-wrapped window count (quirk Q1);
-        # float32(2**64 - small) == float32(2**64), so the wrap collapses
         m_signed = tokens.seq_lengths - self.k + 1  # int64, may be negative
-        m_f32 = np.where(
-            m_signed >= 0, m_signed.astype(np.float32),
-            np.float32(float(1 << 64)) + m_signed.astype(np.float32),
-        ).astype(np.float32)
+        m_f32 = _wrapped_m(m_signed)
         n_e = tokens.exact_keys.shape[0]
         n_a = tokens.amb_keys.shape[0]
         E = _bucket(n_e, cfg.min_bucket)
@@ -414,7 +525,11 @@ class TorchPlacer(HostStaging):
         arr = pending.out.cpu().numpy()
         budget = pending.budget
         if budget is None:
-            outs = unpack_outputs_slim(arr, K)
+            # the dense steps: the shifted plane's slim (R, 2K+3) pack or the
+            # classic plane's full (R+1, 4K+2) one, whose widths differ for
+            # every K >= 1 (placer.py:2753-2758)
+            unpack = unpack_outputs_slim if arr.shape[1] == 2 * K + 3 else unpack_outputs
+            outs = unpack(arr, K)
         elif budget[0] == "tiles_ov":
             # the last column carries each read's true overflow-window count
             _, OV, rerun = budget

@@ -1,6 +1,6 @@
 """Host-side batch staging, copied as numpy from ``epik_tpu/engine/placer.py``:
-``_bucket``/``_bucket_lmax`` (:163-179), ``pack_reads`` (:882), the CSR
-staging helpers ``_pad_u64_split``/``_pad_i32`` (:2310-2335) and the parts of
+``_bucket``/``_bucket_lmax`` (:163-179), ``pack_reads`` (:882), the staging
+helpers ``_pad_u64_split``/``_key_matrix``/``_pad_i32`` (:2310-2335) and the parts of
 ``HostStaging`` (:1598-1735) that the ported paths use.
 
 One difference: the JAX package asks ``native_available()``, which never
@@ -20,8 +20,8 @@ import numpy as np
 from .. import native
 from ..core.kmers import BatchTokens, tokenize_batch
 
-__all__ = ["HostStaging", "_bucket", "_bucket_lmax", "pack_reads", "pad_i32",
-           "pad_u64_split"]
+__all__ = ["HostStaging", "_bucket", "_bucket_lmax", "key_matrix", "pack_reads",
+           "pad_i32", "pad_u64_split"]
 
 #: padding key of the CSR step's key stream: never a real key, always a miss
 SENTINEL_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -70,6 +70,20 @@ def pad_u64_split(keys: np.ndarray, size: int):
     padded[: keys.shape[0]] = keys
     hi = (padded >> np.uint64(32)).astype(np.uint32)
     lo = (padded & np.uint64(0xFFFFFFFF)).astype(np.uint32)
+    return hi, lo
+
+
+def key_matrix(keys: np.ndarray, read: np.ndarray, R: int, width: int):
+    """(R, width) per-read key matrix in processing order, sentinel-padded,
+    split into (hi, lo) uint32 halves (``JaxPlacer._key_matrix``)."""
+    M = np.full((R, width), SENTINEL_KEY, dtype=np.uint64)
+    if keys.size:
+        counts = np.bincount(read, minlength=R)
+        starts = np.concatenate([[0], np.cumsum(counts)])[:-1]
+        cols = np.arange(keys.shape[0]) - starts[read]
+        M[read, cols] = keys
+    hi = (M >> np.uint64(32)).astype(np.uint32)
+    lo = (M & np.uint64(0xFFFFFFFF)).astype(np.uint32)
     return hi, lo
 
 

@@ -2,10 +2,23 @@
 
 * :func:`place_batch_dense_paired` -- ``_place_batch_dense_paired``
   (:694-736), the default dense pair-plane step;
+* :func:`place_batch_dense_bytes` -- ``_place_batch_dense_bytes``
+  (:623-685), the unpaired dense step with the device tokenizer, over the
+  shifted (f32 or int16) or the classic (f32 or bf16) plane;
+* :func:`place_batch_dense_rows` -- ``_place_batch_dense_rows`` (:565-613),
+  the same with plane rows resolved on the host;
+* :func:`place_batch_device_densedb` -- ``_place_batch_device_densedb``
+  (:501-557), the classic plane with the keys resolved on the device through
+  the cuckoo table;
 * :func:`place_batch_tiles_bytes` -- ``_place_batch_tiles_bytes``
   (:1088-1203), the big-tree posting-tile step, both payloads;
 * :func:`place_batch_csr` -- ``_place_batch_device`` (:241) with
   ``dense=True``, the CSR fallback step.
+
+The shifted dense steps end in kernel 1 with the finish fused in (the slim
+(R, 2K+3) pack), or past its shared-memory limit in the gather and the finish
+apart; the classic ones in kernel 1 with counts, then the counts finish
+(``ops/csr.py``) into the full (R+1, 4K+2) pack.
 """
 
 from __future__ import annotations
@@ -15,7 +28,14 @@ import torch
 from ..kernels.accumulate_packed import accumulate_packed_topk, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
 from ..kernels.finish import finish_topk
-from ..kernels.rowgather import rowgather_sum_topk
+from ..kernels.rowgather import (
+    rowgather_sum,
+    rowgather_sum_counts,
+    rowgather_sum_counts_bf16,
+    rowgather_sum_topk,
+    rowgather_sum_topk_int16,
+    topk_fits,
+)
 from ..ops.csr import (
     ORDER_INF,
     accumulate_amb_firsthit,
@@ -23,11 +43,13 @@ from ..ops.csr import (
     finish_scores,
     pack_outputs,
 )
-from ..ops.dense import amb_deltas
+from ..ops.dense import amb_classic, amb_deltas, lookup_rows
 from ..ops.tokenize import tokenize_combo, tokenize_packed
 from .outputs import U64
 
-__all__ = ["place_batch_csr", "place_batch_dense_paired", "place_batch_tiles_bytes"]
+__all__ = ["place_batch_csr", "place_batch_dense_bytes", "place_batch_dense_paired",
+           "place_batch_dense_rows", "place_batch_device_densedb",
+           "place_batch_tiles_bytes"]
 
 #: tile cells per read are padded with trash to a multiple of one warp's chunk
 _PP_ALIGN = 32
@@ -49,13 +71,90 @@ def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: 
     read order that groups shared plane rows bought no L2 reuse on the H100,
     PERF.md). Returns the slim (R, 2K+3) f32 pack on the plane's device."""
     rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
-    m_f32 = _m_f32(lens, k)
+    return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps)
+
+
+def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
+                    zero_row: int, log_eps: float, eps: float,
+                    plane_scale: float = 1.0) -> torch.Tensor:
+    """The shifted plane's sums (an int16 plane's dequantized by
+    ``plane_scale``), the ambiguous reads' delta rows when ``Amax > 0``, and
+    the finish, into the slim pack: kernel 1 with the finish fused in, or
+    past its shared-memory limit (``topk_fits``) the gather, the delta add
+    (the same f32 add) and ``finish_topk`` apart."""
+    quant = plane.dtype == torch.int16
+    scale = plane_scale if quant else None
     amb_read = delta = None
     if Amax > 0:
-        amb_read, delta = amb_deltas(plane, arows, zero_row=num_kmers, B=B, k=k, eps=eps,
-                                     log_eps=log_eps)
-    return rowgather_sum_topk(plane, rows, m_f32, amb_read, delta, B=B, K=K, k=k,
-                              log_eps=log_eps)
+        amb_read, delta = amb_deltas(plane, arows, zero_row=zero_row, B=B, k=k, eps=eps,
+                                     log_eps=log_eps, plane_scale=plane_scale)
+    kw = dict(B=B, K=K, k=k, log_eps=log_eps)
+    if topk_fits(plane, B, K):
+        if quant:
+            return rowgather_sum_topk_int16(plane, rows, m_f32, amb_read, delta, scale=scale,
+                                            **kw)
+        return rowgather_sum_topk(plane, rows, m_f32, amb_read, delta, **kw)
+    Sp = rowgather_sum(plane, rows, scale=scale)
+    if amb_read is not None and amb_read.numel() > 0:
+        Sp[amb_read, :B] = Sp[amb_read, :B] + delta
+    return finish_topk(Sp[:, :B], m_f32, K=K, k=k, log_eps=log_eps)
+
+
+def _classic_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
+                    zero_row: int, log_eps: float, eps: float) -> torch.Tensor:
+    """The classic plane's sums S and exact counts C (kernel 1 with counts,
+    an f32 or a bf16 plane), the ambiguous first hit when ``Amax > 0``, and
+    the counts finish into the full (R+1, 4K+2) pack with zero totals."""
+    sums = rowgather_sum_counts_bf16 if plane.dtype == torch.bfloat16 else rowgather_sum_counts
+    S, C = sums(plane, rows)
+    S, C = S[:, :B], C[:, :B]
+    if Amax > 0:
+        S, C = amb_classic(S, C, plane, arows, zero_row=zero_row, B=B, k=k, eps=eps)
+    outs = finish_scores(S, C, m_f32, K=K, k=k, log_eps=log_eps)
+    return pack_outputs(outs, 0, 0)
+
+
+def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,
+                            Lmax: int, num_kmers: int, log_eps: float, eps: float,
+                            shifted: bool, plane_scale: float = 1.0) -> torch.Tensor:
+    """Unpaired dense step: the device tokenizer through the direct key ->
+    row table (one row per window, the miss row ``num_kmers``), then the
+    shifted or the classic sums and finish. Returns the slim (R, 2K+3) pack
+    (shifted) or the full (R+1, 4K+2) pack (classic) on the plane's device.
+    JAX pads the rows to a multiple of 16 with the zero row; that adds
+    nothing to a sum, so the port does not."""
+    rows, lens = tokenize_packed(buf, direct, k=k, Lmax=Lmax, num_kmers=num_kmers)
+    return place_batch_dense_rows(plane, rows, arows, _m_f32(lens, k), B=B, K=K, Amax=Amax,
+                                  k=k, zero_row=num_kmers, log_eps=log_eps, eps=eps,
+                                  shifted=shifted, plane_scale=plane_scale)
+
+
+def place_batch_dense_rows(plane, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,
+                           zero_row: int, log_eps: float, eps: float, shifted: bool,
+                           plane_scale: float = 1.0) -> torch.Tensor:
+    """Dense step over plane rows resolved on the host (int32 (R, Wmax),
+    padding and misses on ``zero_row``) and the host's window counts
+    ``m_f32``: the shifted or the classic sums and finish (the slim or the
+    full pack)."""
+    kw = dict(B=B, K=K, Amax=Amax, k=k, zero_row=zero_row, log_eps=log_eps, eps=eps)
+    if shifted:
+        return _shifted_finish(plane, rows, m_f32, arows, plane_scale=plane_scale, **kw)
+    return _classic_finish(plane, rows, m_f32, arows, **kw)
+
+
+def place_batch_device_densedb(table, seed1: int, seed2: int, plane, e_hi, e_lo, a_hi,
+                               a_lo, m_f32, *, B: int, K: int, k: int, zero_row: int,
+                               log_eps: float, eps: float) -> torch.Tensor:
+    """Classic dense step with the keys resolved on the device: the window
+    keys (R, Wmax) and the ambiguous keys (R, Amax) in processing order,
+    sentinel-padded, through the cuckoo table (``ops/hashtable.py::lookup``,
+    payload the plane row; a miss takes ``zero_row``), then the classic sums,
+    the ambiguous first hit and the counts finish into the full pack."""
+    rows = lookup_rows(table, seed1, seed2, e_hi, e_lo, zero_row=zero_row)
+    arows = lookup_rows(table, seed1, seed2, a_hi, a_lo, zero_row=zero_row)
+    return _classic_finish(plane, rows, m_f32, arows, B=B, K=K, Amax=arows.shape[1], k=k,
+                           zero_row=zero_row, log_eps=log_eps, eps=eps)
 
 
 def _pad_trash(x: torch.Tensor, value) -> torch.Tensor:

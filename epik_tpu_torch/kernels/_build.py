@@ -39,15 +39,24 @@ NVCC_FLAGS = [
 
 _VP = ctypes.c_void_p
 _INT = ctypes.c_int
+_F32 = ctypes.c_float
 _PROTOTYPES = {
-    # (plane, rows, out, R, W, bw, stream)
-    "epik_rowgather_sum": [_VP, _VP, _VP, _INT, _INT, _INT, _VP],
-    # (plane, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps, stream)
-    "epik_rowgather_sum_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                                _INT, _INT, ctypes.c_float, _VP],
-    # (Sp, ld, m, out, R, B, K, k, log_eps, stream)
+    # (plane, cell, rows, out, R, W, bw, scale, stream)
+    "epik_rowgather_sum": [_VP, _INT, _VP, _VP, _INT, _INT, _INT, _F32, _VP],
+    # (plane, cell, rows, S, C, R, W, bw, stream)
+    "epik_rowgather_sum_counts": [_VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    # (plane, cell, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps, scale, stream)
+    "epik_rowgather_sum_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
+                                _INT, _INT, _F32, _F32, _VP],
+    # (bw, B, K) -> bytes
+    "epik_rowgather_sum_topk_smem": [_INT, _INT, _INT],
+    # (cell) -> bytes, or minus a CUDA error
+    "epik_rowgather_sum_topk_smem_limit": [_INT],
+    # (R, B, K, out int[3])
+    "epik_finish_topk_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
+    # (Sp, ld, m, out, R, B, K, k, log_eps, ws, blocks, stream)
     "epik_finish_topk": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT,
-                         ctypes.c_float, _VP],
+                         _F32, _VP, _INT, _VP],
     # (p, m, out, sq, R, PP, B, K, k, log_eps, scale, stream)
     "epik_accumulate_packed_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     ctypes.c_float, ctypes.c_float, _VP],
@@ -57,6 +66,11 @@ _PROTOTYPES = {
     "epik_accumulate_sums": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     # (B, counts, out int[4])
     "epik_accumulate_sums_layout": [_INT, _INT, ctypes.POINTER(_INT)],
+}
+#: entry points that return something else than a CUDA error code
+_RESTYPES = {
+    "epik_rowgather_sum_topk_smem": ctypes.c_longlong,
+    "epik_rowgather_sum_topk_smem_limit": ctypes.c_longlong,
 }
 
 
@@ -139,7 +153,7 @@ class KernelLibrary:
                 for name, argtypes in _PROTOTYPES.items():
                     fn = getattr(lib, name)
                     fn.argtypes = argtypes
-                    fn.restype = ctypes.c_int
+                    fn.restype = _RESTYPES.get(name, ctypes.c_int)
                 lib.epik_cuda_error_string.argtypes = [ctypes.c_int]
                 lib.epik_cuda_error_string.restype = ctypes.c_char_p
                 self._lib = lib

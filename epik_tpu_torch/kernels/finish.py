@@ -7,9 +7,11 @@ epilogue of the TPU kernel ``ops/pallas/accumulate.py::
 segment_accumulate_packed_topk`` computes on the tiles path: per read,
 ``[scores K | idx K | log_sum | n | zero_sum]`` as float32 (R, 2K+3).
 
-It runs after the segment sums on the f32-payload tile path; the dense path
-runs the same finish fused into the row gather (``rowgather.rowgather_sum_topk``)
-and the packed tile path fused into its accumulate. It reads the (R, B) score
+It runs after the segment sums on the f32-payload tile path, and after the
+row sums on the dense steps of trees past the fused kernel's shared-memory
+limit; the dense path runs the same finish fused into the row gather
+(``rowgather.rowgather_sum_topk``) and the packed tile path fused into its
+accumulate. It reads the (R, B) score
 matrix once and finishes over the touched branches only;
 ``csrc/finish_topk.cu`` and ``csrc/finish_row.cuh`` record the design and the
 rounding rules that make its scores bit-equal to the plain version below.
@@ -17,6 +19,7 @@ rounding rules that make its scores bit-equal to the plain version below.
 
 from __future__ import annotations
 
+import ctypes
 import math
 import threading
 
@@ -106,23 +109,34 @@ def _check_args(Sp: torch.Tensor, m_f32: torch.Tensor, K: int) -> None:
 def finish_topk(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
                 log_eps: float) -> torch.Tensor:
     """Sp f32 (R, B) shifted row sums (rows may be strided), m_f32 f32 (R,)
-    window counts -> f32 (R, 2K+3) slim pack."""
+    window counts -> f32 (R, 2K+3) slim pack.
+
+    Limit: up to B = 2**16 a block keeps the touched ids in shared memory;
+    past it they go to an int32 workspace allocated here, as many rows of B
+    as blocks fit on the card at once, and only the ceil(B / 32) mask words
+    and the candidates stay in shared memory (B up to about 1.8 million: a
+    B whose mask does not fit raises ValueError)."""
     _check_args(Sp, m_f32, K)
     if Sp.device.type == "cpu":
         return finish_topk_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps)
     if Sp.device.type != "cuda":
         raise ValueError(f"finish_topk: no kernel for device {Sp.device}")
     R, B = Sp.shape
-    if B > 1 << 16:  # 16-bit branch ids in shared memory
-        raise ValueError(f"finish_topk: B={B} branches, over 2**16")
     out = torch.empty((R, 2 * K + 3), dtype=torch.float32, device=Sp.device)
     if R == 0:
         return out
     lib = library()
+    layout = (ctypes.c_int * 3)()
     with torch.cuda.device(Sp.device):
+        if lib.epik_finish_topk_layout(R, B, K, layout) != 0:
+            raise ValueError(f"finish_topk: B={B} branches, past what the shared memory "
+                             f"of the block's {(B + 31) // 32} mask words holds")
+        _, blocks, n_ws = layout
+        ws = torch.empty(n_ws, dtype=torch.int32, device=Sp.device) if n_ws else None
         stream = torch.cuda.current_stream(Sp.device).cuda_stream
         err = lib.epik_finish_topk(Sp.data_ptr(), Sp.stride(0), m_f32.data_ptr(),
                                    out.data_ptr(), R, B, K, k, float(log_eps),
+                                   ws.data_ptr() if ws is not None else None, blocks,
                                    stream)
     check(err, "finish_topk")
     with _count_lock:

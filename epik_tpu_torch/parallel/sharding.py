@@ -510,7 +510,8 @@ class ShardedTorchPlacer(HostStaging):
     per-device plane within the budget -- not ported yet, so that raises
     ``NotImplementedError``; otherwise the hash-sharded CSR tables, and the
     column-sharded posting tiles when the database takes them (DNA, k <= 13,
-    posting lists of at most 128, scores >= log10(eps)) and one shard's tiles
+    posting lists of at most 128, scores >= log10(eps); ``precision="exact"``
+    and the device tokenizer) and one shard's tiles
     fit the budget. A batch holding an IUPAC read, reads too long for the
     packed payload's exact sums, or no read of k characters goes to the CSR
     step whole. ``accumulate`` "auto" and "matmul" both mean the kernel-backed
@@ -575,7 +576,8 @@ class ShardedTorchPlacer(HostStaging):
         max_plen = int(lens.max()) if lens.size else 0
         shift_ok = db.scores.size == 0 or float(db.scores.min()) >= float(self.log_eps)
         if (self.k <= _MAX_DIRECT_K and shift_ok and db.num_kmers > 0
-                and 0 < max_plen <= _MAX_TILE_PLEN):
+                and 0 < max_plen <= _MAX_TILE_PLEN and cfg.precision == "exact"
+                and cfg.tokenize_where in ("auto", "device")):
             (tiles, bwl_t, PT, t_scale, tiles_ov, PT_OV, n_ov, frac_over,
              perm) = shard_tiles_columns(db, self.n_model, self.B, float(self.log_eps))
             if tiles.nbytes // self.n_model <= budget:

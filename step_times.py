@@ -11,7 +11,12 @@ its first batch of 16,384 reads (IUPAC reads among them), and
 * the dense device step;
 * the gather alone (``rowgather_sum``) and the finish alone (``finish_topk``)
   on its sums, and their sum: what the dense step ran before the fusion;
-* the fused kernel (``rowgather_sum_topk``).
+* the fused kernel (``rowgather_sum_topk``);
+* under ``pair_plane="off"``, ``precision="int16"``, ``plane_mode="classic"``
+  and ``precision="bf16"`` (each its own plane), the unpaired dense step
+  (``place_batch_dense_bytes``) and the kernel it ends in
+  (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``,
+  ``rowgather_sum_counts``, ``rowgather_sum_counts_bf16``).
 
 On ``chip_smoke.py``'s config-4 database (10,000 leaves, 19,999 branches,
 k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
@@ -22,7 +27,9 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
 * kernel 2 (``accumulate_packed_topk``) on the packed tile step's cells;
 * kernel 4 with counts (``accumulate_sums_counts``) on the CSR step's cells,
   and without (``accumulate_sums``) on the f32 tile step's cells;
-* the finish (``finish_topk``) on the f32 tile step's (4,096 x 19,999) sums.
+* the finish (``finish_topk``) on the f32 tile step's (4,096 x 19,999) sums;
+* on the dense route (the unpaired 51.8 GB plane, the CLI's default route on
+  an 80 GB card), the dense step on the 150 bp batch and its fused kernel.
 
 ``--repo`` times the ``epik_tpu_torch`` of another checkout of this
 repository (the fixture and the timing helpers stay this checkout's
@@ -117,6 +124,63 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
             torch, lambda: fused(st.plane, rows, m_f32, amb_read, delta, B=B, **kw))
     else:
         out["skipped"].append("rowgather_sum_topk: the port has no fused kernel 1")
+    del placer, st
+    torch.cuda.empty_cache()
+    variant_times(torch, dev, out, db, tree, seqs)
+
+
+#: the unpaired D652 configs: name, PlacerConfig fields, the kernel the step ends in
+VARIANTS = [
+    ("pair_off", {"pair_plane": "off"}, "rowgather_sum_topk"),
+    ("int16", {"precision": "int16"}, "rowgather_sum_topk_int16"),
+    ("classic", {"plane_mode": "classic"}, "rowgather_sum_counts"),
+    ("bf16", {"precision": "bf16"}, "rowgather_sum_counts_bf16"),
+]
+
+
+def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
+                        kernel: str) -> None:
+    """The unpaired dense step of ``placer`` on ``seqs`` and the kernel it
+    ends in (its first call recorded) into ``out``."""
+    from epik_tpu_torch import kernels as kernels_mod
+    from epik_tpu_torch.engine import step as step_mod
+
+    st = placer.state
+    buf, arows, Amax, Lmax, _ = placer._stage_bytes(seqs)
+    buf_t, arows_t = torch.from_numpy(buf).to(dev), torch.from_numpy(arows).to(dev)
+    step_kw = dict(B=placer.B, K=placer._K(), Amax=Amax, k=placer.k, Lmax=Lmax,
+                   num_kmers=st.n_keys, log_eps=float(placer.log_eps), eps=float(placer.eps),
+                   shifted=placer._shifted, plane_scale=st.scale)
+
+    def step():
+        return step_mod.place_batch_dense_bytes(st.plane, st.direct, buf_t, arows_t,
+                                                **step_kw)
+
+    calls = []
+    with recording(step_mod, kernel, calls):
+        step()
+    out[f"{prefix}_step_ms"] = cuda_ms(torch, step)
+    fn = kernels_mod.KERNELS[kernel]
+    args, kw = calls[0]
+    out[f"{prefix}_{kernel}_ms"] = cuda_ms(torch, lambda: fn(*args, **kw))
+    out[f"{prefix}_{kernel}_shape"] = list(args[1].shape)
+
+
+def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
+    """The D652 dense step and kernel under each of ``VARIANTS``, where the
+    port has the unpaired step."""
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+
+    if not hasattr(step_mod, "place_batch_dense_bytes"):
+        out["skipped"].append("dense variants: the port has no unpaired dense step")
+        return
+    for name, fields, kernel in VARIANTS:
+        placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
+        unpaired_step_times(torch, dev, out, placer, seqs, f"d652_{name}", kernel)
+        del placer
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -195,6 +259,18 @@ def main(argv=None) -> int:
     out["finish_topk_f32_ms"] = cuda_ms(
         torch, lambda: kernels_mod.finish_topk(Sp, m_f32, **kw))
     out["finish_topk_f32_shape"] = list(Sp.shape)
+    del placer, step, calls, finish_calls, b, s, Sp, m_f32
+    torch.cuda.empty_cache()
+
+    if hasattr(step_mod, "place_batch_dense_bytes"):
+        placer = TorchPlacer(db, tree, device=dev)
+        if placer.route != "dense" or placer._paired:
+            raise AssertionError(f"config 4 took route {placer.route}, not the unpaired plane")
+        unpaired_step_times(torch, dev, out, placer, seqs, "config4_dense",
+                            "rowgather_sum_topk")
+        del placer
+    else:
+        out["skipped"].append("config 4 dense: the port has no unpaired dense step")
     print(card_line())
     print(json.dumps(out))
     return 0

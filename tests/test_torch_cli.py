@@ -86,12 +86,24 @@ def test_cli_tiles_route_matches_jax_cli(fixture_dir, capsys, monkeypatch, paylo
 
 
 def test_cli_errors(fixture_dir, capsys):
-    d, _ = fixture_dir
+    """Bad flags end the run with -1; ``--precision int16`` (the int16
+    plane) places and matches the JAX CLI with the same flag."""
+    d, names = fixture_dir
     assert _run_port(d, d / "bad_mu", "--mu", "1.5") == -1
     assert _run_port(d, d / "bad_states", "-s", "amino") == -1
     assert "Error:" in capsys.readouterr().err
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        _run_port(d, d / "int16", "--precision", "int16")
+    assert _run_port(d, d / "int16", "--precision", "int16") == 0
+    assert "(1 device(s), dense)" in capsys.readouterr().out
+    (d / "jax_int16").mkdir()
+    assert jax_place_queries(str(d / "DB.eptk"), "nucl", 1.5, 1.0, str(d / "jax_int16"), 1,
+                             "", str(d / "q.fasta"), batch_size=32, engine="jax",
+                             precision="int16") == 0
+    port_jp = d / "int16" / "placements_q.fasta.jplace"
+    jax_jp = d / "jax_int16" / "placements_q.fasta.jplace"
+    assert set(parse_jplace(str(port_jp))) == set(names)
+    for a, b in ((port_jp, jax_jp), (jax_jp, port_jp)):
+        res = jplace_diff(str(a), str(b))
+        assert res.clean, res.mismatches[:5]
 
 
 def test_helpers():

@@ -27,9 +27,15 @@ from epik_tpu_torch.kernels.accumulate_sums import (
 from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
 from epik_tpu_torch.kernels.rowgather import (
     rowgather_sum,
+    rowgather_sum_counts,
+    rowgather_sum_counts_bf16,
+    rowgather_sum_counts_plain,
     rowgather_sum_plain,
     rowgather_sum_topk,
+    rowgather_sum_topk_int16,
     rowgather_sum_topk_plain,
+    topk_fits,
+    topk_smem,
 )
 from torch_fixtures import (
     cell_order_sums,
@@ -288,9 +294,14 @@ def test_launch_counts(cuda):
     b = torch.zeros((4, 5), dtype=torch.int32, device=cuda)
     s = torch.zeros((4, 5), device=cuda)
     m = torch.ones(4, device=cuda)
+    plane_q = torch.zeros((8, 128), dtype=torch.int16, device=cuda)
     reset_launch_counts()
     Sp = rowgather_sum(plane, rows)
     rowgather_sum_topk(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
+    rowgather_sum_topk_int16(plane_q, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0,
+                             scale=2.0)
+    rowgather_sum_counts(plane, rows)
+    rowgather_sum_counts_bf16(plane.to(torch.bfloat16), rows)
     finish_topk(Sp, m, K=3, k=4, log_eps=-1.0)
     accumulate_packed_topk(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_packed_sums(p, B=100)
@@ -299,10 +310,13 @@ def test_launch_counts(cuda):
     # the plain versions never count
     rowgather_sum_plain(plane, rows)
     rowgather_sum_topk_plain(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
+    rowgather_sum_counts_plain(plane, rows)
     accumulate_packed_topk_plain(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_sums_plain(b, s, B=100, counts=True)
     packed_sums_plain(p, 100)
-    assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1, "finish_topk": 1,
+    assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1,
+                               "rowgather_sum_topk_int16": 1, "rowgather_sum_counts": 1,
+                               "rowgather_sum_counts_bf16": 1, "finish_topk": 1,
                                "accumulate_packed_topk": 1, "accumulate_packed_sums": 1,
                                "accumulate_sums": 1, "accumulate_sums_counts": 1}
 
@@ -432,3 +446,190 @@ def test_sharded_placer_cuda_matches_cpu(cuda, n_data, n_model):
                                    rtol=1e-6, atol=1e-6)
     counts = launch_counts()
     assert counts["accumulate_packed_sums"] > 0 and counts["accumulate_sums_counts"] > 0
+
+
+def _dense_case(rng, n_rows, bw, B, R, W, amb):
+    """A shifted-plane-like f32 plane (zero padding columns, the last row the
+    miss row), rows with misses and an n == 0 read, m with a Q1 read, and
+    delta rows for a third of the reads."""
+    plane = _plane(rng, n_rows, bw)
+    plane[:, B:] = 0.0
+    rows = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+    rows[rng.random((R, W)) < 0.3] = n_rows - 1
+    rows[0] = n_rows - 1
+    m = rng.integers(W, W + 40, R).astype(np.float32)
+    m[1] = np.float32(2.0**64)
+    reads = delta = None
+    if amb:
+        reads = rng.choice(R, max(1, R // 3), replace=False)
+        delta = rng.uniform(-2.0, 6.0, (reads.size, B)).astype(np.float32)
+        delta[rng.random(delta.shape) < 0.7] = 0.0
+    return plane, rows, m, reads, delta
+
+
+@pytest.mark.parametrize("n_rows,B,R,W", [
+    (300, 19999, 64, 141),  # config 4's unpaired width: bw 20,096, W = 141
+    (200, 30000, 16, 40),  # past the old int32-id limit (~28,000 at bw ~ B)
+])
+def test_rowgather_sum_topk_wide(cuda, n_rows, B, R, W):
+    """The fused kernel at the widths of the big trees: bit-equal to its
+    plain version but log_sum (rtol 1e-6), two launches alike, and within
+    the limit ``topk_fits`` states."""
+    rng = np.random.default_rng(B + W)
+    bw = -(-B // 128) * 128
+    plane, rows, m, reads, delta = _dense_case(rng, n_rows, bw, B, R, W, True)
+    t = [torch.from_numpy(x).to(cuda) for x in (plane, rows, m, reads, delta)]
+    K = 7
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
+    need, limit = topk_smem(t[0], B, K)
+    assert topk_fits(t[0], B, K) and need <= limit
+    got = rowgather_sum_topk(*t, **kw)
+    assert torch.equal(rowgather_sum_topk(*t, **kw), got)
+    want = rowgather_sum_topk_plain(*t, **kw).cpu().numpy()
+    _check_pack(got.cpu().numpy(), want, K, B)
+    assert want[0, 2 * K + 1] == 0
+
+
+def test_rowgather_sum_topk_past_its_limit(cuda):
+    """A tree past the fused kernel's shared-memory limit: the wrapper
+    raises stating the bytes, and the dense step runs the gather, the delta
+    add and ``finish_topk`` apart, bit-equal to the fused plain version."""
+    from epik_tpu_torch.engine.step import _shifted_finish
+
+    rng = np.random.default_rng(40)
+    B, R, W = 40000, 16, 30
+    bw = -(-B // 128) * 128
+    plane, rows, m, reads, delta = _dense_case(rng, 120, bw, B, R, W, True)
+    t = [torch.from_numpy(x).to(cuda) for x in (plane, rows, m, reads, delta)]
+    K = 7
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
+    need, limit = topk_smem(t[0], B, K)
+    assert need > limit and not topk_fits(t[0], B, K)
+    with pytest.raises(ValueError, match="shared memory"):
+        rowgather_sum_topk(*t, **kw)
+    # the step's ambiguous reads are the reads with a non-miss ambiguous row
+    arows = np.full((R, 2), 119, np.int32)
+    arows[reads, 0] = rng.integers(0, 119, reads.size)
+    arows_t = torch.from_numpy(arows).to(cuda)
+    reset_launch_counts()
+    got = _shifted_finish(t[0], t[1], t[2], arows_t, Amax=2, zero_row=119, eps=5.5e-5, **kw)
+    counts = launch_counts()
+    assert counts["rowgather_sum"] == 1 and counts["finish_topk"] == 1
+    assert counts["rowgather_sum_topk"] == 0
+    from epik_tpu_torch.ops.dense import amb_deltas
+    a_read, a_delta = amb_deltas(t[0], arows_t, zero_row=119, B=B, k=10, eps=5.5e-5,
+                                 log_eps=-4.2597)
+    want = rowgather_sum_topk_plain(t[0], t[1], t[2], a_read, a_delta, **kw).cpu().numpy()
+    _check_pack(got.cpu().numpy(), want, K, B)
+
+
+@pytest.mark.parametrize("R,B,K", [(40, 70000, 7), (8, 65537, 5), (300, 66000, 7)])
+def test_finish_past_16_bit_ids(cuda, R, B, K):
+    """``finish_topk`` past B = 2**16, the ids in the global workspace (R
+    above the blocks that fit at once, so blocks take several reads): every
+    index equal, two launches alike, the ties to the lowest index."""
+    rng = np.random.default_rng(B + R)
+    Sp, m = finish_rows(rng, R, B, density=0.05)
+    Sp_t, m_t = torch.from_numpy(Sp).to(cuda), torch.from_numpy(m).to(cuda)
+    kw = dict(K=K, k=10, log_eps=-4.2597)
+    got = finish_topk(Sp_t, m_t, **kw)
+    assert torch.equal(finish_topk(Sp_t, m_t, **kw), got)
+    got = got.cpu().numpy()
+    _check_pack(got, finish_topk_plain(Sp_t, m_t, **kw).cpu().numpy(), K, B)
+    np.testing.assert_array_equal(got[2, K:K + min(K, 20)], np.arange(10, 10 + min(K, 20)))
+
+
+@pytest.mark.parametrize("n_rows,bw,B,R,W", [
+    (2000, 1408, 1303, 300, 143),  # D652's widths, unpaired
+    (64, 128, 40, 50, 9),
+    (300, 4608, 4500, 24, 17),  # more than 1,024 column groups
+    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row offsets
+])
+def test_int16_variants_bit_equal(cuda, n_rows, bw, B, R, W):
+    """Kernel 1 over an int16 plane: the dequantized sums and the fused pack
+    bit-equal to their plain versions (exact int32 sums, one correctly
+    rounded divide), with delta rows, two launches alike."""
+    rng = np.random.default_rng(n_rows * 3 + W)
+    q = rng.integers(1, 32001, (n_rows, bw)).astype(np.int16)
+    q[rng.random((n_rows, bw)) > 0.3] = 0
+    q[:, B:] = 0
+    q[-1] = 0
+    plane = torch.from_numpy(q).to(cuda)
+    _, rows, m, reads, delta = _dense_case(rng, n_rows, bw, B, R, W, True)
+    rows, m, reads, delta = (torch.from_numpy(x).to(cuda) for x in (rows, m, reads, delta))
+    scale = 32000.0 / 4.2597
+    sums = rowgather_sum(plane, rows, scale=scale)
+    torch.cuda.synchronize()
+    assert torch.equal(sums, rowgather_sum_plain(plane, rows, scale))
+    K = min(7, B)
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597, scale=scale)
+    got = rowgather_sum_topk_int16(plane, rows, m, reads, delta, **kw)
+    assert torch.equal(rowgather_sum_topk_int16(plane, rows, m, reads, delta, **kw), got)
+    want = rowgather_sum_topk_plain(plane, rows, m, reads, delta, **kw).cpu().numpy()
+    _check_pack(got.cpu().numpy(), want, K, B)
+
+
+@pytest.mark.parametrize("n_rows,bw,R,W", [
+    (2000, 1408, 300, 143), (300, 256, 64, 17), (64, 4608, 8, 9), (40, 128, 3, 2500),
+    (300, 20096, 16, 141),
+])
+@pytest.mark.parametrize("cell", ["f32", "bf16"])
+def test_rowgather_sum_counts_bit_equal(cuda, n_rows, bw, R, W, cell):
+    """Kernel 1 with counts over the classic plane (negative scores, the
+    -1e-37 nudge), f32 and bf16: the sums' bits and the counts equal to the
+    plain version's, two launches alike."""
+    rng = np.random.default_rng(n_rows + bw + W)
+    p = rng.uniform(-7.0, -0.01, (n_rows, bw)).astype(np.float32)
+    p[rng.random((n_rows, bw)) > 0.3] = 0.0
+    p[0, :8] = np.float32(-1e-37)
+    p[-1] = 0.0
+    plane = torch.from_numpy(p).to(cuda)
+    fn = rowgather_sum_counts
+    if cell == "bf16":
+        plane, fn = plane.to(torch.bfloat16), rowgather_sum_counts_bf16
+    rows = torch.from_numpy(rng.integers(0, n_rows, (R, W)).astype(np.int32)).to(cuda)
+    S, C = fn(plane, rows)
+    S2, C2 = fn(plane, rows)
+    S_p, C_p = rowgather_sum_counts_plain(plane, rows)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(S), _bits(S_p)) and torch.equal(C, C_p)
+    assert torch.equal(_bits(S2), _bits(S)) and torch.equal(C2, C)
+
+
+@pytest.mark.parametrize("config", [
+    dict(pair_plane="off"), dict(plane_mode="classic"), dict(precision="int16"),
+    dict(precision="bf16"), dict(lookup_where="device"), dict(tokenize_where="host"),
+])
+def test_dense_configs_cuda_match_cpu(cuda, config):
+    """Each dense config on the card against the same config on the CPU
+    (plain versions): same edges, scores within f32 rounding of the exp in
+    the ambiguous first hit; a batch of short reads and a 65,536 bp read
+    (the host tokenizer) too; the config's kernel launched."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+
+    db, ref = reference_like_db(num_leaves=48, kmer_size=8, ref_length=30_000,
+                                mean_posting_len=6.0, seed=31)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, 60, length=101, mutation_rate=0.05, seed=32)
+    reads += [("amb", reads[0][1][:40] + b"N" + reads[0][1][41:]),
+              ("short", b"AC"), ("nohit", b"T" * 30)]
+    batches = [reads, [("a", b"ACG"), ("b", b"")],
+               [("long", (reads[0][1] * 700)[:65536]), ("r", reads[1][1])]]
+    cfg = PlacerConfig(**config)
+    cpu = TorchPlacer(db, tree, config=cfg, device="cpu")
+    reset_launch_counts()
+    gpu = TorchPlacer(db, tree, config=cfg, device=cuda)
+    for batch in batches:
+        want, got = cpu.place(batch), gpu.place(batch)
+        np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
+        np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
+                                   rtol=1e-6, atol=1e-6)
+    counts = launch_counts()
+    kernel = ("rowgather_sum_topk_int16" if gpu._plane_q
+              else "rowgather_sum_topk" if gpu._shifted
+              else "rowgather_sum_counts_bf16" if config.get("precision") == "bf16"
+              else "rowgather_sum_counts")
+    assert counts[kernel] > 0, counts
