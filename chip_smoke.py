@@ -59,7 +59,11 @@ prints no result line):
                  reads against the scalar oracle, score sets within 1e-4;
                * a 1x4 mesh laid on the one card (4 shards of 5,120 columns) on
                  8,192 clean reads and the IUPAC and short ones, score sets
-                 within 1e-4 of the 1x1 jplace.
+                 within 1e-4 of the 1x1 jplace;
+               * both meshes finish through the column finish's two kernels
+                 (``finish_cols_partial``, ``finish_cols_expsum``): checked
+                 against their plain versions at (4,096 x 20,096), and timed
+                 beside the same finish in torch ops and the tile step.
 9. dense    -- the rest of the single-device dense engine:
                * config 4 through ``python -m epik_tpu_torch place`` with no
                  flags (phase 7's database saved and loaded, its FASTA): the
@@ -83,6 +87,28 @@ prints no result line):
                  limit at B = 40,000 (the gather and the finish apart), and
                  ``finish_topk`` at B = 70,000 (ids in the global workspace),
                  against their plain versions.
+10. sharded dense -- the column-sharded dense engine:
+               * D652 through ``python -m epik_tpu_torch place --engine sharded``
+                 on a 1x1 mesh (the pair plane in one shard of 1,408 columns),
+                 the counts zeroed before and read after: kernel 1's sums and
+                 both column-finish kernels must have launched, the fused
+                 kernel never; 256 reads against the oracle; the column
+                 finish's kernels against their plain versions (launch A
+                 bit-equal, launch B within rtol 1e-6, the whole finish by the
+                 finish criteria), CUDA-event times of the sharded step, the
+                 gather, each kernel, its plain version and the whole finish
+                 in torch ops; the CLI's reads/s;
+               * D652 on a 1x4 mesh laid on the card (4 shards of 384 columns)
+                 through run_pipeline, within 1e-4 of the 1x1 jplace, the
+                 finish checked at 4 shards;
+               * D652 ``plane_mode="classic"`` on 1x1 through the library (kernel
+                 1 with counts, the classic column finish in torch ops) against
+                 the oracle;
+               * config 4 through ``--engine sharded`` with no other flag: the
+                 51.8 GB unpaired column plane (the pair plane is over the
+                 budget), 12,288 clean reads, the IUPAC and short reads, the
+                 reads the oracle checks and the 4,096 400 bp reads; 256 reads
+                 against the oracle; the finish checked at (4,096 x 20,096).
 
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
@@ -121,6 +147,8 @@ BT_LONG = 4096  # one batch of 400 bp reads: past the packed gate, all on CSR
 BT_IUPAC = 6  # spread over the first batches, so they split tiles + CSR
 #: the sharded phase's 1x4 mesh places this many clean big-tree reads
 SH_READS = 8192
+#: clean 150 bp reads of config 4 on the sharded dense route (phase 10)
+C4_SHARDED_READS = 12288
 
 #: the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): HBM bytes/s
 #: and f32 operations/s outside the tensor cores
@@ -152,6 +180,11 @@ KERNEL_META = {
                              "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_counts_bf16": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                   "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # the column finish is an XLA function in the JAX package, no Pallas kernel
+    "finish_cols_partial": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
+                            "epik_tpu/parallel/sharding.py:345"),
+    "finish_cols_expsum": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
+                           "epik_tpu/parallel/sharding.py:345"),
 }
 
 
@@ -299,13 +332,15 @@ def placed_rows(out) -> dict:
 
 
 @contextlib.contextmanager
-def recording(module, name: str, calls: list):
+def recording(module, name: str, calls: list, limit: int | None = None):
     """Record the arguments of every call of ``module.name`` (a kernel
-    wrapper as a step module imported it) while passing each call through."""
+    wrapper as a step module imported it), or of the first ``limit`` calls,
+    while passing each call through."""
     fn = getattr(module, name)
 
     def rec(*args, **kwargs):
-        calls.append((args, kwargs))
+        if limit is None or len(calls) < limit:
+            calls.append((args, kwargs))
         return fn(*args, **kwargs)
 
     setattr(module, name, rec)
@@ -356,6 +391,129 @@ def score_cells_on(torch, dev, rng, PP: int, B: int, tile_w: int):
 
     b, s = score_rows(rng, 256, PP, B, edges=(tile_w,))
     return torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
+
+
+def plain_cols_finish(Sps, m_f32, *, B: int, K: int, k: int, log_eps: float):
+    """The column finish in torch ops alone: the plain versions of its two
+    kernels around the same merge (the port's column finish before the
+    kernels)."""
+    from epik_tpu_torch.kernels.finish_cols import (
+        finish_cols_expsum_plain,
+        finish_cols_partial_plain,
+    )
+    from epik_tpu_torch.parallel.sharding import _merge_cols
+
+    bwl = Sps[0].shape[1]
+    parts = [finish_cols_partial_plain(S, m_f32, K=K, k=k, log_eps=log_eps, col0=s * bwl)
+             for s, S in enumerate(Sps)]
+    return _merge_cols(parts, lambda s, mt: finish_cols_expsum_plain(
+        Sps[s], m_f32, mt, k=k, log_eps=log_eps), m_f32, B=B, K=K, k=k, log_eps=log_eps)
+
+
+def check_cols_finish(torch, np, Sps, m_f32, kw: dict, what: str) -> dict:
+    """The column finish's kernels on a recorded call (the shards' sums on the
+    one card): per shard, launch A's pack bit-equal to its plain version and
+    two launches alike, launch B within rtol 1e-6 of its plain version at the
+    merged maxima; the whole finish against the plain one by check_finish.
+    CUDA-event times of each kernel and its plain version on shard 0, of the
+    whole finish and of the plain one. Returns the numbers, the bounds' (bytes,
+    operations) and each kernel's largest difference."""
+    from epik_tpu_torch.kernels.finish_cols import (
+        finish_cols_expsum,
+        finish_cols_expsum_plain,
+        finish_cols_partial,
+        finish_cols_partial_plain,
+    )
+    from epik_tpu_torch.parallel.sharding import (
+        _merge_cols,
+        _pack_slim,
+        finish_scores_cols_shifted,
+    )
+
+    B, K, k, log_eps = kw["B"], kw["K"], kw["k"], kw["log_eps"]
+    fkw = dict(k=k, log_eps=log_eps)
+    bwl = Sps[0].shape[1]
+    m = m_f32.to(Sps[0].device).contiguous()
+    parts = []
+    for s, S in enumerate(Sps):
+        got = finish_cols_partial(S, m, K=K, col0=s * bwl, **fkw)
+        again = finish_cols_partial(S, m, K=K, col0=s * bwl, **fkw)
+        want = finish_cols_partial_plain(S, m, K=K, col0=s * bwl, **fkw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"finish_cols_partial ({what}): two launches differ")
+        if not torch.equal(got, want):
+            raise AssertionError(f"finish_cols_partial ({what}): not bit-equal to the plain "
+                                 f"version on shard {s}")
+        parts.append(want)
+    max_ts = {}
+
+    def expsum_plain(s, mt):
+        max_ts[s] = mt
+        return finish_cols_expsum_plain(Sps[s], m, mt, **fkw)
+
+    want_pack = _pack_slim(_merge_cols(parts, expsum_plain, m, **kw)).cpu().numpy()
+    err_e = 0.0
+    for s, S in enumerate(Sps):
+        got = finish_cols_expsum(S, m, max_ts[s], **fkw)
+        want = finish_cols_expsum_plain(S, m, max_ts[s], **fkw)
+        torch.cuda.synchronize()
+        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6,
+                                   err_msg=f"finish_cols_expsum ({what}), shard {s}")
+        err_e = max(err_e, float((got - want).abs().max()))
+    got_pack = _pack_slim(finish_scores_cols_shifted(Sps, m, **kw)).cpu().numpy()
+    err_f = check_finish(np, got_pack, want_pack, K, B, f"column finish ({what})")
+    S0, mt0 = Sps[0], max_ts[0]
+    R = S0.shape[0]
+    Kl = min(K, bwl)
+    touched = int((S0 > 0).sum())
+    out = {"shape": (R, bwl), "n_shards": len(Sps), "touched_per_read": touched / R,
+           "partial_err": 0.0, "expsum_err": err_e, "finish_err": err_f}
+    out["partial_ms"] = cuda_ms(torch, lambda: finish_cols_partial(S0, m, K=K, col0=0, **fkw))
+    out["partial_plain_ms"] = cuda_ms(torch, lambda: finish_cols_partial_plain(
+        S0, m, K=K, col0=0, **fkw), reps=5, warmup=1)
+    out["expsum_ms"] = cuda_ms(torch, lambda: finish_cols_expsum(S0, m, mt0, **fkw))
+    out["expsum_plain_ms"] = cuda_ms(torch, lambda: finish_cols_expsum_plain(S0, m, mt0, **fkw),
+                                     reps=5, warmup=1)
+    out["finish_ms"] = cuda_ms(torch, lambda: finish_scores_cols_shifted(Sps, m, **kw))
+    out["finish_plain_ms"] = cuda_ms(torch, lambda: plain_cols_finish(Sps, m, **kw), reps=5,
+                                     warmup=1)
+    # launch A: the sums and m read once, the partial pack written once; a
+    # compare per column and the correction's three operations per touched
+    # column. Launch B: the sums, m and max_t read, one sum per read written;
+    # a compare per column and seven operations per touched column
+    out["io_partial"] = (R * bwl * 4 + R * 4 + R * (2 * Kl + 2) * 4, R * bwl + 3 * touched)
+    out["io_expsum"] = (R * bwl * 4 + 3 * R * 4, R * bwl + FINISH_OPS * touched)
+    log(f"column finish ({what}), {len(Sps)} shard(s) of {tuple(S0.shape)}, "
+        f"{touched / R:.1f} columns touched per read on shard 0: launch A bit-equal, launch B "
+        f"within rtol 1e-6, the finish bit-equal but log_sum; finish_cols_partial "
+        f"{out['partial_ms']:.4f} ms (plain {out['partial_plain_ms']:.4f}, bound "
+        f"{bound(*out['io_partial'])[0]:.4f}), finish_cols_expsum {out['expsum_ms']:.4f} ms "
+        f"(plain {out['expsum_plain_ms']:.4f}, bound {bound(*out['io_expsum'])[0]:.4f}); the "
+        f"whole finish {out['finish_ms']:.4f} ms against {out['finish_plain_ms']:.4f} ms in "
+        f"torch ops")
+    return out
+
+
+def run_placer(torch, placer, fasta: str, out: str, newick: str, batch: int):
+    """``placer`` through run_pipeline with the port's FASTA reader and jplace
+    writer (inflight 3), the launch counts zeroed just before and read just
+    after. Returns (stats, counts, jplace rows)."""
+    from epik_tpu_torch.cli.main import _open_reader
+    from epik_tpu_torch.engine.pipeline import run_pipeline
+    from epik_tpu_torch.io.jplace import jplace_writer
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    writer = jplace_writer(out, "chip_smoke.py", newick, resume=False)
+    writer.start()
+    reader = _open_reader(fasta, batch)
+    reset_launch_counts()
+    stats = run_pipeline(placer, reader, writer, inflight=3)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    writer.end()
+    return stats, counts, parse_jplace(out)
 
 
 def d652_fixture():
@@ -718,16 +876,11 @@ def compare_rows(rows, want_rows, names, what: str) -> float:
 def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     """Phase 8 (see the module docstring), on phase 7's fixture. Returns the
     kernel entry of kernel 3's sums and the phase's summary numbers."""
-    from epik_tpu_torch.cli.main import _open_reader
     from epik_tpu_torch.engine.config import PlacerConfig
-    from epik_tpu_torch.engine.pipeline import run_pipeline
-    from epik_tpu_torch.io.jplace import jplace_writer
-    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels.accumulate_packed import accumulate_packed_sums, packed_sums_plain
     from epik_tpu_torch.parallel import sharding as sharding_mod
     from epik_tpu_torch.parallel.mesh import make_mesh
     from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
-    from epik_tpu_torch.tools.jplace_diff import parse_jplace
     from torch_fixtures import packed_cells
 
     db, tree, reads, records = fx["db"], fx["tree"], fx["reads"], fx["records"]
@@ -735,18 +888,8 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     summary = {}
 
     def run(placer, fasta: str, name: str):
-        """The placer through run_pipeline with the port's reader and writer;
-        the launch counts zeroed just before and read just after."""
-        out = os.path.join(fx["work"], name)
-        writer = jplace_writer(out, "chip_smoke.py", fx["newick"], resume=False)
-        writer.start()
-        reader = _open_reader(fasta, BT_BATCH)
-        reset_launch_counts()
-        stats = run_pipeline(placer, reader, writer, inflight=3)
-        torch.cuda.synchronize()
-        counts = launch_counts()
-        writer.end()
-        return stats, counts, parse_jplace(out)
+        return run_placer(torch, placer, fasta, os.path.join(fx["work"], name), fx["newick"],
+                          BT_BATCH)
 
     # ---- 8a. the placer on a 1x1 mesh: column tiles and hash-sharded tables -------
     t0 = time.monotonic()
@@ -793,16 +936,19 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     io = (nbytes(p, got), p.numel())  # the cells in, the sums out; an add per cell
     del got, want, lib, scatter, p_e, got_e, want_e
     (Sps, m_f32), kw_f = finish_calls[0]
-    summary["column_finish_ms"] = cuda_ms(
-        torch, lambda: sharding_mod.finish_scores_cols_shifted(Sps, m_f32, **kw_f))
+    fin = check_cols_finish(torch, np, Sps, m_f32, kw_f, "sharded tiles 1x1")
+    summary.update(column_finish_ms=fin["finish_ms"], column_finish_plain_ms=fin["finish_plain_ms"],
+                   finish_cols_partial_ms=fin["partial_ms"],
+                   finish_cols_expsum_ms=fin["expsum_ms"])
     seqs = list(dict.fromkeys(s for _, s in clean))
     _, OV, rerun = placer._place_async_tiles({s: ["x"] for s in seqs}, seqs).budget
     summary["sharded_tile_step_ms"] = cuda_ms(torch, lambda: rerun(OV))
     log(f"accumulate_packed_sums {tuple(p.shape)} B={bwl}: bit-equal on the path's and "
         f"engineered cells; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_add "
-        f"{lib_ms:.4f} ms, bound {bound(*io)[0]:.4f} ms; column finish (stable sort over "
-        f"{bwl} columns) {summary['column_finish_ms']:.4f} ms; sharded device step "
-        f"(tokenize + gathers + kernel 3 + finish) at R={len(seqs)}, OV={OV}: "
+        f"{lib_ms:.4f} ms, bound {bound(*io)[0]:.4f} ms; column finish over {bwl} columns: "
+        f"kernels {summary['column_finish_ms']:.4f} ms, torch ops (stable sort) "
+        f"{summary['column_finish_plain_ms']:.4f} ms; sharded device step (tokenize + "
+        f"gathers + kernel 3 + column finish) at R={len(seqs)}, OV={OV}: "
         f"{summary['sharded_tile_step_ms']:.4f} ms [{card}]")
     del Sps, m_f32, finish_calls, sums_calls
 
@@ -817,8 +963,8 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     placer._place_async_csr = counting_csr
     placer.overflow_retries = 0
     stats, counts, rows = run(placer, fx["fasta"], "placements_sharded.jplace")
-    missing = [n for n in ("accumulate_packed_sums", "accumulate_sums_counts")
-               if counts[n] <= 0]
+    missing = [n for n in ("accumulate_packed_sums", "accumulate_sums_counts",
+                           "finish_cols_partial", "finish_cols_expsum") if counts[n] <= 0]
     if missing:
         raise AssertionError(f"sharded pass: kernels never launched: {missing}")
     if set(rows) != {name for name, _ in records}:
@@ -853,8 +999,8 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     if placer4.route != "tiles" or placer4._bwl != -(-B // 512) * 128:
         raise AssertionError(f"1x4: route {placer4.route}, shard width {placer4._bwl}")
     stats4, counts4, rows4 = run(placer4, sub_fasta, "placements_sharded_1x4.jplace")
-    if counts4["accumulate_packed_sums"] <= 0:
-        raise AssertionError("1x4: kernel 3's sums never launched")
+    if counts4["accumulate_packed_sums"] <= 0 or counts4["finish_cols_partial"] <= 0:
+        raise AssertionError(f"1x4: launches {counts4}")
     worst4 = compare_rows(rows4, rows, [name for name, _ in sub], "1x4 vs 1x1")
     summary["sharded_1x4_reads_per_s"] = stats4.num_seq_placed / stats4.wall_seconds
     log(f"sharded 1x4 on one card (shard width {placer4._bwl}, built in {build4_s:.1f} s): "
@@ -864,6 +1010,7 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     torch.cuda.empty_cache()
     kernel = entry("accumulate_packed_sums", counts["accumulate_packed_sums"], err, ms,
                    plain_ms, *io, lib_ms)
+    summary.update(finish_cols_expsum_err=fin["expsum_err"], column_finish_err=fin["finish_err"])
     return [kernel], summary
 
 
@@ -1059,6 +1206,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
                   for a in ("keys", "row_off", "branches", "scores")) and c4.omega == fx["db"].omega
     oracle_c4 = fx["oracle_out"] if same_db else ReferencePlacer(
         c4, parse_newick(c4.tree())).place(fx["parity_records"])
+    fx.update(c4_path=c4_path, oracle_c4=oracle_c4)  # phase 10 places the same file
     out_dir = os.path.join(fx["work"], "dense_cli")
     os.makedirs(out_dir)
     argv = ["place", "-i", c4_path, "-o", out_dir, "--batch-size", str(BT_BATCH), fx["fasta"]]
@@ -1190,6 +1338,177 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     # ---- 9d. the kernels at the widths of bigger trees -----------------------------------------
     errs = wide_tree_checks(torch, np, card, dev)
     return kernels, summary, errs
+
+
+def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, dict]:
+    """Phase 10 (see the module docstring). Returns the kernel entries of the
+    column finish (the D652 1x1 CLI run's launches and shapes; the largest
+    difference over every check of the phase) and the phase's summary."""
+    from epik_tpu_torch.core.tree import parse_newick, to_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
+    from epik_tpu_torch.parallel import sharding as sharding_mod
+    from epik_tpu_torch.parallel.mesh import make_mesh
+    from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    summary, fins = {}, {}
+    db = d652["db"]
+    tree = parse_newick(db.tree())
+    newick = to_newick(tree, jplace_edges=True)
+    names = [n for n, _ in d652["records"]]
+    need = ("rowgather_sum", "finish_cols_partial", "finish_cols_expsum")
+
+    def check_counts(counts, what, want=need, never=("rowgather_sum_topk",)):
+        if any(counts[n] <= 0 for n in want) or any(counts[n] for n in never):
+            raise AssertionError(f"{what}: launches {counts}")
+
+    def sharded_cli(db_path, fasta, out_dir, batch, what, step_name):
+        """``--engine sharded`` in process: (rows, counts, reads/s, the first
+        recorded step call, finish call and gather call)."""
+        os.makedirs(out_dir)
+        argv = ["place", "-i", db_path, "-o", out_dir, "--batch-size", str(batch), "--engine",
+                "sharded", fasta]
+        steps, fins_, gathers = [], [], []
+        reset_launch_counts()
+        with recording(sharding_mod, step_name, steps, limit=1), \
+                recording(sharding_mod, "finish_scores_cols_shifted", fins_, limit=1), \
+                recording(sharding_mod, "rowgather_sum", gathers, limit=1):
+            rc, cli_out, _ = run_cli(torch, argv)
+        counts = launch_counts()
+        log("cli: python -m epik_tpu_torch " + " ".join(argv))
+        for line in cli_out.splitlines():
+            log("  | " + line)
+        if rc != 0 or "sharded mesh 1x1 (dense)" not in cli_out or not steps:
+            raise AssertionError(f"{what}: rc {rc}, not the sharded dense route through "
+                                 f"{step_name}")
+        check_counts(counts, what)
+        rows = parse_jplace(os.path.join(out_dir, "placements_" + os.path.basename(fasta)
+                                         + ".jplace"))
+        return rows, counts, placement_ms(cli_out), steps[0], fins_[0], gathers[0]
+
+    # ---- 10a. D652 through the CLI, --engine sharded: a 1x1 mesh, the pair plane ------
+    rows1, counts1, pl_ms, (s_args, s_kw), (f_args, f_kw), (g_args, _) = sharded_cli(
+        d652["db_path"], d652["fasta"], os.path.join(d652["work"], "out_sharded_1x1"), BATCH,
+        "D652 sharded 1x1", "sharded_dense_paired_step")
+    if set(rows1) != set(names):
+        raise AssertionError("D652 sharded 1x1: jplace names differ")
+    worst = check_parity(d652["oracle_out"], rows1, "D652 sharded 1x1")
+    summary["d652_sharded_cli_reads_per_s"] = len(names) / pl_ms * 1e3
+    summary["d652_sharded_rowgather_sum_launches"] = counts1["rowgather_sum"]
+    planes = s_args[0]
+    summary["d652_sharded_step_ms"] = cuda_ms(
+        torch, lambda: sharding_mod.sharded_dense_paired_step(*s_args, **s_kw), reps=5)
+    plane, rows = g_args
+    summary["d652_sharded_rowgather_sum_ms"] = cuda_ms(torch, lambda: rowgather_sum(plane, rows))
+    if not torch.equal(rowgather_sum(plane, rows), rowgather_sum_plain(plane, rows)):
+        raise AssertionError("rowgather_sum (D652 sharded 1x1): not bit-equal")
+    log(f"D652 sharded 1x1 (pair plane {tuple(planes[0].shape)} f32 in one shard): "
+        f"{len(names)} reads, pipeline {pl_ms} ms = "
+        f"{summary['d652_sharded_cli_reads_per_s']:.0f} reads/s [{card}]; launches "
+        f"{ {n: c for n, c in counts1.items() if c} }; parity on {PARITY_READS} reads: largest "
+        f"score difference {worst:.3g}; sharded dense step (tokenize + amb delta rows + "
+        f"rowgather_sum + column finish) at R={s_args[2].shape[0]}: "
+        f"{summary['d652_sharded_step_ms']:.4f} ms; rowgather_sum {tuple(rows.shape)} "
+        f"{summary['d652_sharded_rowgather_sum_ms']:.4f} ms, bit-equal")
+    fins["d652_1x1"] = check_cols_finish(torch, np, *f_args, f_kw, "D652 sharded 1x1")
+    del planes, s_args, f_args, g_args, plane, rows
+    torch.cuda.empty_cache()
+
+    # ---- 10b. D652 on a 1x4 mesh laid on the card ----------------------------------------
+    t0 = time.monotonic()
+    placer = ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=4, devices=[dev] * 4))
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    if (placer.route != "dense" or not placer._paired
+            or placer._bwl != -(-tree.get_node_count() // 512) * 128):
+        raise AssertionError(f"D652 1x4: route {placer.route}, paired {placer._paired}, "
+                             f"shard width {placer._bwl}")
+    fin_calls = []
+    with recording(sharding_mod, "finish_scores_cols_shifted", fin_calls, limit=1):
+        stats4, counts4, rows4 = run_placer(
+            torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_1x4.jplace"),
+            newick, BATCH)
+    check_counts(counts4, "D652 sharded 1x4")
+    worst4 = compare_rows(rows4, rows1, names, "D652 1x4 vs 1x1")
+    summary["d652_sharded_1x4_reads_per_s"] = stats4.num_seq_placed / stats4.wall_seconds
+    log(f"D652 sharded 1x4 on one card (4 shards of {placer._bwl} columns, "
+        f"{sum(p.numel() * 4 for p in placer._planes[0])} bytes of planes, built in "
+        f"{build_s:.1f} s): {stats4.summary()}; launches "
+        f"{ {n: c for n, c in counts4.items() if c} }; {len(names)} reads within "
+        f"{worst4:.3g} of the 1x1 jplace [{card}]")
+    (f_args, f_kw) = fin_calls[0]
+    fins["d652_1x4"] = check_cols_finish(torch, np, *f_args, f_kw, "D652 sharded 1x4")
+    del placer, fin_calls, f_args
+    torch.cuda.empty_cache()
+
+    # ---- 10c. D652 on the classic plane, 1x1, through the library ----------------------------
+    placer = ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1),
+                                config=PlacerConfig(plane_mode="classic"))
+    if placer.route != "dense" or placer._shifted:
+        raise AssertionError(f"D652 classic: route {placer.route}, shifted {placer._shifted}")
+    stats_c, counts_c, rows_c = run_placer(
+        torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_classic.jplace"),
+        newick, BATCH)
+    check_counts(counts_c, "D652 sharded classic", want=("rowgather_sum_counts",),
+                 never=("rowgather_sum_topk", "finish_cols_partial", "finish_cols_expsum"))
+    worst_c = check_parity(d652["oracle_out"], rows_c, "D652 sharded classic")
+    summary["d652_sharded_classic_reads_per_s"] = stats_c.num_seq_placed / stats_c.wall_seconds
+    log(f"D652 sharded classic 1x1 (run_pipeline): {stats_c.summary()} [{card}]; launches "
+        f"{ {n: c for n, c in counts_c.items() if c} }; parity on {PARITY_READS} reads: "
+        f"largest score difference {worst_c:.3g}")
+    del placer
+    torch.cuda.empty_cache()
+
+    # ---- 10d. config 4 through --engine sharded: the unpaired 51.8 GB column plane -----------
+    reads = fx["reads"]
+    long_reads = fx["records"][BT_READS:]
+    sub = ([r for r in reads if not r[0].startswith("read_")] + reads[:100]
+           + reads[BT_READS - C4_SHARDED_READS:] + long_reads)
+    sub_fasta = os.path.join(fx["work"], "c4_sharded.fasta")
+    write_fasta(sub_fasta, sub)
+    t0 = time.monotonic()
+    rows_4, counts_4, pl_ms4, (s_args, s_kw), (f_args, f_kw), (g_args, _) = sharded_cli(
+        fx["c4_path"], sub_fasta, os.path.join(fx["work"], "out_sharded_c4"), BT_BATCH,
+        "config 4 sharded", "sharded_dense_bytes_step")
+    summary["config4_sharded_cli_s"] = time.monotonic() - t0
+    if set(rows_4) != {n for n, _ in sub}:
+        raise AssertionError("config 4 sharded: jplace names differ")
+    worst_4 = check_parity(fx["oracle_c4"], rows_4, "config 4 sharded dense")
+    summary["config4_sharded_cli_reads_per_s"] = len(sub) / pl_ms4 * 1e3
+    summary["config4_sharded_step_ms"] = cuda_ms(
+        torch, lambda: sharding_mod.sharded_dense_bytes_step(*s_args, **s_kw), reps=3)
+    plane_c4 = s_args[0][0]
+    plane, rows = g_args
+    summary["config4_sharded_rowgather_sum_ms"] = cuda_ms(torch, lambda: rowgather_sum(plane, rows),
+                                                          reps=5)
+    log(f"config 4 sharded dense (unpaired column plane {tuple(plane_c4.shape)} f32 = "
+        f"{plane_c4.numel() * 4} bytes): {len(sub)} reads, pipeline {pl_ms4} ms = "
+        f"{summary['config4_sharded_cli_reads_per_s']:.0f} reads/s, whole CLI "
+        f"{summary['config4_sharded_cli_s']:.1f} s [{card}]; launches "
+        f"{ {n: c for n, c in counts_4.items() if c} }; parity on "
+        f"{len(fx['parity_records'])} reads: largest score difference {worst_4:.3g}; sharded "
+        f"dense step at R={s_args[2].shape[0]}: {summary['config4_sharded_step_ms']:.4f} ms; "
+        f"rowgather_sum {tuple(rows.shape)} {summary['config4_sharded_rowgather_sum_ms']:.4f} ms")
+    fins["config4"] = check_cols_finish(torch, np, *f_args, f_kw, "config 4 sharded 1x1")
+    del s_args, f_args, g_args, plane_c4, plane, rows
+    torch.cuda.empty_cache()
+
+    for name, f in fins.items():
+        summary.update({f"{name}_{key}": f[key] for key in (
+            "partial_ms", "partial_plain_ms", "expsum_ms", "expsum_plain_ms", "finish_ms",
+            "finish_plain_ms")})
+    main_fin = fins["d652_1x1"]
+    err_e = max(f["expsum_err"] for f in fins.values())
+    kernels = [
+        # no one library call computes either half of the column finish
+        entry("finish_cols_partial", counts1["finish_cols_partial"], 0.0, main_fin["partial_ms"],
+              main_fin["partial_plain_ms"], *main_fin["io_partial"], None),
+        entry("finish_cols_expsum", counts1["finish_cols_expsum"], err_e, main_fin["expsum_ms"],
+              main_fin["expsum_plain_ms"], *main_fin["io_expsum"], None),
+    ]
+    return kernels, summary
 
 
 def main() -> int:
@@ -1463,6 +1782,9 @@ def main() -> int:
     d652 = {"db": db_loaded, "db_path": db_path, "fasta": fasta, "records": records,
             "oracle_out": oracle_d652, "work": work}
     dn_kernels, dn, extra_err = dense_phase(torch, np, card, dev, fx, d652)
+
+    # ---- 10. the column-sharded dense engine -------------------------------------------------
+    sd_kernels, sd = sharded_dense_phase(torch, np, card, dev, fx, d652)
     shutil.rmtree(fx["work"], ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
@@ -1471,14 +1793,17 @@ def main() -> int:
         raise AssertionError(f"imported {imported[:5]}")
 
     kernels = [
-        # the gather alone is off the main path now (launches 0 there)
-        entry("rowgather_sum", counts["rowgather_sum"], err1, ms1, plain_ms1, *io1, lib_ms1),
+        # the gather alone runs on the sharded dense path (phase 10's D652 CLI
+        # run), not on the single-device one (phase 5: the fused kernel)
+        entry("rowgather_sum", sd["d652_sharded_rowgather_sum_launches"], err1, ms1, plain_ms1,
+              *io1, lib_ms1),
         # no one library call computes the gather with the finish
         entry("rowgather_sum_topk", counts["rowgather_sum_topk"], err1f, ms1f, plain_ms1f,
               *io1f, None),
         *bt_kernels,
         *sh_kernels,
         *dn_kernels,
+        *sd_kernels,
     ]
     for e in kernels:  # the wide-tree checks of phase 9
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0))
@@ -1488,6 +1813,7 @@ def main() -> int:
     log("summary big tree: " + " ".join(f"{k}={v}" for k, v in bt.items()))
     log("summary sharded: " + " ".join(f"{k}={v}" for k, v in sh.items()))
     log("summary dense engine: " + " ".join(f"{k}={v}" for k, v in dn.items()))
+    log("summary sharded dense: " + " ".join(f"{k}={v}" for k, v in sd.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -3,10 +3,16 @@
 The ``place`` command of ``epik_tpu/cli/main.py`` (:42-386) with the flags the
 ported path runs, on ``argparse`` (the port does not depend on click), and
 ``--platform cuda|cpu`` in place of the JAX platform flag. It loads the
-database, builds a :class:`~epik_tpu_torch.engine.placer.TorchPlacer`, streams
-the FASTA through ``engine.pipeline.run_pipeline`` into the jplace
-writer, and prints the same lines as the JAX CLI to the same
-``placements_<input>.jplace``.
+database, builds the engine ``--engine`` names (:240-289): ``torch``, the
+single-device :class:`~epik_tpu_torch.engine.placer.TorchPlacer`;
+``sharded``, the multi-device
+:class:`~epik_tpu_torch.parallel.sharding.ShardedTorchPlacer` over every card
+(``--n-model`` model shards, the other cards data-parallel; with ``--platform
+cpu`` over ``n_model`` repeats of the CPU device); ``native``, the C++ scalar
+placer; ``reference``, the scalar oracle. It streams the FASTA through
+``engine.pipeline.run_pipeline`` into the jplace writer, and prints the same
+lines as the JAX CLI to the same ``placements_<input>.jplace``. The
+multi-host flags are not ported yet (ROADMAP.md queue 1 item 9b).
 """
 
 from __future__ import annotations
@@ -88,7 +94,7 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
                   input_file, batch_size=2000, keep_at_most=7, keep_factor=0.01,
                   invocation=None, resume=False, verbose=False, inflight=3,
                   precision="exact", plane_mode="shifted", pair_plane="auto",
-                  tile_payload="auto", platform="cuda") -> int:
+                  tile_payload="auto", platform="cuda", engine="torch", n_model=1) -> int:
     """Full pipeline orchestration (reference: main.cpp:237-383)."""
     if not (0.0 <= mu <= 1.0):
         _err("Error: Mu has to a value in [0, 1]")
@@ -129,21 +135,15 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
           f"{to_human_readable(db.get_num_entries_total())} phylo-k-mers. ")
     print("")
 
-    import torch
-
     from ..core.tree import parse_newick, to_newick
-    from ..engine.config import PlacerConfig
     from ..engine.pipeline import run_pipeline
-    from ..engine.placer import TorchPlacer
 
     tree = parse_newick(db.tree())
-    cfg = PlacerConfig(host_threads=max(1, threads), precision=precision,
-                       plane_mode=plane_mode, pair_plane=pair_plane,
-                       tile_payload=tile_payload)
-    placer = TorchPlacer(db, tree, keep_at_most=keep_at_most,
-                         keep_factor=keep_factor, config=cfg, device=platform)
-    n_dev = torch.cuda.device_count() if placer.device.type == "cuda" else 1
-    engine_name = f"torch/{placer.device.type} ({n_dev} device(s), {placer.route})"
+    placer, engine_name = _make_engine(engine, db, tree, keep_at_most=keep_at_most,
+                                       keep_factor=keep_factor, threads=threads,
+                                       precision=precision, plane_mode=plane_mode,
+                                       pair_plane=pair_plane, tile_payload=tile_payload,
+                                       platform=platform, n_model=n_model)
 
     tree_as_newick = to_newick(tree, jplace_edges=True)
     jplace_filename = make_output_filename(input_file, outputdir)
@@ -190,6 +190,48 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
     return 0
 
 
+def _make_engine(engine: str, db, tree, *, keep_at_most, keep_factor, threads, precision,
+                 plane_mode, pair_plane, tile_payload, platform, n_model):
+    """(placer, engine line) for ``--engine`` (JAX ``place_queries``
+    :240-289)."""
+    if engine == "reference":
+        from ..engine.reference import ReferencePlacer
+
+        return (ReferencePlacer(db, tree, keep_at_most=keep_at_most, keep_factor=keep_factor),
+                "scalar (oracle)")
+    if engine == "native":
+        from ..native import NativePlacer
+
+        return (NativePlacer(db, tree, keep_at_most=keep_at_most, keep_factor=keep_factor,
+                             threads=max(1, threads)),
+                f"native C++ scalar (-j {max(1, threads)})")
+    import torch
+
+    from ..engine.config import PlacerConfig
+
+    cfg = PlacerConfig(host_threads=max(1, threads), precision=precision,
+                       plane_mode=plane_mode, pair_plane=pair_plane, tile_payload=tile_payload)
+    if engine == "sharded":
+        from ..parallel.mesh import make_mesh
+        from ..parallel.sharding import ShardedTorchPlacer
+
+        # the CPU mesh repeats the one CPU device, as JAX's virtual host
+        # devices do; "cuda" spans every card (and raises without CUDA)
+        devices = [torch.device("cpu")] * n_model if platform == "cpu" else None
+        mesh = make_mesh(n_model=n_model, devices=devices)
+        placer = ShardedTorchPlacer(db, tree, mesh, keep_at_most=keep_at_most,
+                                    keep_factor=keep_factor, config=cfg)
+        shape = mesh.shape
+        return placer, (f"torch/{platform} sharded mesh {shape['data']}x{shape['model']} "
+                        f"({placer.route})")
+    from ..engine.placer import TorchPlacer
+
+    placer = TorchPlacer(db, tree, keep_at_most=keep_at_most, keep_factor=keep_factor,
+                         config=cfg, device=platform)
+    n_dev = torch.cuda.device_count() if placer.device.type == "cuda" else 1
+    return placer, f"torch/{placer.device.type} ({n_dev} device(s), {placer.route})"
+
+
 def _existing_file(path: str) -> str:
     if not os.path.isfile(path):
         raise argparse.ArgumentTypeError(f"file {path!r} does not exist")
@@ -231,6 +273,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="Number of branches to report. [default: 7]")
     p.add_argument("--keep-factor", type=float, default=0.01,
                    help="Minimum LWR to report. [default: 0.01]")
+    p.add_argument("--engine", choices=["torch", "sharded", "native", "reference"],
+                   default="torch",
+                   help="Placement engine: the single-device torch placer, the "
+                        "multi-device sharded engine, the native C++ CPU placer (-j "
+                        "threads, no device needed), or the scalar oracle. "
+                        "[default: torch]")
+    p.add_argument("--n-model", type=int, default=1,
+                   help="Model-axis shards for --engine sharded (the database sharded "
+                        "by branch columns or key hash when > 1); the remaining devices "
+                        "go data-parallel. [default: 1]")
     p.add_argument("--platform", choices=["cuda", "cpu"], default="cuda",
                    help="Torch device to place on. [default: cuda]")
     p.add_argument("--inflight", type=int, default=3,
@@ -267,5 +319,6 @@ def main(argv: list[str] | None = None) -> int:
         keep_factor=args.keep_factor, resume=args.resume, verbose=args.verbose,
         inflight=args.inflight, precision=args.precision,
         plane_mode=args.plane_mode, pair_plane=args.pair_plane,
-        tile_payload=args.tile_payload, platform=args.platform,
+        tile_payload=args.tile_payload, platform=args.platform, engine=args.engine,
+        n_model=args.n_model,
     )

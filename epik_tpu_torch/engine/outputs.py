@@ -14,7 +14,7 @@ import numpy as np
 from .types import ArrayPlacedCollection
 
 __all__ = ["POW10_ZERO", "U64", "_Pending", "_SplitPending", "assemble_arrays",
-           "merge_split", "unpack_outputs", "unpack_outputs_slim"]
+           "merge_split", "unpack_body", "unpack_outputs", "unpack_outputs_slim"]
 
 U64 = 1 << 64
 #: exponent below which IEEE-double 10**x rounds to exactly 0.0
@@ -25,16 +25,22 @@ POW10_ZERO = -323.6
 def unpack_outputs(arr: np.ndarray, K: int):
     """Host-side inverse of the full (R+1, 4K+2) pack of the CSR step
     (``ops/csr.py::pack_outputs``)."""
-    body, totals = arr[:-1], arr[-1]
+    totals = arr[-1]
+    e_total = (int(totals[0]) << 20) + int(totals[1])
+    a_total = (int(totals[2]) << 20) + int(totals[3])
+    return (*unpack_body(arr[:-1], K), e_total, a_total)
+
+
+def unpack_body(body: np.ndarray, K: int):
+    """The rows of the full pack without its totals row: (scores, idx,
+    counts, wr, n, zero_sum)."""
     scores_k = body[:, 0:K]
     wr_k = body[:, K : 2 * K].astype(np.float64)
     idx_k = body[:, 2 * K : 3 * K].astype(np.int32)
     counts_k = body[:, 3 * K : 4 * K].astype(np.int64)
     n = body[:, 4 * K].astype(np.int32)
     zero_sum = body[:, 4 * K + 1] != 0
-    e_total = (int(totals[0]) << 20) + int(totals[1])
-    a_total = (int(totals[2]) << 20) + int(totals[3])
-    return scores_k, idx_k, counts_k, wr_k, n, zero_sum, e_total, a_total
+    return scores_k, idx_k, counts_k, wr_k, n, zero_sum
 
 
 def unpack_outputs_slim(arr: np.ndarray, K: int):

@@ -350,17 +350,7 @@ class TorchPlacer(HostStaging):
         Lmax = _bucket_lmax(Lmax_true)
         m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R)
-        if amb_mask.any():
-            idxs = np.flatnonzero(amb_mask)
-            tok = self._tokenize([seqs[i] for i in idxs])
-            a_keys = tok.amb_keys
-            a_read = idxs[tok.amb_read] if a_keys.size else tok.amb_read
-            apr = int(np.bincount(a_read, minlength=R).max()) if a_keys.size else 0
-            Amax = _bucket(apr, 8) if a_keys.size else 0
-            arows = self._rows_matrix(a_keys, a_read, R, Amax)
-        else:
-            Amax = 0
-            arows = np.zeros((R, 0), np.int32)
+        arows, Amax = self._amb_rows(seqs, amb_mask, R)
         return buf, arows, Amax, Lmax, m_signed
 
     def _place_async_dense_host(self, sequence_map, seqs) -> _Pending:

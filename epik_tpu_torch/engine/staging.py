@@ -195,6 +195,22 @@ class HostStaging:
         idx_c = np.minimum(idx, n - 1)
         return np.where(dbk[idx_c] == keys, idx_c, n).astype(np.int32)
 
+    def _amb_rows(self, seqs, amb_mask: np.ndarray, R: int):
+        """The ambiguous first-hit rows of the device-tokenizer steps (quirks
+        Q6/Q7): the reads of ``amb_mask`` host-tokenized, their ambiguous keys
+        as an (R, Amax) plane-row matrix in processing order. Returns (arows,
+        Amax); Amax is 0, an (R, 0) matrix, when no read holds an ambiguous
+        key."""
+        if not amb_mask.any():
+            return np.zeros((R, 0), np.int32), 0
+        idxs = np.flatnonzero(amb_mask)
+        tok = self._tokenize([seqs[i] for i in idxs])
+        if not tok.amb_keys.size:
+            return np.zeros((R, 0), np.int32), 0
+        a_read = idxs[tok.amb_read]
+        Amax = _bucket(int(np.bincount(a_read, minlength=R).max()), 8)
+        return self._rows_matrix(tok.amb_keys, a_read, R, Amax), Amax
+
     def _rows_matrix(self, keys: np.ndarray, read: np.ndarray, R: int, width: int):
         """(R, width) per-read plane-row matrix in processing order; padding
         slots hold the all-zero row index."""

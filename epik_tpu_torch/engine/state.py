@@ -11,7 +11,9 @@
   ``0.0 -> -1e-37`` nudge; classic bf16 with a further ``-1.2e-38`` nudge;
   shifted int16, ``rint(sp * 32000 / -log_eps)`` clipped to [1, 32000].
   :func:`plane_state_from_numpy` takes the JAX placer's own arrays instead,
-  so tests can feed both engines the same state.
+  so tests can feed both engines the same state. :func:`build_plane_shard`
+  builds one model shard of the column-sharded f32 plane (the sharded
+  placer's dense route) from the same cells.
 * The CSR step: the cuckoo table over the keys (payload: the key's row) and
   the postings, as ``JaxPlacer.table``/``_dev_postings``/``_dev_row_off``
   hold them (:2272-2305), built by :func:`build_csr_state`.
@@ -28,8 +30,8 @@ import torch
 from ..ops.hashtable import build_table
 from .tables import build_combo_table, direct_table, enumerate_pairs
 
-__all__ = ["CsrState", "PlaneState", "build_csr_state", "build_plane_state",
-           "pair_tables", "plane_cells", "plane_state_from_numpy"]
+__all__ = ["CsrState", "PlaneState", "build_csr_state", "build_plane_shard",
+           "build_plane_state", "pair_tables", "plane_cells", "plane_state_from_numpy"]
 
 #: pair rows built per device step (bounds the build's extra memory to
 #: one chunk of rows)
@@ -135,28 +137,50 @@ def build_plane_state(db, *, k: int, B: int, log_eps: np.float32, shifted: bool,
     (pu, pv, combo) from :func:`pair_tables` (the shifted f32 plane only)
     the pair rows after the zero row; ``direct`` (a :func:`~.tables.
     direct_table`) rides along for the unpaired device tokenizer."""
-    n_keys = db.num_kmers
-    n_pairs = 0 if pairs is None else int(pairs[0].shape[0])
     dtype = _DTYPES[precision] if precision != "int16" or shifted else torch.float32
-    plane_w = -(-B // 128) * 128
-    plane = torch.zeros((n_keys + 1 + n_pairs, plane_w), dtype=dtype, device=device)
     rows, br, vals, scale = plane_cells(db, log_eps, shifted=shifted, precision=precision)
-    plane.index_put_((torch.from_numpy(rows).to(device), torch.from_numpy(br).to(device)),
-                     torch.from_numpy(vals).to(device).to(dtype))
-    combo = None
-    if pairs is not None:
-        pu, pv, combo = pairs
-        pu_t = torch.from_numpy(pu.astype(np.int64)).to(device)
-        pv_t = torch.from_numpy(pv.astype(np.int64)).to(device)
-        for s in range(0, n_pairs, _PAIR_CHUNK):
-            e = min(s + _PAIR_CHUNK, n_pairs)
-            base = n_keys + 1
-            plane[base + s : base + e] = (plane.index_select(0, pu_t[s:e])
-                                          + plane.index_select(0, pv_t[s:e]))
-        combo = torch.from_numpy(combo).to(device)
-    return PlaneState(plane=plane, combo=combo, n_keys=n_keys,
+    plane = _fill_plane(db.num_kmers, rows, br, vals, width=-(-B // 128) * 128, dtype=dtype,
+                        pairs=pairs, device=device)
+    return PlaneState(plane=plane,
+                      combo=None if pairs is None else torch.from_numpy(pairs[2]).to(device),
+                      n_keys=db.num_kmers,
                       direct=None if direct is None else torch.from_numpy(direct).to(device),
                       scale=scale)
+
+
+def build_plane_shard(db, *, col0: int, width: int, log_eps: np.float32, shifted: bool,
+                      pairs=None, device) -> torch.Tensor:
+    """One model shard of the column-sharded f32 plane on ``device``
+    (``epik_tpu/parallel/sharding.py::shard_db_columns`` :105 and the pair
+    rows of :903-939): the cells of :func:`plane_cells` (exact precision) whose
+    branch lies in [col0, col0 + width), re-based to local columns, in
+    (n_keys + 1, width) with the all-zero row at n_keys; with ``pairs`` =
+    (pu, pv, combo) the pair rows after it, each the f32 sum of two base rows
+    of this shard, i.e. the column slice of the global pair rows."""
+    rows, br, vals, _ = plane_cells(db, log_eps, shifted=shifted, precision="exact")
+    mine = (br >= col0) & (br < col0 + width)
+    return _fill_plane(db.num_kmers, rows[mine], br[mine] - col0, vals[mine], width=width,
+                       dtype=torch.float32, pairs=pairs, device=device)
+
+
+def _fill_plane(n_keys: int, rows, cols, vals, *, width: int, dtype, pairs,
+                device) -> torch.Tensor:
+    """(n_keys + 1 [+ n_pairs], width) zeros on ``device`` holding ``vals`` at
+    (rows, cols); with ``pairs`` = (pu, pv, ...) the pair rows after the zero
+    row, built a chunk of rows at a time."""
+    n_pairs = 0 if pairs is None else int(pairs[0].shape[0])
+    plane = torch.zeros((n_keys + 1 + n_pairs, width), dtype=dtype, device=device)
+    plane.index_put_((torch.from_numpy(rows).to(device), torch.from_numpy(cols).to(device)),
+                     torch.from_numpy(vals).to(device).to(dtype))
+    if pairs is not None:
+        pu_t = torch.from_numpy(pairs[0].astype(np.int64)).to(device)
+        pv_t = torch.from_numpy(pairs[1].astype(np.int64)).to(device)
+        base = n_keys + 1
+        for s in range(0, n_pairs, _PAIR_CHUNK):
+            e = min(s + _PAIR_CHUNK, n_pairs)
+            plane[base + s : base + e] = (plane.index_select(0, pu_t[s:e])
+                                          + plane.index_select(0, pv_t[s:e]))
+    return plane
 
 
 @dataclasses.dataclass

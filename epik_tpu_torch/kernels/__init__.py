@@ -7,6 +7,10 @@
   :func:`rowgather.rowgather_sum_topk_int16`, the gather with the ambiguous
   delta rows and the finish fused in (the dense shifted steps);
 * :func:`finish.finish_topk` -- kernel 2, correction + LWR + top-K + pack;
+* :func:`finish_cols.finish_cols_partial` and
+  :func:`finish_cols.finish_cols_expsum` -- the column-sharded finish per
+  model shard (its touched count, maximum and top-K candidates, then its sum
+  of exponentials against the merged maximum);
 * :func:`accumulate_packed.accumulate_packed_topk` -- kernel 3, the packed
   posting-tile accumulate fused with the finish, and
   :func:`accumulate_packed.accumulate_packed_sums`, its sums alone (the
@@ -22,6 +26,7 @@ Each wrapper counts its kernel launches in a ``launches`` attribute;
 from .accumulate_packed import accumulate_packed_sums, accumulate_packed_topk
 from .accumulate_sums import accumulate_sums, accumulate_sums_counts
 from .finish import finish_topk
+from .finish_cols import finish_cols_expsum, finish_cols_partial
 from .rowgather import (
     rowgather_sum,
     rowgather_sum_counts,
@@ -31,7 +36,8 @@ from .rowgather import (
 )
 
 __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accumulate_sums",
-           "accumulate_sums_counts", "finish_topk", "launch_counts",
+           "accumulate_sums_counts", "finish_cols_expsum", "finish_cols_partial",
+           "finish_topk", "launch_counts",
            "reset_launch_counts", "rowgather_sum", "rowgather_sum_counts",
            "rowgather_sum_counts_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16"]
 
@@ -43,6 +49,8 @@ KERNELS = {
     "rowgather_sum_counts": rowgather_sum_counts,
     "rowgather_sum_counts_bf16": rowgather_sum_counts_bf16,
     "finish_topk": finish_topk,
+    "finish_cols_partial": finish_cols_partial,
+    "finish_cols_expsum": finish_cols_expsum,
     "accumulate_packed_topk": accumulate_packed_topk,
     "accumulate_packed_sums": accumulate_packed_sums,
     "accumulate_sums": accumulate_sums,

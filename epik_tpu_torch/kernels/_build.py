@@ -57,6 +57,18 @@ _PROTOTYPES = {
     # (Sp, ld, m, out, R, B, K, k, log_eps, ws, blocks, stream)
     "epik_finish_topk": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT,
                          _F32, _VP, _INT, _VP],
+    # (bwl, K) -> bytes
+    "epik_finish_cols_smem": [_INT, _INT],
+    # (bwl) -> bytes, or minus a CUDA error
+    "epik_finish_cols_smem_limit": [_INT],
+    # (R, bwl, K, out int[3])
+    "epik_finish_cols_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
+    # (Sp, ld, m, out, R, bwl, K, col0, k, log_eps, ws, blocks, stream)
+    "epik_finish_cols_partial": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
+                                 _F32, _VP, _INT, _VP],
+    # (Sp, ld, m, max_t, out, R, bwl, k, log_eps, stream)
+    "epik_finish_cols_expsum": [_VP, ctypes.c_int64, _VP, _VP, _VP, _INT, _INT, _INT, _F32,
+                                _VP],
     # (p, m, out, sq, R, PP, B, K, k, log_eps, scale, stream)
     "epik_accumulate_packed_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     ctypes.c_float, ctypes.c_float, _VP],
@@ -71,6 +83,8 @@ _PROTOTYPES = {
 _RESTYPES = {
     "epik_rowgather_sum_topk_smem": ctypes.c_longlong,
     "epik_rowgather_sum_topk_smem_limit": ctypes.c_longlong,
+    "epik_finish_cols_smem": ctypes.c_longlong,
+    "epik_finish_cols_smem_limit": ctypes.c_longlong,
 }
 
 

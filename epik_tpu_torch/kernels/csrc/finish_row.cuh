@@ -1,5 +1,6 @@
 // The per-read placement finish, shared by finish_topk.cu,
-// accumulate_packed_topk.cu and rowgather_sum.cu (rowgather_sum_topk): score
+// accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk) and, through
+// its list max and top-K alone, finish_cols.cu (the column-sharded finish): score
 // correction, LWR log-sum over all branches and top-K, written into one row
 // of the slim result pack [scores K | idx K | log_sum | n | zero_sum]. Math,
 // per read over b < B:
@@ -22,8 +23,9 @@
 //   words' popcounts writes the ids in index order. The list's order does not
 //   depend on the order in which any thread ran, so the log-sum's order of
 //   adds, and with it its bits, is the same from launch to launch.
-// * finish_list: max, exp-sum (warp shuffles, one block reduction each) and
-//   top-K over the list. Each warp runs K rounds of a shuffle arg-best over
+// * finish_list: max (list_max), exp-sum (warp shuffles, one block reduction
+//   each) and top-K (topk_list) over the list. Each warp runs K rounds of a
+//   shuffle arg-best over
 //   its own list entries, each round the best element strictly after the
 //   previous pick in the (value desc, index asc) order; one warp then merges
 //   the warps' K candidates. No block barrier per round. Where n < K the
@@ -163,32 +165,29 @@ struct FinishScratch {
   int* cand_i;
 };
 
-// Finish one read with the whole block from its touched list: `ids` holds the
-// n touched branch ids in ascending order, and `corr(i)` returns the corrected
-// score of entry i (finite). `orow` is the read's (2K+3) output row. Ends with
-// the output written by warp 0; the caller synchronises before reusing the
-// list or the scratch.
-template <class Corr, class Id>
-__device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
-                            float mr, float kf, float log_eps, FinishScratch s,
-                            float* orow) {
+// The largest corrected score of the list (-inf when n == 0), in every
+// thread.
+template <class Corr>
+__device__ float list_max(Corr corr, int n, float* red_f) {
+  float max_loc = -CUDART_INF_F;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) max_loc = fmaxf(max_loc, corr(i));
+  return block_max(max_loc, red_f);
+}
+
+// The top-K of a read's touched list by (value desc, index asc): `ids` holds
+// the n touched ids (< B) in ascending order, `corr(i)` the corrected score of
+// entry i (finite). Lane 0 of warp 0 calls emit(j, value, id) for j = 0 .. K-1
+// in order; where n < K the slots past n take -inf and the lowest untouched ids
+// in ascending order, as the plain version's stable sort gives. Every thread of
+// the block must call it; it returns true in warp 0, false in the other warps
+// right after the block barrier that hands warp 0 the candidates. The caller
+// synchronises before reusing the list or the scratch.
+template <class Corr, class Id, class Emit>
+__device__ bool topk_list(Corr corr, const Id* ids, int n, int K, FinishScratch s,
+                          Emit emit) {
   const float ninf = -CUDART_INF_F;
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  float max_loc = ninf;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) max_loc = fmaxf(max_loc, corr(i));
-  const float max_c = block_max(max_loc, s.red_f);
-
-  // ---- LWR over ALL branches (quirk Q4), underflow flag (quirk Q3) ---------
-  const float npl_exp = __fdiv_rn(__fmul_rn(mr, log_eps), kf);
-  const float n_not = __fsub_rn(static_cast<float>(B), static_cast<float>(n));
-  const float max_t = fmaxf(max_c, n_not > 0.f ? npl_exp : ninf);
-  float sum_loc = 0.f;
-  for (int i = threadIdx.x; i < n; i += blockDim.x) {
-    sum_loc += expf(__fmul_rn(__fsub_rn(corr(i), max_t), kLn10));
-  }
-  const float touched_sum = block_sum(sum_loc, s.red_f);
-
-  // ---- top-K, per warp: K rounds of a shuffle arg-best over its entries -----
+  // ---- per warp: K rounds of a shuffle arg-best over its entries -------------
   float pv = CUDART_INF_F;
   int pi = -1;
   for (int j = 0; j < K; ++j) {
@@ -218,7 +217,7 @@ __device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
     pi = bi;
   }
   __syncthreads();
-  if (warp != 0) return;
+  if (warp != 0) return false;
 
   // ---- warp 0 merges the candidates, then fills the slots past n ------------
   const int nc = (blockDim.x >> 5) * K;
@@ -244,10 +243,7 @@ __device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
         bi = oi;
       }
     }
-    if (lane == 0) {
-      orow[j] = bv;
-      orow[K + j] = static_cast<float>(bi);
-    }
+    if (lane == 0) emit(j, bv, bi);
     pv = bv;
     pi = bi;
   }
@@ -258,11 +254,42 @@ __device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
       if (p < n && static_cast<int>(ids[p]) == b) {
         ++p;
       } else {
-        orow[j] = ninf;
-        orow[K + j] = static_cast<float>(b);
+        emit(j, ninf, b);
         ++j;
       }
     }
+  }
+  return true;
+}
+
+// Finish one read with the whole block from its touched list: `ids` holds the
+// n touched branch ids in ascending order, and `corr(i)` returns the corrected
+// score of entry i (finite). `orow` is the read's (2K+3) output row. Ends with
+// the output written by warp 0; the caller synchronises before reusing the
+// list or the scratch.
+template <class Corr, class Id>
+__device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
+                            float mr, float kf, float log_eps, FinishScratch s,
+                            float* orow) {
+  const float ninf = -CUDART_INF_F;
+  const float max_c = list_max(corr, n, s.red_f);
+
+  // ---- LWR over ALL branches (quirk Q4), underflow flag (quirk Q3) ---------
+  const float npl_exp = __fdiv_rn(__fmul_rn(mr, log_eps), kf);
+  const float n_not = __fsub_rn(static_cast<float>(B), static_cast<float>(n));
+  const float max_t = fmaxf(max_c, n_not > 0.f ? npl_exp : ninf);
+  float sum_loc = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    sum_loc += expf(__fmul_rn(__fsub_rn(corr(i), max_t), kLn10));
+  }
+  const float touched_sum = block_sum(sum_loc, s.red_f);
+
+  // ---- top-K into the pack's first 2K entries -------------------------------
+  const bool lead = topk_list(corr, ids, n, K, s, [orow, K](int j, float v, int b) {
+    orow[j] = v;
+    orow[K + j] = static_cast<float>(b);
+  });
+  if (lead && (threadIdx.x & 31) == 0) {
     const float untouched =
         n_not > 0.f
             ? __fmul_rn(n_not, expf(__fmul_rn(__fsub_rn(npl_exp, max_t), kLn10)))

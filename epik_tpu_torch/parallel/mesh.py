@@ -3,7 +3,8 @@
 Ports ``epik_tpu/parallel/mesh.py::make_mesh``: a ``(data, model)`` grid of
 devices. Axis ``"data"`` splits a batch's reads into contiguous groups, one
 per mesh row; axis ``"model"`` splits the database by branch columns (the
-posting tiles) or by key hash (the CSR tables), one shard per mesh column.
+dense planes, the posting tiles) or by key hash (the CSR tables), one shard
+per mesh column.
 
 One process drives every device of the mesh, as JAX's single controller
 does; the collectives of the JAX package's ``shard_map`` steps become sums,

@@ -1,25 +1,33 @@
-"""Multi-device placement of the port: data-parallel reads x column-sharded tiles.
+"""Multi-device placement of the port: data-parallel reads x column-sharded
+planes, posting tiles or hash-sharded tables.
 
-Ports the big-tree mode of ``epik_tpu/parallel/sharding.py``:
+Ports ``epik_tpu/parallel/sharding.py``:
 
-* database partitioning, copied as numpy: :func:`shard_tiles_columns`
+* database partitioning, copied as numpy: :func:`shard_db_columns` (:105-132),
+  the column-sharded dense planes (the placer builds each shard on its device
+  with ``engine/state.py::build_plane_shard`` instead), :func:`shard_tiles_columns`
   (:135-236), the column-sharded posting tiles with their two-level
   main/overflow split, and :func:`shard_db_by_hash` (:250-313), the
   hash-sharded cuckoo tables and postings of the CSR step;
-* the column finish (:345-400) as torch ops over a list of per-shard
-  ``(R, bwl)`` tensors: ``psum`` becomes a sum over the shards in shard order,
-  ``pmax``/``pmin`` a maximum/minimum, ``all_gather`` a concatenation in shard
-  order;
-* the steps: :func:`sharded_tiles_bytes_step` (``_sharded_tiles_bytes_step``
-  :530-626, kernel 3's sums alone or kernel 4), :func:`sharded_csr_bytes_step`
+* the column finish (:321-400) over a list of per-shard ``(R, bwl)`` tensors:
+  the shifted one (:func:`finish_scores_cols_shifted`) through the per-shard
+  kernels of ``kernels/finish_cols.py`` (each shard's count, maximum and top-K
+  candidates, then its sum of exponentials against the merged maximum), the
+  classic one with counts (:func:`finish_scores_cols`) as torch ops; ``psum``
+  becomes a sum over the shards in shard order, ``pmax`` a maximum,
+  ``all_gather`` a concatenation in shard order;
+* the steps, each for one data group (one mesh row) over its model shards:
+  :func:`sharded_dense_bytes_step` (:421-469), :func:`sharded_dense_paired_step`
+  (:479-520) and :func:`sharded_dense_rows_step` (:634-667), kernel 1's sums
+  per shard; :func:`sharded_tiles_bytes_step` (``_sharded_tiles_bytes_step``
+  :530-626, kernel 3's sums alone or kernel 4); :func:`sharded_csr_bytes_step`
   (:745-802) and :func:`sharded_csr_step` (:675-737), both through kernel 4
-  with counts; each runs one data group (one mesh row) over its model shards;
+  with counts;
 * :class:`ShardedTorchPlacer` (``ShardedJaxPlacer`` :810-1410), its routing,
   dispatch, budget retries and assembly.
 
-The column-sharded dense steps (:421, :479, :634) are not ported yet:
-ROADMAP.md queue 1 item 9a. The JAX package's ``_pad_split``/``_pad_i32``
-(:1413-1425) are ``engine/staging.py``'s ``pad_u64_split``/``pad_i32``.
+The JAX package's ``_pad_split``/``_pad_i32`` (:1413-1425) are
+``engine/staging.py``'s ``pad_u64_split``/``pad_i32``.
 """
 
 from __future__ import annotations
@@ -35,36 +43,53 @@ import torch
 from ..core.alphabet import get_alphabet
 from ..core.scoring import score_threshold
 from ..engine.config import PlacerConfig, check_supported, device_budget
-from ..engine.outputs import _Pending, assemble_arrays, unpack_outputs_slim
-from ..engine.placer import _MAX_DIRECT_K, _MAX_READ_LEN, _MAX_TILE_PLEN
+from ..engine.outputs import _Pending, assemble_arrays, unpack_body, unpack_outputs_slim
+from ..engine.placer import (
+    _MAX_DIRECT_K,
+    _MAX_PAIR_K,
+    _MAX_READ_LEN,
+    _MAX_TILE_PLEN,
+    _wrapped_m,
+)
 from ..engine.staging import HostStaging, _bucket, _bucket_lmax, pad_i32, pad_u64_split
-from ..engine.state import CsrState
+from ..engine.state import CsrState, build_plane_shard, pair_tables
 from ..engine.step import _m_f32
+from ..engine.tables import direct_table
 from ..engine.tiles import Q_MAX
 from ..engine.types import PlacedCollection
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, accumulate_packed_sums, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
 from ..kernels.finish import POW10_ZERO
+from ..kernels.finish_cols import (
+    expsum_from_corrected,
+    finish_cols_expsum,
+    finish_cols_partial,
+    partial_from_corrected,
+)
+from ..kernels.rowgather import rowgather_sum, rowgather_sum_counts
 from ..ops.csr import (
     ORDER_INF,
+    U64,
     accumulate_amb_firsthit,
     accumulate_exact_dense,
     append_totals,
     finish_scores,
+    pack_outputs,
 )
+from ..ops.dense import amb_classic, amb_deltas
 from ..ops.hashtable import BUCKET, _next_pow2, build_table
-from ..ops.tokenize import tokenize_core, tokenize_packed
+from ..ops.tokenize import tokenize_combo, tokenize_core, tokenize_packed
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
 
-__all__ = ["ShardedTorchPlacer", "finish_scores_cols_shifted", "shard_db_by_hash",
-           "shard_tiles_columns", "sharded_csr_bytes_step", "sharded_csr_step",
-           "sharded_tiles_bytes_step"]
+__all__ = ["ShardedTorchPlacer", "finish_scores_cols", "finish_scores_cols_shifted",
+           "shard_db_by_hash", "shard_db_columns", "shard_tiles_columns",
+           "sharded_csr_bytes_step", "sharded_csr_step", "sharded_dense_bytes_step",
+           "sharded_dense_paired_step", "sharded_dense_rows_step", "sharded_tiles_bytes_step"]
 
 #: largest k whose window keys fit the CSR bytes step's 32-bit low word
 _MAX_BYTES_K = 16
 #: tile cells per read are trash-padded to a multiple of this
 _CH = 512
-_NOT_PORTED_DENSE = "ROADMAP.md queue 1 item 9a"
 
 
 def _shard_of_key(keys: np.ndarray, n_shards: int) -> np.ndarray:
@@ -82,6 +107,32 @@ def _shard_of_key(keys: np.ndarray, n_shards: int) -> np.ndarray:
 # ---------------------------------------------------------------------------
 # database partitioning (numpy, as the JAX package builds it)
 # ---------------------------------------------------------------------------
+
+
+def shard_db_columns(db, n_model: int, num_branches: int, shifted: bool = False,
+                     log_eps: float = 0.0):
+    """Column-sharded dense score planes: f32 (n_model, n_keys+1, bwl).
+
+    Shard ``s`` owns global branch columns [s*bwl, (s+1)*bwl), ``bwl`` =
+    ceil(B / (128 n_model)) * 128. Absent cells are exactly 0.0; a stored
+    score of exactly 0.0 is nudged to -1e-37 so presence stays ``!= 0``, and
+    with ``shifted`` the cells hold s - log10(eps), nudged to 1e-37 where that
+    is not > 0. The last plane row is the all-zero miss row. Returns (planes,
+    bwl)."""
+    bwl = -(-num_branches // (128 * n_model)) * 128
+    n_keys = db.num_kmers
+    lens = np.diff(db.row_off)
+    rows_pp = np.repeat(np.arange(n_keys, dtype=np.int64), lens.astype(np.int64))
+    br = db.branches.astype(np.int64)
+    if shifted:
+        sp = (db.scores.astype(np.float64) - float(log_eps)).astype(np.float32)
+        sc = np.where(sp <= 0.0, np.float32(1e-37), sp)
+    else:
+        sc = np.where(db.scores == 0.0, np.float32(-1e-37), db.scores).astype(np.float32)
+    shard = br // bwl
+    planes = np.zeros((n_model, n_keys + 1, bwl), np.float32)
+    planes[shard, rows_pp, br - shard * bwl] = sc
+    return planes, bwl
 
 
 def shard_tiles_columns(db, n_model: int, B: int, log_eps: float):
@@ -252,9 +303,12 @@ def shard_db_by_hash(db, n_model: int) -> ShardedDB:
 # ---------------------------------------------------------------------------
 
 
+@functools.lru_cache(maxsize=None)
 def _f32(x: float, device) -> torch.Tensor:
     """A 0-dim f32 tensor on ``device``: PyTorch's CUDA ops with a CPU scalar
-    divide by multiplying with the reciprocal, which rounds differently."""
+    divide by multiplying with the reciprocal, which rounds differently. Made
+    once per (value, device): each copy to a card waits for its stream, and
+    the column finish would wait for the card at every constant. Read only."""
     return torch.tensor(x, dtype=torch.float32, device=device)
 
 
@@ -268,61 +322,100 @@ def _top(x: torch.Tensor, n: int):
 def finish_scores_cols_shifted(Sps: list[torch.Tensor], m_f32: torch.Tensor, *, B: int,
                                K: int, k: int, log_eps: float):
     """Column-sharded finish from the shards' SHIFTED sums S' = S - C*log_eps,
-    each (R, bwl) on its shard's device (padded columns stay untouched).
-    Per-branch counts are never materialized (reported as -1). Returns
-    (scores, idx, counts, wr, n, zero_sum, log_sum) on the first shard's
-    device."""
-    corrected, touched = [], []
-    for Sp in Sps:
-        dev = Sp.device
-        t = Sp > 0
-        c = (Sp + m_f32.to(dev)[:, None] * _f32(log_eps, dev)) / _f32(float(k), dev)
-        corrected.append(torch.where(t, c, _f32(-math.inf, dev)))
+    each f32 (R, bwl) on its shard's device (padded columns stay untouched):
+    per shard ``finish_cols_partial`` (its count, maximum and top-K
+    candidates), the merge, then per shard ``finish_cols_expsum`` against the
+    merged maximum (:func:`_merge_cols`). Per-branch counts are never
+    materialized (reported as -1). Returns (scores, idx, counts, wr, n,
+    zero_sum, log_sum) on the first shard's device."""
+    bwl = Sps[0].shape[1]
+    m_on = _on_devices([Sp.device for Sp in Sps], lambda dev: m_f32.to(dev).contiguous())
+    partials = [finish_cols_partial(Sp, m_on[Sp.device], K=K, k=k, log_eps=log_eps,
+                                    col0=s * bwl) for s, Sp in enumerate(Sps)]
+
+    def expsum(s: int, max_t: torch.Tensor) -> torch.Tensor:
+        dev = Sps[s].device
+        return finish_cols_expsum(Sps[s], m_on[dev], max_t.to(dev), k=k, log_eps=log_eps)
+
+    return _merge_cols(partials, expsum, m_f32, B=B, K=K, k=k, log_eps=log_eps)
+
+
+def finish_scores_cols(S: list[torch.Tensor], C: list[torch.Tensor], m_f32: torch.Tensor, *,
+                       B: int, K: int, k: int, log_eps: float):
+    """Column-sharded finish of the classic sums and exact counts (JAX
+    :321-342), torch ops per shard: ``touched = C > 0``, the Q1 wrap of
+    ``m - C`` to 2**64, each shard's candidates carrying their counts, then
+    :func:`_merge_cols`. Returns (scores, idx, counts, wr, n, zero_sum,
+    log_sum) on the first shard's device."""
+    bwl = S[0].shape[1]
+    corrected, touched, partials, counts = [], [], [], []
+    for s, (S_s, C_s) in enumerate(zip(S, C)):
+        dev = S_s.device
+        t = C_s > 0
+        diff = m_f32.to(dev)[:, None] - C_s.to(torch.float32)
+        diff = torch.where(diff < 0, _f32(U64, dev), diff)
+        c = torch.where(t, (S_s + diff * _f32(log_eps, dev)) / _f32(float(k), dev),
+                        _f32(-math.inf, dev))
+        p = partial_from_corrected(c, t, K=K, col0=s * bwl)
+        Kl = (p.shape[1] - 2) // 2
+        counts.append(torch.gather(C_s, 1, p[:, Kl:2 * Kl].long() - s * bwl))
+        corrected.append(c)
         touched.append(t)
-    return _lwr_topk_cols(corrected, touched, m_f32, B=B, K=K, k=k, log_eps=log_eps)
+        partials.append(p)
+
+    def expsum(s: int, max_t: torch.Tensor) -> torch.Tensor:
+        return expsum_from_corrected(corrected[s], touched[s], max_t.to(corrected[s].device))
+
+    return _merge_cols(partials, expsum, m_f32, B=B, K=K, k=k, log_eps=log_eps,
+                       counts=counts)
 
 
-def _lwr_topk_cols(corrected, touched, m_f32, *, B: int, K: int, k: int, log_eps: float):
-    """The column-sharded LWR over all B branches and the distributed top-K:
-    per-read scalars merge over the shards, then each shard's Kl = min(K,
-    bwl) candidates (global column ids), in shard order, go through one more
-    top-K. Shards in column order and each shard's candidates in ascending
-    local index keep the lowest-global-index tie-break."""
-    lead = corrected[0].device
+def _on_devices(devices, make) -> dict:
+    """``make(dev)`` once per distinct device."""
+    out = {}
+    for dev in devices:
+        if dev not in out:
+            out[dev] = make(dev)
+    return out
+
+
+def _merge_cols(partials, expsum, m_f32, *, B: int, K: int, k: int, log_eps: float,
+                counts=None):
+    """The column-sharded LWR over all B branches and the distributed top-K
+    (JAX ``_lwr_topk_cols`` :358-400) from the shards' partial packs ``[values
+    Kl | global ids Kl | n_s | max_s]``: n and max_c merge over the shards,
+    ``expsum(s, max_t)`` gives shard s's sum of exponentials against the
+    merged max_t, and the shards' candidates, in shard order, go through one
+    more top-K (shards in column order and each shard's candidates in
+    ascending column keep the lowest-global-index tie-break). ``counts``: the
+    shards' (R, Kl) candidate counts, else -1."""
+    lead = partials[0].device
     f32 = torch.float32
     neg_inf = _f32(-math.inf, lead)
     ln10 = _f32(math.log(10.0), lead)
     m = m_f32.to(lead).to(f32)
+    parts = [p.to(lead) for p in partials]
+    Kl = (parts[0].shape[1] - 2) // 2
 
-    n = sum(t.sum(dim=1, dtype=torch.int32).to(lead) for t in touched)
+    n = functools.reduce(torch.add, [p[:, 2 * Kl].to(torch.int32) for p in parts])
     npl_exp = m * _f32(log_eps, lead) / _f32(float(k), lead)
     n_not = float(B) - n.to(f32)
-    max_c = functools.reduce(torch.maximum, [c.max(dim=1).values.to(lead) for c in corrected])
-    max_t = torch.maximum(max_c, torch.where(n_not > 0, npl_exp, neg_inf))
-    partial = []
-    for c, t in zip(corrected, touched):
-        dev = c.device
-        terms = torch.where(t, torch.exp((c - max_t.to(dev)[:, None]) * ln10.to(dev)),
-                            _f32(0.0, dev))
-        partial.append(terms.sum(dim=1).to(lead))
-    sum10 = functools.reduce(torch.add, partial) + n_not * torch.exp(
-        torch.where(n_not > 0, (npl_exp - max_t) * ln10, neg_inf))
+    max_c = functools.reduce(torch.maximum, [p[:, 2 * Kl + 1] for p in parts])
+    max_t = torch.maximum(max_c, torch.where(n_not > 0, npl_exp, neg_inf)).contiguous()
+    sum10 = functools.reduce(torch.add, [expsum(s, max_t).to(lead) for s in range(len(parts))])
+    sum10 = sum10 + n_not * torch.exp(torch.where(n_not > 0, (npl_exp - max_t) * ln10, neg_inf))
     log_sum = max_t + torch.log(sum10) / ln10
     zero_sum = (max_c < POW10_ZERO) & ((npl_exp < POW10_ZERO) | (n_not <= 0))
 
-    bwl = corrected[0].shape[1]
-    Kl = min(K, bwl)
-    cand_s, cand_i = [], []
-    for s, c in enumerate(corrected):
-        vals, idx = _top(c, Kl)
-        cand_s.append(vals.to(lead))
-        cand_i.append(idx.to(lead) + s * bwl)
-    top_s, sel = _top(torch.cat(cand_s, dim=1), K)
-    top_i = torch.gather(torch.cat(cand_i, dim=1), 1, sel)
-    counts = torch.full(top_i.shape, -1, dtype=torch.int32, device=lead)
+    top_s, sel = _top(torch.cat([p[:, :Kl] for p in parts], dim=1), K)
+    top_i = torch.gather(torch.cat([p[:, Kl:2 * Kl] for p in parts], dim=1), 1, sel).long()
+    if counts is None:
+        top_c = torch.full(top_i.shape, -1, dtype=torch.int32, device=lead)
+    else:
+        top_c = torch.gather(torch.cat([c.to(lead) for c in counts], dim=1), 1, sel)
     wr = torch.exp((top_s - log_sum[:, None]) * ln10)
     wr = torch.where(zero_sum[:, None] | (top_s < POW10_ZERO), _f32(0.0, lead), wr)
-    return top_s, top_i, counts, wr, n, zero_sum, log_sum
+    return top_s, top_i, top_c, wr, n, zero_sum, log_sum
 
 
 def _pack_slim(outs) -> torch.Tensor:
@@ -346,6 +439,90 @@ def _pad_cells(x: torch.Tensor, value) -> torch.Tensor:
         return x.contiguous()
     pad = torch.full((x.shape[0], extra), value, dtype=x.dtype, device=x.device)
     return torch.cat([x, pad], dim=1)
+
+
+def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int, Amax: int,
+                k: int, zero_row: int, eps: float, log_eps: float) -> torch.Tensor:
+    """The body of the three column-sharded dense steps, for one data group.
+    ``tokenize(s, device)`` gives the group's (rows, lens) on the device of
+    shard s (lens None where ``m_f32`` is given), run once per distinct
+    device. Per shard, kernel 1's sums over its own columns: shifted, Sp (R,
+    bwl) with each ambiguous read's first-hit delta row added; classic, (S, C)
+    with the ambiguous first hit. Column sharding needs no collective there:
+    each branch column lives on one shard, which sees every window's row (JAX
+    :408-411). Then the column finish into the slim (R, 2K+3) pack (shifted)
+    or the full (R+1, 4K+2) pack with zero totals (classic), on the first
+    shard's device. JAX pads the rows to a multiple of 16 with the zero row;
+    that adds nothing to a sum, so the port does not."""
+    devs = [p.device for p in planes]
+    tok = _on_devices(devs, lambda dev: (*tokenize(devs.index(dev), dev), arows.to(dev)))
+    if m_f32 is None:
+        m_f32 = _m_f32(tok[devs[0]][1], k)
+    kw = dict(B=B, K=K, k=k, log_eps=log_eps)
+    parts = []
+    for plane in planes:
+        rows, _, arows_d = tok[plane.device]
+        bwl = plane.shape[1]
+        if shifted:
+            Sp = rowgather_sum(plane, rows)
+            if Amax > 0:
+                reads, delta = amb_deltas(plane, arows_d, zero_row=zero_row, B=bwl, k=k, eps=eps,
+                                          log_eps=log_eps)
+                if reads.numel():
+                    Sp[reads] = Sp[reads] + delta
+            parts.append(Sp)
+        else:
+            S, C = rowgather_sum_counts(plane, rows)
+            if Amax > 0:
+                S, C = amb_classic(S, C, plane, arows_d, zero_row=zero_row, B=bwl, k=k, eps=eps)
+            parts.append((S, C))
+    if shifted:
+        return _pack_slim(finish_scores_cols_shifted(parts, m_f32, **kw))
+    S, C = zip(*parts)
+    return pack_outputs(finish_scores_cols(list(S), list(C), m_f32, **kw), 0, 0)
+
+
+def sharded_dense_bytes_step(planes, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,
+                             Lmax: int, num_kmers: int, log_eps: float, eps: float,
+                             shifted: bool) -> torch.Tensor:
+    """Column-sharded dense step with the device tokenizer, for one data
+    group: ``planes`` and ``direct`` (the replicated key -> row table) one
+    tensor per model shard on the shard's device; ``buf`` the group's packed
+    reads, ``arows`` int32 (R, Amax) its ambiguous reads' plane rows, both
+    anywhere. Kernel 1's sums per shard (shifted, or classic with counts),
+    then the column finish (:func:`_dense_step`)."""
+    return _dense_step(
+        planes, lambda s, dev: tokenize_packed(buf.to(dev), direct[s], k=k, Lmax=Lmax,
+                                               num_kmers=num_kmers),
+        arows, None, shifted=shifted, B=B, K=K, Amax=Amax, k=k, zero_row=num_kmers, eps=eps,
+        log_eps=log_eps)
+
+
+def sharded_dense_paired_step(planes, combo, buf, arows, *, B: int, K: int, Amax: int, k: int,
+                              Lmax: int, num_kmers: int, log_eps: float,
+                              eps: float) -> torch.Tensor:
+    """Column-sharded dense step over the pair plane (shifted only), for one
+    data group: each shard's pair rows are the column slice of the global pair
+    rows, so the slot sums compose per column as on one device. ``combo``: the
+    replicated slot -> row table, one tensor per shard; the rest as
+    :func:`sharded_dense_bytes_step`."""
+    return _dense_step(
+        planes, lambda s, dev: tokenize_combo(buf.to(dev), combo[s], k=k, Lmax=Lmax),
+        arows, None, shifted=True, B=B, K=K, Amax=Amax, k=k, zero_row=num_kmers, eps=eps,
+        log_eps=log_eps)
+
+
+def sharded_dense_rows_step(planes, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,
+                            zero_row: int, log_eps: float, eps: float,
+                            shifted: bool) -> torch.Tensor:
+    """Column-sharded dense step over plane rows resolved on the host, for
+    one data group: ``rows`` int32 (R, Wmax) and ``arows`` int32 (R, Amax)
+    (padding and misses on ``zero_row``) and the host's window counts
+    ``m_f32`` (R,), anywhere. Any k, reads shorter than k and reads past
+    65,535 bp."""
+    return _dense_step(planes, lambda s, dev: (rows.to(dev), None), arows,
+                       m_f32.to(planes[0].device), shifted=shifted, B=B, K=K, Amax=Amax, k=k,
+                       zero_row=zero_row, eps=eps, log_eps=log_eps)
 
 
 def sharded_tiles_bytes_step(tiles, direct, buf, tiles_ov=None, *, B: int, bwl: int,
@@ -485,6 +662,16 @@ def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_r
 # ---------------------------------------------------------------------------
 
 
+def _shards_per_device(mesh: Mesh) -> int:
+    """The most distinct model shards one device of the mesh holds (1 on a
+    mesh of distinct devices; n_model on a mesh laid on one device)."""
+    cells = {(m, dev) for row in mesh.devices for m, dev in enumerate(row)}
+    per = {}
+    for _, dev in cells:
+        per[dev] = per.get(dev, 0) + 1
+    return max(per.values())
+
+
 def _per_device(mesh: Mesh, n_model: int, make) -> list[list]:
     """``out[d][m]`` = ``make(m, device)`` for mesh row d and model column m,
     built once per distinct device of each column and shared by its rows."""
@@ -505,21 +692,35 @@ class ShardedTorchPlacer(HostStaging):
     ``place``/``place_async``/``place_wait`` surface that
     ``engine/pipeline.py::run_pipeline`` drives.
 
-    Routing (``ShardedJaxPlacer`` :851-1013): the column-sharded dense plane
-    when ``dense_db`` is "on", or "auto" with ``accumulate="auto"`` and a
-    per-device plane within the budget -- not ported yet, so that raises
-    ``NotImplementedError``; otherwise the hash-sharded CSR tables, and the
-    column-sharded posting tiles when the database takes them (DNA, k <= 13,
-    posting lists of at most 128, scores >= log10(eps); ``precision="exact"``
-    and the device tokenizer) and one shard's tiles
-    fit the budget. A batch holding an IUPAC read, reads too long for the
-    packed payload's exact sums, or no read of k characters goes to the CSR
-    step whole. ``accumulate`` "auto" and "matmul" both mean the kernel-backed
-    engines on any device; ``tile_payload`` is not read: the payload is packed
-    whenever the shard's branch ids fit 15 bits, as in the JAX package.
+    Routing (``ShardedJaxPlacer`` :851-1013):
+
+    * ``dense`` -- the column-sharded dense plane, when ``dense_db`` is "on"
+      (a plane over the budget raises ValueError), or "auto" with
+      ``accumulate="auto"`` and the plane bytes on one device within the
+      budget. JAX's flags pick the plane: shifted when ``plane_mode="shifted"``,
+      ``precision="exact"`` and every stored score is >= log10(eps), else the
+      classic f32 plane (so ``precision="int16"`` or ``"bf16"`` gives the classic
+      f32 plane, as in JAX); the device tokenizer (``tokenize_where``, k <= 13)
+      over the column pair plane when it is shifted, k <= 12 and the pair plane
+      fits ``pair_plane_budget`` (or ``pair_plane="on"``), else over the direct
+      table. A batch the device tokenizer cannot take (every read shorter than
+      k, a read over 65,535 bp), and every batch without it, is tokenized on
+      the host (the rows step: any k).
+    * ``tiles`` -- otherwise, the column-sharded posting tiles when the
+      database takes them (DNA, k <= 13, posting lists of at most 128, scores
+      >= log10(eps); ``precision="exact"`` and the device tokenizer) and one
+      shard's tiles fit the budget; a batch holding an IUPAC read, reads too
+      long for the packed payload's exact sums, or no read of k characters
+      goes to the CSR step whole;
+    * ``csr`` -- the hash-sharded CSR tables for every batch.
+
+    ``accumulate`` "auto" and "matmul" both mean the kernel-backed engines on
+    any device; ``tile_payload`` is not read: the payload is packed whenever
+    the shard's branch ids fit 15 bits, as in the JAX package.
 
     The budget is ``config.dense_db_budget``, or what the mesh's first device
-    has free."""
+    has free. A device that holds several model shards (a mesh laid on one
+    card) holds all their planes, so their bytes add up there."""
 
     def __init__(self, db, tree, mesh: Mesh, keep_at_most: int | None = None,
                  keep_factor: float | None = None, config: PlacerConfig | None = None):
@@ -555,26 +756,30 @@ class ShardedTorchPlacer(HostStaging):
         cfg = self.config
         budget = (device_budget(mesh.devices[0][0]) if cfg.dense_db_budget is None
                   else cfg.dense_db_budget)
-        bwl = -(-self.B // (128 * self.n_model)) * 128
-        # per-DEVICE plane bytes decide fit: column sharding divides the plane
-        plane_bytes = (db.num_kmers + 1) * bwl * 4
-        if cfg.dense_db == "on" or (cfg.dense_db == "auto" and cfg.accumulate == "auto"
-                                    and plane_bytes <= budget):
-            raise NotImplementedError(
-                f"the column-sharded dense plane ({plane_bytes} bytes per device) is "
-                f"not ported yet: {_NOT_PORTED_DENSE}; PlacerConfig(dense_db='off') "
-                "takes the column-sharded posting tiles")
-        self._sdb = shard_db_by_hash(db, self.n_model)
-        #: per mesh row, per model shard: the CSR step's state on that device
-        self._csr = _per_device(mesh, self.n_model, self._sdb.shard_state)
-        self._tiles_mode = False
-        self._bwl = bwl
+        self._bwl = -(-self.B // (128 * self.n_model)) * 128
+        # the planes one device holds: column sharding divides the plane
+        self._per_dev = _shards_per_device(mesh)
+        plane_bytes = (db.num_kmers + 1) * self._bwl * 4 * self._per_dev
+        shift_ok = db.scores.size == 0 or float(db.scores.min()) >= float(self.log_eps)
+        self._dense_db = cfg.dense_db == "on" or (
+            cfg.dense_db == "auto" and cfg.accumulate == "auto" and plane_bytes <= budget)
+        self._shifted = self._fast_bytes = self._paired = self._tiles_mode = False
         self._tile_scale = 0.0
         self._tile_pt = self._tile_pt_ov = self._tile_n_ov = 0
         self._tile_frac_over = 0.0
+        if self._dense_db:
+            if cfg.dense_db == "on" and plane_bytes > budget:
+                raise ValueError(
+                    f"dense_db='on' but the column-sharded plane needs {plane_bytes} bytes "
+                    f"on one device ({db.num_kmers + 1} rows x {self._bwl} f32 x "
+                    f"{self._per_dev} shard(s)), over the budget of {budget} bytes")
+            self._init_dense(budget, shift_ok)
+            return
+        self._sdb = shard_db_by_hash(db, self.n_model)
+        #: per mesh row, per model shard: the CSR step's state on that device
+        self._csr = _per_device(mesh, self.n_model, self._sdb.shard_state)
         lens = np.diff(db.row_off)
         max_plen = int(lens.max()) if lens.size else 0
-        shift_ok = db.scores.size == 0 or float(db.scores.min()) >= float(self.log_eps)
         if (self.k <= _MAX_DIRECT_K and shift_ok and db.num_kmers > 0
                 and 0 < max_plen <= _MAX_TILE_PLEN and cfg.precision == "exact"
                 and cfg.tokenize_where in ("auto", "device")):
@@ -592,27 +797,63 @@ class ShardedTorchPlacer(HostStaging):
                 # rides in the shared direct table
                 direct = np.full(4**self.k, db.num_kmers, dtype=np.int32)
                 direct[db.keys.astype(np.int64)] = perm.astype(np.int32)
-                direct_t = torch.from_numpy(direct)
-                by_dev = {}
-
-                def replicated(_m, dev):
-                    if dev not in by_dev:
-                        by_dev[dev] = direct_t.to(dev)
-                    return by_dev[dev]
-
                 self._tiles = _per_device(
                     mesh, self.n_model,
                     lambda m, dev: torch.from_numpy(tiles[m].view(np.int32)).to(dev))
                 self._tiles_ov = (_per_device(mesh, self.n_model,
                                               lambda m, dev: torch.from_numpy(tiles_ov[m]).to(dev))
                                   if tiles_ov is not None else None)
-                self._direct = _per_device(mesh, self.n_model, replicated)
+                self._direct = self._replicated(direct)
+
+    def _replicated(self, table: np.ndarray) -> list[list[torch.Tensor]]:
+        """``table`` on every device of the mesh, one copy per device, as
+        ``out[d][m]``."""
+        t = torch.from_numpy(table)
+        by_dev = {}
+
+        def make(_m, dev):
+            if dev not in by_dev:
+                by_dev[dev] = t.to(dev)
+            return by_dev[dev]
+
+        return _per_device(self.mesh, self.n_model, make)
+
+    def _init_dense(self, budget: int, shift_ok: bool) -> None:
+        """JAX's dense flags (:865-939) and the column-sharded planes: each
+        model shard's plane built on its device (``build_plane_shard``), the
+        pair rows after the base rows when the pair plane is taken, and the
+        replicated tokenizer table (the combo table or the direct table)."""
+        cfg, db = self.config, self.db
+        self._shifted = (cfg.plane_mode == "shifted" and cfg.precision == "exact"
+                         and shift_ok)
+        self._fast_bytes = cfg.tokenize_where in ("auto", "device") and self.k <= _MAX_DIRECT_K
+        pairs = None
+        if (self._fast_bytes and self._shifted and cfg.pair_plane in ("auto", "on")
+                and self.k <= _MAX_PAIR_K and db.num_kmers > 0):
+            pu, pv, combo = pair_tables(db, self.k)
+            n_pairs = int(pu.shape[0])
+            paired_bytes = (db.num_kmers + 1 + n_pairs) * self._bwl * 4 * self._per_dev
+            pair_budget = budget if cfg.pair_plane_budget is None else cfg.pair_plane_budget
+            if n_pairs > 0 and (paired_bytes <= pair_budget or cfg.pair_plane == "on"):
+                pairs = (pu, pv, combo)
+                self._paired = True
+        bwl = self._bwl
+        self._planes = _per_device(self.mesh, self.n_model, lambda m, dev: build_plane_shard(
+            db, col0=m * bwl, width=bwl, log_eps=self.log_eps, shifted=self._shifted,
+            pairs=pairs, device=dev))
+        #: the device tokenizer's table per mesh cell: combo (paired) or direct
+        self._table = None
+        if self._paired:
+            self._table = self._replicated(pairs[2])
+        elif self._fast_bytes:
+            self._table = self._replicated(direct_table(db.keys, self.k, db.num_kmers))
 
     @property
     def route(self) -> str:
-        """``"tiles"`` (clean batches on the posting tiles, the rest on the
-        CSR tables) or ``"csr"`` (every batch on the CSR tables)."""
-        return "tiles" if self._tiles_mode else "csr"
+        """``"dense"`` (every batch on the column-sharded plane), ``"tiles"``
+        (clean batches on the posting tiles, the rest on the CSR tables) or
+        ``"csr"`` (every batch on the CSR tables)."""
+        return "dense" if self._dense_db else "tiles" if self._tiles_mode else "csr"
 
     def _padded_batch_geometry(self, R_true: int) -> int:
         """Per-data-group read count: a multiple of 64 (256 past 2,048 reads)."""
@@ -637,11 +878,60 @@ class ShardedTorchPlacer(HostStaging):
         seqs = list(sequence_map.keys())
         if not seqs:
             return _Pending(sequence_map, [], None, None, self._K())
+        if self._dense_db:
+            return self._place_async_dense(sequence_map, seqs)
         if self._tiles_mode:
             pending = self._place_async_tiles(sequence_map, seqs)
             if pending is not None:
                 return pending
         return self._place_async_csr(sequence_map, seqs)
+
+    def _place_async_dense(self, sequence_map, seqs) -> _Pending:
+        """Column-sharded dense dispatch (``_place_async_dense`` :1112-1183):
+        with the device tokenizer, one packed buffer and the host-tokenized
+        ambiguous rows, through the paired or the bytes step; otherwise (no
+        device tokenizer, every read shorter than k, a read over 65,535 bp)
+        the host tokenizer's plane rows through the rows step. The batch's
+        reads split into contiguous groups, one per mesh row."""
+        R_true = len(seqs)
+        R_loc = self._padded_batch_geometry(R_true)
+        R_tot = self.n_data * R_loc
+        K = self._K()
+        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R_true)
+        m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
+        Lmax_true = int(lens_arr.max())
+        kw = dict(B=self.B, K=K, k=self.k, log_eps=float(self.log_eps), eps=float(self.eps))
+
+        def groups(a: np.ndarray) -> list[torch.Tensor]:
+            t = torch.from_numpy(a)
+            return [t[d * R_loc:(d + 1) * R_loc] for d in range(self.n_data)]
+
+        if self._fast_bytes and self.k <= Lmax_true <= _MAX_READ_LEN:
+            Lmax = _bucket_lmax(Lmax_true)
+            buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R_tot)
+            arows, Amax = self._amb_rows(seqs, amb_mask, R_tot)
+            kw.update(Amax=Amax, Lmax=Lmax, num_kmers=self.db.num_kmers)
+            step = (functools.partial(sharded_dense_paired_step, **kw) if self._paired
+                    else functools.partial(sharded_dense_bytes_step, shifted=self._shifted,
+                                           **kw))
+            out = [step(self._planes[d], self._table[d], b, a)
+                   for d, (b, a) in enumerate(zip(groups(buf), groups(arows)))]
+            return _Pending(sequence_map, seqs, m_signed, out, K)
+        tokens = self._tokenize(seqs)
+        ex, am = tokens.exact_read, tokens.amb_read
+        # JAX pads the window columns to a multiple of 16 (its jit cache);
+        # extra zero-row slots add nothing to a sum
+        Wmax = max(1, int(np.bincount(ex, minlength=R_tot).max()) if ex.size else 1)
+        Amax = _bucket(int(np.bincount(am).max()), 8) if am.size else 0
+        rows = self._rows_matrix(tokens.exact_keys, ex, R_tot, Wmax)
+        arows = self._rows_matrix(tokens.amb_keys, am, R_tot, Amax)
+        m_pad = np.zeros(R_tot, np.float32)
+        m_pad[:R_true] = _wrapped_m(m_signed)
+        step = functools.partial(sharded_dense_rows_step, Amax=Amax,
+                                 zero_row=self.db.num_kmers, shifted=self._shifted, **kw)
+        out = [step(self._planes[d], r, a, m)
+               for d, (r, a, m) in enumerate(zip(groups(rows), groups(arows), groups(m_pad)))]
+        return _Pending(sequence_map, seqs, m_signed, out, K)
 
     def _place_async_tiles(self, sequence_map, seqs):
         """Column-sharded tile dispatch; None for a batch the tile step cannot
@@ -768,7 +1058,9 @@ class ShardedTorchPlacer(HostStaging):
         arr = self._fetch(pending.out)
         budget = pending.budget
         if budget is None:
-            body = arr
+            # the slim (R, 2K+3) pack, or the classic dense steps' full (R+1,
+            # 4K+2) one with its totals row; their widths differ for every K
+            body = arr if arr.shape[2] == 2 * pending.K + 3 else arr[:, :-1, :]
         elif budget[0] == "tiles_ov":
             # the last column carries each read's true overflow-window count
             _, OV, rerun = budget
@@ -796,10 +1088,14 @@ class ShardedTorchPlacer(HostStaging):
 
     def _assemble_flat(self, pending: _Pending, flat: np.ndarray) -> PlacedCollection:
         """Array-backed jplace rows from the batch's (R_true, 2K+3) slim pack
-        (the shared vectorised assembly of ``engine/outputs.py``)."""
+        or (R_true, 4K+2) full rows (the shared vectorised assembly of
+        ``engine/outputs.py``)."""
         K = pending.K
-        scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum, _, _ = unpack_outputs_slim(
-            flat, K)
+        if flat.shape[1] == 2 * K + 3:
+            scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum = unpack_outputs_slim(
+                flat, K)[:6]
+        else:
+            scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum = unpack_body(flat, K)
         return assemble_arrays(
             pending.seqs, pending.sequence_map, pending.m_signed,
             scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum, K,

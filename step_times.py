@@ -16,7 +16,9 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   and ``precision="bf16"`` (each its own plane), the unpaired dense step
   (``place_batch_dense_bytes``) and the kernel it ends in
   (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``,
-  ``rowgather_sum_counts``, ``rowgather_sum_counts_bf16``).
+  ``rowgather_sum_counts``, ``rowgather_sum_counts_bf16``);
+* ``ShardedTorchPlacer`` with the default config on a 1x1 mesh (the pair plane
+  in one column shard), the column-sharded dense step.
 
 On ``chip_smoke.py``'s config-4 database (10,000 leaves, 19,999 branches,
 k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
@@ -29,7 +31,11 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
   and without (``accumulate_sums``) on the f32 tile step's cells;
 * the finish (``finish_topk``) on the f32 tile step's (4,096 x 19,999) sums;
 * on the dense route (the unpaired 51.8 GB plane, the CLI's default route on
-  an 80 GB card), the dense step on the 150 bp batch and its fused kernel.
+  an 80 GB card), the dense step on the 150 bp batch and its fused kernel;
+* ``ShardedTorchPlacer(dense_db="off")`` on a 1x1 mesh: the sharded tile step
+  on the 150 bp batch and its column finish at (4,096 x 20,096), which is
+  torch ops up to the parent of the column-finish kernels and those kernels
+  after.
 
 ``--repo`` times the ``epik_tpu_torch`` of another checkout of this
 repository (the fixture and the timing helpers stay this checkout's
@@ -127,6 +133,50 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     del placer, st
     torch.cuda.empty_cache()
     variant_times(torch, dev, out, db, tree, seqs)
+    sharded_dense_times(torch, out, db, tree, seqs)
+
+
+def sharded_dense_times(torch, out: dict, db, tree, seqs) -> None:
+    """The D652 column-sharded dense step on a 1x1 mesh (the default config:
+    the pair plane in one shard) into ``out``, where the port has it."""
+    from epik_tpu_torch.parallel import sharding as sh_mod
+    from epik_tpu_torch.parallel.mesh import make_mesh
+
+    if not hasattr(sh_mod, "sharded_dense_paired_step"):
+        out["skipped"].append("D652 sharded dense: the port has no column-sharded dense step")
+        return
+    placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1))
+    calls = []
+    with recording(sh_mod, "sharded_dense_paired_step", calls, limit=1):
+        placer.place([(f"r{i}", s) for i, s in enumerate(seqs)])
+    args, kw = calls[0]
+    out["d652_sharded_R"] = args[2].shape[0]
+    out["d652_sharded_step_ms"] = cuda_ms(
+        torch, lambda: sh_mod.sharded_dense_paired_step(*args, **kw))
+    del placer, calls, args
+    torch.cuda.empty_cache()
+
+
+def sharded_tile_times(torch, out: dict, db, tree, seqs) -> None:
+    """Config 4's sharded tile step on a 1x1 mesh and its column finish into
+    ``out``."""
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.parallel import sharding as sh_mod
+    from epik_tpu_torch.parallel.mesh import make_mesh
+
+    placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1),
+                                       config=PlacerConfig(dense_db="off"))
+    _, OV, rerun = placer._place_async_tiles({s: ["x"] for s in seqs}, seqs).budget
+    out["sharded_tile_step_ms"] = cuda_ms(torch, lambda: rerun(OV))
+    calls = []
+    with recording(sh_mod, "finish_scores_cols_shifted", calls, limit=1):
+        rerun(OV)
+    (Sps, m_f32), kw = calls[0]
+    out["column_finish_ms"] = cuda_ms(
+        torch, lambda: sh_mod.finish_scores_cols_shifted(Sps, m_f32, **kw))
+    out["column_finish_shape"] = [len(Sps), *Sps[0].shape]
+    del placer, rerun, calls, Sps, m_f32
+    torch.cuda.empty_cache()
 
 
 #: the unpaired D652 configs: name, PlacerConfig fields, the kernel the step ends in
@@ -261,6 +311,7 @@ def main(argv=None) -> int:
     out["finish_topk_f32_shape"] = list(Sp.shape)
     del placer, step, calls, finish_calls, b, s, Sp, m_f32
     torch.cuda.empty_cache()
+    sharded_tile_times(torch, out, db, tree, seqs)
 
     if hasattr(step_mod, "place_batch_dense_bytes"):
         placer = TorchPlacer(db, tree, device=dev)

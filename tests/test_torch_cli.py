@@ -1,6 +1,8 @@
 """The port's CLI (``python -m epik_tpu_torch place``) on the CPU against the
 JAX package's ``place_queries(engine="jax")``: the two jplace files hold the
-same read names and ``tools/jplace_diff`` finds them equal at 1e-4."""
+same read names and ``tools/jplace_diff`` finds them equal at 1e-4. The
+``--engine sharded`` run against the JAX CLI's ``engine="sharded"``, and the
+``native`` and ``reference`` engines against the JAX CLI's oracle run."""
 
 import json
 import subprocess
@@ -106,6 +108,50 @@ def test_cli_errors(fixture_dir, capsys):
         assert res.clean, res.mismatches[:5]
 
 
+def _same_jplace(a, b, names):
+    assert set(parse_jplace(str(a))) == set(parse_jplace(str(b))) == set(names)
+    for x, y in ((a, b), (b, a)):
+        res = jplace_diff(str(x), str(y))
+        assert res.clean, res.mismatches[:5]
+
+
+@pytest.fixture(scope="module")
+def oracle_jplace(fixture_dir):
+    """The JAX CLI's ``engine="reference"`` run (the scalar oracle)."""
+    d, _ = fixture_dir
+    out = d / "jax_reference"
+    out.mkdir()
+    assert jax_place_queries(str(d / "DB.eptk"), "nucl", 1.5, 1.0, str(out), 1, "",
+                             str(d / "q.fasta"), batch_size=32, engine="reference") == 0
+    return out / "placements_q.fasta.jplace"
+
+
+def test_cli_engine_sharded_matches_jax_cli(fixture_dir, oracle_jplace, capsys):
+    """``--engine sharded --n-model 2 --platform cpu``: a 1x2 mesh over the
+    repeated CPU device on the column-sharded dense route, against the JAX
+    CLI's sharded engine (a 4x2 mesh of the 8 virtual devices) and the
+    oracle."""
+    d, names = fixture_dir
+    assert _run_port(d, d / "sharded", "--engine", "sharded", "--n-model", "2") == 0
+    assert "Engine: torch/cpu sharded mesh 1x2 (dense)" in capsys.readouterr().out
+    (d / "jax_sharded").mkdir()
+    assert jax_place_queries(str(d / "DB.eptk"), "nucl", 1.5, 1.0, str(d / "jax_sharded"), 1,
+                             "", str(d / "q.fasta"), batch_size=32, engine="sharded",
+                             n_model=2) == 0
+    port_jp = d / "sharded" / "placements_q.fasta.jplace"
+    _same_jplace(port_jp, d / "jax_sharded" / "placements_q.fasta.jplace", names)
+    _same_jplace(port_jp, oracle_jplace, names)
+
+
+@pytest.mark.parametrize("engine,line", [("native", "Engine: native C++ scalar (-j 1)"),
+                                         ("reference", "Engine: scalar (oracle)")])
+def test_cli_cpu_engines_match_oracle(fixture_dir, oracle_jplace, capsys, engine, line):
+    d, names = fixture_dir
+    assert _run_port(d, d / engine, "--engine", engine) == 0
+    assert line in capsys.readouterr().out
+    _same_jplace(d / engine / "placements_q.fasta.jplace", oracle_jplace, names)
+
+
 def test_helpers():
     assert make_invocation(["epik", "place", "-i", "db"]) == "epik place -i db "
     assert make_output_filename("/x/y/reads.fasta", "/out") == "/out/placements_reads.fasta.jplace"
@@ -118,5 +164,5 @@ def test_module_entry_point_help():
                          cwd=Path(__file__).resolve().parents[1])
     assert out.returncode == 0, out.stderr
     for flag in ("--database", "--batch-size", "--platform", "--pair-plane", "--resume",
-                 "--tile-payload"):
+                 "--tile-payload", "--engine", "--n-model"):
         assert flag in out.stdout

@@ -25,6 +25,13 @@ from epik_tpu_torch.kernels.accumulate_sums import (
     plan,
 )
 from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
+from epik_tpu_torch.kernels.finish_cols import (
+    finish_cols_expsum,
+    finish_cols_expsum_plain,
+    finish_cols_partial,
+    finish_cols_partial_plain,
+    finish_cols_smem,
+)
 from epik_tpu_torch.kernels.rowgather import (
     rowgather_sum,
     rowgather_sum_counts,
@@ -303,6 +310,8 @@ def test_launch_counts(cuda):
     rowgather_sum_counts(plane, rows)
     rowgather_sum_counts_bf16(plane.to(torch.bfloat16), rows)
     finish_topk(Sp, m, K=3, k=4, log_eps=-1.0)
+    finish_cols_partial(Sp, m, K=3, k=4, log_eps=-1.0, col0=128)
+    finish_cols_expsum(Sp, m, m, k=4, log_eps=-1.0)
     accumulate_packed_topk(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_packed_sums(p, B=100)
     accumulate_sums(b, s, B=100)
@@ -314,9 +323,12 @@ def test_launch_counts(cuda):
     accumulate_packed_topk_plain(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_sums_plain(b, s, B=100, counts=True)
     packed_sums_plain(p, 100)
+    finish_cols_partial_plain(Sp, m, K=3, k=4, log_eps=-1.0, col0=128)
+    finish_cols_expsum_plain(Sp, m, m, k=4, log_eps=-1.0)
     assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1,
                                "rowgather_sum_topk_int16": 1, "rowgather_sum_counts": 1,
                                "rowgather_sum_counts_bf16": 1, "finish_topk": 1,
+                               "finish_cols_partial": 1, "finish_cols_expsum": 1,
                                "accumulate_packed_topk": 1, "accumulate_packed_sums": 1,
                                "accumulate_sums": 1, "accumulate_sums_counts": 1}
 
@@ -348,6 +360,13 @@ def test_wrappers_raise_on_bad_input(cuda):
         accumulate_packed_sums(p.long(), B=100)
     with pytest.raises(ValueError):
         accumulate_sums(p, torch.zeros((4, 5), device=cuda, dtype=torch.float64), B=9)
+    Sp = torch.ones((4, 256), device=cuda)
+    with pytest.raises(ValueError):
+        finish_cols_partial(Sp, torch.ones(4), K=3, k=4, log_eps=-1.0, col0=0)  # CPU m
+    with pytest.raises(ValueError):
+        finish_cols_partial(Sp, m, K=65, k=4, log_eps=-1.0, col0=0)
+    with pytest.raises(ValueError):
+        finish_cols_expsum(Sp, m, torch.ones(5, device=cuda), k=4, log_eps=-1.0)
 
 
 def test_placer_cuda_matches_cpu(cuda):
@@ -446,6 +465,136 @@ def test_sharded_placer_cuda_matches_cpu(cuda, n_data, n_model):
                                    rtol=1e-6, atol=1e-6)
     counts = launch_counts()
     assert counts["accumulate_packed_sums"] > 0 and counts["accumulate_sums_counts"] > 0
+    # the tile step finishes through the per-shard column finish
+    assert counts["finish_cols_partial"] > 0 and counts["finish_cols_expsum"] > 0
+
+
+@pytest.mark.parametrize("n_data,n_model,cfg", [(1, 4, {}), (2, 2, {}), (4, 1, {}),
+                                                (1, 4, {"plane_mode": "classic"}),
+                                                (2, 2, {"dense_db": "off"})])
+def test_sharded_placer_across_cards(cuda, n_data, n_model, cfg):
+    """The sharded engine over four distinct cards (skips with fewer): the
+    shards' sums and partial packs move to the first card for the merge.
+    Against a 1x1 mesh on one card: same edges; scores equal up to the f32
+    rounding of the merged exp-sums (the finish adds the shards' sums in
+    shard order)."""
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+    from epik_tpu_torch.parallel.mesh import make_mesh
+    from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
+
+    db, ref = reference_like_db(num_leaves=300, kmer_size=10, ref_length=60_000,
+                                mean_posting_len=6.0, seed=85)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, 300, length=150, mutation_rate=0.05, seed=86)
+    amb = reads[:9] + [("amb", reads[0][1][:40] + b"N" + reads[0][1][41:])]
+    short = [("s1", b"ACG"), ("s2", reads[1][1][:9])]
+    conf = PlacerConfig(**cfg)
+    one = ShardedTorchPlacer(db, tree, make_mesh(1, 1, devices=[cuda]), config=conf)
+    mesh = make_mesh(n_data, n_model, devices=[torch.device("cuda", i) for i in range(4)])
+    reset_launch_counts()
+    four = ShardedTorchPlacer(db, tree, mesh, config=conf)
+    assert four.route == one.route == ("tiles" if cfg.get("dense_db") == "off" else "dense")
+    for batch in (reads, amb, short):
+        want, got = one.place(batch), four.place(batch)
+        np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
+        np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
+                                   rtol=1e-6, atol=1e-6)
+    counts = launch_counts()
+    assert counts["rowgather_sum"] + counts["rowgather_sum_counts"] + counts[
+        "accumulate_packed_sums"] > 0
+
+
+@pytest.mark.parametrize("R,bwl,n_model", [(4096, 1408, 1), (4096, 384, 4), (4096, 20096, 1),
+                                           (4096, 5120, 4), (300, 70016, 1)])
+def test_finish_cols_bit_equal(cuda, R, bwl, n_model):
+    """The column finish per shard on (R, bwl) row views of one sums matrix:
+    launch A's pack (values, global ids, n_s, max_s) bit-equal to its plain
+    version and alike over two launches; launch B's sums within rtol 1e-6
+    (another order of adds); the whole finish on the card against its plain
+    version on the CPU: scores, ids, n and zero_sum equal, log_sum within
+    rtol 1e-6. At bwl = 70,016 the ids go to the global workspace."""
+    from epik_tpu_torch.parallel.sharding import _pack_slim, finish_scores_cols_shifted
+
+    rng = np.random.default_rng(R + bwl + n_model)
+    B = n_model * bwl - 97  # the last shard's padded columns stay untouched
+    Sp, m = finish_rows(rng, R, B, density=0.05)
+    full = np.zeros((R, n_model * bwl), np.float32)
+    full[:, :B] = Sp
+    tie0 = bwl - 8 if n_model > 1 else B // 2  # ties at the K cut across a shard boundary
+    full[6] = 0.0
+    full[6, tie0:tie0 + 16] = 7.5
+    full[7, :bwl] = 0.0  # nothing touched in shard 0
+    full_t, m_t = torch.from_numpy(full).to(cuda), torch.from_numpy(m).to(cuda)
+    Sps = [full_t[:, s * bwl:(s + 1) * bwl] for s in range(n_model)]
+    K, kw = 7, dict(k=10, log_eps=-4.2597)
+    need, limit = finish_cols_smem(Sps[0], K)
+    assert 0 < need <= limit
+    reset_launch_counts()
+    for s, S in enumerate(Sps):
+        got = finish_cols_partial(S, m_t, K=K, col0=s * bwl, **kw)
+        assert torch.equal(got, finish_cols_partial(S, m_t, K=K, col0=s * bwl, **kw))
+        want = finish_cols_partial_plain(S, m_t, K=K, col0=s * bwl, **kw)
+        assert torch.equal(got, want)
+        max_t = want[:, -1].clamp(min=-50.0).contiguous()
+        torch.testing.assert_close(finish_cols_expsum(S, m_t, max_t, **kw),
+                                   finish_cols_expsum_plain(S, m_t, max_t, **kw),
+                                   rtol=1e-6, atol=0.0)
+    counts = launch_counts()
+    assert counts["finish_cols_partial"] == 2 * n_model and counts["finish_cols_expsum"] == n_model
+    got = _pack_slim(finish_scores_cols_shifted(Sps, m_t, B=B, K=K, **kw)).cpu().numpy()
+    want = _pack_slim(finish_scores_cols_shifted([S.cpu() for S in Sps], m_t.cpu(), B=B,
+                                                 K=K, **kw)).numpy()
+    _check_pack(got, want, K, B)
+    np.testing.assert_array_equal(got[0, K:2 * K], np.arange(K))  # n = 0: the lowest ids
+    np.testing.assert_array_equal(got[6, K:2 * K], np.arange(tie0, tie0 + K))
+
+
+@pytest.mark.parametrize("n_data,n_model,cfg", [(1, 1, {}), (2, 2, {}), (1, 4, {}),
+                                                (1, 2, {"plane_mode": "classic"}),
+                                                (1, 2, {"tokenize_where": "host"})])
+def test_sharded_dense_placer_cuda_matches_cpu(cuda, n_data, n_model, cfg):
+    """The column-sharded dense route on the card (a mesh of one repeated
+    card) against the same mesh on the CPU: an IUPAC batch, a clean one and
+    a batch of reads shorter than k. Same edges; scores within f32 rounding
+    of the exp in the ambiguous first hit. The shifted steps launch kernel
+    1's sums and the column finish's two kernels, the classic ones kernel 1
+    with counts; the fused kernel never."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+    from epik_tpu_torch.parallel.mesh import make_mesh
+    from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
+
+    db, ref = reference_like_db(num_leaves=96, kmer_size=10, ref_length=40_000,
+                                mean_posting_len=6.0, seed=81)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, 60, length=121, mutation_rate=0.05, seed=82)
+    amb = reads[:5] + [("amb", reads[0][1][:40] + b"N" + reads[0][1][41:])]
+    short = [("s1", b"ACG"), ("s2", reads[1][1][:9])]
+    n = n_data * n_model
+    conf = PlacerConfig(**cfg)
+    cpu = ShardedTorchPlacer(db, tree, make_mesh(n_data, n_model, devices=["cpu"] * n),
+                             config=conf)
+    reset_launch_counts()
+    gpu = ShardedTorchPlacer(db, tree, make_mesh(n_data, n_model, devices=[cuda] * n),
+                             config=conf)
+    assert gpu.route == cpu.route == "dense" and gpu._paired == cpu._paired
+    for batch in (reads, amb, short):
+        want, got = cpu.place(batch), gpu.place(batch)
+        np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
+        np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
+                                   rtol=1e-6, atol=1e-6)
+    counts = launch_counts()
+    assert counts["rowgather_sum_topk"] == 0
+    if gpu._shifted:
+        assert counts["rowgather_sum"] > 0 and counts["finish_cols_partial"] > 0
+        assert counts["finish_cols_expsum"] > 0
+    else:
+        assert counts["rowgather_sum_counts"] > 0 and counts["finish_cols_partial"] == 0
 
 
 def _dense_case(rng, n_rows, bw, B, R, W, amb):

@@ -114,8 +114,8 @@ def test_library_name_follows_sources(tmp_path):
     (src / "a.cuh").write_text("// a header the sources include\n")
     assert lib.path() != second and [p.name for p in lib.sources()] == ["a.cu"]
     assert [p.name for p in _build.KernelLibrary().sources()] == [
-        "accumulate_packed_topk.cu", "accumulate_sums.cu", "finish_topk.cu",
-        "rowgather_sum.cu"]
+        "accumulate_packed_topk.cu", "accumulate_sums.cu", "finish_cols.cu",
+        "finish_topk.cu", "rowgather_sum.cu"]
 
 
 def test_compile_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):

@@ -13,7 +13,8 @@
 * ``ShardedTorchPlacer`` on meshes 1x1 to 4x2 against ``ShardedJaxPlacer(
   accumulate="matmul", dense_db="off")`` and the scalar oracle, score sets
   within 1e-4 (``tools/jplace_diff.py`` semantics), through the cases of
-  ``tests/test_sharding.py``.
+  ``tests/test_sharding.py``; ``dense_db`` "auto" and "on" on the dense route
+  (``tests/test_torch_sharded_dense.py`` holds that route in full).
 """
 
 import jax.numpy as jnp
@@ -402,7 +403,19 @@ def test_empty_batch(fx):
 
 @pytest.mark.parametrize("dense_db", ["auto", "on"])
 def test_dense_route_raises(fx, dense_db):
-    db, _, tree, _ = fx
-    with pytest.raises(NotImplementedError, match="ROADMAP.md queue 1 item 9a"):
+    """``dense_db`` "auto" (the plane fits) and "on" take the column-sharded
+    dense route on a 2x2 mesh and place within 1e-4 of the JAX placer's dense
+    route and of the oracle; "on" raises ValueError only where the plane is
+    over the budget. (``tests/test_torch_sharded_dense.py`` holds the route
+    to JAX piece by piece.)"""
+    db, _, tree, reads = fx
+    port = ShardedTorchPlacer(db, tree, make_mesh(2, 2, devices=CPU8),
+                              config=PlacerConfig(dense_db=dense_db))
+    assert port.route == "dense" and port._paired
+    jax_p = jax_sharding.ShardedJaxPlacer(db, tree, jax_make_mesh(2, 2),
+                                          config=JaxConfig(dense_db=dense_db))
+    assert jax_p._dense_db and jax_p._paired
+    _both_close(db, tree, reads, port.place(reads), jax_p)
+    with pytest.raises(ValueError, match="over the budget"):
         ShardedTorchPlacer(db, tree, make_mesh(2, 2, devices=CPU8),
-                           config=PlacerConfig(dense_db=dense_db))
+                           config=PlacerConfig(dense_db="on", dense_db_budget=1 << 10))
