@@ -110,6 +110,26 @@ prints no result line):
                  reads the oracle checks and the 4,096 400 bp reads; 256 reads
                  against the oracle; the finish checked at (4,096 x 20,096).
 
+11. amino   -- BASELINE.md config 2 at full size (652 leaves, 1,303 branches,
+               amino k = 8, ~400k k-mers, the 2.25 GB shifted plane, the radix
+               index's low-pair-overlap form) with 20,000 144 aa reads plus a
+               few X/B/Z, shorter-than-k and no-hit reads, batches of 4,096:
+               * ``python -m epik_tpu_torch place -s amino``, the counts zeroed
+                 before and read after: the codes tokenizer and the radix
+                 lookup, then the fused kernel, which must have launched (the
+                 gather and the finish apart never); 256 reads against the
+                 oracle; the fused kernel against its plain version on the
+                 batch with delta rows and on one without, bit for bit,
+                 its time, bound and ``embedding_bag``'s time at that shape;
+                 the window rows against the host's binary search; the codes
+                 step's time, the tokenizer's and the lookup's apart;
+                 ``place()`` reads/s;
+               * ``--pair-plane on`` (the pair radix), ``--precision int16``
+                 and ``--engine sharded`` (1x1, the host-tokenized rows step),
+                 then DNA k = 14 at D652's leaves and reference (the codes
+                 tokenizer over 28-bit keys) with 8,192 of D652's reads, each
+                 against the oracle with its kernel launched.
+
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
 its operations over the card's f32 rate (NVIDIA's H100 SXM data sheet), and
@@ -149,6 +169,11 @@ BT_IUPAC = 6  # spread over the first batches, so they split tiles + CSR
 SH_READS = 8192
 #: clean 150 bp reads of config 4 on the sharded dense route (phase 10)
 C4_SHARDED_READS = 12288
+#: the amino phase (BASELINE.md config 2, epik_tpu/tools/bench_configs.py:38-45)
+AA_BATCH = 4096
+AA_READS = 20000
+#: D652's reads placed on the DNA k = 14 database (phase 11)
+K14_READS = 8192
 
 #: the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): HBM bytes/s
 #: and f32 operations/s outside the tensor cores
@@ -185,6 +210,9 @@ KERNEL_META = {
                             "epik_tpu/parallel/sharding.py:345"),
     "finish_cols_expsum": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
                            "epik_tpu/parallel/sharding.py:345"),
+    # the fused kernel 1 on the amino main path (phase 11)
+    "rowgather_sum_topk_config2": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                   "epik_tpu/ops/pallas/rowgather_mq.py:117"),
 }
 
 
@@ -1483,6 +1511,15 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     plane, rows = g_args
     summary["config4_sharded_rowgather_sum_ms"] = cuda_ms(torch, lambda: rowgather_sum(plane, rows),
                                                           reps=5)
+    # the distinct plane rows read once, the row ids, the sums written once;
+    # an add per gathered float (phase 4's rule)
+    io_g = (int(torch.unique(rows).numel()) * plane.shape[1] * 4 + nbytes(rows)
+            + rows.shape[0] * plane.shape[1] * 4, rows.numel() * plane.shape[1])
+    summary["config4_sharded_rowgather_sum_bound_ms"] = bound(*io_g)[0]
+    rows_long = rows.long()
+    summary["config4_sharded_embedding_bag_ms"] = cuda_ms(
+        torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane, mode="sum"), reps=5)
+    del rows_long
     log(f"config 4 sharded dense (unpaired column plane {tuple(plane_c4.shape)} f32 = "
         f"{plane_c4.numel() * 4} bytes): {len(sub)} reads, pipeline {pl_ms4} ms = "
         f"{summary['config4_sharded_cli_reads_per_s']:.0f} reads/s, whole CLI "
@@ -1490,7 +1527,9 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         f"{ {n: c for n, c in counts_4.items() if c} }; parity on "
         f"{len(fx['parity_records'])} reads: largest score difference {worst_4:.3g}; sharded "
         f"dense step at R={s_args[2].shape[0]}: {summary['config4_sharded_step_ms']:.4f} ms; "
-        f"rowgather_sum {tuple(rows.shape)} {summary['config4_sharded_rowgather_sum_ms']:.4f} ms")
+        f"rowgather_sum {tuple(rows.shape)} {summary['config4_sharded_rowgather_sum_ms']:.4f} ms, "
+        f"bound {summary['config4_sharded_rowgather_sum_bound_ms']:.4f} ms ({io_g[0]} bytes), "
+        f"embedding_bag {summary['config4_sharded_embedding_bag_ms']:.4f} ms")
     fins["config4"] = check_cols_finish(torch, np, *f_args, f_kw, "config 4 sharded 1x1")
     del s_args, f_args, g_args, plane_c4, plane, rows
     torch.cuda.empty_cache()
@@ -1508,6 +1547,260 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         entry("finish_cols_expsum", counts1["finish_cols_expsum"], err_e, main_fin["expsum_ms"],
               main_fin["expsum_plain_ms"], *main_fin["io_expsum"], None),
     ]
+    return kernels, summary
+
+
+def config2_fixture():
+    """BASELINE.md config 2 at full size (epik_tpu/tools/bench_configs.py:
+    38-45): the amino database (652 leaves, k = 8) and the FASTA records:
+    reads with X, B, Z and J (each over a residue it expands to), reads
+    shorter than k and a no-hit read, then 20,000 144 aa reads."""
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+
+    db, ref = reference_like_db(num_leaves=652, kmer_size=8, ref_length=400_000,
+                                mean_posting_len=12.0, sequence_type="amino", seed=20)
+    reads = reads_from_reference(ref, AA_READS, length=144, mutation_rate=0.02,
+                                 sequence_type="amino", seed=21)
+    def amb(seq: bytes, code: bytes, covers: bytes) -> bytes:
+        """``seq`` with its first residue in ``covers`` from position 60 on
+        replaced by the ambiguity ``code`` that expands to it."""
+        i = next(i for i in range(60, len(seq)) if seq[i] in covers)
+        return seq[:i] + code + seq[i + 1:]
+
+    r = [rec[1] for rec in reads[:6]]
+    extras = [
+        ("amb_x", amb(r[0], b"X", b"ACDEFGHIKLMNPQRSTVWY")),
+        ("amb_x2", amb(r[1], b"X", b"ACDEFGHIKLMNPQRSTVWY")),
+        ("amb_b", amb(r[2], b"B", b"DN")),
+        ("amb_zj", amb(amb(r[3], b"Z", b"EQ"), b"J", b"IL")),
+        ("short_7", r[4][:7]),
+        ("short_2", b"AC"),
+        ("nohit", b"W" * 144),
+    ]
+    return db, extras + reads
+
+
+def amino_cli(torch, name: str, argv: list, records, step_mod_name: str, kernel: str):
+    """One phase-11 CLI run with the counts zeroed just before and read just
+    after, recording every call of the step ``step_mod_name`` (in
+    ``engine.placer``; in ``parallel.sharding`` for the sharded steps) and of
+    ``kernel`` (in ``engine.step``). The pipeline stages batches on several
+    threads, so the calls come in any order. Returns (jplace rows, counts,
+    reads/s, the step call of the most reads, kernel calls, CLI output)."""
+    from epik_tpu_torch.engine import placer as placer_mod
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.parallel import sharding as sharding_mod
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    out_dir = argv[argv.index("-o") + 1]
+    os.makedirs(out_dir)
+    module = sharding_mod if step_mod_name.startswith("sharded") else placer_mod
+    steps, calls = [], []
+    reset_launch_counts()
+    with recording(module, step_mod_name, steps), recording(step_mod, kernel, calls):
+        rc, cli_out, _ = run_cli(torch, argv)
+    counts = launch_counts()
+    log("cli: python -m epik_tpu_torch " + " ".join(argv))
+    for line in cli_out.splitlines():
+        log("  | " + line)
+    if rc != 0 or not steps:
+        raise AssertionError(f"{name}: rc {rc}, the step {step_mod_name} never ran")
+    rows = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
+    if set(rows) != {n for n, _ in records}:
+        raise AssertionError(f"{name}: jplace names differ")
+    rate = len(records) / placement_ms(cli_out) * 1e3
+    widest = max(steps, key=lambda c: c[0][-2].shape[0])  # (..., buf, arows)
+    return rows, counts, rate, widest, calls, cli_out
+
+
+def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
+    """Phase 11 (see the module docstring). Returns the fused kernel's
+    config-2 entry and the phase's summary numbers."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.engine.reference import ReferencePlacer
+    from epik_tpu_torch.io.build import reference_like_db
+    from epik_tpu_torch.io.db import load, save
+    from epik_tpu_torch.ops.tokenize import tokenize_codes, tokenize_radix
+
+    summary = {}
+    work = os.path.join(d652["work"], "amino")
+    os.makedirs(work)
+    # ---- 11a. fixture ---------------------------------------------------------------------
+    t0 = time.monotonic()
+    db, records = config2_fixture()
+    db_path = os.path.join(work, "config2.eptk")
+    save(db, db_path)
+    fasta = os.path.join(work, "q.fasta")
+    write_fasta(fasta, records)
+    db = load(db_path, mu=1.0, user_omega=1.5)
+    tree = parse_newick(db.tree())
+    summary["config2_fixture_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    oracle = ReferencePlacer(db, tree).place(records[:PARITY_READS])
+    summary["config2_oracle_s"] = time.monotonic() - t0
+    B = tree.get_node_count()
+    log(f"config 2 fixture: {db.num_kmers} k-mers, {db.num_entries} postings, {B} branches, "
+        f"{len(records)} reads ({summary['config2_fixture_s']:.1f} s; oracle on "
+        f"{PARITY_READS} reads {summary['config2_oracle_s']:.1f} s)")
+
+    def argv(out: str, *flags, path=db_path, fa=fasta, states="amino"):
+        return ["place", "-s", states, "-i", path, "-o", os.path.join(work, out),
+                "--batch-size", str(AA_BATCH), *flags, fa]
+
+    # ---- 11b. the amino main path through the CLI ---------------------------------------------
+    rows, counts, rate, step, fused, cli_out = amino_cli(
+        torch, "config 2", argv("out"), records, "place_batch_dense_codes", "rowgather_sum_topk")
+    if "(1 device(s), dense)" not in cli_out:
+        raise AssertionError("config 2: not on the dense route")
+    if counts["rowgather_sum_topk"] <= 0 or counts["rowgather_sum"] or counts["finish_topk"]:
+        raise AssertionError(f"config 2: launches {counts}")
+    worst = check_parity(oracle, rows, "config 2")
+    summary.update(config2_cli_reads_per_s=rate, config2_fused_launches=counts[
+        "rowgather_sum_topk"], config2_parity_worst=worst)
+    log(f"config 2 main path: {len(records)} reads, pipeline {rate:.0f} reads/s [{card}]; "
+        f"launches { {n: c for n, c in counts.items() if c} }; parity on {PARITY_READS} reads "
+        f"(X/B/Z, short, no-hit included): largest score difference {worst:.3g}")
+
+    # ---- 11c. the fused kernel on the first two batches, the rows, the step's parts -----------
+    # the pipeline stages batches on several threads: the batch holding the
+    # X/B/Z reads is the call with delta rows, whichever came first
+    amb = [c for c in fused if c[0][3] is not None and c[0][3].numel()]
+    clean = [c for c in fused if c[0][3] is None]
+    if not amb or not clean:
+        seen = [None if c[0][3] is None else c[0][3].numel() for c in fused]
+        raise AssertionError(f"config 2: no batch with delta rows, or none without: the "
+                             f"batches' delta row counts {seen}")
+    err, ms, plain_ms, io_k, _, shape = check_dense_kernel(
+        torch, np, "rowgather_sum_topk", amb[0], "config 2, the batch with delta rows")
+    err = max(err, check_dense_kernel(torch, np, "rowgather_sum_topk", clean[0],
+                                      "config 2, a batch without")[0])
+    plane, rows_t = amb[0][0][:2]
+    rows_long = rows_t.long()
+    lib_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane,
+                                                                     mode="sum"))
+    del rows_long
+    (plane, radix, buf, arows), kw_s = step
+    ck = dict(k=kw_s["k"], sigma=kw_s["sigma"], Lmax=kw_s["Lmax"])
+    key, ok, _ = tokenize_codes(buf, **ck)
+    got_rows, _ = tokenize_radix(buf, radix, num_kmers=kw_s["num_kmers"], **ck)
+    key_np, ok_np = key.cpu().numpy(), ok.cpu().numpy()
+    pos = np.minimum(np.searchsorted(db.keys, key_np.astype(np.uint64)), db.num_kmers - 1)
+    want_rows = np.where(ok_np & (db.keys[pos] == key_np.astype(np.uint64)), pos, db.num_kmers)
+    if not np.array_equal(got_rows.cpu().numpy(), want_rows):
+        raise AssertionError("config 2: the radix rows differ from the host's binary search")
+    summary.update(
+        config2_fused_ms=ms, config2_fused_plain_ms=plain_ms, config2_fused_bound_ms=bound(
+            *io_k)[0], config2_embedding_bag_ms=lib_ms,
+        config2_step_ms=cuda_ms(torch, lambda: step_mod.place_batch_dense_codes(
+            plane, radix, buf, arows, **kw_s), reps=5),
+        config2_tokenize_lookup_ms=cuda_ms(torch, lambda: tokenize_radix(
+            buf, radix, num_kmers=kw_s["num_kmers"], **ck)),
+        config2_tokenize_ms=cuda_ms(torch, lambda: tokenize_codes(buf, **ck)),
+        config2_lookup_ms=cuda_ms(torch, lambda: radix.lookup(key, kw_s["num_kmers"])),
+        config2_radix_form=radix.form, config2_radix_bytes=radix.nbytes,
+        config2_hit_share=float((want_rows < db.num_kmers).sum()) / float(ok_np.sum()))
+    log(f"rowgather_sum_topk {shape} bw={plane.shape[1]} B={B} (config 2, a batch with "
+        f"{int(amb[0][0][3].numel())} delta rows, one without): bit-equal but log_sum, two "
+        f"launches alike; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag (sums "
+        f"only) {lib_ms:.4f} ms, bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes) [{card}]")
+    log(f"config 2 codes step at R={buf.shape[0]} (Lmax {kw_s['Lmax']}): "
+        f"{summary['config2_step_ms']:.4f} ms; tokenize + radix lookup "
+        f"{summary['config2_tokenize_lookup_ms']:.4f} ms (tokenize "
+        f"{summary['config2_tokenize_ms']:.4f}, lookup {summary['config2_lookup_ms']:.4f} over "
+        f"{key.numel()} window keys, {radix.form} form, {radix.nbytes} bytes of tables); rows "
+        f"equal to the host's binary search; {summary['config2_hit_share']:.3f} of the valid "
+        f"windows hit [{card}]")
+    del plane, radix, buf, arows, step, fused, amb, clean, key, ok, got_rows, rows_t
+    torch.cuda.empty_cache()
+
+    # ---- 11d. place(): synchronous batches ------------------------------------------------------
+    placer = TorchPlacer(db, tree, device=dev)
+    batches = [records[i:i + AA_BATCH] for i in range(0, len(records), AA_BATCH)]
+    placer.place(batches[0])  # warm-up
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    for b in batches:
+        placer.place(b)
+    torch.cuda.synchronize()
+    summary["config2_place_reads_per_s"] = len(records) / (time.monotonic() - t0)
+    log(f"config 2 place(): {len(records)} reads in batches of {AA_BATCH}: "
+        f"{summary['config2_place_reads_per_s']:.0f} reads/s [{card}]; plane "
+        f"{tuple(placer.state.plane.shape)} f32, {placer.state.nbytes} bytes with the radix")
+    del placer
+    torch.cuda.empty_cache()
+
+    # ---- 11e. the variants: pair plane, int16, sharded 1x1 ---------------------------------
+    variants = [
+        ("pair_on", ["--pair-plane", "on"], "place_batch_dense_codes_paired",
+         "rowgather_sum_topk", "sets", "(1 device(s), dense)"),
+        ("int16", ["--precision", "int16"], "place_batch_dense_codes",
+         "rowgather_sum_topk_int16", "jplace_diff", "(1 device(s), dense)"),
+        ("sharded", ["--engine", "sharded"], "sharded_dense_rows_step", "rowgather_sum",
+         "sets", "sharded mesh 1x1 (dense)"),
+    ]
+    for name, flags, step_name, kernel, rule, line in variants:
+        rows, counts, rate, step, _, cli_out = amino_cli(
+            torch, f"config 2 {name}", argv(f"out_{name}", *flags), records, step_name,
+            kernel if name != "sharded" else "rowgather_sum_topk")
+        if line not in cli_out or counts[kernel] <= 0 or (
+                name == "sharded" and (counts["rowgather_sum_topk"]
+                                       or counts["finish_cols_partial"] <= 0)):
+            raise AssertionError(f"config 2 {name}: launches {counts}\n{cli_out}")
+        worst = check_parity(oracle, rows, f"config 2 {name}", rule)
+        summary[f"config2_{name}_cli_reads_per_s"] = rate
+        extra = ""
+        if name == "pair_on":
+            pr = step[0][2]
+            extra = (f"; pair radix {pr.form} form, {pr.n_probe} probes; pair plane "
+                     f"{tuple(step[0][0].shape)}")
+            summary["config2_pair_step_ms"] = cuda_ms(
+                torch, lambda: step_mod.place_batch_dense_codes_paired(*step[0], **step[1]),
+                reps=5)
+            extra += f"; paired codes step {summary['config2_pair_step_ms']:.4f} ms"
+        log(f"config 2 {name} (CLI {' '.join(flags)}): {rate:.0f} reads/s [{card}]; launches "
+            f"{ {n: c for n, c in counts.items() if c} }; parity on {PARITY_READS} reads by "
+            f"{rule}: largest score difference {worst:.3g}{extra}")
+        del step
+        torch.cuda.empty_cache()
+
+    # ---- 11f. DNA k = 14 at D652's leaves: the codes tokenizer over 28-bit keys -------------
+    t0 = time.monotonic()
+    db14, _ = reference_like_db(num_leaves=652, kmer_size=14, ref_length=520_000,
+                                mean_posting_len=12.0, seed=652)
+    path14 = os.path.join(work, "k14.eptk")
+    save(db14, path14)
+    db14 = load(path14, mu=1.0, user_omega=1.5)
+    recs14 = d652["records"][:K14_READS]
+    fasta14 = os.path.join(work, "k14", "q.fasta")
+    os.makedirs(os.path.dirname(fasta14))
+    write_fasta(fasta14, recs14)
+    oracle14 = ReferencePlacer(db14, parse_newick(db14.tree())).place(recs14[:PARITY_READS])
+    build_s = time.monotonic() - t0
+    rows, counts, rate, step, _, cli_out = amino_cli(
+        torch, "DNA k=14", argv("out_k14", path=path14, fa=fasta14, states="nucl"), recs14,
+        "place_batch_dense_codes", "rowgather_sum_topk")
+    if "(1 device(s), dense)" not in cli_out or counts["rowgather_sum_topk"] <= 0:
+        raise AssertionError(f"DNA k=14: launches {counts}")
+    worst = check_parity(oracle14, rows, "DNA k=14")
+    (plane, radix, buf, arows), kw_s = step
+    summary.update(k14_cli_reads_per_s=rate, k14_step_ms=cuda_ms(
+        torch, lambda: step_mod.place_batch_dense_codes(plane, radix, buf, arows, **kw_s),
+        reps=5))
+    log(f"DNA k=14 ({kw_s['B']} branches, {db14.num_kmers} k-mers, plane {tuple(plane.shape)}, "
+        f"radix {radix.form} form, {radix.n_probe} probes; fixture and oracle {build_s:.1f} s): "
+        f"{len(recs14)} reads, {rate:.0f} reads/s [{card}]; launches "
+        f"{ {n: c for n, c in counts.items() if c} }; parity on {PARITY_READS} reads: largest "
+        f"score difference {worst:.3g}; codes step at R={buf.shape[0]} "
+        f"{summary['k14_step_ms']:.4f} ms")
+    del plane, radix, buf, arows, step
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    # embedding_bag computes the sums alone, not the finish
+    kernels = [entry("rowgather_sum_topk_config2", summary["config2_fused_launches"], err, ms,
+                     plain_ms, *io_k, lib_ms)]
     return kernels, summary
 
 
@@ -1785,6 +2078,9 @@ def main() -> int:
 
     # ---- 10. the column-sharded dense engine -------------------------------------------------
     sd_kernels, sd = sharded_dense_phase(torch, np, card, dev, fx, d652)
+
+    # ---- 11. amino (config 2) and DNA k = 14: the codes tokenizer and the radix lookup ----------
+    aa_kernels, aa = amino_phase(torch, np, card, dev, d652)
     shutil.rmtree(fx["work"], ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
@@ -1804,6 +2100,7 @@ def main() -> int:
         *sh_kernels,
         *dn_kernels,
         *sd_kernels,
+        *aa_kernels,
     ]
     for e in kernels:  # the wide-tree checks of phase 9
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0))
@@ -1814,6 +2111,7 @@ def main() -> int:
     log("summary sharded: " + " ".join(f"{k}={v}" for k, v in sh.items()))
     log("summary dense engine: " + " ".join(f"{k}={v}" for k, v in dn.items()))
     log("summary sharded dense: " + " ".join(f"{k}={v}" for k, v in sd.items()))
+    log("summary amino: " + " ".join(f"{k}={v}" for k, v in aa.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

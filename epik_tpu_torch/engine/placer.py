@@ -1,26 +1,31 @@
 """``TorchPlacer``: the placement engine of the port on PyTorch.
 
-Ports ``epik_tpu.engine.placer.JaxPlacer`` for DNA databases along three
-routes, chosen at construction by the JAX package's rules (placer.py:1796-2026)
-with the port's memory budgets:
+Ports ``epik_tpu.engine.placer.JaxPlacer`` for DNA and amino databases along
+three routes, chosen at construction by the JAX package's rules
+(placer.py:1796-2077) with the port's memory budgets:
 
 * ``dense`` -- for a database whose dense plane fits the budget
   (``dense_db="auto"`` with ``accumulate="auto"``, or ``dense_db="on"``).
   JAX's flags pick the plane and the step: the shifted plane (f32, or int16
   with ``precision="int16"``) when the rows are resolved on the host
   (``lookup_where``) and every stored score is >= log10(eps), else the
-  classic plane (f32, or bf16 with ``precision="bf16"``); the device
-  tokenizer (``tokenize_where``, k <= 13) over the pair plane when it is
-  shifted f32, k <= 12 and it fits its budget
+  classic plane (f32, or bf16 with ``precision="bf16"``). On a DNA database
+  with k <= 13 the device tokenizer (``tokenize_where``) runs over the pair
+  plane when it is shifted f32, k <= 12 and it fits its budget
   (``place_batch_dense_paired``), else over the direct key -> row table
-  (``place_batch_dense_bytes``). A batch the device tokenizer cannot take
-  (every read shorter than k, a read over 65,535 bp), and every batch
-  without it, is tokenized on the host: plane rows found on the host
-  (``place_batch_dense_rows``) or, with ``lookup_where="device"``, keys looked
-  up in the cuckoo table on the device (``place_batch_device_densedb``);
-* ``tiles`` -- the big-tree posting-tile path, when the dense plane is not
-  taken and the tiles fit: every clean batch runs the tile step (packed or
-  f32 payload); a batch holding IUPAC reads splits, its ambiguous reads going
+  (``place_batch_dense_bytes``). On the shifted plane of any other database
+  (amino, DNA k >= 14) with sigma**k < 2**48, the codes tokenizer runs with
+  the radix lookup (``place_batch_dense_codes``) when the radix index's
+  largest bucket is at most 32 keys, over the codes pair plane with
+  ``pair_plane="on"`` when it fits (``place_batch_dense_codes_paired``). A
+  batch the device tokenizers cannot take (every read shorter than k, a read
+  over 65,535 bp), and every batch without one, is tokenized on the host:
+  plane rows found on the host (``place_batch_dense_rows``) or, with
+  ``lookup_where="device"``, keys looked up in the cuckoo table on the device
+  (``place_batch_device_densedb``);
+* ``tiles`` -- the big-tree posting-tile path (DNA, k <= 13), when the dense
+  plane is not taken and the tiles fit: every clean batch runs the tile step
+  (packed or f32 payload); a batch holding IUPAC reads splits, its ambiguous reads going
   to the CSR step; a batch the tile step cannot take (reads too long for the
   packed payload's exact integer sums, every read shorter than k, a read over
   65,535 bp) goes to the CSR step whole;
@@ -28,9 +33,9 @@ with the port's memory budgets:
   posting cells, segment accumulate with counts), when neither fits.
 
 ``place`` -> ``place_async`` (dedup, host staging, the device step) ->
-``place_wait`` (one result transfer, budget retries, assembly). Options and
-databases of paths not yet ported raise ``NotImplementedError`` naming the
-ROADMAP.md queue item that ports them.
+``place_wait`` (one result transfer, budget retries, assembly). Options of
+paths not yet ported raise ``NotImplementedError`` naming the ROADMAP.md
+queue item that ports them.
 
 The device is explicit. ``device="cuda"`` without CUDA raises; the placer
 never carries on on the CPU. On a CUDA device every kernel of a step runs as
@@ -51,6 +56,7 @@ from ..core.alphabet import get_alphabet
 from ..core.scoring import score_threshold
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, tile_width
 from ..ops.csr import ORDER_INF
+from ..ops.radix_lookup import DeviceRadix, build_radix
 from .config import PlacerConfig, check_supported, device_budget
 from .outputs import (
     _Pending,
@@ -65,12 +71,14 @@ from .state import CsrState, PlaneState, build_csr_state, build_plane_state, pai
 from .step import (
     place_batch_csr,
     place_batch_dense_bytes,
+    place_batch_dense_codes,
+    place_batch_dense_codes_paired,
     place_batch_dense_paired,
     place_batch_dense_rows,
     place_batch_device_densedb,
     place_batch_tiles_bytes,
 )
-from .tables import direct_table
+from .tables import direct_table, enumerate_pairs_generic
 from .tiles import Q_MAX, TileState, build_tile_state, tile_bytes
 from .types import PlacedCollection
 
@@ -82,8 +90,10 @@ _MAX_READ_LEN = 0xFFFF
 _MAX_PAIR_K = 12
 #: largest k with a direct key -> row table (4**13 int32 = 268 MB)
 _MAX_DIRECT_K = 13
-#: keys JAX's radix lookup (the generic-alphabet device tokenizer) takes
+#: keys the codes tokenizer builds: sigma**k < 2**48
 _MAX_RADIX_KEY_BITS = 48
+#: the radix lookup's largest bucket (probe count) the codes path takes
+_MAX_RADIX_BUCKET = 32
 #: longest posting list the tiles take (placer.py:1844)
 _MAX_TILE_PLEN = 128
 
@@ -150,10 +160,10 @@ class TorchPlacer(HostStaging):
         self._csr_cache: CsrState | None = None
         self.state: PlaneState | None = None
         self.tiles: TileState | None = None
-        # JAX's dense flags (placer.py:1807-1823, 1881-1890, 1973-1982), set
+        # JAX's dense flags (placer.py:1807-1823, 1881-1890, 1942-2077), set
         # by _route for the dense route
         self._host_lookup = self._fast_bytes = self._shifted = self._plane_q = False
-        self._paired = False
+        self._paired = self._want_codes = self._fast_codes = self._paired_codes = False
         self.route = self._route(state)
 
     # -- routing (placer.py:1796-2026) ---------------------------------------------
@@ -161,9 +171,6 @@ class TorchPlacer(HostStaging):
     def _route(self, state) -> str:
         cfg = self.config
         db = self.db
-        if self.alphabet.sigma != 4:
-            raise NotImplementedError(
-                "amino databases are not ported yet: ROADMAP.md queue 1 item 8")
         n_keys = db.num_kmers
         packed = (cfg.tile_payload in ("auto", "packed")
                   and tile_width(self.B) - 1 < MAX_PACKED_BRANCHES)
@@ -191,7 +198,7 @@ class TorchPlacer(HostStaging):
             self.state = state if state is not None else self._build_state(budget)
             self._check_state()
             return "dense"
-        if (shift_ok and self.k <= _MAX_DIRECT_K and n_keys > 0
+        if (shift_ok and self.alphabet.sigma == 4 and self.k <= _MAX_DIRECT_K and n_keys > 0
                 and cfg.precision == "exact" and cfg.tokenize_where in ("auto", "device")
                 and self._max_plen <= _MAX_TILE_PLEN
                 and tile_bytes(n_keys, self._max_plen) <= dense_budget):
@@ -207,35 +214,50 @@ class TorchPlacer(HostStaging):
         return "csr"
 
     def _dense_flags(self, shift_ok: bool) -> None:
-        """JAX's flags of the dense route, for DNA (placer.py:1807-1823,
-        1881-1890, 1949-1955): the host row lookup, the device tokenizer, the
-        shifted plane, the int16 plane. The pair plane's fit is decided when
-        it is built (:meth:`_build_state`)."""
+        """JAX's flags of the dense route (placer.py:1807-1823, 1881-1890,
+        1942-1955): the host row lookup, the DNA device tokenizer, the shifted
+        plane, the int16 plane, and whether the codes tokenizer is a
+        candidate. The radix index's bucket gate and the pair planes' fit are
+        decided when the state is built (:meth:`_build_state`)."""
         cfg = self.config
+        sigma = self.alphabet.sigma
         self._host_lookup = cfg.lookup_where in ("auto", "host")
-        self._fast_bytes = (cfg.tokenize_where in ("auto", "device")
+        self._fast_bytes = (cfg.tokenize_where in ("auto", "device") and sigma == 4
                             and self.k <= _MAX_DIRECT_K)
         # the device-cuckoo dense path stays classic; int16 is shifted-only
         self._shifted = ((cfg.plane_mode == "shifted" or cfg.precision == "int16")
                          and cfg.precision in ("exact", "int16")
                          and self._host_lookup and shift_ok)
         self._plane_q = self._shifted and cfg.precision == "int16"
-        if (self._shifted and not self._fast_bytes and cfg.tokenize_where != "host"
-                and self.db.num_kmers > 0 and 2 * self.k < _MAX_RADIX_KEY_BITS):
-            raise NotImplementedError(
-                f"k={self.k} has no direct key -> row table (k <= {_MAX_DIRECT_K}): "
-                "JAX tokenizes such a database on the device through its radix "
-                "lookup (_place_batch_dense_codes), not ported yet: ROADMAP.md "
-                "queue 1 item 8")
+        self._want_codes = (self._shifted and not self._fast_bytes
+                            and cfg.tokenize_where in ("auto", "device")
+                            and self.db.num_kmers > 0
+                            and sigma ** self.k < 1 << _MAX_RADIX_KEY_BITS)
+
+    def _radix(self, keys: np.ndarray, key_space: int) -> DeviceRadix | None:
+        """The radix index over sorted ``keys`` (< ``key_space``) on the
+        device, or None where JAX takes the host route: keys too wide for the
+        index, or a bucket of more than 32 keys (a skewed key set)."""
+        try:
+            idx = build_radix(keys, int(key_space - 1).bit_length())
+        except ValueError:
+            return None
+        if not 0 < idx.max_bucket <= _MAX_RADIX_BUCKET:
+            return None
+        return DeviceRadix.from_index(idx, self.device)
 
     def _build_state(self, budget: int) -> PlaneState:
         """The plane of the dense flags: the pair plane when JAX builds it
         (placer.py:1973-2026) and it fits ``pair_plane_budget`` (or the
         device's budget), else the unpaired plane with the direct table for
-        the device tokenizer."""
+        the device tokenizer; on the codes path the radix index, and with
+        ``pair_plane="on"`` the codes pair plane when it fits (placer.py:
+        2027-2077)."""
         cfg = self.config
         kw = dict(k=self.k, B=self.B, log_eps=self.log_eps, shifted=self._shifted,
                   precision=cfg.precision, device=self.device)
+        if self._want_codes:
+            return self._build_codes_state(budget, kw)
         if (self._fast_bytes and self._shifted and not self._plane_q
                 and cfg.pair_plane in ("auto", "on") and self.k <= _MAX_PAIR_K
                 and self.db.num_kmers > 0):
@@ -256,20 +278,48 @@ class TorchPlacer(HostStaging):
                   if self._fast_bytes else None)
         return build_plane_state(self.db, direct=direct, **kw)
 
+    def _build_codes_state(self, budget: int, kw: dict) -> PlaneState:
+        """The codes path's plane: the radix index over the keys (None: the
+        host route), and with ``pair_plane="on"`` on the f32 plane the pair
+        rows and the pair radix index when the pair plane fits its budget
+        and its index takes the gate; else the unpaired plane."""
+        cfg, db = self.config, self.db
+        sigma, n_keys = self.alphabet.sigma, db.num_kmers
+        radix = self._radix(db.keys, sigma ** self.k)
+        if (radix is not None and not self._plane_q and cfg.pair_plane == "on"
+                and sigma ** (self.k + 1) < 1 << _MAX_RADIX_KEY_BITS):
+            pu, pv, key11 = enumerate_pairs_generic(db.keys, self.k, sigma)
+            n_pairs = int(pu.shape[0])
+            plane_w = -(-self.B // 128) * 128
+            paired_bytes = (n_keys + 1 + n_pairs) * plane_w * 4
+            pair_budget = budget if cfg.pair_plane_budget is None else cfg.pair_plane_budget
+            if n_pairs > 0 and paired_bytes <= pair_budget:
+                pair_radix = self._radix(key11, sigma ** (self.k + 1))
+                if pair_radix is not None:
+                    return build_plane_state(db, pairs=(pu, pv, None), radix=radix,
+                                             pair_radix=pair_radix, **kw)
+        return build_plane_state(db, radix=radix, **kw)
+
     def _check_state(self) -> None:
-        """A state handed in must be the plane the flags choose."""
+        """A state handed in must be the plane the flags choose; its radix
+        indexes set the codes path's flags."""
         st = self.state
         want = (torch.int16 if self._plane_q else torch.bfloat16
                 if self.config.precision == "bf16" else torch.float32)
         self._paired = st.combo is not None
+        self._fast_codes = st.radix is not None
+        self._paired_codes = st.pair_radix is not None
         if (st.plane.dtype != want or (self._paired and not (self._fast_bytes
                                                               and self._shifted))
-                or (self._fast_bytes and not self._paired and st.direct is None)):
+                or (self._fast_bytes and not self._paired and st.direct is None)
+                or (self._fast_codes and not self._want_codes)
+                or (self._paired_codes and not (self._fast_codes and st.n_pairs > 0))):
             raise ValueError(
                 f"the dense state ({st.plane.dtype} plane, "
-                f"{'pair' if self._paired else 'unpaired'}) is not the plane of this "
-                f"config ({want}, shifted={self._shifted}, device tokenizer="
-                f"{self._fast_bytes})")
+                f"{'pair' if self._paired or self._paired_codes else 'unpaired'}, radix "
+                f"{self._fast_codes}) is not the plane of this config ({want}, shifted="
+                f"{self._shifted}, device tokenizer={self._fast_bytes}, codes tokenizer="
+                f"{self._want_codes})")
 
     @property
     def csr(self) -> CsrState:
@@ -300,6 +350,10 @@ class TorchPlacer(HostStaging):
         if self.route == "dense":
             if self._fast_bytes:
                 pending = self._place_async_dense(sequence_map, seqs)
+                if pending is not None:
+                    return pending
+            elif self._fast_codes:
+                pending = self._place_async_codes(sequence_map, seqs)
                 if pending is not None:
                     return pending
             return self._place_async_dense_host(sequence_map, seqs)
@@ -351,6 +405,59 @@ class TorchPlacer(HostStaging):
         m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R)
         arows, Amax = self._amb_rows(seqs, amb_mask, R)
+        return buf, arows, Amax, Lmax, m_signed
+
+    def _place_async_codes(self, sequence_map, seqs) -> _Pending | None:
+        """The codes dense step (JAX ``_place_async_codes``, placer.py:
+        2614-2621): the unpaired plane, or the codes pair plane. None for a
+        batch the codes tokenizer cannot take; the caller tokenizes it on
+        the host."""
+        staged = self._stage_codes(seqs)
+        if staged is None:
+            return None
+        buf, arows, Amax, Lmax, m_signed = staged
+        dev = self.device
+        st = self.state
+        buf_t, arows_t = torch.from_numpy(buf).to(dev), torch.from_numpy(arows).to(dev)
+        kw = dict(B=self.B, K=self._K(), Amax=Amax, k=self.k, sigma=self.alphabet.sigma,
+                  Lmax=Lmax, num_kmers=st.n_keys, log_eps=float(self.log_eps),
+                  eps=float(self.eps))
+        if self._paired_codes:
+            out = place_batch_dense_codes_paired(st.plane, st.radix, st.pair_radix, buf_t,
+                                                 arows_t, n_pairs=st.n_pairs, **kw)
+        else:
+            out = place_batch_dense_codes(st.plane, st.radix, buf_t, arows_t,
+                                          plane_scale=st.scale, **kw)
+        return _Pending(sequence_map, seqs, m_signed, out, self._K())
+
+    def _stage_codes(self, seqs):
+        """Host staging of the codes steps (JAX ``_stage_codes``, placer.py:
+        2623-2690): one (R, Lmax + 2) uint8 buffer of alphabet codes and a
+        trailing uint16 length per read, plus the host-tokenized ambiguity
+        rows of the reads that hold an ambiguity code (quirks Q6/Q7).
+
+        Returns (buf, arows, Amax, Lmax, m_signed), or None where JAX returns
+        None (every read shorter than k, or a read longer than the uint16
+        length). R is not padded."""
+        R = len(seqs)
+        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R)
+        Lmax_true = int(lens_arr.max())
+        if Lmax_true < self.k or Lmax_true > _MAX_READ_LEN:
+            return None
+        Lmax = _bucket_lmax(Lmax_true)
+        flat = np.frombuffer(b"".join(seqs), np.uint8)
+        starts = np.concatenate([[0], np.cumsum(lens_arr)])
+        buf = np.zeros((R, Lmax + 2), np.uint8)
+        buf[np.repeat(np.arange(R), lens_arr),
+            np.arange(flat.size) - np.repeat(starts[:-1], lens_arr)] = flat
+        # padding bytes (0) map to the invalid code
+        buf[:, :Lmax] = self.alphabet.char_code[buf[:, :Lmax]]
+        codes = buf[:, :Lmax]
+        amb_mask = ((codes >= 0x80) & (codes != 0xFF)).any(axis=1)
+        buf[:, Lmax] = lens_arr & 0xFF
+        buf[:, Lmax + 1] = lens_arr >> 8
+        arows, Amax = self._amb_rows(seqs, amb_mask, R)
+        m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         return buf, arows, Amax, Lmax, m_signed
 
     def _place_async_dense_host(self, sequence_map, seqs) -> _Pending:

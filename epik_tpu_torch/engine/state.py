@@ -7,7 +7,9 @@
   of :func:`plane_cells`: shifted f32 ``s - log10(eps)`` with the
   ``sp <= 0 -> 1e-37`` presence nudge, and then either the pair rows (each
   the f32 sum of two base rows) after the zero row and the combo table, or
-  the direct key -> row table; classic f32 ``s`` with the
+  the direct key -> row table (DNA, k <= 13), or the radix index over the
+  keys (``ops/radix_lookup.py``: amino, DNA k >= 14) and, with the pair
+  plane, the pair rows and the radix index over their (k+1)-mer keys; classic f32 ``s`` with the
   ``0.0 -> -1e-37`` nudge; classic bf16 with a further ``-1.2e-38`` nudge;
   shifted int16, ``rint(sp * 32000 / -log_eps)`` clipped to [1, 32000].
   :func:`plane_state_from_numpy` takes the JAX placer's own arrays instead,
@@ -28,6 +30,7 @@ import numpy as np
 import torch
 
 from ..ops.hashtable import build_table
+from ..ops.radix_lookup import DeviceRadix
 from .tables import build_combo_table, direct_table, enumerate_pairs
 
 __all__ = ["CsrState", "PlaneState", "build_csr_state", "build_plane_shard",
@@ -51,6 +54,11 @@ class PlaneState:
     direct: torch.Tensor | None = None
     #: an int16 plane's quantization scale (cells = rint(shifted * scale))
     scale: float = 1.0
+    #: the codes tokenizer's key -> row index over the sorted keys
+    radix: DeviceRadix | None = None
+    #: with the codes pair plane: the (k+1)-mer pair key -> pair index
+    #: (plane row n_keys + 1 + index) over the sorted pair keys
+    pair_radix: DeviceRadix | None = None
 
     @property
     def n_pairs(self) -> int:
@@ -58,8 +66,9 @@ class PlaneState:
 
     @property
     def nbytes(self) -> int:
-        return sum(t.numel() * t.element_size()
-                   for t in (self.plane, self.combo, self.direct) if t is not None)
+        return (sum(t.numel() * t.element_size()
+                    for t in (self.plane, self.combo, self.direct) if t is not None)
+                + sum(r.nbytes for r in (self.radix, self.pair_radix) if r is not None))
 
 
 def _writable(a: np.ndarray, dtype=None) -> torch.Tensor:
@@ -69,11 +78,13 @@ def _writable(a: np.ndarray, dtype=None) -> torch.Tensor:
 
 def plane_state_from_numpy(plane: np.ndarray, combo: np.ndarray | None = None, *,
                            n_keys: int, device, direct: np.ndarray | None = None,
-                           scale: float = 1.0) -> PlaneState:
+                           scale: float = 1.0, radix: DeviceRadix | None = None,
+                           pair_radix: DeviceRadix | None = None) -> PlaneState:
     """State from host arrays, e.g. ``np.asarray(JaxPlacer._plane_s)`` (f32,
     bf16 or int16) with ``np.asarray(JaxPlacer._dev_combo)`` (the pair plane)
     or ``np.asarray(JaxPlacer._dev_direct)`` (the unpaired device tokenizer),
-    and ``JaxPlacer._plane_scale``."""
+    and ``JaxPlacer._plane_scale``; the codes tokenizer's ``radix`` (and
+    ``pair_radix``) ride along as given."""
     if (plane.dtype.name not in ("float32", "bfloat16", "int16") or plane.ndim != 2
             or plane.shape[0] <= n_keys):
         raise ValueError(f"plane must be f32, bf16 or int16 (> {n_keys} rows, width), "
@@ -87,7 +98,7 @@ def plane_state_from_numpy(plane: np.ndarray, combo: np.ndarray | None = None, *
         combo=None if combo is None else _writable(combo, np.int32).to(device),
         n_keys=n_keys,
         direct=None if direct is None else _writable(direct, np.int32).to(device),
-        scale=scale,
+        scale=scale, radix=radix, pair_radix=pair_radix,
     )
 
 
@@ -131,21 +142,26 @@ def plane_cells(db, log_eps: np.float32, *, shifted: bool, precision: str):
 
 def build_plane_state(db, *, k: int, B: int, log_eps: np.float32, shifted: bool,
                       precision: str, pairs=None, direct: np.ndarray | None = None,
-                      device) -> PlaneState:
+                      radix: DeviceRadix | None = None,
+                      pair_radix: DeviceRadix | None = None, device) -> PlaneState:
     """Build the plane on ``device`` (see the module docstring): the cells of
     :func:`plane_cells` in (n_keys + 1, plane_w), and with ``pairs`` =
     (pu, pv, combo) from :func:`pair_tables` (the shifted f32 plane only)
     the pair rows after the zero row; ``direct`` (a :func:`~.tables.
-    direct_table`) rides along for the unpaired device tokenizer."""
+    direct_table`) rides along for the unpaired device tokenizer, ``radix``
+    for the codes tokenizer. The codes pair plane passes ``pairs`` = (pu, pv,
+    None) from :func:`~.tables.enumerate_pairs_generic` with its
+    ``pair_radix``."""
     dtype = _DTYPES[precision] if precision != "int16" or shifted else torch.float32
     rows, br, vals, scale = plane_cells(db, log_eps, shifted=shifted, precision=precision)
     plane = _fill_plane(db.num_kmers, rows, br, vals, width=-(-B // 128) * 128, dtype=dtype,
                         pairs=pairs, device=device)
+    combo = None if pairs is None else pairs[2]
     return PlaneState(plane=plane,
-                      combo=None if pairs is None else torch.from_numpy(pairs[2]).to(device),
+                      combo=None if combo is None else torch.from_numpy(combo).to(device),
                       n_keys=db.num_kmers,
                       direct=None if direct is None else torch.from_numpy(direct).to(device),
-                      scale=scale)
+                      scale=scale, radix=radix, pair_radix=pair_radix)
 
 
 def build_plane_shard(db, *, col0: int, width: int, log_eps: np.float32, shifted: bool,

@@ -7,6 +7,11 @@
   shifted (f32 or int16) or the classic (f32 or bf16) plane;
 * :func:`place_batch_dense_rows` -- ``_place_batch_dense_rows`` (:565-613),
   the same with plane rows resolved on the host;
+* :func:`place_batch_dense_codes` -- ``_place_batch_dense_codes``
+  (:1306-1361), the generic-alphabet (amino, DNA k >= 14) shifted step: the
+  codes tokenizer and the radix lookup on the device;
+* :func:`place_batch_dense_codes_paired` -- ``_place_batch_dense_codes_paired``
+  (:1372-1458), the same over the codes pair plane;
 * :func:`place_batch_device_densedb` -- ``_place_batch_device_densedb``
   (:501-557), the classic plane with the keys resolved on the device through
   the cuckoo table;
@@ -44,10 +49,16 @@ from ..ops.csr import (
     pack_outputs,
 )
 from ..ops.dense import amb_classic, amb_deltas, lookup_rows
-from ..ops.tokenize import tokenize_combo, tokenize_packed
+from ..ops.tokenize import (
+    tokenize_combo,
+    tokenize_packed,
+    tokenize_radix,
+    tokenize_radix_paired,
+)
 from .outputs import U64
 
-__all__ = ["place_batch_csr", "place_batch_dense_bytes", "place_batch_dense_paired",
+__all__ = ["place_batch_csr", "place_batch_dense_bytes", "place_batch_dense_codes",
+           "place_batch_dense_codes_paired", "place_batch_dense_paired",
            "place_batch_dense_rows", "place_batch_device_densedb",
            "place_batch_tiles_bytes"]
 
@@ -128,6 +139,36 @@ def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: 
     return place_batch_dense_rows(plane, rows, arows, _m_f32(lens, k), B=B, K=K, Amax=Amax,
                                   k=k, zero_row=num_kmers, log_eps=log_eps, eps=eps,
                                   shifted=shifted, plane_scale=plane_scale)
+
+
+def place_batch_dense_codes(plane, radix, buf, arows, *, B: int, K: int, Amax: int, k: int,
+                            sigma: int, Lmax: int, num_kmers: int, log_eps: float,
+                            eps: float, plane_scale: float = 1.0) -> torch.Tensor:
+    """Generic-alphabet dense step over the shifted plane (f32, or int16
+    dequantized by ``plane_scale``): the codes tokenizer and the radix lookup
+    (``radix``, a :class:`~..ops.radix_lookup.DeviceRadix`; a miss and a bad
+    window take the zero row ``num_kmers``), then the shifted sums, the
+    ambiguous delta rows and the finish (``_shifted_finish``). Returns the
+    slim (R, 2K+3) pack."""
+    rows, lens = tokenize_radix(buf, radix, k=k, sigma=sigma, Lmax=Lmax, num_kmers=num_kmers)
+    return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps,
+                           plane_scale=plane_scale)
+
+
+def place_batch_dense_codes_paired(plane, radix, pair_radix, buf, arows, *, B: int, K: int,
+                                   Amax: int, k: int, sigma: int, Lmax: int, num_kmers: int,
+                                   n_pairs: int, log_eps: float,
+                                   eps: float) -> torch.Tensor:
+    """Generic-alphabet dense step over the codes pair plane (shifted f32):
+    one plane row per two windows (``tokenize_radix_paired``: a pair row found
+    by ``pair_radix``, else the hitting window's row), then the shifted sums,
+    the ambiguous delta rows and the finish. Returns the slim (R, 2K+3)
+    pack."""
+    rows, lens = tokenize_radix_paired(buf, radix, pair_radix, k=k, sigma=sigma, Lmax=Lmax,
+                                       num_kmers=num_kmers, n_pairs=n_pairs)
+    return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps)
 
 
 def place_batch_dense_rows(plane, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,

@@ -1,12 +1,12 @@
-"""Host-built lookup tables of the pair-plane path, copied as numpy from
+"""Host-built lookup tables of the pair-plane paths, copied as numpy from
 ``epik_tpu/engine/placer.py`` (``enumerate_pairs`` :214,
-``build_combo_table`` :1004)."""
+``enumerate_pairs_generic`` :188, ``build_combo_table`` :1004)."""
 
 from __future__ import annotations
 
 import numpy as np
 
-__all__ = ["build_combo_table", "direct_table", "enumerate_pairs"]
+__all__ = ["build_combo_table", "direct_table", "enumerate_pairs", "enumerate_pairs_generic"]
 
 
 def direct_table(keys: np.ndarray, k: int, n_keys: int) -> np.ndarray:
@@ -37,6 +37,32 @@ def enumerate_pairs(keys: np.ndarray, k: int, direct: np.ndarray, n_keys: int):
         np.concatenate(pv_l),
         np.concatenate(k11_l),
     )
+
+
+def enumerate_pairs_generic(keys: np.ndarray, k: int, sigma: int):
+    """Generic-alphabet pair enumeration (no direct table): for each key u
+    and each of the ``sigma`` suffix extensions c, the (k+1)-mer pair
+    exists iff v = (u mod sigma**(k-1))*sigma + c is also a key -- found by
+    binary search over the sorted key array.  Returns (pu, pv, key11)
+    SORTED by key11 (the pair radix index requires sorted keys and its row
+    answers are positions in that order)."""
+    keys = keys.astype(np.uint64)
+    n = keys.shape[0]
+    suf_core = (keys % np.uint64(sigma ** (k - 1))) * np.uint64(sigma)
+    pu_l, pv_l, k11_l = [], [], []
+    for c in range(sigma):
+        v = suf_core + np.uint64(c)
+        pos = np.searchsorted(keys, v)
+        pos_c = np.minimum(pos, max(n - 1, 0))
+        m = keys[pos_c] == v
+        pu_l.append(np.flatnonzero(m).astype(np.int32))
+        pv_l.append(pos_c[m].astype(np.int32))
+        k11_l.append(keys[m] * np.uint64(sigma) + np.uint64(c))
+    pu = np.concatenate(pu_l)
+    pv = np.concatenate(pv_l)
+    key11 = np.concatenate(k11_l)
+    order = np.argsort(key11, kind="stable")
+    return pu[order], pv[order], key11[order]
 
 
 def build_combo_table(direct: np.ndarray, direct11: np.ndarray, k: int,

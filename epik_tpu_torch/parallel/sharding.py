@@ -700,12 +700,12 @@ class ShardedTorchPlacer(HostStaging):
       budget. JAX's flags pick the plane: shifted when ``plane_mode="shifted"``,
       ``precision="exact"`` and every stored score is >= log10(eps), else the
       classic f32 plane (so ``precision="int16"`` or ``"bf16"`` gives the classic
-      f32 plane, as in JAX); the device tokenizer (``tokenize_where``, k <= 13)
+      f32 plane, as in JAX); the device tokenizer (``tokenize_where``, DNA, k <= 13)
       over the column pair plane when it is shifted, k <= 12 and the pair plane
       fits ``pair_plane_budget`` (or ``pair_plane="on"``), else over the direct
       table. A batch the device tokenizer cannot take (every read shorter than
       k, a read over 65,535 bp), and every batch without it, is tokenized on
-      the host (the rows step: any k).
+      the host (the rows step: any k, and every amino database).
     * ``tiles`` -- otherwise, the column-sharded posting tiles when the
       database takes them (DNA, k <= 13, posting lists of at most 128, scores
       >= log10(eps); ``precision="exact"`` and the device tokenizer) and one
@@ -737,9 +737,6 @@ class ShardedTorchPlacer(HostStaging):
             self.config.keep_factor = keep_factor
         check_supported(self.config)
         self.alphabet = get_alphabet(db.sequence_type)
-        if self.alphabet.sigma != 4:
-            raise NotImplementedError(
-                "amino databases are not ported yet: ROADMAP.md queue 1 item 8")
         self.k = db.kmer_size
         self.B = tree.get_node_count()
         self._init_staging()
@@ -754,6 +751,10 @@ class ShardedTorchPlacer(HostStaging):
         self.pendant = mean + self.distal
 
         cfg = self.config
+        #: the device tokenizers, the tiles and the CSR bytes step are DNA-only
+        #: (the JAX package's sigma == 4 gates, :892, 984, 1200): an amino
+        #: database takes the host-tokenized rows step or the CSR key streams
+        self._dna = self.alphabet.sigma == 4
         budget = (device_budget(mesh.devices[0][0]) if cfg.dense_db_budget is None
                   else cfg.dense_db_budget)
         self._bwl = -(-self.B // (128 * self.n_model)) * 128
@@ -780,7 +781,7 @@ class ShardedTorchPlacer(HostStaging):
         self._csr = _per_device(mesh, self.n_model, self._sdb.shard_state)
         lens = np.diff(db.row_off)
         max_plen = int(lens.max()) if lens.size else 0
-        if (self.k <= _MAX_DIRECT_K and shift_ok and db.num_kmers > 0
+        if (self._dna and self.k <= _MAX_DIRECT_K and shift_ok and db.num_kmers > 0
                 and 0 < max_plen <= _MAX_TILE_PLEN and cfg.precision == "exact"
                 and cfg.tokenize_where in ("auto", "device")):
             (tiles, bwl_t, PT, t_scale, tiles_ov, PT_OV, n_ov, frac_over,
@@ -826,7 +827,8 @@ class ShardedTorchPlacer(HostStaging):
         cfg, db = self.config, self.db
         self._shifted = (cfg.plane_mode == "shifted" and cfg.precision == "exact"
                          and shift_ok)
-        self._fast_bytes = cfg.tokenize_where in ("auto", "device") and self.k <= _MAX_DIRECT_K
+        self._fast_bytes = (cfg.tokenize_where in ("auto", "device") and self._dna
+                            and self.k <= _MAX_DIRECT_K)
         pairs = None
         if (self._fast_bytes and self._shifted and cfg.pair_plane in ("auto", "on")
                 and self.k <= _MAX_PAIR_K and db.num_kmers > 0):
@@ -985,7 +987,7 @@ class ShardedTorchPlacer(HostStaging):
         est = max(1, int(self._sdb.avg_plen * cfg.budget_headroom))
         lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R_true)
         Lmax_true = int(lens_arr.max())
-        if self.k <= _MAX_BYTES_K and self.k <= Lmax_true <= _MAX_READ_LEN:
+        if self._dna and self.k <= _MAX_BYTES_K and self.k <= Lmax_true <= _MAX_READ_LEN:
             Lmax = _bucket_lmax(Lmax_true)
             buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R_tot)
             if not amb_mask.any():

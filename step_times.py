@@ -37,12 +37,18 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
   torch ops up to the parent of the column-finish kernels and those kernels
   after.
 
+On ``chip_smoke.py``'s config-2 database (652 leaves, 1,303 branches, amino
+k = 8) with its first batch of 4,096 reads (X/B/Z reads among them), and
+``TorchPlacer`` on the codes path, it times the codes step, the codes
+tokenizer alone, the radix lookup alone (the window keys given), the two
+together, and the fused kernel (``rowgather_sum_topk``) on their rows.
+
 ``--repo`` times the ``epik_tpu_torch`` of another checkout of this
 repository (the fixture and the timing helpers stay this checkout's
 ``chip_smoke.py``); an entry point that port lacks is skipped and named under
 ``"skipped"``. To compare two commits on one card, unpack the other one under
 ``build/`` and run this script for it and for ``.`` in turns, in one call.
-``--profile`` also prints the dense and the CSR step's time by operator
+``--profile`` also prints the dense, the codes and the CSR step's time by operator
 (``torch.profiler`` over 20 steps). Prints the card line of ``nvidia-smi``
 and one JSON object. Needs a CUDA device; imports neither JAX nor the JAX
 package.
@@ -57,6 +63,7 @@ import sys
 
 import chip_smoke
 from chip_smoke import (
+    AA_BATCH,
     BATCH,
     BT_BATCH,
     BT_LONG,
@@ -134,6 +141,56 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     torch.cuda.empty_cache()
     variant_times(torch, dev, out, db, tree, seqs)
     sharded_dense_times(torch, out, db, tree, seqs)
+
+
+def codes_times(torch, dev, out: dict, profile: bool = False) -> None:
+    """Config 2's codes step and its parts into ``out``, where the port has
+    it; with ``profile``, print the step's profile."""
+    from epik_tpu_torch import kernels as kernels_mod
+    from epik_tpu_torch.engine import step as step_mod
+
+    if not hasattr(step_mod, "place_batch_dense_codes"):
+        out["skipped"].append("config 2: the port has no codes step")
+        return
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.ops.dense import amb_deltas
+    from epik_tpu_torch.ops.tokenize import tokenize_codes, tokenize_radix
+
+    db, records = chip_smoke.config2_fixture()
+    placer = TorchPlacer(db, parse_newick(db.tree()), device=dev)
+    st = placer.state
+    seqs = list(dict.fromkeys(s for _, s in records[:AA_BATCH]))
+    buf, arows, Amax, Lmax, _ = placer._stage_codes(seqs)
+    buf_t, arows_t = torch.from_numpy(buf).to(dev), torch.from_numpy(arows).to(dev)
+    B, K, k = placer.B, placer._K(), placer.k
+    ck = dict(k=k, sigma=placer.alphabet.sigma, Lmax=Lmax)
+    fin = dict(B=B, K=K, k=k, log_eps=float(placer.log_eps))
+
+    def step():
+        return step_mod.place_batch_dense_codes(
+            st.plane, st.radix, buf_t, arows_t, Amax=Amax, num_kmers=st.n_keys,
+            eps=float(placer.eps), plane_scale=st.scale, sigma=ck["sigma"], Lmax=Lmax, **fin)
+
+    out["config2_R"] = len(seqs)
+    out["config2_radix_form"] = st.radix.form
+    out["config2_step_ms"] = cuda_ms(torch, step)
+    key, _, _ = tokenize_codes(buf_t, **ck)
+    rows, lens = tokenize_radix(buf_t, st.radix, num_kmers=st.n_keys, **ck)
+    out["config2_tokenize_ms"] = cuda_ms(torch, lambda: tokenize_codes(buf_t, **ck))
+    out["config2_lookup_ms"] = cuda_ms(torch, lambda: st.radix.lookup(key, st.n_keys))
+    out["config2_tokenize_lookup_ms"] = cuda_ms(
+        torch, lambda: tokenize_radix(buf_t, st.radix, num_kmers=st.n_keys, **ck))
+    amb_read, delta = amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B, k=k,
+                                 eps=float(placer.eps), log_eps=float(placer.log_eps))
+    m_f32 = step_mod._m_f32(lens, k)
+    out["config2_rowgather_sum_topk_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum_topk(
+        st.plane, rows, m_f32, amb_read, delta, **fin))
+    out["config2_rowgather_sum_topk_shape"] = list(rows.shape)
+    if profile:
+        print_profile(torch, step, f"config 2 codes step, R={len(seqs)}, Amax={Amax}")
+    del placer, st, key, rows, amb_read, delta
+    torch.cuda.empty_cache()
 
 
 def sharded_dense_times(torch, out: dict, db, tree, seqs) -> None:
@@ -237,7 +294,7 @@ def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--repo", default=None, help="checkout whose port is timed")
     ap.add_argument("--profile", action="store_true",
-                    help="print the dense and the CSR step's time by operator")
+                    help="print the dense, the codes and the CSR step's time by operator")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo or chip_smoke.REPO))
     import torch
@@ -266,6 +323,7 @@ def main(argv=None) -> int:
            "skipped": []}
     dense_times(torch, dev, out, args.profile)
     torch.cuda.empty_cache()
+    codes_times(torch, dev, out, args.profile)
 
     placer = TorchPlacer(db, tree, config=PlacerConfig(dense_db="off"), device=dev)
     step, OV, _ = placer._stage_tiles(seqs)

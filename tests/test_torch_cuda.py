@@ -782,3 +782,101 @@ def test_dense_configs_cuda_match_cpu(cuda, config):
               else "rowgather_sum_counts_bf16" if config.get("precision") == "bf16"
               else "rowgather_sum_counts")
     assert counts[kernel] > 0, counts
+
+
+@pytest.mark.parametrize("amb", [False, True])
+def test_rowgather_sum_topk_config2_shape(cuda, amb):
+    """The fused kernel 1 at the amino main path's shape (BASELINE.md config
+    2: R = 4,096 reads of 144 aa, k = 8, so W = 137; bw 1,408, B = 1,303,
+    K = 7), with and without ambiguous delta rows: bit-equal to its plain
+    version but log_sum, two launches alike."""
+    rng = np.random.default_rng(2)
+    n_rows, bw, B, R, W, K = 60_000, 1408, 1303, 4096, 137, 7
+    plane_np = _plane(rng, n_rows, bw, density=0.01)
+    plane_np[:, B:] = 0.0
+    plane_np[-1] = 0.0  # the zero row
+    plane = torch.from_numpy(plane_np).to(cuda)
+    rows_np = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+    rows_np[rng.random((R, W)) < 0.5] = n_rows - 1  # misses
+    rows_np[0] = n_rows - 1
+    rows = torch.from_numpy(rows_np).to(cuda)
+    m_np = np.full(R, W, np.float32)
+    m_np[1] = np.float32(2.0**64)  # quirk Q1: a read shorter than k
+    m = torch.from_numpy(m_np).to(cuda)
+    reads = delta = None
+    if amb:
+        reads = torch.from_numpy(np.sort(rng.choice(R, 40, replace=False))).to(cuda)
+        d = rng.uniform(0.0, 6.0, (40, B)).astype(np.float32)
+        d[rng.random(d.shape) < 0.95] = 0.0
+        delta = torch.from_numpy(d).to(cuda)
+    kw = dict(B=B, K=K, k=8, log_eps=-9.0)
+    assert topk_fits(plane, B, K)
+    got = rowgather_sum_topk(plane, rows, m, reads, delta, **kw)
+    assert torch.equal(rowgather_sum_topk(plane, rows, m, reads, delta, **kw), got)
+    want = rowgather_sum_topk_plain(plane, rows, m, reads, delta, **kw).cpu().numpy()
+    _check_pack(got.cpu().numpy(), want, K, B)
+
+
+def _oracle_close(want, got, eps=1e-4, per_edge=False):
+    """Score sets within ``eps`` on every read; with ``per_edge``, the whole
+    jplace_diff rule (tools/jplace_diff.py): a read whose sets differ may
+    still match edge by edge within ``eps`` in probability space."""
+    a = {q.sequence: {p.branch_id: p.score for p in q.placements} for q in want.placed_seqs}
+    b = {q.sequence: {p.branch_id: p.score for p in q.placements} for q in got.placed_seqs}
+    assert set(a) == set(b)
+    for seq, ea in a.items():
+        eb = b[seq]
+        sa, sb = sorted(ea.values()), sorted(eb.values())
+        if len(sa) == len(sb) and all(abs(x - y) <= eps for x, y in zip(sa, sb)):
+            continue
+        assert per_edge and set(ea) == set(eb), seq
+        assert all(abs(10.0 ** ea[e] - 10.0 ** eb[e]) <= eps for e in ea), seq
+
+
+@pytest.mark.parametrize("db_kind,config", [
+    ("amino", {}), ("amino", dict(pair_plane="on")), ("amino", dict(precision="int16")),
+    ("amino", dict(dense_db="off")), ("dna14", {}), ("dna14", dict(pair_plane="on")),
+])
+def test_codes_placer_cuda_matches_oracle(cuda, db_kind, config):
+    """Amino (k = 6) and DNA k = 14 on the card: the codes tokenizer and the
+    radix lookup, then the fused kernel 1 (the CSR step's kernel 4 with
+    counts under ``dense_db="off"``), against the scalar oracle (score sets
+    within 1e-4; int16 by its edges within 1e-4 in probability space) and
+    the same placer on the CPU (same edges)."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.engine.reference import ReferencePlacer
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+
+    if db_kind == "amino":
+        db, ref = reference_like_db(num_leaves=48, kmer_size=6, ref_length=20_000,
+                                    mean_posting_len=6.0, sequence_type="amino", seed=21)
+        reads = reads_from_reference(ref, 60, length=90, mutation_rate=0.04,
+                                     sequence_type="amino", seed=22)
+        reads += [("amb", reads[0][1][:30] + b"X" + reads[0][1][31:]),
+                  ("ambB", b"B" + reads[1][1][:50]), ("short", b"AC"), ("nohit", b"W" * 40)]
+    else:
+        db, ref = reference_like_db(num_leaves=24, kmer_size=14, ref_length=12_000,
+                                    mean_posting_len=6.0, seed=141)
+        reads = reads_from_reference(ref, 50, length=81, mutation_rate=0.03, seed=142)
+        reads += [("amb", reads[0][1][:30] + b"N" + reads[0][1][31:]),
+                  ("short", b"ACGTACG"), ("nohit", b"T" * 40)]
+    tree = parse_newick(db.tree())
+    cfg = PlacerConfig(**config)
+    cpu = TorchPlacer(db, tree, config=cfg, device="cpu")
+    reset_launch_counts()
+    gpu = TorchPlacer(db, tree, config=cfg, device=cuda)
+    got = gpu.place(reads)
+    counts = launch_counts()
+    if config.get("dense_db") == "off":
+        assert gpu.route == "csr" and counts["accumulate_sums_counts"] > 0, counts
+    else:
+        assert gpu._fast_codes and gpu._paired_codes == ("pair_plane" in config)
+        kernel = "rowgather_sum_topk_int16" if gpu._plane_q else "rowgather_sum_topk"
+        assert counts[kernel] > 0 and counts["rowgather_sum"] == 0, counts
+    want = cpu.place(reads)
+    np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
+    np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
+                               rtol=1e-6, atol=1e-6)
+    _oracle_close(ReferencePlacer(db, tree).place(reads), got, per_edge=gpu._plane_q)

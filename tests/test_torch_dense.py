@@ -463,9 +463,9 @@ def test_databases_that_take_the_other_planes():
 
 
 def test_big_k_classic_plane_places():
-    """DNA k = 14 has no direct table: on the shifted plane it raises naming
-    queue 1 item 8 (``tests/test_torch_placer.py``), on the classic plane it
-    takes the host tokenizer, as in JAX, and places as the oracle does."""
+    """DNA k = 14 has no direct table: on the shifted plane it takes the codes
+    tokenizer (``tests/test_torch_amino.py``), on the classic plane the host
+    tokenizer, as in JAX, and places as the oracle does."""
     db = random_db(num_leaves=8, kmer_size=14, num_kmers=40, seed=3)
     tree = parse_newick(db.tree())
     port = TorchPlacer(db, tree, config=PlacerConfig(plane_mode="classic"), device="cpu")

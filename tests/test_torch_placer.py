@@ -231,16 +231,19 @@ def test_over_budget_raises_with_sizes(fx):
 
 
 def test_unported_databases_raise():
-    """Amino and DNA k = 14 on the shifted dense plane raise naming queue 1
-    item 8; scores below log10(eps) (the classic plane) and k = 13 (the
+    """No database raises any more: amino and DNA k = 14 place on the shifted
+    dense plane through the codes tokenizer and the radix lookup, as the
+    oracle does; scores below log10(eps) (the classic plane) and k = 13 (the
     unpaired plane) place as the oracle does."""
     amino = random_db(num_leaves=8, kmer_size=3, num_kmers=200, seed=1,
                       sequence_type="amino")
-    with pytest.raises(NotImplementedError, match="amino"):
-        TorchPlacer(amino, parse_newick(amino.tree()), device="cpu")
     k14 = random_db(num_leaves=8, kmer_size=14, num_kmers=50, seed=4)
-    with pytest.raises(NotImplementedError, match="item 8"):
-        TorchPlacer(k14, parse_newick(k14.tree()), device="cpu")
+    for db, recs in ((amino, [("r", b"ACDEFGHIKLMNPQ"), ("x", b"ACDXFG"), ("s", b"AC")]),
+                     (k14, [("r", b"ACGTACGTACGTACGTACGT"), ("s", b"ACG")])):
+        tree = parse_newick(db.tree())
+        port = TorchPlacer(db, tree, device="cpu")
+        assert port.route == "dense" and port._shifted and port._fast_codes
+        assert_jplace_close(ReferencePlacer(db, tree).place(recs), port.place(recs))
     below = build_db({"ACG": [(0, 0.0), (2, -2.0)], "CGT": [(1, -0.5)]}, TREE, kmer_size=3)
     port = TorchPlacer(below, parse_newick(TREE), device="cpu")
     assert port.route == "dense" and not port._shifted
