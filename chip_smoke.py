@@ -35,12 +35,15 @@ prints no result line):
                  ties at the K cut, Q1, Q3; kernel 4, with counts and without),
                  bit for bit, and two launches alike; CUDA-event times; kernel 4's
                  tiles and threads per block; the share of valid cells in the
-                 400 bp CSR batch; the device step times (packed tiles, f32
-                 tiles, CSR);
+                 400 bp CSR batch; the counts finish (``finish_topk_counts``)
+                 on that batch's (4,096 x 19,999) sums and counts and on
+                 engineered rows (C > m, m = 2**64, n = 0, n < K, ties, Q3),
+                 both forms, against its plain version (the torch finish);
+                 the device step times (packed tiles, f32 tiles, CSR);
                * ``TorchPlacer(dense_db="off")`` through ``run_pipeline`` with
                  the CLI's FASTA reader and the jplace writer, the counts zeroed
-                 before and read after: the packed tile kernel and the CSR
-                 kernel must have launched; then one pass with
+                 before and read after: the packed tile kernel, the CSR
+                 kernel and the counts finish must have launched; then one pass with
                  ``tile_payload="f32"``: the sums kernel and the finish must
                  have launched; the finish against its plain version on that
                  pass's (4,096 x 19,999) sums, and its time there;
@@ -55,7 +58,7 @@ prints no result line):
                  and the device step;
                * the placer through ``run_pipeline`` with the port's FASTA reader
                  and jplace writer, the counts zeroed before and read after:
-                 kernel 3's sums and the CSR kernel must have launched; 256
+                 kernel 3's sums, the CSR kernel and the counts finish must have launched; 256
                  reads against the scalar oracle, score sets within 1e-4;
                * a 1x4 mesh laid on the one card (4 shards of 5,120 columns) on
                  8,192 clean reads and the IUPAC and short ones, score sets
@@ -77,16 +80,24 @@ prints no result line):
                  ``lookup_where="device"``, ``tokenize_where="host"`` (the
                  library, through run_pipeline): each config's kernel (the
                  fused kernel over the unpaired f32 or the int16 plane, the
-                 sums with counts over the classic f32 or bf16 plane) against
-                 its plain version on the first batch, bit for bit; 256 reads
-                 against the oracle (int16 by the jplace_diff rule, bf16 by
-                 the best edge, as the JAX tests hold them);
+                 fused counts kernel ``rowgather_sum_counts_topk[_bf16]``
+                 over the classic f32 or bf16 plane) against its plain
+                 version on the first batch, bit for bit (wr within rtol
+                 1e-4), no gather or finish apart launched, and the sums with
+                 counts alone (``rowgather_sum_counts[_bf16]``, past the
+                 limit) on the same rows; 256 reads against the oracle
+                 (int16 by the jplace_diff rule, bf16 by the best edge, as
+                 the JAX tests hold them);
                * a batch of reads shorter than k and a batch with a 65,536 bp
                  read (the host tokenizer) against the oracle;
                * the fused kernel at B = 30,000, and past its shared-memory
                  limit at B = 40,000 (the gather and the finish apart), and
                  ``finish_topk`` at B = 70,000 (ids in the global workspace),
-                 against their plain versions.
+                 against their plain versions; the fused counts kernel (f32,
+                 bf16) at the widest B its shared memory takes and one branch
+                 past it (the classic step then runs the sums with counts and
+                 ``finish_topk_counts`` apart, the same bits), and
+                 ``finish_topk_counts`` at B = 65,537 in both forms.
 10. sharded dense -- the column-sharded dense engine:
                * D652 through ``python -m epik_tpu_torch place --engine sharded``
                  on a 1x1 mesh (the pair plane in one shard of 1,408 columns),
@@ -205,6 +216,14 @@ KERNEL_META = {
                              "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_counts_bf16": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                   "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # the classic steps' #1 with the counts finish fused in
+    "rowgather_sum_counts_topk": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                  "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_counts_topk_bf16": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                       "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # #2's finish with the count term (the CSR steps', after #5)
+    "finish_topk_counts": ("epik_tpu_torch/kernels/csrc/finish_topk.cu",
+                           "epik_tpu/ops/pallas/accumulate.py:214"),
     # the column finish is an XLA function in the JAX package, no Pallas kernel
     "finish_cols_partial": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
                             "epik_tpu/parallel/sharding.py:345"),
@@ -286,6 +305,42 @@ def check_finish(np, got, want, K: int, B: int, what: str) -> float:
     if not np.array_equal(np.isfinite(got), np.isfinite(want)):
         raise AssertionError(f"{what}: finite entries differ")
     return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+
+
+def check_full_pack(np, got, want, K: int, B: int, what: str) -> float:
+    """The full pack's body [scores | wr | idx | counts | n | zero_sum]:
+    scores, every index, the counts, n and zero_sum bit-equal, wr within rtol
+    1e-4 (10**(score - log_sum), log_sum summed in another order). Returns
+    the largest absolute difference over the finite entries."""
+    if not np.array_equal(got[:, :K], want[:, :K]):
+        raise AssertionError(f"{what}: scores differ from the plain version")
+    if not np.array_equal(got[:, 2 * K:], want[:, 2 * K:]):
+        raise AssertionError(f"{what}: indices, counts, n or zero_sum differ")
+    idx = got[:, 2 * K:3 * K]
+    if not ((idx >= 0) & (idx < B)).all():
+        raise AssertionError(f"{what}: an index lies outside [0, {B})")
+    np.testing.assert_allclose(got[:, K:2 * K], want[:, K:2 * K], rtol=1e-4, atol=1e-30,
+                               err_msg=f"{what}: wr")
+    fin = np.isfinite(got) & np.isfinite(want)
+    if not np.array_equal(np.isfinite(got), np.isfinite(want)):
+        raise AssertionError(f"{what}: finite entries differ")
+    return float(np.abs(got[fin] - want[fin]).max()) if fin.any() else 0.0
+
+
+def check_counts_finish(torch, np, S, C, m, kw: dict, B: int, what: str) -> float:
+    """``finish_topk_counts`` against its plain version (the torch finish of
+    the CSR steps), the full body by check_full_pack and the slim pack by
+    check_finish, two launches alike. Returns the largest difference."""
+    from epik_tpu_torch.kernels.finish import finish_topk_counts, finish_topk_counts_plain
+
+    got, again = finish_topk_counts(S, C, m, **kw), finish_topk_counts(S, C, m, **kw)
+    want = finish_topk_counts_plain(S, C, m, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got, again):
+        raise AssertionError(f"finish_topk_counts ({what}): two launches differ")
+    check = check_full_pack if kw.get("full", True) else check_finish
+    return check(np, got.cpu().numpy(), want.cpu().numpy(), kw["K"], B,
+                 f"finish_topk_counts ({what})")
 
 
 def fused_rows_case(torch, np, dev, Sp_e, m_e):
@@ -600,10 +655,15 @@ def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[l
         accumulate_sums_plain,
         plan,
     )
-    from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
+    from epik_tpu_torch.kernels.finish import (
+        finish_topk,
+        finish_topk_counts,
+        finish_topk_counts_plain,
+        finish_topk_plain,
+    )
     from epik_tpu_torch.ops import csr as csr_mod
     from epik_tpu_torch.tools.jplace_diff import parse_jplace
-    from torch_fixtures import packed_rows
+    from torch_fixtures import counts_rows, packed_rows
 
     summary = {}
     # ---- 7a. fixture ------------------------------------------------------------
@@ -659,9 +719,11 @@ def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[l
     # ---- 7c. kernels on the inputs the path gives them ------------------------------
     clean = reads[BT_READS - BT_BATCH:]  # the last batch: no IUPAC or short reads
     packed_calls, counts_calls, sums_calls, finish_calls = [], [], [], []
+    cfinish_calls = []
     with recording(step_mod, "accumulate_packed_topk", packed_calls):
         placer.place(clean)
-    with recording(csr_mod, "accumulate_sums_counts", counts_calls):
+    with recording(csr_mod, "accumulate_sums_counts", counts_calls), \
+            recording(step_mod, "finish_topk_counts", cfinish_calls):
         placer.place(long_reads)
     (p, m_f32), kw = packed_calls[0]
     K = kw["K"]
@@ -731,6 +793,34 @@ def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[l
         f"{how5.tile_w} branches, {how5.threads} threads, {how5.smem} B of shared memory "
         f"per block; kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms, scatter_add (sums "
         f"only) {lib_ms5:.4f} ms, bound {bound(*io5)[0]:.4f} ms [{card}]")
+
+    # the counts finish on the 400 bp CSR batch's sums and counts (4,096 x 19,999)
+    (S_f, C_f, m_cf), kw_cf = cfinish_calls[0]
+    err2c = check_counts_finish(torch, np, S_f, C_f, m_cf, kw_cf, B, "the 400 bp CSR batch")
+    S_e, C_e, m_e = (torch.from_numpy(x).to(dev) for x in counts_rows(
+        np.random.default_rng(6), 512, B))
+    err2c = max(err2c, check_counts_finish(torch, np, S_e, C_e, m_e, kw_cf, B, "engineered"),
+                check_counts_finish(torch, np, S_e, C_e, m_e, {**kw_cf, "full": False}, B,
+                                    "engineered, slim"))
+    del S_e, C_e, m_e
+    ms2c = cuda_ms(torch, lambda: finish_topk_counts(S_f, C_f, m_cf, **kw_cf))
+    plain_ms2c = cuda_ms(torch, lambda: finish_topk_counts_plain(S_f, C_f, m_cf, **kw_cf),
+                         reps=5, warmup=1)
+    touched2c = int((C_f > 0).sum())
+    K_c = kw_cf["K"]
+    # S, C and m read once, the full body written once; a compare per branch
+    # and the finish's operations per touched branch
+    io2c = (nbytes(S_f, C_f, m_cf) + S_f.shape[0] * (4 * K_c + 2) * 4,
+            S_f.numel() + FINISH_OPS * touched2c)
+    summary["csr_touched_per_read"] = touched2c / S_f.shape[0]
+    summary["finish_topk_counts_ms"] = ms2c
+    summary["finish_topk_counts_plain_ms"] = plain_ms2c
+    log(f"finish_topk_counts {tuple(S_f.shape)} K={K_c} (the 400 bp CSR batch, "
+        f"{touched2c / S_f.shape[0]:.1f} branches touched per read): scores, ids, counts, n "
+        f"and zero_sum bit-equal, wr within rtol 1e-4, engineered rows (both forms) pass, two "
+        f"launches alike; kernel {ms2c:.4f} ms, plain (the torch finish_scores) "
+        f"{plain_ms2c:.4f} ms, bound {bound(*io2c)[0]:.4f} ms [{card}]")
+    del cfinish_calls
 
     # the device steps, on the clean batch and on the 400 bp batch
     seqs = list(dict.fromkeys(s for _, s in clean))
@@ -802,8 +892,10 @@ def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[l
         counts[payload] = launch_counts()
         writer.end()
         del placer._stage_csr
-        need = (["accumulate_packed_topk", "accumulate_sums_counts"] if payload == "packed"
-                else ["accumulate_sums", "finish_topk", "accumulate_sums_counts"])
+        need = (["accumulate_packed_topk", "accumulate_sums_counts", "finish_topk_counts"]
+                if payload == "packed" else
+                ["accumulate_sums", "finish_topk", "accumulate_sums_counts",
+                 "finish_topk_counts"])
         missing = [name for name in need if counts[payload][name] <= 0]
         if missing:
             raise AssertionError(f"{payload} pass: kernels never launched: {missing}")
@@ -878,6 +970,9 @@ def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[l
               *io4, lib_ms4),
         entry("accumulate_sums_counts", counts["packed"]["accumulate_sums_counts"],
               err5, ms5, plain_ms5, *io5, lib_ms5),
+        # no one library call computes the counts finish either
+        entry("finish_topk_counts", counts["packed"]["finish_topk_counts"], err2c, ms2c,
+              plain_ms2c, *io2c, None),
     ]
     fx = {"db": db, "tree": tree, "reads": reads, "records": records, "fasta": fasta,
           "work": work, "newick": newick, "parity_records": parity_records,
@@ -992,7 +1087,8 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     placer.overflow_retries = 0
     stats, counts, rows = run(placer, fx["fasta"], "placements_sharded.jplace")
     missing = [n for n in ("accumulate_packed_sums", "accumulate_sums_counts",
-                           "finish_cols_partial", "finish_cols_expsum") if counts[n] <= 0]
+                           "finish_topk_counts", "finish_cols_partial", "finish_cols_expsum")
+               if counts[n] <= 0]
     if missing:
         raise AssertionError(f"sharded pass: kernels never launched: {missing}")
     if set(rows) != {name for name, _ in records}:
@@ -1046,23 +1142,27 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
 #: PlacerConfig fields), and the kernel its dense step ends in
 DENSE_CONFIGS = [
     ("pair_off", ["--pair-plane", "off"], None, "rowgather_sum_topk"),
-    ("classic", ["--plane-mode", "classic"], None, "rowgather_sum_counts"),
+    ("classic", ["--plane-mode", "classic"], None, "rowgather_sum_counts_topk"),
     ("int16", ["--precision", "int16"], None, "rowgather_sum_topk_int16"),
-    ("bf16", ["--precision", "bf16"], None, "rowgather_sum_counts_bf16"),
-    ("lookup_device", None, {"lookup_where": "device"}, "rowgather_sum_counts"),
+    ("bf16", ["--precision", "bf16"], None, "rowgather_sum_counts_topk_bf16"),
+    ("lookup_device", None, {"lookup_where": "device"}, "rowgather_sum_counts_topk"),
     ("tokenize_host", None, {"tokenize_where": "host"}, "rowgather_sum_topk"),
 ]
+#: the kernels a single-device dense step runs only past its fused kernel's limit
+APART = ("rowgather_sum", "finish_topk", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
+         "finish_topk_counts")
 
 
 def check_dense_kernel(torch, np, name: str, call, what: str):
     """The dense kernel ``name`` against its plain version on a recorded call
-    of a path: bit-equal (the fused finish: check_finish), two launches
-    alike; CUDA-event times of both and, for the sums with counts, of one
-    ``embedding_bag`` (the sums alone). Returns (err, ms, plain_ms, io,
-    library_ms, shape)."""
+    of a path: bit-equal (the fused finish: check_finish; the fused counts
+    finish: check_full_pack), two launches alike; CUDA-event times of both
+    and, for the sums with counts (fused or not), of one ``embedding_bag``
+    (the sums alone). Returns (err, ms, plain_ms, io, library_ms, shape)."""
     from epik_tpu_torch.kernels import KERNELS
     from epik_tpu_torch.kernels.rowgather import (
         rowgather_sum_counts_plain,
+        rowgather_sum_counts_topk_plain,
         rowgather_sum_topk_plain,
     )
 
@@ -1072,6 +1172,12 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
     bw = plane.shape[1]
     cell = plane.element_size()
     n_distinct = int(torch.unique(rows).numel())
+    lib_ms = None  # embedding_bag takes no int16 weight
+    if plane.dtype != torch.int16:
+        rows_long = rows.long()
+        lib_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane,
+                                                                          mode="sum"))
+        del rows_long
     if name.startswith("rowgather_sum_topk"):
         m, amb_read, delta = args[2:5]
         K, B = kw["K"], kw["B"]
@@ -1087,7 +1193,27 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
         amb = nbytes(amb_read, delta) if amb_read is not None else 0
         io = (n_distinct * bw * cell + nbytes(rows, m) + amb + rows.shape[0] * (2 * K + 3) * 4,
               rows.numel() * bw + FINISH_OPS * rows.shape[0] * B)
-        return err, ms, plain_ms, io, None, tuple(rows.shape)
+        return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
+    if name.startswith("rowgather_sum_counts_topk"):
+        m, amb_read, dS, hit = args[2:6]
+        K, B = kw["K"], kw["B"]
+        got, again = fn(*args, **kw), fn(*args, **kw)
+        want = rowgather_sum_counts_topk_plain(*args, **kw)
+        torch.cuda.synchronize()
+        if not torch.equal(got, again):
+            raise AssertionError(f"{name} ({what}): two launches differ")
+        err = check_full_pack(np, got.cpu().numpy(), want.cpu().numpy(), K, B,
+                              f"{name} ({what})")
+        ms = cuda_ms(torch, lambda: fn(*args, **kw))
+        plain_ms = cuda_ms(torch, lambda: rowgather_sum_counts_topk_plain(*args, **kw), reps=3,
+                           warmup=1)
+        amb = nbytes(amb_read, dS, hit) if amb_read is not None else 0
+        # the distinct rows, the row ids, m and the first hits read once, the
+        # full body written once (S and C stay on chip); an add and a compare
+        # per gathered cell and the finish's operations per (read, branch)
+        io = (n_distinct * bw * cell + nbytes(rows, m) + amb + rows.shape[0] * (4 * K + 2) * 4,
+              2 * rows.numel() * bw + FINISH_OPS * rows.shape[0] * B)
+        return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
     (S, C), (S2, C2) = fn(plane, rows), fn(plane, rows)
     S_p, C_p = rowgather_sum_counts_plain(plane, rows)
     torch.cuda.synchronize()
@@ -1099,9 +1225,6 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
     ms = cuda_ms(torch, lambda: fn(plane, rows))
     plain_ms = cuda_ms(torch, lambda: rowgather_sum_counts_plain(plane, rows), reps=3,
                        warmup=1)
-    rows_long = rows.long()
-    lib_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane,
-                                                                      mode="sum"))
     # the distinct rows read once, the row ids, S and C written once; an add
     # and a compare per gathered cell
     io = (n_distinct * bw * cell + nbytes(rows, S, C), 2 * rows.numel() * bw)
@@ -1124,24 +1247,32 @@ def placement_ms(cli_out: str) -> int:
     return int(cli_out.split("Placement time:")[1].split("(")[1].split(" ms")[0])
 
 
-def wide_tree_checks(torch, np, card: str, dev) -> dict:
+def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
     """The kernels at the widths of the big trees, against their plain
     versions: the fused kernel at B = 30,000 (inside its limit); at B =
     40,000, past it, the wrapper refusing and the dense step running
     rowgather_sum + finish_topk (the launches counted); finish_topk at B =
-    70,000, its ids in the global workspace. Returns each kernel's largest
-    difference."""
-    from epik_tpu_torch.engine.step import _shifted_finish
+    70,000, its ids in the global workspace; the fused counts kernel (f32
+    and bf16) at the widest B its shared memory takes and one branch past
+    it, where the classic step runs the sums with counts + finish_topk_counts
+    (the launches counted); finish_topk_counts at B = 65,537 in both forms.
+    Returns each kernel's largest difference and the launches of the
+    classic steps past the limit."""
+    from epik_tpu_torch.engine.step import _classic_finish, _shifted_finish
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
+    from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_counts, finish_topk_plain
     from epik_tpu_torch.kernels.rowgather import (
+        counts_topk_fits,
+        counts_topk_smem,
+        rowgather_sum_counts_topk,
+        rowgather_sum_counts_topk_plain,
         rowgather_sum_topk,
         rowgather_sum_topk_plain,
         topk_fits,
         topk_smem,
     )
-    from epik_tpu_torch.ops.dense import amb_deltas
-    from torch_fixtures import finish_rows
+    from epik_tpu_torch.ops.dense import amb_classic_deltas, amb_deltas
+    from torch_fixtures import counts_rows, finish_rows
 
     rng = np.random.default_rng(30)
     kw = dict(K=7, k=10, log_eps=-4.2597)
@@ -1203,7 +1334,81 @@ def wide_tree_checks(torch, np, card: str, dev) -> dict:
     ms = cuda_ms(torch, lambda: finish_topk(Sp, m, **kw), reps=5)
     log(f"finish_topk (300, 70000) K=7, ids in the global workspace: bit-equal but log_sum, "
         f"two launches alike, ties to the lowest index; {ms:.4f} ms [{card}]")
-    return errs
+    del Sp, m
+
+    # the fused counts kernel at its limit and one branch past it
+    def need_limit(B):
+        return counts_topk_smem(torch.empty((2, -(-B // 128) * 128), device=dev), B, 7)
+
+    lo, hi = 1024, 1 << 16  # the widest B whose need is within the limit
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        need, limit = need_limit(mid)
+        lo, hi = (mid, hi) if need <= limit else (lo, mid - 1)
+    launches = {}
+    for cell in ("f32", "bf16"):
+        for B in (lo, lo + 1):
+            bw = -(-B // 128) * 128
+            plane = rng.uniform(-7.0, -0.01, (120, bw)).astype(np.float32)
+            plane[rng.random(plane.shape) > 0.3] = 0.0
+            plane[:, B:] = 0.0
+            plane[-1] = 0.0
+            rows = rng.integers(0, 120, (64, 72)).astype(np.int32)
+            rows[0] = 119
+            arows = np.full((64, 2), 119, np.int32)
+            arows[1::5, 0] = rng.integers(0, 119, len(range(1, 64, 5)))
+            m = rng.integers(72, 112, 64).astype(np.float32)
+            m[2] = 1.0  # counts above m wrap (quirk Q1)
+            plane, rows, arows, m = (torch.from_numpy(x).to(dev)
+                                     for x in (plane, rows, arows, m))
+            if cell == "bf16":
+                plane = plane.to(torch.bfloat16)
+            read, dS, hit = amb_classic_deltas(plane, arows, zero_row=119, B=B, k=10,
+                                               eps=5.5e-5)
+            want = rowgather_sum_counts_topk_plain(plane, rows, m, read, dS, hit, B=B, **kw)
+            fits = counts_topk_fits(plane, B, 7)
+            if fits != (B == lo):
+                raise AssertionError(f"counts_topk_fits at B={B}: {fits}")
+            fused = "rowgather_sum_counts_topk" + ("_bf16" if cell == "bf16" else "")
+            sums = "rowgather_sum_counts" + ("_bf16" if cell == "bf16" else "")
+            if not fits and cell == "f32":
+                try:
+                    rowgather_sum_counts_topk(plane, rows, m, read, dS, hit, B=B, **kw)
+                except ValueError:
+                    pass
+                else:
+                    raise AssertionError(f"{fused} launched at B={B}, past its limit")
+            reset_launch_counts()
+            got = _classic_finish(plane, rows, m, arows, B=B, Amax=2, zero_row=119,
+                                  eps=5.5e-5, **kw)
+            counts = {n: c for n, c in launch_counts().items() if c}
+            torch.cuda.synchronize()
+            expect = {fused: 1} if fits else {sums: 1, "finish_topk_counts": 1}
+            if counts != expect:
+                raise AssertionError(f"classic {cell} B={B}: launches {counts}, expected "
+                                     f"{expect}")
+            for n, c in counts.items():
+                launches[n] = launches.get(n, 0) + c
+            if got[-1].any():
+                raise AssertionError(f"classic {cell} B={B}: the totals row is not zero")
+            e = check_full_pack(np, got[:-1].cpu().numpy(), want.cpu().numpy(), 7, B,
+                                f"classic {cell} B={B} ({'fused' if fits else 'apart'})")
+            for n in counts:
+                errs[n] = max(errs.get(n, 0.0), e)
+            need, limit = need_limit(B)
+            log(f"wide tree classic {cell} B={B}, bw={bw}: the fused counts kernel asks "
+                f"{need} B of shared memory of {limit} [{card}]; "
+                f"{'fused' if fits else sums + ' + finish_topk_counts'} bit-equal to the fused "
+                f"plain version but wr; launches {counts}")
+    S, C, m = (torch.from_numpy(x).to(dev) for x in counts_rows(rng, 300, 65537, density=0.05))
+    for full in (True, False):
+        e = check_counts_finish(torch, np, S, C, m, {**kw, "full": full}, 65537,
+                                f"B = 65,537, {'full' if full else 'slim'}")
+        errs["finish_topk_counts"] = max(errs.get("finish_topk_counts", 0.0), e)
+    ms = cuda_ms(torch, lambda: finish_topk_counts(S, C, m, **kw), reps=5)
+    log(f"finish_topk_counts (300, 65537) K=7, ids in the global workspace, full and slim: "
+        f"bit-equal but wr / log_sum, two launches alike; {ms:.4f} ms [{card}]")
+    return errs, launches
 
 
 def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, dict, dict]:
@@ -1265,16 +1470,17 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
         f"{pl_ms} ms = {n_reads / pl_ms * 1e3:.0f} reads/s, whole CLI {cli_s:.1f} s [{card}]; "
         f"launches {counts}; parity on {len(fx['parity_records'])} reads (IUPAC, short, "
         f"400 bp): largest score difference {worst:.3g}")
-    err_c4, ms_c4, plain_c4, io_c4, _, shape_c4 = check_dense_kernel(
+    err_c4, ms_c4, plain_c4, io_c4, lib_c4, shape_c4 = check_dense_kernel(
         torch, np, "rowgather_sum_topk", fused_calls[0], "config 4, first batch")
     summary.update(config4_fused_ms=ms_c4, config4_fused_plain_ms=plain_c4,
-                   config4_fused_bound_ms=bound(*io_c4)[0])
+                   config4_fused_bound_ms=bound(*io_c4)[0], config4_embedding_bag_ms=lib_c4)
     step_ms = cuda_ms(torch, lambda: step_mod.place_batch_dense_bytes(
         plane, direct, buf, arows, **kw_s), reps=5)
     summary["config4_dense_step_ms"] = step_ms
     log(f"rowgather_sum_topk {shape_c4} bw={plane.shape[1]} B={kw_s['B']} (config 4, unpaired): "
         f"bit-equal but log_sum, two launches alike; kernel {ms_c4:.4f} ms, plain "
-        f"{plain_c4:.4f} ms, bound {bound(*io_c4)[0]:.4f} ms ({io_c4[0]} bytes); device step "
+        f"{plain_c4:.4f} ms, embedding_bag (sums only) {lib_c4:.4f} ms, bound "
+        f"{bound(*io_c4)[0]:.4f} ms ({io_c4[0]} bytes); device step "
         f"(tokenize + amb delta rows + fused kernel) at R={buf.shape[0]}: {step_ms:.4f} ms "
         f"[{card}]")
     del plane, direct, buf, arows, step_calls, fused_calls
@@ -1285,7 +1491,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     tree = parse_newick(db.tree())
     newick = to_newick(tree, jplace_edges=True)
     oracle_out = d652["oracle_out"]
-    kernels, seen = [], set()
+    kernels, seen, apart = [], set(), {}
     for name, flags, fields, kernel in DENSE_CONFIGS:
         calls = []
         out_dir = os.path.join(d652["work"], f"out_{name}")
@@ -1313,7 +1519,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
                 how = f"run_pipeline, PlacerConfig({fields})"
                 del placer
         counts = launch_counts()
-        if counts[kernel] <= 0 or counts["rowgather_sum"] or counts["finish_topk"]:
+        if counts[kernel] <= 0 or any(counts[n] for n in APART):
             raise AssertionError(f"D652 {name}: launches {counts}")
         rows_by_name = parse_jplace(jplace)
         if set(rows_by_name) != {n for n, _ in d652["records"]}:
@@ -1322,6 +1528,17 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
         worst = check_parity(oracle_out, rows_by_name, f"D652 {name}", rule)
         err, ms, plain_ms, io_k, lib_ms, shape = check_dense_kernel(
             torch, np, kernel, calls[0], f"D652 {name}")
+        if kernel.startswith("rowgather_sum_counts_topk") and name != "lookup_device":
+            # the sums with counts alone run past the fused kernel's limit:
+            # held against their plain version on the rows the path gave
+            sums = kernel.replace("_topk", "")
+            apart[sums] = check_dense_kernel(torch, np, sums, (calls[0][0][:2], {}),
+                                             f"D652 {name}, the recorded rows")
+            summary[f"d652_{name}_{sums}_ms"] = apart[sums][1]
+            log(f"{sums} {apart[sums][5]} (D652 {name}'s rows): bit-equal, two launches "
+                f"alike; kernel {apart[sums][1]:.4f} ms, plain {apart[sums][2]:.4f} ms, "
+                f"embedding_bag (sums only) {apart[sums][4]:.4f} ms, bound "
+                f"{bound(*apart[sums][3])[0]:.4f} ms [{card}]")
         del calls
         torch.cuda.empty_cache()
         summary[f"d652_{name}_reads_per_s"] = rate
@@ -1331,7 +1548,9 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
             f"{PARITY_READS} reads by {rule}: "
             f"{'best edge agrees on a share of ' if rule == 'top_edge' else 'largest score difference '}"
             f"{worst:.4g}; {kernel} {shape}: bit-equal to its plain version"
-            f"{' but log_sum' if 'topk' in kernel else ''}, two launches alike; kernel "
+            f"{' but log_sum' if 'topk' in kernel and 'counts' not in kernel else ''}"
+            f"{' but wr (rtol 1e-4)' if 'counts_topk' in kernel else ''}, two launches "
+            f"alike; kernel "
             f"{ms:.4f} ms, plain {plain_ms:.4f} ms, "
             f"{'embedding_bag (sums only) ' + format(lib_ms, '.4f') + ' ms, ' if lib_ms else ''}"
             f"bound {bound(*io_k)[0]:.4f} ms")
@@ -1364,7 +1583,12 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     torch.cuda.empty_cache()
 
     # ---- 9d. the kernels at the widths of bigger trees -----------------------------------------
-    errs = wide_tree_checks(torch, np, card, dev)
+    errs, wide_launches = wide_tree_checks(torch, np, card, dev)
+    # the sums with counts apart: their launches on the classic step past the
+    # fused kernel's limit (9d; the f32 one also runs on every sharded classic
+    # step, phase 10), their times on D652's rows
+    for sums, (err, ms, plain_ms, io_k, lib_ms, _) in apart.items():
+        kernels.append(entry(sums, wide_launches[sums], err, ms, plain_ms, *io_k, lib_ms))
     return kernels, summary, errs
 
 
@@ -1483,6 +1707,7 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
                  never=("rowgather_sum_topk", "finish_cols_partial", "finish_cols_expsum"))
     worst_c = check_parity(d652["oracle_out"], rows_c, "D652 sharded classic")
     summary["d652_sharded_classic_reads_per_s"] = stats_c.num_seq_placed / stats_c.wall_seconds
+    summary["d652_sharded_classic_rowgather_sum_counts_launches"] = counts_c["rowgather_sum_counts"]
     log(f"D652 sharded classic 1x1 (run_pipeline): {stats_c.summary()} [{card}]; launches "
         f"{ {n: c for n, c in counts_c.items() if c} }; parity on {PARITY_READS} reads: "
         f"largest score difference {worst_c:.3g}")
@@ -2093,9 +2318,9 @@ def main() -> int:
         # run), not on the single-device one (phase 5: the fused kernel)
         entry("rowgather_sum", sd["d652_sharded_rowgather_sum_launches"], err1, ms1, plain_ms1,
               *io1, lib_ms1),
-        # no one library call computes the gather with the finish
+        # embedding_bag computes the gather's sums alone, without the finish
         entry("rowgather_sum_topk", counts["rowgather_sum_topk"], err1f, ms1f, plain_ms1f,
-              *io1f, None),
+              *io1f, lib_ms1),
         *bt_kernels,
         *sh_kernels,
         *dn_kernels,
@@ -2104,6 +2329,8 @@ def main() -> int:
     ]
     for e in kernels:  # the wide-tree checks of phase 9
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0))
+        if e["name"] == "rowgather_sum_counts":  # its main path: every sharded classic step
+            e["launches"] = sd["d652_sharded_classic_rowgather_sum_counts_launches"]
     log(f"summary: plane_bytes={plane_bytes} step_ms={step_ms} "
         f"rowgather_sum_ms={ms1} finish_topk_d652_ms={ms2_d652} rowgather_sum_topk_ms={ms1f} "
         f"place_reads_per_s={place_rate} cli_reads_per_s={len(records) / cli_s}")

@@ -37,8 +37,9 @@ three routes, chosen at construction by the JAX package's rules
 paths not yet ported raise ``NotImplementedError`` naming the ROADMAP.md
 queue item that ports them.
 
-The device is explicit. ``device="cuda"`` without CUDA raises; the placer
-never carries on on the CPU. On a CUDA device every kernel of a step runs as
+The device defaults to the card (``device="cuda"``), and the CPU runs only
+when the caller names it; ``"cuda"`` without CUDA raises, so the placer never
+carries on on the CPU. On a CUDA device every kernel of a step runs as
 hand-written CUDA (``epik_tpu_torch/kernels``); on the CPU the kernels' plain
 PyTorch versions run.
 """
@@ -127,7 +128,7 @@ class TorchPlacer(HostStaging):
 
     def __init__(self, db, tree, keep_at_most: int | None = None,
                  keep_factor: float | None = None,
-                 config: PlacerConfig | None = None, *, device,
+                 config: PlacerConfig | None = None, *, device="cuda",
                  state: PlaneState | TileState | None = None):
         self.device = _resolve_device(device)
         self.db = db

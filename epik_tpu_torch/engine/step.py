@@ -22,8 +22,10 @@
 
 The shifted dense steps end in kernel 1 with the finish fused in (the slim
 (R, 2K+3) pack), or past its shared-memory limit in the gather and the finish
-apart; the classic ones in kernel 1 with counts, then the counts finish
-(``ops/csr.py``) into the full (R+1, 4K+2) pack.
+apart; the classic ones in kernel 1 with counts and the counts finish fused
+in (the full (R+1, 4K+2) pack), or past its limit in the gather with counts
+and the counts finish apart; the CSR step in kernel 4 with counts and the
+counts finish (``finish_topk_counts``).
 """
 
 from __future__ import annotations
@@ -32,11 +34,15 @@ import torch
 
 from ..kernels.accumulate_packed import accumulate_packed_topk, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
-from ..kernels.finish import finish_topk
+from ..kernels.finish import finish_topk, finish_topk_counts
 from ..kernels.rowgather import (
+    add_first_hits,
+    counts_topk_fits,
     rowgather_sum,
     rowgather_sum_counts,
     rowgather_sum_counts_bf16,
+    rowgather_sum_counts_topk,
+    rowgather_sum_counts_topk_bf16,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
     topk_fits,
@@ -45,10 +51,9 @@ from ..ops.csr import (
     ORDER_INF,
     accumulate_amb_firsthit,
     accumulate_exact_dense,
-    finish_scores,
-    pack_outputs,
+    append_totals,
 )
-from ..ops.dense import amb_classic, amb_deltas, lookup_rows
+from ..ops.dense import amb_classic_deltas, amb_deltas, lookup_rows
 from ..ops.tokenize import (
     tokenize_combo,
     tokenize_packed,
@@ -114,16 +119,24 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
 
 def _classic_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
                     zero_row: int, log_eps: float, eps: float) -> torch.Tensor:
-    """The classic plane's sums S and exact counts C (kernel 1 with counts,
-    an f32 or a bf16 plane), the ambiguous first hit when ``Amax > 0``, and
-    the counts finish into the full (R+1, 4K+2) pack with zero totals."""
-    sums = rowgather_sum_counts_bf16 if plane.dtype == torch.bfloat16 else rowgather_sum_counts
-    S, C = sums(plane, rows)
-    S, C = S[:, :B], C[:, :B]
+    """The classic plane's sums S and exact counts C (an f32 or a bf16
+    plane), the ambiguous first hit when ``Amax > 0``, and the counts finish,
+    into the full (R+1, 4K+2) pack with zero totals: kernel 1 with counts and
+    the finish fused in, or past its shared-memory limit
+    (``counts_topk_fits``) the gather with counts, the same adds of the first
+    hit and ``finish_topk_counts`` apart."""
+    bf16 = plane.dtype == torch.bfloat16
+    amb_read = dS = hit = None
     if Amax > 0:
-        S, C = amb_classic(S, C, plane, arows, zero_row=zero_row, B=B, k=k, eps=eps)
-    outs = finish_scores(S, C, m_f32, K=K, k=k, log_eps=log_eps)
-    return pack_outputs(outs, 0, 0)
+        amb_read, dS, hit = amb_classic_deltas(plane, arows, zero_row=zero_row, B=B, k=k,
+                                               eps=eps)
+    kw = dict(K=K, k=k, log_eps=log_eps)
+    if counts_topk_fits(plane, B, K):
+        fused = rowgather_sum_counts_topk_bf16 if bf16 else rowgather_sum_counts_topk
+        return append_totals(fused(plane, rows, m_f32, amb_read, dS, hit, B=B, **kw), 0, 0)
+    S, C = (rowgather_sum_counts_bf16 if bf16 else rowgather_sum_counts)(plane, rows)
+    S, C = add_first_hits(S[:, :B], C[:, :B], amb_read, dS, hit)
+    return append_totals(finish_topk_counts(S, C, m_f32, **kw), 0, 0)
 
 
 def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,
@@ -254,9 +267,9 @@ def place_batch_csr(table, seed1: int, seed2: int, post_b, post_s, row_off, e_hi
                     eps: float) -> torch.Tensor:
     """CSR step: exact postings through per-read cells of budget ``P`` and
     kernel 4 with counts, the ambiguous first hit with budget ``PA``, and the
-    counts finish. Returns the (R+1, 4K+2) pack whose last row carries the
-    largest per-read posting count and the ambiguous posting total, so the
-    host can retry with bigger budgets."""
+    counts finish (``finish_topk_counts``). Returns the (R+1, 4K+2) pack
+    whose last row carries the largest per-read posting count and the
+    ambiguous posting total, so the host can retry with bigger budgets."""
     S, C, e_total = accumulate_exact_dense(table, seed1, seed2, post_b, post_s,
                                            row_off, e_hi, e_lo, e_read, R=R, B=B, PP=P)
     first, V, a_total = accumulate_amb_firsthit(table, seed1, seed2, post_b, post_s,
@@ -265,5 +278,5 @@ def place_batch_csr(table, seed1: int, seed2: int, post_b, post_s, row_off, e_hi
     hit = first < ORDER_INF
     S = S + torch.where(hit, V, torch.zeros((), dtype=V.dtype, device=V.device))
     C = C + hit.to(torch.int32)
-    outs = finish_scores(S, C, m_f32, K=K, k=k, log_eps=log_eps)
-    return pack_outputs(outs, e_total, a_total)
+    body = finish_topk_counts(S, C, m_f32, K=K, k=k, log_eps=log_eps)
+    return append_totals(body, e_total, a_total)

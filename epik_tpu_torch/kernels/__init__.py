@@ -6,7 +6,13 @@
   the classic plane (f32 or bf16); :func:`rowgather.rowgather_sum_topk` and
   :func:`rowgather.rowgather_sum_topk_int16`, the gather with the ambiguous
   delta rows and the finish fused in (the dense shifted steps);
+  :func:`rowgather.rowgather_sum_counts_topk` and
+  :func:`rowgather.rowgather_sum_counts_topk_bf16`, the sums with counts,
+  the ambiguous first hit and the counts finish fused in (the classic dense
+  steps);
 * :func:`finish.finish_topk` -- kernel 2, correction + LWR + top-K + pack;
+  :func:`finish.finish_topk_counts`, the same over sums and exact counts
+  (the CSR steps, and the classic steps past the fused kernel's limit);
 * :func:`finish_cols.finish_cols_partial` and
   :func:`finish_cols.finish_cols_expsum` -- the column-sharded finish per
   model shard (its touched count, maximum and top-K candidates, then its sum
@@ -25,21 +31,24 @@ Each wrapper counts its kernel launches in a ``launches`` attribute;
 
 from .accumulate_packed import accumulate_packed_sums, accumulate_packed_topk
 from .accumulate_sums import accumulate_sums, accumulate_sums_counts
-from .finish import finish_topk
+from .finish import finish_topk, finish_topk_counts
 from .finish_cols import finish_cols_expsum, finish_cols_partial
 from .rowgather import (
     rowgather_sum,
     rowgather_sum_counts,
     rowgather_sum_counts_bf16,
+    rowgather_sum_counts_topk,
+    rowgather_sum_counts_topk_bf16,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
 )
 
 __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accumulate_sums",
            "accumulate_sums_counts", "finish_cols_expsum", "finish_cols_partial",
-           "finish_topk", "launch_counts",
+           "finish_topk", "finish_topk_counts", "launch_counts",
            "reset_launch_counts", "rowgather_sum", "rowgather_sum_counts",
-           "rowgather_sum_counts_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16"]
+           "rowgather_sum_counts_bf16", "rowgather_sum_counts_topk",
+           "rowgather_sum_counts_topk_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16"]
 
 #: name -> wrapper, for every kernel of the port
 KERNELS = {
@@ -48,7 +57,10 @@ KERNELS = {
     "rowgather_sum_topk_int16": rowgather_sum_topk_int16,
     "rowgather_sum_counts": rowgather_sum_counts,
     "rowgather_sum_counts_bf16": rowgather_sum_counts_bf16,
+    "rowgather_sum_counts_topk": rowgather_sum_counts_topk,
+    "rowgather_sum_counts_topk_bf16": rowgather_sum_counts_topk_bf16,
     "finish_topk": finish_topk,
+    "finish_topk_counts": finish_topk_counts,
     "finish_cols_partial": finish_cols_partial,
     "finish_cols_expsum": finish_cols_expsum,
     "accumulate_packed_topk": accumulate_packed_topk,

@@ -52,11 +52,21 @@ _PROTOTYPES = {
     "epik_rowgather_sum_topk_smem": [_INT, _INT, _INT],
     # (cell) -> bytes, or minus a CUDA error
     "epik_rowgather_sum_topk_smem_limit": [_INT],
-    # (R, B, K, out int[3])
-    "epik_finish_topk_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
+    # (plane, cell, rows, m, slot, delta, hit, out, R, W, bw, B, K, k, log_eps, stream)
+    "epik_rowgather_sum_counts_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT,
+                                       _INT, _INT, _INT, _INT, _F32, _VP],
+    # (bw, B, K) -> bytes
+    "epik_rowgather_sum_counts_topk_smem": [_INT, _INT, _INT],
+    # (cell) -> bytes, or minus a CUDA error
+    "epik_rowgather_sum_counts_topk_smem_limit": [_INT],
+    # (R, B, K, variant, out int[3])
+    "epik_finish_topk_layout": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     # (Sp, ld, m, out, R, B, K, k, log_eps, ws, blocks, stream)
     "epik_finish_topk": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT,
                          _F32, _VP, _INT, _VP],
+    # (S, ld, C, ldc, m, out, R, B, K, k, log_eps, full, ws, blocks, stream)
+    "epik_finish_topk_counts": [_VP, ctypes.c_int64, _VP, ctypes.c_int64, _VP, _VP, _INT,
+                                _INT, _INT, _INT, _F32, _INT, _VP, _INT, _VP],
     # (bwl, K) -> bytes
     "epik_finish_cols_smem": [_INT, _INT],
     # (bwl) -> bytes, or minus a CUDA error
@@ -83,6 +93,8 @@ _PROTOTYPES = {
 _RESTYPES = {
     "epik_rowgather_sum_topk_smem": ctypes.c_longlong,
     "epik_rowgather_sum_topk_smem_limit": ctypes.c_longlong,
+    "epik_rowgather_sum_counts_topk_smem": ctypes.c_longlong,
+    "epik_rowgather_sum_counts_topk_smem_limit": ctypes.c_longlong,
     "epik_finish_cols_smem": ctypes.c_longlong,
     "epik_finish_cols_smem_limit": ctypes.c_longlong,
 }

@@ -146,7 +146,8 @@ __global__ void __launch_bounds__(kThreads)
     __syncthreads();
     load_cells(cells, p, r + gridDim.x, R, PP, 0);  // in flight during the finish
     epik::finish_list([sq, ids](int i) { return __int_as_float(sq[ids[i]]); }, ids, n, B,
-                      K, mr, kf, log_eps, scratch, out + r * (2LL * K + 3));
+                      K, mr, kf, log_eps, scratch,
+                      epik::SlimRow{out + r * (2LL * K + 3), K});
     __syncthreads();  // the finish has read the scores, the list and the scratch
     for (int i = threadIdx.x; i < n; i += blockDim.x) sq[ids[i]] = 0;  // for the next read
     __syncthreads();
@@ -171,10 +172,10 @@ __global__ void __launch_bounds__(kSumThreads)
   for (int b = threadIdx.x; b < B; b += blockDim.x) orow[b] = __int2float_rn(sq[b]);
 }
 
-// Opt the kernel in to more than 48 KB of dynamic shared memory when needed.
+// Opt the kernel in to the launch's dynamic shared memory (always: past 48 KB
+// of static and dynamic bytes together a launch needs it).
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }

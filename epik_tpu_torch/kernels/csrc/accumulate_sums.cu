@@ -257,7 +257,7 @@ int launch(const void* b, const void* s, void* S, void* C, int R, int PP, int B,
            cudaStream_t stream) {
   Layout how;
   cudaError_t err = plan<kWarps, kCounts>(B, &how);
-  if (err == cudaSuccess && how.smem > 48 * 1024) {
+  if (err == cudaSuccess) {  // always: the 48 KB default counts static bytes too
     err = cudaFuncSetAttribute(accumulate_sums_kernel<kWarps, kCounts>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(how.smem));

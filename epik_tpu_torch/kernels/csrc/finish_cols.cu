@@ -140,8 +140,7 @@ long long partial_smem_limit() {
 }
 
 template <bool kGlobal>
-cudaError_t allow_smem(size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+cudaError_t allow_smem(size_t smem) {  // always: the 48 KB default counts static bytes too
   return cudaFuncSetAttribute(finish_cols_partial_kernel<kGlobal>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));

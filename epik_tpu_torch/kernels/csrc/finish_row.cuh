@@ -1,11 +1,16 @@
 // The per-read placement finish, shared by finish_topk.cu,
-// accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk) and, through
-// its list max and top-K alone, finish_cols.cu (the column-sharded finish): score
-// correction, LWR log-sum over all branches and top-K, written into one row
-// of the slim result pack [scores K | idx K | log_sum | n | zero_sum]. Math,
+// accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk,
+// rowgather_sum_counts_topk) and, through its list max and top-K alone,
+// finish_cols.cu (the column-sharded finish): score correction, LWR log-sum
+// over all branches and top-K, written into one row of the slim result pack
+// [scores K | idx K | log_sum | n | zero_sum] (SlimRow) or of the full pack's
+// body [scores K | wr K | idx K | counts K | n | zero_sum] (FullRow). Math,
 // per read over b < B:
 //
 //   corrected[b] = (Sp[b] + m * log_eps) / k   where Sp[b] > 0, else -inf
+//   (with exact counts C, the classic plane and the CSR steps:
+//    corrected[b] = (S[b] + diff * log_eps) / k where C[b] > 0, diff = m - C[b]
+//    wrapped to 2^64 where negative, quirk Q1: correct_counts)
 //   n            = #touched;  n_not = B - n;  npl_exp = m * log_eps / k
 //   max_t        = max(max_b corrected, n_not > 0 ? npl_exp : -inf)
 //   log_sum      = max_t + log(sum_touched 10^(c - max_t)
@@ -13,8 +18,10 @@
 //   zero_sum     = max_c < -323.6 and (npl_exp < -323.6 or n_not <= 0)  (Q3)
 //   top-K        ordered by value descending, then branch index ascending
 //                (jax.lax.top_k's tie rule; torch.topk does not promise it)
+//   wr[j]        10^(score[j] - log_sum), 0 where zero_sum or score[j] < -323.6
+//   counts[j]    C[idx[j]] (0 in the slots past n)
 //
-// Only the touched branches (Sp > 0) carry a score; every untouched branch is
+// Only the touched branches (Sp > 0, or C > 0) carry a score; every untouched branch is
 // -inf and enters the log-sum only through the one (B - n) product. So the
 // finish runs over a list of the touched branch ids, in ascending order:
 //
@@ -54,9 +61,22 @@ __device__ __forceinline__ bool before(float av, int ai, float bv, int bi) {
   return av > bv || (av == bv && ai < bi);
 }
 
+constexpr float kU64 = 18446744073709551616.f;  // 2^64, the wrapped size_t (quirk Q1)
+
 // the corrected score of a touched branch (s > 0)
 __device__ __forceinline__ float correct(float s, float mr, float kf, float log_eps) {
   return __fdiv_rn(__fadd_rn(s, __fmul_rn(mr, log_eps)), kf);
+}
+
+// the corrected score of a touched branch from its sum s and its exact count
+// c > 0, in the operation order of placer.py::finish_scores: diff = m - c,
+// 2^64 where negative (c > m only through the ambiguous fan-out: the
+// reference's size_t wraps, quirk Q1), then (s + diff * log_eps) / k
+__device__ __forceinline__ float correct_counts(float s, int c, float mr, float kf,
+                                                float log_eps) {
+  float diff = __fsub_rn(mr, __int2float_rn(c));
+  if (diff < 0.f) diff = kU64;
+  return __fdiv_rn(__fadd_rn(s, __fmul_rn(diff, log_eps)), kf);
 }
 
 __device__ inline float block_sum(float x, float* red) {
@@ -262,15 +282,61 @@ __device__ bool topk_list(Corr corr, const Id* ids, int n, int K, FinishScratch 
   return true;
 }
 
+// Where finish_list writes a read's result: slot(j, value, id, log_sum,
+// zero_sum) for each of the K top-K slots, then tail(log_sum, n, zero_sum),
+// all from lane 0 of warp 0.
+//
+// SlimRow: the slim pack row [scores K | idx K | log_sum | n | zero_sum].
+struct SlimRow {
+  float* row;
+  int K;
+  __device__ void slot(int j, float v, int b, float, bool) const {
+    row[j] = v;
+    row[K + j] = static_cast<float>(b);
+  }
+  __device__ void tail(float log_sum, int n, bool zero_sum) const {
+    row[2 * K] = log_sum;
+    row[2 * K + 1] = static_cast<float>(n);
+    row[2 * K + 2] = zero_sum ? 1.f : 0.f;
+  }
+};
+
+// FullRow: the full pack's body row [scores K | wr K | idx K | counts K | n |
+// zero_sum] (placer.py::_pack_outputs), `count(b)` giving branch b's exact
+// count. wr in the plain version's order: exp((score - log_sum) * ln 10).
+template <class Count>
+struct FullRow {
+  float* row;
+  int K;
+  Count count;
+  __device__ void slot(int j, float v, int b, float log_sum, bool zero_sum) const {
+    row[j] = v;
+    row[K + j] = zero_sum || v < kPow10Zero
+                     ? 0.f
+                     : expf(__fmul_rn(__fsub_rn(v, log_sum), kLn10));
+    row[2 * K + j] = static_cast<float>(b);
+    row[3 * K + j] = __int2float_rn(count(b));
+  }
+  __device__ void tail(float, int n, bool zero_sum) const {
+    row[4 * K] = static_cast<float>(n);
+    row[4 * K + 1] = zero_sum ? 1.f : 0.f;
+  }
+};
+
+template <class Count>
+__device__ FullRow<Count> full_row(float* row, int K, Count count) {
+  return FullRow<Count>{row, K, count};
+}
+
 // Finish one read with the whole block from its touched list: `ids` holds the
 // n touched branch ids in ascending order, and `corr(i)` returns the corrected
-// score of entry i (finite). `orow` is the read's (2K+3) output row. Ends with
-// the output written by warp 0; the caller synchronises before reusing the
-// list or the scratch.
-template <class Corr, class Id>
+// score of entry i (finite). `out` (SlimRow or FullRow) takes the read's row.
+// Ends with the output written by warp 0; the caller synchronises before
+// reusing the list or the scratch.
+template <class Corr, class Id, class Row>
 __device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
                             float mr, float kf, float log_eps, FinishScratch s,
-                            float* orow) {
+                            Row out) {
   const float ninf = -CUDART_INF_F;
   const float max_c = list_max(corr, n, s.red_f);
 
@@ -282,24 +348,21 @@ __device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
   for (int i = threadIdx.x; i < n; i += blockDim.x) {
     sum_loc += expf(__fmul_rn(__fsub_rn(corr(i), max_t), kLn10));
   }
+  // every thread holds the same block sum, so the same log-sum bits
   const float touched_sum = block_sum(sum_loc, s.red_f);
+  const float untouched =
+      n_not > 0.f ? __fmul_rn(n_not, expf(__fmul_rn(__fsub_rn(npl_exp, max_t), kLn10)))
+                  : 0.f;
+  const float log_sum =
+      __fadd_rn(max_t, __fdiv_rn(logf(__fadd_rn(touched_sum, untouched)), kLn10));
+  const bool zero_sum = max_c < kPow10Zero && (npl_exp < kPow10Zero || n_not <= 0.f);
 
-  // ---- top-K into the pack's first 2K entries -------------------------------
-  const bool lead = topk_list(corr, ids, n, K, s, [orow, K](int j, float v, int b) {
-    orow[j] = v;
-    orow[K + j] = static_cast<float>(b);
+  // ---- top-K into the row's slots --------------------------------------------
+  const bool lead = topk_list(corr, ids, n, K, s, [out, log_sum, zero_sum](int j, float v,
+                                                                          int b) {
+    out.slot(j, v, b, log_sum, zero_sum);
   });
-  if (lead && (threadIdx.x & 31) == 0) {
-    const float untouched =
-        n_not > 0.f
-            ? __fmul_rn(n_not, expf(__fmul_rn(__fsub_rn(npl_exp, max_t), kLn10)))
-            : 0.f;
-    const float sum10 = __fadd_rn(touched_sum, untouched);
-    orow[2 * K] = __fadd_rn(max_t, __fdiv_rn(logf(sum10), kLn10));
-    orow[2 * K + 1] = static_cast<float>(n);
-    orow[2 * K + 2] =
-        max_c < kPow10Zero && (npl_exp < kPow10Zero || n_not <= 0.f) ? 1.f : 0.f;
-  }
+  if (lead && (threadIdx.x & 31) == 0) out.tail(log_sum, n, zero_sum);
 }
 
 // Bytes of dynamic shared memory FinishScratch's candidates take.

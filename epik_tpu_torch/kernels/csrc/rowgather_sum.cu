@@ -52,6 +52,31 @@
 //   kernel's static ones, and the step runs epik_rowgather_sum + the finish
 //   kernel apart past that (the same bits). Bound on the H100: the distinct
 //   plane rows a batch reads, the row ids, m and the pack (no (R, bw) write).
+// * epik_rowgather_sum_counts_topk (f32, bf16): the same for the classic plane,
+//   what the classic dense steps compute end to end (dense_sums_from_rows,
+//   then _apply_amb(shifted=False), finish_scores with _lwr_topk and the body
+//   of _pack_outputs, placer.py:757, :814, :464, :1461), so neither S nor C
+//   reaches HBM:
+//   - the window-order sums S and the exact counts C of one read go to shared
+//     memory (bw f32 + bw int32), by the same gather as
+//     epik_rowgather_sum_counts (S bit-equal, C exact);
+//   - a read with an ambiguous first hit adds it there: S[b] = S[b] + dS[b]
+//     (one __fadd_rn) and C[b] += hit[b], the adds of ops/dense.py::
+//     amb_classic;
+//   - a warp ballot of C > 0 (not S > 0: a classic sum can be negative, and
+//     the plane's 1e-37 nudges mark presence), the compaction into 16-bit ids
+//     and finish_row.cuh's list finish with the count-aware correction
+//     (correct_counts: m - C wrapped to 2^64 where negative, quirk Q1) write
+//     the read's full (4K+2) row [scores | wr | idx | counts | n | zero_sum],
+//     counts = C[idx], 0 in the slots past n.
+//   Shared memory: bw sums + bw counts + ceil(B / 32) mask words + B 16-bit
+//   ids + the candidates (14.7 KB at D652, bw 1,408, B 1,303; about 204 KB
+//   at bw 20,096, B 19,999), which caps B near 22,000 at bw ~ B:
+//   epik_rowgather_sum_counts_topk_smem and _smem_limit state it as for
+//   rowgather_sum_topk, and past it (or past B = 2^16) the step runs
+//   epik_rowgather_sum_counts + epik_finish_topk_counts (the same bits).
+//   Bound on the H100: the distinct plane rows, the row ids, m, the
+//   ambiguous rows and the pack (no S/C write).
 
 #include <cuda_runtime.h>
 
@@ -183,20 +208,27 @@ __global__ void rowgather_sum_counts_kernel(const T* __restrict__ plane,
   }
 }
 
-template <class T>
+// The placement finish fused after the gather. kCounts: the classic plane's
+// sums and counts into the full pack's body; else the shifted sums into the
+// slim pack.
+template <class T, bool kCounts>
 __global__ void rowgather_sum_topk_kernel(
     const T* __restrict__ plane, const int32_t* __restrict__ rows,
     const float* __restrict__ m, const int32_t* __restrict__ slot,
-    const float* __restrict__ delta, float* __restrict__ out, int W, int bw4, int B,
-    int K, float kf, float log_eps, float scale) {
-  // bw sums | mask words | ids (B, 16 bits, padded to 4 bytes) | candidates
+    const float* __restrict__ delta, const uint8_t* __restrict__ hit,
+    float* __restrict__ out, int W, int bw4, int B, int K, float kf, float log_eps,
+    float scale) {
+  // bw sums | bw counts (kCounts) | mask words | ids (B, 16 bits, padded to 4
+  // bytes) | candidates
   extern __shared__ float4 sums4[];
   __shared__ long long off[kTileW];
   __shared__ float red_f[32];
   __shared__ int red_i[32];
   const int nwords = (B + 31) >> 5;
   float* sums = reinterpret_cast<float*>(sums4);
-  unsigned* mask = reinterpret_cast<unsigned*>(sums + 4 * bw4);
+  int4* cnts4 = reinterpret_cast<int4*>(sums4 + bw4);
+  const int* cnts = reinterpret_cast<const int*>(cnts4);
+  unsigned* mask = reinterpret_cast<unsigned*>(sums + (kCounts ? 8 : 4) * bw4);
   uint16_t* ids = reinterpret_cast<uint16_t*>(mask + nwords);
   float* cand_v = reinterpret_cast<float*>(mask + nwords + (B + 1) / 2);
   const epik::FinishScratch scratch{red_f, cand_v,
@@ -207,24 +239,43 @@ __global__ void rowgather_sum_topk_kernel(
     const int c = c0 + threadIdx.x;
     typename Acc<T>::type acc{};
     int4 cnt{};
-    gather_column<false>(plane, rrow, W, bw4, c, off, acc, cnt);
-    if (c < bw4) sums4[c] = as_sums(acc, scale);
+    gather_column<kCounts>(plane, rrow, W, bw4, c, off, acc, cnt);
+    if (c < bw4) {
+      sums4[c] = as_sums(acc, scale);
+      if constexpr (kCounts) cnts4[c] = cnt;
+    }
   }
   const int a = slot != nullptr ? slot[r] : -1;
-  if (a >= 0) {  // the ambiguous first-hit delta row of this read
+  if (a >= 0) {  // the ambiguous first hit of this read
     __syncthreads();
     const float* drow = delta + static_cast<long long>(a) * B;
-    for (int b = threadIdx.x; b < B; b += blockDim.x) sums[b] = __fadd_rn(sums[b], drow[b]);
+    for (int b = threadIdx.x; b < B; b += blockDim.x) {
+      sums[b] = __fadd_rn(sums[b], drow[b]);
+      if constexpr (kCounts) {
+        reinterpret_cast<int*>(cnts4)[b] += hit[static_cast<long long>(a) * B + b];
+      }
+    }
   }
   __syncthreads();
-  epik::build_mask([sums](int b) { return sums[b] > 0.f; }, B, mask);
-  const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
   const float mr = m[r];
-  epik::finish_list(
-      [sums, ids, mr, kf, log_eps](int i) {
-        return epik::correct(sums[ids[i]], mr, kf, log_eps);
-      },
-      ids, n, B, K, mr, kf, log_eps, scratch, out + r * (2LL * K + 3));
+  if constexpr (kCounts) {
+    epik::build_mask([cnts](int b) { return cnts[b] > 0; }, B, mask);
+    const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
+    epik::finish_list(
+        [sums, cnts, ids, mr, kf, log_eps](int i) {
+          return epik::correct_counts(sums[ids[i]], cnts[ids[i]], mr, kf, log_eps);
+        },
+        ids, n, B, K, mr, kf, log_eps, scratch,
+        epik::full_row(out + r * (4LL * K + 2), K, [cnts](int b) { return cnts[b]; }));
+  } else {
+    epik::build_mask([sums](int b) { return sums[b] > 0.f; }, B, mask);
+    const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
+    epik::finish_list(
+        [sums, ids, mr, kf, log_eps](int i) {
+          return epik::correct(sums[ids[i]], mr, kf, log_eps);
+        },
+        ids, n, B, K, mr, kf, log_eps, scratch, epik::SlimRow{out + r * (2LL * K + 3), K});
+  }
 }
 
 // Threads of a block: one per column group of four cells up to 1,024, else
@@ -235,21 +286,22 @@ int gather_threads(int bw4) {
   return (t + 31) / 32 * 32;
 }
 
-// Dynamic shared memory of a rowgather_sum_topk launch (see the header).
-size_t topk_smem(int bw, int B, int K) {
-  return static_cast<size_t>(bw) * sizeof(float) +
+// Dynamic shared memory of a rowgather_sum_topk launch (kCounts: of a
+// rowgather_sum_counts_topk launch; see the header).
+size_t topk_smem(int bw, int B, int K, bool counts) {
+  return static_cast<size_t>(bw) * (counts ? 2 : 1) * sizeof(float) +
          (static_cast<size_t>((B + 31) / 32) + (B + 1) / 2) * sizeof(int) +
          epik::cand_bytes(gather_threads(bw / 4), K);
 }
 
-template <class T>
+template <class T, bool kCounts>
 long long topk_smem_limit() {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess ||
-      cudaFuncGetAttributes(&attr, rowgather_sum_topk_kernel<T>) != cudaSuccess) {
+      cudaFuncGetAttributes(&attr, rowgather_sum_topk_kernel<T, kCounts>) != cudaSuccess) {
     return -static_cast<long long>(cudaGetLastError());
   }
   return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
@@ -279,26 +331,26 @@ int launch_counts(const void* plane, const void* rows, void* S, void* C, int R, 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
+template <class T, bool kCounts>
 int launch_topk(const void* plane, const void* rows, const void* m, const void* slot,
-                const void* delta, void* out, int R, int W, int bw, int B, int K, int k,
-                float log_eps, float scale, cudaStream_t stream) {
+                const void* delta, const void* hit, void* out, int R, int W, int bw, int B,
+                int K, int k, float log_eps, float scale, cudaStream_t stream) {
   if (B > (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);  // 16-bit ids
   const int bw4 = bw / 4;
   const int threads = gather_threads(bw4);
-  const size_t smem = topk_smem(bw, B, K);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        rowgather_sum_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
+  const size_t smem = topk_smem(bw, B, K, kCounts);
+  // always: the 48 KB a launch may take without opting in count the 8 KB of
+  // staged row offsets too
+  const cudaError_t err = cudaFuncSetAttribute(
+      rowgather_sum_topk_kernel<T, kCounts>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
   if (R > 0 && bw4 > 0) {
-    rowgather_sum_topk_kernel<T><<<R, threads, smem, stream>>>(
+    rowgather_sum_topk_kernel<T, kCounts><<<R, threads, smem, stream>>>(
         static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
         static_cast<const float*>(m), static_cast<const int32_t*>(slot),
-        static_cast<const float*>(delta), static_cast<float*>(out), W, bw4, B, K,
-        static_cast<float>(k), log_eps, scale);
+        static_cast<const float*>(delta), static_cast<const uint8_t*>(hit),
+        static_cast<float*>(out), W, bw4, B, K, static_cast<float>(k), log_eps, scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -340,27 +392,67 @@ extern "C" int epik_rowgather_sum_topk(const void* plane, int cell, const void* 
                                        float log_eps, float scale, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (cell == kF32) {
-    return launch_topk<float>(plane, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps,
-                              scale, s);
+    return launch_topk<float, false>(plane, rows, m, slot, delta, nullptr, out, R, W, bw, B,
+                                     K, k, log_eps, scale, s);
   }
   if (cell == kI16) {
-    return launch_topk<int16_t>(plane, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps,
-                                scale, s);
+    return launch_topk<int16_t, false>(plane, rows, m, slot, delta, nullptr, out, R, W, bw,
+                                       B, K, k, log_eps, scale, s);
+  }
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// plane: (n_rows, bw) cells of type `cell` (kF32 or kBf16), as above; rows:
+// int32 (R, W); m: f32 (R,) window counts; slot: int32 (R,), the read's row of
+// `delta` and `hit` or -1, or null; delta: f32 (A, B), the ambiguous first
+// hits' contributions (0 where no hit); hit: uint8 (A, B), 1 where a first hit
+// lands; out: f32 (R, 4K+2), the full pack's body. B <= bw, B <= 2^16, 1 <= K
+// <= min(64, B), and epik_rowgather_sum_counts_topk_smem(bw, B, K) <=
+// epik_rowgather_sum_counts_topk_smem_limit(cell). Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int epik_rowgather_sum_counts_topk(const void* plane, int cell, const void* rows,
+                                              const void* m, const void* slot,
+                                              const void* delta, const void* hit, void* out,
+                                              int R, int W, int bw, int B, int K, int k,
+                                              float log_eps, void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if (cell == kF32) {
+    return launch_topk<float, true>(plane, rows, m, slot, delta, hit, out, R, W, bw, B, K,
+                                    k, log_eps, 1.f, s);
+  }
+  if (cell == kBf16) {
+    return launch_topk<Bf16, true>(plane, rows, m, slot, delta, hit, out, R, W, bw, B, K, k,
+                                   log_eps, 1.f, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // Bytes of dynamic shared memory a rowgather_sum_topk launch at (bw, B, K) asks.
 extern "C" long long epik_rowgather_sum_topk_smem(int bw, int B, int K) {
-  return static_cast<long long>(topk_smem(bw, B, K));
+  return static_cast<long long>(topk_smem(bw, B, K, false));
 }
 
 // Bytes of dynamic shared memory a rowgather_sum_topk block may take on the
 // current device: the opt-in limit less the kernel's static shared memory.
 // Negative: minus a CUDA error code.
 extern "C" long long epik_rowgather_sum_topk_smem_limit(int cell) {
-  if (cell == kF32) return topk_smem_limit<float>();
-  if (cell == kI16) return topk_smem_limit<int16_t>();
+  if (cell == kF32) return topk_smem_limit<float, false>();
+  if (cell == kI16) return topk_smem_limit<int16_t, false>();
+  return -static_cast<long long>(cudaErrorInvalidValue);
+}
+
+// Bytes of dynamic shared memory a rowgather_sum_counts_topk launch at (bw,
+// B, K) asks.
+extern "C" long long epik_rowgather_sum_counts_topk_smem(int bw, int B, int K) {
+  return static_cast<long long>(topk_smem(bw, B, K, true));
+}
+
+// Bytes of dynamic shared memory a rowgather_sum_counts_topk block may take on
+// the current device: the opt-in limit less the kernel's static shared
+// memory. Negative: minus a CUDA error code.
+extern "C" long long epik_rowgather_sum_counts_topk_smem_limit(int cell) {
+  if (cell == kF32) return topk_smem_limit<float, true>();
+  if (cell == kBf16) return topk_smem_limit<Bf16, true>();
   return -static_cast<long long>(cudaErrorInvalidValue);
 }
 

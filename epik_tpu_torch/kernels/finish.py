@@ -1,4 +1,5 @@
-"""Kernel 2: the placement finish into the slim result pack.
+"""Kernel 2: the placement finish into the slim result pack, and the counts
+finish into the full or the slim pack.
 
 ``finish_topk(Sp, m_f32, K=, k=, log_eps=)`` computes what
 ``engine/placer.py::finish_scores_shifted`` + ``_lwr_topk`` +
@@ -15,6 +16,14 @@ accumulate. It reads the (R, B) score
 matrix once and finishes over the touched branches only;
 ``csrc/finish_topk.cu`` and ``csrc/finish_row.cuh`` record the design and the
 rounding rules that make its scores bit-equal to the plain version below.
+
+``finish_topk_counts(S, C, m_f32, K=, k=, log_eps=, full=)`` is the same
+kernel over the sums and exact counts of the classic plane and the CSR steps
+(``engine/placer.py::finish_scores`` + ``_lwr_topk``: touched where C > 0, the
+correction ``(S + (m - C) * log_eps) / k`` with ``m - C`` wrapped to 2**64
+where negative, quirk Q1), into the full pack's body (R, 4K+2) ``[scores K |
+wr K | idx K | counts K | n | zero_sum]`` (``_pack_outputs``) or the slim (R,
+2K+3) pack (``_pack_outputs_slim``, the hash-sharded CSR steps).
 """
 
 from __future__ import annotations
@@ -27,7 +36,8 @@ import torch
 
 from ._build import check, library
 
-__all__ = ["MAX_K", "POW10_ZERO", "finish_topk", "finish_topk_plain", "lwr_topk_plain"]
+__all__ = ["MAX_K", "POW10_ZERO", "finish_topk", "finish_topk_counts",
+           "finish_topk_counts_plain", "finish_topk_plain", "lwr_topk_plain"]
 
 #: largest K the finish takes (the tiles kernel's contract is K <= 62)
 MAX_K = 64
@@ -35,6 +45,8 @@ MAX_K = 64
 POW10_ZERO = -323.6
 
 _count_lock = threading.Lock()
+#: the kernel variants of epik_finish_topk_layout
+_SUMS_SLIM, _COUNTS_SLIM, _COUNTS_FULL = 0, 1, 2
 
 
 def lwr_topk_plain(corrected: torch.Tensor, touched: torch.Tensor,
@@ -92,6 +104,26 @@ def finish_topk_plain(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
                       n.to(f32)[:, None], zero_sum.to(f32)[:, None]], dim=1)
 
 
+def finish_topk_counts_plain(S: torch.Tensor, C: torch.Tensor, m_f32: torch.Tensor, *,
+                             K: int, k: int, log_eps: float,
+                             full: bool = True) -> torch.Tensor:
+    """Plain version: ``ops/csr.py::finish_scores`` (the JAX ``finish_scores``
+    operation for operation), then the body of ``pack_outputs`` (``full``) or
+    the slim pack of the sharded CSR steps."""
+    from ..ops.csr import finish_scores  # ops.csr imports this module
+
+    scores, idx, counts, wr, n, zero_sum, log_sum = finish_scores(S, C, m_f32, K=K, k=k,
+                                                                  log_eps=log_eps)
+    f32 = torch.float32
+    if full:
+        cols = [scores, wr, idx.to(f32), counts.to(f32), n.to(f32)[:, None],
+                zero_sum.to(f32)[:, None]]
+    else:
+        cols = [scores, idx.to(f32), log_sum[:, None], n.to(f32)[:, None],
+                zero_sum.to(f32)[:, None]]
+    return torch.cat(cols, dim=1)
+
+
 def _check_args(Sp: torch.Tensor, m_f32: torch.Tensor, K: int) -> None:
     if Sp.dtype != torch.float32 or Sp.dim() != 2 or Sp.stride(1) != 1:
         raise ValueError(f"Sp must be 2-D float32 with contiguous rows, got "
@@ -113,36 +145,79 @@ def finish_topk(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
 
     Limit: up to B = 2**16 a block keeps the touched ids in shared memory;
     past it they go to an int32 workspace allocated here, as many rows of B
-    as blocks fit on the card at once, and only the ceil(B / 32) mask words
-    and the candidates stay in shared memory (B up to about 1.8 million: a
-    B whose mask does not fit raises ValueError)."""
+    as blocks fit on the card at once, and only the ceil(B / 32) mask words,
+    the candidates and the cached scores stay in shared memory (B up to
+    about 1.5 million: a B whose mask does not fit raises ValueError)."""
     _check_args(Sp, m_f32, K)
     if Sp.device.type == "cpu":
         return finish_topk_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps)
     if Sp.device.type != "cuda":
         raise ValueError(f"finish_topk: no kernel for device {Sp.device}")
-    R, B = Sp.shape
-    out = torch.empty((R, 2 * K + 3), dtype=torch.float32, device=Sp.device)
-    if R == 0:
-        return out
-    lib = library()
-    layout = (ctypes.c_int * 3)()
-    with torch.cuda.device(Sp.device):
-        if lib.epik_finish_topk_layout(R, B, K, layout) != 0:
-            raise ValueError(f"finish_topk: B={B} branches, past what the shared memory "
-                             f"of the block's {(B + 31) // 32} mask words holds")
-        _, blocks, n_ws = layout
-        ws = torch.empty(n_ws, dtype=torch.int32, device=Sp.device) if n_ws else None
-        stream = torch.cuda.current_stream(Sp.device).cuda_stream
-        err = lib.epik_finish_topk(Sp.data_ptr(), Sp.stride(0), m_f32.data_ptr(),
-                                   out.data_ptr(), R, B, K, k, float(log_eps),
-                                   ws.data_ptr() if ws is not None else None, blocks,
-                                   stream)
-    check(err, "finish_topk")
+    out = _launch(Sp, None, m_f32, K=K, k=k, log_eps=log_eps, variant=_SUMS_SLIM)
     with _count_lock:
         finish_topk.launches += 1
     return out
 
 
+def _launch(S: torch.Tensor, C, m_f32: torch.Tensor, *, K: int, k: int, log_eps: float,
+            variant: int) -> torch.Tensor:
+    """One launch of the finish kernel's ``variant`` on the sums' card."""
+    name = "finish_topk_counts" if C is not None else "finish_topk"
+    R, B = S.shape
+    width = 4 * K + 2 if variant == _COUNTS_FULL else 2 * K + 3
+    out = torch.empty((R, width), dtype=torch.float32, device=S.device)
+    if R == 0:
+        return out
+    lib = library()
+    layout = (ctypes.c_int * 3)()
+    with torch.cuda.device(S.device):
+        if lib.epik_finish_topk_layout(R, B, K, variant, layout) != 0:
+            raise ValueError(f"{name}: B={B} branches, past what the shared memory "
+                             f"of the block's {(B + 31) // 32} mask words holds")
+        _, blocks, n_ws = layout
+        ws = torch.empty(n_ws, dtype=torch.int32, device=S.device) if n_ws else None
+        stream = torch.cuda.current_stream(S.device).cuda_stream
+        ws_ptr = ws.data_ptr() if ws is not None else None
+        if C is None:
+            err = lib.epik_finish_topk(S.data_ptr(), S.stride(0), m_f32.data_ptr(),
+                                       out.data_ptr(), R, B, K, k, float(log_eps), ws_ptr,
+                                       blocks, stream)
+        else:
+            err = lib.epik_finish_topk_counts(
+                S.data_ptr(), S.stride(0), C.data_ptr(), C.stride(0), m_f32.data_ptr(),
+                out.data_ptr(), R, B, K, k, float(log_eps), int(variant == _COUNTS_FULL),
+                ws_ptr, blocks, stream)
+    check(err, name)
+    return out
+
+
 #: kernel launches since the last reset (CUDA only; the plain path never counts)
 finish_topk.launches = 0
+
+
+def finish_topk_counts(S: torch.Tensor, C: torch.Tensor, m_f32: torch.Tensor, *, K: int,
+                       k: int, log_eps: float, full: bool = True) -> torch.Tensor:
+    """S f32 (R, B) sums and C int32 (R, B) exact counts (rows may be strided),
+    m_f32 f32 (R,) window counts -> f32 (R, 4K+2) full pack body (``full``) or
+    (R, 2K+3) slim pack.
+
+    Limit: as :func:`finish_topk` (ids in a global workspace past B = 2**16)."""
+    _check_args(S, m_f32, K)
+    if (C.dtype != torch.int32 or C.shape != S.shape or C.stride(1) != 1
+            or C.device != S.device):
+        raise ValueError(f"C must be int32 {tuple(S.shape)} with contiguous rows on "
+                         f"{S.device}, got {C.dtype} {tuple(C.shape)} strides {C.stride()} "
+                         f"on {C.device}")
+    if S.device.type == "cpu":
+        return finish_topk_counts_plain(S, C, m_f32, K=K, k=k, log_eps=log_eps, full=full)
+    if S.device.type != "cuda":
+        raise ValueError(f"finish_topk_counts: no kernel for device {S.device}")
+    out = _launch(S, C, m_f32, K=K, k=k, log_eps=log_eps,
+                  variant=_COUNTS_FULL if full else _COUNTS_SLIM)
+    with _count_lock:
+        finish_topk_counts.launches += 1
+    return out
+
+
+#: kernel launches since the last reset (CUDA only; the plain path never counts)
+finish_topk_counts.launches = 0

@@ -19,7 +19,17 @@ says how its design meets that.
   so the sums never reach device memory. Its block holds the bw sums and the
   B touched ids in shared memory: :func:`topk_fits` says whether a width
   launches on the card, and past it the steps run :func:`rowgather_sum` and
-  ``finish_topk`` apart (the same bits).
+  ``finish_topk`` apart (the same bits);
+* :func:`rowgather_sum_counts_topk` / :func:`rowgather_sum_counts_topk_bf16` --
+  the classic dense steps' whole device work after the tokenizer: the sums
+  and exact counts over the classic f32 or bf16 plane, each ambiguous read's
+  first hit added (``S + dS``, ``C + hit``), and the counts finish of
+  ``finish_topk_counts`` into the full pack's (R, 4K+2) body, in one kernel,
+  so neither S nor C reaches device memory. Its block holds bw sums and bw
+  counts: :func:`counts_topk_fits` says whether a width launches on the card
+  (about B = 22,000 at bw ~ B), and past it the steps run
+  :func:`rowgather_sum_counts` and ``finish_topk_counts`` apart (the same
+  bits).
 
 Each dispatches on the tensors' device: the plain PyTorch version for CPU
 tensors, the CUDA kernel for CUDA tensors (or an error).
@@ -32,10 +42,12 @@ import threading
 import torch
 
 from ._build import check, library
-from .finish import MAX_K, finish_topk_plain
+from .finish import MAX_K, finish_topk_counts_plain, finish_topk_plain
 
-__all__ = ["rowgather_sum", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
-           "rowgather_sum_counts_plain", "rowgather_sum_plain", "rowgather_sum_topk",
+__all__ = ["add_first_hits", "counts_topk_fits", "counts_topk_smem", "rowgather_sum",
+           "rowgather_sum_counts", "rowgather_sum_counts_bf16", "rowgather_sum_counts_plain",
+           "rowgather_sum_counts_topk", "rowgather_sum_counts_topk_bf16",
+           "rowgather_sum_counts_topk_plain", "rowgather_sum_plain", "rowgather_sum_topk",
            "rowgather_sum_topk_int16", "rowgather_sum_topk_plain", "topk_fits"]
 
 _count_lock = threading.Lock()
@@ -220,6 +232,24 @@ def topk_fits(plane: torch.Tensor, B: int, K: int) -> bool:
     return need <= limit
 
 
+def _check_amb(amb_read, rows_of_read: dict, B: int, dev: torch.device) -> None:
+    """``amb_read`` (A,) int32/int64 and, by name, each (A, B) tensor of the
+    given dtype that comes with it (all None, or none)."""
+    given = [amb_read is not None, *(t is not None for t, _ in rows_of_read.values())]
+    if any(given) != all(given):
+        raise ValueError(f"amb_read and {', '.join(rows_of_read)} come together or not at all")
+    if amb_read is None:
+        return
+    A = amb_read.shape[0] if amb_read.dim() == 1 else -1
+    if amb_read.dtype not in (torch.int32, torch.int64) or A < 0 or amb_read.device != dev:
+        raise ValueError(f"amb_read must be 1-D int32/int64 on {dev}, got "
+                         f"{amb_read.dtype} {tuple(amb_read.shape)} on {amb_read.device}")
+    for name, (t, dtype) in rows_of_read.items():
+        if t.dtype != dtype or t.shape != (A, B) or not t.is_contiguous() or t.device != dev:
+            raise ValueError(f"{name} must be contiguous {dtype} ({A}, {B}) on {dev}, got "
+                             f"{t.dtype} {tuple(t.shape)} on {t.device}")
+
+
 def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
                      dtype, scale) -> None:
     _check_args(plane, rows, (dtype,))
@@ -234,18 +264,7 @@ def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
         raise ValueError(f"B={B} must lie in [1, bw={plane.shape[1]}]")
     if not 1 <= K <= min(MAX_K, B):
         raise ValueError(f"K={K} must lie in [1, min({MAX_K}, B={B})]")
-    if (amb_read is None) != (amb_delta is None):
-        raise ValueError("amb_read and amb_delta come together or not at all")
-    if amb_read is not None:
-        A = amb_read.shape[0] if amb_read.dim() == 1 else -1
-        if amb_read.dtype not in (torch.int32, torch.int64) or A < 0 or amb_read.device != dev:
-            raise ValueError(f"amb_read must be 1-D int32/int64 on {dev}, got "
-                             f"{amb_read.dtype} {tuple(amb_read.shape)} on {amb_read.device}")
-        if (amb_delta.dtype != torch.float32 or amb_delta.shape != (A, B)
-                or not amb_delta.is_contiguous() or amb_delta.device != dev):
-            raise ValueError(f"amb_delta must be contiguous float32 ({A}, {B}) on {dev}, "
-                             f"got {amb_delta.dtype} {tuple(amb_delta.shape)} on "
-                             f"{amb_delta.device}")
+    _check_amb(amb_read, {"amb_delta": (amb_delta, torch.float32)}, B, dev)
     # the limit: 16-bit ids, and bw sums + ceil(B/32) mask words + B ids +
     # the candidates within the card's opt-in shared memory
     if dev.type == "cuda":
@@ -258,6 +277,16 @@ def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
                              f"block may take on {dev}; run rowgather_sum + finish_topk")
 
 
+def _slots(amb_read, R: int, dev: torch.device):
+    """int32 (R,): each ambiguous read's row of the delta rows, else -1; None
+    when no read has one."""
+    if amb_read is None or amb_read.numel() == 0:
+        return None
+    slot = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    slot[amb_read] = torch.arange(amb_read.numel(), dtype=torch.int32, device=dev)
+    return slot
+
+
 def _sum_topk(fn, plane, rows, m_f32, amb_read, amb_delta, *, B, K, k, log_eps, scale):
     R, W = rows.shape
     if plane.device.type == "cpu":
@@ -267,11 +296,7 @@ def _sum_topk(fn, plane, rows, m_f32, amb_read, amb_delta, *, B, K, k, log_eps, 
     out = torch.empty((R, 2 * K + 3), dtype=torch.float32, device=plane.device)
     if R == 0:
         return out
-    slot = None
-    if amb_read is not None and amb_read.numel() > 0:
-        slot = torch.full((R,), -1, dtype=torch.int32, device=plane.device)
-        slot[amb_read] = torch.arange(amb_read.numel(), dtype=torch.int32,
-                                      device=plane.device)
+    slot = _slots(amb_read, R, plane.device)
     lib = library()
     with torch.cuda.device(plane.device):
         err = lib.epik_rowgather_sum_topk(
@@ -315,3 +340,141 @@ def rowgather_sum_topk_int16(plane: torch.Tensor, rows: torch.Tensor, m_f32: tor
 #: kernel launches since the last reset (CUDA only; the plain path never counts)
 rowgather_sum_topk.launches = 0
 rowgather_sum_topk_int16.launches = 0
+
+
+def add_first_hits(S: torch.Tensor, C: torch.Tensor, amb_read, amb_dS, amb_hit):
+    """The classic plane's ambiguous first hits added to the (R, B) sums and
+    counts: ``S + dS`` and ``C + hit`` at the rows ``amb_read`` (the adds of
+    ``_apply_amb(shifted=False)``; every other read would add 0), as new
+    tensors."""
+    if amb_read is None or amb_read.numel() == 0:
+        return S, C
+    S, C = S.clone(), C.clone()
+    S[amb_read] = S[amb_read] + amb_dS
+    C[amb_read] = C[amb_read] + amb_hit.to(torch.int32)
+    return S, C
+
+
+def rowgather_sum_counts_topk_plain(plane: torch.Tensor, rows: torch.Tensor,
+                                    m_f32: torch.Tensor, amb_read, amb_dS, amb_hit, *,
+                                    B: int, K: int, k: int, log_eps: float) -> torch.Tensor:
+    """Plain version: ``rowgather_sum_counts_plain(plane, rows)[:, :B]``, the
+    first hits added (:func:`add_first_hits`), then
+    ``finish_topk_counts_plain`` into the full pack's (R, 4K+2) body."""
+    S, C = rowgather_sum_counts_plain(plane, rows)
+    S, C = add_first_hits(S[:, :B], C[:, :B], amb_read, amb_dS, amb_hit)
+    return finish_topk_counts_plain(S, C, m_f32, K=K, k=k, log_eps=log_eps, full=True)
+
+
+def counts_topk_smem(plane: torch.Tensor, B: int, K: int) -> tuple[int, int]:
+    """(bytes of shared memory a :func:`rowgather_sum_counts_topk` launch at
+    this width asks, bytes a block of it may take on the plane's card), from
+    the CUDA source's own formula and the card's opt-in limit less the
+    kernel's static shared memory. CUDA planes only."""
+    lib = library()
+    with torch.cuda.device(plane.device):
+        need = lib.epik_rowgather_sum_counts_topk_smem(plane.shape[1], B, K)
+        limit = lib.epik_rowgather_sum_counts_topk_smem_limit(_CELL[plane.dtype])
+    if limit < 0:
+        check(int(-limit), "rowgather_sum_counts_topk")
+    return need, limit
+
+
+def counts_topk_fits(plane: torch.Tensor, B: int, K: int) -> bool:
+    """Whether the classic plane's fused kernel takes a tree of B branches at
+    the plane's width: B <= 2**16 (16-bit ids) and its bw sums, bw counts and
+    B ids within the card's shared memory (about B = 22,000 at bw ~ B). The
+    plain version on the CPU has no limit."""
+    if plane.device.type != "cuda":
+        return True
+    if B > _MAX_TOPK_B:
+        return False
+    need, limit = counts_topk_smem(plane, B, K)
+    return need <= limit
+
+
+def _check_counts_topk_args(plane, rows, m_f32, amb_read, amb_dS, amb_hit, B: int, K: int,
+                            dtype) -> None:
+    _check_args(plane, rows, (dtype,))
+    R = rows.shape[0]
+    dev = plane.device
+    if (m_f32.dtype != torch.float32 or m_f32.shape != (R,) or not m_f32.is_contiguous()
+            or m_f32.device != dev):
+        raise ValueError(f"m_f32 must be contiguous float32 ({R},) on {dev}, got "
+                         f"{m_f32.dtype} {tuple(m_f32.shape)} on {m_f32.device}")
+    if not 1 <= B <= plane.shape[1]:
+        raise ValueError(f"B={B} must lie in [1, bw={plane.shape[1]}]")
+    if not 1 <= K <= min(MAX_K, B):
+        raise ValueError(f"K={K} must lie in [1, min({MAX_K}, B={B})]")
+    _check_amb(amb_read, {"amb_dS": (amb_dS, torch.float32),
+                          "amb_hit": (amb_hit, torch.bool)}, B, dev)
+    # the limit: 16-bit ids, and bw sums + bw counts + ceil(B/32) mask words +
+    # B ids + the candidates within the card's opt-in shared memory
+    if dev.type == "cuda":
+        if B > _MAX_TOPK_B:
+            raise ValueError(f"B={B}: the fused kernel's ids are 16 bits (B <= {_MAX_TOPK_B})")
+        need, limit = counts_topk_smem(plane, B, K)
+        if need > limit:
+            raise ValueError(f"B={B} at bw={plane.shape[1]}, K={K}: the fused kernel asks "
+                             f"{need} bytes of shared memory, over the {limit} bytes a "
+                             f"block may take on {dev}; run rowgather_sum_counts + "
+                             f"finish_topk_counts")
+
+
+def _sum_counts_topk(fn, plane, rows, m_f32, amb_read, amb_dS, amb_hit, *, B, K, k,
+                     log_eps):
+    R, W = rows.shape
+    if plane.device.type == "cpu":
+        return rowgather_sum_counts_topk_plain(plane, rows, m_f32, amb_read, amb_dS, amb_hit,
+                                               B=B, K=K, k=k, log_eps=log_eps)
+    _no_kernel(fn.__name__, plane.device)
+    out = torch.empty((R, 4 * K + 2), dtype=torch.float32, device=plane.device)
+    if R == 0:
+        return out
+    slot = _slots(amb_read, R, plane.device)
+    lib = library()
+    with torch.cuda.device(plane.device):
+        err = lib.epik_rowgather_sum_counts_topk(
+            plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(), m_f32.data_ptr(),
+            slot.data_ptr() if slot is not None else None,
+            amb_dS.data_ptr() if slot is not None else None,
+            amb_hit.data_ptr() if slot is not None else None, out.data_ptr(),
+            R, W, plane.shape[1], B, K, k, float(log_eps), _stream(plane.device))
+    check(err, fn.__name__)
+    _count(fn)
+    return out
+
+
+def rowgather_sum_counts_topk(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
+                              amb_read, amb_dS, amb_hit, *, B: int, K: int, k: int,
+                              log_eps: float) -> torch.Tensor:
+    """The classic f32 plane (n_rows, bw), rows int32 (R, W), m_f32 f32 (R,)
+    window counts; ``amb_read`` (A,) the reads with an ambiguous first hit,
+    ``amb_dS`` f32 (A, B) their contributions (0 where no hit) and ``amb_hit``
+    bool (A, B) where a hit lands (all three None when there are none) -> f32
+    (R, 4K+2), the full pack's body ``[scores K | wr K | idx K | counts K | n |
+    zero_sum]``.
+
+    Every index must lie in [0, n_rows), misses pointing at an all-zero row;
+    ``amb_read`` holds distinct reads. On the card, B must be within
+    :func:`counts_topk_fits`'s limit (a wider tree raises ValueError)."""
+    _check_counts_topk_args(plane, rows, m_f32, amb_read, amb_dS, amb_hit, B, K,
+                            torch.float32)
+    return _sum_counts_topk(rowgather_sum_counts_topk, plane, rows, m_f32, amb_read, amb_dS,
+                            amb_hit, B=B, K=K, k=k, log_eps=log_eps)
+
+
+def rowgather_sum_counts_topk_bf16(plane: torch.Tensor, rows: torch.Tensor,
+                                   m_f32: torch.Tensor, amb_read, amb_dS, amb_hit, *, B: int,
+                                   K: int, k: int, log_eps: float) -> torch.Tensor:
+    """:func:`rowgather_sum_counts_topk` over a bf16 plane (each cell widened
+    to f32 exactly before its add)."""
+    _check_counts_topk_args(plane, rows, m_f32, amb_read, amb_dS, amb_hit, B, K,
+                            torch.bfloat16)
+    return _sum_counts_topk(rowgather_sum_counts_topk_bf16, plane, rows, m_f32, amb_read,
+                            amb_dS, amb_hit, B=B, K=K, k=k, log_eps=log_eps)
+
+
+#: kernel launches since the last reset (CUDA only; the plain path never counts)
+rowgather_sum_counts_topk.launches = 0
+rowgather_sum_counts_topk_bf16.launches = 0

@@ -12,10 +12,11 @@ import math
 
 import torch
 
+from ..kernels.rowgather import add_first_hits
 from .hashtable import lookup
 
-__all__ = ["ORDER_INF", "amb_classic", "amb_deltas", "dense_amb_from_rows",
-           "lookup_rows"]
+__all__ = ["ORDER_INF", "amb_classic", "amb_classic_deltas", "amb_deltas",
+           "dense_amb_from_rows", "lookup_rows"]
 
 #: "no ambiguous hit" marker for the first-order matrix (quirks Q6/Q7)
 ORDER_INF = 2**31 - 1
@@ -92,22 +93,32 @@ def amb_deltas(plane: torch.Tensor, arows: torch.Tensor, *, zero_row: int, B: in
     return reads, delta
 
 
+def amb_classic_deltas(plane: torch.Tensor, arows: torch.Tensor, *, zero_row: int, B: int,
+                       k: int, eps: float):
+    """The ambiguous first hit (quirks Q6/Q7) on the classic plane, of the
+    reads with at least one ambiguous row: (reads int64 (A,), dS f32 (A, B),
+    hit bool (A, B)), where ``_apply_amb(shifted=False)`` returns ``S + dS``
+    and ``C + hit`` for those reads (and adds 0 to the others); ``dS`` is
+    ``where(hit, V, 0)``. The reads are gathered in chunks."""
+    reads, parts = _amb_contributions(plane, arows, zero_row=zero_row, B=B, k=k, eps=eps,
+                                      log_eps=None, plane_scale=1.0)
+    dev = plane.device
+    if not parts:
+        return (reads, torch.zeros((0, B), dtype=torch.float32, device=dev),
+                torch.zeros((0, B), dtype=torch.bool, device=dev))
+    zero = torch.zeros((), dtype=torch.float32, device=dev)
+    hit = torch.cat([h for h, _ in parts])
+    dS = torch.cat([torch.where(h, v, zero) for h, v in parts])
+    return reads, dS, hit
+
+
 def amb_classic(S: torch.Tensor, C: torch.Tensor, plane: torch.Tensor, arows: torch.Tensor,
                 *, zero_row: int, B: int, k: int, eps: float):
     """``_apply_amb(shifted=False)`` on the classic plane's (S f32, C int32)
     (R, B) sums and counts: ``S + where(hit, V, 0)``, ``C + hit`` at the reads
     with an ambiguous row (every other read would add 0)."""
-    reads, parts = _amb_contributions(plane, arows, zero_row=zero_row, B=B, k=k, eps=eps,
-                                      log_eps=None, plane_scale=1.0)
-    if reads.numel() == 0:
-        return S, C
-    zero = torch.zeros((), dtype=torch.float32, device=plane.device)
-    hit = torch.cat([h for h, _ in parts])
-    V = torch.cat([torch.where(h, v, zero) for h, v in parts])
-    S, C = S.clone(), C.clone()
-    S[reads] = S[reads] + V
-    C[reads] = C[reads] + hit.to(torch.int32)
-    return S, C
+    return add_first_hits(S, C, *amb_classic_deltas(plane, arows, zero_row=zero_row, B=B, k=k,
+                                                    eps=eps))
 
 
 def lookup_rows(table: torch.Tensor, seed1: int, seed2: int, key_hi: torch.Tensor,

@@ -22,7 +22,7 @@ Ports ``epik_tpu/parallel/sharding.py``:
   per shard; :func:`sharded_tiles_bytes_step` (``_sharded_tiles_bytes_step``
   :530-626, kernel 3's sums alone or kernel 4); :func:`sharded_csr_bytes_step`
   (:745-802) and :func:`sharded_csr_step` (:675-737), both through kernel 4
-  with counts;
+  with counts and the counts finish (``finish_topk_counts``, slim pack);
 * :class:`ShardedTorchPlacer` (``ShardedJaxPlacer`` :810-1410), its routing,
   dispatch, budget retries and assembly.
 
@@ -59,7 +59,7 @@ from ..engine.tiles import Q_MAX
 from ..engine.types import PlacedCollection
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, accumulate_packed_sums, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
-from ..kernels.finish import POW10_ZERO
+from ..kernels.finish import POW10_ZERO, finish_topk_counts
 from ..kernels.finish_cols import (
     expsum_from_corrected,
     finish_cols_expsum,
@@ -73,7 +73,6 @@ from ..ops.csr import (
     accumulate_amb_firsthit,
     accumulate_exact_dense,
     append_totals,
-    finish_scores,
     pack_outputs,
 )
 from ..ops.dense import amb_classic, amb_deltas
@@ -618,9 +617,9 @@ def sharded_csr_bytes_step(shards: list[CsrState], buf, *, R: int, B: int, K: in
         C.append(C_s)
         e_tot.append(e_s)
     lens = tok[shards[0].table.device][3]
-    outs = finish_scores(_merge_sum(S), _merge_sum(C), _m_f32(lens, k), K=K, k=k,
-                         log_eps=log_eps)
-    return append_totals(_pack_slim(outs), _merge_max(e_tot), 0)
+    slim = finish_topk_counts(_merge_sum(S), _merge_sum(C), _m_f32(lens, k), K=K, k=k,
+                              log_eps=log_eps, full=False)
+    return append_totals(slim, _merge_max(e_tot), 0)
 
 
 def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_read,
@@ -653,8 +652,8 @@ def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_r
                       for f, V in zip(firsts, Vs)])
     S = S + torch.where(hit, V_g, zero)
     C = C + hit.to(torch.int32)
-    outs = finish_scores(S, C, m_f32.to(lead), K=K, k=k, log_eps=log_eps)
-    return append_totals(_pack_slim(outs), _merge_max(e_tot), _merge_max(a_tot))
+    slim = finish_topk_counts(S, C, m_f32.to(lead), K=K, k=k, log_eps=log_eps, full=False)
+    return append_totals(slim, _merge_max(e_tot), _merge_max(a_tot))
 
 
 # ---------------------------------------------------------------------------

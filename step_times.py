@@ -15,8 +15,9 @@ its first batch of 16,384 reads (IUPAC reads among them), and
 * under ``pair_plane="off"``, ``precision="int16"``, ``plane_mode="classic"``
   and ``precision="bf16"`` (each its own plane), the unpaired dense step
   (``place_batch_dense_bytes``) and the kernel it ends in
-  (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``,
-  ``rowgather_sum_counts``, ``rowgather_sum_counts_bf16``);
+  (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``, and on the classic
+  planes ``rowgather_sum_counts_topk`` and ``_bf16``, or in a port without
+  them ``rowgather_sum_counts`` and ``_bf16``);
 * ``ShardedTorchPlacer`` with the default config on a 1x1 mesh (the pair plane
   in one column shard), the column-sharded dense step.
 
@@ -25,7 +26,10 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
 ``TorchPlacer(dense_db="off")`` with packed tiles, then f32 tiles:
 
 * the packed and the f32 tile steps on the 150 bp batch;
-* the CSR step on the 400 bp batch;
+* the CSR step on the 400 bp batch, and its counts finish alone on the
+  step's (4,096 x 19,999) sums and counts: ``finish_topk_counts`` where the
+  port has it, else the torch ``finish_scores`` + ``pack_outputs`` the step
+  ran;
 * kernel 2 (``accumulate_packed_topk``) on the packed tile step's cells;
 * kernel 4 with counts (``accumulate_sums_counts``) on the CSR step's cells,
   and without (``accumulate_sums``) on the f32 tile step's cells;
@@ -236,12 +240,38 @@ def sharded_tile_times(torch, out: dict, db, tree, seqs) -> None:
     torch.cuda.empty_cache()
 
 
-#: the unpaired D652 configs: name, PlacerConfig fields, the kernel the step ends in
+def counts_finish_times(torch, out: dict, placer, long_reads) -> None:
+    """The CSR step's counts finish alone, on the sums and counts of its
+    first call on ``long_reads``, into ``out``: ``finish_topk_counts`` where
+    the port has it, else the torch ``finish_scores`` + ``pack_outputs``."""
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.ops import csr as csr_mod
+
+    name = "finish_topk_counts" if hasattr(step_mod, "finish_topk_counts") else "finish_scores"
+    calls = []
+    with recording(step_mod, name, calls, limit=1):
+        placer.place(long_reads)
+    (S, C, m_f32), kw = calls[0]
+    if name == "finish_topk_counts":
+        def finish():
+            return step_mod.finish_topk_counts(S, C, m_f32, **kw)
+    else:
+        def finish():
+            return csr_mod.pack_outputs(csr_mod.finish_scores(S, C, m_f32, **kw), 0, 0)
+    out["counts_finish_csr"] = name
+    out["counts_finish_csr_ms"] = cuda_ms(torch, finish)
+    out["counts_finish_csr_shape"] = list(S.shape)
+
+
+#: the unpaired D652 configs: name, PlacerConfig fields, the kernels the step
+#: ends in, the first of them the port has
 VARIANTS = [
-    ("pair_off", {"pair_plane": "off"}, "rowgather_sum_topk"),
-    ("int16", {"precision": "int16"}, "rowgather_sum_topk_int16"),
-    ("classic", {"plane_mode": "classic"}, "rowgather_sum_counts"),
-    ("bf16", {"precision": "bf16"}, "rowgather_sum_counts_bf16"),
+    ("pair_off", {"pair_plane": "off"}, ("rowgather_sum_topk",)),
+    ("int16", {"precision": "int16"}, ("rowgather_sum_topk_int16",)),
+    ("classic", {"plane_mode": "classic"},
+     ("rowgather_sum_counts_topk", "rowgather_sum_counts")),
+    ("bf16", {"precision": "bf16"},
+     ("rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_bf16")),
 ]
 
 
@@ -279,11 +309,13 @@ def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
     from epik_tpu_torch.engine import step as step_mod
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.kernels import KERNELS
 
     if not hasattr(step_mod, "place_batch_dense_bytes"):
         out["skipped"].append("dense variants: the port has no unpaired dense step")
         return
-    for name, fields, kernel in VARIANTS:
+    for name, fields, names in VARIANTS:
+        kernel = next(n for n in names if n in KERNELS)
         placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
         unpaired_step_times(torch, dev, out, placer, seqs, f"d652_{name}", kernel)
         del placer
@@ -348,7 +380,9 @@ def main(argv=None) -> int:
     out["accumulate_sums_counts_ms"] = cuda_ms(
         torch, lambda: kernels_mod.accumulate_sums_counts(b, s, **kw))
     out["accumulate_sums_counts_shape"] = list(b.shape)
-    del placer, step, csr_step, calls, b, s
+    del calls, b, s
+    counts_finish_times(torch, out, placer, long_reads)
+    del placer, step, csr_step
     torch.cuda.empty_cache()
 
     placer = TorchPlacer(db, tree, config=PlacerConfig(dense_db="off", tile_payload="f32"),

@@ -24,7 +24,12 @@ from epik_tpu_torch.kernels.accumulate_sums import (
     accumulate_sums_plain,
     plan,
 )
-from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_plain
+from epik_tpu_torch.kernels.finish import (
+    finish_topk,
+    finish_topk_counts,
+    finish_topk_counts_plain,
+    finish_topk_plain,
+)
 from epik_tpu_torch.kernels.finish_cols import (
     finish_cols_expsum,
     finish_cols_expsum_plain,
@@ -33,10 +38,15 @@ from epik_tpu_torch.kernels.finish_cols import (
     finish_cols_smem,
 )
 from epik_tpu_torch.kernels.rowgather import (
+    counts_topk_fits,
+    counts_topk_smem,
     rowgather_sum,
     rowgather_sum_counts,
     rowgather_sum_counts_bf16,
     rowgather_sum_counts_plain,
+    rowgather_sum_counts_topk,
+    rowgather_sum_counts_topk_bf16,
+    rowgather_sum_counts_topk_plain,
     rowgather_sum_plain,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
@@ -46,6 +56,7 @@ from epik_tpu_torch.kernels.rowgather import (
 )
 from torch_fixtures import (
     cell_order_sums,
+    counts_rows,
     finish_rows,
     packed_cells,
     packed_rows,
@@ -309,7 +320,12 @@ def test_launch_counts(cuda):
                              scale=2.0)
     rowgather_sum_counts(plane, rows)
     rowgather_sum_counts_bf16(plane.to(torch.bfloat16), rows)
+    rowgather_sum_counts_topk(plane, rows, m, None, None, None, B=100, K=3, k=4, log_eps=-1.0)
+    rowgather_sum_counts_topk_bf16(plane.to(torch.bfloat16), rows, m, None, None, None, B=100,
+                                   K=3, k=4, log_eps=-1.0)
     finish_topk(Sp, m, K=3, k=4, log_eps=-1.0)
+    C = torch.ones(Sp.shape, dtype=torch.int32, device=cuda)
+    finish_topk_counts(Sp, C, m, K=3, k=4, log_eps=-1.0)
     finish_cols_partial(Sp, m, K=3, k=4, log_eps=-1.0, col0=128)
     finish_cols_expsum(Sp, m, m, k=4, log_eps=-1.0)
     accumulate_packed_topk(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
@@ -320,6 +336,9 @@ def test_launch_counts(cuda):
     rowgather_sum_plain(plane, rows)
     rowgather_sum_topk_plain(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     rowgather_sum_counts_plain(plane, rows)
+    rowgather_sum_counts_topk_plain(plane, rows, m, None, None, None, B=100, K=3, k=4,
+                                    log_eps=-1.0)
+    finish_topk_counts_plain(Sp, C, m, K=3, k=4, log_eps=-1.0)
     accumulate_packed_topk_plain(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_sums_plain(b, s, B=100, counts=True)
     packed_sums_plain(p, 100)
@@ -327,7 +346,10 @@ def test_launch_counts(cuda):
     finish_cols_expsum_plain(Sp, m, m, k=4, log_eps=-1.0)
     assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1,
                                "rowgather_sum_topk_int16": 1, "rowgather_sum_counts": 1,
-                               "rowgather_sum_counts_bf16": 1, "finish_topk": 1,
+                               "rowgather_sum_counts_bf16": 1,
+                               "rowgather_sum_counts_topk": 1,
+                               "rowgather_sum_counts_topk_bf16": 1, "finish_topk": 1,
+                               "finish_topk_counts": 1,
                                "finish_cols_partial": 1, "finish_cols_expsum": 1,
                                "accumulate_packed_topk": 1, "accumulate_packed_sums": 1,
                                "accumulate_sums": 1, "accumulate_sums_counts": 1}
@@ -367,6 +389,19 @@ def test_wrappers_raise_on_bad_input(cuda):
         finish_cols_partial(Sp, m, K=65, k=4, log_eps=-1.0, col0=0)
     with pytest.raises(ValueError):
         finish_cols_expsum(Sp, m, torch.ones(5, device=cuda), k=4, log_eps=-1.0)
+    C = torch.ones((4, 256), dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError):
+        finish_topk_counts(Sp, C.cpu(), m, K=3, k=4, log_eps=-1.0)  # CPU counts
+    with pytest.raises(ValueError):
+        finish_topk_counts(Sp, C.long(), m, K=3, k=4, log_eps=-1.0)
+    hit = torch.ones((1, 100), dtype=torch.bool, device=cuda)
+    with pytest.raises(ValueError, match="amb_dS"):
+        rowgather_sum_counts_topk(plane, rows, m, torch.tensor([1], device=cuda),
+                                  torch.zeros((1, 100)), hit, B=100, K=3, k=4,
+                                  log_eps=-1.0)  # CPU contributions
+    with pytest.raises(ValueError, match="shared memory"):
+        rowgather_sum_counts_topk(torch.zeros((8, 40000), device=cuda), rows, m, None, None,
+                                  None, B=39000, K=3, k=4, log_eps=-1.0)
 
 
 def test_placer_cuda_matches_cpu(cuda):
@@ -779,9 +814,12 @@ def test_dense_configs_cuda_match_cpu(cuda, config):
     counts = launch_counts()
     kernel = ("rowgather_sum_topk_int16" if gpu._plane_q
               else "rowgather_sum_topk" if gpu._shifted
-              else "rowgather_sum_counts_bf16" if config.get("precision") == "bf16"
-              else "rowgather_sum_counts")
+              else "rowgather_sum_counts_topk_bf16" if config.get("precision") == "bf16"
+              else "rowgather_sum_counts_topk")
     assert counts[kernel] > 0, counts
+    # the classic steps end in the fused kernel: no gather with counts, no finish apart
+    assert not (counts["rowgather_sum_counts"] or counts["rowgather_sum_counts_bf16"]
+                or counts["finish_topk_counts"] or counts["finish_topk"]), counts
 
 
 @pytest.mark.parametrize("amb", [False, True])
@@ -880,3 +918,205 @@ def test_codes_placer_cuda_matches_oracle(cuda, db_kind, config):
     np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
                                rtol=1e-6, atol=1e-6)
     _oracle_close(ReferencePlacer(db, tree).place(reads), got, per_edge=gpu._plane_q)
+
+
+# ---- kernel 1 with counts and the counts finish fused in; the counts finish alone -------
+
+
+def _classic_case(rng, n_rows, bw, B, R, W, amb):
+    """A classic-plane-like f32 plane (negative cells, the -1e-37 nudge, zero
+    padding columns, the last row the miss row), rows with misses and an n ==
+    0 read, m with a read shorter than k (2**64) and two reads whose counts
+    pass m (the Q1 wrap), and the ambiguous first hits of a third of the
+    reads: (reads, dS, hit), dS positive where hit."""
+    p = rng.uniform(-7.0, -0.01, (n_rows, bw)).astype(np.float32)
+    p[rng.random((n_rows, bw)) > 0.3] = 0.0
+    p[0, :8] = np.float32(-1e-37)
+    p[:, B:] = 0.0
+    p[-1] = 0.0
+    rows = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+    rows[rng.random((R, W)) < 0.3] = n_rows - 1
+    rows[0] = n_rows - 1
+    m = rng.integers(W, W + 40, R).astype(np.float32)
+    m[1] = np.float32(2.0**64)
+    m[2:4] = 1.0  # counts of 2 and more wrap m - C
+    reads = dS = hit = None
+    if amb:  # read 0 stays untouched
+        reads = rng.choice(np.arange(1, R), max(1, R // 3), replace=False)
+        hit = rng.random((reads.size, B)) < 0.3
+        dS = np.where(hit, rng.uniform(1e-4, 0.1, hit.shape), 0.0).astype(np.float32)
+    return p, rows, m, reads, dS, hit
+
+
+def _check_full_pack(got, want, K, B):
+    """The full pack's body: scores, ids, counts, n and zero_sum bit-equal,
+    wr within rtol 1e-4 (10**(score - log_sum), log_sum summed in another
+    order)."""
+    np.testing.assert_array_equal(got[:, :K], want[:, :K])
+    np.testing.assert_array_equal(got[:, 2 * K:], want[:, 2 * K:])
+    assert ((got[:, 2 * K:3 * K] >= 0) & (got[:, 2 * K:3 * K] < B)).all()
+    np.testing.assert_allclose(got[:, K:2 * K], want[:, K:2 * K], rtol=1e-4, atol=1e-30)
+
+
+def _to(cuda, *xs):
+    return [None if x is None else torch.from_numpy(np.ascontiguousarray(x)).to(cuda)
+            for x in xs]
+
+
+@pytest.mark.parametrize("n_rows,bw,B,R,W", [
+    (2000, 1408, 1303, 300, 143),  # D652's classic widths
+    (64, 128, 40, 50, 9),
+    (300, 4608, 4500, 24, 17),  # more than 1,024 column groups
+    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row offsets
+])
+@pytest.mark.parametrize("cell", ["f32", "bf16"])
+@pytest.mark.parametrize("amb", [False, True])
+def test_rowgather_sum_counts_topk_bit_equal(cuda, n_rows, bw, B, R, W, cell, amb):
+    """Kernel 1 with counts and the counts finish fused in, against its
+    plain version: scores, ids, counts, n and zero_sum bit-equal, wr within
+    rtol 1e-4, with and without first hits, the wrap rows among them; two
+    launches alike."""
+    rng = np.random.default_rng(n_rows + bw + W)
+    p, rows, m, reads, dS, hit = _classic_case(rng, n_rows, bw, B, R, W, amb)
+    plane, rows, m, reads, dS, hit = _to(cuda, p, rows, m, reads, dS, hit)
+    fn = rowgather_sum_counts_topk
+    if cell == "bf16":
+        plane, fn = plane.to(torch.bfloat16), rowgather_sum_counts_topk_bf16
+    K = min(7, B)
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
+    got = fn(plane, rows, m, reads, dS, hit, **kw)
+    assert torch.equal(fn(plane, rows, m, reads, dS, hit, **kw), got)
+    want = rowgather_sum_counts_topk_plain(plane, rows, m, reads, dS, hit, **kw)
+    _check_full_pack(got.cpu().numpy(), want.cpu().numpy(), K, B)
+    assert want[0, 4 * K] == 0
+
+
+@pytest.mark.parametrize("R,B,K,density", [
+    (300, 1303, 7, 0.2), (64, 19999, 7, 0.2), (16, 40, 40, 0.2),
+    (16, 12000, 7, 0.9),  # more touched branches than the block caches
+    (8, 65537, 5, 0.05), (300, 66000, 7, 0.05),  # ids in the global workspace
+])
+@pytest.mark.parametrize("full", [True, False])
+def test_finish_topk_counts_bit_equal(cuda, R, B, K, density, full):
+    """The counts finish alone on the quirk rows (C > m, m = 2**64, n = 0,
+    n < K, ties, Q3, touched at S >= 0), strided rows, past the block's
+    score cache and past B = 2**16 (the ids in the global workspace), in
+    both forms: the full body as ``_check_full_pack``, the slim pack as
+    ``_check_pack``; two launches alike; the ties to the lowest index."""
+    rng = np.random.default_rng(B + R)
+    S, C, m = counts_rows(rng, R, B, density=density)
+    wide_S = np.zeros((S.shape[0], B + 64), np.float32)
+    wide_S[:, :B] = S
+    S_t, C_t, m_t = _to(cuda, wide_S, C, m)
+    S_t = S_t[:, :B]
+    kw = dict(K=K, k=10, log_eps=-4.2597, full=full)
+    got = finish_topk_counts(S_t, C_t, m_t, **kw)
+    assert torch.equal(finish_topk_counts(S_t, C_t, m_t, **kw), got)
+    got = got.cpu().numpy()
+    want = finish_topk_counts_plain(S_t, C_t, m_t, **kw).cpu().numpy()
+    if full:
+        _check_full_pack(got, want, K, B)
+        ix = slice(2 * K, 3 * K)
+    else:
+        _check_pack(got, want, K, B)
+        ix = slice(K, 2 * K)
+    kk = min(K, 20)
+    np.testing.assert_array_equal(got[2, ix][:kk], np.arange(10, 10 + kk))
+
+
+def _limit_B(plane_for, K):
+    """The largest B (plane width B rounded up to 128) the fused counts
+    kernel takes, by the CUDA source's formula against the card's limit."""
+    lo, hi = 1024, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        need, limit = counts_topk_smem(plane_for(-(-mid // 128) * 128), mid, K)
+        lo, hi = (mid, hi) if need <= limit else (lo, mid - 1)
+    return lo
+
+
+def test_rowgather_sum_counts_topk_at_and_past_its_limit(cuda):
+    """At the widest tree the fused counts kernel takes (its shared-memory
+    formula against the card's limit) it launches and matches its plain
+    version; one branch past it the wrapper raises stating the bytes and the
+    classic step runs ``rowgather_sum_counts`` + ``finish_topk_counts``: the
+    same bits."""
+    from epik_tpu_torch.engine.step import _classic_finish
+    from epik_tpu_torch.ops.dense import amb_classic_deltas
+
+    K = 7
+    B_at = _limit_B(lambda bw: torch.empty((2, bw), device=cuda), K)
+    assert 18000 < B_at < 26000, B_at  # near 22,000 at bw ~ B
+    for B, fits in ((B_at, True), (B_at + 1, False)):
+        rng = np.random.default_rng(B)
+        bw = -(-B // 128) * 128
+        p, rows, m, _, _, _ = _classic_case(rng, 120, bw, B, 16, 30, False)
+        arows = np.full((16, 2), 119, np.int32)
+        arows[1::4, 0] = rng.integers(0, 119, 4)
+        plane, rows, m, arows = _to(cuda, p, rows, m, arows)
+        kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
+        need, limit = counts_topk_smem(plane, B, K)
+        assert (need <= limit) == fits == counts_topk_fits(plane, B, K)
+        reads, dS, hit = amb_classic_deltas(plane, arows, zero_row=119, B=B, k=10, eps=5.5e-5)
+        assert reads.numel() > 0
+        want = rowgather_sum_counts_topk_plain(plane, rows, m, reads, dS, hit, **kw)
+        if not fits:
+            with pytest.raises(ValueError, match="shared memory"):
+                rowgather_sum_counts_topk(plane, rows, m, reads, dS, hit, **kw)
+        reset_launch_counts()
+        got = _classic_finish(plane, rows, m, arows, Amax=2, zero_row=119, eps=5.5e-5, **kw)
+        counts = {n: c for n, c in launch_counts().items() if c}
+        assert counts == ({"rowgather_sum_counts_topk": 1} if fits else
+                          {"rowgather_sum_counts": 1, "finish_topk_counts": 1}), counts
+        assert not got[-1].any()  # the zero totals row
+        _check_full_pack(got[:-1].cpu().numpy(), want.cpu().numpy(), K, B)
+
+
+def test_csr_step_launches_the_counts_finish(cuda):
+    """The CSR step (the 400 bp batch of a big-tree placer) launches kernel 4
+    with counts and the counts finish once each, and no torch finish runs:
+    the pack equals the CPU step's (plain versions) up to the f32 exp of the
+    first hit."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+
+    db, ref = reference_like_db(num_leaves=96, kmer_size=10, ref_length=40_000,
+                                mean_posting_len=6.0, seed=71)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, 30, length=400, mutation_rate=0.05, seed=77)
+    seqs = list(dict.fromkeys(s for _, s in reads))
+    seqs[0] = seqs[0][:40] + b"N" + seqs[0][41:]
+    cfg = PlacerConfig(dense_db="off")
+    packs = []
+    for dev in ("cpu", cuda):
+        placer = TorchPlacer(db, tree, config=cfg, device=dev)
+        step, P, PA, _ = placer._stage_csr(seqs)
+        reset_launch_counts()
+        packs.append(step(P, PA).cpu().numpy())
+        counts = {n: c for n, c in launch_counts().items() if c}
+    assert counts == {"accumulate_sums_counts": 1, "finish_topk_counts": 1}, counts
+    want, got = packs
+    K = (got.shape[1] - 2) // 4
+    np.testing.assert_array_equal(got[-1], want[-1])  # the budget totals
+    np.testing.assert_array_equal(got[:-1, 2 * K:], want[:-1, 2 * K:])  # ids, counts, n, flags
+    np.testing.assert_allclose(got[:-1, :K], want[:-1, :K], rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("counts", [False, True])
+def test_finish_at_the_48kb_edge(cuda, counts):
+    """B = 7,850, K = 7: the finish's dynamic shared memory (48,980 bytes)
+    is under 48 KB but not with the kernel's static bytes, so the launch
+    must opt in all the same."""
+    rng = np.random.default_rng(7850)
+    kw = dict(K=7, k=10, log_eps=-4.2597)
+    if counts:
+        S_t, C_t, m_t = _to(cuda, *counts_rows(rng, 40, 7850))
+        got = finish_topk_counts(S_t, C_t, m_t, **kw).cpu().numpy()
+        _check_full_pack(got, finish_topk_counts_plain(S_t, C_t, m_t, **kw).cpu().numpy(), 7,
+                         7850)
+    else:
+        Sp_t, m_t = _to(cuda, *finish_rows(rng, 40, 7850))
+        got = finish_topk(Sp_t, m_t, **kw).cpu().numpy()
+        _check_pack(got, finish_topk_plain(Sp_t, m_t, **kw).cpu().numpy(), 7, 7850)

@@ -274,3 +274,16 @@ def test_cuda_without_cuda_raises(fx, monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         TorchPlacer(db, tree, device="cuda")
+
+
+def test_placer_defaults_to_the_card(fx, monkeypatch):
+    """No device named: the placer and the mesh ask for the card, and
+    without one raise rather than place on the CPU."""
+    from epik_tpu_torch.parallel.mesh import make_mesh
+
+    db, tree, _, _, _ = fx
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        TorchPlacer(db, tree)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_mesh()

@@ -23,6 +23,39 @@ def finish_rows(rng, R, B, density=0.2):
     return Sp, m
 
 
+def counts_rows(rng, R, B, density=0.2):
+    """S f32 / C int32 (R, B) classic sums and exact counts, and m f32 (R,),
+    for the counts finish: the classic sums are negative (a cell holds a
+    log10 score), the ambiguous first hit adds a positive contribution; rows
+    with n = 0, n < K, 20 exact ties straddling the K cut, C > m (the Q1 wrap
+    of m - C to 2**64), m = 2**64 (a read shorter than k), a Q3 row (every
+    10**score underflows in double), and touched cells whose sum is 0 or
+    positive beside untouched cells (C = 0) whose sum is not (touched is C >
+    0, never S); the other rows touch about ``density`` of the branches."""
+    R = max(R, 8)
+    C = rng.integers(1, 12, (R, B)).astype(np.int32)
+    C[rng.random((R, B)) > density] = 0
+    S = (-rng.uniform(0.05, 2.5, (R, B)) * C).astype(np.float32)
+    pos = rng.random((R, B)) < 0.05
+    S[pos] += rng.uniform(0.0, 3.0, int(pos.sum())).astype(np.float32)
+    m = rng.integers(80, 150, R).astype(np.float32)
+    S[0], C[0] = 0.0, 0  # n == 0
+    S[1], C[1] = 0.0, 0
+    S[1, [3, B - 1]], C[1, [3, B - 1]] = [-2.0, -5.0], [1, 2]  # n < K
+    S[2], C[2] = 0.0, 0
+    S[2, 10:30], C[2, 10:30] = -4.5, 3  # 20 exact ties
+    m[3] = 5.0
+    S[3], C[3] = 0.0, 0
+    S[3, :min(40, B - 3)], C[3, :min(40, B - 3)] = -3.0, 9  # C > m: wraps to 2**64 (Q1)
+    S[3, B - 3:], C[3, B - 3:] = -1.0, 2  # C < m: these three lead
+    m[4] = np.float32(2.0**64)  # quirk Q1: a read shorter than k
+    m[5] = 4000.0  # quirk Q3
+    S[6], C[6] = 0.0, 0
+    S[6, :5], C[6, :5] = [0.0, 0.0, 1.5, 2.5, -0.0], 1  # touched at S = 0 and S > 0
+    C[6, 5:10], S[6, 5:10] = 0, 7.0  # untouched however large the sum
+    return S, C, m
+
+
 def packed_cells(rng, R, PP, B, fill=0.5):
     """Packed posting-tile cells ``(branch << 16) | q`` int32 (R, PP) and
     window counts m f32 (R,): random cells with trash padding
