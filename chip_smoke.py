@@ -63,9 +63,10 @@ prints no result line):
                * a 1x4 mesh laid on the one card (4 shards of 5,120 columns) on
                  8,192 clean reads and the IUPAC and short ones, score sets
                  within 1e-4 of the 1x1 jplace;
-               * both meshes finish through the column finish's two kernels
-                 (``finish_cols_partial``, ``finish_cols_expsum``): checked
-                 against their plain versions at (4,096 x 20,096), and timed
+               * both meshes finish through the column finish, one launch of
+                 kernel A (``finish_cols_partial``) per shard and tile step:
+                 checked against its plain version at (4,096 x 20,096) (the
+                 pack bit-equal but its exp-sum e_s, rtol 1e-6), and timed
                  beside the same finish in torch ops and the tile step.
 9. dense    -- the rest of the single-device dense engine:
                * config 4 through ``python -m epik_tpu_torch place`` with no
@@ -98,28 +99,36 @@ prints no result line):
                  past it (the classic step then runs the sums with counts and
                  ``finish_topk_counts`` apart, the same bits), and
                  ``finish_topk_counts`` at B = 65,537 in both forms.
-10. sharded dense -- the column-sharded dense engine:
+10. sharded dense -- the column-sharded dense engine, one kernel per shard:
+               kernel 1 with the shard's column finish in its epilogue
+               (``rowgather_sum_cols``; classic ``rowgather_sum_counts_cols``):
                * D652 through ``python -m epik_tpu_torch place --engine sharded``
                  on a 1x1 mesh (the pair plane in one shard of 1,408 columns),
-                 the counts zeroed before and read after: kernel 1's sums and
-                 both column-finish kernels must have launched, the fused
-                 kernel never; 256 reads against the oracle; the column
-                 finish's kernels against their plain versions (launch A
-                 bit-equal, launch B within rtol 1e-6, the whole finish by the
-                 finish criteria), CUDA-event times of the sharded step, the
-                 gather, each kernel, its plain version and the whole finish
-                 in torch ops; the CLI's reads/s;
+                 the counts zeroed before and read after: the fused column
+                 kernel must have launched, the gather, the gather with counts
+                 and kernel A never; 256 reads against the oracle; the fused
+                 kernel against its plain version on the recorded call (the
+                 pack bit-equal but e_s, rtol 1e-6; two launches alike), its
+                 CUDA-event time, bound and ``embedding_bag``'s (S alone), the
+                 sharded step's time; the CLI's reads/s;
                * D652 on a 1x4 mesh laid on the card (4 shards of 384 columns)
                  through run_pipeline, within 1e-4 of the 1x1 jplace, the
-                 finish checked at 4 shards;
-               * D652 ``plane_mode="classic"`` on 1x1 through the library (kernel
-                 1 with counts, the classic column finish in torch ops) against
-                 the oracle;
+                 fused kernel checked on each shard;
+               * D652 ``plane_mode="classic"`` on 1x1 through the library: the
+                 fused counts kernel (its candidates' counts bit-equal too)
+                 against its plain version and the oracle; kernel A's counts
+                 form on the same shard's sums and counts;
                * config 4 through ``--engine sharded`` with no other flag: the
                  51.8 GB unpaired column plane (the pair plane is over the
                  budget), 12,288 clean reads, the IUPAC and short reads, the
                  reads the oracle checks and the 4,096 400 bp reads; 256 reads
-                 against the oracle; the finish checked at (4,096 x 20,096).
+                 against the oracle; the fused kernel checked at (4,096 x 143)
+                 rows, bwl 20,096;
+               * both fused kernels at the widest shard their shared memory
+                 takes and one group of four columns past it, where the shard
+                 runs the gather, the adds and kernel A apart (the same pack
+                 but e_s), and kernel A in both forms at bwl = 70,016 (ids in
+                 the global workspace), against their plain versions.
 
 11. amino   -- BASELINE.md config 2 at full size (652 leaves, 1,303 branches,
                amino k = 8, ~400k k-mers, the 2.25 GB shifted plane, the radix
@@ -227,8 +236,13 @@ KERNEL_META = {
     # the column finish is an XLA function in the JAX package, no Pallas kernel
     "finish_cols_partial": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
                             "epik_tpu/parallel/sharding.py:345"),
-    "finish_cols_expsum": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
-                           "epik_tpu/parallel/sharding.py:345"),
+    "finish_cols_partial_counts": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
+                                   "epik_tpu/parallel/sharding.py:321"),
+    # kernel 1 with one shard's column finish fused in (the sharded dense steps)
+    "rowgather_sum_cols": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                           "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_counts_cols": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                  "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     # the fused kernel 1 on the amino main path (phase 11)
     "rowgather_sum_topk_config2": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                    "epik_tpu/ops/pallas/rowgather_mq.py:117"),
@@ -477,104 +491,128 @@ def score_cells_on(torch, dev, rng, PP: int, B: int, tile_w: int):
 
 
 def plain_cols_finish(Sps, m_f32, *, B: int, K: int, k: int, log_eps: float):
-    """The column finish in torch ops alone: the plain versions of its two
-    kernels around the same merge (the port's column finish before the
-    kernels)."""
-    from epik_tpu_torch.kernels.finish_cols import (
-        finish_cols_expsum_plain,
-        finish_cols_partial_plain,
-    )
+    """The column finish in torch ops alone: kernel A's plain version on each
+    shard around the same merge."""
+    from epik_tpu_torch.kernels.finish_cols import finish_cols_partial_plain
     from epik_tpu_torch.parallel.sharding import _merge_cols
 
     bwl = Sps[0].shape[1]
     parts = [finish_cols_partial_plain(S, m_f32, K=K, k=k, log_eps=log_eps, col0=s * bwl)
              for s, S in enumerate(Sps)]
-    return _merge_cols(parts, lambda s, mt: finish_cols_expsum_plain(
-        Sps[s], m_f32, mt, k=k, log_eps=log_eps), m_f32, B=B, K=K, k=k, log_eps=log_eps)
+    return _merge_cols(parts, m_f32, B=B, K=K, k=k, log_eps=log_eps)
+
+
+def check_partial(np, got, want, what: str) -> float:
+    """Partial packs [values | ids | n_s | max_s | e_s] (and, as a tuple with
+    them, the counts form's candidate counts): all but e_s bit-equal, e_s
+    within rtol 1e-6. Returns the largest absolute difference of e_s."""
+    got_c = want_c = None
+    if isinstance(got, tuple):
+        (got, got_c), (want, want_c) = got, want
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    if not np.array_equal(got[:, :-1], want[:, :-1]):
+        raise AssertionError(f"{what}: the partial pack differs from the plain version")
+    if got_c is not None and not np.array_equal(got_c.cpu().numpy(), want_c.cpu().numpy()):
+        raise AssertionError(f"{what}: the candidates' counts differ")
+    np.testing.assert_allclose(got[:, -1], want[:, -1], rtol=1e-6, atol=0.0,
+                               err_msg=f"{what}: e_s")
+    return float(np.abs(got[:, -1] - want[:, -1]).max(initial=0.0))
 
 
 def check_cols_finish(torch, np, Sps, m_f32, kw: dict, what: str) -> dict:
-    """The column finish's kernels on a recorded call (the shards' sums on the
-    one card): per shard, launch A's pack bit-equal to its plain version and
-    two launches alike, launch B within rtol 1e-6 of its plain version at the
-    merged maxima; the whole finish against the plain one by check_finish.
-    CUDA-event times of each kernel and its plain version on shard 0, of the
-    whole finish and of the plain one. Returns the numbers, the bounds' (bytes,
-    operations) and each kernel's largest difference."""
-    from epik_tpu_torch.kernels.finish_cols import (
-        finish_cols_expsum,
-        finish_cols_expsum_plain,
-        finish_cols_partial,
-        finish_cols_partial_plain,
-    )
-    from epik_tpu_torch.parallel.sharding import (
-        _merge_cols,
-        _pack_slim,
-        finish_scores_cols_shifted,
-    )
+    """Kernel A on a recorded column finish (the shards' sums on the one
+    card): per shard, the partial pack bit-equal to its plain version but
+    e_s (rtol 1e-6) and two launches alike; the whole finish against the
+    plain one by check_finish. CUDA-event times of the kernel and its plain
+    version on shard 0, of the whole finish and of the plain one. Returns the
+    numbers, the bound's (bytes, operations) and the largest difference."""
+    from epik_tpu_torch.kernels.finish_cols import finish_cols_partial, finish_cols_partial_plain
+    from epik_tpu_torch.parallel.sharding import _pack_slim, finish_scores_cols_shifted
 
     B, K, k, log_eps = kw["B"], kw["K"], kw["k"], kw["log_eps"]
     fkw = dict(k=k, log_eps=log_eps)
     bwl = Sps[0].shape[1]
     m = m_f32.to(Sps[0].device).contiguous()
-    parts = []
+    err = 0.0
     for s, S in enumerate(Sps):
         got = finish_cols_partial(S, m, K=K, col0=s * bwl, **fkw)
         again = finish_cols_partial(S, m, K=K, col0=s * bwl, **fkw)
-        want = finish_cols_partial_plain(S, m, K=K, col0=s * bwl, **fkw)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"finish_cols_partial ({what}): two launches differ")
-        if not torch.equal(got, want):
-            raise AssertionError(f"finish_cols_partial ({what}): not bit-equal to the plain "
-                                 f"version on shard {s}")
-        parts.append(want)
-    max_ts = {}
-
-    def expsum_plain(s, mt):
-        max_ts[s] = mt
-        return finish_cols_expsum_plain(Sps[s], m, mt, **fkw)
-
-    want_pack = _pack_slim(_merge_cols(parts, expsum_plain, m, **kw)).cpu().numpy()
-    err_e = 0.0
-    for s, S in enumerate(Sps):
-        got = finish_cols_expsum(S, m, max_ts[s], **fkw)
-        want = finish_cols_expsum_plain(S, m, max_ts[s], **fkw)
-        torch.cuda.synchronize()
-        np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(), rtol=1e-6,
-                                   err_msg=f"finish_cols_expsum ({what}), shard {s}")
-        err_e = max(err_e, float((got - want).abs().max()))
+        err = max(err, check_partial(np, got, finish_cols_partial_plain(
+            S, m, K=K, col0=s * bwl, **fkw), f"finish_cols_partial ({what}), shard {s}"))
+    want_pack = _pack_slim(plain_cols_finish(Sps, m, **kw)).cpu().numpy()
     got_pack = _pack_slim(finish_scores_cols_shifted(Sps, m, **kw)).cpu().numpy()
     err_f = check_finish(np, got_pack, want_pack, K, B, f"column finish ({what})")
-    S0, mt0 = Sps[0], max_ts[0]
+    S0 = Sps[0]
     R = S0.shape[0]
     Kl = min(K, bwl)
     touched = int((S0 > 0).sum())
     out = {"shape": (R, bwl), "n_shards": len(Sps), "touched_per_read": touched / R,
-           "partial_err": 0.0, "expsum_err": err_e, "finish_err": err_f}
+           "partial_err": err, "finish_err": err_f}
     out["partial_ms"] = cuda_ms(torch, lambda: finish_cols_partial(S0, m, K=K, col0=0, **fkw))
     out["partial_plain_ms"] = cuda_ms(torch, lambda: finish_cols_partial_plain(
         S0, m, K=K, col0=0, **fkw), reps=5, warmup=1)
-    out["expsum_ms"] = cuda_ms(torch, lambda: finish_cols_expsum(S0, m, mt0, **fkw))
-    out["expsum_plain_ms"] = cuda_ms(torch, lambda: finish_cols_expsum_plain(S0, m, mt0, **fkw),
-                                     reps=5, warmup=1)
     out["finish_ms"] = cuda_ms(torch, lambda: finish_scores_cols_shifted(Sps, m, **kw))
     out["finish_plain_ms"] = cuda_ms(torch, lambda: plain_cols_finish(Sps, m, **kw), reps=5,
                                      warmup=1)
-    # launch A: the sums and m read once, the partial pack written once; a
-    # compare per column and the correction's three operations per touched
-    # column. Launch B: the sums, m and max_t read, one sum per read written;
-    # a compare per column and seven operations per touched column
-    out["io_partial"] = (R * bwl * 4 + R * 4 + R * (2 * Kl + 2) * 4, R * bwl + 3 * touched)
-    out["io_expsum"] = (R * bwl * 4 + 3 * R * 4, R * bwl + FINISH_OPS * touched)
+    # the sums and m read once, the partial pack written once; a compare per
+    # column and the correction and the exp-sum term per touched column
+    out["io_partial"] = (R * bwl * 4 + R * 4 + R * (2 * Kl + 3) * 4,
+                         R * bwl + FINISH_OPS * touched)
     log(f"column finish ({what}), {len(Sps)} shard(s) of {tuple(S0.shape)}, "
-        f"{touched / R:.1f} columns touched per read on shard 0: launch A bit-equal, launch B "
-        f"within rtol 1e-6, the finish bit-equal but log_sum; finish_cols_partial "
-        f"{out['partial_ms']:.4f} ms (plain {out['partial_plain_ms']:.4f}, bound "
-        f"{bound(*out['io_partial'])[0]:.4f}), finish_cols_expsum {out['expsum_ms']:.4f} ms "
-        f"(plain {out['expsum_plain_ms']:.4f}, bound {bound(*out['io_expsum'])[0]:.4f}); the "
-        f"whole finish {out['finish_ms']:.4f} ms against {out['finish_plain_ms']:.4f} ms in "
-        f"torch ops")
+        f"{touched / R:.1f} columns touched per read on shard 0: kernel A bit-equal but e_s "
+        f"(rtol 1e-6), two launches alike, the finish bit-equal but log_sum; "
+        f"finish_cols_partial {out['partial_ms']:.4f} ms (plain {out['partial_plain_ms']:.4f}, "
+        f"bound {bound(*out['io_partial'])[0]:.4f}); the whole finish {out['finish_ms']:.4f} "
+        f"ms against {out['finish_plain_ms']:.4f} ms in torch ops")
+    return out
+
+
+def check_cols_kernel(torch, np, name: str, call, what: str, time_it: bool = True) -> dict:
+    """A fused column kernel (``rowgather_sum_cols`` or
+    ``rowgather_sum_counts_cols``) against its plain version on a recorded
+    call: check_partial, two launches alike. With ``time_it``, CUDA-event
+    times of the kernel, its plain version and one ``embedding_bag`` (the
+    sums alone), and the bound's (bytes, operations)."""
+    from epik_tpu_torch.kernels import KERNELS
+    from epik_tpu_torch.kernels import rowgather as rowgather_mod
+
+    fn, plain = KERNELS[name], getattr(rowgather_mod, name + "_plain")
+    args, kw = call
+    got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+    torch.cuda.synchronize()
+    counts = name == "rowgather_sum_counts_cols"
+    same = (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]) if counts
+            else torch.equal(got, again))
+    if not same:
+        raise AssertionError(f"{name} ({what}): two launches differ")
+    out = {"err": check_partial(np, got, want, f"{name} ({what})"),
+           "shape": tuple(args[1].shape), "bw": args[0].shape[1]}
+    if not time_it:
+        return out
+    plane, rows, m = args[:3]
+    out["ms"] = cuda_ms(torch, lambda: fn(*args, **kw))
+    out["plain_ms"] = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warmup=1)
+    rows_long = rows.long()
+    out["library_ms"] = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
+        rows_long, plane, mode="sum"))
+    del rows_long
+    # the distinct plane rows, the row ids, m and the ambiguous rows read
+    # once, the partial pack (and the candidates' counts) written once; an add
+    # (and a compare) per gathered cell and the finish's operations per (read,
+    # column)
+    R, bw = rows.shape[0], plane.shape[1]
+    Kl = min(kw["K"], bw)
+    written = R * (2 * Kl + 3) * 4 + (R * Kl * 4 if counts else 0)
+    out["io"] = (int(torch.unique(rows).numel()) * bw * 4 + nbytes(rows, m)
+                 + nbytes(*(t for t in args[3:] if t is not None)) + written,
+                 (2 if counts else 1) * rows.numel() * bw + FINISH_OPS * R * bw)
+    log(f"{name} {out['shape']} bwl={out['bw']} ({what}): bit-equal to its plain version but "
+        f"e_s (largest difference {out['err']:.3g}), two launches alike; kernel "
+        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, embedding_bag (S alone) "
+        f"{out['library_ms']:.4f} ms, bound {bound(*out['io'])[0]:.4f} ms ({out['io'][0]} bytes)")
     return out
 
 
@@ -1061,8 +1099,7 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     (Sps, m_f32), kw_f = finish_calls[0]
     fin = check_cols_finish(torch, np, Sps, m_f32, kw_f, "sharded tiles 1x1")
     summary.update(column_finish_ms=fin["finish_ms"], column_finish_plain_ms=fin["finish_plain_ms"],
-                   finish_cols_partial_ms=fin["partial_ms"],
-                   finish_cols_expsum_ms=fin["expsum_ms"])
+                   finish_cols_partial_ms=fin["partial_ms"])
     seqs = list(dict.fromkeys(s for _, s in clean))
     _, OV, rerun = placer._place_async_tiles({s: ["x"] for s in seqs}, seqs).budget
     summary["sharded_tile_step_ms"] = cuda_ms(torch, lambda: rerun(OV))
@@ -1085,12 +1122,17 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
 
     placer._place_async_csr = counting_csr
     placer.overflow_retries = 0
-    stats, counts, rows = run(placer, fx["fasta"], "placements_sharded.jplace")
+    tile_steps = []
+    with recording(sharding_mod, "sharded_tiles_bytes_step", tile_steps):
+        stats, counts, rows = run(placer, fx["fasta"], "placements_sharded.jplace")
     missing = [n for n in ("accumulate_packed_sums", "accumulate_sums_counts",
-                           "finish_topk_counts", "finish_cols_partial", "finish_cols_expsum")
-               if counts[n] <= 0]
+                           "finish_topk_counts", "finish_cols_partial") if counts[n] <= 0]
     if missing:
         raise AssertionError(f"sharded pass: kernels never launched: {missing}")
+    # kernel A once per shard and tile step (overflow retries rerun a step)
+    if counts["finish_cols_partial"] < len(tile_steps):
+        raise AssertionError(f"sharded pass: {counts['finish_cols_partial']} launches of "
+                             f"kernel A for {len(tile_steps)} tile steps")
     if set(rows) != {name for name, _ in records}:
         raise AssertionError("sharded pass: jplace names differ")
     lls = [ll for rws in rows.values() for _, ll in rws]
@@ -1123,7 +1165,8 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     if placer4.route != "tiles" or placer4._bwl != -(-B // 512) * 128:
         raise AssertionError(f"1x4: route {placer4.route}, shard width {placer4._bwl}")
     stats4, counts4, rows4 = run(placer4, sub_fasta, "placements_sharded_1x4.jplace")
-    if counts4["accumulate_packed_sums"] <= 0 or counts4["finish_cols_partial"] <= 0:
+    if (counts4["accumulate_packed_sums"] <= 0 or counts4["finish_cols_partial"] <= 0
+            or counts4["finish_cols_partial"] % 4):
         raise AssertionError(f"1x4: launches {counts4}")
     worst4 = compare_rows(rows4, rows, [name for name, _ in sub], "1x4 vs 1x1")
     summary["sharded_1x4_reads_per_s"] = stats4.num_seq_placed / stats4.wall_seconds
@@ -1132,10 +1175,15 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
         f"{worst4:.3g} of the 1x1 jplace [{card}]")
     del placer4
     torch.cuda.empty_cache()
-    kernel = entry("accumulate_packed_sums", counts["accumulate_packed_sums"], err, ms,
-                   plain_ms, *io, lib_ms)
-    summary.update(finish_cols_expsum_err=fin["expsum_err"], column_finish_err=fin["finish_err"])
-    return [kernel], summary
+    kernels = [entry("accumulate_packed_sums", counts["accumulate_packed_sums"], err, ms,
+                     plain_ms, *io, lib_ms),
+               # kernel A's main path: one launch per shard of every tile step;
+               # no one library call computes the column finish
+               entry("finish_cols_partial", counts["finish_cols_partial"], fin["partial_err"],
+                     fin["partial_ms"], fin["partial_plain_ms"], *fin["io_partial"], None)]
+    summary.update(finish_cols_partial_err=fin["partial_err"],
+                   column_finish_err=fin["finish_err"], sharded_tile_steps=len(tile_steps))
+    return kernels, summary
 
 
 #: phase 9's D652 configs: name, CLI flags (None: the library, with these
@@ -1257,7 +1305,7 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
     it, where the classic step runs the sums with counts + finish_topk_counts
     (the launches counted); finish_topk_counts at B = 65,537 in both forms.
     Returns each kernel's largest difference and the launches of the
-    classic steps past the limit."""
+    steps past the limits."""
     from epik_tpu_torch.engine.step import _classic_finish, _shifted_finish
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_counts, finish_topk_plain
@@ -1276,7 +1324,7 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
 
     rng = np.random.default_rng(30)
     kw = dict(K=7, k=10, log_eps=-4.2597)
-    errs = {}
+    errs, launches = {}, {}
     for B, n_rows, R, W in ((30000, 300, 256, 72), (40000, 200, 128, 72)):
         bw = -(-B // 128) * 128
         plane = rng.uniform(0.0, 8.0, (n_rows, bw)).astype(np.float32)
@@ -1313,6 +1361,9 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
                   else {"rowgather_sum": 1, "finish_topk": 1})
         if {n: c for n, c in counts.items() if c} != expect:
             raise AssertionError(f"B={B}: launches {counts}, expected {expect}")
+        if name == "rowgather_sum":
+            for n, c in expect.items():
+                launches[n] = launches.get(n, 0) + c
         e = check_finish(np, got.cpu().numpy(), want.cpu().numpy(), 7, B,
                          f"B={B} ({'fused' if name == 'rowgather_sum_topk' else 'apart'})")
         errs[name] = max(errs.get(name, 0.0), e)
@@ -1345,7 +1396,6 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
         mid = (lo + hi + 1) // 2
         need, limit = need_limit(mid)
         lo, hi = (mid, hi) if need <= limit else (lo, mid - 1)
-    launches = {}
     for cell in ("f32", "bf16"):
         for B in (lo, lo + 1):
             bw = -(-B // 128) * 128
@@ -1584,49 +1634,159 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
 
     # ---- 9d. the kernels at the widths of bigger trees -----------------------------------------
     errs, wide_launches = wide_tree_checks(torch, np, card, dev)
+    summary["wide_rowgather_sum_launches"] = wide_launches.get("rowgather_sum", 0)
     # the sums with counts apart: their launches on the classic step past the
-    # fused kernel's limit (9d; the f32 one also runs on every sharded classic
-    # step, phase 10), their times on D652's rows
+    # fused kernel's limit (9d; the f32 one also on a sharded classic shard
+    # past rowgather_sum_counts_cols's limit, phase 10), their times on D652's
+    # rows
     for sums, (err, ms, plain_ms, io_k, lib_ms, _) in apart.items():
         kernels.append(entry(sums, wide_launches[sums], err, ms, plain_ms, *io_k, lib_ms))
     return kernels, summary, errs
 
 
+def cols_limit_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
+    """Both fused column kernels at the widest shard their shared memory
+    takes (a multiple of 4 columns) and one group of four past it, through
+    the sharded step's routing (``_shifted_cols`` / ``_classic_cols``): at the
+    limit the fused kernel, past it the wrapper refusing and the gather, the
+    adds and kernel A apart, each against the fused plain version; kernel A
+    in both forms at bwl = 70,016 (ids in the global workspace). Returns each
+    kernel's largest difference and the launches of the routes past the
+    limits."""
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.finish_cols import (
+        finish_cols_partial,
+        finish_cols_partial_counts,
+        finish_cols_partial_counts_plain,
+        finish_cols_partial_plain,
+    )
+    from epik_tpu_torch.kernels.rowgather import (
+        cols_fits,
+        cols_smem,
+        counts_cols_fits,
+        rowgather_sum_cols_plain,
+        rowgather_sum_counts_cols_plain,
+    )
+    from epik_tpu_torch.parallel.sharding import _classic_cols, _shifted_cols
+    from torch_fixtures import counts_rows, finish_rows
+
+    rng = np.random.default_rng(31)
+    kw = dict(K=7, k=10, log_eps=-4.2597)
+    errs, launches = {}, {}
+    for counts in (False, True):
+        lo, hi = 256, 1 << 16
+        while lo < hi:
+            mid = (lo + hi + 4) // 8 * 4
+            need, limit = cols_smem(torch.empty((2, mid), device=dev), 7, counts)
+            lo, hi = (mid, hi) if need <= limit else (lo, mid - 4)
+        for bw in (lo, lo + 4):
+            cells = (rng.uniform(-7.0, -0.01, (120, bw)) if counts
+                     else rng.uniform(0.0, 8.0, (120, bw))).astype(np.float32)
+            cells[rng.random(cells.shape) > 0.3] = 0.0
+            cells[:, bw - 5:] = 0.0
+            cells[-1] = 0.0
+            rows = rng.integers(0, 120, (64, 72)).astype(np.int32)
+            rows[0] = 119
+            m = rng.integers(72, 112, 64).astype(np.float32)
+            m[2] = 1.0  # classic: counts above m wrap (quirk Q1)
+            reads = np.arange(1, 64, 5)
+            hit = rng.random((reads.size, bw)) < 0.2
+            hit[:, bw - 5:] = False
+            delta = np.where(hit, rng.uniform(-2.0, 6.0, hit.shape), 0.0).astype(np.float32)
+            plane, rows, m, reads, delta, hit = (torch.from_numpy(x).to(dev) for x in (
+                cells, rows, m, reads, delta, hit))
+            fits = (counts_cols_fits if counts else cols_fits)(plane, 7)
+            if fits != (bw == lo):
+                raise AssertionError(f"cols fits at bwl={bw} (counts {counts}): {fits}")
+            ckw = dict(kw, col0=bw)
+            reset_launch_counts()
+            if counts:
+                got = _classic_cols(plane, rows, m, reads, delta, hit, **ckw)
+                want = rowgather_sum_counts_cols_plain(plane, rows, m, reads, delta, hit, **ckw)
+                expect = ({"rowgather_sum_counts_cols": 1} if fits else
+                          {"rowgather_sum_counts": 1, "finish_cols_partial_counts": 1})
+            else:
+                got = _shifted_cols(plane, rows, m, reads, delta, **ckw)
+                want = rowgather_sum_cols_plain(plane, rows, m, reads, delta, **ckw)
+                expect = ({"rowgather_sum_cols": 1} if fits else
+                          {"rowgather_sum": 1, "finish_cols_partial": 1})
+            got_counts = {n: c for n, c in launch_counts().items() if c}
+            torch.cuda.synchronize()
+            if got_counts != expect:
+                raise AssertionError(f"bwl={bw} (counts {counts}): launches {got_counts}, "
+                                     f"expected {expect}")
+            e = check_partial(np, got, want, f"bwl={bw}, counts {counts}")
+            for n, c in got_counts.items():
+                errs[n] = max(errs.get(n, 0.0), e)
+                if not fits:
+                    launches[n] = launches.get(n, 0) + c
+            need, limit = cols_smem(plane, 7, counts)
+            log(f"sharded shard bwl={bw} ({'classic' if counts else 'shifted'}): the fused "
+                f"column kernel asks {need} B of shared memory of {limit} [{card}]; "
+                f"launches {got_counts}: bit-equal to the fused plain version but e_s")
+    for counts in (False, True):
+        if counts:
+            S, C, m = (torch.from_numpy(x).to(dev) for x in counts_rows(rng, 300, 70016,
+                                                                        density=0.05))
+            got = finish_cols_partial_counts(S, C, m, col0=0, **kw)
+            want = finish_cols_partial_counts_plain(S, C, m, col0=0, **kw)
+            name = "finish_cols_partial_counts"
+        else:
+            S, m = (torch.from_numpy(x).to(dev) for x in finish_rows(rng, 300, 70016,
+                                                                     density=0.05))
+            got = finish_cols_partial(S, m, col0=0, **kw)
+            want = finish_cols_partial_plain(S, m, col0=0, **kw)
+            name = "finish_cols_partial"
+        errs[name] = max(errs.get(name, 0.0), check_partial(np, got, want,
+                                                            f"{name} at bwl = 70,016"))
+    log(f"kernel A at bwl = 70,016 (ids in the global workspace), both forms: bit-equal "
+        f"but e_s [{card}]")
+    return errs, launches
+
+
 def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, dict]:
     """Phase 10 (see the module docstring). Returns the kernel entries of the
-    column finish (the D652 1x1 CLI run's launches and shapes; the largest
-    difference over every check of the phase) and the phase's summary."""
+    fused column kernels and of kernel A's counts form (the D652 CLI runs'
+    launches and shapes; the largest difference over every check of the
+    phase), the phase's summary and the launches of the gathers apart past
+    the fused kernels' limits."""
     from epik_tpu_torch.core.tree import parse_newick, to_newick
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
-    from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_plain
+    from epik_tpu_torch.kernels.finish_cols import (
+        finish_cols_partial_counts,
+        finish_cols_partial_counts_plain,
+    )
+    from epik_tpu_torch.kernels.rowgather import add_first_hits, rowgather_sum_counts
     from epik_tpu_torch.parallel import sharding as sharding_mod
     from epik_tpu_torch.parallel.mesh import make_mesh
     from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
     from epik_tpu_torch.tools.jplace_diff import parse_jplace
 
-    summary, fins = {}, {}
+    summary, checks = {}, {}
     db = d652["db"]
     tree = parse_newick(db.tree())
     newick = to_newick(tree, jplace_edges=True)
     names = [n for n, _ in d652["records"]]
-    need = ("rowgather_sum", "finish_cols_partial", "finish_cols_expsum")
+    apart = ("rowgather_sum", "rowgather_sum_counts", "finish_cols_partial",
+             "finish_cols_partial_counts", "rowgather_sum_topk", "rowgather_sum_counts_topk")
 
-    def check_counts(counts, what, want=need, never=("rowgather_sum_topk",)):
-        if any(counts[n] <= 0 for n in want) or any(counts[n] for n in never):
+    def check_counts(counts, what, fused="rowgather_sum_cols"):
+        """The fused column kernel launched, nothing apart (and, on a mesh of
+        n shards, a multiple of n launches)."""
+        if counts[fused] <= 0 or any(counts[n] for n in apart):
             raise AssertionError(f"{what}: launches {counts}")
 
     def sharded_cli(db_path, fasta, out_dir, batch, what, step_name):
         """``--engine sharded`` in process: (rows, counts, reads/s, the first
-        recorded step call, finish call and gather call)."""
+        recorded step call and fused kernel call)."""
         os.makedirs(out_dir)
         argv = ["place", "-i", db_path, "-o", out_dir, "--batch-size", str(batch), "--engine",
                 "sharded", fasta]
-        steps, fins_, gathers = [], [], []
+        steps, fused = [], []
         reset_launch_counts()
         with recording(sharding_mod, step_name, steps, limit=1), \
-                recording(sharding_mod, "finish_scores_cols_shifted", fins_, limit=1), \
-                recording(sharding_mod, "rowgather_sum", gathers, limit=1):
+                recording(sharding_mod, "rowgather_sum_cols", fused, limit=1):
             rc, cli_out, _ = run_cli(torch, argv)
         counts = launch_counts()
         log("cli: python -m epik_tpu_torch " + " ".join(argv))
@@ -1638,34 +1798,29 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         check_counts(counts, what)
         rows = parse_jplace(os.path.join(out_dir, "placements_" + os.path.basename(fasta)
                                          + ".jplace"))
-        return rows, counts, placement_ms(cli_out), steps[0], fins_[0], gathers[0]
+        return rows, counts, placement_ms(cli_out), steps[0], fused[0]
 
     # ---- 10a. D652 through the CLI, --engine sharded: a 1x1 mesh, the pair plane ------
-    rows1, counts1, pl_ms, (s_args, s_kw), (f_args, f_kw), (g_args, _) = sharded_cli(
+    rows1, counts1, pl_ms, (s_args, s_kw), f_call = sharded_cli(
         d652["db_path"], d652["fasta"], os.path.join(d652["work"], "out_sharded_1x1"), BATCH,
         "D652 sharded 1x1", "sharded_dense_paired_step")
     if set(rows1) != set(names):
         raise AssertionError("D652 sharded 1x1: jplace names differ")
     worst = check_parity(d652["oracle_out"], rows1, "D652 sharded 1x1")
     summary["d652_sharded_cli_reads_per_s"] = len(names) / pl_ms * 1e3
-    summary["d652_sharded_rowgather_sum_launches"] = counts1["rowgather_sum"]
     planes = s_args[0]
     summary["d652_sharded_step_ms"] = cuda_ms(
         torch, lambda: sharding_mod.sharded_dense_paired_step(*s_args, **s_kw), reps=5)
-    plane, rows = g_args
-    summary["d652_sharded_rowgather_sum_ms"] = cuda_ms(torch, lambda: rowgather_sum(plane, rows))
-    if not torch.equal(rowgather_sum(plane, rows), rowgather_sum_plain(plane, rows)):
-        raise AssertionError("rowgather_sum (D652 sharded 1x1): not bit-equal")
     log(f"D652 sharded 1x1 (pair plane {tuple(planes[0].shape)} f32 in one shard): "
         f"{len(names)} reads, pipeline {pl_ms} ms = "
         f"{summary['d652_sharded_cli_reads_per_s']:.0f} reads/s [{card}]; launches "
         f"{ {n: c for n, c in counts1.items() if c} }; parity on {PARITY_READS} reads: largest "
         f"score difference {worst:.3g}; sharded dense step (tokenize + amb delta rows + "
-        f"rowgather_sum + column finish) at R={s_args[2].shape[0]}: "
-        f"{summary['d652_sharded_step_ms']:.4f} ms; rowgather_sum {tuple(rows.shape)} "
-        f"{summary['d652_sharded_rowgather_sum_ms']:.4f} ms, bit-equal")
-    fins["d652_1x1"] = check_cols_finish(torch, np, *f_args, f_kw, "D652 sharded 1x1")
-    del planes, s_args, f_args, g_args, plane, rows
+        f"rowgather_sum_cols + merge) at R={s_args[2].shape[0]}: "
+        f"{summary['d652_sharded_step_ms']:.4f} ms")
+    checks["d652_1x1"] = check_cols_kernel(torch, np, "rowgather_sum_cols", f_call,
+                                           "D652 sharded 1x1")
+    del planes, s_args, f_call
     torch.cuda.empty_cache()
 
     # ---- 10b. D652 on a 1x4 mesh laid on the card ----------------------------------------
@@ -1677,12 +1832,14 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
             or placer._bwl != -(-tree.get_node_count() // 512) * 128):
         raise AssertionError(f"D652 1x4: route {placer.route}, paired {placer._paired}, "
                              f"shard width {placer._bwl}")
-    fin_calls = []
-    with recording(sharding_mod, "finish_scores_cols_shifted", fin_calls, limit=1):
+    calls4 = []
+    with recording(sharding_mod, "rowgather_sum_cols", calls4, limit=4):
         stats4, counts4, rows4 = run_placer(
             torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_1x4.jplace"),
             newick, BATCH)
     check_counts(counts4, "D652 sharded 1x4")
+    if counts4["rowgather_sum_cols"] % 4:
+        raise AssertionError(f"D652 sharded 1x4: launches {counts4}")
     worst4 = compare_rows(rows4, rows1, names, "D652 1x4 vs 1x1")
     summary["d652_sharded_1x4_reads_per_s"] = stats4.num_seq_placed / stats4.wall_seconds
     log(f"D652 sharded 1x4 on one card (4 shards of {placer._bwl} columns, "
@@ -1690,9 +1847,13 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         f"{build_s:.1f} s): {stats4.summary()}; launches "
         f"{ {n: c for n, c in counts4.items() if c} }; {len(names)} reads within "
         f"{worst4:.3g} of the 1x1 jplace [{card}]")
-    (f_args, f_kw) = fin_calls[0]
-    fins["d652_1x4"] = check_cols_finish(torch, np, *f_args, f_kw, "D652 sharded 1x4")
-    del placer, fin_calls, f_args
+    checks["d652_1x4"] = check_cols_kernel(torch, np, "rowgather_sum_cols", calls4[0],
+                                           "D652 sharded 1x4, shard 0")
+    for s, call in enumerate(calls4[1:], 1):
+        e = check_cols_kernel(torch, np, "rowgather_sum_cols", call,
+                              f"D652 sharded 1x4, shard {s}", time_it=False)
+        checks["d652_1x4"]["err"] = max(checks["d652_1x4"]["err"], e["err"])
+    del placer, calls4
     torch.cuda.empty_cache()
 
     # ---- 10c. D652 on the classic plane, 1x1, through the library ----------------------------
@@ -1700,18 +1861,53 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
                                 config=PlacerConfig(plane_mode="classic"))
     if placer.route != "dense" or placer._shifted:
         raise AssertionError(f"D652 classic: route {placer.route}, shifted {placer._shifted}")
-    stats_c, counts_c, rows_c = run_placer(
-        torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_classic.jplace"),
-        newick, BATCH)
-    check_counts(counts_c, "D652 sharded classic", want=("rowgather_sum_counts",),
-                 never=("rowgather_sum_topk", "finish_cols_partial", "finish_cols_expsum"))
+    calls_c, steps_c = [], []
+    with recording(sharding_mod, "rowgather_sum_counts_cols", calls_c, limit=1), \
+            recording(sharding_mod, "sharded_dense_bytes_step", steps_c, limit=1):
+        stats_c, counts_c, rows_c = run_placer(
+            torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_classic.jplace"),
+            newick, BATCH)
+    check_counts(counts_c, "D652 sharded classic", fused="rowgather_sum_counts_cols")
     worst_c = check_parity(d652["oracle_out"], rows_c, "D652 sharded classic")
     summary["d652_sharded_classic_reads_per_s"] = stats_c.num_seq_placed / stats_c.wall_seconds
-    summary["d652_sharded_classic_rowgather_sum_counts_launches"] = counts_c["rowgather_sum_counts"]
+    (sc_args, sc_kw) = steps_c[0]
+    summary["d652_sharded_classic_step_ms"] = cuda_ms(
+        torch, lambda: sharding_mod.sharded_dense_bytes_step(*sc_args, **sc_kw), reps=5)
     log(f"D652 sharded classic 1x1 (run_pipeline): {stats_c.summary()} [{card}]; launches "
         f"{ {n: c for n, c in counts_c.items() if c} }; parity on {PARITY_READS} reads: "
-        f"largest score difference {worst_c:.3g}")
-    del placer
+        f"largest score difference {worst_c:.3g}; sharded classic step (tokenize + first hit "
+        f"+ rowgather_sum_counts_cols + merge) at R={sc_args[2].shape[0]}: "
+        f"{summary['d652_sharded_classic_step_ms']:.4f} ms")
+    checks["d652_classic"] = check_cols_kernel(torch, np, "rowgather_sum_counts_cols",
+                                               calls_c[0], "D652 sharded classic 1x1")
+    # kernel A's counts form on the same shard's sums and counts (what the
+    # shard runs past the fused kernel's limit)
+    (plane_c, rows_cl, m_c, read_c, dS_c, hit_c), ckw = calls_c[0]
+    S_c, C_c = add_first_hits(*rowgather_sum_counts(plane_c, rows_cl), read_c, dS_c, hit_c)
+    akw = dict(K=ckw["K"], k=ckw["k"], log_eps=ckw["log_eps"], col0=ckw["col0"])
+    got = finish_cols_partial_counts(S_c, C_c, m_c, **akw)
+    again = finish_cols_partial_counts(S_c, C_c, m_c, **akw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError("finish_cols_partial_counts (D652 classic): two launches differ")
+    err_a = check_partial(np, got, finish_cols_partial_counts_plain(S_c, C_c, m_c, **akw),
+                          "finish_cols_partial_counts (D652 classic)")
+    R_c, bw_c = S_c.shape
+    Kl = min(akw["K"], bw_c)
+    touched = int((C_c > 0).sum())
+    ka = {"err": err_a, "shape": (R_c, bw_c),
+          "ms": cuda_ms(torch, lambda: finish_cols_partial_counts(S_c, C_c, m_c, **akw)),
+          "plain_ms": cuda_ms(torch, lambda: finish_cols_partial_counts_plain(
+              S_c, C_c, m_c, **akw), reps=5, warmup=1),
+          # S, C and m read once, the pack and the counts written once; a
+          # compare per column and the finish's operations per touched column
+          "io": (nbytes(S_c, C_c, m_c) + R_c * (3 * Kl + 3) * 4,
+                 R_c * bw_c + FINISH_OPS * touched)}
+    log(f"finish_cols_partial_counts {ka['shape']} (D652 classic's sums and counts, "
+        f"{touched / R_c:.1f} touched per read): bit-equal but e_s, two launches alike; "
+        f"kernel {ka['ms']:.4f} ms, plain (stable sort) {ka['plain_ms']:.4f} ms, bound "
+        f"{bound(*ka['io'])[0]:.4f} ms [{card}]")
+    del placer, calls_c, steps_c, sc_args, S_c, C_c, got, again
     torch.cuda.empty_cache()
 
     # ---- 10d. config 4 through --engine sharded: the unpaired 51.8 GB column plane -----------
@@ -1722,7 +1918,7 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     sub_fasta = os.path.join(fx["work"], "c4_sharded.fasta")
     write_fasta(sub_fasta, sub)
     t0 = time.monotonic()
-    rows_4, counts_4, pl_ms4, (s_args, s_kw), (f_args, f_kw), (g_args, _) = sharded_cli(
+    rows_4, counts_4, pl_ms4, (s_args, s_kw), f_call = sharded_cli(
         fx["c4_path"], sub_fasta, os.path.join(fx["work"], "out_sharded_c4"), BT_BATCH,
         "config 4 sharded", "sharded_dense_bytes_step")
     summary["config4_sharded_cli_s"] = time.monotonic() - t0
@@ -1733,46 +1929,43 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     summary["config4_sharded_step_ms"] = cuda_ms(
         torch, lambda: sharding_mod.sharded_dense_bytes_step(*s_args, **s_kw), reps=3)
     plane_c4 = s_args[0][0]
-    plane, rows = g_args
-    summary["config4_sharded_rowgather_sum_ms"] = cuda_ms(torch, lambda: rowgather_sum(plane, rows),
-                                                          reps=5)
-    # the distinct plane rows read once, the row ids, the sums written once;
-    # an add per gathered float (phase 4's rule)
-    io_g = (int(torch.unique(rows).numel()) * plane.shape[1] * 4 + nbytes(rows)
-            + rows.shape[0] * plane.shape[1] * 4, rows.numel() * plane.shape[1])
-    summary["config4_sharded_rowgather_sum_bound_ms"] = bound(*io_g)[0]
-    rows_long = rows.long()
-    summary["config4_sharded_embedding_bag_ms"] = cuda_ms(
-        torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane, mode="sum"), reps=5)
-    del rows_long
     log(f"config 4 sharded dense (unpaired column plane {tuple(plane_c4.shape)} f32 = "
         f"{plane_c4.numel() * 4} bytes): {len(sub)} reads, pipeline {pl_ms4} ms = "
         f"{summary['config4_sharded_cli_reads_per_s']:.0f} reads/s, whole CLI "
         f"{summary['config4_sharded_cli_s']:.1f} s [{card}]; launches "
         f"{ {n: c for n, c in counts_4.items() if c} }; parity on "
         f"{len(fx['parity_records'])} reads: largest score difference {worst_4:.3g}; sharded "
-        f"dense step at R={s_args[2].shape[0]}: {summary['config4_sharded_step_ms']:.4f} ms; "
-        f"rowgather_sum {tuple(rows.shape)} {summary['config4_sharded_rowgather_sum_ms']:.4f} ms, "
-        f"bound {summary['config4_sharded_rowgather_sum_bound_ms']:.4f} ms ({io_g[0]} bytes), "
-        f"embedding_bag {summary['config4_sharded_embedding_bag_ms']:.4f} ms")
-    fins["config4"] = check_cols_finish(torch, np, *f_args, f_kw, "config 4 sharded 1x1")
-    del s_args, f_args, g_args, plane_c4, plane, rows
+        f"dense step at R={s_args[2].shape[0]}: {summary['config4_sharded_step_ms']:.4f} ms")
+    checks["config4"] = check_cols_kernel(torch, np, "rowgather_sum_cols", f_call,
+                                          "config 4 sharded 1x1")
+    del s_args, f_call, plane_c4
     torch.cuda.empty_cache()
 
-    for name, f in fins.items():
-        summary.update({f"{name}_{key}": f[key] for key in (
-            "partial_ms", "partial_plain_ms", "expsum_ms", "expsum_plain_ms", "finish_ms",
-            "finish_plain_ms")})
-    main_fin = fins["d652_1x1"]
-    err_e = max(f["expsum_err"] for f in fins.values())
+    # ---- 10e. the fused kernels at and past their limits; kernel A past 2^16 -----------------
+    errs, past = cols_limit_checks(torch, np, card, dev)
+
+    for name, c in checks.items():
+        summary.update({f"{name}_cols_{key}": c[key] for key in ("ms", "plain_ms", "library_ms")})
+        summary[f"{name}_cols_bound_ms"] = bound(*c["io"])[0]
+    summary.update(finish_cols_partial_counts_d652_ms=ka["ms"],
+                   finish_cols_partial_counts_d652_plain_ms=ka["plain_ms"])
+    main_s, main_c = checks["d652_1x1"], checks["d652_classic"]
+    err_s = max([checks[n]["err"] for n in ("d652_1x1", "d652_1x4", "config4")]
+                + [errs.get("rowgather_sum_cols", 0.0)])
+    err_c = max(main_c["err"], errs.get("rowgather_sum_counts_cols", 0.0))
     kernels = [
-        # no one library call computes either half of the column finish
-        entry("finish_cols_partial", counts1["finish_cols_partial"], 0.0, main_fin["partial_ms"],
-              main_fin["partial_plain_ms"], *main_fin["io_partial"], None),
-        entry("finish_cols_expsum", counts1["finish_cols_expsum"], err_e, main_fin["expsum_ms"],
-              main_fin["expsum_plain_ms"], *main_fin["io_expsum"], None),
+        entry("rowgather_sum_cols", counts1["rowgather_sum_cols"], err_s, main_s["ms"],
+              main_s["plain_ms"], *main_s["io"], main_s["library_ms"]),
+        entry("rowgather_sum_counts_cols", counts_c["rowgather_sum_counts_cols"], err_c,
+              main_c["ms"], main_c["plain_ms"], *main_c["io"], main_c["library_ms"]),
+        # kernel A's counts form: its main path is a classic shard past the
+        # fused kernel's limit (10e); timed on D652 classic's sums and counts
+        entry("finish_cols_partial_counts", past.get("finish_cols_partial_counts", 0),
+              max(ka["err"], errs.get("finish_cols_partial_counts", 0.0)), ka["ms"],
+              ka["plain_ms"], *ka["io"], None),
     ]
-    return kernels, summary
+    summary["cols_past_limit_launches"] = past
+    return kernels, summary, past, errs
 
 
 def config2_fixture():
@@ -1963,7 +2156,7 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
          "rowgather_sum_topk", "sets", "(1 device(s), dense)"),
         ("int16", ["--precision", "int16"], "place_batch_dense_codes",
          "rowgather_sum_topk_int16", "jplace_diff", "(1 device(s), dense)"),
-        ("sharded", ["--engine", "sharded"], "sharded_dense_rows_step", "rowgather_sum",
+        ("sharded", ["--engine", "sharded"], "sharded_dense_rows_step", "rowgather_sum_cols",
          "sets", "sharded mesh 1x1 (dense)"),
     ]
     for name, flags, step_name, kernel, rule, line in variants:
@@ -1971,8 +2164,8 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
             torch, f"config 2 {name}", argv(f"out_{name}", *flags), records, step_name,
             kernel if name != "sharded" else "rowgather_sum_topk")
         if line not in cli_out or counts[kernel] <= 0 or (
-                name == "sharded" and (counts["rowgather_sum_topk"]
-                                       or counts["finish_cols_partial"] <= 0)):
+                name == "sharded" and (counts["rowgather_sum_topk"] or counts["rowgather_sum"]
+                                       or counts["finish_cols_partial"])):
             raise AssertionError(f"config 2 {name}: launches {counts}\n{cli_out}")
         worst = check_parity(oracle, rows, f"config 2 {name}", rule)
         summary[f"config2_{name}_cli_reads_per_s"] = rate
@@ -2302,7 +2495,7 @@ def main() -> int:
     dn_kernels, dn, extra_err = dense_phase(torch, np, card, dev, fx, d652)
 
     # ---- 10. the column-sharded dense engine -------------------------------------------------
-    sd_kernels, sd = sharded_dense_phase(torch, np, card, dev, fx, d652)
+    sd_kernels, sd, past, cols_errs = sharded_dense_phase(torch, np, card, dev, fx, d652)
 
     # ---- 11. amino (config 2) and DNA k = 14: the codes tokenizer and the radix lookup ----------
     aa_kernels, aa = amino_phase(torch, np, card, dev, d652)
@@ -2314,10 +2507,11 @@ def main() -> int:
         raise AssertionError(f"imported {imported[:5]}")
 
     kernels = [
-        # the gather alone runs on the sharded dense path (phase 10's D652 CLI
-        # run), not on the single-device one (phase 5: the fused kernel)
-        entry("rowgather_sum", sd["d652_sharded_rowgather_sum_launches"], err1, ms1, plain_ms1,
-              *io1, lib_ms1),
+        # the gather alone runs past the fused kernels' limits only: the
+        # single-device step at B = 40,000 (phase 9) and a sharded shard past
+        # rowgather_sum_cols's limit (phase 10)
+        entry("rowgather_sum", dn["wide_rowgather_sum_launches"] + past.get("rowgather_sum", 0),
+              err1, ms1, plain_ms1, *io1, lib_ms1),
         # embedding_bag computes the gather's sums alone, without the finish
         entry("rowgather_sum_topk", counts["rowgather_sum_topk"], err1f, ms1f, plain_ms1f,
               *io1f, lib_ms1),
@@ -2327,10 +2521,11 @@ def main() -> int:
         *sd_kernels,
         *aa_kernels,
     ]
-    for e in kernels:  # the wide-tree checks of phase 9
-        e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0))
-        if e["name"] == "rowgather_sum_counts":  # its main path: every sharded classic step
-            e["launches"] = sd["d652_sharded_classic_rowgather_sum_counts_launches"]
+    for e in kernels:  # the wide-tree checks of phase 9, the limit checks of phase 10
+        e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0),
+                               cols_errs.get(e["name"], 0.0))
+        if e["name"] == "rowgather_sum_counts":  # past both fused counts kernels' limits
+            e["launches"] += past.get("rowgather_sum_counts", 0)
     log(f"summary: plane_bytes={plane_bytes} step_ms={step_ms} "
         f"rowgather_sum_ms={ms1} finish_topk_d652_ms={ms2_d652} rowgather_sum_topk_ms={ms1f} "
         f"place_reads_per_s={place_rate} cli_reads_per_s={len(records) / cli_s}")

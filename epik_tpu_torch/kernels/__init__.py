@@ -9,14 +9,18 @@
   :func:`rowgather.rowgather_sum_counts_topk` and
   :func:`rowgather.rowgather_sum_counts_topk_bf16`, the sums with counts,
   the ambiguous first hit and the counts finish fused in (the classic dense
-  steps);
+  steps); :func:`rowgather.rowgather_sum_cols` and
+  :func:`rowgather.rowgather_sum_counts_cols`, one column shard's sums (shifted,
+  or classic with counts), the ambiguous first hit and the shard's column
+  finish fused in (the column-sharded dense steps);
 * :func:`finish.finish_topk` -- kernel 2, correction + LWR + top-K + pack;
   :func:`finish.finish_topk_counts`, the same over sums and exact counts
   (the CSR steps, and the classic steps past the fused kernel's limit);
 * :func:`finish_cols.finish_cols_partial` and
-  :func:`finish_cols.finish_cols_expsum` -- the column-sharded finish per
-  model shard (its touched count, maximum and top-K candidates, then its sum
-  of exponentials against the merged maximum);
+  :func:`finish_cols.finish_cols_partial_counts` -- the column-sharded finish
+  of one model shard in one launch (its touched count, maximum, sum of
+  exponentials against that maximum and top-K candidates; the counts form
+  over the classic sums and counts);
 * :func:`accumulate_packed.accumulate_packed_topk` -- kernel 3, the packed
   posting-tile accumulate fused with the finish, and
   :func:`accumulate_packed.accumulate_packed_sums`, its sums alone (the
@@ -32,11 +36,13 @@ Each wrapper counts its kernel launches in a ``launches`` attribute;
 from .accumulate_packed import accumulate_packed_sums, accumulate_packed_topk
 from .accumulate_sums import accumulate_sums, accumulate_sums_counts
 from .finish import finish_topk, finish_topk_counts
-from .finish_cols import finish_cols_expsum, finish_cols_partial
+from .finish_cols import finish_cols_partial, finish_cols_partial_counts
 from .rowgather import (
     rowgather_sum,
+    rowgather_sum_cols,
     rowgather_sum_counts,
     rowgather_sum_counts_bf16,
+    rowgather_sum_counts_cols,
     rowgather_sum_counts_topk,
     rowgather_sum_counts_topk_bf16,
     rowgather_sum_topk,
@@ -44,10 +50,11 @@ from .rowgather import (
 )
 
 __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accumulate_sums",
-           "accumulate_sums_counts", "finish_cols_expsum", "finish_cols_partial",
+           "accumulate_sums_counts", "finish_cols_partial", "finish_cols_partial_counts",
            "finish_topk", "finish_topk_counts", "launch_counts",
-           "reset_launch_counts", "rowgather_sum", "rowgather_sum_counts",
-           "rowgather_sum_counts_bf16", "rowgather_sum_counts_topk",
+           "reset_launch_counts", "rowgather_sum", "rowgather_sum_cols",
+           "rowgather_sum_counts", "rowgather_sum_counts_bf16", "rowgather_sum_counts_cols",
+           "rowgather_sum_counts_topk",
            "rowgather_sum_counts_topk_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16"]
 
 #: name -> wrapper, for every kernel of the port
@@ -61,8 +68,10 @@ KERNELS = {
     "rowgather_sum_counts_topk_bf16": rowgather_sum_counts_topk_bf16,
     "finish_topk": finish_topk,
     "finish_topk_counts": finish_topk_counts,
+    "rowgather_sum_cols": rowgather_sum_cols,
+    "rowgather_sum_counts_cols": rowgather_sum_counts_cols,
     "finish_cols_partial": finish_cols_partial,
-    "finish_cols_expsum": finish_cols_expsum,
+    "finish_cols_partial_counts": finish_cols_partial_counts,
     "accumulate_packed_topk": accumulate_packed_topk,
     "accumulate_packed_sums": accumulate_packed_sums,
     "accumulate_sums": accumulate_sums,

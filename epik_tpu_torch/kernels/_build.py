@@ -59,6 +59,14 @@ _PROTOTYPES = {
     "epik_rowgather_sum_counts_topk_smem": [_INT, _INT, _INT],
     # (cell) -> bytes, or minus a CUDA error
     "epik_rowgather_sum_counts_topk_smem_limit": [_INT],
+    # (plane, rows, m, slot, delta, hit, out, cnt, R, W, bw, K, col0, k, log_eps, counts,
+    #  stream)
+    "epik_rowgather_sum_cols": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT,
+                                _INT, _INT, _INT, _F32, _INT, _VP],
+    # (bw, K, counts) -> bytes
+    "epik_rowgather_sum_cols_smem": [_INT, _INT, _INT],
+    # (counts) -> bytes, or minus a CUDA error
+    "epik_rowgather_sum_cols_smem_limit": [_INT],
     # (R, B, K, variant, out int[3])
     "epik_finish_topk_layout": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     # (Sp, ld, m, out, R, B, K, k, log_eps, ws, blocks, stream)
@@ -69,16 +77,13 @@ _PROTOTYPES = {
                                 _INT, _INT, _INT, _F32, _INT, _VP, _INT, _VP],
     # (bwl, K) -> bytes
     "epik_finish_cols_smem": [_INT, _INT],
-    # (bwl) -> bytes, or minus a CUDA error
-    "epik_finish_cols_smem_limit": [_INT],
-    # (R, bwl, K, out int[3])
-    "epik_finish_cols_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
-    # (Sp, ld, m, out, R, bwl, K, col0, k, log_eps, ws, blocks, stream)
-    "epik_finish_cols_partial": [_VP, ctypes.c_int64, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                                 _F32, _VP, _INT, _VP],
-    # (Sp, ld, m, max_t, out, R, bwl, k, log_eps, stream)
-    "epik_finish_cols_expsum": [_VP, ctypes.c_int64, _VP, _VP, _VP, _INT, _INT, _INT, _F32,
-                                _VP],
+    # (bwl, counts) -> bytes, or minus a CUDA error
+    "epik_finish_cols_smem_limit": [_INT, _INT],
+    # (R, bwl, K, counts, out int[3])
+    "epik_finish_cols_layout": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
+    # (S, ld, C, ldc, m, out, cnt, R, bwl, K, col0, k, log_eps, ws, blocks, stream)
+    "epik_finish_cols_partial": [_VP, ctypes.c_int64, _VP, ctypes.c_int64, _VP, _VP, _VP, _INT,
+                                 _INT, _INT, _INT, _INT, _F32, _VP, _INT, _VP],
     # (p, m, out, sq, R, PP, B, K, k, log_eps, scale, stream)
     "epik_accumulate_packed_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     ctypes.c_float, ctypes.c_float, _VP],
@@ -95,6 +100,8 @@ _RESTYPES = {
     "epik_rowgather_sum_topk_smem_limit": ctypes.c_longlong,
     "epik_rowgather_sum_counts_topk_smem": ctypes.c_longlong,
     "epik_rowgather_sum_counts_topk_smem_limit": ctypes.c_longlong,
+    "epik_rowgather_sum_cols_smem": ctypes.c_longlong,
+    "epik_rowgather_sum_cols_smem_limit": ctypes.c_longlong,
     "epik_finish_cols_smem": ctypes.c_longlong,
     "epik_finish_cols_smem_limit": ctypes.c_longlong,
 }

@@ -1,45 +1,47 @@
-// The column-sharded placement finish: each model shard of a column-sharded
-// step holds the shifted sums Sp of its own bwl branch columns, and the finish
-// of epik_tpu/parallel/sharding.py::finish_scores_cols_shifted + _lwr_topk_cols
-// (an XLA function there, no Pallas kernel) runs here per shard, in two
-// launches around a merge of per-read scalars on the lead device:
+// The column-sharded placement finish of one model shard, in one launch: each
+// model shard of a column-sharded step holds the sums of its own bwl branch
+// columns, and the per-shard half of epik_tpu/parallel/sharding.py::
+// finish_scores_cols_shifted / finish_scores_cols + _lwr_topk_cols (an XLA
+// function there, no Pallas kernel) runs here; the merge of the shards'
+// per-read scalars and candidates is torch ops of the caller
+// (parallel/sharding.py::_merge_cols).
 //
-// * finish_cols_partial (launch A), per shard s and read r: the touched list
-//   of Sp[r] > 0 (finish_row.cuh's ballot and block scan), the count n_s, the
-//   largest corrected score max_s (-inf when nothing is touched) and the
-//   shard's top Kl = min(K, bwl) candidates by (value desc, local index asc),
-//   the slots past n_s holding -inf and the lowest untouched columns, as a
-//   stable sort gives; ids are written as global columns (local + col0). Out:
-//   f32 (R, 2 Kl + 2) = [values Kl | ids Kl | n_s | max_s].
-// * the merge (torch ops on the (R,) vectors): n = sum n_s, max_c = max
-//   max_s, then max_t as finish_row.cuh computes it.
-// * finish_cols_expsum (launch B), per shard: sum over the touched columns of
-//   10^(corrected - max_t), taken against the GLOBAL max_t, so each term is
-//   JAX's term; each thread adds its columns in ascending order, then one
-//   block reduction. The shards' sums are added in shard order with the
-//   (B - n) untouched term, and the shards' candidates (shards in column
-//   order) go through one more top-K; both are small torch ops.
+// finish_cols_partial, per shard s and read r, from the shifted sums Sp
+// (touched: Sp > 0, the correction finish_row.cuh's correct()) or, in the
+// counts form, from the classic sums S and exact counts C (touched: C > 0,
+// correct_counts(): m - C wrapped to 2^64 where negative, quirk Q1):
+// finish_row.cuh's cols_list over the touched list (ballot and block scan, so
+// ascending ids), i.e. the count n_s, the largest corrected score max_s (-inf
+// when nothing is touched), the shard's exp-sum against its OWN maximum,
+// e_s = sum 10^(corrected - max_s) (0 when nothing is touched), and the top
+// Kl = min(K, bwl) candidates by (value desc, local index asc), the slots past
+// n_s holding -inf and the lowest untouched columns, as a stable sort gives;
+// ids written as global columns (local + col0). Out: f32 (R, 2 Kl + 3) =
+// [values Kl | ids Kl | n_s | max_s | e_s], and in the counts form the
+// candidates' exact counts as int32 (R, Kl). JAX takes each exp term against
+// the merged max_t instead; the merge rescales, sum10 = sum_s e_s *
+// 10^(max_s - max_t), which is exactly e_s wherever max_s = max_t, so one
+// launch per shard does what took a second pass over the sums before.
 //
-// Rounding: the corrected score is finish_row.cuh's correct() (__f*_rn, built
-// with -fmad=false), so n_s, max_s, the candidates' values and ids are
-// bit-equal to the plain PyTorch version; the exp-sum's order of adds differs
-// from torch's reduction (log_sum within rtol 1e-6).
+// Rounding: the corrected score is correct() / correct_counts() (__f*_rn,
+// built with -fmad=false), so n_s, max_s, the candidates' values, ids and
+// counts are bit-equal to the plain PyTorch version; e_s's order of adds
+// differs from torch's reduction (rtol 1e-6).
 //
-// Bound on the H100: HBM bytes. Launch A reads the (R, bwl) sums once and
-// writes 2 Kl + 2 floats a read; launch B reads the sums once more (L2 holds
-// none of a 329 MB (4,096 x 20,096) matrix), so the pair moves about twice the
-// least bytes: fusing launch A into kernel 1's epilogue on the dense shards is
-// the later step.
+// Bound on the H100: HBM bytes. A launch reads the (R, bwl) sums (and counts)
+// once and writes 2 Kl + 3 floats a read. On the dense shards the same finish
+// runs in kernel 1's epilogue (rowgather_sum.cu's rowgather_sum_cols), so
+// the sums never reach HBM; this launch serves the sharded tile step and the
+// dense shards past that kernel's shared-memory limit.
 //
-// Design of launch A: finish_topk.cu's block of 512 threads per read, with
-// finish_row.cuh's list max and top-K in place of the LWR finish. Shared
-// memory: ceil(bwl / 32) mask words + bwl 16-bit ids + the warps' candidates;
-// past bwl = 2^16 the ids go to a global int32 workspace, one row of bwl per
-// block, as many blocks as fit on the card at once (each takes reads
-// blockIdx.x, blockIdx.x + gridDim.x, ...). epik_finish_cols_smem gives a
-// launch's bytes and epik_finish_cols_smem_limit what a block may take, from
-// the formula below. Launch B keeps no list: 256 threads stride a read's
-// columns, coalesced, one block per read.
+// Design: finish_topk.cu's block of 512 threads per read, with finish_row.cuh's
+// list max, one exp-sum and top-K in place of the LWR finish. Shared memory:
+// ceil(bwl / 32) mask words + bwl 16-bit ids + the warps' candidates; past
+// bwl = 2^16 the ids go to a global int32 workspace, one row of bwl per block,
+// as many blocks as fit on the card at once (each takes reads blockIdx.x,
+// blockIdx.x + gridDim.x, ...). epik_finish_cols_smem gives a launch's bytes
+// and epik_finish_cols_smem_limit what a block may take, from the formula
+// below.
 
 #include <cuda_runtime.h>
 
@@ -50,16 +52,16 @@
 
 namespace {
 
-constexpr int kThreads = 512;     // launch A
-constexpr int kSumThreads = 256;  // launch B
+constexpr int kThreads = 512;
 constexpr int kMaxSharedIds = 1 << 16;  // 16-bit ids
 
-template <bool kGlobal>
+template <bool kGlobal, bool kCounts>
 __global__ void __launch_bounds__(kThreads)
-    finish_cols_partial_kernel(const float* __restrict__ Sp, long long ld,
-                               const float* __restrict__ m, float* __restrict__ out, int R,
-                               int bwl, int K, int col0, float kf, float log_eps,
-                               int* __restrict__ ws) {
+    finish_cols_partial_kernel(const float* __restrict__ S, long long ld,
+                               const int* __restrict__ C, long long ldc,
+                               const float* __restrict__ m, float* __restrict__ out,
+                               int* __restrict__ cnt_out, int R, int bwl, int K, int col0,
+                               float kf, float log_eps, int* __restrict__ ws) {
   // mask words | ids (bwl, 16 bits, padded to 4 bytes; global: none) | candidates
   extern __shared__ unsigned mask[];
   __shared__ float red_f[32];
@@ -78,98 +80,103 @@ __global__ void __launch_bounds__(kThreads)
   const epik::FinishScratch scratch{red_f, cand_v,
                                     reinterpret_cast<int*>(cand_v) + (blockDim.x >> 5) * K};
   for (long long r = blockIdx.x; r < R; r += gridDim.x) {
-    const float* row = Sp + r * ld;
-    epik::build_mask([row](int b) { return __ldg(row + b) > 0.f; }, bwl, mask);
-    const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
+    const float* row = S + r * ld;
     const float mr = m[r];
-    const auto corr = [row, ids, mr, kf, log_eps](int i) {
-      return epik::correct(__ldg(row + ids[i]), mr, kf, log_eps);
-    };
-    const float max_s = epik::list_max(corr, n, red_f);
-    float* orow = out + r * (2LL * K + 2);
-    const bool lead = epik::topk_list(corr, ids, n, K, scratch,
-                                      [orow, K, col0](int j, float v, int b) {
-                                        orow[j] = v;
-                                        orow[K + j] = static_cast<float>(b + col0);
-                                      });
-    if (lead && threadIdx.x == 0) {
-      orow[2 * K] = static_cast<float>(n);
-      orow[2 * K + 1] = max_s;
+    float* orow = out + r * (2LL * K + 3);
+    if constexpr (kCounts) {
+      const int* crow = C + r * ldc;
+      epik::build_mask([crow](int b) { return __ldg(crow + b) > 0; }, bwl, mask);
+      const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
+      epik::cols_list(
+          [row, crow, ids, mr, kf, log_eps](int i) {
+            const int b = static_cast<int>(ids[i]);
+            return epik::correct_counts(__ldg(row + b), __ldg(crow + b), mr, kf, log_eps);
+          },
+          ids, n, K, col0, scratch, orow, cnt_out + r * K,
+          [crow](int b) { return __ldg(crow + b); });
+    } else {
+      epik::build_mask([row](int b) { return __ldg(row + b) > 0.f; }, bwl, mask);
+      const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
+      epik::cols_list(
+          [row, ids, mr, kf, log_eps](int i) {
+            return epik::correct(__ldg(row + ids[i]), mr, kf, log_eps);
+          },
+          ids, n, K, col0, scratch, orow, nullptr, [](int) { return 0; });
     }
     __syncthreads();  // warp 0 is done with the list and the candidates
   }
 }
 
-__global__ void __launch_bounds__(kSumThreads)
-    finish_cols_expsum_kernel(const float* __restrict__ Sp, long long ld,
-                              const float* __restrict__ m, const float* __restrict__ max_t,
-                              float* __restrict__ out, int bwl, float kf, float log_eps) {
-  __shared__ float red_f[32];
-  const long long r = blockIdx.x;
-  const float* row = Sp + r * ld;
-  const float mr = m[r], mt = max_t[r];
-  float sum = 0.f;
-  for (int b = threadIdx.x; b < bwl; b += blockDim.x) {
-    const float s = __ldg(row + b);
-    if (s > 0.f) {
-      sum += expf(__fmul_rn(__fsub_rn(epik::correct(s, mr, kf, log_eps), mt), epik::kLn10));
-    }
-  }
-  sum = epik::block_sum(sum, red_f);
-  if (threadIdx.x == 0) out[r] = sum;
-}
-
-// Dynamic shared memory of a launch A at (bwl, K): the mask words, the 16-bit
+// Dynamic shared memory of a launch at (bwl, K): the mask words, the 16-bit
 // ids unless they go to the global workspace, and the warps' candidates.
 size_t partial_smem(int bwl, int K, bool global) {
   const size_t words = static_cast<size_t>((bwl + 31) / 32) + (global ? 0 : (bwl + 1) / 2);
   return words * sizeof(int) + epik::cand_bytes(kThreads, K);
 }
 
-template <bool kGlobal>
+template <bool kGlobal, bool kCounts>
 long long partial_smem_limit() {
   int dev = 0, optin = 0;
   cudaFuncAttributes attr;
   if (cudaGetDevice(&dev) != cudaSuccess ||
       cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
           cudaSuccess ||
-      cudaFuncGetAttributes(&attr, finish_cols_partial_kernel<kGlobal>) != cudaSuccess) {
+      cudaFuncGetAttributes(&attr, finish_cols_partial_kernel<kGlobal, kCounts>) !=
+          cudaSuccess) {
     return -static_cast<long long>(cudaGetLastError());
   }
   return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
 }
 
-template <bool kGlobal>
-cudaError_t allow_smem(size_t smem) {  // always: the 48 KB default counts static bytes too
-  return cudaFuncSetAttribute(finish_cols_partial_kernel<kGlobal>,
+// always: the 48 KB a launch may take without opting in count static bytes too
+template <bool kGlobal, bool kCounts>
+cudaError_t allow_smem(size_t smem) {
+  return cudaFuncSetAttribute(finish_cols_partial_kernel<kGlobal, kCounts>,
                               cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(smem));
 }
 
+cudaError_t allow(bool global, bool counts, size_t smem) {
+  if (global) return counts ? allow_smem<true, true>(smem) : allow_smem<true, false>(smem);
+  return counts ? allow_smem<false, true>(smem) : allow_smem<false, false>(smem);
+}
+
+template <bool kCounts>
+cudaError_t blocks_per_sm(bool global, size_t smem, int* per_sm) {
+  return global ? cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      per_sm, finish_cols_partial_kernel<true, kCounts>, kThreads, smem)
+                : cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                      per_sm, finish_cols_partial_kernel<false, kCounts>, kThreads, smem);
+}
+
 }  // namespace
 
-// Bytes of dynamic shared memory a finish_cols_partial launch at (bwl, K) asks.
+// Bytes of dynamic shared memory a finish_cols_partial launch at (bwl, K) asks
+// (either form: the counts stay in device memory).
 extern "C" long long epik_finish_cols_smem(int bwl, int K) {
   return static_cast<long long>(partial_smem(bwl, K, bwl > kMaxSharedIds));
 }
 
-// Bytes of dynamic shared memory a finish_cols_partial block at this width may
-// take on the current device: the opt-in limit less the kernel's static
-// shared memory. Negative: minus a CUDA error code.
-extern "C" long long epik_finish_cols_smem_limit(int bwl) {
-  return bwl > kMaxSharedIds ? partial_smem_limit<true>() : partial_smem_limit<false>();
+// Bytes of dynamic shared memory a finish_cols_partial block at this width
+// may take on the current device (`counts`: the counts form): the opt-in limit
+// less the kernel's static shared memory. Negative: minus a CUDA error code.
+extern "C" long long epik_finish_cols_smem_limit(int bwl, int counts) {
+  const bool global = bwl > kMaxSharedIds;
+  if (global) return counts ? partial_smem_limit<true, true>() : partial_smem_limit<true, false>();
+  return counts ? partial_smem_limit<false, true>() : partial_smem_limit<false, false>();
 }
 
-// The launch layout of epik_finish_cols_partial for R reads of bwl columns:
-// out[0] = 1 when the ids go to a global workspace (bwl > 2^16), else 0;
-// out[1] = the blocks (R, or with the workspace as many as fit on the card at
-// once, at most R); out[2] = the workspace's int32 ids (out[1] * bwl, or 0).
-// The caller has checked epik_finish_cols_smem against
-// epik_finish_cols_smem_limit. Returns a CUDA error code.
-extern "C" int epik_finish_cols_layout(int R, int bwl, int K, int* out) {
+// The launch layout of epik_finish_cols_partial for R reads of bwl columns
+// (`counts`: the counts form): out[0] = 1 when the ids go to a global
+// workspace (bwl > 2^16), else 0; out[1] = the blocks (R, or with the
+// workspace as many as fit on the card at once, at most R); out[2] = the
+// workspace's int32 ids (out[1] * bwl, or 0). The caller has checked
+// epik_finish_cols_smem against epik_finish_cols_smem_limit. Returns a CUDA
+// error code.
+extern "C" int epik_finish_cols_layout(int R, int bwl, int K, int counts, int* out) {
   const bool global = bwl > kMaxSharedIds;
   const size_t smem = partial_smem(bwl, K, global);
-  const cudaError_t err = global ? allow_smem<true>(smem) : allow_smem<false>(smem);
+  const cudaError_t err = allow(global, counts != 0, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = global ? 1 : 0;
   out[1] = R;
@@ -179,8 +186,8 @@ extern "C" int epik_finish_cols_layout(int R, int bwl, int K, int* out) {
     cudaError_t e = cudaGetDevice(&dev);
     if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     if (e == cudaSuccess) {
-      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-          &per_sm, finish_cols_partial_kernel<true>, kThreads, smem);
+      e = counts ? blocks_per_sm<true>(true, smem, &per_sm)
+                 : blocks_per_sm<false>(true, smem, &per_sm);
     }
     if (e != cudaSuccess) return static_cast<int>(e);
     if (per_sm < 1) return static_cast<int>(cudaErrorInvalidValue);
@@ -190,47 +197,47 @@ extern "C" int epik_finish_cols_layout(int R, int bwl, int K, int* out) {
   return static_cast<int>(cudaSuccess);
 }
 
-// Launch A. Sp: f32 rows of stride `ld` floats, bwl used columns; m: f32 (R,)
-// window counts; out: f32 (R, 2K+2); 1 <= K <= min(64, bwl); col0: the
-// shard's first global column; ws and blocks from epik_finish_cols_layout
-// (ws null when its out[2] is 0). Launches on `stream`; returns
-// cudaGetLastError().
-extern "C" int epik_finish_cols_partial(const void* Sp, long long ld, const void* m, void* out,
+// S: f32 rows of stride `ld` floats, bwl used columns (the shifted sums, or
+// the classic sums with C); C: int32 rows of stride `ldc` (the exact counts:
+// the counts form), or null (the shifted form); m: f32 (R,) window counts;
+// out: f32 (R, 2K+3); cnt: int32 (R, K), the counts form's candidate counts
+// (null otherwise); 1 <= K <= min(64, bwl); col0: the shard's first global
+// column; ws and blocks from epik_finish_cols_layout (ws null when its out[2]
+// is 0). Launches on `stream`; returns cudaGetLastError().
+extern "C" int epik_finish_cols_partial(const void* S, long long ld, const void* C,
+                                        long long ldc, const void* m, void* out, void* cnt,
                                         int R, int bwl, int K, int col0, int k, float log_eps,
                                         void* ws, int blocks, void* stream) {
   const bool global = bwl > kMaxSharedIds;
-  if (global && ws == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  const bool counts = C != nullptr;
+  if ((global && ws == nullptr) || counts != (cnt != nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
   const size_t smem = partial_smem(bwl, K, global);
-  const cudaError_t err = global ? allow_smem<true>(smem) : allow_smem<false>(smem);
+  const cudaError_t err = allow(global, counts, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   if (R > 0 && blocks > 0) {
     const auto s = static_cast<cudaStream_t>(stream);
-    const auto* sp = static_cast<const float*>(Sp);
+    const auto* sp = static_cast<const float*>(S);
+    const auto* cp = static_cast<const int*>(C);
     const auto* mp = static_cast<const float*>(m);
     auto* op = static_cast<float*>(out);
-    if (global) {
-      finish_cols_partial_kernel<true><<<blocks, kThreads, smem, s>>>(
-          sp, ld, mp, op, R, bwl, K, col0, static_cast<float>(k), log_eps,
-          static_cast<int*>(ws));
+    auto* np = static_cast<int*>(cnt);
+    auto* wp = static_cast<int*>(ws);
+    const float kf = static_cast<float>(k);
+    if (global && counts) {
+      finish_cols_partial_kernel<true, true><<<blocks, kThreads, smem, s>>>(
+          sp, ld, cp, ldc, mp, op, np, R, bwl, K, col0, kf, log_eps, wp);
+    } else if (global) {
+      finish_cols_partial_kernel<true, false><<<blocks, kThreads, smem, s>>>(
+          sp, ld, nullptr, 0, mp, op, nullptr, R, bwl, K, col0, kf, log_eps, wp);
+    } else if (counts) {
+      finish_cols_partial_kernel<false, true><<<blocks, kThreads, smem, s>>>(
+          sp, ld, cp, ldc, mp, op, np, R, bwl, K, col0, kf, log_eps, nullptr);
     } else {
-      finish_cols_partial_kernel<false><<<blocks, kThreads, smem, s>>>(
-          sp, ld, mp, op, R, bwl, K, col0, static_cast<float>(k), log_eps, nullptr);
+      finish_cols_partial_kernel<false, false><<<blocks, kThreads, smem, s>>>(
+          sp, ld, nullptr, 0, mp, op, nullptr, R, bwl, K, col0, kf, log_eps, nullptr);
     }
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// Launch B. Sp, ld, m as above; max_t: f32 (R,) the merged maxima; out: f32
-// (R,) each read's sum of 10^(corrected - max_t) over the shard's touched
-// columns. Launches on `stream`; returns cudaGetLastError().
-extern "C" int epik_finish_cols_expsum(const void* Sp, long long ld, const void* m,
-                                       const void* max_t, void* out, int R, int bwl, int k,
-                                       float log_eps, void* stream) {
-  if (R > 0) {
-    finish_cols_expsum_kernel<<<R, kSumThreads, 0, static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(Sp), ld, static_cast<const float*>(m),
-        static_cast<const float*>(max_t), static_cast<float*>(out), bwl,
-        static_cast<float>(k), log_eps);
   }
   return static_cast<int>(cudaGetLastError());
 }

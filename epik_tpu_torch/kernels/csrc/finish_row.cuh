@@ -1,7 +1,8 @@
 // The per-read placement finish, shared by finish_topk.cu,
 // accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk,
-// rowgather_sum_counts_topk) and, through its list max and top-K alone,
-// finish_cols.cu (the column-sharded finish): score correction, LWR log-sum
+// rowgather_sum_counts_topk, and through cols_list rowgather_sum_cols and
+// rowgather_sum_counts_cols) and, through cols_list, finish_cols.cu (the
+// column-sharded finish of one shard): score correction, LWR log-sum
 // over all branches and top-K, written into one row of the slim result pack
 // [scores K | idx K | log_sum | n | zero_sum] (SlimRow) or of the full pack's
 // body [scores K | wr K | idx K | counts K | n | zero_sum] (FullRow). Math,
@@ -363,6 +364,41 @@ __device__ void finish_list(Corr corr, const Id* ids, int n, int B, int K,
     out.slot(j, v, b, log_sum, zero_sum);
   });
   if (lead && (threadIdx.x & 31) == 0) out.tail(log_sum, n, zero_sum);
+}
+
+// The column-sharded finish of one read over one shard's touched list, the
+// per-shard half of epik_tpu/parallel/sharding.py::_lwr_topk_cols: `ids`
+// holds the shard's n touched local columns in ascending order and `corr(i)`
+// the corrected score of entry i (finite). Lane 0 of warp 0 writes the
+// shard's partial pack row [values K | global ids K | n_s | max_s | e_s]:
+// the top K as topk_list gives them (ties to the lowest column; past n the
+// lowest untouched columns at -inf), each id written as local + col0; max_s
+// the list's largest score (-inf when n == 0); e_s = sum over the list of
+// 10^(corrected - max_s) (0 when n == 0), one block reduction. The merge
+// rescales each e_s by 10^(max_s - max_t), exactly 1 where max_s = max_t.
+// With `crow`, the candidates' exact counts count(local id) go there (the
+// classic form; 0 for the untouched slots). Ends with the output written by
+// warp 0; the caller synchronises before reusing the list or the scratch.
+template <class Corr, class Id, class Count>
+__device__ void cols_list(Corr corr, const Id* ids, int n, int K, int col0, FinishScratch s,
+                          float* orow, int* crow, Count count) {
+  const float max_s = list_max(corr, n, s.red_f);
+  float sum_loc = 0.f;
+  for (int i = threadIdx.x; i < n; i += blockDim.x) {
+    sum_loc += expf(__fmul_rn(__fsub_rn(corr(i), max_s), kLn10));
+  }
+  const float e_s = block_sum(sum_loc, s.red_f);
+  const bool lead = topk_list(corr, ids, n, K, s, [orow, crow, count, K, col0](int j, float v,
+                                                                              int b) {
+    orow[j] = v;
+    orow[K + j] = static_cast<float>(b + col0);
+    if (crow != nullptr) crow[j] = count(b);
+  });
+  if (lead && threadIdx.x == 0) {
+    orow[2 * K] = static_cast<float>(n);
+    orow[2 * K + 1] = max_s;
+    orow[2 * K + 2] = e_s;
+  }
 }
 
 // Bytes of dynamic shared memory FinishScratch's candidates take.

@@ -77,6 +77,29 @@
 //   epik_rowgather_sum_counts + epik_finish_topk_counts (the same bits).
 //   Bound on the H100: the distinct plane rows, the row ids, m, the
 //   ambiguous rows and the pack (no S/C write).
+// * epik_rowgather_sum_cols (f32; `counts`: the classic sums with counts):
+//   one model shard of a column-sharded dense step (epik_tpu/parallel/
+//   sharding.py::_sharded_dense_*_step: dense_sums_shifted or
+//   dense_sums_from_rows over the shard's bwl columns, _apply_amb, then the
+//   shard's half of finish_scores_cols[_shifted] + _lwr_topk_cols), so the
+//   shard's (R, bwl) sums never reach HBM:
+//   - the same gather and ambiguous adds as epik_rowgather_sum_topk (shifted:
+//     the delta row, one __fadd_rn per column) or
+//     epik_rowgather_sum_counts_topk (classic: S + dS, C + hit), at B = bwl;
+//   - finish_cols.cu's finish over the read's touched columns (Sp > 0, or
+//     C > 0 with correct_counts), through finish_row.cuh's cols_list: the
+//     read's partial pack row [values Kl | global ids Kl | n_s | max_s | e_s]
+//     with e_s against the shard's own max_s, and the classic form's
+//     candidate counts (int32 (R, Kl)).
+//   Shared memory: the layout of rowgather_sum_topk (shifted) or
+//   rowgather_sum_counts_topk (classic) at B = bwl: about 9 KB at D652's
+//   bwl 1,408, 123 KB shifted and 204 KB classic at config 4's bwl 20,096,
+//   so bwl near 37,000 (shifted) and 22,000 (classic) at most:
+//   epik_rowgather_sum_cols_smem and _smem_limit state it, and past it the
+//   sharded step runs the gather, the same adds and finish_cols.cu's launch
+//   apart (the same bits but e_s's order of adds). Bound on the H100: the
+//   distinct plane rows, the row ids, m, the ambiguous rows and the partial
+//   pack (no (R, bwl) write), as for the fused kernels at the same shape.
 
 #include <cuda_runtime.h>
 
@@ -208,32 +231,36 @@ __global__ void rowgather_sum_counts_kernel(const T* __restrict__ plane,
   }
 }
 
-// The placement finish fused after the gather. kCounts: the classic plane's
-// sums and counts into the full pack's body; else the shifted sums into the
-// slim pack.
-template <class T, bool kCounts>
-__global__ void rowgather_sum_topk_kernel(
-    const T* __restrict__ plane, const int32_t* __restrict__ rows,
-    const float* __restrict__ m, const int32_t* __restrict__ slot,
-    const float* __restrict__ delta, const uint8_t* __restrict__ hit,
-    float* __restrict__ out, int W, int bw4, int B, int K, float kf, float log_eps,
-    float scale) {
-  // bw sums | bw counts (kCounts) | mask words | ids (B, 16 bits, padded to 4
-  // bytes) | candidates
-  extern __shared__ float4 sums4[];
-  __shared__ long long off[kTileW];
-  __shared__ float red_f[32];
-  __shared__ int red_i[32];
-  const int nwords = (B + 31) >> 5;
-  float* sums = reinterpret_cast<float*>(sums4);
-  int4* cnts4 = reinterpret_cast<int4*>(sums4 + bw4);
-  const int* cnts = reinterpret_cast<const int*>(cnts4);
-  unsigned* mask = reinterpret_cast<unsigned*>(sums + (kCounts ? 8 : 4) * bw4);
-  uint16_t* ids = reinterpret_cast<uint16_t*>(mask + nwords);
-  float* cand_v = reinterpret_cast<float*>(mask + nwords + (B + 1) / 2);
-  const epik::FinishScratch scratch{red_f, cand_v,
-                                    reinterpret_cast<int*>(cand_v) + (blockDim.x >> 5) * K};
-  const long long r = blockIdx.x;
+// The shared memory of a fused kernel's block: bw sums | bw counts (kCounts)
+// | mask words | ids (B, 16 bits, padded to 4 bytes) | candidates.
+template <bool kCounts>
+struct FusedSmem {
+  float4* sums4;
+  int4* cnts4;
+  unsigned* mask;
+  uint16_t* ids;
+  epik::FinishScratch scratch;
+  __device__ FusedSmem(float4* base, int bw4, int B, int K, float* red_f) {
+    const int nwords = (B + 31) >> 5;
+    sums4 = base;
+    cnts4 = reinterpret_cast<int4*>(base + bw4);
+    mask = reinterpret_cast<unsigned*>(reinterpret_cast<float*>(base) + (kCounts ? 8 : 4) * bw4);
+    ids = reinterpret_cast<uint16_t*>(mask + nwords);
+    float* cand_v = reinterpret_cast<float*>(mask + nwords + (B + 1) / 2);
+    scratch = {red_f, cand_v, reinterpret_cast<int*>(cand_v) + (blockDim.x >> 5) * K};
+  }
+};
+
+// Read r's sums (an int16 plane's dequantized) and, kCounts, its counts into
+// the block's shared memory, in window order; then the read's ambiguous first
+// hit, if `slot` gives it one: the delta row added with one __fadd_rn per
+// branch b < B (and, kCounts, `hit` added to the counts). Every thread of the
+// block must call it; ends synchronised.
+template <bool kCounts, class T>
+__device__ void stage_read(const T* __restrict__ plane, const int32_t* __restrict__ rows,
+                           const int32_t* __restrict__ slot, const float* __restrict__ delta,
+                           const uint8_t* __restrict__ hit, long long r, int W, int bw4, int B,
+                           float scale, long long* off, float4* sums4, int4* cnts4) {
   const int32_t* rrow = rows + r * W;
   for (int c0 = 0; c0 < bw4; c0 += blockDim.x) {
     const int c = c0 + threadIdx.x;
@@ -248,6 +275,7 @@ __global__ void rowgather_sum_topk_kernel(
   const int a = slot != nullptr ? slot[r] : -1;
   if (a >= 0) {  // the ambiguous first hit of this read
     __syncthreads();
+    float* sums = reinterpret_cast<float*>(sums4);
     const float* drow = delta + static_cast<long long>(a) * B;
     for (int b = threadIdx.x; b < B; b += blockDim.x) {
       sums[b] = __fadd_rn(sums[b], drow[b]);
@@ -257,6 +285,32 @@ __global__ void rowgather_sum_topk_kernel(
     }
   }
   __syncthreads();
+}
+
+// The placement finish fused after the gather. kCounts: the classic plane's
+// sums and counts into the full pack's body; else the shifted sums into the
+// slim pack.
+template <class T, bool kCounts>
+__global__ void rowgather_sum_topk_kernel(
+    const T* __restrict__ plane, const int32_t* __restrict__ rows,
+    const float* __restrict__ m, const int32_t* __restrict__ slot,
+    const float* __restrict__ delta, const uint8_t* __restrict__ hit,
+    float* __restrict__ out, int W, int bw4, int B, int K, float kf, float log_eps,
+    float scale) {
+  extern __shared__ float4 sums4[];
+  __shared__ long long off[kTileW];
+  __shared__ float red_f[32];
+  __shared__ int red_i[32];
+  const FusedSmem<kCounts> sm(sums4, bw4, B, K, red_f);
+  const int nwords = (B + 31) >> 5;
+  const float* sums = reinterpret_cast<const float*>(sums4);
+  const int* cnts = reinterpret_cast<const int*>(sm.cnts4);
+  unsigned* mask = sm.mask;
+  uint16_t* ids = sm.ids;
+  const epik::FinishScratch scratch = sm.scratch;
+  const long long r = blockIdx.x;
+  stage_read<kCounts>(plane, rows, slot, delta, hit, r, W, bw4, B, scale, off, sums4,
+                      sm.cnts4);
   const float mr = m[r];
   if constexpr (kCounts) {
     epik::build_mask([cnts](int b) { return cnts[b] > 0; }, B, mask);
@@ -275,6 +329,51 @@ __global__ void rowgather_sum_topk_kernel(
           return epik::correct(sums[ids[i]], mr, kf, log_eps);
         },
         ids, n, B, K, mr, kf, log_eps, scratch, epik::SlimRow{out + r * (2LL * K + 3), K});
+  }
+}
+
+// One model shard's gather, ambiguous adds and column finish, over an f32
+// plane of bw = 4 bw4 columns (B = bw): the partial pack row of
+// finish_row.cuh's cols_list (f32 (R, 2K+3)) and, kCounts, the candidates'
+// counts (int32 (R, K)).
+template <bool kCounts>
+__global__ void rowgather_sum_cols_kernel(
+    const float* __restrict__ plane, const int32_t* __restrict__ rows,
+    const float* __restrict__ m, const int32_t* __restrict__ slot,
+    const float* __restrict__ delta, const uint8_t* __restrict__ hit,
+    float* __restrict__ out, int* __restrict__ cnt_out, int W, int bw4, int K, int col0,
+    float kf, float log_eps) {
+  extern __shared__ float4 sums4[];
+  __shared__ long long off[kTileW];
+  __shared__ float red_f[32];
+  __shared__ int red_i[32];
+  const int bw = 4 * bw4;
+  const FusedSmem<kCounts> sm(sums4, bw4, bw, K, red_f);
+  const int nwords = (bw + 31) >> 5;
+  const float* sums = reinterpret_cast<const float*>(sums4);
+  const int* cnts = reinterpret_cast<const int*>(sm.cnts4);
+  uint16_t* ids = sm.ids;
+  const long long r = blockIdx.x;
+  stage_read<kCounts>(plane, rows, slot, delta, hit, r, W, bw4, bw, 1.f, off, sums4,
+                      sm.cnts4);
+  const float mr = m[r];
+  float* orow = out + r * (2LL * K + 3);
+  if constexpr (kCounts) {
+    epik::build_mask([cnts](int b) { return cnts[b] > 0; }, bw, sm.mask);
+    const int n = epik::compact_mask(sm.mask, nwords, ids, red_i, false);
+    epik::cols_list(
+        [sums, cnts, ids, mr, kf, log_eps](int i) {
+          return epik::correct_counts(sums[ids[i]], cnts[ids[i]], mr, kf, log_eps);
+        },
+        ids, n, K, col0, sm.scratch, orow, cnt_out + r * K, [cnts](int b) { return cnts[b]; });
+  } else {
+    epik::build_mask([sums](int b) { return sums[b] > 0.f; }, bw, sm.mask);
+    const int n = epik::compact_mask(sm.mask, nwords, ids, red_i, false);
+    epik::cols_list(
+        [sums, ids, mr, kf, log_eps](int i) {
+          return epik::correct(sums[ids[i]], mr, kf, log_eps);
+        },
+        ids, n, K, col0, sm.scratch, orow, nullptr, [](int) { return 0; });
   }
 }
 
@@ -305,6 +404,42 @@ long long topk_smem_limit() {
     return -static_cast<long long>(cudaGetLastError());
   }
   return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
+}
+
+template <bool kCounts>
+long long cols_smem_limit() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, rowgather_sum_cols_kernel<kCounts>) != cudaSuccess) {
+    return -static_cast<long long>(cudaGetLastError());
+  }
+  return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
+}
+
+template <bool kCounts>
+int launch_cols(const void* plane, const void* rows, const void* m, const void* slot,
+                const void* delta, const void* hit, void* out, void* cnt, int R, int W, int bw,
+                int K, int col0, int k, float log_eps, cudaStream_t stream) {
+  if (bw > (1 << 16)) return static_cast<int>(cudaErrorInvalidValue);  // 16-bit ids
+  const int bw4 = bw / 4;
+  const size_t smem = topk_smem(bw, bw, K, kCounts);
+  // always: the 8 KB of staged row offsets count against the 48 KB default
+  const cudaError_t err = cudaFuncSetAttribute(rowgather_sum_cols_kernel<kCounts>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R > 0 && bw4 > 0) {
+    rowgather_sum_cols_kernel<kCounts><<<R, gather_threads(bw4), smem, stream>>>(
+        static_cast<const float*>(plane), static_cast<const int32_t*>(rows),
+        static_cast<const float*>(m), static_cast<const int32_t*>(slot),
+        static_cast<const float*>(delta), static_cast<const uint8_t*>(hit),
+        static_cast<float*>(out), static_cast<int*>(cnt), W, bw4, K, col0,
+        static_cast<float>(k), log_eps);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 template <class T>
@@ -454,6 +589,44 @@ extern "C" long long epik_rowgather_sum_counts_topk_smem_limit(int cell) {
   if (cell == kF32) return topk_smem_limit<float, true>();
   if (cell == kBf16) return topk_smem_limit<Bf16, true>();
   return -static_cast<long long>(cudaErrorInvalidValue);
+}
+
+// plane: f32 (n_rows, bw), as above; rows: int32 (R, W); m: f32 (R,) window
+// counts; slot: int32 (R,), the read's row of `delta` (and `hit`) or -1, or
+// null; delta: f32 (A, bw), the shifted delta rows or, with `counts`, the
+// classic first hits' contributions; hit: uint8 (A, bw), where a classic first
+// hit lands (`counts` only); out: f32 (R, 2K+3), the shard's partial pack;
+// cnt: int32 (R, K), the candidates' counts (`counts` only, else null); col0:
+// the shard's first global column. bw <= 2^16, 1 <= K <= min(64, bw), and
+// epik_rowgather_sum_cols_smem(bw, K, counts) <=
+// epik_rowgather_sum_cols_smem_limit(counts). Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int epik_rowgather_sum_cols(const void* plane, const void* rows, const void* m,
+                                       const void* slot, const void* delta, const void* hit,
+                                       void* out, void* cnt, int R, int W, int bw, int K,
+                                       int col0, int k, float log_eps, int counts,
+                                       void* stream) {
+  const auto s = static_cast<cudaStream_t>(stream);
+  if ((counts != 0) != (cnt != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
+  if (counts) {
+    return launch_cols<true>(plane, rows, m, slot, delta, hit, out, cnt, R, W, bw, K, col0, k,
+                             log_eps, s);
+  }
+  return launch_cols<false>(plane, rows, m, slot, delta, nullptr, out, nullptr, R, W, bw, K,
+                            col0, k, log_eps, s);
+}
+
+// Bytes of dynamic shared memory a rowgather_sum_cols launch at (bw, K) asks
+// (`counts`: the classic form): the fused kernels' layout at B = bw.
+extern "C" long long epik_rowgather_sum_cols_smem(int bw, int K, int counts) {
+  return static_cast<long long>(topk_smem(bw, bw, K, counts != 0));
+}
+
+// Bytes of dynamic shared memory a rowgather_sum_cols block may take on the
+// current device (`counts`: the classic form): the opt-in limit less the
+// kernel's static shared memory. Negative: minus a CUDA error code.
+extern "C" long long epik_rowgather_sum_cols_smem_limit(int counts) {
+  return counts ? cols_smem_limit<true>() : cols_smem_limit<false>();
 }
 
 extern "C" const char* epik_cuda_error_string(int err) {

@@ -1,24 +1,30 @@
-"""The column-sharded placement finish, per model shard, in two launches.
+"""The column-sharded placement finish of one model shard, in one launch.
 
 A column-sharded step (``parallel/sharding.py``) leaves each model shard the
-shifted sums Sp (R, bwl) of its own branch columns. The finish of
-``epik_tpu/parallel/sharding.py::finish_scores_cols_shifted`` +
-``_lwr_topk_cols`` (an XLA function there, no Pallas kernel) runs per shard
-around a merge of per-read scalars:
+sums of its own bwl branch columns. The per-shard half of
+``epik_tpu/parallel/sharding.py::finish_scores_cols_shifted`` /
+``finish_scores_cols`` + ``_lwr_topk_cols`` (an XLA function there, no Pallas
+kernel) runs here, per read, into the shard's partial pack, f32 (R, 2 Kl + 3)
+= ``[values Kl | global ids Kl | n_s | max_s | e_s]`` with Kl = min(K, bwl):
 
-* :func:`finish_cols_partial` -- per read, the shard's touched count ``n_s``,
-  its largest corrected score ``max_s`` (-inf when nothing is touched) and its
-  top ``Kl = min(K, bwl)`` candidates (ties to the lowest column, the slots
-  past ``n_s`` holding -inf and the lowest untouched columns) with global
-  column ids, as f32 (R, 2 Kl + 2) = ``[values Kl | ids Kl | n_s | max_s]``;
-* :func:`finish_cols_expsum` -- per read, the sum over the shard's touched
-  columns of ``10**(corrected - max_t)`` against the merged (global) ``max_t``.
+* ``n_s``, the shard's touched count; ``max_s``, its largest corrected score
+  (-inf when nothing is touched); ``e_s``, the sum over its touched columns
+  of ``10**(corrected - max_s)``, against the shard's OWN maximum (0 when
+  nothing is touched);
+* the shard's top Kl candidates, ties to the lowest column, the slots past
+  ``n_s`` holding -inf and the lowest untouched columns, ids written as
+  global columns (local + ``col0``).
 
-The merge, the untouched term, ``log_sum`` and the last top-K over the
-shards' candidates are torch ops of the caller (``parallel/sharding.py::
-finish_scores_cols_shifted``). ``csrc/finish_cols.cu`` holds both kernels;
-each wrapper runs its plain PyTorch version below on a CPU tensor and its
-kernel on a CUDA tensor (or raises).
+:func:`finish_cols_partial` takes the shifted sums (touched: Sp > 0);
+:func:`finish_cols_partial_counts` the classic sums and exact counts
+(touched: C > 0, ``m - C`` wrapped to 2**64 where negative, quirk Q1) and
+also returns the candidates' counts, int32 (R, Kl). The merge (the caller's
+``parallel/sharding.py::_merge_cols``) rescales each ``e_s`` by
+``10**(max_s - max_t)`` against the merged maximum. ``csrc/finish_cols.cu``
+holds the kernel (both forms); each wrapper runs its plain PyTorch version
+below on a CPU tensor and the kernel on a CUDA tensor (or raises). On the
+dense shards the same finish runs in kernel 1's epilogue
+(``rowgather.rowgather_sum_cols`` / ``rowgather_sum_counts_cols``).
 """
 
 from __future__ import annotations
@@ -32,11 +38,13 @@ import torch
 from ._build import check, library
 from .finish import MAX_K
 
-__all__ = ["expsum_from_corrected", "finish_cols_expsum", "finish_cols_expsum_plain",
-           "finish_cols_partial", "finish_cols_partial_plain", "finish_cols_smem",
+__all__ = ["counts_corrected", "finish_cols_partial", "finish_cols_partial_counts",
+           "finish_cols_partial_counts_plain", "finish_cols_partial_plain", "finish_cols_smem",
            "partial_from_corrected", "shifted_corrected"]
 
 _count_lock = threading.Lock()
+#: the wrapped size_t of the reference (quirk Q1)
+_U64 = float(2**64)
 
 
 def _f32(x: float, dev) -> torch.Tensor:
@@ -54,143 +62,155 @@ def shifted_corrected(Sp: torch.Tensor, m_f32: torch.Tensor, *, k: int, log_eps:
     return torch.where(touched, c, _f32(-math.inf, dev)), touched
 
 
+def counts_corrected(S: torch.Tensor, C: torch.Tensor, m_f32: torch.Tensor, *, k: int,
+                     log_eps: float):
+    """(corrected, touched) of classic sums and exact counts (JAX
+    ``finish_scores_cols``): ``(S + diff * log_eps) / k`` where ``C > 0``,
+    ``diff = m - C`` wrapped to 2**64 where negative (quirk Q1), else -inf."""
+    dev = S.device
+    touched = C > 0
+    diff = m_f32[:, None] - C.to(torch.float32)
+    diff = torch.where(diff < 0, _f32(_U64, dev), diff)
+    c = (S + diff * _f32(log_eps, dev)) / _f32(float(k), dev)
+    return torch.where(touched, c, _f32(-math.inf, dev)), touched
+
+
 def partial_from_corrected(corrected: torch.Tensor, touched: torch.Tensor, *, K: int,
                            col0: int) -> torch.Tensor:
     """The partial pack of one shard from its corrected scores (-inf where not
     touched): a stable descending sort gives the candidates (ties to the
-    lowest column, as ``jax.lax.top_k``)."""
+    lowest column, as ``jax.lax.top_k``); ``e_s`` is taken against the
+    shard's own maximum."""
+    dev = corrected.device
     Kl = min(K, corrected.shape[1])
     vals, idx = torch.sort(corrected, dim=1, descending=True, stable=True)
+    max_s = corrected.max(dim=1).values
+    terms = torch.where(touched, torch.exp((corrected - max_s[:, None])
+                                           * _f32(math.log(10.0), dev)), _f32(0.0, dev))
     f32 = torch.float32
     return torch.cat([vals[:, :Kl], (idx[:, :Kl] + col0).to(f32),
                       touched.sum(dim=1, dtype=torch.int32).to(f32)[:, None],
-                      corrected.max(dim=1).values[:, None]], dim=1)
-
-
-def expsum_from_corrected(corrected: torch.Tensor, touched: torch.Tensor,
-                          max_t: torch.Tensor) -> torch.Tensor:
-    """Each read's sum of ``10**(corrected - max_t)`` over the touched columns."""
-    dev = corrected.device
-    terms = torch.where(touched, torch.exp((corrected - max_t[:, None])
-                                           * _f32(math.log(10.0), dev)), _f32(0.0, dev))
-    return terms.sum(dim=1)
+                      max_s[:, None], terms.sum(dim=1)[:, None]], dim=1)
 
 
 def finish_cols_partial_plain(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
                               log_eps: float, col0: int) -> torch.Tensor:
-    """Plain version of launch A, operation for operation the JAX column
-    finish's per-shard half."""
+    """Plain version of the shifted form, operation for operation the JAX
+    column finish's per-shard half."""
     corrected, touched = shifted_corrected(Sp, m_f32, k=k, log_eps=log_eps)
     return partial_from_corrected(corrected, touched, K=K, col0=col0)
 
 
-def finish_cols_expsum_plain(Sp: torch.Tensor, m_f32: torch.Tensor, max_t: torch.Tensor, *,
-                             k: int, log_eps: float) -> torch.Tensor:
-    """Plain version of launch B."""
-    corrected, touched = shifted_corrected(Sp, m_f32, k=k, log_eps=log_eps)
-    return expsum_from_corrected(corrected, touched, max_t)
+def finish_cols_partial_counts_plain(S: torch.Tensor, C: torch.Tensor, m_f32: torch.Tensor, *,
+                                     K: int, k: int, log_eps: float, col0: int):
+    """Plain version of the counts form: the pack and the candidates' counts
+    (``C`` at each candidate's local column, as ``take_along_axis``)."""
+    corrected, touched = counts_corrected(S, C, m_f32, k=k, log_eps=log_eps)
+    pack = partial_from_corrected(corrected, touched, K=K, col0=col0)
+    Kl = (pack.shape[1] - 3) // 2
+    return pack, torch.gather(C, 1, pack[:, Kl:2 * Kl].long() - col0)
 
 
-def _check_vec(name: str, v: torch.Tensor, Sp: torch.Tensor) -> None:
-    if v.dtype != torch.float32 or v.shape != (Sp.shape[0],) or not v.is_contiguous():
-        raise ValueError(f"{name} must be contiguous float32 ({Sp.shape[0]},), got "
-                         f"{v.dtype} {tuple(v.shape)}")
-    if v.device != Sp.device:
-        raise ValueError(f"Sp on {Sp.device} but {name} on {v.device}")
+def _check_sums(S: torch.Tensor, m_f32: torch.Tensor, K: int, col0: int) -> None:
+    if S.dtype != torch.float32 or S.dim() != 2 or S.stride(1) != 1:
+        raise ValueError(f"the sums must be 2-D float32 with contiguous rows, got "
+                         f"{S.dtype} {tuple(S.shape)} strides {S.stride()}")
+    if (m_f32.dtype != torch.float32 or m_f32.shape != (S.shape[0],)
+            or not m_f32.is_contiguous()):
+        raise ValueError(f"m_f32 must be contiguous float32 ({S.shape[0]},), got "
+                         f"{m_f32.dtype} {tuple(m_f32.shape)}")
+    if m_f32.device != S.device:
+        raise ValueError(f"sums on {S.device} but m_f32 on {m_f32.device}")
+    if S.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"no kernel for device {S.device}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K} must lie in [1, {MAX_K}]")
+    if col0 < 0:
+        raise ValueError(f"col0={col0} must be >= 0")
 
 
-def _check_sp(Sp: torch.Tensor, m_f32: torch.Tensor) -> None:
-    if Sp.dtype != torch.float32 or Sp.dim() != 2 or Sp.stride(1) != 1:
-        raise ValueError(f"Sp must be 2-D float32 with contiguous rows, got "
-                         f"{Sp.dtype} {tuple(Sp.shape)} strides {Sp.stride()}")
-    _check_vec("m_f32", m_f32, Sp)
-    if Sp.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"no kernel for device {Sp.device}")
-
-
-def finish_cols_smem(Sp: torch.Tensor, K: int) -> tuple[int, int]:
-    """(bytes of shared memory launch A asks at Sp's width and ``min(K,
-    bwl)`` candidates, bytes a block of it may take on Sp's card), from the
-    CUDA source's own formula: ceil(bwl / 32) mask words, bwl 16-bit ids up to
-    bwl = 2**16 (past it the ids go to a global workspace) and the 16 warps'
-    candidates, against the card's opt-in limit less the kernel's static
-    bytes. CUDA tensors only."""
-    bwl = Sp.shape[1]
+def finish_cols_smem(S: torch.Tensor, K: int, counts: bool = False) -> tuple[int, int]:
+    """(bytes of shared memory a launch asks at S's width and ``min(K, bwl)``
+    candidates, bytes a block of it (``counts``: of the counts form) may take
+    on S's card), from the CUDA source's own formula: ceil(bwl / 32) mask
+    words, bwl 16-bit ids up to bwl = 2**16 (past it the ids go to a global
+    workspace) and the 16 warps' candidates, against the card's opt-in limit
+    less the kernel's static bytes. CUDA tensors only."""
+    bwl = S.shape[1]
     lib = library()
-    with torch.cuda.device(Sp.device):
+    with torch.cuda.device(S.device):
         need = lib.epik_finish_cols_smem(bwl, min(K, bwl))
-        limit = lib.epik_finish_cols_smem_limit(bwl)
+        limit = lib.epik_finish_cols_smem_limit(bwl, int(counts))
     if limit < 0:
         check(int(-limit), "finish_cols_partial")
     return need, limit
+
+
+def _launch(fn, S: torch.Tensor, C, m_f32: torch.Tensor, *, K: int, k: int, log_eps: float,
+            col0: int):
+    """The kernel on (S[, C]): (pack, counts or None)."""
+    R, bwl = S.shape
+    Kl = min(K, bwl)
+    out = torch.empty((R, 2 * Kl + 3), dtype=torch.float32, device=S.device)
+    cnt = None if C is None else torch.empty((R, Kl), dtype=torch.int32, device=S.device)
+    if R == 0:
+        return out, cnt
+    need, limit = finish_cols_smem(S, K, counts=C is not None)
+    if need > limit:
+        raise ValueError(f"{fn.__name__}: bwl={bwl} columns ask {need} bytes of shared "
+                         f"memory, over the {limit} bytes a block may take on {S.device}")
+    lib = library()
+    layout = (ctypes.c_int * 3)()
+    with torch.cuda.device(S.device):
+        check(lib.epik_finish_cols_layout(R, bwl, Kl, int(C is not None), layout), fn.__name__)
+        _, blocks, n_ws = layout
+        ws = torch.empty(n_ws, dtype=torch.int32, device=S.device) if n_ws else None
+        stream = torch.cuda.current_stream(S.device).cuda_stream
+        err = lib.epik_finish_cols_partial(
+            S.data_ptr(), S.stride(0), C.data_ptr() if C is not None else None,
+            C.stride(0) if C is not None else 0, m_f32.data_ptr(), out.data_ptr(),
+            cnt.data_ptr() if cnt is not None else None, R, bwl, Kl, col0, k, float(log_eps),
+            ws.data_ptr() if ws is not None else None, blocks, stream)
+    check(err, fn.__name__)
+    with _count_lock:
+        fn.launches += 1
+    return out, cnt
 
 
 def finish_cols_partial(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int,
                         log_eps: float, col0: int) -> torch.Tensor:
     """Sp f32 (R, bwl) one shard's shifted sums (rows may be strided), m_f32
     f32 (R,) window counts, ``col0`` the shard's first global column -> f32
-    (R, 2 Kl + 2) with Kl = min(K, bwl).
+    (R, 2 Kl + 3) partial pack with Kl = min(K, bwl).
 
     Limit: the mask's shared memory (:func:`finish_cols_smem`), bwl up to
     about 1.8 million columns; a wider shard raises ValueError."""
-    _check_sp(Sp, m_f32)
-    if not 1 <= K <= MAX_K:
-        raise ValueError(f"K={K} must lie in [1, {MAX_K}]")
-    if col0 < 0:
-        raise ValueError(f"col0={col0} must be >= 0")
+    _check_sums(Sp, m_f32, K, col0)
     if Sp.device.type == "cpu":
         return finish_cols_partial_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps, col0=col0)
-    R, bwl = Sp.shape
-    Kl = min(K, bwl)
-    out = torch.empty((R, 2 * Kl + 2), dtype=torch.float32, device=Sp.device)
-    if R == 0:
-        return out
-    need, limit = finish_cols_smem(Sp, K)
-    if need > limit:
-        raise ValueError(f"finish_cols_partial: bwl={bwl} columns ask {need} bytes of shared "
-                         f"memory, over the {limit} bytes a block may take on {Sp.device}")
-    lib = library()
-    layout = (ctypes.c_int * 3)()
-    with torch.cuda.device(Sp.device):
-        check(lib.epik_finish_cols_layout(R, bwl, Kl, layout), "finish_cols_partial")
-        _, blocks, n_ws = layout
-        ws = torch.empty(n_ws, dtype=torch.int32, device=Sp.device) if n_ws else None
-        stream = torch.cuda.current_stream(Sp.device).cuda_stream
-        err = lib.epik_finish_cols_partial(Sp.data_ptr(), Sp.stride(0), m_f32.data_ptr(),
-                                           out.data_ptr(), R, bwl, Kl, col0, k, float(log_eps),
-                                           ws.data_ptr() if ws is not None else None, blocks,
-                                           stream)
-    check(err, "finish_cols_partial")
-    with _count_lock:
-        finish_cols_partial.launches += 1
-    return out
+    return _launch(finish_cols_partial, Sp, None, m_f32, K=K, k=k, log_eps=log_eps,
+                   col0=col0)[0]
 
 
-def finish_cols_expsum(Sp: torch.Tensor, m_f32: torch.Tensor, max_t: torch.Tensor, *, k: int,
-                       log_eps: float) -> torch.Tensor:
-    """Sp f32 (R, bwl) one shard's shifted sums (rows may be strided), m_f32
-    f32 (R,), max_t f32 (R,) the merged maxima -> f32 (R,) sums of
-    ``10**(corrected - max_t)`` over the shard's touched columns."""
-    _check_sp(Sp, m_f32)
-    _check_vec("max_t", max_t, Sp)
-    if Sp.device.type == "cpu":
-        return finish_cols_expsum_plain(Sp, m_f32, max_t, k=k, log_eps=log_eps)
-    R, bwl = Sp.shape
-    out = torch.empty((R,), dtype=torch.float32, device=Sp.device)
-    if R == 0:
-        return out
-    lib = library()
-    with torch.cuda.device(Sp.device):
-        err = lib.epik_finish_cols_expsum(Sp.data_ptr(), Sp.stride(0), m_f32.data_ptr(),
-                                          max_t.data_ptr(), out.data_ptr(), R, bwl, k,
-                                          float(log_eps),
-                                          torch.cuda.current_stream(Sp.device).cuda_stream)
-    check(err, "finish_cols_expsum")
-    with _count_lock:
-        finish_cols_expsum.launches += 1
-    return out
+def finish_cols_partial_counts(S: torch.Tensor, C: torch.Tensor, m_f32: torch.Tensor, *,
+                               K: int, k: int, log_eps: float, col0: int):
+    """S f32 and C int32 (R, bwl) one shard's classic sums and exact counts
+    (rows may be strided), m_f32 f32 (R,) window counts, ``col0`` the shard's
+    first global column -> (f32 (R, 2 Kl + 3) partial pack, int32 (R, Kl) the
+    candidates' counts). The limit as :func:`finish_cols_partial`'s."""
+    _check_sums(S, m_f32, K, col0)
+    if C.dtype != torch.int32 or C.shape != S.shape or C.stride(1) != 1:
+        raise ValueError(f"C must be int32 {tuple(S.shape)} with contiguous rows, got "
+                         f"{C.dtype} {tuple(C.shape)} strides {C.stride()}")
+    if C.device != S.device:
+        raise ValueError(f"S on {S.device} but C on {C.device}")
+    if S.device.type == "cpu":
+        return finish_cols_partial_counts_plain(S, C, m_f32, K=K, k=k, log_eps=log_eps,
+                                                col0=col0)
+    return _launch(finish_cols_partial_counts, S, C, m_f32, K=K, k=k, log_eps=log_eps,
+                   col0=col0)
 
 
 #: kernel launches since the last reset (CUDA only; the plain path never counts)
 finish_cols_partial.launches = 0
-finish_cols_expsum.launches = 0
+finish_cols_partial_counts.launches = 0

@@ -29,7 +29,18 @@ says how its design meets that.
   counts: :func:`counts_topk_fits` says whether a width launches on the card
   (about B = 22,000 at bw ~ B), and past it the steps run
   :func:`rowgather_sum_counts` and ``finish_topk_counts`` apart (the same
-  bits).
+  bits);
+* :func:`rowgather_sum_cols` / :func:`rowgather_sum_counts_cols` -- one model
+  shard of the column-sharded dense steps after the tokenizer: the sums over
+  the shard's f32 plane (shifted, or classic with counts), each ambiguous
+  read's first hit added, and the shard's column finish
+  (``finish_cols.finish_cols_partial`` / ``_counts``) into its partial pack
+  (R, 2 Kl + 3) ``[values | global ids | n_s | max_s | e_s]`` (and the
+  classic form's candidate counts), in one kernel, so the shard's sums never
+  reach device memory. :func:`cols_fits` / :func:`counts_cols_fits` say
+  whether a shard width launches on the card (about bwl = 37,000 / 22,000),
+  and past it the step runs the gather and the finish apart (the same bits
+  but ``e_s``'s order of adds).
 
 Each dispatches on the tensors' device: the plain PyTorch version for CPU
 tensors, the CUDA kernel for CUDA tensors (or an error).
@@ -43,12 +54,16 @@ import torch
 
 from ._build import check, library
 from .finish import MAX_K, finish_topk_counts_plain, finish_topk_plain
+from .finish_cols import finish_cols_partial_counts_plain, finish_cols_partial_plain
 
-__all__ = ["add_first_hits", "counts_topk_fits", "counts_topk_smem", "rowgather_sum",
-           "rowgather_sum_counts", "rowgather_sum_counts_bf16", "rowgather_sum_counts_plain",
-           "rowgather_sum_counts_topk", "rowgather_sum_counts_topk_bf16",
-           "rowgather_sum_counts_topk_plain", "rowgather_sum_plain", "rowgather_sum_topk",
-           "rowgather_sum_topk_int16", "rowgather_sum_topk_plain", "topk_fits"]
+__all__ = ["add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
+           "counts_topk_fits", "counts_topk_smem", "rowgather_sum", "rowgather_sum_cols",
+           "rowgather_sum_cols_plain", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
+           "rowgather_sum_counts_cols", "rowgather_sum_counts_cols_plain",
+           "rowgather_sum_counts_plain", "rowgather_sum_counts_topk",
+           "rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_topk_plain",
+           "rowgather_sum_plain", "rowgather_sum_topk", "rowgather_sum_topk_int16",
+           "rowgather_sum_topk_plain", "topk_fits"]
 
 _count_lock = threading.Lock()
 #: the C entry points' plane cell codes
@@ -191,17 +206,22 @@ rowgather_sum_counts.launches = 0
 rowgather_sum_counts_bf16.launches = 0
 
 
+def _with_deltas(Sp: torch.Tensor, amb_read, amb_delta) -> torch.Tensor:
+    """``Sp`` plus ``amb_delta`` at the rows ``amb_read`` (0 added elsewhere)."""
+    if amb_read is None:
+        return Sp
+    delta = torch.zeros_like(Sp)
+    delta[amb_read] = amb_delta
+    return Sp + delta
+
+
 def rowgather_sum_topk_plain(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
                              amb_read, amb_delta, *, B: int, K: int, k: int,
                              log_eps: float, scale: float | None = None) -> torch.Tensor:
     """Plain version: ``finish_topk_plain(rowgather_sum_plain(plane, rows,
     scale)[:, :B] + delta)``, ``delta`` holding ``amb_delta`` at the rows
     ``amb_read`` and zeros elsewhere."""
-    Sp = rowgather_sum_plain(plane, rows, scale)[:, :B]
-    if amb_read is not None:
-        delta = torch.zeros_like(Sp)
-        delta[amb_read] = amb_delta
-        Sp = Sp + delta
+    Sp = _with_deltas(rowgather_sum_plain(plane, rows, scale)[:, :B], amb_read, amb_delta)
     return finish_topk_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps)
 
 
@@ -478,3 +498,166 @@ def rowgather_sum_counts_topk_bf16(plane: torch.Tensor, rows: torch.Tensor,
 #: kernel launches since the last reset (CUDA only; the plain path never counts)
 rowgather_sum_counts_topk.launches = 0
 rowgather_sum_counts_topk_bf16.launches = 0
+
+
+# ---- one column shard: the gather, the ambiguous adds and the column finish ----
+
+
+def rowgather_sum_cols_plain(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
+                             amb_read, amb_delta, *, K: int, k: int, log_eps: float,
+                             col0: int) -> torch.Tensor:
+    """Plain version: ``finish_cols_partial_plain(rowgather_sum_plain(plane,
+    rows) + delta)``, ``delta`` holding ``amb_delta`` at the rows
+    ``amb_read`` and zeros elsewhere."""
+    Sp = _with_deltas(rowgather_sum_plain(plane, rows), amb_read, amb_delta)
+    return finish_cols_partial_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps, col0=col0)
+
+
+def rowgather_sum_counts_cols_plain(plane: torch.Tensor, rows: torch.Tensor,
+                                    m_f32: torch.Tensor, amb_read, amb_dS, amb_hit, *, K: int,
+                                    k: int, log_eps: float, col0: int):
+    """Plain version: ``rowgather_sum_counts_plain(plane, rows)``, the first
+    hits added (:func:`add_first_hits`), then
+    ``finish_cols_partial_counts_plain``: (pack, candidate counts)."""
+    S, C = rowgather_sum_counts_plain(plane, rows)
+    S, C = add_first_hits(S, C, amb_read, amb_dS, amb_hit)
+    return finish_cols_partial_counts_plain(S, C, m_f32, K=K, k=k, log_eps=log_eps, col0=col0)
+
+
+def cols_smem(plane: torch.Tensor, K: int, counts: bool) -> tuple[int, int]:
+    """(bytes of shared memory a :func:`rowgather_sum_cols` launch
+    (``counts``: :func:`rowgather_sum_counts_cols`) at the plane's width asks,
+    bytes a block of it may take on the plane's card), from the CUDA source's
+    own formula (the fused kernels' layout at B = bwl) and the card's opt-in
+    limit less the kernel's static shared memory. CUDA planes only."""
+    bw = plane.shape[1]
+    lib = library()
+    with torch.cuda.device(plane.device):
+        need = lib.epik_rowgather_sum_cols_smem(bw, min(K, bw), int(counts))
+        limit = lib.epik_rowgather_sum_cols_smem_limit(int(counts))
+    if limit < 0:
+        check(int(-limit), "rowgather_sum_counts_cols" if counts else "rowgather_sum_cols")
+    return need, limit
+
+
+def _cols_fit(plane: torch.Tensor, K: int, counts: bool) -> bool:
+    if plane.device.type != "cuda":
+        return True
+    if plane.shape[1] > _MAX_TOPK_B:
+        return False
+    need, limit = cols_smem(plane, K, counts)
+    return need <= limit
+
+
+def cols_fits(plane: torch.Tensor, K: int) -> bool:
+    """Whether :func:`rowgather_sum_cols` takes a shard of the plane's width:
+    bwl <= 2**16 (16-bit ids) and bwl sums, ceil(bwl / 32) mask words, bwl
+    ids and the candidates within the card's shared memory (about bwl =
+    37,000). The plain version on the CPU has no limit."""
+    return _cols_fit(plane, K, False)
+
+
+def counts_cols_fits(plane: torch.Tensor, K: int) -> bool:
+    """Whether :func:`rowgather_sum_counts_cols` takes a shard of the plane's
+    width: as :func:`cols_fits` with bwl counts beside the sums (about bwl =
+    22,000)."""
+    return _cols_fit(plane, K, True)
+
+
+def _check_cols_args(fn, plane, rows, m_f32, K: int, col0: int, amb: dict, amb_read) -> None:
+    _check_args(plane, rows, (torch.float32,))
+    R, bw = rows.shape[0], plane.shape[1]
+    dev = plane.device
+    if (m_f32.dtype != torch.float32 or m_f32.shape != (R,) or not m_f32.is_contiguous()
+            or m_f32.device != dev):
+        raise ValueError(f"m_f32 must be contiguous float32 ({R},) on {dev}, got "
+                         f"{m_f32.dtype} {tuple(m_f32.shape)} on {m_f32.device}")
+    if not 1 <= K <= MAX_K:
+        raise ValueError(f"K={K} must lie in [1, {MAX_K}]")
+    if col0 < 0:
+        raise ValueError(f"col0={col0} must be >= 0")
+    _check_amb(amb_read, amb, bw, dev)
+    if dev.type == "cuda":
+        counts = fn is rowgather_sum_counts_cols
+        if bw > _MAX_TOPK_B:
+            raise ValueError(f"bwl={bw}: {fn.__name__}'s ids are 16 bits (bwl <= {_MAX_TOPK_B})")
+        need, limit = cols_smem(plane, K, counts)
+        if need > limit:
+            raise ValueError(f"bwl={bw}, K={K}: {fn.__name__} asks {need} bytes of shared "
+                             f"memory, over the {limit} bytes a block may take on {dev}; run "
+                             f"the gather and finish_cols_partial{'_counts' if counts else ''}")
+
+
+def _sum_cols(fn, plane, rows, m_f32, amb_read, delta, hit, *, K, k, log_eps, col0):
+    R, W = rows.shape
+    bw = plane.shape[1]
+    Kl = min(K, bw)
+    counts = fn is rowgather_sum_counts_cols
+    _no_kernel(fn.__name__, plane.device)
+    out = torch.empty((R, 2 * Kl + 3), dtype=torch.float32, device=plane.device)
+    cnt = torch.empty((R, Kl), dtype=torch.int32, device=plane.device) if counts else None
+    if R == 0:
+        return out, cnt
+    slot = _slots(amb_read, R, plane.device)
+    lib = library()
+    with torch.cuda.device(plane.device):
+        err = lib.epik_rowgather_sum_cols(
+            plane.data_ptr(), rows.data_ptr(), m_f32.data_ptr(),
+            slot.data_ptr() if slot is not None else None,
+            delta.data_ptr() if slot is not None else None,
+            hit.data_ptr() if slot is not None and counts else None, out.data_ptr(),
+            cnt.data_ptr() if counts else None, R, W, bw, Kl, col0, k, float(log_eps),
+            int(counts), _stream(plane.device))
+    check(err, fn.__name__)
+    _count(fn)
+    return out, cnt
+
+
+def rowgather_sum_cols(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
+                       amb_read, amb_delta, *, K: int, k: int, log_eps: float,
+                       col0: int) -> torch.Tensor:
+    """One shard's shifted f32 plane (n_rows, bwl), rows int32 (R, W), m_f32
+    f32 (R,) window counts; ``amb_read`` (A,) the reads with an ambiguous
+    first-hit delta row and ``amb_delta`` f32 (A, bwl) those rows (both None
+    when there are none); ``col0`` the shard's first global column -> f32
+    (R, 2 Kl + 3), the shard's partial pack ``[values Kl | global ids Kl |
+    n_s | max_s | e_s]`` with Kl = min(K, bwl).
+
+    Every index must lie in [0, n_rows), misses pointing at an all-zero row;
+    ``amb_read`` holds distinct reads. On the card, bwl must be within
+    :func:`cols_fits`'s limit (a wider shard raises ValueError)."""
+    _check_cols_args(rowgather_sum_cols, plane, rows, m_f32, K, col0,
+                     {"amb_delta": (amb_delta, torch.float32)}, amb_read)
+    kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
+    if plane.device.type == "cpu":
+        return rowgather_sum_cols_plain(plane, rows, m_f32, amb_read, amb_delta, **kw)
+    return _sum_cols(rowgather_sum_cols, plane, rows, m_f32, amb_read, amb_delta, None,
+                     **kw)[0]
+
+
+def rowgather_sum_counts_cols(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
+                              amb_read, amb_dS, amb_hit, *, K: int, k: int, log_eps: float,
+                              col0: int):
+    """One shard's classic f32 plane (n_rows, bwl), rows int32 (R, W), m_f32
+    f32 (R,) window counts; ``amb_read`` (A,) the reads with an ambiguous
+    first hit, ``amb_dS`` f32 (A, bwl) their contributions and ``amb_hit``
+    bool (A, bwl) where a hit lands (all three None when there are none);
+    ``col0`` the shard's first global column -> (f32 (R, 2 Kl + 3) partial
+    pack, int32 (R, Kl) the candidates' exact counts).
+
+    On the card, bwl must be within :func:`counts_cols_fits`'s limit (a wider
+    shard raises ValueError)."""
+    _check_cols_args(rowgather_sum_counts_cols, plane, rows, m_f32, K, col0,
+                     {"amb_dS": (amb_dS, torch.float32), "amb_hit": (amb_hit, torch.bool)},
+                     amb_read)
+    kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
+    if plane.device.type == "cpu":
+        return rowgather_sum_counts_cols_plain(plane, rows, m_f32, amb_read, amb_dS, amb_hit,
+                                               **kw)
+    return _sum_cols(rowgather_sum_counts_cols, plane, rows, m_f32, amb_read, amb_dS, amb_hit,
+                     **kw)
+
+
+#: kernel launches since the last reset (CUDA only; the plain path never counts)
+rowgather_sum_cols.launches = 0
+rowgather_sum_counts_cols.launches = 0

@@ -10,16 +10,20 @@ Ports ``epik_tpu/parallel/sharding.py``:
   main/overflow split, and :func:`shard_db_by_hash` (:250-313), the
   hash-sharded cuckoo tables and postings of the CSR step;
 * the column finish (:321-400) over a list of per-shard ``(R, bwl)`` tensors:
-  the shifted one (:func:`finish_scores_cols_shifted`) through the per-shard
-  kernels of ``kernels/finish_cols.py`` (each shard's count, maximum and top-K
-  candidates, then its sum of exponentials against the merged maximum), the
-  classic one with counts (:func:`finish_scores_cols`) as torch ops; ``psum``
+  the shifted one (:func:`finish_scores_cols_shifted`) and the classic one
+  with counts (:func:`finish_scores_cols`), one launch of
+  ``kernels/finish_cols.py``'s kernel per shard (its count, maximum, sum of
+  exponentials against that maximum and top-K candidates, and the classic
+  form's candidate counts), then the merge (:func:`_merge_cols`): ``psum``
   becomes a sum over the shards in shard order, ``pmax`` a maximum,
-  ``all_gather`` a concatenation in shard order;
+  ``all_gather`` a concatenation in shard order, and each shard's exp-sum is
+  rescaled to the merged maximum;
 * the steps, each for one data group (one mesh row) over its model shards:
   :func:`sharded_dense_bytes_step` (:421-469), :func:`sharded_dense_paired_step`
-  (:479-520) and :func:`sharded_dense_rows_step` (:634-667), kernel 1's sums
-  per shard; :func:`sharded_tiles_bytes_step` (``_sharded_tiles_bytes_step``
+  (:479-520) and :func:`sharded_dense_rows_step` (:634-667), per shard one
+  launch of kernel 1 with the ambiguous adds and the shard's column finish
+  fused in (``rowgather_sum_cols``, classic ``rowgather_sum_counts_cols``);
+  :func:`sharded_tiles_bytes_step` (``_sharded_tiles_bytes_step``
   :530-626, kernel 3's sums alone or kernel 4); :func:`sharded_csr_bytes_step`
   (:745-802) and :func:`sharded_csr_step` (:675-737), both through kernel 4
   with counts and the counts finish (``finish_topk_counts``, slim pack);
@@ -60,22 +64,24 @@ from ..engine.types import PlacedCollection
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, accumulate_packed_sums, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
 from ..kernels.finish import POW10_ZERO, finish_topk_counts
-from ..kernels.finish_cols import (
-    expsum_from_corrected,
-    finish_cols_expsum,
-    finish_cols_partial,
-    partial_from_corrected,
+from ..kernels.finish_cols import finish_cols_partial, finish_cols_partial_counts
+from ..kernels.rowgather import (
+    add_first_hits,
+    cols_fits,
+    counts_cols_fits,
+    rowgather_sum,
+    rowgather_sum_cols,
+    rowgather_sum_counts,
+    rowgather_sum_counts_cols,
 )
-from ..kernels.rowgather import rowgather_sum, rowgather_sum_counts
 from ..ops.csr import (
     ORDER_INF,
-    U64,
     accumulate_amb_firsthit,
     accumulate_exact_dense,
     append_totals,
     pack_outputs,
 )
-from ..ops.dense import amb_classic, amb_deltas
+from ..ops.dense import amb_classic_deltas, amb_deltas
 from ..ops.hashtable import BUCKET, _next_pow2, build_table
 from ..ops.tokenize import tokenize_combo, tokenize_core, tokenize_packed
 from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
@@ -322,51 +328,31 @@ def finish_scores_cols_shifted(Sps: list[torch.Tensor], m_f32: torch.Tensor, *, 
                                K: int, k: int, log_eps: float):
     """Column-sharded finish from the shards' SHIFTED sums S' = S - C*log_eps,
     each f32 (R, bwl) on its shard's device (padded columns stay untouched):
-    per shard ``finish_cols_partial`` (its count, maximum and top-K
-    candidates), the merge, then per shard ``finish_cols_expsum`` against the
-    merged maximum (:func:`_merge_cols`). Per-branch counts are never
-    materialized (reported as -1). Returns (scores, idx, counts, wr, n,
-    zero_sum, log_sum) on the first shard's device."""
+    one ``finish_cols_partial`` per shard (its count, maximum, exp-sum and
+    top-K candidates), then the merge (:func:`_merge_cols`). Per-branch
+    counts are never materialized (reported as -1). Returns (scores, idx,
+    counts, wr, n, zero_sum, log_sum) on the first shard's device."""
     bwl = Sps[0].shape[1]
     m_on = _on_devices([Sp.device for Sp in Sps], lambda dev: m_f32.to(dev).contiguous())
     partials = [finish_cols_partial(Sp, m_on[Sp.device], K=K, k=k, log_eps=log_eps,
                                     col0=s * bwl) for s, Sp in enumerate(Sps)]
-
-    def expsum(s: int, max_t: torch.Tensor) -> torch.Tensor:
-        dev = Sps[s].device
-        return finish_cols_expsum(Sps[s], m_on[dev], max_t.to(dev), k=k, log_eps=log_eps)
-
-    return _merge_cols(partials, expsum, m_f32, B=B, K=K, k=k, log_eps=log_eps)
+    return _merge_cols(partials, m_f32, B=B, K=K, k=k, log_eps=log_eps)
 
 
 def finish_scores_cols(S: list[torch.Tensor], C: list[torch.Tensor], m_f32: torch.Tensor, *,
                        B: int, K: int, k: int, log_eps: float):
     """Column-sharded finish of the classic sums and exact counts (JAX
-    :321-342), torch ops per shard: ``touched = C > 0``, the Q1 wrap of
-    ``m - C`` to 2**64, each shard's candidates carrying their counts, then
-    :func:`_merge_cols`. Returns (scores, idx, counts, wr, n, zero_sum,
-    log_sum) on the first shard's device."""
+    :321-342): one ``finish_cols_partial_counts`` per shard (``touched = C >
+    0``, the Q1 wrap of ``m - C`` to 2**64, each shard's candidates carrying
+    their counts), then :func:`_merge_cols`. Returns (scores, idx, counts, wr,
+    n, zero_sum, log_sum) on the first shard's device."""
     bwl = S[0].shape[1]
-    corrected, touched, partials, counts = [], [], [], []
-    for s, (S_s, C_s) in enumerate(zip(S, C)):
-        dev = S_s.device
-        t = C_s > 0
-        diff = m_f32.to(dev)[:, None] - C_s.to(torch.float32)
-        diff = torch.where(diff < 0, _f32(U64, dev), diff)
-        c = torch.where(t, (S_s + diff * _f32(log_eps, dev)) / _f32(float(k), dev),
-                        _f32(-math.inf, dev))
-        p = partial_from_corrected(c, t, K=K, col0=s * bwl)
-        Kl = (p.shape[1] - 2) // 2
-        counts.append(torch.gather(C_s, 1, p[:, Kl:2 * Kl].long() - s * bwl))
-        corrected.append(c)
-        touched.append(t)
-        partials.append(p)
-
-    def expsum(s: int, max_t: torch.Tensor) -> torch.Tensor:
-        return expsum_from_corrected(corrected[s], touched[s], max_t.to(corrected[s].device))
-
-    return _merge_cols(partials, expsum, m_f32, B=B, K=K, k=k, log_eps=log_eps,
-                       counts=counts)
+    m_on = _on_devices([S_s.device for S_s in S], lambda dev: m_f32.to(dev).contiguous())
+    partials, counts = zip(*(finish_cols_partial_counts(S_s, C_s, m_on[S_s.device], K=K, k=k,
+                                                        log_eps=log_eps, col0=s * bwl)
+                             for s, (S_s, C_s) in enumerate(zip(S, C))))
+    return _merge_cols(list(partials), m_f32, B=B, K=K, k=k, log_eps=log_eps,
+                       counts=list(counts))
 
 
 def _on_devices(devices, make) -> dict:
@@ -378,30 +364,36 @@ def _on_devices(devices, make) -> dict:
     return out
 
 
-def _merge_cols(partials, expsum, m_f32, *, B: int, K: int, k: int, log_eps: float,
-                counts=None):
+def _merge_cols(partials, m_f32, *, B: int, K: int, k: int, log_eps: float, counts=None):
     """The column-sharded LWR over all B branches and the distributed top-K
     (JAX ``_lwr_topk_cols`` :358-400) from the shards' partial packs ``[values
-    Kl | global ids Kl | n_s | max_s]``: n and max_c merge over the shards,
-    ``expsum(s, max_t)`` gives shard s's sum of exponentials against the
-    merged max_t, and the shards' candidates, in shard order, go through one
-    more top-K (shards in column order and each shard's candidates in
-    ascending column keep the lowest-global-index tie-break). ``counts``: the
-    shards' (R, Kl) candidate counts, else -1."""
+    Kl | global ids Kl | n_s | max_s | e_s]``: n and max_c merge over the
+    shards; each shard's exp-sum ``e_s``, taken against its own ``max_s``,
+    is rescaled to the merged max_t, ``sum10 = sum_s e_s * 10**(max_s -
+    max_t)`` in shard order (0 where ``n_s = 0``; the factor is exactly 1
+    where ``max_s = max_t``), plus the untouched (B - n) term; the shards'
+    candidates, in shard order, go through one more top-K (shards in column
+    order and each shard's candidates in ascending column keep the
+    lowest-global-index tie-break). ``counts``: the shards' (R, Kl) candidate
+    counts, else -1."""
     lead = partials[0].device
     f32 = torch.float32
     neg_inf = _f32(-math.inf, lead)
+    zero = _f32(0.0, lead)
     ln10 = _f32(math.log(10.0), lead)
     m = m_f32.to(lead).to(f32)
     parts = [p.to(lead) for p in partials]
-    Kl = (parts[0].shape[1] - 2) // 2
+    Kl = (parts[0].shape[1] - 3) // 2
 
     n = functools.reduce(torch.add, [p[:, 2 * Kl].to(torch.int32) for p in parts])
     npl_exp = m * _f32(log_eps, lead) / _f32(float(k), lead)
     n_not = float(B) - n.to(f32)
     max_c = functools.reduce(torch.maximum, [p[:, 2 * Kl + 1] for p in parts])
-    max_t = torch.maximum(max_c, torch.where(n_not > 0, npl_exp, neg_inf)).contiguous()
-    sum10 = functools.reduce(torch.add, [expsum(s, max_t).to(lead) for s in range(len(parts))])
+    max_t = torch.maximum(max_c, torch.where(n_not > 0, npl_exp, neg_inf))
+    sum10 = functools.reduce(torch.add, [
+        torch.where(p[:, 2 * Kl] > 0,
+                    p[:, 2 * Kl + 2] * torch.exp((p[:, 2 * Kl + 1] - max_t) * ln10), zero)
+        for p in parts])
     sum10 = sum10 + n_not * torch.exp(torch.where(n_not > 0, (npl_exp - max_t) * ln10, neg_inf))
     log_sum = max_t + torch.log(sum10) / ln10
     zero_sum = (max_c < POW10_ZERO) & ((npl_exp < POW10_ZERO) | (n_not <= 0))
@@ -413,7 +405,7 @@ def _merge_cols(partials, expsum, m_f32, *, B: int, K: int, k: int, log_eps: flo
     else:
         top_c = torch.gather(torch.cat([c.to(lead) for c in counts], dim=1), 1, sel)
     wr = torch.exp((top_s - log_sum[:, None]) * ln10)
-    wr = torch.where(zero_sum[:, None] | (top_s < POW10_ZERO), _f32(0.0, lead), wr)
+    wr = torch.where(zero_sum[:, None] | (top_s < POW10_ZERO), zero, wr)
     return top_s, top_i, top_c, wr, n, zero_sum, log_sum
 
 
@@ -440,16 +432,46 @@ def _pad_cells(x: torch.Tensor, value) -> torch.Tensor:
     return torch.cat([x, pad], dim=1)
 
 
+def _shifted_cols(plane, rows, m_f32, amb_read, delta, *, K: int, k: int, log_eps: float,
+                  col0: int) -> torch.Tensor:
+    """One shard's partial pack from its shifted plane: kernel 1 with the
+    delta add and the column finish fused in, or past its shared-memory limit
+    (:func:`cols_fits`) the gather, the same f32 add at the ambiguous reads
+    and ``finish_cols_partial`` apart."""
+    kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
+    if cols_fits(plane, K):
+        return rowgather_sum_cols(plane, rows, m_f32, amb_read, delta, **kw)
+    Sp = rowgather_sum(plane, rows)
+    if amb_read is not None and amb_read.numel() > 0:
+        Sp[amb_read] = Sp[amb_read] + delta
+    return finish_cols_partial(Sp, m_f32, **kw)
+
+
+def _classic_cols(plane, rows, m_f32, amb_read, dS, hit, *, K: int, k: int, log_eps: float,
+                  col0: int):
+    """One shard's (partial pack, candidate counts) from its classic plane:
+    kernel 1 with counts, the first hit and the counts form of the column
+    finish fused in, or past its limit (:func:`counts_cols_fits`) the gather
+    with counts, the same adds and ``finish_cols_partial_counts`` apart."""
+    kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
+    if counts_cols_fits(plane, K):
+        return rowgather_sum_counts_cols(plane, rows, m_f32, amb_read, dS, hit, **kw)
+    S, C = add_first_hits(*rowgather_sum_counts(plane, rows), amb_read, dS, hit)
+    return finish_cols_partial_counts(S, C, m_f32, **kw)
+
+
 def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int, Amax: int,
                 k: int, zero_row: int, eps: float, log_eps: float) -> torch.Tensor:
     """The body of the three column-sharded dense steps, for one data group.
     ``tokenize(s, device)`` gives the group's (rows, lens) on the device of
     shard s (lens None where ``m_f32`` is given), run once per distinct
-    device. Per shard, kernel 1's sums over its own columns: shifted, Sp (R,
-    bwl) with each ambiguous read's first-hit delta row added; classic, (S, C)
-    with the ambiguous first hit. Column sharding needs no collective there:
-    each branch column lives on one shard, which sees every window's row (JAX
-    :408-411). Then the column finish into the slim (R, 2K+3) pack (shifted)
+    device. Per shard, the ambiguous first hits over its own columns, then
+    one kernel: shifted, kernel 1's sums with each ambiguous read's delta row
+    added and the shard's column finish fused in (:func:`_shifted_cols`);
+    classic, the sums with counts, the first hit and the counts form of the
+    finish (:func:`_classic_cols`). Column sharding needs no collective
+    there: each branch column lives on one shard, which sees every window's
+    row (JAX :408-411). Then the merge into the slim (R, 2K+3) pack (shifted)
     or the full (R+1, 4K+2) pack with zero totals (classic), on the first
     shard's device. JAX pads the rows to a multiple of 16 with the zero row;
     that adds nothing to a sum, so the port does not."""
@@ -457,28 +479,25 @@ def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int
     tok = _on_devices(devs, lambda dev: (*tokenize(devs.index(dev), dev), arows.to(dev)))
     if m_f32 is None:
         m_f32 = _m_f32(tok[devs[0]][1], k)
-    kw = dict(B=B, K=K, k=k, log_eps=log_eps)
-    parts = []
-    for plane in planes:
+    m_on = _on_devices(devs, lambda dev: m_f32.to(dev).contiguous())
+    fkw = dict(K=K, k=k, log_eps=log_eps)
+    parts, counts = [], []
+    for s, plane in enumerate(planes):
         rows, _, arows_d = tok[plane.device]
         bwl = plane.shape[1]
+        akw = dict(zero_row=zero_row, B=bwl, k=k, eps=eps)
         if shifted:
-            Sp = rowgather_sum(plane, rows)
-            if Amax > 0:
-                reads, delta = amb_deltas(plane, arows_d, zero_row=zero_row, B=bwl, k=k, eps=eps,
-                                          log_eps=log_eps)
-                if reads.numel():
-                    Sp[reads] = Sp[reads] + delta
-            parts.append(Sp)
+            amb = amb_deltas(plane, arows_d, log_eps=log_eps, **akw) if Amax > 0 else (None,
+                                                                                       None)
+            parts.append(_shifted_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl,
+                                       **fkw))
         else:
-            S, C = rowgather_sum_counts(plane, rows)
-            if Amax > 0:
-                S, C = amb_classic(S, C, plane, arows_d, zero_row=zero_row, B=bwl, k=k, eps=eps)
-            parts.append((S, C))
-    if shifted:
-        return _pack_slim(finish_scores_cols_shifted(parts, m_f32, **kw))
-    S, C = zip(*parts)
-    return pack_outputs(finish_scores_cols(list(S), list(C), m_f32, **kw), 0, 0)
+            amb = amb_classic_deltas(plane, arows_d, **akw) if Amax > 0 else (None, None, None)
+            part, cnt = _classic_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl, **fkw)
+            parts.append(part)
+            counts.append(cnt)
+    outs = _merge_cols(parts, m_f32, B=B, counts=None if shifted else counts, **fkw)
+    return _pack_slim(outs) if shifted else pack_outputs(outs, 0, 0)
 
 
 def sharded_dense_bytes_step(planes, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,

@@ -18,8 +18,13 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``, and on the classic
   planes ``rowgather_sum_counts_topk`` and ``_bf16``, or in a port without
   them ``rowgather_sum_counts`` and ``_bf16``);
-* ``ShardedTorchPlacer`` with the default config on a 1x1 mesh (the pair plane
-  in one column shard), the column-sharded dense step.
+* ``ShardedTorchPlacer`` on a 1x1 mesh, the column-sharded dense step with
+  the default config (the pair plane in one column shard) and with
+  ``plane_mode="classic"``, and the kernel each shard ends in, where the port
+  has it: ``rowgather_sum_cols`` / ``rowgather_sum_counts_cols`` (the gather
+  with the shard's column finish fused in); in a port without them, the
+  gather alone (``rowgather_sum`` / ``rowgather_sum_counts``) that the step
+  ran before its column finish.
 
 On ``chip_smoke.py``'s config-4 database (10,000 leaves, 19,999 branches,
 k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
@@ -39,7 +44,10 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
 * ``ShardedTorchPlacer(dense_db="off")`` on a 1x1 mesh: the sharded tile step
   on the 150 bp batch and its column finish at (4,096 x 20,096), which is
   torch ops up to the parent of the column-finish kernels and those kernels
-  after.
+  after;
+* ``ShardedTorchPlacer`` with the default config on a 1x1 mesh (the unpaired
+  51.8 GB column plane): the sharded dense step on the 150 bp batch and its
+  kernel, as for D652.
 
 On ``chip_smoke.py``'s config-2 database (652 leaves, 1,303 branches, amino
 k = 8) with its first batch of 4,096 reads (X/B/Z reads among them), and
@@ -197,25 +205,41 @@ def codes_times(torch, dev, out: dict, profile: bool = False) -> None:
     torch.cuda.empty_cache()
 
 
-def sharded_dense_times(torch, out: dict, db, tree, seqs) -> None:
-    """The D652 column-sharded dense step on a 1x1 mesh (the default config:
-    the pair plane in one shard) into ``out``, where the port has it."""
+def sharded_dense_times(torch, out: dict, db, tree, seqs, prefix: str = "d652",
+                        configs=(("", {}), ("_classic", {"plane_mode": "classic"}))) -> None:
+    """The column-sharded dense step on a 1x1 mesh under each of ``configs``
+    (name suffix, PlacerConfig fields) and the kernel its shard ends in (its
+    first call recorded) into ``out``, where the port has the step."""
+    from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.parallel import sharding as sh_mod
     from epik_tpu_torch.parallel.mesh import make_mesh
 
     if not hasattr(sh_mod, "sharded_dense_paired_step"):
-        out["skipped"].append("D652 sharded dense: the port has no column-sharded dense step")
+        out["skipped"].append(f"{prefix} sharded dense: the port has no column-sharded dense "
+                              f"step")
         return
-    placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1))
-    calls = []
-    with recording(sh_mod, "sharded_dense_paired_step", calls, limit=1):
-        placer.place([(f"r{i}", s) for i, s in enumerate(seqs)])
-    args, kw = calls[0]
-    out["d652_sharded_R"] = args[2].shape[0]
-    out["d652_sharded_step_ms"] = cuda_ms(
-        torch, lambda: sh_mod.sharded_dense_paired_step(*args, **kw))
-    del placer, calls, args
-    torch.cuda.empty_cache()
+    for suffix, fields in configs:
+        placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1),
+                                           config=PlacerConfig(**fields))
+        name = ("sharded_dense_paired_step" if placer._paired else "sharded_dense_bytes_step")
+        fused = "rowgather_sum_cols" if placer._shifted else "rowgather_sum_counts_cols"
+        kernel = fused if hasattr(sh_mod, fused) else (
+            "rowgather_sum" if placer._shifted else "rowgather_sum_counts")
+        calls, kcalls = [], []
+        with recording(sh_mod, name, calls, limit=1), \
+                recording(sh_mod, kernel, kcalls, limit=1):
+            placer.place([(f"r{i}", s) for i, s in enumerate(seqs)])
+        args, kw = calls[0]
+        out[f"{prefix}_sharded{suffix}_R"] = args[2].shape[0]
+        out[f"{prefix}_sharded{suffix}_step_ms"] = cuda_ms(
+            torch, lambda: getattr(sh_mod, name)(*args, **kw))
+        fn = getattr(sh_mod, kernel)
+        (k_args, k_kw), = kcalls
+        out[f"{prefix}_sharded{suffix}_{kernel}_ms"] = cuda_ms(torch, lambda: fn(*k_args,
+                                                                                **k_kw))
+        out[f"{prefix}_sharded{suffix}_{kernel}_shape"] = [*k_args[1].shape, k_args[0].shape[1]]
+        del placer, calls, kcalls, args, k_args
+        torch.cuda.empty_cache()
 
 
 def sharded_tile_times(torch, out: dict, db, tree, seqs) -> None:
@@ -412,8 +436,10 @@ def main(argv=None) -> int:
         unpaired_step_times(torch, dev, out, placer, seqs, "config4_dense",
                             "rowgather_sum_topk")
         del placer
+        torch.cuda.empty_cache()
     else:
         out["skipped"].append("config 4 dense: the port has no unpaired dense step")
+    sharded_dense_times(torch, out, db, tree, seqs, prefix="config4", configs=(("", {}),))
     print(card_line())
     print(json.dumps(out))
     return 0

@@ -31,18 +31,25 @@ from epik_tpu_torch.kernels.finish import (
     finish_topk_plain,
 )
 from epik_tpu_torch.kernels.finish_cols import (
-    finish_cols_expsum,
-    finish_cols_expsum_plain,
     finish_cols_partial,
+    finish_cols_partial_counts,
+    finish_cols_partial_counts_plain,
     finish_cols_partial_plain,
     finish_cols_smem,
 )
 from epik_tpu_torch.kernels.rowgather import (
+    cols_fits,
+    cols_smem,
+    counts_cols_fits,
     counts_topk_fits,
     counts_topk_smem,
     rowgather_sum,
+    rowgather_sum_cols,
+    rowgather_sum_cols_plain,
     rowgather_sum_counts,
     rowgather_sum_counts_bf16,
+    rowgather_sum_counts_cols,
+    rowgather_sum_counts_cols_plain,
     rowgather_sum_counts_plain,
     rowgather_sum_counts_topk,
     rowgather_sum_counts_topk_bf16,
@@ -327,7 +334,9 @@ def test_launch_counts(cuda):
     C = torch.ones(Sp.shape, dtype=torch.int32, device=cuda)
     finish_topk_counts(Sp, C, m, K=3, k=4, log_eps=-1.0)
     finish_cols_partial(Sp, m, K=3, k=4, log_eps=-1.0, col0=128)
-    finish_cols_expsum(Sp, m, m, k=4, log_eps=-1.0)
+    finish_cols_partial_counts(Sp, C, m, K=3, k=4, log_eps=-1.0, col0=128)
+    rowgather_sum_cols(plane, rows, m, None, None, K=3, k=4, log_eps=-1.0, col0=0)
+    rowgather_sum_counts_cols(plane, rows, m, None, None, None, K=3, k=4, log_eps=-1.0, col0=0)
     accumulate_packed_topk(p, m, B=100, K=3, k=4, log_eps=-1.0, scale=2.0)
     accumulate_packed_sums(p, B=100)
     accumulate_sums(b, s, B=100)
@@ -343,14 +352,18 @@ def test_launch_counts(cuda):
     accumulate_sums_plain(b, s, B=100, counts=True)
     packed_sums_plain(p, 100)
     finish_cols_partial_plain(Sp, m, K=3, k=4, log_eps=-1.0, col0=128)
-    finish_cols_expsum_plain(Sp, m, m, k=4, log_eps=-1.0)
+    finish_cols_partial_counts_plain(Sp, C, m, K=3, k=4, log_eps=-1.0, col0=128)
+    rowgather_sum_cols_plain(plane, rows, m, None, None, K=3, k=4, log_eps=-1.0, col0=0)
+    rowgather_sum_counts_cols_plain(plane, rows, m, None, None, None, K=3, k=4, log_eps=-1.0,
+                                    col0=0)
     assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1,
                                "rowgather_sum_topk_int16": 1, "rowgather_sum_counts": 1,
                                "rowgather_sum_counts_bf16": 1,
                                "rowgather_sum_counts_topk": 1,
                                "rowgather_sum_counts_topk_bf16": 1, "finish_topk": 1,
                                "finish_topk_counts": 1,
-                               "finish_cols_partial": 1, "finish_cols_expsum": 1,
+                               "rowgather_sum_cols": 1, "rowgather_sum_counts_cols": 1,
+                               "finish_cols_partial": 1, "finish_cols_partial_counts": 1,
                                "accumulate_packed_topk": 1, "accumulate_packed_sums": 1,
                                "accumulate_sums": 1, "accumulate_sums_counts": 1}
 
@@ -388,7 +401,17 @@ def test_wrappers_raise_on_bad_input(cuda):
     with pytest.raises(ValueError):
         finish_cols_partial(Sp, m, K=65, k=4, log_eps=-1.0, col0=0)
     with pytest.raises(ValueError):
-        finish_cols_expsum(Sp, m, torch.ones(5, device=cuda), k=4, log_eps=-1.0)
+        finish_cols_partial_counts(Sp, torch.ones((4, 256), dtype=torch.int32), m, K=3, k=4,
+                                   log_eps=-1.0, col0=0)  # CPU counts
+    with pytest.raises(ValueError, match="amb_delta"):
+        rowgather_sum_cols(plane, rows, m, torch.tensor([1], device=cuda),
+                           torch.zeros((1, 128)), K=3, k=4, log_eps=-1.0, col0=0)  # CPU delta
+    with pytest.raises(ValueError, match="shared memory"):
+        rowgather_sum_counts_cols(torch.zeros((8, 40000), device=cuda), rows, m, None, None,
+                                  None, K=3, k=4, log_eps=-1.0, col0=0)
+    with pytest.raises(ValueError, match="16 bits"):
+        rowgather_sum_cols(torch.zeros((8, 70016), device=cuda), rows, m, None, None, K=3,
+                           k=4, log_eps=-1.0, col0=0)
     C = torch.ones((4, 256), dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError):
         finish_topk_counts(Sp, C.cpu(), m, K=3, k=4, log_eps=-1.0)  # CPU counts
@@ -500,8 +523,8 @@ def test_sharded_placer_cuda_matches_cpu(cuda, n_data, n_model):
                                    rtol=1e-6, atol=1e-6)
     counts = launch_counts()
     assert counts["accumulate_packed_sums"] > 0 and counts["accumulate_sums_counts"] > 0
-    # the tile step finishes through the per-shard column finish
-    assert counts["finish_cols_partial"] > 0 and counts["finish_cols_expsum"] > 0
+    # the tile step finishes through the per-shard column finish, one launch a shard
+    assert counts["finish_cols_partial"] > 0 and counts["finish_cols_partial"] % n_model == 0
 
 
 @pytest.mark.parametrize("n_data,n_model,cfg", [(1, 4, {}), (2, 2, {}), (4, 1, {}),
@@ -543,62 +566,250 @@ def test_sharded_placer_across_cards(cuda, n_data, n_model, cfg):
         "accumulate_packed_sums"] > 0
 
 
-@pytest.mark.parametrize("R,bwl,n_model", [(4096, 1408, 1), (4096, 384, 4), (4096, 20096, 1),
+def _check_partial(got, want, what=""):
+    """The partial packs [values | ids | n_s | max_s | e_s]: all but e_s
+    bit-equal, e_s within rtol 1e-6 (another order of adds)."""
+    got, want = got.cpu().numpy(), want.cpu().numpy()
+    np.testing.assert_array_equal(got[:, :-1], want[:, :-1], err_msg=what)
+    np.testing.assert_allclose(got[:, -1], want[:, -1], rtol=1e-6, atol=0.0, err_msg=what)
+
+
+def _cols_sums(rng, R, bwl, n_model, counts):
+    """One (R, n_model * bwl) sums matrix (and counts) cut into shard views,
+    the last shard's 97 padded columns untouched, ties at the K cut across a
+    shard boundary (row 6), nothing touched in shard 0 (row 7)."""
+    B = n_model * bwl - 97
+    if counts:
+        S_b, C_b, m = counts_rows(rng, R, B, density=0.05)
+    else:
+        S_b, m = finish_rows(rng, R, B, density=0.05)
+        C_b = None
+    full = np.zeros((R, n_model * bwl), np.float32)
+    full[:, :B] = S_b
+    cnt = np.zeros(full.shape, np.int32)
+    if counts:
+        cnt[:, :B] = C_b
+    tie0 = bwl - 8 if n_model > 1 else B // 2
+    full[6], cnt[6] = 0.0, 0
+    full[6, tie0:tie0 + 16] = -7.5 if counts else 7.5
+    cnt[6, tie0:tie0 + 16] = 2
+    full[7, :bwl], cnt[7, :bwl] = 0.0, 0
+    return B, full, (cnt if counts else None), m, tie0
+
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("R,bwl,n_model", [(16384, 1408, 1), (16384, 384, 4), (4096, 20096, 1),
                                            (4096, 5120, 4), (300, 70016, 1)])
-def test_finish_cols_bit_equal(cuda, R, bwl, n_model):
-    """The column finish per shard on (R, bwl) row views of one sums matrix:
-    launch A's pack (values, global ids, n_s, max_s) bit-equal to its plain
-    version and alike over two launches; launch B's sums within rtol 1e-6
-    (another order of adds); the whole finish on the card against its plain
-    version on the CPU: scores, ids, n and zero_sum equal, log_sum within
-    rtol 1e-6. At bwl = 70,016 the ids go to the global workspace."""
-    from epik_tpu_torch.parallel.sharding import _pack_slim, finish_scores_cols_shifted
+def test_finish_cols_bit_equal(cuda, R, bwl, n_model, counts):
+    """Kernel A, one launch per shard, on (R, bwl) row views of one sums
+    matrix (and counts): the partial pack (values, global ids, n_s, max_s,
+    and the counts form's candidate counts) bit-equal to its plain version
+    and alike over two launches, e_s within rtol 1e-6; the whole finish on the
+    card against its plain version on the CPU: scores, ids, n and zero_sum
+    equal, log_sum within rtol 1e-6. At bwl = 70,016 the ids go to the global
+    workspace."""
+    from epik_tpu_torch.parallel.sharding import (
+        _pack_slim,
+        finish_scores_cols,
+        finish_scores_cols_shifted,
+        pack_outputs,
+    )
 
     rng = np.random.default_rng(R + bwl + n_model)
-    B = n_model * bwl - 97  # the last shard's padded columns stay untouched
-    Sp, m = finish_rows(rng, R, B, density=0.05)
-    full = np.zeros((R, n_model * bwl), np.float32)
-    full[:, :B] = Sp
-    tie0 = bwl - 8 if n_model > 1 else B // 2  # ties at the K cut across a shard boundary
-    full[6] = 0.0
-    full[6, tie0:tie0 + 16] = 7.5
-    full[7, :bwl] = 0.0  # nothing touched in shard 0
+    B, full, cnt, m, tie0 = _cols_sums(rng, R, bwl, n_model, counts)
     full_t, m_t = torch.from_numpy(full).to(cuda), torch.from_numpy(m).to(cuda)
-    Sps = [full_t[:, s * bwl:(s + 1) * bwl] for s in range(n_model)]
+    cnt_t = torch.from_numpy(cnt).to(cuda) if counts else None
+    cols = [slice(s * bwl, (s + 1) * bwl) for s in range(n_model)]
+    Sps = [full_t[:, c] for c in cols]
+    Cs = [cnt_t[:, c] for c in cols] if counts else None
     K, kw = 7, dict(k=10, log_eps=-4.2597)
-    need, limit = finish_cols_smem(Sps[0], K)
+    need, limit = finish_cols_smem(Sps[0], K, counts)
     assert 0 < need <= limit
     reset_launch_counts()
-    for s, S in enumerate(Sps):
-        got = finish_cols_partial(S, m_t, K=K, col0=s * bwl, **kw)
-        assert torch.equal(got, finish_cols_partial(S, m_t, K=K, col0=s * bwl, **kw))
-        want = finish_cols_partial_plain(S, m_t, K=K, col0=s * bwl, **kw)
-        assert torch.equal(got, want)
-        max_t = want[:, -1].clamp(min=-50.0).contiguous()
-        torch.testing.assert_close(finish_cols_expsum(S, m_t, max_t, **kw),
-                                   finish_cols_expsum_plain(S, m_t, max_t, **kw),
-                                   rtol=1e-6, atol=0.0)
-    counts = launch_counts()
-    assert counts["finish_cols_partial"] == 2 * n_model and counts["finish_cols_expsum"] == n_model
-    got = _pack_slim(finish_scores_cols_shifted(Sps, m_t, B=B, K=K, **kw)).cpu().numpy()
-    want = _pack_slim(finish_scores_cols_shifted([S.cpu() for S in Sps], m_t.cpu(), B=B,
-                                                 K=K, **kw)).numpy()
-    _check_pack(got, want, K, B)
-    np.testing.assert_array_equal(got[0, K:2 * K], np.arange(K))  # n = 0: the lowest ids
-    np.testing.assert_array_equal(got[6, K:2 * K], np.arange(tie0, tie0 + K))
+    for s in range(n_model):
+        if counts:
+            got, got_c = finish_cols_partial_counts(Sps[s], Cs[s], m_t, K=K, col0=s * bwl, **kw)
+            again, again_c = finish_cols_partial_counts(Sps[s], Cs[s], m_t, K=K, col0=s * bwl,
+                                                        **kw)
+            want, want_c = finish_cols_partial_counts_plain(Sps[s], Cs[s], m_t, K=K,
+                                                            col0=s * bwl, **kw)
+            assert torch.equal(got_c, want_c) and torch.equal(got_c, again_c)
+        else:
+            got = finish_cols_partial(Sps[s], m_t, K=K, col0=s * bwl, **kw)
+            again = finish_cols_partial(Sps[s], m_t, K=K, col0=s * bwl, **kw)
+            want = finish_cols_partial_plain(Sps[s], m_t, K=K, col0=s * bwl, **kw)
+        assert torch.equal(got, again)
+        _check_partial(got, want, f"shard {s}")
+    name = "finish_cols_partial_counts" if counts else "finish_cols_partial"
+    assert {n: c for n, c in launch_counts().items() if c} == {name: 2 * n_model}
+    if counts:
+        got = pack_outputs(finish_scores_cols(Sps, Cs, m_t, B=B, K=K, **kw), 0, 0)
+        want = pack_outputs(finish_scores_cols([S.cpu() for S in Sps], [C.cpu() for C in Cs],
+                                               m_t.cpu(), B=B, K=K, **kw), 0, 0)
+        got, want = got.cpu().numpy()[:-1], want.numpy()[:-1]
+        _check_full_pack(got, want, K, B)
+        idx = got[:, 2 * K:3 * K]
+    else:
+        got = _pack_slim(finish_scores_cols_shifted(Sps, m_t, B=B, K=K, **kw)).cpu().numpy()
+        want = _pack_slim(finish_scores_cols_shifted([S.cpu() for S in Sps], m_t.cpu(), B=B,
+                                                     K=K, **kw)).numpy()
+        _check_pack(got, want, K, B)
+        idx = got[:, K:2 * K]
+    np.testing.assert_array_equal(idx[0], np.arange(K))  # n = 0: the lowest ids
+    np.testing.assert_array_equal(idx[6], np.arange(tie0, tie0 + K))
+
+
+def _cols_case(cuda, rng, R, bwl, counts, amb, n_rows=400, W=72):
+    """One shard's f32 plane and a batch of rows for the fused column kernel
+    (``_dense_case`` / ``_classic_case`` at B = bwl - 5, the first hits
+    padded to bwl columns), on the card: (plane, rows, m, reads, delta or dS,
+    hit or None)."""
+    B = bwl - 5
+    if counts:
+        p, rows, m, reads, dS, hit = _classic_case(rng, n_rows, bwl, B, R, W, amb)
+        if amb:
+            hit = np.hstack([hit, np.zeros((hit.shape[0], bwl - B), bool)])
+            dS = np.hstack([dS, np.zeros((dS.shape[0], bwl - B), np.float32)])
+        return _to(cuda, p, rows, m, reads, dS, hit)
+    p, rows, m, reads, delta = _dense_case(rng, n_rows, bwl, B, R, W, amb)
+    if amb:
+        delta = np.hstack([delta, np.zeros((delta.shape[0], bwl - B), np.float32)])
+    return (*_to(cuda, p, rows, m, reads, delta), None)
+
+
+def _cols_call(plain, plane, rows, m, reads, delta, hit, counts, col0, K=7):
+    """The fused column kernel (or with ``plain`` its plain version) on one
+    shard's inputs: (pack, the counts form's candidate counts or None)."""
+    kw = dict(K=K, k=10, log_eps=-4.2597, col0=col0)
+    if counts:
+        fn = rowgather_sum_counts_cols_plain if plain else rowgather_sum_counts_cols
+        return fn(plane, rows, m, reads, delta, hit, **kw)
+    fn = rowgather_sum_cols_plain if plain else rowgather_sum_cols
+    return fn(plane, rows, m, reads, delta, **kw), None
+
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("amb", [True, False])
+@pytest.mark.parametrize("R,bwl,n_shards", [(16384, 1408, 1), (16384, 384, 4), (4096, 20096, 1)])
+def test_rowgather_sum_cols_bit_equal(cuda, R, bwl, n_shards, counts, amb):
+    """Kernel B, the gather with one shard's column finish in its epilogue,
+    against its plain version at the sharded dense shapes (D652 1x1 and 1x4,
+    config 4 1x1): the pack but e_s bit-equal (and the counts), e_s within
+    rtol 1e-6, two launches alike."""
+    for s in range(n_shards):
+        rng = np.random.default_rng(R + bwl + s + 2 * counts + amb)
+        plane, rows, m, reads, delta, hit = _cols_case(cuda, rng, R, bwl, counts, amb,
+                                                       n_rows=4000 if bwl < 5000 else 400)
+        assert counts_cols_fits(plane, 7) if counts else cols_fits(plane, 7)
+        args = (plane, rows, m, reads, delta, hit, counts, s * bwl)
+        got, got_c = _cols_call(False, *args)
+        again, again_c = _cols_call(False, *args)
+        want, want_c = _cols_call(True, *args)
+        assert torch.equal(got, again)
+        _check_partial(got, want, f"shard {s}")
+        if counts:
+            assert torch.equal(got_c, want_c) and torch.equal(got_c, again_c)
+        assert (got[:, 14] > 0).any()
+
+
+def _limit_bw(counts, K=7):
+    """The widest shard (a multiple of 4 columns) the fused column kernel
+    takes: its shared-memory formula against the card's limit."""
+    lo, hi = 256, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 4) // 8 * 4
+        need, limit = cols_smem(torch.empty((2, mid), device="cuda"), K, counts)
+        lo, hi = (mid, hi) if need <= limit else (lo, mid - 4)
+    return lo
+
+
+@pytest.mark.parametrize("counts", [False, True])
+def test_rowgather_sum_cols_at_and_past_its_limit(cuda, counts):
+    """At the widest shard the fused column kernel takes it launches and
+    matches its plain version; one group of four columns past it (the
+    plane's rows are whole groups of 4) the wrapper raises and the shard runs
+    the gather, the adds and kernel A apart: the same pack but e_s (rtol
+    1e-6) and the same counts."""
+    from epik_tpu_torch.parallel.sharding import _classic_cols, _shifted_cols
+
+    bw_at = _limit_bw(counts)
+    if counts:
+        assert 18000 < bw_at < 26000, bw_at
+    else:
+        assert 30000 < bw_at < 45000, bw_at
+    for bw, fits in ((bw_at, True), (bw_at + 4, False)):
+        rng = np.random.default_rng(bw)
+        plane, rows, m, reads, delta, hit = _cols_case(cuda, rng, 16, bw, counts, True,
+                                                       n_rows=120, W=30)
+        assert (counts_cols_fits(plane, 7) if counts else cols_fits(plane, 7)) == fits
+        kw = dict(K=7, k=10, log_eps=-4.2597, col0=bw)
+        args = (plane, rows, m, reads, delta, hit, counts, bw)
+        want, want_c = _cols_call(True, *args)
+        if not fits:
+            with pytest.raises(ValueError, match="shared memory"):
+                _cols_call(False, *args)
+        reset_launch_counts()
+        if counts:
+            got, got_c = _classic_cols(plane, rows, m, reads, delta, hit, **kw)
+            assert torch.equal(got_c, want_c)
+            expect = ({"rowgather_sum_counts_cols": 1} if fits else
+                      {"rowgather_sum_counts": 1, "finish_cols_partial_counts": 1})
+        else:
+            got = _shifted_cols(plane, rows, m, reads, delta, **kw)
+            expect = ({"rowgather_sum_cols": 1} if fits else
+                      {"rowgather_sum": 1, "finish_cols_partial": 1})
+        assert {n: c for n, c in launch_counts().items() if c} == expect
+        _check_partial(got, want)
+
+
+@pytest.mark.parametrize("counts", [False, True])
+def test_cols_kernels_at_the_48kb_edge(cuda, counts):
+    """Both column kernels at the widest width whose dynamic shared memory
+    is within 48 KB, which it is not with the kernels' static bytes (the
+    launch must opt in): kernel B (with the 8 KB of staged row offsets) and
+    kernel A (its 256 bytes of reductions)."""
+    edge = 48 * 1024
+    bw = max(b for b in range(256, 12000, 4)
+             if cols_smem(torch.empty((2, b), device=cuda), 7, counts)[0] <= edge)
+    need, _ = cols_smem(torch.empty((2, bw), device=cuda), 7, counts)
+    assert need > edge - 256
+    rng = np.random.default_rng(bw)
+    plane, rows, m, reads, delta, hit = _cols_case(cuda, rng, 64, bw, counts, True, n_rows=200,
+                                                   W=40)
+    args = (plane, rows, m, reads, delta, hit, counts, 0)
+    (got, got_c), (want, want_c) = _cols_call(False, *args), _cols_call(True, *args)
+    _check_partial(got, want)
+    if counts:
+        assert torch.equal(got_c, want_c)
+    bwl = max(b for b in range(20000, 24000)
+              if finish_cols_smem(torch.empty((2, b), device=cuda), 7, counts)[0] <= edge)
+    assert finish_cols_smem(torch.empty((2, bwl), device=cuda), 7, counts)[0] > edge - 256
+    B, full, cnt, m_a, _ = _cols_sums(np.random.default_rng(bwl), 40, bwl, 1, counts)
+    S_t, m_t = _to(cuda, full, m_a)
+    kw = dict(K=7, k=10, log_eps=-4.2597, col0=0)
+    if counts:
+        C_t = _to(cuda, cnt)[0]
+        got, _ = finish_cols_partial_counts(S_t, C_t, m_t, **kw)
+        want, _ = finish_cols_partial_counts_plain(S_t, C_t, m_t, **kw)
+    else:
+        got = finish_cols_partial(S_t, m_t, **kw)
+        want = finish_cols_partial_plain(S_t, m_t, **kw)
+    _check_partial(got, want)
 
 
 @pytest.mark.parametrize("n_data,n_model,cfg", [(1, 1, {}), (2, 2, {}), (1, 4, {}),
                                                 (1, 2, {"plane_mode": "classic"}),
                                                 (1, 2, {"tokenize_where": "host"})])
-def test_sharded_dense_placer_cuda_matches_cpu(cuda, n_data, n_model, cfg):
+def test_sharded_dense_placer_cuda_matches_cpu(cuda, n_data, n_model, cfg, monkeypatch):
     """The column-sharded dense route on the card (a mesh of one repeated
     card) against the same mesh on the CPU: an IUPAC batch, a clean one and
     a batch of reads shorter than k. Same edges; scores within f32 rounding
-    of the exp in the ambiguous first hit. The shifted steps launch kernel
-    1's sums and the column finish's two kernels, the classic ones kernel 1
-    with counts; the fused kernel never."""
+    of the exp in the ambiguous first hit. Every shard of every step launches
+    one fused column kernel (shifted ``rowgather_sum_cols``, classic
+    ``rowgather_sum_counts_cols``) and nothing apart; the torch finish
+    (``partial_from_corrected``) never runs on a card tensor."""
     from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.kernels import finish_cols as finish_cols_mod
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
     from epik_tpu_torch.parallel.mesh import make_mesh
@@ -618,18 +829,67 @@ def test_sharded_dense_placer_cuda_matches_cpu(cuda, n_data, n_model, cfg):
     gpu = ShardedTorchPlacer(db, tree, make_mesh(n_data, n_model, devices=[cuda] * n),
                              config=conf)
     assert gpu.route == cpu.route == "dense" and gpu._paired == cpu._paired
+    torch_finish = finish_cols_mod.partial_from_corrected
+
+    def cpu_only(corrected, *a, **k):
+        assert corrected.device.type == "cpu", "the torch column finish ran on the card"
+        return torch_finish(corrected, *a, **k)
+
+    monkeypatch.setattr(finish_cols_mod, "partial_from_corrected", cpu_only)
     for batch in (reads, amb, short):
         want, got = cpu.place(batch), gpu.place(batch)
         np.testing.assert_array_equal(got.ids[got.keep], want.ids[want.keep])
         np.testing.assert_allclose(got.scores[got.keep], want.scores[want.keep],
                                    rtol=1e-6, atol=1e-6)
-    counts = launch_counts()
-    assert counts["rowgather_sum_topk"] == 0
-    if gpu._shifted:
-        assert counts["rowgather_sum"] > 0 and counts["finish_cols_partial"] > 0
-        assert counts["finish_cols_expsum"] > 0
-    else:
-        assert counts["rowgather_sum_counts"] > 0 and counts["finish_cols_partial"] == 0
+    counts = {n: c for n, c in launch_counts().items() if c}
+    fused = "rowgather_sum_cols" if gpu._shifted else "rowgather_sum_counts_cols"
+    assert list(counts) == [fused] and counts[fused] % n_model == 0, counts
+
+
+STEP_CASES = [("paired", {}), ("bytes", {"pair_plane": "off"}), ("rows", {"tokenize_where": "host"}),
+              ("bytes_classic", {"plane_mode": "classic"}),
+              ("rows_classic", {"plane_mode": "classic", "tokenize_where": "host"})]
+
+
+@pytest.mark.parametrize("kind,cfg", STEP_CASES, ids=[k for k, _ in STEP_CASES])
+def test_sharded_dense_steps_launch_one_kernel_per_shard(cuda, kind, cfg):
+    """Each sharded dense step (bytes, paired, rows; shifted and classic) on a
+    1x2 mesh laid on the card: per step and shard one fused column kernel,
+    and no gather, gather with counts or kernel A launch."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.io.build import reads_from_reference, reference_like_db
+    from epik_tpu_torch.parallel import sharding as sharding_mod
+    from epik_tpu_torch.parallel.mesh import make_mesh
+    from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
+
+    db, ref = reference_like_db(num_leaves=96, kmer_size=10, ref_length=40_000,
+                                mean_posting_len=6.0, seed=81)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, 40, length=121, mutation_rate=0.05, seed=84)
+    reads += [("amb", reads[0][1][:40] + b"N" + reads[0][1][41:])]
+    placer = ShardedTorchPlacer(db, tree, make_mesh(1, 2, devices=[cuda] * 2),
+                                config=PlacerConfig(**cfg))
+    name = {"paired": "sharded_dense_paired_step", "bytes": "sharded_dense_bytes_step",
+            "rows": "sharded_dense_rows_step"}[kind.split("_")[0]]
+    steps = [0]
+    step = getattr(sharding_mod, name)
+
+    def counted(*a, **k):
+        steps[0] += 1
+        return step(*a, **k)
+
+    sharding_mod_step = name
+    reset_launch_counts()
+    try:
+        setattr(sharding_mod, sharding_mod_step, counted)
+        placer.place(reads)
+    finally:
+        setattr(sharding_mod, sharding_mod_step, step)
+    torch.cuda.synchronize()
+    fused = "rowgather_sum_counts_cols" if kind.endswith("classic") else "rowgather_sum_cols"
+    assert steps[0] > 0
+    assert {n: c for n, c in launch_counts().items() if c} == {fused: 2 * steps[0]}
 
 
 def _dense_case(rng, n_rows, bw, B, R, W, amb):

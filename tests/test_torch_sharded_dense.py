@@ -3,8 +3,8 @@
 * ``shard_db_columns`` and the placer's per-shard planes (``engine/state.py::
   build_plane_shard``), base and pair rows, bit-equal to the column blocks of
   ``ShardedJaxPlacer._plane_cols``.
-* The column finish: the shifted one (the plain versions of the per-shard
-  kernels ``kernels/finish_cols.py`` and the merge) and the classic one with
+* The column finish: the shifted one (the plain version of the per-shard
+  kernel ``kernels/finish_cols.py`` and the merge) and the classic one with
   counts against JAX's ``finish_scores_cols_shifted`` / ``finish_scores_cols``
   under ``shard_map``, on engineered rows: ids, n and zero_sum equal, scores
   within 1 ulp (XLA contracts a multiply-add under jit), log_sum within rtol
@@ -45,10 +45,9 @@ from epik_tpu_torch.engine.pipeline import run_pipeline
 from epik_tpu_torch.io.jplace import jplace_writer
 from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
 from epik_tpu_torch.kernels.finish_cols import (
-    finish_cols_expsum,
-    finish_cols_expsum_plain,
     finish_cols_partial,
     finish_cols_partial_plain,
+    shifted_corrected,
 )
 from epik_tpu_torch.parallel import sharding
 from epik_tpu_torch.parallel.mesh import make_mesh
@@ -169,8 +168,9 @@ def test_column_finish_shifted_matches_jax(n_model):
     """The plain per-shard finish and the merge against JAX's
     ``finish_scores_cols_shifted``: every id (the -inf slots hold the lowest
     untouched columns), n and zero_sum equal, scores within 1 ulp, log_sum
-    within rtol 1e-6; each shard's partial pack and sum of exponentials from
-    the wrappers equal to the plain versions (no launch on the CPU)."""
+    within rtol 1e-6; each shard's partial pack from the wrapper equal to the
+    plain version (no launch on the CPU), its exp-sum e_s against a float64
+    sum of 10**(corrected - max_s) over the shard's touched columns."""
     B, K, k = 500, 7, 10
     Sp, m = _finish_inputs(B=B)
     bwl = Sp.shape[1] // n_model
@@ -194,14 +194,19 @@ def test_column_finish_shifted_matches_jax(n_model):
     assert got[0, 2 * K + 1] == 0 and got[1, 2 * K + 1] == 2 and got[5, 2 * K + 2] == 1
     # the ties across the shard boundaries go to the lowest global column
     np.testing.assert_array_equal(got[6, K:2 * K], [300, 120, 121, 122, 123, 124, 125])
+    Kl = min(K, bwl)
     for s, S_s in enumerate(Sps):
         part = finish_cols_partial(S_s, m_t, K=K, k=k, log_eps=LOG_EPS, col0=s * bwl)
         assert torch.equal(part, finish_cols_partial_plain(S_s, m_t, K=K, k=k, log_eps=LOG_EPS,
                                                            col0=s * bwl))
-        assert part.shape == (Sp.shape[0], 2 * min(K, bwl) + 2)
-        max_t = torch.full((Sp.shape[0],), 3.0)
-        assert torch.equal(finish_cols_expsum(S_s, m_t, max_t, k=k, log_eps=LOG_EPS),
-                           finish_cols_expsum_plain(S_s, m_t, max_t, k=k, log_eps=LOG_EPS))
+        assert part.shape == (Sp.shape[0], 2 * Kl + 3)
+        c, touched = shifted_corrected(S_s, m_t, k=k, log_eps=LOG_EPS)  # the f32 scores
+        c = c.numpy().astype(np.float64)
+        max_s = part[:, 2 * Kl + 1].numpy().astype(np.float64)
+        with np.errstate(invalid="ignore"):  # rows with nothing touched: max_s = -inf
+            want_e = np.where(touched.numpy(), 10.0 ** (c - max_s[:, None]), 0.0).sum(axis=1)
+        np.testing.assert_allclose(part[:, 2 * Kl + 2].numpy(), want_e, rtol=1e-6)
+        assert (part[:, 2 * Kl] == 0).any() and (part[part[:, 2 * Kl] == 0, 2 * Kl + 2] == 0).all()
 
 
 @pytest.mark.parametrize("n_model", [1, 2, 4])
