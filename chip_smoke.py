@@ -174,6 +174,22 @@ prints no result line):
                  on 8,192 reads, the reads the oracle checks and the 400 bp
                  batch, against the oracle.
 
+13. surface -- the rest of the port's surface, each in processes of its own:
+               * ``python -m epik_tpu_torch.tools.verify_cuda`` on the card: the
+                 ppdiff cases and the mixed reads through every engine against
+                 the oracle; its JSON line printed, ``"ok": false`` fails;
+               * D652 through ``place --engine sharded --num-processes 2``,
+                 ranks 0 and 1 on the one card (gloo, a 2x1 mesh): each rank's
+                 jplace equal to phase 10's 1x1 run read by read;
+                 ``rowgather_sum_cols``'s launches, the all-gather's ms per
+                 batch and the reads/s of each rank;
+               * ``tools/multihost_worker.py`` in its ``csr`` mode on two ranks
+                 of the card: ``PARITY OK`` on both;
+               * two D652 batches through ``place --profile-dir``: the Chrome
+                 trace names the ``rowgather_sum_topk`` kernel;
+               * ``stats``, ``convert`` (.eptk -> .ipk -> .eptk, byte-equal) and
+                 ``diff`` (phase 5's jplace against rank 0's) on D652.
+
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
 its operations over the card's f32 rate (NVIDIA's H100 SXM data sheet), and
@@ -187,6 +203,7 @@ last, ``{"ok": true, "device": {...}}``. Neither JAX nor the JAX package
 
 from __future__ import annotations
 
+import ast
 import contextlib
 import io
 import json
@@ -218,6 +235,9 @@ AA_BATCH = 4096
 AA_READS = 20000
 #: D652's reads placed on the DNA k = 14 database (phase 11)
 K14_READS = 8192
+
+#: the device the subprocesses of phase 13 place on (their --platform)
+PLATFORM = "cuda"
 
 #: the card's peaks (NVIDIA's H100 SXM data sheet, dense, at 700 W): HBM bytes/s
 #: and f32 operations/s outside the tensor cores
@@ -1837,6 +1857,7 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         "D652 sharded 1x1", "sharded_dense_paired_step")
     if set(rows1) != set(names):
         raise AssertionError("D652 sharded 1x1: jplace names differ")
+    d652["sharded_rows"] = rows1  # phase 13's two ranks must equal it
     worst = check_parity(d652["oracle_out"], rows1, "D652 sharded 1x1")
     summary["d652_sharded_cli_reads_per_s"] = len(names) / pl_ms * 1e3
     planes = s_args[0]
@@ -2534,6 +2555,167 @@ def last_configs_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]
     return kernels, summary
 
 
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def run_ranks(make_argv, timeout: float, what: str) -> list[str]:
+    """Two ranks (``make_argv(rank, port)``) as processes of their own, both on
+    the card, each within ``timeout`` seconds; a rank that fails or runs past
+    it fails the phase, and every process is ended either way."""
+    port = free_port()
+    procs = [subprocess.Popen(make_argv(rank, port), cwd=REPO, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True) for rank in (0, 1)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        for line in out.splitlines():
+            if "socket.cpp" not in line:
+                log(f"  rank {rank} | {line}")
+        if p.returncode != 0:
+            raise AssertionError(f"{what}: rank {rank} exited with {p.returncode}")
+    return outs
+
+
+def cli_launches(text: str) -> dict:
+    """The kernel launches a ``place --verbose`` run printed (none: {})."""
+    for line in text.splitlines():
+        if line.startswith("Kernel launches: "):
+            return ast.literal_eval(line[len("Kernel launches: "):])
+    return {}
+
+
+def surface_phase(torch, np, card: str, dev, d652: dict) -> dict:
+    """Phase 13 (see the module docstring): the verify tool, D652 on two ranks
+    of one card, the worker's CSR mode, a profiled D652 run, and the database
+    and jplace commands. Returns the phase's summary."""
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    summary = {}
+    work = os.path.join(d652["work"], "surface")
+    os.makedirs(work)
+    platform = ["--platform", PLATFORM]
+
+    # ---- 13a. the verify tool ----------------------------------------------------------
+    t0 = time.monotonic()
+    out = subprocess.run([sys.executable, "-m", "epik_tpu_torch.tools.verify_cuda",
+                          "--workdir", os.path.join(work, "verify"), *platform], cwd=REPO,
+                         capture_output=True, text=True, timeout=900)
+    summary["verify_s"] = time.monotonic() - t0
+    for line in out.stderr.splitlines():
+        log("  verify | " + line)
+    lines = out.stdout.splitlines()
+    log("verify: " + (lines[-1] if lines else "(no line)"))
+    if out.returncode != 0 or len(lines) != 1 or not json.loads(lines[0])["ok"]:
+        raise AssertionError(f"verify_cuda: rc {out.returncode}, stdout {out.stdout[-500:]}")
+    verdict = json.loads(lines[0])
+    log(f"verify_cuda: {verdict['cases_passed']}/{verdict['cases_total']} cases, "
+        f"{verdict['reads_matched']}/{verdict['reads_total']} mixed reads, backend "
+        f"{verdict['backend']}, {summary['verify_s']:.1f} s [{card}]")
+
+    # ---- 13b. D652 on two ranks of the one card, against phase 10's 1x1 run ---------------
+    base = [sys.executable, "-m", "epik_tpu_torch", "place", "-i", d652["db_path"],
+            "--batch-size", str(BATCH), "--engine", "sharded", "--verbose", *platform]
+    for rank in (0, 1):
+        os.makedirs(os.path.join(work, f"rank{rank}"))
+    outs = run_ranks(lambda rank, port: base + [
+        "-o", os.path.join(work, f"rank{rank}"), "--num-processes", "2", "--process-id",
+        str(rank), "--coordinator", f"127.0.0.1:{port}", d652["fasta"]], 600, "D652 2 ranks")
+    want = d652["sharded_rows"]
+    name = "placements_" + os.path.basename(d652["fasta"]) + ".jplace"
+    for rank, text in enumerate(outs):
+        if "sharded mesh 2x1 (dense)" not in text:
+            raise AssertionError(f"D652 2 ranks: rank {rank} is not on the 2x1 dense mesh")
+        got = parse_jplace(os.path.join(work, f"rank{rank}", name))
+        if got != want:
+            bad = [n for n in want if got.get(n) != want[n]]
+            raise AssertionError(f"D652 2 ranks: rank {rank} differs from the 1x1 run on "
+                                 f"{len(bad)} reads, e.g. {bad[:3]}")
+        launched = cli_launches(text)
+        if launched.get("rowgather_sum_cols", 0) <= 0 or set(launched) != {"rowgather_sum_cols"}:
+            raise AssertionError(f"D652 2 ranks: rank {rank} launched {launched}")
+        gather = text.split("All-gather: ")[1].splitlines()[0]
+        pl_ms = placement_ms(text)
+        summary[f"d652_2rank_r{rank}_reads_per_s"] = len(want) / pl_ms * 1e3
+        summary[f"d652_2rank_r{rank}_gather_ms_per_batch"] = float(
+            gather.split(", ")[1].split(" ms")[0])
+        summary[f"d652_2rank_r{rank}_rowgather_sum_cols_launches"] = launched[
+            "rowgather_sum_cols"]
+        log(f"D652 2 ranks, rank {rank}: {len(want)} reads equal to the 1x1 run read by read; "
+            f"rowgather_sum_cols launches {launched['rowgather_sum_cols']}; all-gather "
+            f"{gather}; pipeline {pl_ms} ms = "
+            f"{summary[f'd652_2rank_r{rank}_reads_per_s']:.0f} reads/s [{card}]")
+
+    # ---- 13c. the worker's CSR mode on two ranks of the card ---------------------------------
+    outs = run_ranks(lambda rank, port: [
+        sys.executable, "-m", "epik_tpu_torch.tools.multihost_worker", str(rank), "2",
+        str(port), "csr", *platform], 300, "worker csr")
+    if not all("PARITY OK" in text for text in outs):
+        raise AssertionError("worker csr: no PARITY OK")
+    log(f"multihost_worker csr: PARITY OK on both ranks [{card}]")
+
+    # ---- 13d. a profiled D652 run: the trace names the fused kernel ---------------------------
+    prof_fasta = os.path.join(work, "q2.fasta")
+    write_fasta(prof_fasta, d652["records"][:2 * BATCH])
+    prof_dir = os.path.join(work, "profile")
+    os.makedirs(os.path.join(work, "prof_out"))
+    argv = ["place", "-i", d652["db_path"], "-o", os.path.join(work, "prof_out"),
+            "--batch-size", str(BATCH), "--profile-dir", prof_dir, *platform, prof_fasta]
+    reset_launch_counts()
+    rc, cli_out, cli_s = run_cli(torch, argv)
+    counts = launch_counts()
+    traces = [os.path.join(prof_dir, f) for f in os.listdir(prof_dir)]
+    if rc != 0 or len(traces) != 1 or counts["rowgather_sum_topk"] <= 0:
+        raise AssertionError(f"--profile-dir: rc {rc}, traces {traces}, launches {counts}")
+    with open(traces[0]) as f:
+        trace = f.read()
+    events = json.loads(trace)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    fused = [e for e in kernels if "rowgather_sum_topk" in e.get("name", "")]
+    if not fused:
+        raise AssertionError(f"--profile-dir: the trace names no rowgather_sum_topk kernel "
+                             f"({len(kernels)} kernel events)")
+    summary.update(profile_trace_bytes=len(trace), profile_kernel_events=len(kernels),
+                   profile_fused_us=sum(e.get("dur", 0) for e in fused) / len(fused))
+    log(f"--profile-dir: {len(trace)} bytes of Chrome trace, {len(kernels)} kernel events, "
+        f"{len(fused)} of {fused[0]['name'][:90]!r} "
+        f"({summary['profile_fused_us']:.1f} us each), the CLI {cli_s:.1f} s [{card}]")
+    del trace, events
+
+    # ---- 13e. stats, convert, diff on phase 4's database and phase 5's jplace -----------------
+    def cli(*args):
+        rc_, text, _ = run_cli(torch, list(args))
+        if rc_ != 0:
+            raise AssertionError(f"{args[0]}: rc {rc_}: {text[-500:]}")
+        return text
+
+    text = cli("stats", d652["db_path"])
+    if f"k-mers: {d652['db'].num_kmers}" not in text:
+        raise AssertionError(f"stats: {text}")
+    ipk, back = os.path.join(work, "D652.ipk"), os.path.join(work, "D652_back.eptk")
+    cli("convert", d652["db_path"], ipk)
+    cli("convert", ipk, back)
+    with open(d652["db_path"], "rb") as a, open(back, "rb") as b:
+        if a.read() != b.read():
+            raise AssertionError("convert: .eptk -> .ipk -> .eptk is not byte-equal")
+    text = cli("diff", d652["jplace"], os.path.join(work, "rank0", name))
+    log(f"stats, convert (.eptk -> .ipk -> .eptk byte-equal, {os.path.getsize(ipk)} bytes of "
+        f".ipk), diff of phase 5's jplace against rank 0's: {text.strip().splitlines()[-1]}")
+    return summary
+
+
 def main() -> int:
     import torch
 
@@ -2803,7 +2985,7 @@ def main() -> int:
 
     # ---- 9. the rest of the dense engine ---------------------------------------------------
     d652 = {"db": db_loaded, "db_path": db_path, "fasta": fasta, "records": records,
-            "oracle_out": oracle_d652, "work": work}
+            "oracle_out": oracle_d652, "work": work, "jplace": jplace}
     dn_kernels, dn, extra_err = dense_phase(torch, np, card, dev, fx, d652)
 
     # ---- 10. the column-sharded dense engine -------------------------------------------------
@@ -2814,6 +2996,10 @@ def main() -> int:
 
     # ---- 12. the last two configs: pair-fused tiles, accumulate="scatter" --------------------
     lc_kernels, lc = last_configs_phase(torch, np, card, dev, fx)
+
+    # ---- 13. the rest of the surface: verify tool, two ranks, profile, commands -------------
+    torch.cuda.empty_cache()
+    sf = surface_phase(torch, np, card, dev, d652)
     shutil.rmtree(fx["work"], ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
@@ -2851,6 +3037,7 @@ def main() -> int:
     log("summary sharded dense: " + " ".join(f"{k}={v}" for k, v in sd.items()))
     log("summary amino: " + " ".join(f"{k}={v}" for k, v in aa.items()))
     log("summary last configs: " + " ".join(f"{k}={v}" for k, v in lc.items()))
+    log("summary surface: " + " ".join(f"{k}={v}" for k, v in sf.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -10,8 +10,10 @@ the JAX package's numpy and pure-Python modules.
 The slices ported so far: the single-device dense engine of ``epik place``
 (the pair plane, the unpaired shifted f32 and int16 planes, the classic f32
 and bf16 planes, the host-tokenize and device-lookup steps), the big-tree
-posting-tile path with its CSR fallback, and the column-sharded big-tree path
-over a device mesh (``parallel``). ROADMAP.md lists what is still to port.
+posting-tile path with its CSR fallback, the column-sharded paths over a
+device mesh (``parallel``), across processes over gloo, and every command of
+the JAX CLI (``cli``) with the verify tool (``tools``). ROADMAP.md lists what
+is still to port.
 """
 
 __version__ = "0.1.0"

@@ -1,4 +1,5 @@
-"""``python -m epik_tpu_torch place ...``"""
+"""``python -m epik_tpu_torch <command> ...``: place, diff, probe, convert, stats,
+build-db, ppdiff."""
 
 from .cli.main import main
 

@@ -42,6 +42,8 @@ import dataclasses
 import functools
 import math
 import threading
+import time
+import zlib
 
 import numpy as np
 import torch
@@ -86,7 +88,7 @@ from ..ops.csr import (
 from ..ops.dense import amb_classic_deltas, amb_deltas
 from ..ops.hashtable import BUCKET, _next_pow2, build_table
 from ..ops.tokenize import tokenize_combo, tokenize_core, tokenize_packed
-from .mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from .mesh import DATA_AXIS, MODEL_AXIS, CollectiveError, Mesh
 
 __all__ = ["ShardedTorchPlacer", "finish_scores_cols", "finish_scores_cols_shifted",
            "shard_db_by_hash", "shard_db_columns", "shard_tiles_columns",
@@ -688,20 +690,28 @@ def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_r
 
 def _shards_per_device(mesh: Mesh) -> int:
     """The most distinct model shards one device of the mesh holds (1 on a
-    mesh of distinct devices; n_model on a mesh laid on one device)."""
-    cells = {(m, dev) for row in mesh.devices for m, dev in enumerate(row)}
+    mesh of distinct devices; n_model on a mesh laid on one device). Counted
+    over every process's rows, so that every rank decides alike."""
+    owners = mesh.owners or (mesh.rank,) * len(mesh.devices)
+    cells = {(m, owner, dev) for owner, row in zip(owners, mesh.devices)
+             for m, dev in enumerate(row)}
     per = {}
-    for _, dev in cells:
-        per[dev] = per.get(dev, 0) + 1
+    for _, owner, dev in cells:
+        per[owner, dev] = per.get((owner, dev), 0) + 1
     return max(per.values())
 
 
-def _per_device(mesh: Mesh, n_model: int, make) -> list[list]:
+def _per_device(mesh: Mesh, n_model: int, make) -> list[list | None]:
     """``out[d][m]`` = ``make(m, device)`` for mesh row d and model column m,
-    built once per distinct device of each column and shared by its rows."""
+    built once per distinct device of each column and shared by its rows;
+    ``out[d]`` is None for a row another process owns."""
     cache = {}
     out = []
-    for row in mesh.devices:
+    local = set(mesh.local_rows)
+    for d, row in enumerate(mesh.devices):
+        if d not in local:
+            out.append(None)
+            continue
         cells = []
         for m in range(n_model):
             if (m, row[m]) not in cache:
@@ -709,6 +719,37 @@ def _per_device(mesh: Mesh, n_model: int, make) -> list[list]:
             cells.append(cache[(m, row[m])])
         out.append(cells)
     return out
+
+
+def _agreed_budget(budget: int) -> int:
+    """The least budget over the processes, so that every rank takes the
+    same route and the collectives stay matched."""
+    import torch.distributed as dist
+
+    t = torch.tensor([budget], dtype=torch.int64)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN)
+    return int(t.item())
+
+
+def _gather_groups(local: dict, tag) -> dict:
+    """Every process's ``{group: pack}`` merged, through one all-gather of
+    host objects (JAX's ``process_allgather``). ``tag`` names the batch: a
+    rank that gathers another batch raises. A failed collective (a peer that
+    died) raises :class:`~.mesh.CollectiveError`."""
+    import torch.distributed as dist
+
+    every = [None] * dist.get_world_size()
+    try:
+        dist.all_gather_object(every, (tag, local))
+    except (RuntimeError, ConnectionError) as e:
+        raise CollectiveError(f"all-gather of the placed batch failed: {e}") from e
+    merged = {}
+    for their_tag, packs in every:
+        if their_tag != tag:
+            raise RuntimeError(f"ranks gather different batches: {their_tag} and {tag}; "
+                               "every rank must place the same batches in the same order")
+        merged.update(packs)
+    return merged
 
 
 class ShardedTorchPlacer(HostStaging):
@@ -744,9 +785,16 @@ class ShardedTorchPlacer(HostStaging):
     any device; ``tile_payload`` is not read: the payload is packed whenever
     the shard's branch ids fit 15 bits, as in the JAX package.
 
-    The budget is ``config.dense_db_budget``, or what the mesh's first device
-    has free. A device that holds several model shards (a mesh laid on one
-    card) holds all their planes, so their bytes add up there."""
+    The budget is ``config.dense_db_budget``, or what this process's first
+    device has free. A device that holds several model shards (a mesh laid on
+    one card) holds all their planes, so their bytes add up there.
+
+    On a mesh over several processes (``mesh.init_distributed``) each rank
+    builds the shards of the rows it owns and runs their data groups;
+    ``place_wait`` all-gathers the groups' packs, so every rank returns the
+    whole batch and takes the same budget retries (JAX's ``_fetch`` :1302-1314).
+    The budget is the least over the ranks, so every rank takes the same
+    route. Every rank must place the same batches in the same order."""
 
     def __init__(self, db, tree, mesh: Mesh, keep_at_most: int | None = None,
                  keep_factor: float | None = None, config: PlacerConfig | None = None):
@@ -781,8 +829,15 @@ class ShardedTorchPlacer(HostStaging):
         #: (the JAX package's sigma == 4 gates, :892, 984, 1200): an amino
         #: database takes the host-tokenized rows step or the CSR key streams
         self._dna = self.alphabet.sigma == 4
-        budget = (device_budget(mesh.devices[0][0]) if cfg.dense_db_budget is None
-                  else cfg.dense_db_budget)
+        #: this process's data groups (every group in one process)
+        self._local = frozenset(mesh.local_rows)
+        #: all-gathers of the data groups' packs across processes, and their time
+        self.gathers = 0
+        self.gather_seconds = 0.0
+        budget = (device_budget(mesh.devices[min(self._local)][0])
+                  if cfg.dense_db_budget is None else cfg.dense_db_budget)
+        if mesh.multi_process:
+            budget = _agreed_budget(budget)
         self._bwl = -(-self.B // (128 * self.n_model)) * 128
         # the planes one device holds: column sharding divides the plane
         self._per_dev = _shards_per_device(mesh)
@@ -945,8 +1000,9 @@ class ShardedTorchPlacer(HostStaging):
             step = (functools.partial(sharded_dense_paired_step, **kw) if self._paired
                     else functools.partial(sharded_dense_bytes_step, shifted=self._shifted,
                                            **kw))
-            out = [step(self._planes[d], self._table[d], b, a)
-                   for d, (b, a) in enumerate(zip(groups(buf), groups(arows)))]
+            bufs, arows_g = groups(buf), groups(arows)
+            out = self._run_groups(lambda d: step(self._planes[d], self._table[d], bufs[d],
+                                                  arows_g[d]))
             return _Pending(sequence_map, seqs, m_signed, out, K)
         tokens = self._tokenize(seqs)
         ex, am = tokens.exact_read, tokens.amb_read
@@ -960,8 +1016,8 @@ class ShardedTorchPlacer(HostStaging):
         m_pad[:R_true] = _wrapped_m(m_signed)
         step = functools.partial(sharded_dense_rows_step, Amax=Amax,
                                  zero_row=self.db.num_kmers, shifted=self._shifted, **kw)
-        out = [step(self._planes[d], r, a, m)
-               for d, (r, a, m) in enumerate(zip(groups(rows), groups(arows), groups(m_pad)))]
+        rows_g, arows_g, m_g = groups(rows), groups(arows), groups(m_pad)
+        out = self._run_groups(lambda d: step(self._planes[d], rows_g[d], arows_g[d], m_g[d]))
         return _Pending(sequence_map, seqs, m_signed, out, K)
 
     def _place_async_tiles(self, sequence_map, seqs):
@@ -990,10 +1046,10 @@ class ShardedTorchPlacer(HostStaging):
             log_eps=float(self.log_eps), tile_scale=float(self._tile_scale),
             PT_OV=self._tile_pt_ov, N_OV=self._tile_n_ov)
 
-        def run(OV: int) -> list[torch.Tensor]:
-            return [step(self._tiles[d], self._direct[d], buf_t[d * R_loc:(d + 1) * R_loc],
-                         self._tiles_ov[d] if self._tiles_ov else None, OV=OV)
-                    for d in range(self.n_data)]
+        def run(OV: int) -> list[torch.Tensor | None]:
+            return self._run_groups(lambda d: step(
+                self._tiles[d], self._direct[d], buf_t[d * R_loc:(d + 1) * R_loc],
+                self._tiles_ov[d] if self._tiles_ov else None, OV=OV))
 
         m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         if self._tile_pt_ov == 0:
@@ -1031,9 +1087,9 @@ class ShardedTorchPlacer(HostStaging):
                                          k=self.k, Lmax=Lmax, log_eps=float(self.log_eps),
                                          flat=self._flat)
 
-                def run_bytes(Pb_: int, _PAb: int) -> list[torch.Tensor]:
-                    return [step(self._csr[d], buf_t[d * R_loc:(d + 1) * R_loc], Pb=Pb_)
-                            for d in range(nd)]
+                def run_bytes(Pb_: int, _PAb: int) -> list[torch.Tensor | None]:
+                    return self._run_groups(lambda d: step(
+                        self._csr[d], buf_t[d * R_loc:(d + 1) * R_loc], Pb=Pb_))
 
                 return _Pending(sequence_map, seqs, lens_arr - self.k + 1, run_bytes(Pb, 0),
                                 K, ("csr", Pb, 0, run_bytes))
@@ -1071,17 +1127,31 @@ class ShardedTorchPlacer(HostStaging):
                                  log_eps=float(self.log_eps), eps=float(self.eps),
                                  flat=self._flat)
 
-        def run(Pb_: int, PAb_: int) -> list[torch.Tensor]:
-            return [step(self._csr[d], *staged[d], Pb=Pb_, PAb=PAb_) for d in range(nd)]
+        def run(Pb_: int, PAb_: int) -> list[torch.Tensor | None]:
+            return self._run_groups(lambda d: step(self._csr[d], *staged[d], Pb=Pb_, PAb=PAb_))
 
         return _Pending(sequence_map, seqs, m_signed, run(Pb, PAb), K, ("csr", Pb, PAb, run))
 
     # -- wait + assembly ------------------------------------------------------
 
-    @staticmethod
-    def _fetch(out: list[torch.Tensor]) -> np.ndarray:
-        """The data groups' packs as one (n_data, rows, width) host array."""
-        return np.stack([o.cpu().numpy() for o in out])
+    def _run_groups(self, step) -> list[torch.Tensor | None]:
+        """``step(d)`` for each data group d this process owns, None for the
+        groups of other processes."""
+        return [step(d) if d in self._local else None for d in range(self.n_data)]
+
+    def _fetch(self, out: list[torch.Tensor | None], tag) -> np.ndarray:
+        """The data groups' packs as one (n_data, rows, width) host array. On
+        a mesh over several processes each rank holds its own groups' packs;
+        an all-gather gives every rank the whole batch, so that each rank
+        assembles it and decides the budget retries alike."""
+        packs = {d: o.cpu().numpy() for d, o in enumerate(out) if o is not None}
+        if self.mesh.multi_process:
+            t0 = time.perf_counter()
+            packs = _gather_groups(packs, tag)
+            with self._retry_lock:
+                self.gather_seconds += time.perf_counter() - t0
+                self.gathers += 1
+        return np.stack([packs[d] for d in range(self.n_data)])
 
     def _count_retry(self) -> None:
         with self._retry_lock:  # the pipeline waits on batches from several threads
@@ -1094,7 +1164,9 @@ class ShardedTorchPlacer(HostStaging):
         if pending.out is None:
             return PlacedCollection(sequence_map=pending.sequence_map, placed_seqs=[])
         R_true = len(pending.seqs)
-        arr = self._fetch(pending.out)
+        # the batch as every rank knows it: its unique reads and the first one
+        tag = (R_true, zlib.crc32(pending.seqs[0]))
+        arr = self._fetch(pending.out, tag)
         budget = pending.budget
         if budget is None:
             # the slim (R, 2K+3) pack, or the classic dense steps' full (R+1,
@@ -1106,7 +1178,7 @@ class ShardedTorchPlacer(HostStaging):
             while int(arr[:, :, -1].max()) > OV:
                 self._count_retry()
                 OV = _bucket(int(arr[:, :, -1].max()), 8)  # rerun clamps to W
-                arr = self._fetch(rerun(OV))
+                arr = self._fetch(rerun(OV), tag)
             body = arr[:, :, :-1]
         else:
             # the last row carries the budget totals in 20-bit halves; a hot
@@ -1121,7 +1193,7 @@ class ShardedTorchPlacer(HostStaging):
                 self._count_retry()
                 Pb = _bucket(e_tot, self.config.min_bucket) if e_tot > Pb else Pb
                 PAb = _bucket(a_tot, self.config.min_bucket) if a_tot > PAb else PAb
-                arr = self._fetch(rerun(Pb, PAb))
+                arr = self._fetch(rerun(Pb, PAb), tag)
             body = arr[:, :-1, :]
         return self._assemble_flat(pending, body.reshape(-1, body.shape[2])[:R_true])
 
