@@ -190,6 +190,22 @@ prints no result line):
                * ``stats``, ``convert`` (.eptk -> .ipk -> .eptk, byte-equal) and
                  ``diff`` (phase 5's jplace against rank 0's) on D652.
 
+14. wide classic -- the classic dense route past the fused counts kernel's
+               limit, where the gather with counts (kernel 1c,
+               ``rowgather_sum_counts[_bf16]``, in locality order and column
+               slices) and ``finish_topk_counts`` run apart: BASELINE.md
+               config 4's recipe at 11,100 leaves (B = 22,197, bw 22,272,
+               ~644k k-mers), 8,192 150 bp reads in batches of 4,096:
+               * ``python -m epik_tpu_torch place --plane-mode classic`` (the
+                 ~57 GB f32 plane), then the same with ``--precision bf16``
+                 (~29 GB), the counts zeroed before and read after: the dense
+                 route, 1c and the counts finish once per batch and nothing
+                 else; 128 reads against the oracle, score sets within 1e-4
+                 (bf16: the oracle on bf16-rounded scores, and the best edge
+                 of the exact oracle by the bf16 rule); 1c against its plain
+                 version on the path's first batch, bit for bit, two launches
+                 alike, its time, bound and ``embedding_bag``'s.
+
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
 its operations over the card's f32 rate (NVIDIA's H100 SXM data sheet), and
@@ -205,6 +221,7 @@ from __future__ import annotations
 
 import ast
 import contextlib
+import gc
 import io
 import json
 import math
@@ -235,6 +252,11 @@ AA_BATCH = 4096
 AA_READS = 20000
 #: D652's reads placed on the DNA k = 14 database (phase 11)
 K14_READS = 8192
+#: the wide classic phase (phase 14): config 4's recipe at 11,100 leaves, past
+#: the fused counts kernel's limit; reads of 150 bp, batches, oracle reads
+WC_READS = 8192
+WC_BATCH = 4096
+WC_PARITY = 128
 
 #: the device the subprocesses of phase 13 place on (their --platform)
 PLATFORM = "cuda"
@@ -297,6 +319,12 @@ KERNEL_META = {
     # JAX scatter-adds (epik_tpu/engine/placer.py:378-379)
     "accumulate_sums_counts_csr": ("epik_tpu_torch/kernels/csrc/accumulate_sums.cu",
                                    "epik_tpu/ops/pallas/accumulate.py:436"),
+    # the gather with counts on the wide classic path (phase 14), past the
+    # fused counts kernel's limit
+    "rowgather_sum_counts_wide_classic": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                          "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_counts_bf16_wide_classic": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                               "epik_tpu/ops/pallas/rowgather_mq.py:117"),
 }
 
 
@@ -715,6 +743,119 @@ def bigtree_db():
 
     return reference_like_db(num_leaves=10000, kmer_size=10, ref_length=1_000_000,
                              mean_posting_len=12.0, seed=10)
+
+
+def wide_classic_db():
+    """The wide classic database and its reference: BASELINE.md config 4's
+    recipe (tools/bench_bigtree.py:47-55) at 11,100 leaves, B = 22,197 past
+    the fused counts kernel's limit (B ~ 22,016), bw 22,272."""
+    from epik_tpu_torch.io.build import reference_like_db
+
+    return reference_like_db(num_leaves=11100, kmer_size=10, ref_length=1_000_000,
+                             mean_posting_len=12.0, seed=13)
+
+
+def bf16_scores_db(db):
+    """``db`` with every score rounded to bf16 (the values the bf16 classic
+    plane holds), for the oracle the bf16 path is held to."""
+    import dataclasses
+
+    import torch
+
+    rounded = torch.from_numpy(db.scores).to(torch.bfloat16).to(torch.float32).numpy()
+    return dataclasses.replace(db, scores=rounded)
+
+
+def wide_classic_phase(torch, np, card: str, dev) -> tuple[list, dict]:
+    """Phase 14 (see the module docstring). Returns the kernel entries of the
+    gather with counts at this width and the phase's summary numbers."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.reference import ReferencePlacer
+    from epik_tpu_torch.io.build import reads_from_reference
+    from epik_tpu_torch.io.db import load, save
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.rowgather import counts_topk_fits
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    summary = {}
+    # ---- 14a. fixture -----------------------------------------------------------------
+    t0 = time.monotonic()
+    work = os.path.join(REPO, "build", "chip_smoke_wide")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    db, ref = wide_classic_db()
+    path = os.path.join(work, "wide.eptk")
+    save(db, path)
+    db = load(path, mu=1.0, user_omega=1.5)
+    tree = parse_newick(db.tree())
+    B = tree.get_node_count()
+    records = reads_from_reference(ref, WC_READS, length=150, mutation_rate=0.02, seed=14)
+    fasta = os.path.join(work, "q.fasta")
+    write_fasta(fasta, records)
+    summary["wide_fixture_s"] = time.monotonic() - t0
+    t0 = time.monotonic()
+    oracles = {"f32": ReferencePlacer(db, tree).place(records[:WC_PARITY]),
+               "bf16": ReferencePlacer(bf16_scores_db(db), tree).place(records[:WC_PARITY])}
+    summary["wide_oracle_s"] = time.monotonic() - t0
+    if counts_topk_fits(torch.empty((2, -(-B // 128) * 128), device=dev), B, 7):
+        raise AssertionError(f"B = {B}: the fused counts kernel would take it")
+    log(f"wide classic fixture: {db.num_kmers} k-mers, {db.num_entries} postings, {B} "
+        f"branches, {WC_READS} reads of 150 bp ({summary['wide_fixture_s']:.1f} s; the "
+        f"oracle on {WC_PARITY} reads, exact and bf16 scores, "
+        f"{summary['wide_oracle_s']:.1f} s)")
+
+    # ---- 14b. the classic CLI, f32 then bf16: 1c and the counts finish per batch ---------
+    kernels = []
+    n_batches = -(-WC_READS // WC_BATCH)
+    for cell, flags in (("f32", []), ("bf16", ["--precision", "bf16"])):
+        sums = "rowgather_sum_counts" + ("_bf16" if cell == "bf16" else "")
+        out_dir = os.path.join(work, f"out_{cell}")
+        os.makedirs(out_dir)
+        argv = ["place", "-i", path, "-o", out_dir, "--batch-size", str(WC_BATCH),
+                "--plane-mode", "classic", *flags, fasta]
+        calls = []
+        reset_launch_counts()
+        with recording(step_mod, sums, calls, limit=1):
+            rc, cli_out, wall = run_cli(torch, argv)
+        counts = {n: c for n, c in launch_counts().items() if c}
+        log("cli: python -m epik_tpu_torch " + " ".join(argv))
+        for line in cli_out.splitlines():
+            log("  | " + line)
+        if rc != 0 or "(1 device(s), dense)" not in cli_out:
+            raise AssertionError(f"wide classic {cell}: rc {rc}, not on the dense route")
+        if counts != {sums: n_batches, "finish_topk_counts": n_batches}:
+            raise AssertionError(f"wide classic {cell}: launches {counts}, expected {sums} "
+                                 f"and finish_topk_counts once per batch ({n_batches})")
+        plane = calls[0][0][0]
+        rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
+        if set(rows_by_name) != {n for n, _ in records}:
+            raise AssertionError(f"wide classic {cell}: jplace names differ")
+        worst = check_parity(oracles[cell], rows_by_name, f"wide classic {cell}")
+        best = check_parity(oracles["f32"], rows_by_name, f"wide classic {cell}",
+                            "top_edge") if cell == "bf16" else None
+        rate = WC_READS / placement_ms(cli_out) * 1e3
+        err, ms, plain_ms, io_k, lib_ms, shape = check_dense_kernel(
+            torch, np, sums, calls[0], f"wide classic {cell}, first batch")
+        summary.update({f"wide_{cell}_plane_bytes": nbytes(plane),
+                        f"wide_{cell}_reads_per_s": rate, f"wide_{cell}_cli_s": wall,
+                        f"wide_{cell}_{sums}_ms": ms})
+        log(f"wide classic {cell}: plane {tuple(plane.shape)} {plane.dtype} = {nbytes(plane)} "
+            f"bytes; {WC_READS} reads, pipeline {rate:.0f} reads/s, whole CLI {wall:.1f} s "
+            f"[{card}]; launches {counts}; parity on {WC_PARITY} reads against the oracle on "
+            f"{'bf16-rounded' if cell == 'bf16' else 'exact'} scores: largest score "
+            f"difference {worst:.3g}"
+            f"{'' if best is None else f'; the best edge of the exact oracle on {best:.3f}'}; "
+            f"{sums} {shape} bw={plane.shape[1]}: bit-equal, two launches alike; kernel "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag (sums only) {lib_ms:.4f} ms, "
+            f"bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes)")
+        kernels.append(entry(f"{sums}_wide_classic", counts[sums], err, ms, plain_ms, *io_k,
+                             lib_ms))
+        del calls, plane
+        gc.collect()  # the CLI's placer, before the next plane is built
+        torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    return kernels, summary
 
 
 def bigtree_phase(torch, np, card: str, dev, finish_err: float = 0.0) -> tuple[list, dict, dict]:
@@ -2443,9 +2584,10 @@ def last_configs_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]
     (b, s, ptr), kw5 = calls[0]
     R = kw5["R"]
     err5 = check_csr_sums(torch, b, s, ptr, R, B, "accumulate_sums_counts_csr (400 bp batch)")
-    how = plan(B, True)
+    how = plan(B, True, row_ptr=True)
     rng = np.random.default_rng(12)
-    b_e, s_e = score_rows(rng, 256, 6000, B, edges=(how.tile_w,))
+    b_e, s_e = score_rows(rng, 256, 6000, B,
+                          edges=tuple(how.tile_w * t for t in range(1, how.n_tiles)))
     lens = rng.integers(0, 6001, 256)
     lens[[0, 3]] = [6000, 0]
     fb, fs, fptr = (torch.from_numpy(x).to(dev) for x in flat_cells(b_e, s_e, lens, extra=999))
@@ -2474,9 +2616,10 @@ def last_configs_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]
     summary.update(flat_P=int(b.shape[0]), flat_cells=n_cells)
     log(f"accumulate_sums_counts_csr: {n_cells} cells of {R} reads in a flat budget of "
         f"P = {b.shape[0]}, B={B}: bit-equal on the path's and engineered cells (a read "
-        f"with none, reads past one 4,096-cell chunk, cells past the last read), two "
-        f"launches alike; {how.n_tiles} tile(s) of {how.tile_w} branches, {how.threads} "
-        f"threads; kernel {ms5:.4f} ms, plain {plain_ms5:.4f} ms, index_put_ (sums only) "
+        f"with none, reads past one 5,120-cell chunk of the sort, cells past the last "
+        f"read), two launches alike; {how.n_tiles} tile(s) of {how.tile_w} branches, "
+        f"{how.threads} threads, {how.smem} bytes of shared memory; kernel {ms5:.4f} ms, "
+        f"plain {plain_ms5:.4f} ms, index_put_ (sums only) "
         f"{lib_ms5:.4f} ms, bound {bound(*io5)[0]:.4f} ms; the step's peak "
         f"{summary['flat_csr_peak_bytes']} bytes over the placer's [{card}]")
     del rows_l, cols_l, s_l, b, s, ptr, calls
@@ -3000,6 +3143,10 @@ def main() -> int:
     # ---- 13. the rest of the surface: verify tool, two ranks, profile, commands -------------
     torch.cuda.empty_cache()
     sf = surface_phase(torch, np, card, dev, d652)
+
+    # ---- 14. the wide classic path: 1c past the fused counts kernel's limit ------------------
+    torch.cuda.empty_cache()
+    wc_kernels, wc = wide_classic_phase(torch, np, card, dev)
     shutil.rmtree(fx["work"], ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
@@ -3022,6 +3169,7 @@ def main() -> int:
         *sd_kernels,
         *aa_kernels,
         *lc_kernels,
+        *wc_kernels,
     ]
     for e in kernels:  # the wide-tree checks of phase 9, the limit checks of phase 10
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0),
@@ -3038,6 +3186,7 @@ def main() -> int:
     log("summary amino: " + " ".join(f"{k}={v}" for k, v in aa.items()))
     log("summary last configs: " + " ".join(f"{k}={v}" for k, v in lc.items()))
     log("summary surface: " + " ".join(f"{k}={v}" for k, v in sf.items()))
+    log("summary wide classic: " + " ".join(f"{k}={v}" for k, v in wc.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -43,8 +43,8 @@ _F32 = ctypes.c_float
 _PROTOTYPES = {
     # (plane, cell, rows, out, R, W, bw, scale, stream)
     "epik_rowgather_sum": [_VP, _INT, _VP, _VP, _INT, _INT, _INT, _F32, _VP],
-    # (plane, cell, rows, S, C, R, W, bw, stream)
-    "epik_rowgather_sum_counts": [_VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    # (plane, cell, rows, perm, S, C, R, W, bw, stream)
+    "epik_rowgather_sum_counts": [_VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     # (plane, cell, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps, scale, stream)
     "epik_rowgather_sum_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
                                 _INT, _INT, _F32, _F32, _VP],
@@ -93,8 +93,8 @@ _PROTOTYPES = {
     "epik_accumulate_sums": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     # (b, s, ptr, S, C, R, B, stream)
     "epik_accumulate_sums_csr": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
-    # (B, counts, out int[4])
-    "epik_accumulate_sums_layout": [_INT, _INT, ctypes.POINTER(_INT)],
+    # (B, counts, row_ptr, out int[4])
+    "epik_accumulate_sums_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
 }
 #: entry points that return something else than a CUDA error code
 _RESTYPES = {

@@ -20,11 +20,13 @@ order, in the kernel as in the plain version, so the two are bit-equal.
 
 The kernel is bound by bytes: it reads each cell once and writes each sum
 and count once. A block keeps one branch tile of one read in shared memory
-and partitions the read's cells among its warps by branch, so that each
-kept cell is added once, in cell order, with no float atomics. The CUDA
-source cuts the branch range and sizes the block itself, from the card's
-shared memory per block: one tile at B = 19,999 with counts.
-:func:`plan` asks it what it takes at a width.
+and adds each kept cell once, in cell order, with no float atomics: the
+(R, PP) forms partition the read's cells among their warps by branch; the
+row-pointer form sorts each chunk of cells by branch with a stable block
+radix sort and adds each branch's run in order. The CUDA source cuts the
+branch range and sizes the block itself, from the card's shared memory per
+block: one tile at B = 19,999 with counts. :func:`plan` asks it what it
+takes at a width.
 """
 
 from __future__ import annotations
@@ -52,13 +54,15 @@ class Plan(NamedTuple):
     smem: int
 
 
-def plan(B: int, counts: bool, device=None) -> Plan:
+def plan(B: int, counts: bool, device=None, *, row_ptr: bool = False) -> Plan:
     """The tiles and block the kernel takes at width ``B`` on ``device`` (a
-    CUDA device; default the current one), as its CUDA source plans them."""
+    CUDA device; default the current one), as its CUDA source plans them:
+    the (R, PP) forms, or ``row_ptr`` the row-pointer form (counts only),
+    whose block holds its radix sort's storage beside the tile."""
     out = (ctypes.c_int * 4)()
     lib = library()
     with torch.cuda.device(device):
-        err = lib.epik_accumulate_sums_layout(B, int(counts), out)
+        err = lib.epik_accumulate_sums_layout(B, int(counts), int(row_ptr), out)
     check(err, "accumulate_sums plan")
     return Plan(*out)
 

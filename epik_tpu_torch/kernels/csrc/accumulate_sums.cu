@@ -52,15 +52,42 @@
 // The row-pointer form (epik_accumulate_sums_csr, at the end) takes the flat
 // cells of the scatter engine (engine/placer.py::accumulate_exact, whose XLA
 // scatter-add into (R+1, B) it replaces) with an int64 (R+1) row pointer:
-// read r's cells are [ptr[r], ptr[r+1]) of the flat arrays. Only where a
-// read's cells start and how many it has change; the tiles, chunks, owner
-// warps and the cell-order adds are the same code (kRowPtr). It reads only
-// the batch's postings, no padding: the 400 bp batch's 18.2 M cells are 145 MB
-// against the 655 MB of sums and counts it writes, so the writes bound it.
+// read r's cells are [ptr[r], ptr[r+1]) of the flat arrays. It reads only the
+// batch's postings, no padding: the 400 bp batch's 18.2 M cells are 145 MB
+// against the 655 MB of sums and counts it writes, so the writes bound it
+// (0.239 ms on the H100).
+//
+// It has its own block (PR 13): the same tile of sums and counts in shared
+// memory, but the cell-order adds come from a stable block radix sort
+// instead of the owner warps. Taken apart on the H100 (kernel_sweep.py), the
+// owner warps' block spent 0.35 ms of its 0.79 ms in the drain (a
+// __match_any_sync per 32 queued cells), 0.11 ms in the ranks (another per
+// 32 loaded cells) and 0.10 ms in the scan and partition; the zero fill and
+// the write-out alone took 0.23 ms. Here each chunk of kChunk cells is
+//   1. loaded in blocked order (thread t holds cells kItems t .. kItems t +
+//      kItems - 1 of the chunk), a cell outside the tile keyed past every
+//      branch of it (its score is never read);
+//   2. sorted by branch with cub::BlockRadixSort, which is stable: the cells
+//      of one branch stay in cell order;
+//   3. written to shared memory, sorted; the thread holding the first cell of
+//      a branch's run adds the run's scores in order into the branch's sum
+//      and its length into the count. Each branch has one run a chunk, so
+//      one thread adds into it: no atomics.
+// A chunk of 5,120 cells (1,024 threads x 5) holds a 400 bp read's ~4,400
+// cells whole (at 4,096, most reads took a second chunk and the kernel was
+// slower than the owner warps'); a chunk with no cell in the tile skips the
+// sort, whose passes take 5 bits each (3 at B = 19,999, not 4). The tiles
+// are the fewest whose block fits the card's shared memory (one at B =
+// 19,999: 160 KB of sums and counts and 68 KB of the sort's storage, most of
+// it the 5-bit digit counters). The (R, PP) forms keep the owner warps: on
+// their own shapes the sorted block measured slower (their PP cells are
+// mostly padding, and the sums alone leave room for two owner-warp blocks an
+// SM).
 
 #include <cuda_runtime.h>
 
 #include <cstdint>
+#include <cub/block/block_radix_sort.cuh>
 
 namespace {
 
@@ -90,11 +117,10 @@ size_t smem_bytes(int tile_w) {
          static_cast<size_t>(kWarps * kWarps + kWarps) * 4;
 }
 
-template <int kWarps, bool kCounts, bool kRowPtr>
+template <int kWarps, bool kCounts>
 __global__ void __launch_bounds__(kWarps * 32)
     accumulate_sums_kernel(const int32_t* __restrict__ b,
                            const float* __restrict__ s,
-                           const long long* __restrict__ ptr,
                            float* __restrict__ S, int32_t* __restrict__ C,
                            int PP, int B, int tile_w, int n_tiles) {
   static_assert(kWarps <= 32 && (kWarps & (kWarps - 1)) == 0,
@@ -124,13 +150,9 @@ __global__ void __launch_bounds__(kWarps * 32)
 
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const unsigned below = (1u << lane) - 1u;
-  // read r's cells: row r of the (R, PP) cells, or [ptr[r], ptr[r+1]) of
-  // the flat ones
-  const long long c_begin = kRowPtr ? ptr[r] : r * PP;
-  const int len = kRowPtr ? static_cast<int>(ptr[r + 1] - c_begin) : PP;
-  const int32_t* brow = b + c_begin;
-  const float* srow = s + c_begin;
-  for (int c0 = 0; c0 < len; c0 += kChunk) {
+  const int32_t* brow = b + r * PP;
+  const float* srow = s + r * PP;
+  for (int c0 = 0; c0 < PP; c0 += kChunk) {
     // ---- 1. load, drop, rank among the slice's cells of the same owner ----
     if (lane < kWarps) hist[warp * kWarps + lane] = 0;
     __syncwarp();
@@ -141,7 +163,7 @@ __global__ void __launch_bounds__(kWarps * 32)
 #pragma unroll
     for (int v = 0; v < kRounds; ++v) {
       const int c = cw + v * 32;
-      jv[v] = c < len ? __ldg(brow + c) - lo : -1;
+      jv[v] = c < PP ? __ldg(brow + c) - lo : -1;
       if (static_cast<unsigned>(jv[v]) >= static_cast<unsigned>(n)) jv[v] = -1;
     }
 #pragma unroll
@@ -232,8 +254,124 @@ __global__ void __launch_bounds__(kWarps * 32)
   }
 }
 
+// ---- the row-pointer form: cell-order adds by a stable block radix sort ----
+
+// Threads and cells a thread of the row-pointer form's block, and the bits a
+// pass of its radix sort takes: 5,120 cells a chunk, 3 passes at B = 19,999.
+constexpr int kSortThreads = 1024;
+constexpr int kSortItems = 5;
+constexpr int kSortRadixBits = 5;
+
+template <int kThreads, int kItems>
+struct SortedBlock {
+  static constexpr int kChunk = kThreads * kItems;
+  using Sort = cub::BlockRadixSort<uint32_t, kThreads, kItems, float, kSortRadixBits>;
+  // the sort's storage, then (after it) the chunk's sorted cells
+  union Scratch {
+    typename Sort::TempStorage sort;
+    struct {
+      uint32_t key[kChunk];
+      float val[kChunk];
+    } run;
+  };
+};
+
+// bytes of dynamic shared memory: the tile's sums and counts, each padded to
+// a multiple of 4 plus 4 for the write-out shift, and the scratch
+template <int kThreads, int kItems>
+size_t sorted_smem_bytes(int tile_w) {
+  const size_t tile = static_cast<size_t>(((tile_w + 3) & ~3) + 4) * 4;
+  return 2 * tile + sizeof(typename SortedBlock<kThreads, kItems>::Scratch);
+}
+
+template <int kThreads, int kItems>
+__global__ void __launch_bounds__(kThreads)
+    accumulate_sums_sorted_kernel(const int32_t* __restrict__ b, const float* __restrict__ s,
+                                  const long long* __restrict__ ptr, float* __restrict__ S,
+                                  int32_t* __restrict__ C, int B, int tile_w, int n_tiles) {
+  using Block = SortedBlock<kThreads, kItems>;
+  constexpr int kChunk = Block::kChunk;
+  extern __shared__ float4 smem[];
+  const int tile4 = ((tile_w + 3) & ~3) + 4;
+  float* sum_base = reinterpret_cast<float*>(smem);
+  int* cnt_base = reinterpret_cast<int*>(sum_base + tile4);
+  auto& scratch = *reinterpret_cast<typename Block::Scratch*>(cnt_base + tile4);
+
+  const long long r = blockIdx.x / n_tiles;
+  const int lo = static_cast<int>(blockIdx.x - r * n_tiles) * tile_w;
+  const int n = min(B - lo, tile_w);
+  const long long out0 = r * B + lo;  // element offset of the tile's outputs
+  const int shift = static_cast<int>(out0 & 3);
+  float* ssum = sum_base + shift;
+  int* scnt = cnt_base + shift;
+  for (int i = threadIdx.x; i < tile4 / 4; i += kThreads) {
+    smem[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+    reinterpret_cast<int4*>(cnt_base)[i] = make_int4(0, 0, 0, 0);
+  }
+  // a cell outside the tile is keyed n: it sorts after every branch of it
+  const int bits = 32 - __clz(n);
+  const long long c_begin = ptr[r];
+  const int len = static_cast<int>(ptr[r + 1] - c_begin);
+  const int32_t* brow = b + c_begin;
+  const float* srow = s + c_begin;
+  for (int c0 = 0; c0 < len; c0 += kChunk) {
+    uint32_t key[kItems];
+    float val[kItems];
+    bool any = false;
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int c = c0 + threadIdx.x * kItems + k;
+      const int j = c < len ? __ldg(brow + c) - lo : -1;
+      const bool kept = static_cast<unsigned>(j) < static_cast<unsigned>(n);
+      key[k] = kept ? static_cast<uint32_t>(j) : static_cast<uint32_t>(n);
+      val[k] = kept ? __ldg(srow + c) : 0.f;
+      any |= kept;
+    }
+    // also: the previous chunk's runs have been read
+    if (!__syncthreads_or(any)) continue;
+    typename Block::Sort(scratch.sort).Sort(key, val, 0, bits);
+    __syncthreads();  // the sort's storage is free
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      scratch.run.key[threadIdx.x * kItems + k] = key[k];
+      scratch.run.val[threadIdx.x * kItems + k] = val[k];
+    }
+    __syncthreads();
+#pragma unroll
+    for (int k = 0; k < kItems; ++k) {
+      const int i = threadIdx.x * kItems + k;
+      const uint32_t j = key[k];
+      if (j == static_cast<uint32_t>(n) || (i > 0 && scratch.run.key[i - 1] == j)) continue;
+      float acc = ssum[j];  // the head of branch j's run adds the run in cell order
+      int m = i;
+      for (; m < kChunk && scratch.run.key[m] == j; ++m) acc = __fadd_rn(acc, scratch.run.val[m]);
+      ssum[j] = acc;
+      scnt[j] += m - i;
+    }
+  }
+  __syncthreads();
+
+  // ---- write-out: scalars up to a 16-byte boundary of S, then float4s -------
+  float* Srow = S + out0;
+  int32_t* Crow = C + out0;
+  const int head = min(n, (4 - shift) & 3);
+  for (int j = threadIdx.x; j < head; j += kThreads) {
+    Srow[j] = ssum[j];
+    Crow[j] = scnt[j];
+  }
+  const int n4 = (n - head) >> 2;
+  for (int i = threadIdx.x; i < n4; i += kThreads) {
+    reinterpret_cast<float4*>(Srow + head)[i] = reinterpret_cast<const float4*>(ssum + head)[i];
+    reinterpret_cast<int4*>(Crow + head)[i] = reinterpret_cast<const int4*>(scnt + head)[i];
+  }
+  for (int j = head + 4 * n4 + threadIdx.x; j < n; j += kThreads) {
+    Srow[j] = ssum[j];
+    Crow[j] = scnt[j];
+  }
+}
+
 // How a call at width B is cut: n_tiles tiles of tile_w branches, one block
-// of kWarps * 32 threads and `smem` bytes of shared memory per (read, tile).
+// of `threads` threads and `smem` bytes of shared memory per (read, tile).
 struct Layout {
   int tile_w;
   int n_tiles;
@@ -241,48 +379,55 @@ struct Layout {
   size_t smem;
 };
 
-// the fewest tiles whose block fits the current device's opt-in shared
-// memory per block (227 KB on the H100); the tiles are of equal width, the
-// last ragged
-template <int kWarps, bool kCounts>
-cudaError_t plan(int B, Layout* out) {
+// the fewest tiles of equal width, the last ragged, whose block's `smem`
+// bytes fit the current device's opt-in shared memory per block (227 KB on
+// the H100)
+template <class Smem>
+cudaError_t plan(int B, int threads, Smem smem, Layout* out) {
   int dev, limit;
   cudaError_t err = cudaGetDevice(&dev);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
   }
   if (err != cudaSuccess) return err;
-  if (B < 1 || smem_bytes<kWarps, kCounts>(1) > static_cast<size_t>(limit)) {
-    return cudaErrorInvalidValue;
-  }
+  if (B < 1 || smem(1) > static_cast<size_t>(limit)) return cudaErrorInvalidValue;
   int n_tiles = 1;
-  while (smem_bytes<kWarps, kCounts>((B + n_tiles - 1) / n_tiles) > static_cast<size_t>(limit)) {
-    ++n_tiles;
-  }
+  while (smem((B + n_tiles - 1) / n_tiles) > static_cast<size_t>(limit)) ++n_tiles;
   out->tile_w = (B + n_tiles - 1) / n_tiles;
   out->n_tiles = (B + out->tile_w - 1) / out->tile_w;
-  out->threads = kWarps * 32;
-  out->smem = smem_bytes<kWarps, kCounts>(out->tile_w);
+  out->threads = threads;
+  out->smem = smem(out->tile_w);
   return cudaSuccess;
 }
 
-template <int kWarps, bool kCounts, bool kRowPtr = false>
-int launch(const void* b, const void* s, const void* ptr, void* S, void* C, int R,
-           int PP, int B, cudaStream_t stream) {
+template <int kWarps, bool kCounts>
+cudaError_t plan_owners(int B, Layout* out) {
+  return plan(B, kWarps * 32, smem_bytes<kWarps, kCounts>, out);
+}
+
+cudaError_t plan_sorted(int B, Layout* out) {
+  return plan(B, kSortThreads, sorted_smem_bytes<kSortThreads, kSortItems>, out);
+}
+
+template <class Kernel>
+cudaError_t opt_in(Kernel kernel, const Layout& how) {
+  // always: the 48 KB default counts static bytes too
+  return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              static_cast<int>(how.smem));
+}
+
+template <int kWarps, bool kCounts>
+int launch(const void* b, const void* s, void* S, void* C, int R, int PP, int B,
+           cudaStream_t stream) {
   Layout how;
-  cudaError_t err = plan<kWarps, kCounts>(B, &how);
-  if (err == cudaSuccess) {  // always: the 48 KB default counts static bytes too
-    err = cudaFuncSetAttribute(accumulate_sums_kernel<kWarps, kCounts, kRowPtr>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(how.smem));
-  }
+  cudaError_t err = plan_owners<kWarps, kCounts>(B, &how);
+  if (err == cudaSuccess) err = opt_in(accumulate_sums_kernel<kWarps, kCounts>, how);
   if (err != cudaSuccess) return static_cast<int>(err);
   const long long blocks = static_cast<long long>(R) * how.n_tiles;
   if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-  accumulate_sums_kernel<kWarps, kCounts, kRowPtr>
+  accumulate_sums_kernel<kWarps, kCounts>
       <<<static_cast<unsigned>(blocks), how.threads, how.smem, stream>>>(
-          static_cast<const int32_t*>(b), static_cast<const float*>(s),
-          static_cast<const long long*>(ptr), static_cast<float*>(S),
+          static_cast<const int32_t*>(b), static_cast<const float*>(s), static_cast<float*>(S),
           static_cast<int32_t*>(C), PP, B, how.tile_w, how.n_tiles);
   return 0;
 }
@@ -295,13 +440,16 @@ constexpr int kWarpsSums = 16;
 
 }  // namespace
 
-// The layout epik_accumulate_sums takes at width B on the current device:
-// out = {tile_w, n_tiles, threads per block, shared memory bytes per block}.
+// The layout epik_accumulate_sums (`row_ptr` 0) or epik_accumulate_sums_csr
+// (`row_ptr` 1, counts only) takes at width B on the current device: out =
+// {tile_w, n_tiles, threads per block, shared memory bytes per block}.
 // Returns a cudaError_t (cudaErrorInvalidValue for B < 1).
-extern "C" int epik_accumulate_sums_layout(int B, int counts, int* out) {
+extern "C" int epik_accumulate_sums_layout(int B, int counts, int row_ptr, int* out) {
   Layout how;
-  const cudaError_t err = counts ? plan<kWarpsCounts, true>(B, &how)
-                                 : plan<kWarpsSums, false>(B, &how);
+  if (row_ptr && !counts) return static_cast<int>(cudaErrorInvalidValue);
+  const cudaError_t err = row_ptr  ? plan_sorted(B, &how)
+                          : counts ? plan_owners<kWarpsCounts, true>(B, &how)
+                                   : plan_owners<kWarpsSums, false>(B, &how);
   if (err != cudaSuccess) return static_cast<int>(err);
   out[0] = how.tile_w;
   out[1] = how.n_tiles;
@@ -320,26 +468,34 @@ extern "C" int epik_accumulate_sums(const void* b, const void* s, void* S,
                                     void* stream) {
   if (R > 0 && B > 0) {
     const cudaStream_t st = static_cast<cudaStream_t>(stream);
-    const int err = counts ? launch<kWarpsCounts, true>(b, s, nullptr, S, C, R, PP, B, st)
-                           : launch<kWarpsSums, false>(b, s, nullptr, S, C, R, PP, B, st);
+    const int err = counts ? launch<kWarpsCounts, true>(b, s, S, C, R, PP, B, st)
+                           : launch<kWarpsSums, false>(b, s, S, C, R, PP, B, st);
     if (err != 0) return err;
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-
 // The row-pointer form with counts: b int32 and s f32 flat cells, ptr int64
 // (R+1) nondecreasing offsets into them (read r's cells are [ptr[r],
 // ptr[r+1]), each read at most 2^31 - 1 cells); S f32 (R, B) and C int32
-// (R, B), both 16-byte aligned. The same layout as epik_accumulate_sums with
-// counts (epik_accumulate_sums_layout(B, 1)), one block per (read, tile).
-// Launches on `stream`; returns cudaGetLastError().
+// (R, B), both 16-byte aligned. Its own block
+// (epik_accumulate_sums_layout(B, 1, 1)), one per (read, tile). Launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int epik_accumulate_sums_csr(const void* b, const void* s, const void* ptr,
                                         void* S, void* C, int R, int B, void* stream) {
   if (R > 0 && B > 0) {
-    const int err = launch<kWarpsCounts, true, true>(b, s, ptr, S, C, R, 0, B,
-                                                     static_cast<cudaStream_t>(stream));
-    if (err != 0) return err;
+    const auto kernel = accumulate_sums_sorted_kernel<kSortThreads, kSortItems>;
+    Layout how;
+    cudaError_t err = plan_sorted(B, &how);
+    if (err == cudaSuccess) err = opt_in(kernel, how);
+    if (err != cudaSuccess) return static_cast<int>(err);
+    const long long blocks = static_cast<long long>(R) * how.n_tiles;
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    kernel<<<static_cast<unsigned>(blocks), how.threads, how.smem,
+             static_cast<cudaStream_t>(stream)>>>(
+        static_cast<const int32_t*>(b), static_cast<const float*>(s),
+        static_cast<const long long*>(ptr), static_cast<float*>(S), static_cast<int32_t*>(C), B,
+        how.tile_w, how.n_tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

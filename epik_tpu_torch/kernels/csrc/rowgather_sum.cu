@@ -14,7 +14,8 @@
 // multi-GB plane, so the 50 MB L2 gives little reuse. The roofline yardstick
 // is the distinct rows a batch names, read once.
 //
-// Design: one block per read. The block stages its row offsets (int64, so
+// Design (epik_rowgather_sum_counts's own follows the list of entry points):
+// one block per read. The block stages its row offsets (int64, so
 // planes beyond 2^31 cells address correctly) in shared memory, a tile at a
 // time; its threads span the row four cells at a time (16-byte loads of f32,
 // 8-byte loads of int16 or bf16, neighbouring threads on neighbouring
@@ -34,7 +35,8 @@
 // * epik_rowgather_sum (f32, int16): the (R, bw) f32 sums;
 // * epik_rowgather_sum_counts (f32, bf16): the classic plane's sums S and the
 //   exact counts C of the cells != 0 (dense_sums_from_rows, placer.py:757), as
-//   f32 and int32 (R, bw);
+//   f32 and int32 (R, bw), in its own layout (below: locality order and
+//   column slices);
 // * epik_rowgather_sum_topk (f32, int16): the placement finish in the same
 //   block (#2's finish in #1's epilogue), so the (R, bw) sums never reach HBM:
 //   - the window-order sums go to shared memory (bw floats) instead of HBM;
@@ -101,6 +103,35 @@
 //   distinct plane rows, the row ids, m, the ambiguous rows and the partial
 //   pack (no (R, bwl) write), as for the fused kernels at the same shape.
 
+// epik_rowgather_sum_counts's layout (PR 13). One block per read walking
+// the whole row read every slot's row from HBM: at D652's classic rows
+// (16,381 x 143, bw 1,408) 2.34 M slots x 5,632 B = 13.2 GB, 3.9 ms at 3.35
+// TB/s, where the 404,344 distinct rows are 2.3 GB: each row came from HBM
+// about 5.8 times. Two changes move the repeats to the 50 MB L2:
+// * read order: the wrapper sorts the reads, stably, by their least row id
+//   (a miss is the zero row, the plane's last). Two reads that overlap on the
+//   reference by all but d of their W windows share it with probability
+//   about (W - d) / (W + d), so the reads of one key sit in one or two
+//   neighbouring blocks. Block g gathers reads perm[16 g .. 16 g + 15] and
+//   writes their own rows of S and C, so the outputs stay in read order;
+// * column slices, slice outermost: block (s, g), s the slower index, adds
+//   only the slice's 256 bytes of each row (64 f32 or 128 bf16 columns; 64
+//   of a bf16 plane whose width is not a multiple of 8), 16 threads a read,
+//   one 16-byte load each. A slice's pass touches 404,344 x 256 B = 104 MB at
+//   D652 (207 MB at 512 B, 2.3 GB for whole rows) against the 50 MB L2; the
+//   resident blocks (8 of 256 threads an SM, 1,056 on 132 SMs) ask 1,056 x
+//   16 x 256 B = 4.3 MB a window step, so a key's reads fetch the rows they
+//   share once, and the rows that reads of different keys share come back
+//   from L2 as long as the pass' recent footprint fits it. 128-byte slices
+//   (52 MB a pass) fit the L2 better but pay twice the passes over the row
+//   ids and measured slower on the H100.
+// Each slot still moves its slice from L2 to the SM: 13.2 GB at D652 in f32,
+// 6.6 GB in bf16. With the repeats out of HBM, that L2 traffic bounds the
+// kernel, well above the HBM bound of the distinct rows.
+// A block stages its reads' row ids a tile of 128 windows at a time (8 KB);
+// each thread keeps 16 of its loads in flight. The sums stay bit-equal to
+// the plain version: each (read, column) is added in window order by one
+// thread, with no FMA and no atomics.
 #include <cuda_runtime.h>
 
 #include <cstdint>
@@ -211,22 +242,91 @@ __global__ void rowgather_sum_kernel(const T* __restrict__ plane,
   }
 }
 
-template <class T>
-__global__ void rowgather_sum_counts_kernel(const T* __restrict__ plane,
-                                            const int32_t* __restrict__ rows,
-                                            float4* __restrict__ S, int4* __restrict__ C,
-                                            int W, int bw4) {
-  __shared__ long long off[kTileW];
-  const long long r = blockIdx.x;
-  const int32_t* rrow = rows + r * W;
-  for (int c0 = 0; c0 < bw4; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    float4 acc{};
-    int4 cnt{};
-    gather_column<true>(plane, rrow, W, bw4, c, off, acc, cnt);
-    if (c < bw4) {
-      S[r * bw4 + c] = acc;
-      C[r * bw4 + c] = cnt;
+// epik_rowgather_sum_counts's block: kSliceReads reads of the locality order
+// by kSliceLanes threads, each thread one vector of V cells (16 bytes, or 8
+// for a bf16 plane of a width that is not a multiple of 8) of the slice.
+constexpr int kSliceLanes = 16;
+constexpr int kSliceReads = 16;
+constexpr int kSliceTileW = 128;  // windows of row ids staged a tile
+
+// V cells of a row starting at cell `i` (a multiple of V), widened to f32
+__device__ __forceinline__ void load_vec(const float* p, long long i, float (&v)[4]) {
+  const float4 x = __ldg(reinterpret_cast<const float4*>(p + i));
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load_vec(const Bf16* p, long long i, float (&v)[4]) {
+  const float4 x = load4(p, i >> 2);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load_vec(const Bf16* p, long long i, float (&v)[8]) {
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(p + i));
+  const unsigned u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[2 * e] = __uint_as_float(u[e] << 16);
+    v[2 * e + 1] = __uint_as_float(u[e] & 0xFFFF0000u);
+  }
+}
+
+template <class T, int V>
+__global__ void __launch_bounds__(kSliceReads * kSliceLanes)
+    rowgather_sum_counts_kernel(const T* __restrict__ plane, const int32_t* __restrict__ rows,
+                                const int32_t* __restrict__ perm, float* __restrict__ S,
+                                int* __restrict__ C, int R, int W, int bw, int n_groups) {
+  __shared__ int32_t srow[kSliceReads * kSliceTileW];
+  __shared__ int32_t sread[kSliceReads];
+  const int slice = blockIdx.x / n_groups;
+  const int r0 = (blockIdx.x - slice * n_groups) * kSliceReads;
+  const int nr = min(kSliceReads, R - r0);
+  const int j = threadIdx.x / kSliceLanes;
+  const int col = (slice * kSliceLanes + threadIdx.x % kSliceLanes) * V;
+  const bool active = j < nr && col < bw;
+  if (threadIdx.x < nr) sread[threadIdx.x] = perm[r0 + threadIdx.x];
+  __syncthreads();
+  float acc[V];
+  int cnt[V];
+#pragma unroll
+  for (int e = 0; e < V; ++e) {
+    acc[e] = 0.f;
+    cnt[e] = 0;
+  }
+  const int32_t* my = srow + j * kSliceTileW;
+  for (int w0 = 0; w0 < W; w0 += kSliceTileW) {
+    const int nw = min(kSliceTileW, W - w0);
+    __syncthreads();  // the previous tile has been read by every thread
+    for (int i = threadIdx.x; i < nr * nw; i += blockDim.x) {
+      const int jj = i / nw;
+      srow[jj * kSliceTileW + i - jj * nw] =
+          rows[static_cast<long long>(sread[jj]) * W + w0 + i - jj * nw];
+    }
+    __syncthreads();
+    if (active) {
+#pragma unroll 16
+      for (int i = 0; i < nw; ++i) {
+        float v[V];
+        load_vec(plane, static_cast<long long>(my[i]) * bw + col, v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          acc[e] += v[e];
+          cnt[e] += v[e] != 0.f;
+        }
+      }
+    }
+  }
+  if (active) {
+    const long long o = static_cast<long long>(sread[j]) * bw + col;
+#pragma unroll
+    for (int e = 0; e < V; e += 4) {
+      *reinterpret_cast<float4*>(S + o + e) =
+          make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+      *reinterpret_cast<int4*>(C + o + e) =
+          make_int4(cnt[e], cnt[e + 1], cnt[e + 2], cnt[e + 3]);
     }
   }
 }
@@ -454,14 +554,19 @@ int launch_sum(const void* plane, const void* rows, void* out, int R, int W, int
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
-int launch_counts(const void* plane, const void* rows, void* S, void* C, int R, int W, int bw,
-                  cudaStream_t stream) {
-  const int bw4 = bw / 4;
-  if (R > 0 && bw4 > 0) {
-    rowgather_sum_counts_kernel<T><<<R, gather_threads(bw4), 0, stream>>>(
-        static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
-        static_cast<float4*>(S), static_cast<int4*>(C), W, bw4);
+template <class T, int V>
+int launch_counts(const void* plane, const void* rows, const void* perm, void* S, void* C, int R,
+                  int W, int bw, cudaStream_t stream) {
+  if (R > 0 && bw > 0) {
+    constexpr int cols = kSliceLanes * V;
+    const long long n_groups = (R + kSliceReads - 1) / kSliceReads;
+    const long long blocks = n_groups * ((bw + cols - 1) / cols);
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    rowgather_sum_counts_kernel<T, V>
+        <<<static_cast<unsigned>(blocks), kSliceReads * kSliceLanes, 0, stream>>>(
+            static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
+            static_cast<const int32_t*>(perm), static_cast<float*>(S), static_cast<int*>(C), R,
+            W, bw, static_cast<int>(n_groups));
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -504,14 +609,19 @@ extern "C" int epik_rowgather_sum(const void* plane, int cell, const void* rows,
 }
 
 // plane: (n_rows, bw) cells of type `cell` (kF32 or kBf16), as above; rows:
-// int32 (R, W); S: f32 (R, bw); C: int32 (R, bw). Launches on `stream`;
-// returns cudaGetLastError().
+// int32 (R, W); perm: int32 (R,), a permutation of the reads (the locality
+// order: block g gathers reads perm[16 g ..]); S: f32 (R, bw); C: int32
+// (R, bw), read r's sums and counts in row r whatever the order. Launches on
+// `stream`; returns cudaGetLastError().
 extern "C" int epik_rowgather_sum_counts(const void* plane, int cell, const void* rows,
-                                         void* S, void* C, int R, int W, int bw,
-                                         void* stream) {
+                                         const void* perm, void* S, void* C, int R, int W,
+                                         int bw, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cell == kF32) return launch_counts<float>(plane, rows, S, C, R, W, bw, s);
-  if (cell == kBf16) return launch_counts<Bf16>(plane, rows, S, C, R, W, bw, s);
+  if (cell == kF32) return launch_counts<float, 4>(plane, rows, perm, S, C, R, W, bw, s);
+  if (cell == kBf16) {
+    return bw % 8 == 0 ? launch_counts<Bf16, 8>(plane, rows, perm, S, C, R, W, bw, s)
+                       : launch_counts<Bf16, 4>(plane, rows, perm, S, C, R, W, bw, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

@@ -11,7 +11,11 @@ says how its design meets that.
   int16 plane in exact int32, divided by the plane scale;
 * :func:`rowgather_sum_counts` / :func:`rowgather_sum_counts_bf16` -- the
   classic plane's sums and exact counts of the cells != 0 (f32 and int32
-  (R, bw)), over an f32 or a bf16 plane;
+  (R, bw)), over an f32 or a bf16 plane. The kernel gathers the reads in
+  :func:`locality_order` (stably by their least row id, so reads that share
+  rows run together) and in 256-byte column slices, slice outermost, so a
+  row that several reads name comes from the L2 after its first read; each
+  read's sums and counts still land in its own row;
 * :func:`rowgather_sum_topk` / :func:`rowgather_sum_topk_int16` -- the dense
   shifted steps' whole device work after the tokenizer: the sums (an int16
   plane's dequantized), each ambiguous read's first-hit delta row added, and
@@ -57,7 +61,8 @@ from .finish import MAX_K, finish_topk_counts_plain, finish_topk_plain
 from .finish_cols import finish_cols_partial_counts_plain, finish_cols_partial_plain
 
 __all__ = ["add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
-           "counts_topk_fits", "counts_topk_smem", "rowgather_sum", "rowgather_sum_cols",
+           "counts_topk_fits", "counts_topk_smem", "locality_order", "rowgather_sum",
+           "rowgather_sum_cols",
            "rowgather_sum_cols_plain", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
            "rowgather_sum_counts_cols", "rowgather_sum_counts_cols_plain",
            "rowgather_sum_counts_plain", "rowgather_sum_counts_topk",
@@ -169,6 +174,19 @@ def rowgather_sum(plane: torch.Tensor, rows: torch.Tensor, *,
 rowgather_sum.launches = 0
 
 
+def locality_order(rows: torch.Tensor) -> torch.Tensor:
+    """rows int32 (R, W) -> int32 (R,): the reads sorted stably by their
+    least row id (the key of :func:`rowgather_sum_counts`' read order; a miss
+    is the plane's last, all-zero row, so it never leads a read that hits).
+    Two reads that overlap on the reference by all but d of their W windows
+    share the key with probability about (W - d) / (W + d); ties keep read
+    order."""
+    R, W = rows.shape
+    if W == 0:
+        return torch.arange(R, dtype=torch.int32, device=rows.device)
+    return torch.sort(rows.amin(dim=1), stable=True).indices.to(torch.int32)
+
+
 def _sum_counts(fn, plane: torch.Tensor, rows: torch.Tensor, dtype):
     _check_args(plane, rows, (dtype,))
     if plane.device.type == "cpu":
@@ -180,11 +198,12 @@ def _sum_counts(fn, plane: torch.Tensor, rows: torch.Tensor, dtype):
     C = torch.empty((R, bw), dtype=torch.int32, device=plane.device)
     if R == 0:
         return S, C
+    perm = locality_order(rows)
     lib = library()
     with torch.cuda.device(plane.device):
         err = lib.epik_rowgather_sum_counts(plane.data_ptr(), _CELL[dtype], rows.data_ptr(),
-                                            S.data_ptr(), C.data_ptr(), R, W, bw,
-                                            _stream(plane.device))
+                                            perm.data_ptr(), S.data_ptr(), C.data_ptr(), R,
+                                            W, bw, _stream(plane.device))
     check(err, fn.__name__)
     _count(fn)
     return S, C

@@ -17,7 +17,9 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   (``place_batch_dense_bytes``) and the kernel it ends in
   (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``, and on the classic
   planes ``rowgather_sum_counts_topk`` and ``_bf16``, or in a port without
-  them ``rowgather_sum_counts`` and ``_bf16``);
+  them ``rowgather_sum_counts`` and ``_bf16``), and on the classic planes the
+  gather with counts alone (kernel 1c, ``rowgather_sum_counts`` and
+  ``_bf16``) on the same rows;
 * ``ShardedTorchPlacer`` on a 1x1 mesh, the column-sharded dense step with
   the default config (the pair plane in one column shard) and with
   ``plane_mode="classic"``, and the kernel each shard ends in, where the port
@@ -52,6 +54,11 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
 * ``ShardedTorchPlacer`` with the default config on a 1x1 mesh (the unpaired
   51.8 GB column plane): the sharded dense step on the 150 bp batch and its
   kernel, as for D652.
+
+On ``chip_smoke.py``'s wide classic database (11,100 leaves, 22,197
+branches, k = 10, past the fused counts kernel's limit) with 4,096 150 bp
+reads, the classic f32 and bf16 steps (the gather with counts and
+``finish_topk_counts`` apart) and kernel 1c alone on their rows.
 
 On ``chip_smoke.py``'s config-2 database (652 leaves, 1,303 branches, amino
 k = 8) with its first batch of 4,096 reads (X/B/Z reads among them), and
@@ -301,6 +308,9 @@ VARIANTS = [
     ("bf16", {"precision": "bf16"},
      ("rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_bf16")),
 ]
+#: the gather with counts (kernel 1c) that each classic variant's rows also
+#: go through
+APART = {"classic": "rowgather_sum_counts", "bf16": "rowgather_sum_counts_bf16"}
 
 
 def last_config_times(torch, dev, out: dict, db, tree, reads, long_reads) -> None:
@@ -350,9 +360,11 @@ def last_config_times(torch, dev, out: dict, db, tree, reads, long_reads) -> Non
 
 
 def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
-                        kernel: str) -> None:
+                        kernel: str, apart: str | None = None) -> None:
     """The unpaired dense step of ``placer`` on ``seqs`` and the kernel it
-    ends in (its first call recorded) into ``out``."""
+    ends in (its first call recorded) into ``out``; ``apart``, a gather the
+    kernel's plane and rows also go through (the classic planes' gather with
+    counts, which the step runs past the fused kernel's limit)."""
     from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.engine import step as step_mod
 
@@ -375,6 +387,9 @@ def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
     args, kw = calls[0]
     out[f"{prefix}_{kernel}_ms"] = cuda_ms(torch, lambda: fn(*args, **kw))
     out[f"{prefix}_{kernel}_shape"] = list(args[1].shape)
+    if apart is not None and apart != kernel:
+        gather = kernels_mod.KERNELS[apart]
+        out[f"{prefix}_{apart}_ms"] = cuda_ms(torch, lambda: gather(args[0], args[1]))
 
 
 def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
@@ -391,8 +406,39 @@ def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
     for name, fields, names in VARIANTS:
         kernel = next(n for n in names if n in KERNELS)
         placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
-        unpaired_step_times(torch, dev, out, placer, seqs, f"d652_{name}", kernel)
+        unpaired_step_times(torch, dev, out, placer, seqs, f"d652_{name}", kernel,
+                            APART.get(name))
         del placer
+        torch.cuda.empty_cache()
+
+
+def wide_classic_times(torch, dev, out: dict) -> None:
+    """``chip_smoke.py``'s wide classic database (B = 22,197, past the fused
+    counts kernel's limit) with 4,096 150 bp reads: the classic f32 and bf16
+    steps, which run the gather with counts (kernel 1c) and
+    ``finish_topk_counts`` apart, and 1c alone on their rows, into ``out``."""
+    import gc
+
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.io.build import reads_from_reference
+
+    db, ref = chip_smoke.wide_classic_db()
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, chip_smoke.WC_BATCH, length=150, mutation_rate=0.02,
+                                 seed=14)
+    seqs = list(dict.fromkeys(s for _, s in reads))
+    for name, fields, kernel in (("wide_classic", {"plane_mode": "classic"},
+                                  "rowgather_sum_counts"),
+                                 ("wide_bf16", {"precision": "bf16"},
+                                  "rowgather_sum_counts_bf16")):
+        placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
+        if placer.route != "dense":
+            raise AssertionError(f"{name} took route {placer.route}")
+        unpaired_step_times(torch, dev, out, placer, seqs, name, kernel)
+        del placer
+        gc.collect()
         torch.cuda.empty_cache()
 
 
@@ -491,6 +537,9 @@ def main(argv=None) -> int:
     else:
         out["skipped"].append("config 4 dense: the port has no unpaired dense step")
     sharded_dense_times(torch, out, db, tree, seqs, prefix="config4", configs=(("", {}),))
+    del db, tree
+    torch.cuda.empty_cache()
+    wide_classic_times(torch, dev, out)
     print(card_line())
     print(json.dumps(out))
     return 0

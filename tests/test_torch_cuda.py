@@ -45,6 +45,7 @@ from epik_tpu_torch.kernels.rowgather import (
     counts_cols_fits,
     counts_topk_fits,
     counts_topk_smem,
+    locality_order,
     rowgather_sum,
     rowgather_sum_cols,
     rowgather_sum_cols_plain,
@@ -1052,6 +1053,73 @@ def test_rowgather_sum_counts_bit_equal(cuda, n_rows, bw, R, W, cell):
     assert torch.equal(_bits(S2), _bits(S)) and torch.equal(C2, C)
 
 
+def _overlapping_rows(rng, R, W, n_rows, n_ref=None):
+    """Reads as windows of one row sequence at random starts (reads that
+    overlap share rows at every offset, as sampled reads do), with a tenth of
+    the windows missing (the zero row, ``n_rows - 1``)."""
+    ref = rng.integers(0, n_rows - 1, n_ref or 4 * W + R)
+    start = rng.integers(0, ref.size - W + 1, R)
+    rows = ref[start[:, None] + np.arange(W)[None, :]]
+    rows[rng.random((R, W)) < 0.1] = n_rows - 1
+    return rows.astype(np.int32)
+
+
+@pytest.mark.parametrize("R,W,bw,kind", [
+    pytest.param(0, 143, 1408, "random", id="R0"),
+    pytest.param(1, 143, 1408, "random", id="R1"),
+    pytest.param(300, 143, 1408, "overlapping", id="R300-W143-bw1408"),
+    pytest.param(300, 1, 1408, "random", id="W1"),
+    pytest.param(64, 1500, 1408, "overlapping", id="W1500-past-a-row-id-tile"),
+    pytest.param(300, 143, 1408, "all-miss", id="all-miss"),
+    pytest.param(300, 143, 1408, "ties", id="ties-one-least-row"),
+    pytest.param(40, 143, 22272, "overlapping", id="bw22272"),
+    pytest.param(300, 143, 1412, "ties", id="bw1412-not-a-slice-multiple"),
+    pytest.param(33, 17, 100, "random", id="bw100-R33"),
+])
+@pytest.mark.parametrize("cell", ["f32", "bf16"])
+def test_rowgather_sum_counts_in_locality_order(cuda, R, W, bw, kind, cell):
+    """Kernel 1c (the gather with counts) in its own layout -- the reads in
+    locality order, the row in 256-byte column slices -- against its plain
+    version, bit for bit, two launches alike: R = 0 and 1, W = 1 and past a
+    staged tile of row ids, rows that all miss, many reads whose least row
+    is the same (ties keep read order), the wide classic width and widths
+    that are not a multiple of the slice (bf16: nor of 8 cells)."""
+    rng = np.random.default_rng(R + W + bw)
+    n_rows = 400
+    p = rng.uniform(-7.0, -0.01, (n_rows, bw)).astype(np.float32)
+    p[rng.random((n_rows, bw)) > 0.3] = 0.0
+    p[0, :8] = np.float32(-1e-37)
+    p[-1] = 0.0
+    plane = torch.from_numpy(p).to(cuda)
+    fn = rowgather_sum_counts
+    if cell == "bf16":
+        plane, fn = plane.to(torch.bfloat16), rowgather_sum_counts_bf16
+    if kind == "random":
+        rows = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+    elif kind == "all-miss":
+        rows = np.full((R, W), n_rows - 1, np.int32)
+    else:
+        rows = _overlapping_rows(rng, R, W, n_rows)
+        if kind == "ties":
+            rows[:, W // 2] = 0  # every read's least row
+    rows_t = torch.from_numpy(rows).to(cuda)
+    order = locality_order(rows_t).cpu().numpy()
+    if W:
+        np.testing.assert_array_equal(order, np.argsort(rows.min(axis=1), kind="stable"))
+    if kind == "ties":
+        np.testing.assert_array_equal(order, np.arange(R))
+    reset_launch_counts()
+    S, C = fn(plane, rows_t)
+    S2, C2 = fn(plane, rows_t)
+    S_p, C_p = rowgather_sum_counts_plain(plane, rows_t)
+    torch.cuda.synchronize()
+    assert launch_counts()[fn.__name__] == (2 if R else 0)
+    assert torch.equal(_bits(S), _bits(S_p)) and torch.equal(C, C_p)
+    assert torch.equal(_bits(S2), _bits(S)) and torch.equal(C2, C)
+    if kind == "all-miss":
+        assert not S.any() and not C.any()
+
+
 @pytest.mark.parametrize("config", [
     dict(pair_plane="off"), dict(plane_mode="classic"), dict(precision="int16"),
     dict(precision="bf16"), dict(lookup_where="device"), dict(tokenize_where="host"),
@@ -1394,27 +1462,30 @@ def test_finish_at_the_48kb_edge(cuda, counts):
         _check_pack(got, finish_topk_plain(Sp_t, m_t, **kw).cpu().numpy(), 7, 7850)
 
 
-@pytest.mark.parametrize("R,PP,B", [
-    pytest.param(16, 16384, 19999, id="16-16384-19999"),
-    pytest.param(16, 6000, 40000, id="16-6000-40000-two-tiles"),
-    pytest.param(16, 2000, 1512, id="16-2000-1512-under-48kb"),
-    pytest.param(16, 2000, 1520, id="16-2000-1520-over-48kb"),
-    pytest.param(300, 700, 1303, id="300-700-1303"),
-])
-def test_accumulate_sums_csr_bit_equal(cuda, R, PP, B):
-    """Kernel 4's row-pointer form on the engineered rows cut to ragged
-    lengths -- a read with no cells, a read of every PP cells (more than one
-    4,096-cell chunk), cells past the last read that no read owns -- bit for
-    bit against its plain version and a loop over each read's cells in
-    order; two launches alike. B = 40,000 takes two tiles; B = 1,512 / 1,520
-    put the block's dynamic shared memory just under / over 48 KB, where the
-    launch must opt in all the same."""
-    layout = plan(B, True)
-    assert layout.n_tiles == (2 if B == 40000 else 1)
-    if B in (1512, 1520):
-        assert (layout.smem < 48 * 1024) == (B == 1512)
+def _csr_layout_holds(layout, B, optin=232_448):
+    """The row-pointer form's layout is the fewest tiles whose block fits the
+    card's opt-in shared memory: the tile's sums and counts (each padded to
+    a multiple of 4, plus 4) and the block's sort storage, the same bytes at
+    every width."""
+    def tile_bytes(tw):
+        return 8 * (((tw + 3) & ~3) + 4)
+
+    scratch = layout.smem - tile_bytes(layout.tile_w)
+    assert layout.threads == 1024 and scratch >= 5120 * 8
+    assert layout.n_tiles == -(-B // layout.tile_w) and layout.smem <= optin
+    if layout.n_tiles > 1:
+        assert tile_bytes(-(-B // (layout.n_tiles - 1))) + scratch > optin
+    return scratch
+
+
+def _csr_case(cuda, R, PP, B, layout):
+    """The row-pointer form on the engineered rows cut to ragged lengths,
+    cells alternating at every tile edge of ``layout``: bit for bit against
+    its plain version and a loop over each read's cells in order, two
+    launches alike."""
     rng = np.random.default_rng(R * PP + B)
-    b, s = score_rows(rng, R, PP, B, edges=(layout.tile_w,))
+    edges = tuple(layout.tile_w * t for t in range(1, layout.n_tiles))
+    b, s = score_rows(rng, R, PP, B, edges=edges)
     lens = rng.integers(0, PP + 1, R)
     lens[[0, 3, 8]] = [PP, 0, PP]
     fb, fs, ptr = flat_cells(b, s, lens, extra=4099)
@@ -1432,6 +1503,31 @@ def test_accumulate_sums_csr_bit_equal(cuda, R, PP, B):
     np.testing.assert_array_equal(_bits(S).cpu().numpy(), want_S.view(np.int32))
     np.testing.assert_array_equal(C.cpu().numpy(), want_C)
     assert int(C[3].sum()) == 0 and int(C[0, B - 1]) == PP
+
+
+@pytest.mark.parametrize("R,PP,B", [
+    pytest.param(16, 16384, 19999, id="16-16384-19999"),
+    pytest.param(16, 6000, 40000, id="16-6000-40000-two-tiles"),
+    pytest.param(16, 2000, 1512, id="16-2000-1512"),
+    pytest.param(16, 2000, 1520, id="16-2000-1520"),
+    pytest.param(300, 700, 1303, id="300-700-1303"),
+    pytest.param(16, 300, 1, id="16-300-1"),
+    pytest.param(16, 6000, 65537, id="16-6000-65537"),
+])
+def test_accumulate_sums_csr_bit_equal(cuda, R, PP, B):
+    """Kernel 4's row-pointer form on the engineered rows cut to ragged
+    lengths -- a read with no cells, a read of every PP cells (more than one
+    5,120-cell chunk of its sort), cells past the last read that no read
+    owns -- with cells at every tile edge of its layout, bit for bit against
+    its plain version and a loop over each read's cells in order; two
+    launches alike. One tile at B = 19,999, two at 40,000, four at 65,537;
+    every launch opts in to its block's shared memory (above 48 KB at B =
+    1)."""
+    layout = plan(B, True, row_ptr=True)
+    _csr_layout_holds(layout, B)
+    assert layout.n_tiles == {19999: 1, 40000: 2, 65537: 4}.get(B, 1)
+    assert plan(1, True, row_ptr=True).smem > 48 * 1024
+    _csr_case(cuda, R, PP, B, layout)
 
 
 @pytest.mark.parametrize("route", ["scatter", "pair_fused_tiles", "sharded_scatter"])
