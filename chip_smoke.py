@@ -194,7 +194,7 @@ prints no result line):
                limit, where the gather with counts (kernel 1c,
                ``rowgather_sum_counts[_bf16]``, in locality order and column
                slices) and ``finish_topk_counts`` run apart: BASELINE.md
-               config 4's recipe at 11,100 leaves (B = 22,197, bw 22,272,
+               config 4's recipe at 11,100 leaves (B = 22,199, bw 22,272,
                ~644k k-mers), 8,192 150 bp reads in batches of 4,096:
                * ``python -m epik_tpu_torch place --plane-mode classic`` (the
                  ~57 GB f32 plane), then the same with ``--precision bf16``
@@ -747,7 +747,7 @@ def bigtree_db():
 
 def wide_classic_db():
     """The wide classic database and its reference: BASELINE.md config 4's
-    recipe (tools/bench_bigtree.py:47-55) at 11,100 leaves, B = 22,197 past
+    recipe (tools/bench_bigtree.py:47-55) at 11,100 leaves, B = 22,199 past
     the fused counts kernel's limit (B ~ 22,016), bw 22,272."""
     from epik_tpu_torch.io.build import reference_like_db
 
@@ -2618,7 +2618,8 @@ def last_configs_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]
         f"P = {b.shape[0]}, B={B}: bit-equal on the path's and engineered cells (a read "
         f"with none, reads past one 5,120-cell chunk of the sort, cells past the last "
         f"read), two launches alike; {how.n_tiles} tile(s) of {how.tile_w} branches, "
-        f"{how.threads} threads, {how.smem} bytes of shared memory; kernel {ms5:.4f} ms, "
+        f"{how.threads} threads, {how.smem} bytes of shared memory, {how.radix_bits}-bit "
+        f"sort passes; kernel {ms5:.4f} ms, "
         f"plain {plain_ms5:.4f} ms, index_put_ (sums only) "
         f"{lib_ms5:.4f} ms, bound {bound(*io5)[0]:.4f} ms; the step's peak "
         f"{summary['flat_csr_peak_bytes']} bytes over the placer's [{card}]")

@@ -93,7 +93,7 @@ _PROTOTYPES = {
     "epik_accumulate_sums": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _VP],
     # (b, s, ptr, S, C, R, B, stream)
     "epik_accumulate_sums_csr": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
-    # (B, counts, row_ptr, out int[4])
+    # (B, counts, row_ptr, out int[5])
     "epik_accumulate_sums_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
 }
 #: entry points that return something else than a CUDA error code

@@ -23,10 +23,13 @@ and count once. A block keeps one branch tile of one read in shared memory
 and adds each kept cell once, in cell order, with no float atomics: the
 (R, PP) forms partition the read's cells among their warps by branch; the
 row-pointer form sorts each chunk of cells by branch with a stable block
-radix sort and adds each branch's run in order. The CUDA source cuts the
+radix sort and adds each branch's run in order, one block an SM taking reads
+in turn, each tile written back by bulk asynchronous copies while the next
+read's first chunk is loaded and sorted. The CUDA source cuts the
 branch range and sizes the block itself, from the card's shared memory per
-block: one tile at B = 19,999 with counts. :func:`plan` asks it what it
-takes at a width.
+block: one tile at B = 19,999 with counts, and for the row-pointer form up
+to B ~ 23,900 (4-bit sort passes past ~20,320, where 5-bit ones would take
+two tiles). :func:`plan` asks it what it takes at a width.
 """
 
 from __future__ import annotations
@@ -46,12 +49,14 @@ __all__ = ["Plan", "accumulate_sums", "accumulate_sums_counts", "accumulate_sums
 class Plan(NamedTuple):
     """How the kernel cuts one call: ``n_tiles`` branch tiles of ``tile_w``
     branches, one block of ``threads`` threads and ``smem`` bytes of shared
-    memory per (read, tile)."""
+    memory per (read, tile); ``radix_bits``, the bits a pass of the
+    row-pointer form's sort takes (0 for the (R, PP) forms)."""
 
     tile_w: int
     n_tiles: int
     threads: int
     smem: int
+    radix_bits: int
 
 
 def plan(B: int, counts: bool, device=None, *, row_ptr: bool = False) -> Plan:
@@ -59,7 +64,7 @@ def plan(B: int, counts: bool, device=None, *, row_ptr: bool = False) -> Plan:
     CUDA device; default the current one), as its CUDA source plans them:
     the (R, PP) forms, or ``row_ptr`` the row-pointer form (counts only),
     whose block holds its radix sort's storage beside the tile."""
-    out = (ctypes.c_int * 4)()
+    out = (ctypes.c_int * 5)()
     lib = library()
     with torch.cuda.device(device):
         err = lib.epik_accumulate_sums_layout(B, int(counts), int(row_ptr), out)

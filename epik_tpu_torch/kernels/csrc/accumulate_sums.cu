@@ -57,13 +57,11 @@
 // against the 655 MB of sums and counts it writes, so the writes bound it
 // (0.239 ms on the H100).
 //
-// It has its own block (PR 13): the same tile of sums and counts in shared
+// It has its own block: the same tile of sums and counts in shared
 // memory, but the cell-order adds come from a stable block radix sort
-// instead of the owner warps. Taken apart on the H100 (kernel_sweep.py), the
-// owner warps' block spent 0.35 ms of its 0.79 ms in the drain (a
-// __match_any_sync per 32 queued cells), 0.11 ms in the ranks (another per
-// 32 loaded cells) and 0.10 ms in the scan and partition; the zero fill and
-// the write-out alone took 0.23 ms. Here each chunk of kChunk cells is
+// instead of the owner warps, whose __match_any_sync per 32 queued cells (the
+// drain) and per 32 loaded cells (the ranks) held the owner-warp block at
+// 0.8 ms on the 400 bp batch. Each chunk of kChunk cells is
 //   1. loaded in blocked order (thread t holds cells kItems t .. kItems t +
 //      kItems - 1 of the chunk), a cell outside the tile keyed past every
 //      branch of it (its score is never read);
@@ -74,18 +72,32 @@
 //      and its length into the count. Each branch has one run a chunk, so
 //      one thread adds into it: no atomics.
 // A chunk of 5,120 cells (1,024 threads x 5) holds a 400 bp read's ~4,400
-// cells whole (at 4,096, most reads took a second chunk and the kernel was
-// slower than the owner warps'); a chunk with no cell in the tile skips the
-// sort, whose passes take 5 bits each (3 at B = 19,999, not 4). The tiles
-// are the fewest whose block fits the card's shared memory (one at B =
-// 19,999: 160 KB of sums and counts and 68 KB of the sort's storage, most of
-// it the 5-bit digit counters). The (R, PP) forms keep the owner warps: on
-// their own shapes the sorted block measured slower (their PP cells are
-// mostly padding, and the sums alone leave room for two owner-warp blocks an
-// SM).
+// cells whole (at 4,096, most reads take a second chunk); a chunk with no
+// cell in the tile skips the sort, whose passes take 5 bits each (3 at B =
+// 19,999). The tiles are the fewest whose block fits the card's shared
+// memory: one at B = 19,999 (160 KB of sums and counts and 68 KB of the
+// sort's storage, most of it the 5-bit digit counters), so one block an SM.
+// Past B ~ 20,320 that block would split the tile in two, each loading and
+// sorting every cell; there the block takes 4-bit passes instead (37 KB of
+// counters, under the 40 KB of the sorted chunk), one more pass but one tile
+// up to B ~ 23,900 (the wide classic tree's 22,199 branches under
+// accumulate="scatter").
+// With one block an SM, a block that owns one (read, tile) item runs its
+// zero fill, loads, sort passes and 160 KB write-out one after another, and
+// the SM's share of HBM idles through the sort. So the grid is as many
+// blocks as the card holds at once, each taking items in turn; the tile
+// leaves shared memory by cp.async.bulk (one thread, the 16-byte runs of S
+// and of C), and the block loads and sorts the next item's first chunk,
+// which touches only the scratch, before it waits for the copy to have read
+// the tile and zeroes it: one item's write-out overlaps the next one's
+// loads and sort. kernel_sweep.py times these choices against each other,
+// and the owner warps with 2-4 tiles a read and several blocks an SM
+// (kernel_variants/accumulate_sums_tiles.cu). The (R, PP) forms keep the
+// owner warps.
 
 #include <cuda_runtime.h>
 
+#include <algorithm>
 #include <cstdint>
 #include <cub/block/block_radix_sort.cuh>
 
@@ -257,15 +269,27 @@ __global__ void __launch_bounds__(kWarps * 32)
 // ---- the row-pointer form: cell-order adds by a stable block radix sort ----
 
 // Threads and cells a thread of the row-pointer form's block, and the bits a
-// pass of its radix sort takes: 5,120 cells a chunk, 3 passes at B = 19,999.
+// pass of its radix sort takes: 5,120 cells a chunk, 3 passes at B = 19,999;
+// 4 bits where the 5-bit block would need more tiles. The macros let
+// kernel_sweep.py build the other choices.
+#ifndef EPIK_SORT_ITEMS
+#define EPIK_SORT_ITEMS 5
+#endif
+#ifndef EPIK_SORT_BITS
+#define EPIK_SORT_BITS 5
+#endif
+#ifndef EPIK_SORT_BITS_SMALL
+#define EPIK_SORT_BITS_SMALL 4
+#endif
 constexpr int kSortThreads = 1024;
-constexpr int kSortItems = 5;
-constexpr int kSortRadixBits = 5;
+constexpr int kSortItems = EPIK_SORT_ITEMS;
+constexpr int kSortBits = EPIK_SORT_BITS;
+constexpr int kSortBitsSmall = EPIK_SORT_BITS_SMALL;
 
-template <int kThreads, int kItems>
+template <int kThreads, int kItems, int kBits>
 struct SortedBlock {
   static constexpr int kChunk = kThreads * kItems;
-  using Sort = cub::BlockRadixSort<uint32_t, kThreads, kItems, float, kSortRadixBits>;
+  using Sort = cub::BlockRadixSort<uint32_t, kThreads, kItems, float, kBits>;
   // the sort's storage, then (after it) the chunk's sorted cells
   union Scratch {
     typename Sort::TempStorage sort;
@@ -278,45 +302,30 @@ struct SortedBlock {
 
 // bytes of dynamic shared memory: the tile's sums and counts, each padded to
 // a multiple of 4 plus 4 for the write-out shift, and the scratch
-template <int kThreads, int kItems>
+template <int kThreads, int kItems, int kBits>
 size_t sorted_smem_bytes(int tile_w) {
   const size_t tile = static_cast<size_t>(((tile_w + 3) & ~3) + 4) * 4;
-  return 2 * tile + sizeof(typename SortedBlock<kThreads, kItems>::Scratch);
+  return 2 * tile + sizeof(typename SortedBlock<kThreads, kItems, kBits>::Scratch);
 }
 
-template <int kThreads, int kItems>
-__global__ void __launch_bounds__(kThreads)
-    accumulate_sums_sorted_kernel(const int32_t* __restrict__ b, const float* __restrict__ s,
-                                  const long long* __restrict__ ptr, float* __restrict__ S,
-                                  int32_t* __restrict__ C, int B, int tile_w, int n_tiles) {
-  using Block = SortedBlock<kThreads, kItems>;
-  constexpr int kChunk = Block::kChunk;
-  extern __shared__ float4 smem[];
-  const int tile4 = ((tile_w + 3) & ~3) + 4;
-  float* sum_base = reinterpret_cast<float*>(smem);
-  int* cnt_base = reinterpret_cast<int*>(sum_base + tile4);
-  auto& scratch = *reinterpret_cast<typename Block::Scratch*>(cnt_base + tile4);
+__device__ __forceinline__ void bulk_store(void* dst, const void* src, unsigned bytes) {
+  asm volatile("cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;" ::"l"(dst),
+               "r"(static_cast<unsigned>(__cvta_generic_to_shared(src))), "r"(bytes)
+               : "memory");
+}
 
-  const long long r = blockIdx.x / n_tiles;
-  const int lo = static_cast<int>(blockIdx.x - r * n_tiles) * tile_w;
-  const int n = min(B - lo, tile_w);
-  const long long out0 = r * B + lo;  // element offset of the tile's outputs
-  const int shift = static_cast<int>(out0 & 3);
-  float* ssum = sum_base + shift;
-  int* scnt = cnt_base + shift;
-  for (int i = threadIdx.x; i < tile4 / 4; i += kThreads) {
-    smem[i] = make_float4(0.f, 0.f, 0.f, 0.f);
-    reinterpret_cast<int4*>(cnt_base)[i] = make_int4(0, 0, 0, 0);
-  }
-  // a cell outside the tile is keyed n: it sorts after every branch of it
-  const int bits = 32 - __clz(n);
-  const long long c_begin = ptr[r];
-  const int len = static_cast<int>(ptr[r + 1] - c_begin);
-  const int32_t* brow = b + c_begin;
-  const float* srow = s + c_begin;
-  for (int c0 = 0; c0 < len; c0 += kChunk) {
-    uint32_t key[kItems];
-    float val[kItems];
+// One chunk of a read's cells: loaded, sorted by branch, then added.
+template <int kThreads, int kItems, int kBits>
+struct SortedChunk {
+  using Block = SortedBlock<kThreads, kItems, kBits>;
+  uint32_t key[kItems];
+  float val[kItems];
+
+  // cells c0 .. c0 + kChunk - 1 of [0, len), in blocked order; a cell
+  // outside the tile [lo, lo + n) is keyed n, past every branch of it (its
+  // score is never read). Whether the block kept any (a barrier: it also
+  // orders this chunk's sort after the previous chunk's adds).
+  __device__ bool load(const int32_t* brow, const float* srow, int c0, int len, int lo, int n) {
     bool any = false;
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
@@ -327,56 +336,126 @@ __global__ void __launch_bounds__(kThreads)
       val[k] = kept ? __ldg(srow + c) : 0.f;
       any |= kept;
     }
-    // also: the previous chunk's runs have been read
-    if (!__syncthreads_or(any)) continue;
-    typename Block::Sort(scratch.sort).Sort(key, val, 0, bits);
+    return __syncthreads_or(any);
+  }
+
+  // the stable sort by branch, the sorted cells staged in the scratch
+  __device__ void sort(typename Block::Scratch& scratch, int n) {
+    typename Block::Sort(scratch.sort).Sort(key, val, 0, 32 - __clz(n));
     __syncthreads();  // the sort's storage is free
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       scratch.run.key[threadIdx.x * kItems + k] = key[k];
       scratch.run.val[threadIdx.x * kItems + k] = val[k];
     }
-    __syncthreads();
+  }
+
+  // the head of each branch's run adds the run, in cell order, into the
+  // branch's sum and its length into the count (after a barrier past sort)
+  __device__ void add(const typename Block::Scratch& scratch, int n, float* ssum,
+                      int* scnt) const {
 #pragma unroll
     for (int k = 0; k < kItems; ++k) {
       const int i = threadIdx.x * kItems + k;
       const uint32_t j = key[k];
       if (j == static_cast<uint32_t>(n) || (i > 0 && scratch.run.key[i - 1] == j)) continue;
-      float acc = ssum[j];  // the head of branch j's run adds the run in cell order
+      float acc = ssum[j];
       int m = i;
-      for (; m < kChunk && scratch.run.key[m] == j; ++m) acc = __fadd_rn(acc, scratch.run.val[m]);
+      for (; m < Block::kChunk && scratch.run.key[m] == j; ++m) {
+        acc = __fadd_rn(acc, scratch.run.val[m]);
+      }
       ssum[j] = acc;
       scnt[j] += m - i;
     }
   }
-  __syncthreads();
+};
 
-  // ---- write-out: scalars up to a 16-byte boundary of S, then float4s -------
-  float* Srow = S + out0;
-  int32_t* Crow = C + out0;
-  const int head = min(n, (4 - shift) & 3);
-  for (int j = threadIdx.x; j < head; j += kThreads) {
-    Srow[j] = ssum[j];
-    Crow[j] = scnt[j];
+// A block takes (read, tile) items blockIdx.x, blockIdx.x + gridDim.x, ...
+// in turn. The tile leaves shared memory by cp.async.bulk, and the block
+// loads and sorts the next item's first chunk (which touches only the
+// scratch) before it waits for that copy to have read the tile, so one
+// item's write-out overlaps the next one's loads and sort.
+template <int kThreads, int kItems, int kBits>
+__global__ void __launch_bounds__(kThreads)
+    accumulate_sums_sorted_kernel(const int32_t* __restrict__ b, const float* __restrict__ s,
+                                  const long long* __restrict__ ptr, float* __restrict__ S,
+                                  int32_t* __restrict__ C, long long n_items, int B, int tile_w,
+                                  int n_tiles) {
+  using Chunk = SortedChunk<kThreads, kItems, kBits>;
+  constexpr int kChunk = Chunk::Block::kChunk;
+  extern __shared__ float4 smem[];
+  const int tile4 = ((tile_w + 3) & ~3) + 4;
+  float* sum_base = reinterpret_cast<float*>(smem);
+  int* cnt_base = reinterpret_cast<int*>(sum_base + tile4);
+  auto& scratch = *reinterpret_cast<typename Chunk::Block::Scratch*>(cnt_base + tile4);
+
+  for (long long item = blockIdx.x; item < n_items; item += gridDim.x) {
+    const long long r = item / n_tiles;
+    const int lo = static_cast<int>(item - r * n_tiles) * tile_w;
+    const int n = min(B - lo, tile_w);
+    const long long out0 = r * B + lo;  // element offset of the tile's outputs
+    const int shift = static_cast<int>(out0 & 3);
+    float* ssum = sum_base + shift;
+    int* scnt = cnt_base + shift;
+    const long long c_begin = ptr[r];
+    const int len = static_cast<int>(ptr[r + 1] - c_begin);
+    const int32_t* brow = b + c_begin;
+    const float* srow = s + c_begin;
+
+    // the first chunk, while the previous item's tile is still being copied
+    Chunk chunk;
+    const bool first = chunk.load(brow, srow, 0, len, lo, n);
+    if (first) chunk.sort(scratch, n);
+    if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
+    __syncthreads();
+    for (int i = threadIdx.x; i < tile4 / 4; i += kThreads) {
+      smem[i] = make_float4(0.f, 0.f, 0.f, 0.f);
+      reinterpret_cast<int4*>(cnt_base)[i] = make_int4(0, 0, 0, 0);
+    }
+    __syncthreads();
+    if (first) chunk.add(scratch, n, ssum, scnt);
+    for (int c0 = kChunk; c0 < len; c0 += kChunk) {
+      if (!chunk.load(brow, srow, c0, len, lo, n)) continue;
+      chunk.sort(scratch, n);
+      __syncthreads();
+      chunk.add(scratch, n, ssum, scnt);
+    }
+
+    // ---- write-out: scalars up to a 16-byte boundary of S, then one bulk
+    // copy each of S's and C's 16-byte runs --------------------------------
+    asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
+    __syncthreads();
+    float* Srow = S + out0;
+    int32_t* Crow = C + out0;
+    const int head = min(n, (4 - shift) & 3);
+    const int n4 = (n - head) >> 2;
+    for (int j = threadIdx.x; j < head; j += kThreads) {
+      Srow[j] = ssum[j];
+      Crow[j] = scnt[j];
+    }
+    for (int j = head + 4 * n4 + threadIdx.x; j < n; j += kThreads) {
+      Srow[j] = ssum[j];
+      Crow[j] = scnt[j];
+    }
+    if (threadIdx.x == 0 && n4 > 0) {
+      bulk_store(Srow + head, ssum + head, 16u * n4);
+      bulk_store(Crow + head, scnt + head, 16u * n4);
+      asm volatile("cp.async.bulk.commit_group;" ::: "memory");
+    }
   }
-  const int n4 = (n - head) >> 2;
-  for (int i = threadIdx.x; i < n4; i += kThreads) {
-    reinterpret_cast<float4*>(Srow + head)[i] = reinterpret_cast<const float4*>(ssum + head)[i];
-    reinterpret_cast<int4*>(Crow + head)[i] = reinterpret_cast<const int4*>(scnt + head)[i];
-  }
-  for (int j = head + 4 * n4 + threadIdx.x; j < n; j += kThreads) {
-    Srow[j] = ssum[j];
-    Crow[j] = scnt[j];
-  }
+  // shared memory stays the block's until the last copies have read it
+  if (threadIdx.x == 0) asm volatile("cp.async.bulk.wait_group.read 0;" ::: "memory");
 }
 
 // How a call at width B is cut: n_tiles tiles of tile_w branches, one block
-// of `threads` threads and `smem` bytes of shared memory per (read, tile).
+// of `threads` threads and `smem` bytes of shared memory per (read, tile);
+// the row-pointer form's radix bits a pass (0 for the owner warps).
 struct Layout {
   int tile_w;
   int n_tiles;
   int threads;
   size_t smem;
+  int radix_bits;
 };
 
 // the fewest tiles of equal width, the last ragged, whose block's `smem`
@@ -397,6 +476,7 @@ cudaError_t plan(int B, int threads, Smem smem, Layout* out) {
   out->n_tiles = (B + out->tile_w - 1) / out->tile_w;
   out->threads = threads;
   out->smem = smem(out->tile_w);
+  out->radix_bits = 0;
   return cudaSuccess;
 }
 
@@ -405,15 +485,61 @@ cudaError_t plan_owners(int B, Layout* out) {
   return plan(B, kWarps * 32, smem_bytes<kWarps, kCounts>, out);
 }
 
-cudaError_t plan_sorted(int B, Layout* out) {
-  return plan(B, kSortThreads, sorted_smem_bytes<kSortThreads, kSortItems>, out);
-}
-
 template <class Kernel>
 cudaError_t opt_in(Kernel kernel, const Layout& how) {
   // always: the 48 KB default counts static bytes too
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               static_cast<int>(how.smem));
+}
+
+// kSortBits' block, or kSortBitsSmall's where that takes fewer tiles
+cudaError_t plan_sorted(int B, Layout* out) {
+  Layout small;
+  cudaError_t err = plan(B, kSortThreads, sorted_smem_bytes<kSortThreads, kSortItems, kSortBits>,
+                         out);
+  if (err == cudaSuccess) {
+    err = plan(B, kSortThreads, sorted_smem_bytes<kSortThreads, kSortItems, kSortBitsSmall>,
+               &small);
+  }
+  if (err != cudaSuccess) return err;
+  out->radix_bits = kSortBits;
+  if (small.n_tiles < out->n_tiles) {
+    *out = small;
+    out->radix_bits = kSortBitsSmall;
+  }
+  return cudaSuccess;
+}
+
+// The row-pointer form's grid: EPIK_SORT_PERSISTENT (the default) as many
+// blocks as the card holds at once, each taking items in turn; 0, one block
+// an item (kernel_sweep.py builds it).
+#ifndef EPIK_SORT_PERSISTENT
+#define EPIK_SORT_PERSISTENT 1
+#endif
+
+template <int kBits>
+cudaError_t launch_sorted(const void* b, const void* s, const void* ptr, void* S, void* C,
+                          int R, int B, const Layout& how, cudaStream_t stream) {
+  const auto kernel = accumulate_sums_sorted_kernel<kSortThreads, kSortItems, kBits>;
+  cudaError_t err = opt_in(kernel, how);
+  const long long items = static_cast<long long>(R) * how.n_tiles;
+  long long blocks = items;
+  if (err == cudaSuccess && EPIK_SORT_PERSISTENT) {
+    int dev, sms, per_sm;
+    err = cudaGetDevice(&dev);
+    if (err == cudaSuccess) err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+    if (err == cudaSuccess) {
+      err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, how.threads, how.smem);
+    }
+    if (err == cudaSuccess) blocks = std::min(items, static_cast<long long>(sms) * std::max(per_sm, 1));
+  }
+  if (err != cudaSuccess) return err;
+  if (blocks > 0x7fffffffLL) return cudaErrorInvalidConfiguration;
+  kernel<<<static_cast<unsigned>(blocks), how.threads, how.smem, stream>>>(
+      static_cast<const int32_t*>(b), static_cast<const float*>(s),
+      static_cast<const long long*>(ptr), static_cast<float*>(S), static_cast<int32_t*>(C), items,
+      B, how.tile_w, how.n_tiles);
+  return cudaSuccess;
 }
 
 template <int kWarps, bool kCounts>
@@ -442,7 +568,8 @@ constexpr int kWarpsSums = 16;
 
 // The layout epik_accumulate_sums (`row_ptr` 0) or epik_accumulate_sums_csr
 // (`row_ptr` 1, counts only) takes at width B on the current device: out =
-// {tile_w, n_tiles, threads per block, shared memory bytes per block}.
+// {tile_w, n_tiles, threads per block, shared memory bytes per block, radix
+// bits a pass of the row-pointer form's sort (0 for the (R, PP) forms)}.
 // Returns a cudaError_t (cudaErrorInvalidValue for B < 1).
 extern "C" int epik_accumulate_sums_layout(int B, int counts, int row_ptr, int* out) {
   Layout how;
@@ -455,6 +582,7 @@ extern "C" int epik_accumulate_sums_layout(int B, int counts, int row_ptr, int* 
   out[1] = how.n_tiles;
   out[2] = how.threads;
   out[3] = static_cast<int>(how.smem);
+  out[4] = how.radix_bits;
   return 0;
 }
 
@@ -484,18 +612,15 @@ extern "C" int epik_accumulate_sums(const void* b, const void* s, void* S,
 extern "C" int epik_accumulate_sums_csr(const void* b, const void* s, const void* ptr,
                                         void* S, void* C, int R, int B, void* stream) {
   if (R > 0 && B > 0) {
-    const auto kernel = accumulate_sums_sorted_kernel<kSortThreads, kSortItems>;
+    const cudaStream_t st = static_cast<cudaStream_t>(stream);
     Layout how;
     cudaError_t err = plan_sorted(B, &how);
-    if (err == cudaSuccess) err = opt_in(kernel, how);
+    if (err == cudaSuccess) {
+      err = how.radix_bits == kSortBits
+                ? launch_sorted<kSortBits>(b, s, ptr, S, C, R, B, how, st)
+                : launch_sorted<kSortBitsSmall>(b, s, ptr, S, C, R, B, how, st);
+    }
     if (err != cudaSuccess) return static_cast<int>(err);
-    const long long blocks = static_cast<long long>(R) * how.n_tiles;
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-    kernel<<<static_cast<unsigned>(blocks), how.threads, how.smem,
-             static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const int32_t*>(b), static_cast<const float*>(s),
-        static_cast<const long long*>(ptr), static_cast<float*>(S), static_cast<int32_t*>(C), B,
-        how.tile_w, how.n_tiles);
   }
   return static_cast<int>(cudaGetLastError());
 }

@@ -103,7 +103,7 @@
 //   distinct plane rows, the row ids, m, the ambiguous rows and the partial
 //   pack (no (R, bwl) write), as for the fused kernels at the same shape.
 
-// epik_rowgather_sum_counts's layout (PR 13). One block per read walking
+// epik_rowgather_sum_counts's layout. One block per read walking
 // the whole row read every slot's row from HBM: at D652's classic rows
 // (16,381 x 143, bw 1,408) 2.34 M slots x 5,632 B = 13.2 GB, 3.9 ms at 3.35
 // TB/s, where the 404,344 distinct rows are 2.3 GB: each row came from HBM
@@ -244,9 +244,16 @@ __global__ void rowgather_sum_kernel(const T* __restrict__ plane,
 
 // epik_rowgather_sum_counts's block: kSliceReads reads of the locality order
 // by kSliceLanes threads, each thread one vector of V cells (16 bytes, or 8
-// for a bf16 plane of a width that is not a multiple of 8) of the slice.
-constexpr int kSliceLanes = 16;
-constexpr int kSliceReads = 16;
+// for a bf16 plane of a width that is not a multiple of 8) of the slice. The
+// macros let kernel_sweep.py build other slice widths.
+#ifndef EPIK_SLICE_LANES
+#define EPIK_SLICE_LANES 16
+#endif
+#ifndef EPIK_SLICE_READS
+#define EPIK_SLICE_READS 16
+#endif
+constexpr int kSliceLanes = EPIK_SLICE_LANES;
+constexpr int kSliceReads = EPIK_SLICE_READS;
 constexpr int kSliceTileW = 128;  // windows of row ids staged a tile
 
 // V cells of a row starting at cell `i` (a multiple of V), widened to f32

@@ -1,28 +1,30 @@
 #!/usr/bin/env python3
-"""Layout variants of two kernels, timed in turns with a parent checkout's
-kernels on one card:
+"""Layout variants of two of the port's kernels, timed in turns on one card:
 
-    python3 kernel_sweep.py --parent PATH
+    python3 kernel_sweep.py [--only gather|row_ptr]
 
 * kernel 1c, the gather with counts (``rowgather_sum_counts`` and ``_bf16``),
   on ``chip_smoke.py``'s D652 classic rows (the first batch of 16,384 reads
-  of the classic step, recorded): the parent's kernel; this checkout's with
-  128-, 256- (its own) and 512-byte column slices; its own in read order
-  (no locality order);
+  of the classic step, recorded): 256-byte column slices (the shipped
+  layout), 128- and 512-byte slices, and 256-byte slices in read order (no
+  locality order);
 * #5's row-pointer form (``accumulate_sums_counts_csr``) on 4,096 reads of
   flat cells shaped like the 400 bp CSR batch (a Poisson number of cells a
-  read, mean 4,433, 2% of them outside the tree; B = 19,999): the parent's
-  owner-warp kernel whole and with its steps taken out one after another
-  (the drain; the scan and partition; the ranks; every chunk, leaving the
-  zero fill and the write-out) -- those give wrong sums and are timed only;
-  this checkout's sorted block at 4,096, 5,120 (its own) and 6,144 cells a
-  chunk, and at 5,120 with 4-bit radix passes (its own take 5).
+  read, mean 4,433, 2% of them on the trash column), at B = 19,999 (config
+  4) and B = 22,199 (the wide classic tree): the shipped sorted block, the
+  same with one block a (read, tile) item instead of a block an SM taking
+  items in turn, its chunk at 4,096 and 6,144 cells, its passes at 4 bits
+  only and at 5 bits only; and the owner-warp block of ``kernel_variants/accumulate_sums_tiles.cu``
+  at 1 tile of 32 warps (the layout the sorted block replaced) and at 2 and 4
+  tiles of 8 warps, several blocks an SM, with the cp.async.bulk write-out
+  and with a thread block cluster a read.
 
-Each variant is this checkout's (or the parent's) CUDA source with one
-constant changed or one step cut out, built by ``nvcc`` into ``build/sweep/``
-and loaded with ``ctypes``; every variant that keeps the function is held
-bit-equal to the plain version. Prints the card line and one JSON object.
-Needs a CUDA device; imports neither JAX nor the JAX package.
+Each variant is built by ``nvcc`` from this checkout's sources (the shipped
+ones with ``-D`` overrides of their layout macros, or the variant source)
+into ``build/sweep/``, loaded with ``ctypes`` and held bit-equal to the plain
+version before it is timed. Prints the card line and one JSON object of
+CUDA-event medians, each variant once and the first again last. Needs a CUDA
+device; imports neither JAX nor the JAX package.
 """
 
 from __future__ import annotations
@@ -38,54 +40,48 @@ import chip_smoke
 from chip_smoke import BATCH, card_line, cuda_ms, d652_fixture, recording
 
 CSRC = os.path.join("epik_tpu_torch", "kernels", "csrc")
-#: the 1c variants: name -> (source "new"/"parent", substitutions, read order)
+TILES_SRC = os.path.join("kernel_variants", "accumulate_sums_tiles.cu")
+#: the 1c variants: name -> (nvcc -D flags, locality order)
 GATHER = {
-    "parent": ("parent", [], True),
-    "slice128": ("new", [("kSliceLanes = 16", "kSliceLanes = 8"),
-                         ("kSliceReads = 16", "kSliceReads = 32")], True),
-    "slice256": ("new", [], True),
-    "slice512": ("new", [("kSliceLanes = 16", "kSliceLanes = 32"),
-                         ("kSliceReads = 16", "kSliceReads = 8")], True),
-    "slice256_read_order": ("new", [], False),
+    "slice256": ([], True),
+    "slice128": (["-DEPIK_SLICE_LANES=8", "-DEPIK_SLICE_READS=32"], True),
+    "slice512": (["-DEPIK_SLICE_LANES=32", "-DEPIK_SLICE_READS=8"], True),
+    "slice256_read_order": ([], False),
 }
-_NO_CHUNK_WORK = ("if (!__syncthreads_or(kept_any)) continue;",
-                  "__syncthreads_or(kept_any); continue;")
-#: the row-pointer variants: name -> (source, substitutions, keeps the function)
-ROW_PTR = {
-    "parent": ("parent", [], True),
-    "parent_no_drain": ("parent", [("for (int i = 0; i < qn; i += 32) {",
-                                    "for (int i = 0; i < 0; i += 32) {")], False),
-    "parent_no_partition": ("parent", [_NO_CHUNK_WORK], False),
-    "parent_no_rank": ("parent", [_NO_CHUNK_WORK, (
-        "if (__ballot_sync(0xffffffffu, kept) == 0u) continue;", "continue;")], False),
-    "parent_no_cells": ("parent", [("for (int c0 = 0; c0 < len; c0 += kChunk) {",
-                                    "for (int c0 = 0; c0 < 0; c0 += kChunk) {")], False),
-    "sorted_4096": ("new", [("kSortItems = 5", "kSortItems = 4")], True),
-    "sorted_5120": ("new", [], True),
-    "sorted_6144": ("new", [("kSortItems = 5", "kSortItems = 6")], True),
-    "sorted_5120_radix4": ("new", [("kSortRadixBits = 5", "kSortRadixBits = 4")], True),
+#: the sorted block's variants: name -> nvcc -D flags
+SORTED = {
+    "sorted": [],
+    "sorted_per_item": ["-DEPIK_SORT_PERSISTENT=0"],
+    "sorted_chunk4096": ["-DEPIK_SORT_ITEMS=4"],
+    "sorted_chunk6144": ["-DEPIK_SORT_ITEMS=6"],
+    "sorted_bits4": ["-DEPIK_SORT_BITS=4"],
+    "sorted_bits5": ["-DEPIK_SORT_BITS_SMALL=5"],
 }
+#: the owner-warp layouts: name -> (n_tiles, warps, cluster, bulk)
+OWNERS = {
+    "owners_1x32": (1, 32, 0, 0),
+    "owners_2x8": (2, 8, 0, 0),
+    "owners_2x8_bulk": (2, 8, 0, 1),
+    "owners_4x8": (4, 8, 0, 0),
+    "owners_4x8_bulk": (4, 8, 0, 1),
+    "owners_4x8_bulk_cluster": (4, 8, 1, 1),
+}
+#: the row-pointer form's widths: name -> B
+WIDTHS = {"config4": 19999, "wide_classic": 22199}
 
 
-def build(sources: dict, out_dir: str) -> dict:
-    """One nvcc per variant, all at once: name -> loaded library."""
+def build(jobs: dict, out_dir: str) -> dict:
+    """``jobs``: name -> (source, -D flags). One ``nvcc`` each, all at
+    once: name -> loaded library."""
     from epik_tpu_torch.kernels._build import NVCC_FLAGS, _nvcc
 
     os.makedirs(out_dir, exist_ok=True)
     procs = {}
-    for name, (src, subs) in sources.items():
-        text = open(src).read()
-        for old, new in subs:
-            if old not in text:
-                raise AssertionError(f"{name}: {old!r} not in {src}")
-            text = text.replace(old, new)
-        path = os.path.join(out_dir, f"{name}.cu")
-        with open(path, "w") as f:
-            f.write(text)
+    for name, (src, defines) in jobs.items():
         so = os.path.join(out_dir, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-shared", "-I", os.path.dirname(os.path.abspath(src)),
-             "-o", so, path], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [_nvcc(), *NVCC_FLAGS, *defines, "-shared", "-I", CSRC, "-o", so, src],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, p) in procs.items():
         log = p.communicate()[0]
@@ -97,7 +93,7 @@ def build(sources: dict, out_dir: str) -> dict:
 
 def in_turns(torch, names, call, check) -> dict:
     """Each variant's CUDA-event median, the first one again last; ``check``
-    (name) raises where a variant that keeps the function differs."""
+    (name) raises where a variant differs from the plain version."""
     times = {}
     for name in [*names, names[0]]:
         if name not in times:
@@ -106,22 +102,20 @@ def in_turns(torch, names, call, check) -> dict:
     return times
 
 
-def gather_times(torch, dev, parent: str, out: dict) -> None:
+def gather_times(torch, dev, out: dict) -> None:
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine import step as step_mod
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.engine.placer import TorchPlacer
     from epik_tpu_torch.kernels.rowgather import locality_order, rowgather_sum_counts_plain
 
-    src = {"new": os.path.join(CSRC, "rowgather_sum.cu"),
-           "parent": os.path.join(parent, CSRC, "rowgather_sum.cu")}
-    libs = build({n: (src[s], subs) for n, (s, subs, _) in GATHER.items()},
-                 os.path.join("build", "sweep", "gather"))
+    src = os.path.join(CSRC, "rowgather_sum.cu")
+    builds = {n: (src, d) for n, (d, _) in GATHER.items() if n != "slice256_read_order"}
+    libs = build(builds, os.path.join("build", "sweep", "gather"))
+    libs["slice256_read_order"] = libs["slice256"]
     vp, i = ctypes.c_void_p, ctypes.c_int
-    for name, lib in libs.items():
-        lib.epik_rowgather_sum_counts.argtypes = (
-            [vp, i, vp, vp, vp, i, i, i, vp] if name == "parent"
-            else [vp, i, vp, vp, vp, vp, i, i, i, vp])
+    for lib in libs.values():
+        lib.epik_rowgather_sum_counts.argtypes = [vp, i, vp, vp, vp, vp, i, i, i, vp]
     db, records = d652_fixture()
     tree = parse_newick(db.tree())
     for cell, fields, fused in (("f32", {"plane_mode": "classic"}, "rowgather_sum_counts_topk"),
@@ -142,12 +136,9 @@ def gather_times(torch, dev, parent: str, out: dict) -> None:
         code = 0 if cell == "f32" else 2
 
         def call(name):
-            lib = libs[name].epik_rowgather_sum_counts
-            stream = torch.cuda.current_stream().cuda_stream
-            head = (plane.data_ptr(), code, rows.data_ptr())
-            tail = (S.data_ptr(), C.data_ptr(), R, W, bw, stream)
-            err = lib(*head, *tail) if name == "parent" else lib(
-                *head, orders[GATHER[name][2]].data_ptr(), *tail)
+            err = libs[name].epik_rowgather_sum_counts(
+                plane.data_ptr(), code, rows.data_ptr(), orders[GATHER[name][1]].data_ptr(),
+                S.data_ptr(), C.data_ptr(), R, W, bw, torch.cuda.current_stream().cuda_stream)
             if err:
                 raise RuntimeError(f"{name}: CUDA error {err}")
 
@@ -166,52 +157,76 @@ def gather_times(torch, dev, parent: str, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
-def row_ptr_times(torch, np, dev, parent: str, out: dict) -> None:
-    from epik_tpu_torch.kernels.accumulate_sums import accumulate_sums_counts_csr_plain
-
-    src = {"new": os.path.join(CSRC, "accumulate_sums.cu"),
-           "parent": os.path.join(parent, CSRC, "accumulate_sums.cu")}
-    libs = build({n: (src[s], subs) for n, (s, subs, _) in ROW_PTR.items()},
-                 os.path.join("build", "sweep", "row_ptr"))
-    vp, i = ctypes.c_void_p, ctypes.c_int
-    for lib in libs.values():
-        lib.epik_accumulate_sums_csr.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
-    R, B, trash = 4096, 19999, 20095
-    rng = np.random.default_rng(7)
+def flat_batch(torch, np, dev, B: int, R: int = 4096):
+    """Flat cells of R reads like the 400 bp batch's: b, s, ptr on ``dev``."""
+    rng = np.random.default_rng(B)
     ptr = np.concatenate([[0], np.cumsum(rng.poisson(4433, R))]).astype(np.int64)
     n = int(ptr[-1])
     b = rng.integers(0, B, n).astype(np.int32)
-    b[rng.random(n) < 0.02] = trash
+    b[rng.random(n) < 0.02] = -(-B // 128) * 128 - 1  # the trash column
     s = rng.uniform(-4.0, -0.1, n).astype(np.float32)
-    b, s, ptr = (torch.from_numpy(x).to(dev) for x in (b, s, ptr))
-    S = torch.empty((R, B), device=dev)
-    C = torch.empty((R, B), dtype=torch.int32, device=dev)
-    S_p, C_p = accumulate_sums_counts_csr_plain(b, s, ptr, R=R, B=B)
+    return tuple(torch.from_numpy(x).to(dev) for x in (b, s, ptr))
 
-    def call(name):
-        err = libs[name].epik_accumulate_sums_csr(
-            b.data_ptr(), s.data_ptr(), ptr.data_ptr(), S.data_ptr(), C.data_ptr(), R, B,
-            torch.cuda.current_stream().cuda_stream)
-        if err:
-            raise RuntimeError(f"{name}: CUDA error {err}")
 
-    def check(name):
-        if not ROW_PTR[name][2]:
-            return
-        call(name)
-        torch.cuda.synchronize()
-        if not (torch.equal(S.view(torch.int32), S_p.view(torch.int32)) and torch.equal(C, C_p)):
-            raise AssertionError(f"row pointer {name}: not bit-equal")
+def row_ptr_times(torch, np, dev, out: dict) -> None:
+    from epik_tpu_torch.kernels.accumulate_sums import accumulate_sums_counts_csr_plain
 
-    out["row_ptr"] = {"reads": R, "cells": n, "B": B,
-                      "ms": in_turns(torch, list(ROW_PTR), call, check)}
+    src = os.path.join(CSRC, "accumulate_sums.cu")
+    jobs = {n: (src, d) for n, d in SORTED.items()}
+    jobs["owners"] = (TILES_SRC, [])
+    libs = build(jobs, os.path.join("build", "sweep", "row_ptr"))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for name in SORTED:
+        libs[name].epik_accumulate_sums_csr.argtypes = [vp, vp, vp, vp, vp, i, i, vp]
+    for name in SORTED:
+        libs[name].epik_accumulate_sums_layout.argtypes = [i, i, i, ctypes.POINTER(i)]
+    owners = libs["owners"].epik_accumulate_sums_csr_tiles
+    owners.argtypes = [vp, vp, vp, vp, vp, i, i, i, i, i, i, vp]
+    for width, B in WIDTHS.items():
+        b, s, ptr = flat_batch(torch, np, dev, B)
+        R = ptr.numel() - 1
+        S = torch.empty((R, B), device=dev)
+        C = torch.empty((R, B), dtype=torch.int32, device=dev)
+        S_p, C_p = accumulate_sums_counts_csr_plain(b, s, ptr, R=R, B=B)
+
+        def call(name):
+            head = (b.data_ptr(), s.data_ptr(), ptr.data_ptr(), S.data_ptr(), C.data_ptr(), R, B)
+            stream = torch.cuda.current_stream().cuda_stream
+            if name in SORTED:
+                err = libs[name].epik_accumulate_sums_csr(*head, stream)
+            else:
+                err = owners(*head, *OWNERS[name], stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+
+        def check(name):
+            S.zero_()
+            C.zero_()
+            call(name)
+            torch.cuda.synchronize()
+            if not (torch.equal(S.view(torch.int32), S_p.view(torch.int32))
+                    and torch.equal(C, C_p)):
+                raise AssertionError(f"row pointer {name} at B = {B}: not bit-equal")
+
+        layouts = {}
+        for name in SORTED:
+            lay = (ctypes.c_int * 5)()
+            if libs[name].epik_accumulate_sums_layout(B, 1, 1, lay):
+                raise RuntimeError(f"{name}: no layout at B = {B}")
+            layouts[name] = dict(zip(("tile_w", "n_tiles", "threads", "smem", "radix_bits"),
+                                     lay))
+        out[f"row_ptr_{width}"] = {
+            "reads": R, "cells": int(ptr[-1]), "B": B, "sorted_layouts": layouts,
+            "ms": in_turns(torch, [*SORTED, *OWNERS], call, check)}
+        del b, s, ptr, S, C, S_p, C_p
+        torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--parent", required=True, help="a parent checkout of this repository")
+    ap.add_argument("--only", choices=("gather", "row_ptr"), default=None,
+                    help="sweep one kernel only")
     args = ap.parse_args(argv)
-    parent = os.path.abspath(args.parent)
     sys.path.insert(0, chip_smoke.REPO)
     import numpy as np
     import torch
@@ -222,8 +237,10 @@ def main(argv=None) -> int:
     os.chdir(chip_smoke.REPO)
     dev = torch.device("cuda")
     out = {"device": torch.cuda.get_device_name(0)}
-    gather_times(torch, dev, parent, out)
-    row_ptr_times(torch, np, dev, parent, out)
+    if args.only in (None, "row_ptr"):
+        row_ptr_times(torch, np, dev, out)
+    if args.only in (None, "gather"):
+        gather_times(torch, dev, out)
     print(card_line())
     print(json.dumps(out))
     return 0

@@ -55,10 +55,12 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
   51.8 GB column plane): the sharded dense step on the 150 bp batch and its
   kernel, as for D652.
 
-On ``chip_smoke.py``'s wide classic database (11,100 leaves, 22,197
+On ``chip_smoke.py``'s wide classic database (11,100 leaves, 22,199
 branches, k = 10, past the fused counts kernel's limit) with 4,096 150 bp
 reads, the classic f32 and bf16 steps (the gather with counts and
-``finish_topk_counts`` apart) and kernel 1c alone on their rows.
+``finish_topk_counts`` apart) and kernel 1c alone on their rows; with 4,096
+400 bp reads under ``accumulate="scatter"``, the flat CSR step and kernel
+4's row-pointer form on its flat cells.
 
 On ``chip_smoke.py``'s config-2 database (652 leaves, 1,303 branches, amino
 k = 8) with its first batch of 4,096 reads (X/B/Z reads among them), and
@@ -413,22 +415,41 @@ def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
 
 
 def wide_classic_times(torch, dev, out: dict) -> None:
-    """``chip_smoke.py``'s wide classic database (B = 22,197, past the fused
+    """``chip_smoke.py``'s wide classic database (B = 22,199, past the fused
     counts kernel's limit) with 4,096 150 bp reads: the classic f32 and bf16
     steps, which run the gather with counts (kernel 1c) and
-    ``finish_topk_counts`` apart, and 1c alone on their rows, into ``out``."""
+    ``finish_topk_counts`` apart, and 1c alone on their rows; 4,096 400 bp
+    reads under ``accumulate="scatter"``: the flat CSR step and kernel 4's
+    row-pointer form on its cells (B = 22,199), into
+    ``out``."""
     import gc
 
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.engine.placer import TorchPlacer
     from epik_tpu_torch.io.build import reads_from_reference
+    from epik_tpu_torch.ops import csr as csr_mod
 
     db, ref = chip_smoke.wide_classic_db()
     tree = parse_newick(db.tree())
     reads = reads_from_reference(ref, chip_smoke.WC_BATCH, length=150, mutation_rate=0.02,
                                  seed=14)
     seqs = list(dict.fromkeys(s for _, s in reads))
+    long_reads = reads_from_reference(ref, BT_LONG, length=400, mutation_rate=0.02, seed=15)
+    placer = TorchPlacer(db, tree, config=PlacerConfig(accumulate="scatter"), device=dev)
+    step, P, PA, _ = placer._stage_csr(list(dict.fromkeys(s for _, s in long_reads)))
+    out["wide_scatter_step_ms"] = cuda_ms(torch, lambda: step(P, PA))
+    calls = []
+    with recording(csr_mod, "accumulate_sums_counts_csr", calls):
+        placer.place(long_reads)
+    (b, s, ptr), kw = calls[0]
+    out["wide_accumulate_sums_counts_csr_ms"] = cuda_ms(
+        torch, lambda: kernels_mod.accumulate_sums_counts_csr(b, s, ptr, **kw))
+    out["wide_accumulate_sums_counts_csr_cells"] = int(ptr[-1] - ptr[0])
+    out["wide_accumulate_sums_counts_csr_B"] = kw["B"]
+    del placer, step, calls, b, s, ptr
+    torch.cuda.empty_cache()
     for name, fields, kernel in (("wide_classic", {"plane_mode": "classic"},
                                   "rowgather_sum_counts"),
                                  ("wide_bf16", {"precision": "bf16"},

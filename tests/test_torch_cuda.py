@@ -241,16 +241,23 @@ def _bits(x):
     pytest.param(32, 3072, 5120, True, id="32-3072-5120-engineered"),
     pytest.param(16, 2000, 40000, True, id="16-2000-40000-engineered"),
     pytest.param(16, 1024, 1303, True, id="16-1024-1303-engineered"),
+    # the counts block's shared memory just under and just over 48 KB
+    pytest.param(16, 2000, 1512, True, id="16-2000-1512-under-48kb-engineered"),
+    pytest.param(16, 2000, 1520, True, id="16-2000-1520-over-48kb-engineered"),
 ])
 def test_accumulate_sums_bit_equal(cuda, R, PP, B, engineered):
     """Kernel 4, with counts and without, bit for bit against its plain
     version (and, on the engineered rows, against a loop over each row's
-    cells in order); two launches give the same bytes."""
+    cells in order); two launches give the same bytes. The launch opts in
+    to its shared memory on both sides of the 48 KB default."""
     rng = np.random.default_rng(R * PP)
     if engineered:
         layouts = plan(B, True), plan(B, False)
         # with counts, B = 40,000 takes the path past one tile
         assert layouts[0].n_tiles == (2 if B == 40000 else 1)
+        assert layouts[0].radix_bits == layouts[1].radix_bits == 0
+        if B in (1512, 1520):
+            assert (layouts[0].smem < 48 * 1024) == (B == 1512)
         b, s = score_rows(rng, R, PP, B, edges=tuple(p.tile_w for p in layouts))
     else:
         b, s = score_cells(rng, R, PP, B)
@@ -1462,19 +1469,40 @@ def test_finish_at_the_48kb_edge(cuda, counts):
         _check_pack(got, finish_topk_plain(Sp_t, m_t, **kw).cpu().numpy(), 7, 7850)
 
 
+def _tile_bytes(tile_w):
+    """The row-pointer block's sums and counts, each padded to a multiple of
+    4, plus 4."""
+    return 8 * (((tile_w + 3) & ~3) + 4)
+
+
+def _csr_scratch():
+    """The row-pointer block's sort storage and sorted chunk, by the radix
+    bits of a pass: 5 at B = 1, 4 at the wide classic tree's B = 22,199
+    (where the 5-bit block would take two tiles)."""
+    five, four = plan(1, True, row_ptr=True), plan(22199, True, row_ptr=True)
+    assert (five.radix_bits, four.radix_bits) == (5, 4)
+    return {5: five.smem - _tile_bytes(five.tile_w), 4: four.smem - _tile_bytes(four.tile_w)}
+
+
+def _fewest_tiles(B, scratch, optin):
+    n = 1
+    while _tile_bytes(-(-B // n)) + scratch > optin:
+        n += 1
+    return n
+
+
 def _csr_layout_holds(layout, B, optin=232_448):
     """The row-pointer form's layout is the fewest tiles whose block fits the
-    card's opt-in shared memory: the tile's sums and counts (each padded to
-    a multiple of 4, plus 4) and the block's sort storage, the same bytes at
-    every width."""
-    def tile_bytes(tw):
-        return 8 * (((tw + 3) & ~3) + 4)
-
-    scratch = layout.smem - tile_bytes(layout.tile_w)
-    assert layout.threads == 1024 and scratch >= 5120 * 8
-    assert layout.n_tiles == -(-B // layout.tile_w) and layout.smem <= optin
-    if layout.n_tiles > 1:
-        assert tile_bytes(-(-B // (layout.n_tiles - 1))) + scratch > optin
+    card's opt-in shared memory, the tile's sums and counts beside the
+    block's scratch: the 5-bit sort's, or the 4-bit sort's (smaller) where
+    that takes fewer tiles."""
+    scratch = _csr_scratch()
+    assert layout.threads == 1024 and scratch[4] >= 5120 * 8 and scratch[5] > scratch[4]
+    n5, n4 = _fewest_tiles(B, scratch[5], optin), _fewest_tiles(B, scratch[4], optin)
+    bits = 4 if n4 < n5 else 5
+    assert layout.radix_bits == bits and layout.tile_w == -(-B // min(n4, n5))
+    assert layout.n_tiles == -(-B // layout.tile_w)
+    assert layout.smem == _tile_bytes(layout.tile_w) + scratch[bits] <= optin
     return scratch
 
 
@@ -1513,6 +1541,9 @@ def _csr_case(cuda, R, PP, B, layout):
     pytest.param(300, 700, 1303, id="300-700-1303"),
     pytest.param(16, 300, 1, id="16-300-1"),
     pytest.param(16, 6000, 65537, id="16-6000-65537"),
+    pytest.param(16, 6000, 22199, id="16-6000-22199-wide-classic"),
+    # more (read, tile) items than the card holds blocks: each block takes several
+    pytest.param(600, 3000, 19999, id="600-3000-19999-items-in-turn"),
 ])
 def test_accumulate_sums_csr_bit_equal(cuda, R, PP, B):
     """Kernel 4's row-pointer form on the engineered rows cut to ragged
@@ -1520,14 +1551,38 @@ def test_accumulate_sums_csr_bit_equal(cuda, R, PP, B):
     5,120-cell chunk of its sort), cells past the last read that no read
     owns -- with cells at every tile edge of its layout, bit for bit against
     its plain version and a loop over each read's cells in order; two
-    launches alike. One tile at B = 19,999, two at 40,000, four at 65,537;
+    launches alike. One tile at B = 19,999 and at the wide classic tree's
+    22,199 (4-bit passes), two at 40,000, three at 65,537 (4-bit passes);
     every launch opts in to its block's shared memory (above 48 KB at B =
     1)."""
     layout = plan(B, True, row_ptr=True)
     _csr_layout_holds(layout, B)
-    assert layout.n_tiles == {19999: 1, 40000: 2, 65537: 4}.get(B, 1)
+    assert layout.n_tiles == {19999: 1, 22199: 1, 40000: 2, 65537: 3}.get(B, 1)
+    assert layout.radix_bits == (4 if B in (22199, 65537) else 5)
     assert plan(1, True, row_ptr=True).smem > 48 * 1024
     _csr_case(cuda, R, PP, B, layout)
+
+
+@pytest.mark.parametrize("edge", ["last-5-bit-tile", "first-4-bit-tile", "last-4-bit-tile",
+                                  "first-two-tiles"])
+def test_accumulate_sums_csr_layout_edges(cuda, edge, optin=232_448):
+    """The row-pointer form on each side of its layout's edges: the widest
+    B that one 5-bit block holds, the next B (one 4-bit block), the widest
+    B that one 4-bit block holds, and the next (two 5-bit tiles); each bit
+    for bit against its plain version, two launches alike."""
+    scratch = _csr_scratch()
+
+    def widest(s):  # the widest tile that one block of scratch s holds
+        return ((optin - s) // 8 - 4) // 4 * 4
+
+    B = {"last-5-bit-tile": widest(scratch[5]), "first-4-bit-tile": widest(scratch[5]) + 1,
+         "last-4-bit-tile": widest(scratch[4]), "first-two-tiles": widest(scratch[4]) + 1}[edge]
+    layout = plan(B, True, row_ptr=True)
+    _csr_layout_holds(layout, B)
+    assert (layout.n_tiles, layout.radix_bits) == {
+        "last-5-bit-tile": (1, 5), "first-4-bit-tile": (1, 4), "last-4-bit-tile": (1, 4),
+        "first-two-tiles": (2, 5)}[edge]
+    _csr_case(cuda, 16, 6000, B, layout)
 
 
 @pytest.mark.parametrize("route", ["scatter", "pair_fused_tiles", "sharded_scatter"])
