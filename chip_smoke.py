@@ -204,7 +204,34 @@ prints no result line):
                  (bf16: the oracle on bf16-rounded scores, and the best edge
                  of the exact oracle by the bf16 rule); 1c against its plain
                  version on the path's first batch, bit for bit, two launches
-                 alike, its time, bound and ``embedding_bag``'s.
+                 alike, its time, bound and ``embedding_bag``'s;
+               * ``place --engine sharded --plane-mode classic`` on a 1x1 mesh
+                 (one shard of 22,272 columns, past the fused counts column
+                 kernel's limit, bwl ~22,032), the counts zeroed before and
+                 read after: 1c and kernel A's counts form
+                 (``finish_cols_partial_counts``) once per batch and nothing
+                 else; 128 reads against the oracle and every read against
+                 the f32 single-device run, score sets within 1e-4; kernel A
+                 against its plain version on the first batch's sums and
+                 counts (bit-equal but e_s, rtol 1e-6), its time and bound.
+
+15. wide shifted -- the shifted dense route past the fused kernel's limit,
+               where the gather alone (kernel 1d, ``rowgather_sum``, in
+               locality order and column slices) and
+               ``finish_topk`` run apart: BASELINE.md config 4's recipe at
+               20,000 leaves on D652's 520,000 bp reference (B = 39,999, bw
+               40,064, ~410k k-mers; the reference is cut only where the 65.7
+               GB f32 plane would be over the card's budget), 8,192 150 bp
+               reads, the first 6 with IUPAC codes, in batches of 4,096:
+               * ``python -m epik_tpu_torch place`` with no flags (the f32
+                 plane), then with ``--precision int16`` (~33 GB), the counts
+                 zeroed before and read after: the dense route, 1d and
+                 ``finish_topk`` once per batch and nothing else (the fused
+                 kernel's ``topk_fits`` refuses B = 39,999); 128 reads against
+                 the oracle (f32: score sets within 1e-4; int16: the
+                 jplace_diff rule); 1d against its plain version on the
+                 path's first batch, bit for bit, two launches alike, its
+                 time, bound and ``embedding_bag``'s (f32).
 
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
@@ -257,6 +284,12 @@ K14_READS = 8192
 WC_READS = 8192
 WC_BATCH = 4096
 WC_PARITY = 128
+#: the wide shifted phase (phase 15): config 4's recipe at 20,000 leaves on
+#: D652's reference length, past the fused kernel's limit; reads of 150 bp
+#: (the first 6 with IUPAC codes), batches, oracle reads
+WS_READS = 8192
+WS_BATCH = 4096
+WS_PARITY = 128
 
 #: the device the subprocesses of phase 13 place on (their --platform)
 PLATFORM = "cuda"
@@ -325,6 +358,15 @@ KERNEL_META = {
                                           "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_counts_bf16_wide_classic": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                                "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # kernel A's counts form on the wide classic shard (phase 14's sharded run)
+    "finish_cols_partial_counts_wide_classic": ("epik_tpu_torch/kernels/csrc/finish_cols.cu",
+                                                "epik_tpu/parallel/sharding.py:321"),
+    # the gather alone on the wide shifted path (phase 15), past the fused
+    # kernel's limit
+    "rowgather_sum_wide_shifted": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                   "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_int16_wide_shifted": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                         "epik_tpu/ops/pallas/rowgather_mq.py:117"),
 }
 
 
@@ -755,6 +797,17 @@ def wide_classic_db():
                              mean_posting_len=12.0, seed=13)
 
 
+def wide_shifted_db(ref_length: int = 520_000):
+    """The wide shifted database and its reference: BASELINE.md config 4's
+    recipe (tools/bench_bigtree.py:47-55) at 20,000 leaves on D652's
+    520,000 bp reference, seed 16: B = 39,999 (bw 40,064), past the fused
+    kernel's limit (B ~ 37,000), ~410k k-mers, a 65.7 GB f32 plane."""
+    from epik_tpu_torch.io.build import reference_like_db
+
+    return reference_like_db(num_leaves=20000, kmer_size=10, ref_length=ref_length,
+                             mean_posting_len=12.0, seed=16)
+
+
 def bf16_scores_db(db):
     """``db`` with every score rounded to bf16 (the values the bf16 classic
     plane holds), for the oracle the bf16 path is held to."""
@@ -851,6 +904,199 @@ def wide_classic_phase(torch, np, card: str, dev) -> tuple[list, dict]:
             f"bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes)")
         kernels.append(entry(f"{sums}_wide_classic", counts[sums], err, ms, plain_ms, *io_k,
                              lib_ms))
+        if cell == "f32":
+            single_rows = rows_by_name
+        del calls, plane
+        gc.collect()  # the CLI's placer, before the next plane is built
+        torch.cuda.empty_cache()
+
+    # ---- 14c. the sharded classic CLI on a 1x1 mesh: 1c and kernel A's counts form -------
+    kernels.append(wide_sharded_classic(torch, np, card, path, fasta, records, oracles["f32"],
+                                        single_rows, work, summary))
+    shutil.rmtree(work, ignore_errors=True)
+    return kernels, summary
+
+
+def wide_sharded_classic(torch, np, card: str, path: str, fasta: str, records, oracle,
+                         single_rows: dict, work: str, summary: dict) -> dict:
+    """Phase 14's sharded run: ``place --engine sharded --plane-mode classic``
+    on a 1x1 mesh over the wide classic database (one shard of 22,272
+    columns, past the fused counts kernel's limit, bwl 22,032): the gather
+    with counts and kernel A's counts form once per batch and nothing else;
+    128 reads against the oracle, every read against the single-device
+    classic run (score sets within 1e-4); kernel A against its plain version
+    on the first batch's sums and counts, its time and bound. Returns kernel
+    A's entry."""
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.finish_cols import (
+        finish_cols_layout,
+        finish_cols_partial_counts,
+        finish_cols_partial_counts_plain,
+    )
+    from epik_tpu_torch.parallel import sharding as sh_mod
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    name = "finish_cols_partial_counts"
+    n_batches = -(-WC_READS // WC_BATCH)
+    out_dir = os.path.join(work, "out_sharded")
+    os.makedirs(out_dir)
+    argv = ["place", "-i", path, "-o", out_dir, "--batch-size", str(WC_BATCH), "--engine",
+            "sharded", "--plane-mode", "classic", fasta]
+    calls = []
+    reset_launch_counts()
+    with recording(sh_mod, name, calls, limit=1):
+        rc, cli_out, wall = run_cli(torch, argv)
+    counts = {n: c for n, c in launch_counts().items() if c}
+    log("cli: python -m epik_tpu_torch " + " ".join(argv))
+    for line in cli_out.splitlines():
+        log("  | " + line)
+    if rc != 0 or "sharded mesh 1x1 (dense)" not in cli_out:
+        raise AssertionError(f"wide sharded classic: rc {rc}, not the sharded dense route")
+    if counts != {"rowgather_sum_counts": n_batches, name: n_batches}:
+        raise AssertionError(f"wide sharded classic: launches {counts}, expected "
+                             f"rowgather_sum_counts and {name} once per batch ({n_batches})")
+    rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
+    names = {n for n, _ in records}
+    if set(rows_by_name) != names:
+        raise AssertionError("wide sharded classic: jplace names differ")
+    worst = check_parity(oracle, rows_by_name, "wide sharded classic")
+    worst_single = compare_rows(rows_by_name, single_rows, sorted(names),
+                                "wide sharded classic against the single-device run")
+    rate = WC_READS / placement_ms(cli_out) * 1e3
+    (S, C, m), akw = calls[0]
+    got = finish_cols_partial_counts(S, C, m, **akw)
+    again = finish_cols_partial_counts(S, C, m, **akw)
+    want = finish_cols_partial_counts_plain(S, C, m, **akw)
+    torch.cuda.synchronize()
+    if not (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])):
+        raise AssertionError(f"{name} (wide classic shard): two launches differ")
+    err = check_partial(np, got, want, f"{name} (wide classic shard)")
+    R, bwl = S.shape
+    Kl = min(akw["K"], bwl)
+    touched = int((C > 0).sum())
+    ms = cuda_ms(torch, lambda: finish_cols_partial_counts(S, C, m, **akw))
+    plain_ms = cuda_ms(torch, lambda: finish_cols_partial_counts_plain(S, C, m, **akw), reps=3,
+                       warmup=1)
+    # S, C and m read once, the pack and the counts written once; a compare
+    # per column and the finish's operations per touched column
+    io = (nbytes(S, C, m) + R * (3 * Kl + 3) * 4, R * bwl + FINISH_OPS * touched)
+    lay = finish_cols_layout(S, akw["K"], counts=True)
+    summary.update({"wide_sharded_reads_per_s": rate, "wide_sharded_cli_s": wall,
+                    f"wide_sharded_{name}_ms": ms, f"wide_sharded_{name}_plain_ms": plain_ms})
+    log(f"wide sharded classic 1x1: {WC_READS} reads, pipeline {rate:.0f} reads/s, whole CLI "
+        f"{wall:.1f} s [{card}]; launches {counts}; parity on {WC_PARITY} reads against the "
+        f"oracle: largest score difference {worst:.3g}; every read against the single-device "
+        f"classic run: {worst_single:.3g}; {name} ({R}, {bwl}), {touched / R:.1f} touched a "
+        f"read, {lay['threads']} threads and a cache of {lay['cache']} scores a block: "
+        f"bit-equal but e_s, two launches alike; kernel {ms:.4f} ms, plain (stable sort) "
+        f"{plain_ms:.4f} ms, bound {bound(*io)[0]:.4f} ms")
+    del calls, S, C, m, got, again, want
+    return entry(f"{name}_wide_classic", counts[name], err, ms, plain_ms, *io, None)
+
+
+def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
+    """Phase 15 (see the module docstring): the wide shifted tree, B =
+    39,999 (bw 40,064), on D652's 520,000 bp reference; the reference is cut
+    (480, 440, 400 kb) only where the 65.7 GB f32 plane would be over the
+    card's ``device_budget`` (the summary's ``wide_shifted_ref_length``).
+    8,192 150 bp reads (seed 17), the first 6 with IUPAC codes, batches of
+    4,096. Returns the kernel entries of the gather alone (f32 and int16) at
+    this width and the phase's summary numbers."""
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import device_budget
+    from epik_tpu_torch.engine.reference import ReferencePlacer
+    from epik_tpu_torch.io.build import reads_from_reference
+    from epik_tpu_torch.io.db import load, save
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.rowgather import topk_fits
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    summary = {}
+    # ---- 15a. fixture ---------------------------------------------------------------------
+    t0 = time.monotonic()
+    work = os.path.join(REPO, "build", "chip_smoke_wide_shifted")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    budget = device_budget(dev)
+    for ref_length in (520_000, 480_000, 440_000, 400_000):
+        db, ref = wide_shifted_db(ref_length)
+        B = parse_newick(db.tree()).get_node_count()
+        plane_bytes = (db.num_kmers + 1) * (-(-B // 128) * 128) * 4
+        if plane_bytes <= budget:
+            break
+    else:
+        raise AssertionError(f"the wide shifted plane ({plane_bytes} bytes) is over the "
+                             f"budget of {budget} bytes at every reference length")
+    path = os.path.join(work, "wide_shifted.eptk")
+    save(db, path)
+    db = load(path, mu=1.0, user_omega=1.5)
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, WS_READS, length=150, mutation_rate=0.02, seed=17)
+    codes = b"NRYWSK"
+    records = [(f"iupac_{chr(c)}_{i}", reads[i][1][:20 * i + 10] + bytes([c])
+                + reads[i][1][20 * i + 11:]) for i, c in enumerate(codes)] + reads[len(codes):]
+    fasta = os.path.join(work, "q.fasta")
+    write_fasta(fasta, records)
+    summary.update(wide_shifted_ref_length=ref_length, wide_shifted_plane_bytes=plane_bytes,
+                   wide_shifted_budget=budget, wide_shifted_fixture_s=time.monotonic() - t0)
+    t0 = time.monotonic()
+    oracle = ReferencePlacer(db, tree).place(records[:WS_PARITY])
+    summary["wide_shifted_oracle_s"] = time.monotonic() - t0
+    if topk_fits(torch.empty((2, -(-B // 128) * 128), device=dev), B, 7):
+        raise AssertionError(f"B = {B}: the fused kernel would take it")
+    log(f"wide shifted fixture: {db.num_kmers} k-mers on a {ref_length} bp reference, "
+        f"{db.num_entries} postings, {B} branches, f32 plane {plane_bytes} bytes of a budget "
+        f"of {budget}; {WS_READS} reads of 150 bp, 6 with IUPAC codes "
+        f"({summary['wide_shifted_fixture_s']:.1f} s; the oracle on {WS_PARITY} reads "
+        f"{summary['wide_shifted_oracle_s']:.1f} s); topk_fits refuses B = {B}")
+
+    # ---- 15b. the CLI with no flags, then --precision int16: 1d and finish_topk -----------
+    kernels = []
+    n_batches = -(-WS_READS // WS_BATCH)
+    for cell, flags, rule in (("f32", [], "sets"), ("int16", ["--precision", "int16"],
+                                                     "jplace_diff")):
+        out_dir = os.path.join(work, f"out_{cell}")
+        os.makedirs(out_dir)
+        argv = ["place", "-i", path, "-o", out_dir, "--batch-size", str(WS_BATCH), *flags, fasta]
+        calls = []
+        reset_launch_counts()
+        with recording(step_mod, "rowgather_sum", calls, limit=1):
+            rc, cli_out, wall = run_cli(torch, argv)
+        counts = {n: c for n, c in launch_counts().items() if c}
+        log("cli: python -m epik_tpu_torch " + " ".join(argv))
+        for line in cli_out.splitlines():
+            log("  | " + line)
+        if rc != 0 or "(1 device(s), dense)" not in cli_out:
+            raise AssertionError(f"wide shifted {cell}: rc {rc}, not on the dense route")
+        if counts != {"rowgather_sum": n_batches, "finish_topk": n_batches}:
+            raise AssertionError(f"wide shifted {cell}: launches {counts}, expected "
+                                 f"rowgather_sum and finish_topk once per batch ({n_batches})")
+        plane = calls[0][0][0]
+        if plane.dtype != (torch.int16 if cell == "int16" else torch.float32):
+            raise AssertionError(f"wide shifted {cell}: a {plane.dtype} plane")
+        rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
+        if set(rows_by_name) != {n for n, _ in records}:
+            raise AssertionError(f"wide shifted {cell}: jplace names differ")
+        worst = check_parity(oracle, rows_by_name, f"wide shifted {cell}", rule)
+        rate = WS_READS / placement_ms(cli_out) * 1e3
+        err, ms, plain_ms, io_k, lib_ms, shape = check_dense_kernel(
+            torch, np, "rowgather_sum", calls[0], f"wide shifted {cell}, first batch")
+        summary.update({f"wide_shifted_{cell}_plane_bytes": nbytes(plane),
+                        f"wide_shifted_{cell}_reads_per_s": rate,
+                        f"wide_shifted_{cell}_cli_s": wall,
+                        f"wide_shifted_{cell}_rowgather_sum_ms": ms})
+        log(f"wide shifted {cell}: plane {tuple(plane.shape)} {plane.dtype} = {nbytes(plane)} "
+            f"bytes; {WS_READS} reads, pipeline {rate:.0f} reads/s, whole CLI {wall:.1f} s "
+            f"[{card}]; launches {counts}; parity on {WS_PARITY} reads against the oracle "
+            f"({'the jplace_diff rule' if rule == 'jplace_diff' else 'score sets'}): largest "
+            f"score difference {worst:.3g}; rowgather_sum {shape} bw={plane.shape[1]}: "
+            f"bit-equal, two launches alike; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+            f"embedding_bag {'none (no int16 weight)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
+            f", bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes)")
+        tag = "rowgather_sum" + ("_int16" if cell == "int16" else "")
+        kernels.append(entry(f"{tag}_wide_shifted", counts["rowgather_sum"], err, ms, plain_ms,
+                             *io_k, lib_ms))
         del calls, plane
         gc.collect()  # the CLI's placer, before the next plane is built
         torch.cuda.empty_cache()
@@ -1403,6 +1649,7 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
     from epik_tpu_torch.kernels.rowgather import (
         rowgather_sum_counts_plain,
         rowgather_sum_counts_topk_plain,
+        rowgather_sum_plain,
         rowgather_sum_topk_plain,
     )
 
@@ -1453,6 +1700,23 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
         # per gathered cell and the finish's operations per (read, branch)
         io = (n_distinct * bw * cell + nbytes(rows, m) + amb + rows.shape[0] * (4 * K + 2) * 4,
               2 * rows.numel() * bw + FINISH_OPS * rows.shape[0] * B)
+        return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
+    if name == "rowgather_sum":  # the gather alone, f32 or int16 with its scale
+        scale = kw.get("scale")
+        S, S2 = fn(plane, rows, scale=scale), fn(plane, rows, scale=scale)
+        S_p = rowgather_sum_plain(plane, rows, scale)
+        torch.cuda.synchronize()
+        if not torch.equal(S.view(torch.int32), S_p.view(torch.int32)):
+            raise AssertionError(f"{name} ({what}): not bit-equal to the plain version")
+        if not torch.equal(S.view(torch.int32), S2.view(torch.int32)):
+            raise AssertionError(f"{name} ({what}): two launches differ")
+        err = float((S - S_p).abs().max())
+        ms = cuda_ms(torch, lambda: fn(plane, rows, scale=scale))
+        plain_ms = cuda_ms(torch, lambda: rowgather_sum_plain(plane, rows, scale), reps=3,
+                           warmup=1)
+        # the distinct rows read once, the row ids read and the sums written
+        # once; an add per gathered cell
+        io = (n_distinct * bw * cell + nbytes(rows, S), rows.numel() * bw)
         return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
     (S, C), (S2, C2) = fn(plane, rows), fn(plane, rows)
     S_p, C_p = rowgather_sum_counts_plain(plane, rows)
@@ -2939,13 +3203,13 @@ def main() -> int:
     log(f"main-path shapes: rows {tuple(rows.shape)}, Sp ({rows.shape[0]}, {B}), "
         f"K={K}, Amax={Amax}")
 
-    sp_k = rowgather_sum(st.plane, rows)
+    sp_k = rowgather_sum(st.plane, rows, pair_rows=True)  # as the paired step gathers
     sp_p = rowgather_sum_plain(st.plane, rows)
     torch.cuda.synchronize()
     if not torch.equal(sp_k, sp_p):
         raise AssertionError("rowgather_sum: not bit-equal to the plain version")
     err1 = float((sp_k - sp_p).abs().max())
-    ms1 = cuda_ms(torch, lambda: rowgather_sum(st.plane, rows))
+    ms1 = cuda_ms(torch, lambda: rowgather_sum(st.plane, rows, pair_rows=True))
     plain_ms1 = cuda_ms(torch, lambda: rowgather_sum_plain(st.plane, rows))
     rows_long = rows.long()
     lib_ms1 = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
@@ -3148,6 +3412,11 @@ def main() -> int:
     # ---- 14. the wide classic path: 1c past the fused counts kernel's limit ------------------
     torch.cuda.empty_cache()
     wc_kernels, wc = wide_classic_phase(torch, np, card, dev)
+
+    # ---- 15. the wide shifted path: 1d past the fused kernel's limit, f32 and int16 -----------
+    gc.collect()
+    torch.cuda.empty_cache()
+    ws_kernels, ws = wide_shifted_phase(torch, np, card, dev)
     shutil.rmtree(fx["work"], ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
@@ -3171,6 +3440,7 @@ def main() -> int:
         *aa_kernels,
         *lc_kernels,
         *wc_kernels,
+        *ws_kernels,
     ]
     for e in kernels:  # the wide-tree checks of phase 9, the limit checks of phase 10
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0),
@@ -3188,6 +3458,7 @@ def main() -> int:
     log("summary last configs: " + " ".join(f"{k}={v}" for k, v in lc.items()))
     log("summary surface: " + " ".join(f"{k}={v}" for k, v in sf.items()))
     log("summary wide classic: " + " ".join(f"{k}={v}" for k, v in wc.items()))
+    log("summary wide shifted: " + " ".join(f"{k}={v}" for k, v in ws.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -94,17 +94,18 @@ def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: 
     PERF.md). Returns the slim (R, 2K+3) f32 pack on the plane's device."""
     rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
     return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
-                           zero_row=num_kmers, log_eps=log_eps, eps=eps)
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True)
 
 
 def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
-                    zero_row: int, log_eps: float, eps: float,
-                    plane_scale: float = 1.0) -> torch.Tensor:
+                    zero_row: int, log_eps: float, eps: float, plane_scale: float = 1.0,
+                    pair_rows: bool = False) -> torch.Tensor:
     """The shifted plane's sums (an int16 plane's dequantized by
     ``plane_scale``), the ambiguous reads' delta rows when ``Amax > 0``, and
     the finish, into the slim pack: kernel 1 with the finish fused in, or
     past its shared-memory limit (``topk_fits``) the gather, the delta add
-    (the same f32 add) and ``finish_topk`` apart."""
+    (the same f32 add) and ``finish_topk`` apart (``pair_rows``: the rows
+    are the pair plane's, which the gather takes in read order)."""
     quant = plane.dtype == torch.int16
     scale = plane_scale if quant else None
     amb_read = delta = None
@@ -117,7 +118,7 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
             return rowgather_sum_topk_int16(plane, rows, m_f32, amb_read, delta, scale=scale,
                                             **kw)
         return rowgather_sum_topk(plane, rows, m_f32, amb_read, delta, **kw)
-    Sp = rowgather_sum(plane, rows, scale=scale)
+    Sp = rowgather_sum(plane, rows, scale=scale, pair_rows=pair_rows)
     if amb_read is not None and amb_read.numel() > 0:
         Sp[amb_read, :B] = Sp[amb_read, :B] + delta
     return finish_topk(Sp[:, :B], m_f32, K=K, k=k, log_eps=log_eps)
@@ -187,7 +188,7 @@ def place_batch_dense_codes_paired(plane, radix, pair_radix, buf, arows, *, B: i
     rows, lens = tokenize_radix_paired(buf, radix, pair_radix, k=k, sigma=sigma, Lmax=Lmax,
                                        num_kmers=num_kmers, n_pairs=n_pairs)
     return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
-                           zero_row=num_kmers, log_eps=log_eps, eps=eps)
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True)
 
 
 def place_batch_dense_rows(plane, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,

@@ -41,8 +41,8 @@ _VP = ctypes.c_void_p
 _INT = ctypes.c_int
 _F32 = ctypes.c_float
 _PROTOTYPES = {
-    # (plane, cell, rows, out, R, W, bw, scale, stream)
-    "epik_rowgather_sum": [_VP, _INT, _VP, _VP, _INT, _INT, _INT, _F32, _VP],
+    # (plane, cell, rows, perm, out, R, W, bw, scale, stream)
+    "epik_rowgather_sum": [_VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _F32, _VP],
     # (plane, cell, rows, perm, S, C, R, W, bw, stream)
     "epik_rowgather_sum_counts": [_VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
     # (plane, cell, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps, scale, stream)
@@ -75,15 +75,13 @@ _PROTOTYPES = {
     # (S, ld, C, ldc, m, out, R, B, K, k, log_eps, full, ws, blocks, stream)
     "epik_finish_topk_counts": [_VP, ctypes.c_int64, _VP, ctypes.c_int64, _VP, _VP, _INT,
                                 _INT, _INT, _INT, _F32, _INT, _VP, _INT, _VP],
-    # (bwl, K) -> bytes
-    "epik_finish_cols_smem": [_INT, _INT],
-    # (bwl, counts) -> bytes, or minus a CUDA error
-    "epik_finish_cols_smem_limit": [_INT, _INT],
-    # (R, bwl, K, counts, out int[3])
-    "epik_finish_cols_layout": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
-    # (S, ld, C, ldc, m, out, cnt, R, bwl, K, col0, k, log_eps, ws, blocks, stream)
+    # (bwl, K, counts, out int64[6])
+    "epik_finish_cols_layout": [_INT, _INT, _INT, ctypes.POINTER(ctypes.c_int64)],
+    # (S, ld, C, ldc, m, out, cnt, R, bwl, K, col0, k, log_eps, ws, blocks, cache_n, smem,
+    #  stream)
     "epik_finish_cols_partial": [_VP, ctypes.c_int64, _VP, ctypes.c_int64, _VP, _VP, _VP, _INT,
-                                 _INT, _INT, _INT, _INT, _F32, _VP, _INT, _VP],
+                                 _INT, _INT, _INT, _INT, _F32, _VP, _INT, _INT, ctypes.c_int64,
+                                 _VP],
     # (p, m, out, sq, R, PP, B, K, k, log_eps, scale, stream)
     "epik_accumulate_packed_topk": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
                                     ctypes.c_float, ctypes.c_float, _VP],
@@ -104,8 +102,6 @@ _RESTYPES = {
     "epik_rowgather_sum_counts_topk_smem_limit": ctypes.c_longlong,
     "epik_rowgather_sum_cols_smem": ctypes.c_longlong,
     "epik_rowgather_sum_cols_smem_limit": ctypes.c_longlong,
-    "epik_finish_cols_smem": ctypes.c_longlong,
-    "epik_finish_cols_smem_limit": ctypes.c_longlong,
 }
 
 

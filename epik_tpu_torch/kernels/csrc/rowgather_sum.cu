@@ -14,8 +14,9 @@
 // multi-GB plane, so the 50 MB L2 gives little reuse. The roofline yardstick
 // is the distinct rows a batch names, read once.
 //
-// Design (epik_rowgather_sum_counts's own follows the list of entry points):
-// one block per read. The block stages its row offsets (int64, so
+// Design of the fused kernels (the slice layout of epik_rowgather_sum and
+// epik_rowgather_sum_counts follows the list of entry points): one block per
+// read. The block stages its row offsets (int64, so
 // planes beyond 2^31 cells address correctly) in shared memory, a tile at a
 // time; its threads span the row four cells at a time (16-byte loads of f32,
 // 8-byte loads of int16 or bf16, neighbouring threads on neighbouring
@@ -32,11 +33,11 @@
 //   (its 16 bits are the top half of the f32), then f32 adds.
 //
 // Entry points:
-// * epik_rowgather_sum (f32, int16): the (R, bw) f32 sums;
+// * epik_rowgather_sum (f32, int16): the (R, bw) f32 sums, in the slice
+//   layout (below);
 // * epik_rowgather_sum_counts (f32, bf16): the classic plane's sums S and the
 //   exact counts C of the cells != 0 (dense_sums_from_rows, placer.py:757), as
-//   f32 and int32 (R, bw), in its own layout (below: locality order and
-//   column slices);
+//   f32 and int32 (R, bw), in the slice layout;
 // * epik_rowgather_sum_topk (f32, int16): the placement finish in the same
 //   block (#2's finish in #1's epilogue), so the (R, bw) sums never reach HBM:
 //   - the window-order sums go to shared memory (bw floats) instead of HBM;
@@ -103,11 +104,12 @@
 //   distinct plane rows, the row ids, m, the ambiguous rows and the partial
 //   pack (no (R, bwl) write), as for the fused kernels at the same shape.
 
-// epik_rowgather_sum_counts's layout. One block per read walking
-// the whole row read every slot's row from HBM: at D652's classic rows
-// (16,381 x 143, bw 1,408) 2.34 M slots x 5,632 B = 13.2 GB, 3.9 ms at 3.35
-// TB/s, where the 404,344 distinct rows are 2.3 GB: each row came from HBM
-// about 5.8 times. Two changes move the repeats to the 50 MB L2:
+// The slice layout (epik_rowgather_sum_counts and epik_rowgather_sum: one
+// kernel template, rowgather_slices_kernel). One block per read walking the
+// whole row read every slot's row from HBM: at D652's classic rows (16,381 x
+// 143, bw 1,408) 2.34 M slots x 5,632 B = 13.2 GB, 3.9 ms at 3.35 TB/s,
+// where the 404,344 distinct rows are 2.3 GB: each row came from HBM about
+// 5.8 times. Two changes move the repeats to the 50 MB L2:
 // * read order: the wrapper sorts the reads, stably, by their least row id
 //   (a miss is the zero row, the plane's last). Two reads that overlap on the
 //   reference by all but d of their W windows share it with probability
@@ -128,8 +130,18 @@
 // Each slot still moves its slice from L2 to the SM: 13.2 GB at D652 in f32,
 // 6.6 GB in bf16. With the repeats out of HBM, that L2 traffic bounds the
 // kernel, well above the HBM bound of the distinct rows.
+// At the wide shifted tree (283,494 distinct rows of 160,256 B a batch of
+// 4,096 reads: 73 MB a 256-byte slice's pass, past the L2) the same layout
+// gives the gather alone its locality: on an H100, 20.1 ms in f32 against
+// 21.7 in read order. Skewing each read's windows so that the reads of one
+// key name their shared rows at one step measured slower (23.5 ms; the
+// skewed loop compiled to 50 registers against 88, fewer loads in flight).
 // A block stages its reads' row ids a tile of 128 windows at a time (8 KB);
-// each thread keeps 16 of its loads in flight. The sums stay bit-equal to
+// each thread keeps 16 of its loads in flight, which takes ~90 registers
+// (two blocks an SM): the kernel names a minimum of EPIK_SLICE_MIN_BLOCKS
+// (1) blocks an SM, so ptxas may spend them. On an H100 the wide tree's f32
+// gather alone took 20.1 ms so, 25.9 capped at 32 registers for 8 blocks an
+// SM. The sums stay bit-equal to
 // the plain version: each (read, column) is added in window order by one
 // thread, with no FMA and no atomics.
 #include <cuda_runtime.h>
@@ -193,10 +205,12 @@ __device__ __forceinline__ float4 as_sums(int4 a, float scale) {
 template <class T>
 struct Acc {
   using type = float4;
+  using scalar = float;
 };
 template <>
 struct Acc<int16_t> {
   using type = int4;
+  using scalar = int;
 };
 
 // Thread c of the block adds the four cells of column group c (c < bw4) of
@@ -226,37 +240,27 @@ __device__ __forceinline__ void gather_column(const T* __restrict__ plane,
   }
 }
 
-template <class T>
-__global__ void rowgather_sum_kernel(const T* __restrict__ plane,
-                                     const int32_t* __restrict__ rows,
-                                     float4* __restrict__ out, int W, int bw4, float scale) {
-  __shared__ long long off[kTileW];
-  const long long r = blockIdx.x;
-  const int32_t* rrow = rows + r * W;
-  for (int c0 = 0; c0 < bw4; c0 += blockDim.x) {
-    const int c = c0 + threadIdx.x;
-    typename Acc<T>::type acc{};
-    int4 cnt{};
-    gather_column<false>(plane, rrow, W, bw4, c, off, acc, cnt);
-    if (c < bw4) out[r * bw4 + c] = as_sums(acc, scale);
-  }
-}
-
-// epik_rowgather_sum_counts's block: kSliceReads reads of the locality order
-// by kSliceLanes threads, each thread one vector of V cells (16 bytes, or 8
-// for a bf16 plane of a width that is not a multiple of 8) of the slice. The
-// macros let kernel_sweep.py build other slice widths.
+// The slice layout's block (epik_rowgather_sum and epik_rowgather_sum_counts):
+// kSliceReads reads of the locality order by kSliceLanes threads, each
+// thread one vector of V cells (16 bytes, or 8 for a bf16 or int16 plane of
+// a width that is not a multiple of 8) of the slice. The macros let
+// kernel_sweep.py build other slice widths.
 #ifndef EPIK_SLICE_LANES
 #define EPIK_SLICE_LANES 16
 #endif
 #ifndef EPIK_SLICE_READS
 #define EPIK_SLICE_READS 16
 #endif
+#ifndef EPIK_SLICE_MIN_BLOCKS
+#define EPIK_SLICE_MIN_BLOCKS 1
+#endif
+
 constexpr int kSliceLanes = EPIK_SLICE_LANES;
 constexpr int kSliceReads = EPIK_SLICE_READS;
-constexpr int kSliceTileW = 128;  // windows of row ids staged a tile
+constexpr int kSliceTileW = 128;  // steps of row ids staged a tile
 
-// V cells of a row starting at cell `i` (a multiple of V), widened to f32
+// V cells of a row starting at cell `i` (a multiple of V), as their addends:
+// f32 and bf16 widened to f32, int16 to int32
 __device__ __forceinline__ void load_vec(const float* p, long long i, float (&v)[4]) {
   const float4 x = __ldg(reinterpret_cast<const float4*>(p + i));
   v[0] = x.x;
@@ -280,12 +284,40 @@ __device__ __forceinline__ void load_vec(const Bf16* p, long long i, float (&v)[
     v[2 * e + 1] = __uint_as_float(u[e] & 0xFFFF0000u);
   }
 }
+__device__ __forceinline__ void load_vec(const int16_t* p, long long i, int (&v)[4]) {
+  const int4 x = load4(p, i >> 2);
+  v[0] = x.x;
+  v[1] = x.y;
+  v[2] = x.z;
+  v[3] = x.w;
+}
+__device__ __forceinline__ void load_vec(const int16_t* p, long long i, int (&v)[8]) {
+  const uint4 x = __ldg(reinterpret_cast<const uint4*>(p + i));
+  const unsigned u[4] = {x.x, x.y, x.z, x.w};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    v[2 * e] = static_cast<int16_t>(u[e] & 0xFFFFu);
+    v[2 * e + 1] = static_cast<int16_t>(u[e] >> 16);
+  }
+}
 
-template <class T, int V>
-__global__ void __launch_bounds__(kSliceReads * kSliceLanes)
-    rowgather_sum_counts_kernel(const T* __restrict__ plane, const int32_t* __restrict__ rows,
-                                const int32_t* __restrict__ perm, float* __restrict__ S,
-                                int* __restrict__ C, int R, int W, int bw, int n_groups) {
+// One sum as f32: as it is, or an int16 plane's dequantized (as_sums' rule)
+__device__ __forceinline__ float as_sum(float a, float) { return a; }
+__device__ __forceinline__ float as_sum(int a, float scale) {
+  return __fdiv_rn(__int2float_rn(a), scale);
+}
+
+// The slice layout. Block (s, g), s the slower index, gathers slice s of the
+// reads perm[kSliceReads g ..] (read order where perm is null) and writes their
+// own rows of S (and with kCounts of C); each read adds its windows in window
+// order, so its sums keep their bits whatever the order of the reads.
+template <class T, int V, bool kCounts>
+__global__ void __launch_bounds__(kSliceReads * kSliceLanes, EPIK_SLICE_MIN_BLOCKS)
+    rowgather_slices_kernel(const T* __restrict__ plane, const int32_t* __restrict__ rows,
+                            const int32_t* __restrict__ perm, float* __restrict__ S,
+                            int* __restrict__ C, int R, int W, int bw, int n_groups,
+                            float scale) {
+  using A = typename Acc<T>::scalar;
   __shared__ int32_t srow[kSliceReads * kSliceTileW];
   __shared__ int32_t sread[kSliceReads];
   const int slice = blockIdx.x / n_groups;
@@ -294,13 +326,15 @@ __global__ void __launch_bounds__(kSliceReads * kSliceLanes)
   const int j = threadIdx.x / kSliceLanes;
   const int col = (slice * kSliceLanes + threadIdx.x % kSliceLanes) * V;
   const bool active = j < nr && col < bw;
-  if (threadIdx.x < nr) sread[threadIdx.x] = perm[r0 + threadIdx.x];
+  if (threadIdx.x < nr) {
+    sread[threadIdx.x] = perm != nullptr ? perm[r0 + threadIdx.x] : r0 + threadIdx.x;
+  }
   __syncthreads();
-  float acc[V];
+  A acc[V];
   int cnt[V];
 #pragma unroll
   for (int e = 0; e < V; ++e) {
-    acc[e] = 0.f;
+    acc[e] = 0;
     cnt[e] = 0;
   }
   const int32_t* my = srow + j * kSliceTileW;
@@ -316,12 +350,12 @@ __global__ void __launch_bounds__(kSliceReads * kSliceLanes)
     if (active) {
 #pragma unroll 16
       for (int i = 0; i < nw; ++i) {
-        float v[V];
+        A v[V];
         load_vec(plane, static_cast<long long>(my[i]) * bw + col, v);
 #pragma unroll
         for (int e = 0; e < V; ++e) {
           acc[e] += v[e];
-          cnt[e] += v[e] != 0.f;
+          if constexpr (kCounts) cnt[e] += v[e] != 0;
         }
       }
     }
@@ -331,9 +365,12 @@ __global__ void __launch_bounds__(kSliceReads * kSliceLanes)
 #pragma unroll
     for (int e = 0; e < V; e += 4) {
       *reinterpret_cast<float4*>(S + o + e) =
-          make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
-      *reinterpret_cast<int4*>(C + o + e) =
-          make_int4(cnt[e], cnt[e + 1], cnt[e + 2], cnt[e + 3]);
+          make_float4(as_sum(acc[e], scale), as_sum(acc[e + 1], scale),
+                      as_sum(acc[e + 2], scale), as_sum(acc[e + 3], scale));
+      if constexpr (kCounts) {
+        *reinterpret_cast<int4*>(C + o + e) =
+            make_int4(cnt[e], cnt[e + 1], cnt[e + 2], cnt[e + 3]);
+      }
     }
   }
 }
@@ -549,14 +586,20 @@ int launch_cols(const void* plane, const void* rows, const void* m, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
-template <class T>
-int launch_sum(const void* plane, const void* rows, void* out, int R, int W, int bw,
-               float scale, cudaStream_t stream) {
-  const int bw4 = bw / 4;
-  if (R > 0 && bw4 > 0) {
-    rowgather_sum_kernel<T><<<R, gather_threads(bw4), 0, stream>>>(
-        static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
-        static_cast<float4*>(out), W, bw4, scale);
+// One slice-layout launch: 1c (kCounts) or 1d.
+template <class T, int V, bool kCounts>
+int launch_slices(const void* plane, const void* rows, const void* perm, void* S, void* C,
+                  int R, int W, int bw, float scale, cudaStream_t stream) {
+  if (R > 0 && bw > 0) {
+    constexpr int cols = kSliceLanes * V;
+    const long long n_groups = (R + kSliceReads - 1) / kSliceReads;
+    const long long blocks = n_groups * ((bw + cols - 1) / cols);
+    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
+    rowgather_slices_kernel<T, V, kCounts>
+        <<<static_cast<unsigned>(blocks), kSliceReads * kSliceLanes, 0, stream>>>(
+            static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
+            static_cast<const int32_t*>(perm), static_cast<float*>(S), static_cast<int*>(C), R,
+            W, bw, static_cast<int>(n_groups), scale);
   }
   return static_cast<int>(cudaGetLastError());
 }
@@ -564,18 +607,13 @@ int launch_sum(const void* plane, const void* rows, void* out, int R, int W, int
 template <class T, int V>
 int launch_counts(const void* plane, const void* rows, const void* perm, void* S, void* C, int R,
                   int W, int bw, cudaStream_t stream) {
-  if (R > 0 && bw > 0) {
-    constexpr int cols = kSliceLanes * V;
-    const long long n_groups = (R + kSliceReads - 1) / kSliceReads;
-    const long long blocks = n_groups * ((bw + cols - 1) / cols);
-    if (blocks > 0x7fffffffLL) return static_cast<int>(cudaErrorInvalidConfiguration);
-    rowgather_sum_counts_kernel<T, V>
-        <<<static_cast<unsigned>(blocks), kSliceReads * kSliceLanes, 0, stream>>>(
-            static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
-            static_cast<const int32_t*>(perm), static_cast<float*>(S), static_cast<int*>(C), R,
-            W, bw, static_cast<int>(n_groups));
-  }
-  return static_cast<int>(cudaGetLastError());
+  return launch_slices<T, V, true>(plane, rows, perm, S, C, R, W, bw, 1.f, stream);
+}
+
+template <class T, int V>
+int launch_sum(const void* plane, const void* rows, const void* perm, void* out, int R, int W,
+               int bw, float scale, cudaStream_t stream) {
+  return launch_slices<T, V, false>(plane, rows, perm, out, nullptr, R, W, bw, scale, stream);
 }
 
 template <class T, bool kCounts>
@@ -605,13 +643,20 @@ int launch_topk(const void* plane, const void* rows, const void* m, const void* 
 }  // namespace
 
 // plane: (n_rows, bw) cells of type `cell` (kF32 or kI16), bw % 4 == 0, rows
-// 16-byte aligned; rows: int32 (R, W); out: f32 (R, bw), an int16 plane's sums
-// divided by `scale`. Launches on `stream`; returns cudaGetLastError().
-extern "C" int epik_rowgather_sum(const void* plane, int cell, const void* rows, void* out,
-                                  int R, int W, int bw, float scale, void* stream) {
+// 16-byte aligned; rows: int32 (R, W); perm: int32 (R,), a permutation of the
+// reads (the locality order: block g gathers reads perm[kSliceReads g ..]), or
+// null for read order; out: f32 (R, bw), read r's sums in row r whatever the
+// order, an int16 plane's divided by `scale`. Launches on `stream`; returns
+// cudaGetLastError().
+extern "C" int epik_rowgather_sum(const void* plane, int cell, const void* rows,
+                                  const void* perm, void* out, int R, int W, int bw, float scale,
+                                  void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (cell == kF32) return launch_sum<float>(plane, rows, out, R, W, bw, scale, s);
-  if (cell == kI16) return launch_sum<int16_t>(plane, rows, out, R, W, bw, scale, s);
+  if (cell == kF32) return launch_sum<float, 4>(plane, rows, perm, out, R, W, bw, scale, s);
+  if (cell == kI16) {
+    return bw % 8 == 0 ? launch_sum<int16_t, 8>(plane, rows, perm, out, R, W, bw, scale, s)
+                       : launch_sum<int16_t, 4>(plane, rows, perm, out, R, W, bw, scale, s);
+  }
   return static_cast<int>(cudaErrorInvalidValue);
 }
 

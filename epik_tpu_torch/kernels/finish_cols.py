@@ -21,8 +21,11 @@ kernel) runs here, per read, into the shard's partial pack, f32 (R, 2 Kl + 3)
 also returns the candidates' counts, int32 (R, Kl). The merge (the caller's
 ``parallel/sharding.py::_merge_cols``) rescales each ``e_s`` by
 ``10**(max_s - max_t)`` against the merged maximum. ``csrc/finish_cols.cu``
-holds the kernel (both forms); each wrapper runs its plain PyTorch version
-below on a CPU tensor and the kernel on a CUDA tensor (or raises). On the
+holds the kernel (both forms): one block a read, its touched columns'
+corrected scores computed once into a shared-memory cache, the block sized
+to the width (:func:`finish_cols_layout`); each wrapper runs its plain
+PyTorch version below on a CPU tensor and the kernel on a CUDA tensor (or
+raises). On the
 dense shards the same finish runs in kernel 1's epilogue
 (``rowgather.rowgather_sum_cols`` / ``rowgather_sum_counts_cols``).
 """
@@ -30,6 +33,7 @@ dense shards the same finish runs in kernel 1's epilogue
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 import threading
 
@@ -38,9 +42,9 @@ import torch
 from ._build import check, library
 from .finish import MAX_K
 
-__all__ = ["counts_corrected", "finish_cols_partial", "finish_cols_partial_counts",
-           "finish_cols_partial_counts_plain", "finish_cols_partial_plain", "finish_cols_smem",
-           "partial_from_corrected", "shifted_corrected"]
+__all__ = ["counts_corrected", "finish_cols_layout", "finish_cols_partial",
+           "finish_cols_partial_counts", "finish_cols_partial_counts_plain",
+           "finish_cols_partial_plain", "partial_from_corrected", "shifted_corrected"]
 
 _count_lock = threading.Lock()
 #: the wrapped size_t of the reference (quirk Q1)
@@ -129,21 +133,38 @@ def _check_sums(S: torch.Tensor, m_f32: torch.Tensor, K: int, col0: int) -> None
         raise ValueError(f"col0={col0} must be >= 0")
 
 
-def finish_cols_smem(S: torch.Tensor, K: int, counts: bool = False) -> tuple[int, int]:
-    """(bytes of shared memory a launch asks at S's width and ``min(K, bwl)``
-    candidates, bytes a block of it (``counts``: of the counts form) may take
-    on S's card), from the CUDA source's own formula: ceil(bwl / 32) mask
-    words, bwl 16-bit ids up to bwl = 2**16 (past it the ids go to a global
-    workspace) and the 16 warps' candidates, against the card's opt-in limit
-    less the kernel's static bytes. CUDA tensors only."""
-    bwl = S.shape[1]
-    lib = library()
-    with torch.cuda.device(S.device):
-        need = lib.epik_finish_cols_smem(bwl, min(K, bwl))
-        limit = lib.epik_finish_cols_smem_limit(bwl, int(counts))
-    if limit < 0:
-        check(int(-limit), "finish_cols_partial")
-    return need, limit
+@functools.lru_cache(maxsize=None)
+def _layout(device: torch.device, bwl: int, K: int, counts: bool) -> tuple:
+    """The CUDA source's layout at (bwl, K) on ``device`` (it follows from the
+    width and the card alone, so it is asked once): (global ids, threads,
+    cache scores, shared memory, the limit, blocks an SM)."""
+    out = (ctypes.c_int64 * 6)()
+    with torch.cuda.device(device):
+        check(library().epik_finish_cols_layout(bwl, K, int(counts), out), "finish_cols_partial")
+    return tuple(out)
+
+
+def finish_cols_layout(S: torch.Tensor, K: int, counts: bool = False) -> dict:
+    """The launch layout at S's shape and ``min(K, bwl)`` candidates on S's
+    card (``counts``: of the counts form), from the CUDA source's one layout
+    formula: ``global_ids`` (past bwl = 2**16), ``threads`` a block (128 up
+    to bwl = 4,096, else 512), ``blocks_per_sm`` (what the card gives the
+    kernel as compiled), ``cache`` (the corrected scores a block keeps: what
+    is left of an SM's shared memory at that occupancy, none where the rest
+    fills it), ``smem`` (bytes a launch asks: ceil(bwl / 32) mask words, bwl
+    16-bit ids up to bwl = 2**16, the warps' candidates and the cache),
+    ``limit`` (bytes a block may take: the card's opt-in limit less the
+    kernel's static bytes), ``blocks`` (R, or with global ids as many as the
+    card holds at once, at most R) and ``workspace`` (the global ids' int32
+    count). CUDA tensors only."""
+    R, bwl = S.shape
+    global_ids, threads, cache, smem, limit, per_sm = _layout(S.device, bwl, min(K, bwl), counts)
+    on_card = per_sm * torch.cuda.get_device_properties(S.device).multi_processor_count
+    blocks = min(R, on_card) if global_ids else R
+    return {"global_ids": bool(global_ids), "threads": int(threads),
+            "blocks_per_sm": int(per_sm), "cache": int(cache), "smem": int(smem),
+            "limit": int(limit), "blocks": int(blocks),
+            "workspace": int(blocks * bwl) if global_ids else 0}
 
 
 def _launch(fn, S: torch.Tensor, C, m_f32: torch.Tensor, *, K: int, k: int, log_eps: float,
@@ -155,22 +176,19 @@ def _launch(fn, S: torch.Tensor, C, m_f32: torch.Tensor, *, K: int, k: int, log_
     cnt = None if C is None else torch.empty((R, Kl), dtype=torch.int32, device=S.device)
     if R == 0:
         return out, cnt
-    need, limit = finish_cols_smem(S, K, counts=C is not None)
-    if need > limit:
-        raise ValueError(f"{fn.__name__}: bwl={bwl} columns ask {need} bytes of shared "
-                         f"memory, over the {limit} bytes a block may take on {S.device}")
-    lib = library()
-    layout = (ctypes.c_int * 3)()
+    lay = finish_cols_layout(S, K, counts=C is not None)
+    if lay["smem"] > lay["limit"]:
+        raise ValueError(f"{fn.__name__}: bwl={bwl} columns ask {lay['smem']} bytes of shared "
+                         f"memory, over the {lay['limit']} bytes a block may take on {S.device}")
+    ws = (torch.empty(lay["workspace"], dtype=torch.int32, device=S.device)
+          if lay["workspace"] else None)
     with torch.cuda.device(S.device):
-        check(lib.epik_finish_cols_layout(R, bwl, Kl, int(C is not None), layout), fn.__name__)
-        _, blocks, n_ws = layout
-        ws = torch.empty(n_ws, dtype=torch.int32, device=S.device) if n_ws else None
-        stream = torch.cuda.current_stream(S.device).cuda_stream
-        err = lib.epik_finish_cols_partial(
+        err = library().epik_finish_cols_partial(
             S.data_ptr(), S.stride(0), C.data_ptr() if C is not None else None,
             C.stride(0) if C is not None else 0, m_f32.data_ptr(), out.data_ptr(),
             cnt.data_ptr() if cnt is not None else None, R, bwl, Kl, col0, k, float(log_eps),
-            ws.data_ptr() if ws is not None else None, blocks, stream)
+            ws.data_ptr() if ws is not None else None, lay["blocks"], lay["cache"], lay["smem"],
+            torch.cuda.current_stream(S.device).cuda_stream)
     check(err, fn.__name__)
     with _count_lock:
         fn.launches += 1
@@ -183,7 +201,7 @@ def finish_cols_partial(Sp: torch.Tensor, m_f32: torch.Tensor, *, K: int, k: int
     f32 (R,) window counts, ``col0`` the shard's first global column -> f32
     (R, 2 Kl + 3) partial pack with Kl = min(K, bwl).
 
-    Limit: the mask's shared memory (:func:`finish_cols_smem`), bwl up to
+    Limit: the mask's shared memory (:func:`finish_cols_layout`), bwl up to
     about 1.8 million columns; a wider shard raises ValueError."""
     _check_sums(Sp, m_f32, K, col0)
     if Sp.device.type == "cpu":

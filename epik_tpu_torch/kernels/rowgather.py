@@ -11,11 +11,13 @@ says how its design meets that.
   int16 plane in exact int32, divided by the plane scale;
 * :func:`rowgather_sum_counts` / :func:`rowgather_sum_counts_bf16` -- the
   classic plane's sums and exact counts of the cells != 0 (f32 and int32
-  (R, bw)), over an f32 or a bf16 plane. The kernel gathers the reads in
+  (R, bw)), over an f32 or a bf16 plane.
+
+  Both run one kernel template, the slice layout: the reads in
   :func:`locality_order` (stably by their least row id, so reads that share
   rows run together) and in 256-byte column slices, slice outermost, so a
   row that several reads name comes from the L2 after its first read; each
-  read's sums and counts still land in its own row;
+  read's sums (and counts) still land in its own row;
 * :func:`rowgather_sum_topk` / :func:`rowgather_sum_topk_int16` -- the dense
   shifted steps' whole device work after the tokenizer: the sums (an int16
   plane's dequantized), each ambiguous read's first-hit delta row added, and
@@ -144,12 +146,23 @@ def _no_kernel(name: str, dev: torch.device) -> None:
         raise ValueError(f"{name}: no kernel for device {dev}")
 
 
-def rowgather_sum(plane: torch.Tensor, rows: torch.Tensor, *,
-                  scale: float | None = None) -> torch.Tensor:
+def rowgather_sum(plane: torch.Tensor, rows: torch.Tensor, *, scale: float | None = None,
+                  pair_rows: bool = False) -> torch.Tensor:
     """plane f32 (n_rows, bw), or int16 with its ``scale``; rows int32 (R, W)
     -> f32 (R, bw).
 
-    Every index must lie in [0, n_rows); misses point at an all-zero row."""
+    Every index must lie in [0, n_rows); misses point at an all-zero row. The
+    kernel gathers the row in 256-byte column slices, slice outermost, the
+    reads in :func:`locality_order`, or in read order where ``pair_rows``
+    (the rows index a pair plane); each read's sums land in its own row,
+    added in window order, whatever the order. On an H100
+    (``kernel_sweep.py``) the locality order took the wide shifted tree's
+    rows (4,096 x 143, bw 40,064) from 21.7 to 20.1 ms in f32 and from 11.2
+    to 10.5 in int16, and bought D652's pair rows (16,381 x 72) nothing
+    (1.77 ms in read order, 1.78 in locality order), where the sort itself
+    costs: 1.89-1.92 ms through this wrapper with it, 1.79 without
+    (``step_times.py``). So pair rows, on one device and sharded, are
+    gathered in read order and skip the sort."""
     _check_args(plane, rows, (torch.float32, torch.int16))
     _check_scale(plane, scale)
     if plane.device.type == "cpu":
@@ -160,9 +173,11 @@ def rowgather_sum(plane: torch.Tensor, rows: torch.Tensor, *,
     out = torch.empty((R, bw), dtype=torch.float32, device=plane.device)
     if R == 0:
         return out
+    perm = None if pair_rows else locality_order(rows)
     lib = library()
     with torch.cuda.device(plane.device):
         err = lib.epik_rowgather_sum(plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(),
+                                     perm.data_ptr() if perm is not None else None,
                                      out.data_ptr(), R, W, bw, float(scale or 1.0),
                                      _stream(plane.device))
     check(err, "rowgather_sum")
@@ -176,9 +191,9 @@ rowgather_sum.launches = 0
 
 def locality_order(rows: torch.Tensor) -> torch.Tensor:
     """rows int32 (R, W) -> int32 (R,): the reads sorted stably by their
-    least row id (the key of :func:`rowgather_sum_counts`' read order; a miss
-    is the plane's last, all-zero row, so it never leads a read that hits).
-    Two reads that overlap on the reference by all but d of their W windows
+    least row id (the key of the slice layout's read order; a miss is the
+    plane's last, all-zero row, so it never leads a read that hits). Two
+    reads that overlap on the reference by all but d of their W windows
     share the key with probability about (W - d) / (W + d); ties keep read
     order."""
     R, W = rows.shape

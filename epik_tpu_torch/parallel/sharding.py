@@ -437,15 +437,16 @@ def _pad_cells(x: torch.Tensor, value) -> torch.Tensor:
 
 
 def _shifted_cols(plane, rows, m_f32, amb_read, delta, *, K: int, k: int, log_eps: float,
-                  col0: int) -> torch.Tensor:
+                  col0: int, pair_rows: bool = False) -> torch.Tensor:
     """One shard's partial pack from its shifted plane: kernel 1 with the
     delta add and the column finish fused in, or past its shared-memory limit
     (:func:`cols_fits`) the gather, the same f32 add at the ambiguous reads
-    and ``finish_cols_partial`` apart."""
+    and ``finish_cols_partial`` apart (``pair_rows``: the rows are the pair
+    plane's, which the gather takes in read order)."""
     kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
     if cols_fits(plane, K):
         return rowgather_sum_cols(plane, rows, m_f32, amb_read, delta, **kw)
-    Sp = rowgather_sum(plane, rows)
+    Sp = rowgather_sum(plane, rows, pair_rows=pair_rows)
     if amb_read is not None and amb_read.numel() > 0:
         Sp[amb_read] = Sp[amb_read] + delta
     return finish_cols_partial(Sp, m_f32, **kw)
@@ -465,13 +466,15 @@ def _classic_cols(plane, rows, m_f32, amb_read, dS, hit, *, K: int, k: int, log_
 
 
 def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int, Amax: int,
-                k: int, zero_row: int, eps: float, log_eps: float) -> torch.Tensor:
+                k: int, zero_row: int, eps: float, log_eps: float,
+                pair_rows: bool = False) -> torch.Tensor:
     """The body of the three column-sharded dense steps, for one data group.
     ``tokenize(s, device)`` gives the group's (rows, lens) on the device of
     shard s (lens None where ``m_f32`` is given), run once per distinct
     device. Per shard, the ambiguous first hits over its own columns, then
     one kernel: shifted, kernel 1's sums with each ambiguous read's delta row
-    added and the shard's column finish fused in (:func:`_shifted_cols`);
+    added and the shard's column finish fused in (:func:`_shifted_cols`,
+    ``pair_rows``: the rows are the pair plane's);
     classic, the sums with counts, the first hit and the counts form of the
     finish (:func:`_classic_cols`). Column sharding needs no collective
     there: each branch column lives on one shard, which sees every window's
@@ -494,7 +497,7 @@ def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int
             amb = amb_deltas(plane, arows_d, log_eps=log_eps, **akw) if Amax > 0 else (None,
                                                                                        None)
             parts.append(_shifted_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl,
-                                       **fkw))
+                                       pair_rows=pair_rows, **fkw))
         else:
             amb = amb_classic_deltas(plane, arows_d, **akw) if Amax > 0 else (None, None, None)
             part, cnt = _classic_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl, **fkw)
@@ -531,7 +534,7 @@ def sharded_dense_paired_step(planes, combo, buf, arows, *, B: int, K: int, Amax
     return _dense_step(
         planes, lambda s, dev: tokenize_combo(buf.to(dev), combo[s], k=k, Lmax=Lmax),
         arows, None, shifted=True, B=B, K=K, Amax=Amax, k=k, zero_row=num_kmers, eps=eps,
-        log_eps=log_eps)
+        log_eps=log_eps, pair_rows=True)
 
 
 def sharded_dense_rows_step(planes, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,

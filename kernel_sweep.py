@@ -1,8 +1,26 @@
 #!/usr/bin/env python3
-"""Layout variants of two of the port's kernels, timed in turns on one card:
+"""Layout variants of four of the port's kernels, timed in turns on one card:
 
-    python3 kernel_sweep.py [--only gather|row_ptr]
+    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols]
 
+* kernel 1d, the gather alone (``rowgather_sum``, f32 and int16), on
+  ``chip_smoke.py``'s D652 pair rows (the first batch of 16,384 reads of the
+  default step, recorded) and on its wide shifted tree's rows (4,096 reads
+  of phase 15's first batch, f32 and int16 planes): 256-byte column slices
+  of 16 reads in locality order (the shipped layout, which the paired steps
+  run in read order), the same in read order, 8 and 32 reads a block, 64-,
+  128- and 512-byte slices, and the slice kernel capped at 32 registers (8
+  blocks an SM);
+* kernel A's counts form (``finish_cols_partial_counts``) on D652's classic
+  sums and counts (the first batch's, 16,381 x 1,408) and on synthetic
+  (4,096 x 22,272) rows touching ~1,550 columns a read (the wide classic
+  shard), and its shifted form on synthetic (4,096 x 20,096) rows touching
+  ~1,540 (config 4's sharded tiles): the shipped layout (128 threads a read
+  and 16 blocks an SM up to 4,096 columns, 512 threads and 4 blocks an SM
+  past it, each at 32 registers, the score cache taking what is left of the
+  blocks an SM the card gives), the wide block without its register cap (2
+  blocks an SM, a larger cache), 512 threads at every width, and the small
+  block without its register cap;
 * kernel 1c, the gather with counts (``rowgather_sum_counts`` and ``_bf16``),
   on ``chip_smoke.py``'s D652 classic rows (the first batch of 16,384 reads
   of the classic step, recorded): 256-byte column slices (the shipped
@@ -68,6 +86,25 @@ OWNERS = {
 }
 #: the row-pointer form's widths: name -> B
 WIDTHS = {"config4": 19999, "wide_classic": 22199}
+#: the 1d variants: name -> (nvcc -D flags, locality order)
+SUM = {
+    "sum_slice256": ([], True),
+    "sum_slice256_read_order": ([], False),
+    "sum_slice256_reads8_read_order": (["-DEPIK_SLICE_READS=8"], False),
+    "sum_slice256_reads8": (["-DEPIK_SLICE_READS=8"], True),
+    "sum_slice256_reads32": (["-DEPIK_SLICE_READS=32"], True),
+    "sum_slice64": (["-DEPIK_SLICE_LANES=4", "-DEPIK_SLICE_READS=64"], True),
+    "sum_slice128": (["-DEPIK_SLICE_LANES=8", "-DEPIK_SLICE_READS=32"], True),
+    "sum_slice512": (["-DEPIK_SLICE_LANES=32", "-DEPIK_SLICE_READS=8"], True),
+    "sum_slice256_min_blocks8": (["-DEPIK_SLICE_MIN_BLOCKS=8"], True),
+}
+#: kernel A's variants: name -> nvcc -D flags
+COLS = {
+    "cols": [],
+    "cols_wide_no_register_cap": ["-DEPIK_COLS_WIDE_MIN_BLOCKS=1"],
+    "cols_512_threads": ["-DEPIK_COLS_SMALL=0"],
+    "cols_small_no_register_cap": ["-DEPIK_COLS_SMALL_MIN_BLOCKS=1"],
+}
 
 
 def build(jobs: dict, out_dir: str) -> dict:
@@ -87,6 +124,8 @@ def build(jobs: dict, out_dir: str) -> dict:
         log = p.communicate()[0]
         if p.returncode != 0:
             raise RuntimeError(f"nvcc failed for {name}:\n{log[-4000:]}")
+        with open(os.path.join(out_dir, f"{name}.ptxas.txt"), "w") as f:
+            f.write(log)
         libs[name] = ctypes.CDLL(so)
     return libs
 
@@ -222,12 +261,180 @@ def row_ptr_times(torch, np, dev, out: dict) -> None:
         torch.cuda.empty_cache()
 
 
+def sum_times(torch, dev, out: dict) -> None:
+    """1d's variants on D652's pair rows and the wide shifted tree's rows."""
+    import gc
+
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.io.build import reads_from_reference
+    from epik_tpu_torch.kernels.rowgather import locality_order, rowgather_sum_plain
+
+    src = os.path.join(CSRC, "rowgather_sum.cu")
+    builds = {}
+    for name, (defines, _) in SUM.items():
+        builds.setdefault(" ".join(defines), (name, (src, defines)))
+    libs = build(dict(builds.values()), os.path.join("build", "sweep", "sum"))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.epik_rowgather_sum.argtypes = [vp, i, vp, vp, vp, i, i, i, ctypes.c_float, vp]
+    lib_of = {name: libs[builds[" ".join(d)][0]] for name, (d, _) in SUM.items()}
+
+    def sweep(key, plane, rows, scale):
+        R, W = rows.shape
+        bw = plane.shape[1]
+        S = torch.empty((R, bw), device=dev)
+        perm = locality_order(rows)
+        orders = {True: perm.data_ptr(), False: None}
+        want = rowgather_sum_plain(plane, rows, scale)
+        code = 0 if plane.dtype == torch.float32 else 1
+
+        def call(name):
+            err = lib_of[name].epik_rowgather_sum(
+                plane.data_ptr(), code, rows.data_ptr(), orders[SUM[name][1]], S.data_ptr(),
+                R, W, bw, float(scale or 1.0), torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+
+        def check(name):
+            S.zero_()
+            call(name)
+            torch.cuda.synchronize()
+            if not torch.equal(S.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"1d {name} ({key}): not bit-equal")
+
+        out[f"sum_{key}"] = {"shape": [R, W, bw], "distinct_rows": int(torch.unique(rows).numel()),
+                             "ms": in_turns(torch, list(SUM), call, check)}
+
+    db, records = d652_fixture()
+    tree = parse_newick(db.tree())
+    placer = TorchPlacer(db, tree, device=dev)
+    calls = []
+    with recording(step_mod, "rowgather_sum_topk", calls, limit=1):
+        placer.place(records[:BATCH])
+    sweep("d652_pair", *calls[0][0][:2], None)
+    del placer, calls
+    gc.collect()
+    torch.cuda.empty_cache()
+    db, ref = chip_smoke.wide_shifted_db()
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, chip_smoke.WS_BATCH, length=150, mutation_rate=0.02,
+                                 seed=17)
+    for cell, fields in (("f32", {}), ("int16", {"precision": "int16"})):
+        placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
+        calls = []
+        with recording(step_mod, "rowgather_sum", calls, limit=1):
+            placer.place(reads)
+        (plane, rows), kw = calls[0]
+        sweep(f"wide_shifted_{cell}", plane, rows, kw.get("scale"))
+        del placer, calls, plane, rows
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def cols_times(torch, np, dev, out: dict) -> None:
+    """Kernel A's variants on D652's classic sums and counts and on synthetic
+    rows at the wide classic and config 4's sharded widths."""
+    import gc
+
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.kernels.finish_cols import (
+        finish_cols_partial_counts_plain,
+        finish_cols_partial_plain,
+    )
+    from epik_tpu_torch.kernels.rowgather import rowgather_sum_counts
+    from torch_fixtures import counts_rows, finish_rows
+
+    src = os.path.join(CSRC, "finish_cols.cu")
+    libs = build({n: (src, d) for n, d in COLS.items()}, os.path.join("build", "sweep", "cols"))
+    vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_int64
+    for lib in libs.values():
+        lib.epik_finish_cols_layout.argtypes = [i, i, i, ctypes.POINTER(i64)]
+        lib.epik_finish_cols_partial.argtypes = [vp, i64, vp, i64, vp, vp, vp, i, i, i, i, i,
+                                                 ctypes.c_float, vp, i, i, i64, vp]
+    kw = dict(K=7, k=10, log_eps=-4.2597, col0=0)
+
+    def sweep(key, S, C, m):
+        R, bwl = S.shape
+        out_t = torch.empty((R, 2 * kw["K"] + 3), device=dev)
+        cnt = torch.empty((R, kw["K"]), dtype=torch.int32, device=dev)
+        if C is None:
+            want, want_c = finish_cols_partial_plain(S, m, **kw), None
+        else:
+            want, want_c = finish_cols_partial_counts_plain(S, C, m, **kw)
+        layouts = {}
+        for name, lib in libs.items():
+            lay = (ctypes.c_int64 * 6)()
+            if lib.epik_finish_cols_layout(bwl, kw["K"], int(C is not None), lay):
+                raise RuntimeError(f"{name}: no layout at bwl = {bwl}")
+            if lay[0]:
+                raise ValueError(f"bwl = {bwl}: the sweep takes 16-bit ids only")
+            layouts[name] = dict(zip(("global_ids", "threads", "cache", "smem", "limit",
+                                      "blocks_per_sm"), lay))
+
+        def call(name):
+            lay = layouts[name]
+            err = libs[name].epik_finish_cols_partial(
+                S.data_ptr(), S.stride(0), C.data_ptr() if C is not None else None,
+                C.stride(0) if C is not None else 0, m.data_ptr(), out_t.data_ptr(),
+                cnt.data_ptr() if C is not None else None, R, bwl, kw["K"], 0, kw["k"],
+                kw["log_eps"], None, R, lay["cache"], lay["smem"],
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+
+        def check(name):
+            out_t.zero_()
+            call(name)
+            torch.cuda.synchronize()
+            got, exp = out_t.cpu().numpy(), want.cpu().numpy()
+            np.testing.assert_array_equal(got[:, :-1], exp[:, :-1], err_msg=f"{name} ({key})")
+            np.testing.assert_allclose(got[:, -1], exp[:, -1], rtol=1e-6, atol=0.0,
+                                       err_msg=f"{name} ({key})")
+            if C is not None and not torch.equal(cnt, want_c):
+                raise AssertionError(f"kernel A {name} ({key}): counts differ")
+
+        touched = (C > 0) if C is not None else (S > 0)
+        out[f"cols_{key}"] = {"shape": [R, bwl], "counts": C is not None,
+                              "touched_mean": float(touched.sum(dim=1).float().mean()),
+                              "layouts": layouts,
+                              "ms": in_turns(torch, list(COLS), call, check)}
+
+    db, records = d652_fixture()
+    placer = TorchPlacer(db, parse_newick(db.tree()), config=PlacerConfig(plane_mode="classic"),
+                         device=dev)
+    calls = []
+    with recording(step_mod, "rowgather_sum_counts_topk", calls, limit=1):
+        placer.place(records[:BATCH])
+    plane, rows, m = calls[0][0][:3]
+    S, C = rowgather_sum_counts(plane, rows)
+    sweep("d652_classic", S, C, m)
+    del placer, calls, plane, rows, S, C
+    gc.collect()
+    torch.cuda.empty_cache()
+    rng = np.random.default_rng(22272)
+    S_b, C_b, m_b = counts_rows(rng, 4096, 22199, density=0.07)
+    S = np.zeros((4096, 22272), np.float32)
+    C = np.zeros((4096, 22272), np.int32)
+    S[:, :22199], C[:, :22199] = S_b, C_b
+    sweep("wide_classic_synthetic", *(torch.from_numpy(x).to(dev) for x in (S, C, m_b)))
+    Sp, m_b = finish_rows(rng, 4096, 20096, density=0.077)
+    sweep("config4_shifted_synthetic", torch.from_numpy(Sp).to(dev), None,
+          torch.from_numpy(m_b).to(dev))
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gather", "row_ptr"), default=None,
+    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols"), default=None,
                     help="sweep one kernel only")
     args = ap.parse_args(argv)
     sys.path.insert(0, chip_smoke.REPO)
+    sys.path.insert(0, os.path.join(chip_smoke.REPO, "tests"))
     import numpy as np
     import torch
 
@@ -241,6 +448,10 @@ def main(argv=None) -> int:
         row_ptr_times(torch, np, dev, out)
     if args.only in (None, "gather"):
         gather_times(torch, dev, out)
+    if args.only in (None, "cols"):
+        cols_times(torch, np, dev, out)
+    if args.only in (None, "sum"):
+        sum_times(torch, dev, out)
     print(card_line())
     print(json.dumps(out))
     return 0

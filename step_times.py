@@ -11,22 +11,26 @@ its first batch of 16,384 reads (IUPAC reads among them), and
 * the dense device step;
 * the gather alone (``rowgather_sum``) and the finish alone (``finish_topk``)
   on its sums, and their sum: what the dense step ran before the fusion;
+  where the gather takes a read order, also the gather in locality order,
+  its sort included, and the sort (``locality_order``) alone;
 * the fused kernel (``rowgather_sum_topk``);
 * under ``pair_plane="off"``, ``precision="int16"``, ``plane_mode="classic"``
   and ``precision="bf16"`` (each its own plane), the unpaired dense step
   (``place_batch_dense_bytes``) and the kernel it ends in
   (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``, and on the classic
   planes ``rowgather_sum_counts_topk`` and ``_bf16``, or in a port without
-  them ``rowgather_sum_counts`` and ``_bf16``), and on the classic planes the
-  gather with counts alone (kernel 1c, ``rowgather_sum_counts`` and
-  ``_bf16``) on the same rows;
+  them ``rowgather_sum_counts`` and ``_bf16``), and on the same rows the
+  gather apart: with counts (kernel 1c, ``rowgather_sum_counts`` and
+  ``_bf16``) on the classic planes, alone (kernel 1d, ``rowgather_sum``) on
+  the int16 plane;
 * ``ShardedTorchPlacer`` on a 1x1 mesh, the column-sharded dense step with
   the default config (the pair plane in one column shard) and with
   ``plane_mode="classic"``, and the kernel each shard ends in, where the port
   has it: ``rowgather_sum_cols`` / ``rowgather_sum_counts_cols`` (the gather
   with the shard's column finish fused in); in a port without them, the
   gather alone (``rowgather_sum`` / ``rowgather_sum_counts``) that the step
-  ran before its column finish.
+  ran before its column finish; on the classic plane also kernel A's counts
+  form (``finish_cols_partial_counts``) on the shard's sums and counts.
 
 On ``chip_smoke.py``'s config-4 database (10,000 leaves, 19,999 branches,
 k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
@@ -50,7 +54,7 @@ k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
 * ``ShardedTorchPlacer(dense_db="off")`` on a 1x1 mesh: the sharded tile step
   on the 150 bp batch and its column finish at (4,096 x 20,096), which is
   torch ops up to the parent of the column-finish kernels and those kernels
-  after;
+  after, and kernel A (``finish_cols_partial``) alone there;
 * ``ShardedTorchPlacer`` with the default config on a 1x1 mesh (the unpaired
   51.8 GB column plane): the sharded dense step on the 150 bp batch and its
   kernel, as for D652.
@@ -60,7 +64,17 @@ branches, k = 10, past the fused counts kernel's limit) with 4,096 150 bp
 reads, the classic f32 and bf16 steps (the gather with counts and
 ``finish_topk_counts`` apart) and kernel 1c alone on their rows; with 4,096
 400 bp reads under ``accumulate="scatter"``, the flat CSR step and kernel
-4's row-pointer form on its flat cells.
+4's row-pointer form on its flat cells, its plain version and one
+``index_put_(accumulate=True)`` (the sums alone); ``ShardedTorchPlacer`` on a
+1x1 mesh with ``plane_mode="classic"`` there (one shard of 22,272 columns,
+past the fused counts column kernel's limit): the sharded step (1c and
+kernel A's counts form apart) and kernel A on its sums and counts.
+
+On ``chip_smoke.py``'s wide shifted database (20,000 leaves, 39,999
+branches, k = 10, past the fused kernel's limit) with 4,096 150 bp reads,
+the f32 and int16 shifted steps (the gather alone, kernel 1d, and
+``finish_topk`` apart), 1d alone on their rows, and ``embedding_bag`` on the
+f32 rows.
 
 On ``chip_smoke.py``'s config-2 database (652 leaves, 1,303 branches, amino
 k = 8) with its first batch of 4,096 reads (X/B/Z reads among them), and
@@ -82,6 +96,8 @@ package.
 from __future__ import annotations
 
 import argparse
+import importlib
+import inspect
 import json
 import os
 import sys
@@ -147,12 +163,21 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
     m_signed = (lens - (k - 1)).float()
     m_f32 = torch.where(m_signed >= 0, m_signed, m_signed + float(2**64))
-    Sp = kernels_mod.rowgather_sum(st.plane, rows)[:, :B]
-    out["rowgather_sum_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum(st.plane, rows))
+    # the pair rows as the paired step gathers them past the fused limit
+    gkw = ({"pair_rows": True}
+           if "pair_rows" in inspect.signature(kernels_mod.rowgather_sum).parameters else {})
+    Sp = kernels_mod.rowgather_sum(st.plane, rows, **gkw)[:, :B]
+    out["rowgather_sum_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum(st.plane, rows,
+                                                                               **gkw))
     out["finish_topk_d652_ms"] = cuda_ms(torch, lambda: kernels_mod.finish_topk(Sp, m_f32,
                                                                                 **kw))
     out["rowgather_sum_plus_finish_topk_ms"] = (out["rowgather_sum_ms"]
                                                 + out["finish_topk_d652_ms"])
+    if gkw:  # what the read order saves there: the wrapper with its sort, the sort alone
+        out["rowgather_sum_sorted_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum(
+            st.plane, rows))
+        out["locality_order_d652_pair_ms"] = cuda_ms(
+            torch, lambda: kernels_mod.rowgather.locality_order(rows))
     if hasattr(kernels_mod, "rowgather_sum_topk"):
         fused = kernels_mod.rowgather_sum_topk
         amb_read, delta = dense_mod.amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B,
@@ -251,6 +276,12 @@ def sharded_dense_times(torch, out: dict, db, tree, seqs, prefix: str = "d652",
         out[f"{prefix}_sharded{suffix}_{kernel}_ms"] = cuda_ms(torch, lambda: fn(*k_args,
                                                                                 **k_kw))
         out[f"{prefix}_sharded{suffix}_{kernel}_shape"] = [*k_args[1].shape, k_args[0].shape[1]]
+        if not placer._shifted:  # kernel A's counts form on the shard's sums and counts
+            S, C = sh_mod.rowgather_sum_counts(k_args[0], k_args[1])
+            fkw = {n: k_kw[n] for n in ("K", "k", "log_eps", "col0")}
+            out[f"{prefix}_sharded{suffix}_finish_cols_partial_counts_ms"] = cuda_ms(
+                torch, lambda: sh_mod.finish_cols_partial_counts(S, C, k_args[2], **fkw))
+            del S, C
         del placer, calls, kcalls, args, k_args
         torch.cuda.empty_cache()
 
@@ -273,6 +304,15 @@ def sharded_tile_times(torch, out: dict, db, tree, seqs) -> None:
     out["column_finish_ms"] = cuda_ms(
         torch, lambda: sh_mod.finish_scores_cols_shifted(Sps, m_f32, **kw))
     out["column_finish_shape"] = [len(Sps), *Sps[0].shape]
+    if hasattr(sh_mod, "finish_cols_partial"):
+        a_calls = []
+        with recording(sh_mod, "finish_cols_partial", a_calls, limit=1):
+            rerun(OV)
+        (Sp, m_a), a_kw = a_calls[0]
+        out["finish_cols_partial_ms"] = cuda_ms(
+            torch, lambda: sh_mod.finish_cols_partial(Sp, m_a, **a_kw))
+        out["finish_cols_partial_shape"] = list(Sp.shape)
+        del a_calls, Sp, m_a
     del placer, rerun, calls, Sps, m_f32
     torch.cuda.empty_cache()
 
@@ -310,9 +350,11 @@ VARIANTS = [
     ("bf16", {"precision": "bf16"},
      ("rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_bf16")),
 ]
-#: the gather with counts (kernel 1c) that each classic variant's rows also
-#: go through
-APART = {"classic": "rowgather_sum_counts", "bf16": "rowgather_sum_counts_bf16"}
+#: the gather apart that each variant's rows also go through: the gather with
+#: counts (kernel 1c) on the classic planes, the gather alone (1d) on the
+#: int16 plane
+APART = {"classic": "rowgather_sum_counts", "bf16": "rowgather_sum_counts_bf16",
+         "int16": "rowgather_sum"}
 
 
 def last_config_times(torch, dev, out: dict, db, tree, reads, long_reads) -> None:
@@ -391,7 +433,8 @@ def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
     out[f"{prefix}_{kernel}_shape"] = list(args[1].shape)
     if apart is not None and apart != kernel:
         gather = kernels_mod.KERNELS[apart]
-        out[f"{prefix}_{apart}_ms"] = cuda_ms(torch, lambda: gather(args[0], args[1]))
+        scale = {"scale": kw["scale"]} if "scale" in kw else {}
+        out[f"{prefix}_{apart}_ms"] = cuda_ms(torch, lambda: gather(args[0], args[1], **scale))
 
 
 def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
@@ -448,7 +491,17 @@ def wide_classic_times(torch, dev, out: dict) -> None:
         torch, lambda: kernels_mod.accumulate_sums_counts_csr(b, s, ptr, **kw))
     out["wide_accumulate_sums_counts_csr_cells"] = int(ptr[-1] - ptr[0])
     out["wide_accumulate_sums_counts_csr_B"] = kw["B"]
-    del placer, step, calls, b, s, ptr
+    out["wide_accumulate_sums_counts_csr_plain_ms"] = cuda_ms(
+        torch, lambda: importlib.import_module(
+            "epik_tpu_torch.kernels.accumulate_sums").accumulate_sums_counts_csr_plain(
+            b, s, ptr, **kw), reps=5, warmup=1)
+    R = kw["R"]
+    rows_l = torch.arange(R, device=dev).repeat_interleave(ptr[1:] - ptr[:-1])
+    kept = slice(int(ptr[0]), int(ptr[R]))
+    cols_l, s_l = b[kept].long(), s[kept]
+    out["wide_index_put_ms"] = cuda_ms(torch, lambda: torch.zeros(
+        (R, kw["B"]), device=dev).index_put_((rows_l, cols_l), s_l, accumulate=True))
+    del placer, step, calls, b, s, ptr, rows_l, cols_l, s_l
     torch.cuda.empty_cache()
     for name, fields, kernel in (("wide_classic", {"plane_mode": "classic"},
                                   "rowgather_sum_counts"),
@@ -461,6 +514,83 @@ def wide_classic_times(torch, dev, out: dict) -> None:
         del placer
         gc.collect()
         torch.cuda.empty_cache()
+
+
+def wide_shifted_times(torch, dev, out: dict) -> None:
+    """``chip_smoke.py``'s wide shifted database (B = 39,999, bw 40,064, past
+    the fused kernel's limit) with 4,096 150 bp reads: the f32 and the int16
+    shifted steps, which run the gather alone (1d) and ``finish_topk``
+    apart, 1d alone on their rows, and ``embedding_bag`` (f32) there, into
+    ``out``."""
+    import gc
+
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.io.build import reads_from_reference
+
+    db, ref = chip_smoke.wide_shifted_db()
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, chip_smoke.WS_BATCH, length=150, mutation_rate=0.02,
+                                 seed=17)
+    seqs = list(dict.fromkeys(s for _, s in reads))
+    for name, fields in (("wide_shifted", {}), ("wide_shifted_int16", {"precision": "int16"})):
+        placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
+        if placer.route != "dense" or placer._paired:
+            raise AssertionError(f"{name} took route {placer.route}, not the unpaired plane")
+        unpaired_step_times(torch, dev, out, placer, seqs, name, "rowgather_sum")
+        if name == "wide_shifted":
+            calls = []
+            with recording(step_mod, "rowgather_sum", calls, limit=1):
+                placer.place(reads)
+            (plane, rows), _ = calls[0]
+            rows_l = rows.long()
+            out["wide_shifted_embedding_bag_ms"] = cuda_ms(
+                torch, lambda: torch.nn.functional.embedding_bag(rows_l, plane, mode="sum"))
+            out["wide_shifted_distinct_rows"] = int(torch.unique(rows).numel())
+            del calls, plane, rows, rows_l
+        del placer
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
+def wide_sharded_classic_times(torch, out: dict) -> None:
+    """``ShardedTorchPlacer`` on a 1x1 mesh with ``plane_mode="classic"`` on
+    ``chip_smoke.py``'s wide classic database (one shard of 22,272 columns,
+    past the fused counts kernel's limit) with 4,096 150 bp reads: the
+    sharded step, which runs the gather with counts (1c) and kernel A's
+    counts form apart, and kernel A on its recorded call, into ``out``."""
+    import gc
+
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.io.build import reads_from_reference
+    from epik_tpu_torch.parallel import sharding as sh_mod
+    from epik_tpu_torch.parallel.mesh import make_mesh
+
+    db, ref = chip_smoke.wide_classic_db()
+    tree = parse_newick(db.tree())
+    reads = reads_from_reference(ref, chip_smoke.WC_BATCH, length=150, mutation_rate=0.02,
+                                 seed=14)
+    placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1),
+                                       config=PlacerConfig(plane_mode="classic"))
+    calls, a_calls = [], []
+    with recording(sh_mod, "sharded_dense_bytes_step", calls, limit=1), \
+            recording(sh_mod, "finish_cols_partial_counts", a_calls, limit=1):
+        placer.place(reads)
+    args, kw = calls[0]
+    out["wide_sharded_classic_R"] = args[2].shape[0]
+    out["wide_sharded_classic_step_ms"] = cuda_ms(
+        torch, lambda: sh_mod.sharded_dense_bytes_step(*args, **kw))
+    (S, C, m), a_kw = a_calls[0]
+    out["wide_sharded_classic_finish_cols_partial_counts_ms"] = cuda_ms(
+        torch, lambda: sh_mod.finish_cols_partial_counts(S, C, m, **a_kw))
+    out["wide_sharded_classic_finish_cols_partial_counts_shape"] = list(S.shape)
+    out["wide_sharded_classic_touched_mean"] = float((C > 0).sum(dim=1).float().mean())
+    del placer, calls, a_calls, args, S, C, m
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def main(argv=None) -> int:
@@ -561,6 +691,8 @@ def main(argv=None) -> int:
     del db, tree
     torch.cuda.empty_cache()
     wide_classic_times(torch, dev, out)
+    wide_sharded_classic_times(torch, out)
+    wide_shifted_times(torch, dev, out)
     print(card_line())
     print(json.dumps(out))
     return 0

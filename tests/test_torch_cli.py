@@ -152,6 +152,75 @@ def test_cli_cpu_engines_match_oracle(fixture_dir, oracle_jplace, capsys, engine
     _same_jplace(d / engine / "placements_q.fasta.jplace", oracle_jplace, names)
 
 
+def _counting(monkeypatch, module, names):
+    """Wrap ``module``'s kernel wrappers ``names`` to count their calls (the
+    plain versions on the CPU count no launches)."""
+    calls = dict.fromkeys(names, 0)
+    for name in names:
+        fn = getattr(module, name)
+
+        def counted(*a, _fn=fn, _name=name, **kw):
+            calls[_name] += 1
+            return _fn(*a, **kw)
+
+        monkeypatch.setattr(module, name, counted)
+    return calls
+
+
+@pytest.mark.parametrize("precision", ["exact", "int16"])
+def test_cli_gather_and_finish_apart_match_jax_cli(fixture_dir, capsys, monkeypatch,
+                                                   precision):
+    """The shifted dense route past the fused kernel's limit (``topk_fits``
+    refusing, as it does on the card at B = 39,999): every batch runs the
+    gather alone (1d, ``rowgather_sum``) and ``finish_topk`` apart; the
+    jplace matches the JAX CLI's with the same flags."""
+    from epik_tpu_torch.engine import step
+
+    d, names = fixture_dir
+    monkeypatch.setattr(step, "topk_fits", lambda plane, B, K: False)
+    calls = _counting(monkeypatch, step, ["rowgather_sum", "finish_topk"])
+    out = d / f"apart_{precision}"
+    assert _run_port(d, out, "--precision", precision) == 0
+    assert "(1 device(s), dense)" in capsys.readouterr().out
+    n_batches = -(-len(names) // 32)
+    assert calls == {"rowgather_sum": n_batches, "finish_topk": n_batches}
+    jax_out = d / f"jax_apart_{precision}"
+    jax_out.mkdir()
+    assert jax_place_queries(str(d / "DB.eptk"), "nucl", 1.5, 1.0, str(jax_out), 1, "",
+                             str(d / "q.fasta"), batch_size=32, engine="jax",
+                             precision=precision) == 0
+    _same_jplace(out / "placements_q.fasta.jplace", jax_out / "placements_q.fasta.jplace",
+                 names)
+
+
+def test_cli_sharded_classic_past_the_fused_limit_matches_jax_cli(fixture_dir, capsys,
+                                                                  monkeypatch):
+    """``--engine sharded --plane-mode classic`` on a 1x1 mesh with the fused
+    counts kernel refusing the shard (``counts_cols_fits``, as it does on the
+    card past bwl 22,032): every batch runs the gather with counts and kernel
+    A's counts form (``finish_cols_partial_counts``) apart; the jplace
+    matches the JAX CLI's sharded classic run."""
+    from epik_tpu_torch.parallel import sharding
+
+    d, names = fixture_dir
+    monkeypatch.setattr(sharding, "counts_cols_fits", lambda plane, K: False)
+    calls = _counting(monkeypatch, sharding, ["rowgather_sum_counts",
+                                              "finish_cols_partial_counts"])
+    out = d / "sharded_classic_apart"
+    assert _run_port(d, out, "--engine", "sharded", "--plane-mode", "classic") == 0
+    assert "Engine: torch/cpu sharded mesh 1x1 (dense)" in capsys.readouterr().out
+    n_batches = -(-len(names) // 32)
+    assert calls == {"rowgather_sum_counts": n_batches,
+                     "finish_cols_partial_counts": n_batches}
+    jax_out = d / "jax_sharded_classic"
+    jax_out.mkdir()
+    assert jax_place_queries(str(d / "DB.eptk"), "nucl", 1.5, 1.0, str(jax_out), 1, "",
+                             str(d / "q.fasta"), batch_size=32, engine="sharded", n_model=1,
+                             plane_mode="classic") == 0
+    _same_jplace(out / "placements_q.fasta.jplace", jax_out / "placements_q.fasta.jplace",
+                 names)
+
+
 def test_helpers():
     assert make_invocation(["epik", "place", "-i", "db"]) == "epik place -i db "
     assert make_output_filename("/x/y/reads.fasta", "/out") == "/out/placements_reads.fasta.jplace"

@@ -325,17 +325,20 @@ def small_db():
 def test_dense_step_routes_past_the_limit(small_db, monkeypatch, n_model, cfg):
     """Every sharded dense step: within the limits, one fused kernel per
     shard per step and nothing apart; with the limits patched to refuse, the
-    gather, the adds and the column finish apart, per shard; the placements
-    equal bit for bit."""
+    gather, the adds and the column finish apart, per shard, the gather in
+    read order over pair rows only; the placements equal bit for bit."""
     db, tree, reads = small_db
     placer = _port(db, tree, 1, n_model, **cfg)
     assert placer.route == "dense"
     calls = dict.fromkeys(ROUTED, 0)
+    orders = set()
     for name in ROUTED:
         fn = getattr(sharding, name)
 
         def counted(*a, _fn=fn, _name=name, **k):
             calls[_name] += 1
+            if _name == "rowgather_sum":
+                orders.add(k.get("pair_rows", False))
             return _fn(*a, **k)
 
         monkeypatch.setattr(sharding, name, counted)
@@ -352,6 +355,7 @@ def test_dense_step_routes_past_the_limit(small_db, monkeypatch, n_model, cfg):
     steps = fused_calls[fused_kernel]
     if placer._shifted:
         assert calls["rowgather_sum"] == calls["finish_cols_partial"] == steps
+        assert orders == {placer._paired}
     else:
         assert calls["rowgather_sum_counts"] == calls["finish_cols_partial_counts"] == steps
     assert calls["rowgather_sum_cols"] == calls["rowgather_sum_counts_cols"] == 0

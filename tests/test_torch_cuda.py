@@ -36,8 +36,8 @@ from epik_tpu_torch.kernels.finish_cols import (
     finish_cols_partial,
     finish_cols_partial_counts,
     finish_cols_partial_counts_plain,
+    finish_cols_layout,
     finish_cols_partial_plain,
-    finish_cols_smem,
 )
 from epik_tpu_torch.kernels.rowgather import (
     cols_fits,
@@ -619,15 +619,17 @@ def _cols_sums(rng, R, bwl, n_model, counts):
 
 @pytest.mark.parametrize("counts", [False, True])
 @pytest.mark.parametrize("R,bwl,n_model", [(16384, 1408, 1), (16384, 384, 4), (4096, 20096, 1),
-                                           (4096, 5120, 4), (300, 70016, 1)])
+                                           (4096, 5120, 4), (300, 70016, 1), (4096, 22272, 1),
+                                           (300, 65537, 1)])
 def test_finish_cols_bit_equal(cuda, R, bwl, n_model, counts):
     """Kernel A, one launch per shard, on (R, bwl) row views of one sums
     matrix (and counts): the partial pack (values, global ids, n_s, max_s,
     and the counts form's candidate counts) bit-equal to its plain version
     and alike over two launches, e_s within rtol 1e-6; the whole finish on the
     card against its plain version on the CPU: scores, ids, n and zero_sum
-    equal, log_sum within rtol 1e-6. At bwl = 70,016 the ids go to the global
-    workspace."""
+    equal, log_sum within rtol 1e-6. D652's bwl 1,408 takes the small block
+    (128 threads), the wide classic shard's 22,272 the wide one; at bwl =
+    65,537 and 70,016 the ids go to the global workspace."""
     from epik_tpu_torch.parallel.sharding import (
         _pack_slim,
         finish_scores_cols,
@@ -643,8 +645,8 @@ def test_finish_cols_bit_equal(cuda, R, bwl, n_model, counts):
     Sps = [full_t[:, c] for c in cols]
     Cs = [cnt_t[:, c] for c in cols] if counts else None
     K, kw = 7, dict(k=10, log_eps=-4.2597)
-    need, limit = finish_cols_smem(Sps[0], K, counts)
-    assert 0 < need <= limit
+    lay = finish_cols_layout(Sps[0], K, counts)
+    assert 0 < lay["smem"] <= lay["limit"]
     reset_launch_counts()
     for s in range(n_model):
         if counts:
@@ -801,9 +803,9 @@ def test_cols_kernels_at_the_48kb_edge(cuda, counts):
     _check_partial(got, want)
     if counts:
         assert torch.equal(got_c, want_c)
-    bwl = max(b for b in range(20000, 24000)
-              if finish_cols_smem(torch.empty((2, b), device=cuda), 7, counts)[0] <= edge)
-    assert finish_cols_smem(torch.empty((2, bwl), device=cuda), 7, counts)[0] > edge - 256
+    bwl = max(b for b in range(4097, 24000)  # the wide block (512 threads)
+              if finish_cols_layout(torch.empty((2, b), device=cuda), 7, counts)["smem"] <= edge)
+    assert finish_cols_layout(torch.empty((2, bwl), device=cuda), 7, counts)["smem"] > edge - 256
     B, full, cnt, m_a, _ = _cols_sums(np.random.default_rng(bwl), 40, bwl, 1, counts)
     S_t, m_t = _to(cuda, full, m_a)
     kw = dict(K=7, k=10, log_eps=-4.2597, col0=0)
@@ -814,6 +816,115 @@ def test_cols_kernels_at_the_48kb_edge(cuda, counts):
     else:
         got = finish_cols_partial(S_t, m_t, **kw)
         want = finish_cols_partial_plain(S_t, m_t, **kw)
+    _check_partial(got, want)
+
+
+def _fixed_cols_bytes(bwl, threads, K=7):
+    """Kernel A's shared memory less its cache, by the CUDA source's formula:
+    the mask words, the 16-bit ids (none past 2**16: the global workspace)
+    and the warps' top-K candidates."""
+    ids = 0 if bwl > 1 << 16 else (bwl + 1) // 2
+    return ((bwl + 31) // 32 + ids) * 4 + threads // 32 * K * 8
+
+
+@pytest.mark.parametrize("counts", [False, True])
+def test_finish_cols_layout_at_its_limit(cuda, counts):
+    """Kernel A's layout, one formula in the CUDA source: 128 threads a read
+    up to bwl = 4,096 (16 blocks an SM: its register cap) and 512 past it;
+    the bytes are the fixed part and the score cache (at most min(bwl, 8,192)
+    scores), within what a block may take; two small widths whose cache is
+    short of their width take the same bytes, the SM's share at 16 blocks.
+    At the widest shard whose fixed part fits (ids in the global
+    workspace, no room for a cache) the kernel launches and matches its plain
+    version; one column past it the wrapper raises before any launch."""
+    K, kw = 7, dict(k=10, log_eps=-4.2597, col0=0)
+
+    def need(bwl):
+        lay = finish_cols_layout(torch.empty((2, bwl), device=cuda), K, counts)
+        return lay["smem"], lay["limit"]
+
+    for bwl in (384, 1408, 4096, 4097, 20096, 22272, 65536, 65537, 70016):
+        lay = finish_cols_layout(torch.empty((2, bwl), device=cuda), K, counts)
+        n, limit = need(bwl)
+        assert lay["threads"] == (128 if bwl <= 4096 else 512)
+        assert lay["blocks_per_sm"] == 16 if bwl <= 4096 else lay["blocks_per_sm"] >= 1
+        assert lay["global_ids"] == (bwl > 1 << 16)
+        assert 0 <= lay["cache"] <= min(bwl, 8192)
+        assert n == _fixed_cols_bytes(bwl, lay["threads"], K) + 4 * lay["cache"] <= limit
+    assert finish_cols_layout(torch.empty((2, 1408), device=cuda), K, counts)["cache"] == 1408
+    small = [finish_cols_layout(torch.empty((2, bwl), device=cuda), K, counts)
+             for bwl in (4000, 4096)]
+    assert all(lay["cache"] < 4000 for lay in small)
+    assert abs(small[0]["smem"] - small[1]["smem"]) < 4
+    lo, hi = 70016, 4_000_000
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        n, limit = need(mid)
+        lo, hi = (mid, hi) if n <= limit else (lo, mid - 1)
+    assert 1_500_000 < lo < 2_000_000, lo
+    assert finish_cols_layout(torch.empty((2, lo), device=cuda), K, counts)["cache"] == 0
+    rng = np.random.default_rng(lo)
+    for bwl, fits in ((lo, True), (lo + 1, False)):
+        if counts:
+            S, C, m = _to(cuda, *counts_rows(rng, 8, bwl, density=0.001))
+            run = lambda: finish_cols_partial_counts(S, C, m, K=K, **kw)  # noqa: E731
+            want = finish_cols_partial_counts_plain(S, C, m, K=K, **kw)
+        else:
+            S, m = _to(cuda, *finish_rows(rng, 8, bwl, density=0.001))
+            C = None
+            run = lambda: finish_cols_partial(S, m, K=K, **kw)  # noqa: E731
+            want = finish_cols_partial_plain(S, m, K=K, **kw)
+        reset_launch_counts()
+        if fits:
+            got = run()
+            if counts:
+                assert torch.equal(got[1], want[1])
+                got, want = got[0], want[0]
+            _check_partial(got, want, f"bwl={bwl}")
+            assert sum(launch_counts().values()) == 1
+        else:
+            with pytest.raises(ValueError, match="shared memory"):
+                run()
+            assert sum(launch_counts().values()) == 0
+        del S, C, m
+
+
+@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("bwl", [4096, 22272])
+def test_finish_cols_past_the_cache(cuda, bwl, counts):
+    """Kernel A where reads touch more columns than its score cache holds
+    (they read their row each round), beside reads that fit the cache and
+    the fixtures' n = 0 and n < K rows: bit-equal to the plain version but
+    e_s (rtol 1e-6), the counts too, two launches alike."""
+    R, K, kw = 64, 7, dict(k=10, log_eps=-4.2597, col0=3 * bwl)
+    rng = np.random.default_rng(bwl + counts)
+    cache = finish_cols_layout(torch.empty((R, bwl), device=cuda), K, counts)["cache"]
+    assert 0 < cache < bwl
+    if counts:
+        S, C, m = counts_rows(rng, R, bwl, density=0.95)
+    else:
+        S, m = finish_rows(rng, R, bwl, density=0.95)
+        C = None
+    few = rng.random((R, bwl)) > cache / 2 / bwl
+    few[:8] = False
+    few[::2] = False  # the even rows keep ~95% touched: past the cache
+    S[few] = 0.0
+    if counts:
+        C[few] = 0
+    n = (C > 0 if counts else S > 0).sum(axis=1)
+    assert (n > cache).any() and ((n <= cache) & (n > K)).any() and (n < K).any()
+    if counts:
+        S_t, C_t, m_t = _to(cuda, S, C, m)
+        got, got_c = finish_cols_partial_counts(S_t, C_t, m_t, K=K, **kw)
+        again, again_c = finish_cols_partial_counts(S_t, C_t, m_t, K=K, **kw)
+        want, want_c = finish_cols_partial_counts_plain(S_t, C_t, m_t, K=K, **kw)
+        assert torch.equal(got_c, want_c) and torch.equal(again_c, got_c)
+    else:
+        S_t, m_t = _to(cuda, S, m)
+        got = finish_cols_partial(S_t, m_t, K=K, **kw)
+        again = finish_cols_partial(S_t, m_t, K=K, **kw)
+        want = finish_cols_partial_plain(S_t, m_t, K=K, **kw)
+    assert torch.equal(got, again)
     _check_partial(got, want)
 
 
@@ -1125,6 +1236,63 @@ def test_rowgather_sum_counts_in_locality_order(cuda, R, W, bw, kind, cell):
     assert torch.equal(_bits(S2), _bits(S)) and torch.equal(C2, C)
     if kind == "all-miss":
         assert not S.any() and not C.any()
+
+
+@pytest.mark.parametrize("R,W,bw,n_rows,kind", [
+    pytest.param(16381, 72, 1408, 20000, "overlapping", id="d652-pair-rows"),
+    pytest.param(4096, 143, 40064, 2000, "overlapping", id="bw40064-wide-shifted"),
+    pytest.param(0, 143, 1408, 400, "random", id="R0"),
+    pytest.param(300, 0, 1408, 400, "random", id="W0"),
+    pytest.param(1, 143, 1408, 400, "random", id="R1"),
+    pytest.param(64, 1500, 1408, 400, "overlapping", id="W1500-past-a-tile-of-steps"),
+    pytest.param(300, 143, 1408, 400, "all-miss", id="all-miss"),
+    pytest.param(300, 143, 1408, 400, "ties", id="ties-one-least-row"),
+    pytest.param(300, 143, 1412, 400, "overlapping", id="bw1412-not-a-multiple-of-8"),
+    pytest.param(33, 17, 100, 400, "random", id="bw100-R33"),
+])
+@pytest.mark.parametrize("cell", ["f32", "int16"])
+def test_rowgather_sum_in_locality_order(cuda, R, W, bw, n_rows, kind, cell):
+    """Kernel 1d (the gather alone) in the slice layout -- the reads in
+    locality order or in read order (as the paired steps run it), the row in
+    256-byte column slices -- against its plain version, bit for bit (int16:
+    exact int32 sums, one correctly rounded divide by the scale), two
+    launches alike: D652's pair rows and the wide shifted width,
+    R = 0 and 1, W = 0 and past a staged tile of steps, rows that all miss,
+    many reads whose least row is the same, and widths that are not a
+    multiple of the slice (int16: nor of 8 cells)."""
+    rng = np.random.default_rng(R + W + bw)
+    if cell == "f32":
+        p = rng.uniform(0.0, 8.0, (n_rows, bw)).astype(np.float32)
+        p[rng.random((n_rows, bw)) > 0.3] = 0.0
+        p[0, :8] = np.float32(1e-37)
+        scale = None
+    else:
+        p = rng.integers(1, 32001, (n_rows, bw)).astype(np.int16)
+        p[rng.random((n_rows, bw)) > 0.3] = 0
+        scale = 32000.0 / 4.2597
+    p[-1] = 0
+    plane = torch.from_numpy(p).to(cuda)
+    if kind == "random":
+        rows = rng.integers(0, n_rows, (R, W)).astype(np.int32)
+    elif kind == "all-miss":
+        rows = np.full((R, W), n_rows - 1, np.int32)
+    else:
+        rows = _overlapping_rows(rng, R, W, n_rows)
+        if kind == "ties":
+            rows[:, W // 2] = 0  # every read's least row
+    rows_t = torch.from_numpy(rows).to(cuda)
+    reset_launch_counts()
+    got = rowgather_sum(plane, rows_t, scale=scale)
+    again = rowgather_sum(plane, rows_t, scale=scale)
+    in_read_order = rowgather_sum(plane, rows_t, scale=scale, pair_rows=True)
+    want = rowgather_sum_plain(plane, rows_t, scale)
+    torch.cuda.synchronize()
+    assert launch_counts()["rowgather_sum"] == (3 if R else 0)
+    assert got.shape == (R, bw)
+    assert torch.equal(_bits(got), _bits(want)) and torch.equal(_bits(again), _bits(got))
+    assert torch.equal(_bits(in_read_order), _bits(want))
+    if kind == "all-miss" or W == 0:
+        assert not got.any()
 
 
 @pytest.mark.parametrize("config", [
