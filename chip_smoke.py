@@ -86,7 +86,10 @@ prints no result line):
                  version on the first batch, bit for bit (wr within rtol
                  1e-4), no gather or finish apart launched, and the sums with
                  counts alone (``rowgather_sum_counts[_bf16]``, past the
-                 limit) on the same rows; 256 reads against the oracle
+                 limit) on the same rows; the fused counts kernel on the same
+                 rows without their first hits, and beside its time the
+                 unfused pair's (the sums with counts, the first hits added,
+                 ``finish_topk_counts``); 256 reads against the oracle
                  (int16 by the jplace_diff rule, bf16 by the best edge, as
                  the JAX tests hold them);
                * a batch of reads shorter than k and a batch with a 65,536 bp
@@ -116,8 +119,10 @@ prints no result line):
                  fused kernel checked on each shard;
                * D652 ``plane_mode="classic"`` on 1x1 through the library: the
                  fused counts kernel (its candidates' counts bit-equal too)
-                 against its plain version and the oracle; kernel A's counts
-                 form on the same shard's sums and counts;
+                 against its plain version and the oracle, and beside its
+                 time the unfused pair's (the sums with counts, the first
+                 hits added, kernel A's counts form); kernel A's counts form
+                 on the same shard's sums and counts;
                * config 4 through ``--engine sharded`` with no other flag: the
                  51.8 GB unpaired column plane (the pair plane is over the
                  budget), 12,288 clean reads, the IUPAC and short reads, the
@@ -207,7 +212,7 @@ prints no result line):
                  alike, its time, bound and ``embedding_bag``'s;
                * ``place --engine sharded --plane-mode classic`` on a 1x1 mesh
                  (one shard of 22,272 columns, past the fused counts column
-                 kernel's limit, bwl ~22,032), the counts zeroed before and
+                 kernel's limit, bwl ~22,064), the counts zeroed before and
                  read after: 1c and kernel A's counts form
                  (``finish_cols_partial_counts``) once per batch and nothing
                  else; 128 reads against the oracle and every read against
@@ -921,7 +926,7 @@ def wide_sharded_classic(torch, np, card: str, path: str, fasta: str, records, o
                          single_rows: dict, work: str, summary: dict) -> dict:
     """Phase 14's sharded run: ``place --engine sharded --plane-mode classic``
     on a 1x1 mesh over the wide classic database (one shard of 22,272
-    columns, past the fused counts kernel's limit, bwl 22,032): the gather
+    columns, past the fused counts kernel's limit, bwl 22,064): the gather
     with counts and kernel A's counts form once per batch and nothing else;
     128 reads against the oracle, every read against the single-device
     classic run (score sets within 1e-4); kernel A against its plain version
@@ -1735,6 +1740,29 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
     return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
 
 
+def unfused_pair(kernels_mod, call, cols: bool):
+    """What a recorded call of the fused counts kernel (``cols``: its column
+    form) computes, by the kernels apart: the sums with counts (1c), the
+    first hits added, then ``finish_topk_counts`` into the full body
+    (``cols``: kernel A's counts form). A function of no arguments."""
+    from epik_tpu_torch.kernels.rowgather import add_first_hits
+
+    (plane, rows, m, amb_read, dS, hit), kw = call
+    sums = (kernels_mod.rowgather_sum_counts_bf16 if plane.element_size() == 2
+            else kernels_mod.rowgather_sum_counts)
+    if cols:
+        return lambda: kernels_mod.finish_cols_partial_counts(
+            *add_first_hits(*sums(plane, rows), amb_read, dS, hit), m, **kw)
+    B = kw["B"]
+    fkw = {n: kw[n] for n in ("K", "k", "log_eps")}
+
+    def run():
+        S, C = sums(plane, rows)
+        return kernels_mod.finish_topk_counts(
+            *add_first_hits(S[:, :B], C[:, :B], amb_read, dS, hit), m, **fkw)
+    return run
+
+
 def run_cli(torch, argv):
     """``python -m epik_tpu_torch`` in process: (rc, its output, seconds)."""
     from epik_tpu_torch.cli.main import main as cli_main
@@ -1921,6 +1949,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     """Phase 9 (see the module docstring). Returns the kernel entries of the
     new variants, the phase's summary numbers and each older kernel's largest
     difference at the wide-tree widths."""
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.cli.main import _open_reader
     from epik_tpu_torch.core.tree import parse_newick, to_newick
     from epik_tpu_torch.engine import placer as placer_mod
@@ -2045,6 +2074,18 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
                 f"alike; kernel {apart[sums][1]:.4f} ms, plain {apart[sums][2]:.4f} ms, "
                 f"embedding_bag (sums only) {apart[sums][4]:.4f} ms, bound "
                 f"{bound(*apart[sums][3])[0]:.4f} ms [{card}]")
+            # the same rows without their first hits, and the unfused pair
+            # (1c, the first hits added, finish_topk_counts) beside the kernel
+            (pargs, pkw) = calls[0]
+            no_amb = check_dense_kernel(torch, np, kernel, ((*pargs[:3], None, None, None), pkw),
+                                        f"D652 {name}, no first hits")
+            err = max(err, no_amb[0])
+            pair_ms = cuda_ms(torch, unfused_pair(kernels_mod, calls[0], cols=False))
+            summary[f"d652_{name}_unfused_pair_ms"] = pair_ms
+            log(f"{kernel} (D652 {name}): {ms:.4f} ms with the first hits, {no_amb[1]:.4f} ms "
+                f"without (bit-equal to its plain version but wr); the unfused pair on the "
+                f"same rows ({sums} + add_first_hits + finish_topk_counts) {pair_ms:.4f} ms "
+                f"[{card}]")
         del calls
         torch.cuda.empty_cache()
         summary[f"d652_{name}_reads_per_s"] = rate
@@ -2206,6 +2247,7 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     launches and shapes; the largest difference over every check of the
     phase), the phase's summary and the launches of the gathers apart past
     the fused kernels' limits."""
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.core.tree import parse_newick, to_newick
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
@@ -2337,6 +2379,12 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         f"{summary['d652_sharded_classic_step_ms']:.4f} ms")
     checks["d652_classic"] = check_cols_kernel(torch, np, "rowgather_sum_counts_cols",
                                                calls_c[0], "D652 sharded classic 1x1")
+    pair_ms = cuda_ms(torch, unfused_pair(kernels_mod, calls_c[0], cols=True))
+    summary["d652_sharded_classic_unfused_pair_ms"] = pair_ms
+    log(f"rowgather_sum_counts_cols (D652 sharded classic 1x1): "
+        f"{checks['d652_classic']['ms']:.4f} ms; the unfused pair on the same rows "
+        f"(rowgather_sum_counts + add_first_hits + finish_cols_partial_counts) {pair_ms:.4f} ms "
+        f"[{card}]")
     # kernel A's counts form on the same shard's sums and counts (what the
     # shard runs past the fused kernel's limit)
     (plane_c, rows_cl, m_c, read_c, dS_c, hit_c), ckw = calls_c[0]

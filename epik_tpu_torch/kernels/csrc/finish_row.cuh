@@ -1,8 +1,9 @@
 // The per-read placement finish, shared by finish_topk.cu,
-// accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk,
-// rowgather_sum_counts_topk, and through cols_list rowgather_sum_cols and
-// rowgather_sum_counts_cols) and, through cols_list, finish_cols.cu (the
-// column-sharded finish of one shard): score correction, LWR log-sum
+// accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk, through
+// cols_list rowgather_sum_cols, and the group layout's rowgather_sum_counts_topk
+// and rowgather_sum_counts_cols: a warp a read through warp_finish /
+// warp_cols, the list finish at G = 1) and, through cols_list, finish_cols.cu
+// (the column-sharded finish of one shard): score correction, LWR log-sum
 // over all branches and top-K, written into one row of the slim result pack
 // [scores K | idx K | log_sum | n | zero_sum] (SlimRow) or of the full pack's
 // body [scores K | wr K | idx K | counts K | n | zero_sum] (FullRow). Math,
@@ -395,6 +396,141 @@ __device__ void cols_list(Corr corr, const Id* ids, int n, int K, int col0, Fini
     if (crow != nullptr) crow[j] = count(b);
   });
   if (lead && threadIdx.x == 0) {
+    orow[2 * K] = static_cast<float>(n);
+    orow[2 * K + 1] = max_s;
+    orow[2 * K + 2] = e_s;
+  }
+}
+
+// ---- one read by one warp ------------------------------------------------------
+// For a block that holds several reads' sums at once (rowgather_sum.cu's group
+// layout), each warp finishes its own read with no block barrier. The warp
+// walks the read's B branches directly, lane l taking branches l, l + 32, ...:
+// `touched(b)` says whether branch b carries a score and `corr(b)` gives it
+// (finite where touched). The same values, top-K order and slots past n as
+// the list finish above; the exp-sums add in another order (lane by lane,
+// then a shuffle tree), within the tolerances the list finish keeps.
+
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// n, the touched branches, and max_c, their largest score (-inf when n == 0),
+// in every lane.
+template <class Touched, class Corr>
+__device__ void warp_count_max(Touched touched, Corr corr, int B, int& n, float& max_c) {
+  int n_loc = 0;
+  float max_loc = -CUDART_INF_F;
+  for (int b = threadIdx.x & 31; b < B; b += 32) {
+    if (touched(b)) {
+      ++n_loc;
+      max_loc = fmaxf(max_loc, corr(b));
+    }
+  }
+  for (int o = 16; o > 0; o >>= 1) {
+    n_loc += __shfl_xor_sync(0xffffffffu, n_loc, o);
+    max_loc = fmaxf(max_loc, __shfl_xor_sync(0xffffffffu, max_loc, o));
+  }
+  n = n_loc;
+  max_c = max_loc;
+}
+
+// sum over the touched branches of 10^(corr - max), in every lane.
+template <class Touched, class Corr>
+__device__ float warp_expsum(Touched touched, Corr corr, int B, float max) {
+  float sum_loc = 0.f;
+  for (int b = threadIdx.x & 31; b < B; b += 32) {
+    if (touched(b)) sum_loc += expf(__fmul_rn(__fsub_rn(corr(b), max), kLn10));
+  }
+  return warp_sum(sum_loc);
+}
+
+// The top-K of one read by one warp: K rounds of a lane scan and a shuffle
+// arg-best, each round the best branch strictly after the previous pick in
+// the (value desc, index asc) order; where n < K the slots past n take -inf
+// and the lowest untouched branches in ascending order. emit(j, value, b) once
+// a slot, from some lane of the warp.
+template <class Touched, class Corr, class Emit>
+__device__ void warp_topk(Touched touched, Corr corr, int B, int n, int K, Emit emit) {
+  const int lane = threadIdx.x & 31;
+  const int live = min(n, K);
+  float pv = CUDART_INF_F;
+  int pi = -1;
+  for (int j = 0; j < live; ++j) {
+    float bv = -CUDART_INF_F;
+    int bi = INT_MAX;
+    for (int b = lane; b < B; b += 32) {
+      if (!touched(b)) continue;
+      const float c = corr(b);
+      if (before(pv, pi, c, b) && before(c, b, bv, bi)) {
+        bv = c;
+        bi = b;
+      }
+    }
+    for (int o = 16; o > 0; o >>= 1) {
+      const float ov = __shfl_xor_sync(0xffffffffu, bv, o);
+      const int oi = __shfl_xor_sync(0xffffffffu, bi, o);
+      if (before(ov, oi, bv, bi)) {
+        bv = ov;
+        bi = oi;
+      }
+    }
+    if (lane == 0) emit(j, bv, bi);
+    pv = bv;
+    pi = bi;
+  }
+  // n < K: -inf at the lowest untouched branches, 32 at a time
+  for (int b0 = 0, j = live; j < K && b0 < B; b0 += 32) {
+    const int b = b0 + lane;
+    const bool un = b < B && !touched(b);
+    const unsigned bal = __ballot_sync(0xffffffffu, un);
+    const int slot = j + __popc(bal & ((1u << lane) - 1u));
+    if (un && slot < K) emit(slot, -CUDART_INF_F, b);
+    j += __popc(bal);
+  }
+}
+
+// finish_list's result for one read by one warp, into `out` (SlimRow or
+// FullRow). Every lane of the warp must call it.
+template <class Touched, class Corr, class Row>
+__device__ void warp_finish(Touched touched, Corr corr, int B, int K, float mr, float kf,
+                            float log_eps, Row out) {
+  int n;
+  float max_c;
+  warp_count_max(touched, corr, B, n, max_c);
+  const float npl_exp = __fdiv_rn(__fmul_rn(mr, log_eps), kf);
+  const float n_not = __fsub_rn(static_cast<float>(B), static_cast<float>(n));
+  const float max_t = fmaxf(max_c, n_not > 0.f ? npl_exp : -CUDART_INF_F);
+  const float touched_sum = warp_expsum(touched, corr, B, max_t);
+  const float untouched =
+      n_not > 0.f ? __fmul_rn(n_not, expf(__fmul_rn(__fsub_rn(npl_exp, max_t), kLn10)))
+                  : 0.f;
+  const float log_sum =
+      __fadd_rn(max_t, __fdiv_rn(logf(__fadd_rn(touched_sum, untouched)), kLn10));
+  const bool zero_sum = max_c < kPow10Zero && (npl_exp < kPow10Zero || n_not <= 0.f);
+  warp_topk(touched, corr, B, n, K, [out, log_sum, zero_sum](int j, float v, int b) {
+    out.slot(j, v, b, log_sum, zero_sum);
+  });
+  if ((threadIdx.x & 31) == 0) out.tail(log_sum, n, zero_sum);
+}
+
+// cols_list's result for one read by one warp: the shard's partial pack row
+// [values K | global ids K | n_s | max_s | e_s] and, with `crow`, the
+// candidates' counts. Every lane of the warp must call it.
+template <class Touched, class Corr, class Count>
+__device__ void warp_cols(Touched touched, Corr corr, int B, int K, int col0, float* orow,
+                          int* crow, Count count) {
+  int n;
+  float max_s;
+  warp_count_max(touched, corr, B, n, max_s);
+  const float e_s = warp_expsum(touched, corr, B, max_s);
+  warp_topk(touched, corr, B, n, K, [orow, crow, count, K, col0](int j, float v, int b) {
+    orow[j] = v;
+    orow[K + j] = static_cast<float>(b + col0);
+    if (crow != nullptr) crow[j] = count(b);
+  });
+  if ((threadIdx.x & 31) == 0) {
     orow[2 * K] = static_cast<float>(n);
     orow[2 * K + 1] = max_s;
     orow[2 * K + 2] = e_s;

@@ -59,9 +59,9 @@
 //   what the classic dense steps compute end to end (dense_sums_from_rows,
 //   then _apply_amb(shifted=False), finish_scores with _lwr_topk and the body
 //   of _pack_outputs, placer.py:757, :814, :464, :1461), so neither S nor C
-//   reaches HBM:
-//   - the window-order sums S and the exact counts C of one read go to shared
-//     memory (bw f32 + bw int32), by the same gather as
+//   reaches HBM, in the group layout (below):
+//   - the window-order sums S and the exact counts C of each read go to
+//     shared memory (bw f32 + bw int32 a read), by the slice gather of
 //     epik_rowgather_sum_counts (S bit-equal, C exact);
 //   - a read with an ambiguous first hit adds it there: S[b] = S[b] + dS[b]
 //     (one __fadd_rn) and C[b] += hit[b], the adds of ops/dense.py::
@@ -72,37 +72,69 @@
 //     (correct_counts: m - C wrapped to 2^64 where negative, quirk Q1) write
 //     the read's full (4K+2) row [scores | wr | idx | counts | n | zero_sum],
 //     counts = C[idx], 0 in the slots past n.
-//   Shared memory: bw sums + bw counts + ceil(B / 32) mask words + B 16-bit
-//   ids + the candidates (14.7 KB at D652, bw 1,408, B 1,303; about 204 KB
-//   at bw 20,096, B 19,999), which caps B near 22,000 at bw ~ B:
-//   epik_rowgather_sum_counts_topk_smem and _smem_limit state it as for
-//   rowgather_sum_topk, and past it (or past B = 2^16) the step runs
-//   epik_rowgather_sum_counts + epik_finish_topk_counts (the same bits).
-//   Bound on the H100: the distinct plane rows, the row ids, m, the
-//   ambiguous rows and the pack (no S/C write).
-// * epik_rowgather_sum_cols (f32; `counts`: the classic sums with counts):
-//   one model shard of a column-sharded dense step (epik_tpu/parallel/
-//   sharding.py::_sharded_dense_*_step: dense_sums_shifted or
-//   dense_sums_from_rows over the shard's bwl columns, _apply_amb, then the
-//   shard's half of finish_scores_cols[_shifted] + _lwr_topk_cols), so the
-//   shard's (R, bwl) sums never reach HBM:
-//   - the same gather and ambiguous adds as epik_rowgather_sum_topk (shifted:
-//     the delta row, one __fadd_rn per column) or
-//     epik_rowgather_sum_counts_topk (classic: S + dS, C + hit), at B = bwl;
-//   - finish_cols.cu's finish over the read's touched columns (Sp > 0, or
-//     C > 0 with correct_counts), through finish_row.cuh's cols_list: the
-//     read's partial pack row [values Kl | global ids Kl | n_s | max_s | e_s]
-//     with e_s against the shard's own max_s, and the classic form's
-//     candidate counts (int32 (R, Kl)).
-//   Shared memory: the layout of rowgather_sum_topk (shifted) or
-//   rowgather_sum_counts_topk (classic) at B = bwl: about 9 KB at D652's
-//   bwl 1,408, 123 KB shifted and 204 KB classic at config 4's bwl 20,096,
-//   so bwl near 37,000 (shifted) and 22,000 (classic) at most:
-//   epik_rowgather_sum_cols_smem and _smem_limit state it, and past it the
-//   sharded step runs the gather, the same adds and finish_cols.cu's launch
-//   apart (the same bits but e_s's order of adds). Bound on the H100: the
-//   distinct plane rows, the row ids, m, the ambiguous rows and the partial
+//   Past the group layout's limit (B near 22,000 at bw ~ B, or past B =
+//   2^16) the step runs epik_rowgather_sum_counts + epik_finish_topk_counts
+//   (the same bits). Bound on the H100: the distinct plane rows, the row ids,
+//   m, the ambiguous rows and the pack (no S/C write).
+// * epik_rowgather_sum_cols (f32, the shifted sums): one model shard of a
+//   column-sharded dense step (epik_tpu/parallel/sharding.py::
+//   _sharded_dense_*_step: dense_sums_shifted over the shard's bwl columns,
+//   _apply_amb, then the shard's half of finish_scores_cols_shifted +
+//   _lwr_topk_cols), so the shard's (R, bwl) sums never reach HBM:
+//   - the same gather and delta add as epik_rowgather_sum_topk, at B = bwl;
+//   - finish_cols.cu's finish over the read's touched columns (Sp > 0),
+//     through finish_row.cuh's cols_list: the read's partial pack row
+//     [values Kl | global ids Kl | n_s | max_s | e_s] with e_s against the
+//     shard's own max_s.
+//   Shared memory: the layout of rowgather_sum_topk at B = bwl (about 9 KB at
+//   D652's bwl 1,408, 123 KB at config 4's bwl 20,096), so bwl near 37,000 at
+//   most: epik_rowgather_sum_cols_smem and _smem_limit state it, and past it
+//   the sharded step runs the gather, the same add and finish_cols.cu's
+//   launch apart (the same bits but e_s's order of adds). Bound on the H100:
+//   the distinct plane rows, the row ids, m, the delta rows and the partial
 //   pack (no (R, bwl) write), as for the fused kernels at the same shape.
+// * epik_rowgather_sum_counts_cols (f32, the classic sums with counts): the
+//   same shard over its classic plane (dense_sums_from_rows, S + dS, C +
+//   hit, finish_scores_cols :321), in the group layout: the counts epilogue
+//   of epik_rowgather_sum_counts_topk at B = bwl with cols_list's finish
+//   (touched C > 0, correct_counts) into the partial pack and the
+//   candidates' counts (int32 (R, Kl)); past the layout's limit (bwl near
+//   22,000) the shard runs epik_rowgather_sum_counts, the adds and
+//   finish_cols.cu's counts form apart.
+//
+// The group layout (epik_rowgather_sum_counts_topk and
+// epik_rowgather_sum_counts_cols: one kernel template,
+// rowgather_counts_group_kernel). The one-block-a-read kernel that it
+// replaced streamed whole rows, 352 threads x one float4, in read order, so
+// every slot read its row at the HBM rate: 3.71-3.92 ms at D652 in f32
+// (2.34 M slots x 5,632 B = 13.2 GB) on an H100, slower than the slice
+// gather 1c and the finish apart. A block now takes G consecutive reads of
+// the locality order and walks 256-byte column slices one after another, 16
+// threads a (read, slice) pair, slice-major, so that the reads of a group
+// that share rows fetch them from L1/L2: each (read, column) is added in
+// window order by one thread in registers, as in the slice layout, and the
+// slice's S and C go to the block's shared memory (G x bw x 8 bytes). The
+// group's row ids are staged once for all slices, kGroupRowIds / G windows a
+// read a tile (a read longer than that carries its S and C over tiles in
+// shared memory: an f32 reload adds no rounding). After the last slice the
+// block adds each read's first hit, and each warp finishes one read of the
+// group (finish_row.cuh's warp finish: no block barrier, the same scores,
+// ids and counts as the list finish; the exp-sums add in another order), so
+// the G finishes run side by side; at G = 1 (the widest trees) the whole
+// block runs the list finish. Shared memory: G x bw sums and counts + the
+// row-id tile + ceil(B / 32) mask words + B 16-bit ids + the candidates
+// (epik_rowgather_counts_group_smem). The wrapper chooses G: the largest up
+// to its maximum of which EPIK_GROUP_MIN_BLOCKS blocks fit an SM, down to G =
+// 1 at the widest trees, whose block is the one-block-a-read kernel's bytes
+// but its candidates (B ~ 22,000 at bw ~ B, the same limit). The kernel's
+// register budget names those blocks an SM, so that each thread's
+// kGroupUnroll loads in flight fit and the other blocks' gathers hide one
+// block's finishes. On an H100 at D652 (kernel_sweep.py): G = 4 at 3 blocks
+// an SM with 16 loads in flight a thread, 2.66 ms in f32 and 1.51 ms in bf16
+// against 2.76 and 1.53 for G = 8 at 2, 3.84 for the same layout in read
+// order; 8 loads in flight, 2.59 and 1.49 (the L2, not the latency, bounds
+// it); finishing the reads in turn with the whole block took 3.09 and 1.92
+// (G = 8).
 
 // The slice layout (epik_rowgather_sum_counts and epik_rowgather_sum: one
 // kernel template, rowgather_slices_kernel). One block per read walking the
@@ -375,6 +407,182 @@ __global__ void __launch_bounds__(kSliceReads * kSliceLanes, EPIK_SLICE_MIN_BLOC
   }
 }
 
+// The group layout's block (rowgather_counts_group_kernel): kGroupThreads
+// threads, 16 a (read, slice) pair, with a register budget of
+// EPIK_GROUP_MIN_BLOCKS blocks an SM; kGroupRowIds row ids staged a tile,
+// shared by the group's G reads; G at most kMaxGroup. The macros let
+// kernel_sweep.py build other blocks; kernels/rowgather.py states the same
+// numbers (GROUP_THREADS, GROUP_ROW_IDS, GROUP_MIN_BLOCKS) for its choice of
+// G.
+#ifndef EPIK_GROUP_THREADS
+#define EPIK_GROUP_THREADS 256
+#endif
+#ifndef EPIK_GROUP_MIN_BLOCKS
+#define EPIK_GROUP_MIN_BLOCKS 3
+#endif
+#ifndef EPIK_GROUP_UNROLL
+#define EPIK_GROUP_UNROLL 8
+#endif
+
+constexpr int kGroupThreads = EPIK_GROUP_THREADS;
+constexpr int kGroupUnroll = EPIK_GROUP_UNROLL;  // loads in flight a thread
+constexpr int kGroupLanes = 16;
+constexpr int kGroupRowIds = 2048;
+constexpr int kMaxGroup = 32;
+
+// Dynamic shared memory of a group-layout block of G reads at (bw, B, K):
+// G x bw sums and counts | the row-id tile | ceil(B / 32) mask words | B
+// 16-bit ids (padded to 4 bytes) | the candidates.
+size_t group_smem(int G, int bw, int B, int K) {
+  return (2 * static_cast<size_t>(G) * bw + kGroupRowIds + (B + 31) / 32 + (B + 1) / 2) *
+             sizeof(int) +
+         epik::cand_bytes(kGroupThreads, K);
+}
+
+// G consecutive reads of the order `perm` a block: the classic plane's sums S
+// and counts C of each read in shared memory (each (read, column) added in
+// window order by one thread), the first hits added, then each read's finish
+// in turn: kCols, the shard's column finish into its partial pack row and
+// candidate counts; else the full pack's body row. B <= bw columns finish.
+template <class T, int V, bool kCols>
+__global__ void __launch_bounds__(kGroupThreads, EPIK_GROUP_MIN_BLOCKS)
+    rowgather_counts_group_kernel(const T* __restrict__ plane, const int32_t* __restrict__ rows,
+                                  const int32_t* __restrict__ perm, const float* __restrict__ m,
+                                  const int32_t* __restrict__ slot,
+                                  const float* __restrict__ dS, const uint8_t* __restrict__ hit,
+                                  float* __restrict__ out, int* __restrict__ cnt_out, int R,
+                                  int W, int bw, int B, int K, int G, int col0, float kf,
+                                  float log_eps) {
+  extern __shared__ float4 group_smem4[];
+  __shared__ float red_f[32];
+  __shared__ int red_i[32];
+  __shared__ int32_t sread[kMaxGroup];
+  float* S = reinterpret_cast<float*>(group_smem4);
+  int* Cn = reinterpret_cast<int*>(S + static_cast<long long>(G) * bw);
+  int32_t* srow = Cn + static_cast<long long>(G) * bw;
+  unsigned* mask = reinterpret_cast<unsigned*>(srow + kGroupRowIds);
+  const int nwords = (B + 31) >> 5;
+  uint16_t* ids = reinterpret_cast<uint16_t*>(mask + nwords);
+  float* cand_v = reinterpret_cast<float*>(mask + nwords + (B + 1) / 2);
+  const epik::FinishScratch scratch{red_f, cand_v,
+                                    reinterpret_cast<int*>(cand_v) + (kGroupThreads >> 5) * K};
+  const int r0 = blockIdx.x * G;
+  const int nr = min(G, R - r0);
+  if (threadIdx.x < nr) sread[threadIdx.x] = perm[r0 + threadIdx.x];
+
+  // ---- the gather: (read, slice) pairs slice-major, 16 threads a pair -------
+  constexpr int kPairs = kGroupThreads / kGroupLanes;
+  const int q = threadIdx.x / kGroupLanes;
+  const int lane = threadIdx.x % kGroupLanes;
+  const int n_pairs = nr * ((bw + kGroupLanes * V - 1) / (kGroupLanes * V));
+  const int tw = kGroupRowIds / G;  // windows a read a tile
+  for (int w0 = 0; w0 < W; w0 += tw) {
+    const int nw = min(tw, W - w0);
+    __syncthreads();  // the previous tile has been read by every thread
+    for (int i = threadIdx.x; i < nr * nw; i += kGroupThreads) {
+      const int j = i / nw;
+      srow[j * tw + i - j * nw] = rows[static_cast<long long>(sread[j]) * W + w0 + i - j * nw];
+    }
+    __syncthreads();
+    for (int p = q; p < n_pairs; p += kPairs) {
+      const int s = p / nr;
+      const int j = p - s * nr;
+      const int col = (s * kGroupLanes + lane) * V;
+      if (col >= bw) continue;
+      float* sj = S + j * bw + col;
+      int* cj = Cn + j * bw + col;
+      float acc[V];
+      int cnt[V];
+#pragma unroll
+      for (int e = 0; e < V; ++e) {
+        acc[e] = w0 == 0 ? 0.f : sj[e];
+        cnt[e] = w0 == 0 ? 0 : cj[e];
+      }
+      const int32_t* my = srow + j * tw;
+#pragma unroll(kGroupUnroll)
+      for (int i = 0; i < nw; ++i) {
+        float v[V];
+        load_vec(plane, static_cast<long long>(my[i]) * bw + col, v);
+#pragma unroll
+        for (int e = 0; e < V; ++e) {
+          acc[e] += v[e];
+          cnt[e] += v[e] != 0.f;
+        }
+      }
+#pragma unroll
+      for (int e = 0; e < V; e += 4) {
+        *reinterpret_cast<float4*>(sj + e) =
+            make_float4(acc[e], acc[e + 1], acc[e + 2], acc[e + 3]);
+        *reinterpret_cast<int4*>(cj + e) = make_int4(cnt[e], cnt[e + 1], cnt[e + 2], cnt[e + 3]);
+      }
+    }
+  }
+  if (W == 0) {  // no window: every sum and count is 0
+    for (int i = threadIdx.x; i < nr * bw; i += kGroupThreads) {
+      S[i] = 0.f;
+      Cn[i] = 0;
+    }
+  }
+  __syncthreads();
+
+  // ---- the first hits: S + dS (one __fadd_rn), C + hit ---------------------
+  if (slot != nullptr) {
+    for (int j = 0; j < nr; ++j) {
+      const int a = slot[sread[j]];
+      if (a < 0) continue;
+      const float* drow = dS + static_cast<long long>(a) * B;
+      const uint8_t* hrow = hit + static_cast<long long>(a) * B;
+      for (int b = threadIdx.x; b < B; b += kGroupThreads) {
+        S[j * bw + b] = __fadd_rn(S[j * bw + b], drow[b]);
+        Cn[j * bw + b] += hrow[b];
+      }
+    }
+    __syncthreads();
+  }
+
+  // ---- the finishes, each read into its own row -----------------------------
+  if (G == 1) {  // the widest trees: the whole block finishes the one read
+    const long long r = sread[0];
+    const float mr = m[r];
+    epik::build_mask([Cn](int b) { return Cn[b] > 0; }, B, mask);
+    const int n = epik::compact_mask(mask, nwords, ids, red_i, false);
+    const auto corr = [S, Cn, ids, mr, kf, log_eps](int i) {
+      return epik::correct_counts(S[ids[i]], Cn[ids[i]], mr, kf, log_eps);
+    };
+    const auto count = [Cn](int b) { return Cn[b]; };
+    if constexpr (kCols) {
+      epik::cols_list(corr, ids, n, K, col0, scratch, out + r * (2LL * K + 3), cnt_out + r * K,
+                      count);
+    } else {
+      epik::finish_list(corr, ids, n, B, K, mr, kf, log_eps, scratch,
+                        epik::full_row(out + r * (4LL * K + 2), K, count));
+    }
+    return;
+  }
+  // a warp a read, its scores corrected in place first (each lane its own
+  // branches)
+  const int lane32 = threadIdx.x & 31;
+  for (int j = threadIdx.x >> 5; j < nr; j += kGroupThreads >> 5) {
+    const long long r = sread[j];
+    float* sums = S + j * bw;
+    const int* cnts = Cn + j * bw;
+    const float mr = m[r];
+    for (int b = lane32; b < B; b += 32) {
+      if (cnts[b] > 0) sums[b] = epik::correct_counts(sums[b], cnts[b], mr, kf, log_eps);
+    }
+    const auto touched = [cnts](int b) { return cnts[b] > 0; };
+    const auto corr = [sums](int b) { return sums[b]; };
+    const auto count = [cnts](int b) { return cnts[b]; };
+    if constexpr (kCols) {
+      epik::warp_cols(touched, corr, B, K, col0, out + r * (2LL * K + 3), cnt_out + r * K,
+                      count);
+    } else {
+      epik::warp_finish(touched, corr, B, K, mr, kf, log_eps,
+                        epik::full_row(out + r * (4LL * K + 2), K, count));
+    }
+  }
+}
+
 // The shared memory of a fused kernel's block: bw sums | bw counts (kCounts)
 // | mask words | ids (B, 16 bits, padded to 4 bytes) | candidates.
 template <bool kCounts>
@@ -640,6 +848,33 @@ int launch_topk(const void* plane, const void* rows, const void* m, const void* 
   return static_cast<int>(cudaGetLastError());
 }
 
+// One group-layout launch (kCols: the shard's column finish) of G reads a
+// block.
+template <class T, int V, bool kCols>
+int launch_group(const void* plane, const void* rows, const void* perm, const void* m,
+                 const void* slot, const void* dS, const void* hit, void* out, void* cnt, int R,
+                 int W, int bw, int B, int K, int G, int col0, int k, float log_eps,
+                 cudaStream_t stream) {
+  if (B > (1 << 16) || G < 1 || G > kMaxGroup) {  // 16-bit ids; the staged read ids
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  const size_t smem = group_smem(G, bw, B, K);
+  // always: a block within 48 KB with the static bytes beside it must opt in too
+  const cudaError_t err = cudaFuncSetAttribute(rowgather_counts_group_kernel<T, V, kCols>,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                               static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  if (R > 0 && bw > 0) {
+    rowgather_counts_group_kernel<T, V, kCols><<<(R + G - 1) / G, kGroupThreads, smem, stream>>>(
+        static_cast<const T*>(plane), static_cast<const int32_t*>(rows),
+        static_cast<const int32_t*>(perm), static_cast<const float*>(m),
+        static_cast<const int32_t*>(slot), static_cast<const float*>(dS),
+        static_cast<const uint8_t*>(hit), static_cast<float*>(out), static_cast<int*>(cnt), R, W,
+        bw, B, K, G, col0, static_cast<float>(k), log_eps);
+  }
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // plane: (n_rows, bw) cells of type `cell` (kF32 or kI16), bw % 4 == 0, rows
@@ -700,26 +935,32 @@ extern "C" int epik_rowgather_sum_topk(const void* plane, int cell, const void* 
 }
 
 // plane: (n_rows, bw) cells of type `cell` (kF32 or kBf16), as above; rows:
-// int32 (R, W); m: f32 (R,) window counts; slot: int32 (R,), the read's row of
-// `delta` and `hit` or -1, or null; delta: f32 (A, B), the ambiguous first
-// hits' contributions (0 where no hit); hit: uint8 (A, B), 1 where a first hit
-// lands; out: f32 (R, 4K+2), the full pack's body. B <= bw, B <= 2^16, 1 <= K
-// <= min(64, B), and epik_rowgather_sum_counts_topk_smem(bw, B, K) <=
-// epik_rowgather_sum_counts_topk_smem_limit(cell). Launches on `stream`;
-// returns cudaGetLastError().
+// int32 (R, W); perm: int32 (R,), a permutation of the reads (the locality
+// order: block g takes reads perm[G g .. G g + G - 1]); m: f32 (R,) window
+// counts; slot: int32 (R,), the read's row of `delta` and `hit` or -1, or
+// null; delta: f32 (A, B), the ambiguous first hits' contributions (0 where
+// no hit); hit: uint8 (A, B), 1 where a first hit lands; out: f32 (R, 4K+2),
+// the full pack's body, read r's in row r whatever the order. B <= bw, B <=
+// 2^16, 1 <= K <= min(64, B), 1 <= G <= 32, and
+// epik_rowgather_counts_group_smem(G, bw, B, K) <=
+// epik_rowgather_counts_group_smem_limit(). Launches on `stream`; returns
+// cudaGetLastError().
 extern "C" int epik_rowgather_sum_counts_topk(const void* plane, int cell, const void* rows,
-                                              const void* m, const void* slot,
+                                              const void* perm, const void* m, const void* slot,
                                               const void* delta, const void* hit, void* out,
                                               int R, int W, int bw, int B, int K, int k,
-                                              float log_eps, void* stream) {
+                                              float log_eps, int G, void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
   if (cell == kF32) {
-    return launch_topk<float, true>(plane, rows, m, slot, delta, hit, out, R, W, bw, B, K,
-                                    k, log_eps, 1.f, s);
+    return launch_group<float, 4, false>(plane, rows, perm, m, slot, delta, hit, out, nullptr,
+                                         R, W, bw, B, K, G, 0, k, log_eps, s);
   }
   if (cell == kBf16) {
-    return launch_topk<Bf16, true>(plane, rows, m, slot, delta, hit, out, R, W, bw, B, K, k,
-                                   log_eps, 1.f, s);
+    return bw % 8 == 0
+               ? launch_group<Bf16, 8, false>(plane, rows, perm, m, slot, delta, hit, out,
+                                              nullptr, R, W, bw, B, K, G, 0, k, log_eps, s)
+               : launch_group<Bf16, 4, false>(plane, rows, perm, m, slot, delta, hit, out,
+                                              nullptr, R, W, bw, B, K, G, 0, k, log_eps, s);
   }
   return static_cast<int>(cudaErrorInvalidValue);
 }
@@ -738,57 +979,97 @@ extern "C" long long epik_rowgather_sum_topk_smem_limit(int cell) {
   return -static_cast<long long>(cudaErrorInvalidValue);
 }
 
-// Bytes of dynamic shared memory a rowgather_sum_counts_topk launch at (bw,
-// B, K) asks.
-extern "C" long long epik_rowgather_sum_counts_topk_smem(int bw, int B, int K) {
-  return static_cast<long long>(topk_smem(bw, B, K, true));
+// Bytes of dynamic shared memory a group-layout launch (rowgather_sum_counts_topk,
+// rowgather_sum_counts_cols at B = bw) of G reads a block at (bw, B, K) asks.
+extern "C" long long epik_rowgather_counts_group_smem(int G, int bw, int B, int K) {
+  return static_cast<long long>(group_smem(G, bw, B, K));
 }
 
-// Bytes of dynamic shared memory a rowgather_sum_counts_topk block may take on
-// the current device: the opt-in limit less the kernel's static shared
-// memory. Negative: minus a CUDA error code.
-extern "C" long long epik_rowgather_sum_counts_topk_smem_limit(int cell) {
-  if (cell == kF32) return topk_smem_limit<float, true>();
-  if (cell == kBf16) return topk_smem_limit<Bf16, true>();
-  return -static_cast<long long>(cudaErrorInvalidValue);
+// Bytes of dynamic shared memory a group-layout block may take on the current
+// device: the opt-in limit less the kernel's static shared memory (the same
+// for every instance). Negative: minus a CUDA error code.
+extern "C" long long epik_rowgather_counts_group_smem_limit() {
+  int dev = 0, optin = 0;
+  cudaFuncAttributes attr;
+  if (cudaGetDevice(&dev) != cudaSuccess ||
+      cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev) !=
+          cudaSuccess ||
+      cudaFuncGetAttributes(&attr, rowgather_counts_group_kernel<float, 4, false>) !=
+          cudaSuccess) {
+    return -static_cast<long long>(cudaGetLastError());
+  }
+  return static_cast<long long>(optin) - static_cast<long long>(attr.sharedSizeBytes);
+}
+
+// Blocks of a group-layout launch of G reads at (bw, B, K) that an SM holds
+// at once over a plane of type `cell` (kF32 or kBf16; `cols`: the column
+// form), as the card's occupancy calculator gives them for the compiled
+// kernel. Negative: minus a CUDA error code.
+extern "C" int epik_rowgather_counts_group_blocks_per_sm(int G, int bw, int B, int K, int cell,
+                                                         int cols) {
+  const size_t smem = group_smem(G, bw, B, K);
+  const void* fn = cols               ? reinterpret_cast<const void*>(
+                                            rowgather_counts_group_kernel<float, 4, true>)
+                   : cell == kF32     ? reinterpret_cast<const void*>(
+                                            rowgather_counts_group_kernel<float, 4, false>)
+                   : bw % 8 == 0      ? reinterpret_cast<const void*>(
+                                            rowgather_counts_group_kernel<Bf16, 8, false>)
+                                      : reinterpret_cast<const void*>(
+                                            rowgather_counts_group_kernel<Bf16, 4, false>);
+  int blocks = 0;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         static_cast<int>(smem));
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kGroupThreads, smem);
+  }
+  return err == cudaSuccess ? blocks : -static_cast<int>(err);
 }
 
 // plane: f32 (n_rows, bw), as above; rows: int32 (R, W); m: f32 (R,) window
-// counts; slot: int32 (R,), the read's row of `delta` (and `hit`) or -1, or
-// null; delta: f32 (A, bw), the shifted delta rows or, with `counts`, the
-// classic first hits' contributions; hit: uint8 (A, bw), where a classic first
-// hit lands (`counts` only); out: f32 (R, 2K+3), the shard's partial pack;
-// cnt: int32 (R, K), the candidates' counts (`counts` only, else null); col0:
-// the shard's first global column. bw <= 2^16, 1 <= K <= min(64, bw), and
-// epik_rowgather_sum_cols_smem(bw, K, counts) <=
-// epik_rowgather_sum_cols_smem_limit(counts). Launches on `stream`; returns
+// counts; slot: int32 (R,), the read's row of `delta` or -1, or null; delta:
+// f32 (A, bw), the shifted delta rows; out: f32 (R, 2K+3), the shard's
+// partial pack; col0: the shard's first global column. bw <= 2^16, 1 <= K <=
+// min(64, bw), and epik_rowgather_sum_cols_smem(bw, K) <=
+// epik_rowgather_sum_cols_smem_limit(). Launches on `stream`; returns
 // cudaGetLastError().
 extern "C" int epik_rowgather_sum_cols(const void* plane, const void* rows, const void* m,
-                                       const void* slot, const void* delta, const void* hit,
-                                       void* out, void* cnt, int R, int W, int bw, int K,
-                                       int col0, int k, float log_eps, int counts,
+                                       const void* slot, const void* delta, void* out, int R,
+                                       int W, int bw, int K, int col0, int k, float log_eps,
                                        void* stream) {
-  const auto s = static_cast<cudaStream_t>(stream);
-  if ((counts != 0) != (cnt != nullptr)) return static_cast<int>(cudaErrorInvalidValue);
-  if (counts) {
-    return launch_cols<true>(plane, rows, m, slot, delta, hit, out, cnt, R, W, bw, K, col0, k,
-                             log_eps, s);
-  }
   return launch_cols<false>(plane, rows, m, slot, delta, nullptr, out, nullptr, R, W, bw, K,
-                            col0, k, log_eps, s);
+                            col0, k, log_eps, static_cast<cudaStream_t>(stream));
 }
 
-// Bytes of dynamic shared memory a rowgather_sum_cols launch at (bw, K) asks
-// (`counts`: the classic form): the fused kernels' layout at B = bw.
-extern "C" long long epik_rowgather_sum_cols_smem(int bw, int K, int counts) {
-  return static_cast<long long>(topk_smem(bw, bw, K, counts != 0));
+// Bytes of dynamic shared memory a rowgather_sum_cols launch at (bw, K) asks:
+// the fused kernels' layout at B = bw.
+extern "C" long long epik_rowgather_sum_cols_smem(int bw, int K) {
+  return static_cast<long long>(topk_smem(bw, bw, K, false));
 }
 
 // Bytes of dynamic shared memory a rowgather_sum_cols block may take on the
-// current device (`counts`: the classic form): the opt-in limit less the
-// kernel's static shared memory. Negative: minus a CUDA error code.
-extern "C" long long epik_rowgather_sum_cols_smem_limit(int counts) {
-  return counts ? cols_smem_limit<true>() : cols_smem_limit<false>();
+// current device: the opt-in limit less the kernel's static shared memory.
+// Negative: minus a CUDA error code.
+extern "C" long long epik_rowgather_sum_cols_smem_limit() { return cols_smem_limit<false>(); }
+
+// plane: f32 (n_rows, bw), as above; rows: int32 (R, W); perm: int32 (R,), a
+// permutation of the reads (block g takes reads perm[G g ..]); m: f32 (R,)
+// window counts; slot: int32 (R,), the read's row of `delta` and `hit` or -1,
+// or null; delta: f32 (A, bw), the classic first hits' contributions; hit:
+// uint8 (A, bw), where a first hit lands; out: f32 (R, 2K+3), the shard's
+// partial pack; cnt: int32 (R, K), the candidates' counts, read r's in row r
+// whatever the order; col0: the shard's first global column. bw <= 2^16, 1 <=
+// K <= min(64, bw), 1 <= G <= 32, and epik_rowgather_counts_group_smem(G, bw,
+// bw, K) <= epik_rowgather_counts_group_smem_limit(). Launches on `stream`;
+// returns cudaGetLastError().
+extern "C" int epik_rowgather_sum_counts_cols(const void* plane, const void* rows,
+                                              const void* perm, const void* m, const void* slot,
+                                              const void* delta, const void* hit, void* out,
+                                              void* cnt, int R, int W, int bw, int K, int col0,
+                                              int k, float log_eps, int G, void* stream) {
+  if (cnt == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_group<float, 4, true>(plane, rows, perm, m, slot, delta, hit, out, cnt, R, W,
+                                      bw, bw, K, G, col0, k, log_eps,
+                                      static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* epik_cuda_error_string(int err) {

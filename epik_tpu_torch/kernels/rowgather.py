@@ -31,11 +31,13 @@ says how its design meets that.
   and exact counts over the classic f32 or bf16 plane, each ambiguous read's
   first hit added (``S + dS``, ``C + hit``), and the counts finish of
   ``finish_topk_counts`` into the full pack's (R, 4K+2) body, in one kernel,
-  so neither S nor C reaches device memory. Its block holds bw sums and bw
-  counts: :func:`counts_topk_fits` says whether a width launches on the card
-  (about B = 22,000 at bw ~ B), and past it the steps run
-  :func:`rowgather_sum_counts` and ``finish_topk_counts`` apart (the same
-  bits);
+  so neither S nor C reaches device memory. The group layout: a block takes
+  G reads of the locality order, gathers them in 256-byte column slices into
+  its shared memory (G x bw sums and counts) and finishes them a warp a
+  read; :func:`counts_group` chooses G from the width. :func:`counts_topk_fits`
+  says whether a width launches on the card at all (G = 1: about B = 22,000
+  at bw ~ B), and past it the steps run :func:`rowgather_sum_counts` and
+  ``finish_topk_counts`` apart (the same bits);
 * :func:`rowgather_sum_cols` / :func:`rowgather_sum_counts_cols` -- one model
   shard of the column-sharded dense steps after the tokenizer: the sums over
   the shard's f32 plane (shifted, or classic with counts), each ambiguous
@@ -43,10 +45,11 @@ says how its design meets that.
   (``finish_cols.finish_cols_partial`` / ``_counts``) into its partial pack
   (R, 2 Kl + 3) ``[values | global ids | n_s | max_s | e_s]`` (and the
   classic form's candidate counts), in one kernel, so the shard's sums never
-  reach device memory. :func:`cols_fits` / :func:`counts_cols_fits` say
-  whether a shard width launches on the card (about bwl = 37,000 / 22,000),
-  and past it the step runs the gather and the finish apart (the same bits
-  but ``e_s``'s order of adds).
+  reach device memory; the classic form in the group layout at B = bwl.
+  :func:`cols_fits` / :func:`counts_cols_fits` say whether a shard width
+  launches on the card (about bwl = 37,000 / 22,000), and past it the step
+  runs the gather and the finish apart (the same bits but ``e_s``'s order of
+  adds).
 
 Each dispatches on the tensors' device: the plain PyTorch version for CPU
 tensors, the CUDA kernel for CUDA tensors (or an error).
@@ -62,9 +65,10 @@ from ._build import check, library
 from .finish import MAX_K, finish_topk_counts_plain, finish_topk_plain
 from .finish_cols import finish_cols_partial_counts_plain, finish_cols_partial_plain
 
-__all__ = ["add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
-           "counts_topk_fits", "counts_topk_smem", "locality_order", "rowgather_sum",
-           "rowgather_sum_cols",
+__all__ = ["GROUP_BLOCK_RESERVE", "GROUP_MAX", "GROUP_MIN_BLOCKS", "GROUP_ROW_IDS",
+           "GROUP_THREADS", "add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
+           "counts_group", "counts_topk_fits", "counts_topk_smem", "group_smem",
+           "locality_order", "rowgather_sum", "rowgather_sum_cols",
            "rowgather_sum_cols_plain", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
            "rowgather_sum_counts_cols", "rowgather_sum_counts_cols_plain",
            "rowgather_sum_counts_plain", "rowgather_sum_counts_topk",
@@ -77,6 +81,19 @@ _count_lock = threading.Lock()
 _CELL = {torch.float32: 0, torch.int16: 1, torch.bfloat16: 2}
 #: the fused kernel's touched ids are 16 bits
 _MAX_TOPK_B = 1 << 16
+#: the group layout's block, as csrc/rowgather_sum.cu compiles it
+#: (kGroupThreads, kGroupRowIds): threads, staged row ids
+GROUP_THREADS = 256
+GROUP_ROW_IDS = 2048
+#: the choice of G: at most GROUP_MAX reads a block, as many as fit
+#: GROUP_MIN_BLOCKS blocks within the card's shared memory (the kernel's
+#: register budget, EPIK_GROUP_MIN_BLOCKS)
+GROUP_MAX = 4
+GROUP_MIN_BLOCKS = 3
+#: the shared memory an SM spends beside each block's dynamic bytes (the
+#: kernel's 384 static bytes and the 1 KB the card reserves a block), rounded
+#: up: an H100's SM holds its 227 KB block limit plus one such reserve
+GROUP_BLOCK_RESERVE = 2048
 
 
 def _count(fn) -> None:
@@ -420,25 +437,54 @@ def rowgather_sum_counts_topk_plain(plane: torch.Tensor, rows: torch.Tensor,
     return finish_topk_counts_plain(S, C, m_f32, K=K, k=k, log_eps=log_eps, full=True)
 
 
+def group_smem(G: int, bw: int, B: int, K: int) -> int:
+    """Bytes of dynamic shared memory of a group-layout block of G reads at
+    (bw, B, K), the CUDA source's formula (``group_smem``): G x bw sums and
+    counts, the staged row ids, ceil(B / 32) mask words, B 16-bit ids
+    (padded to 4 bytes) and the warps' K candidates (value and id)."""
+    words = 2 * G * bw + GROUP_ROW_IDS + (B + 31) // 32 + (B + 1) // 2
+    return words * 4 + GROUP_THREADS // 32 * K * 8
+
+
+def counts_group(bw: int, B: int, K: int, limit: int) -> int:
+    """G, the reads a group-layout block takes at (bw, B, K) on a card whose
+    block may take ``limit`` bytes of shared memory: the largest G up to
+    GROUP_MAX of whose blocks an SM holds GROUP_MIN_BLOCKS (n blocks, each
+    with its reserve, within one block's limit and one reserve), else 1 (one
+    block an SM; whether that fits is :func:`counts_topk_fits`'s
+    question)."""
+    n, reserve = GROUP_MIN_BLOCKS, GROUP_BLOCK_RESERVE
+    G = GROUP_MAX
+    while G > 1 and n * (group_smem(G, bw, B, K) + reserve) > limit + reserve:
+        G -= 1
+    return G
+
+
+def _group_layout(plane: torch.Tensor, B: int, K: int) -> tuple[int, int, int]:
+    """(G, bytes of the launch, bytes a block may take on the plane's card)
+    of a group-layout launch at the plane's width. CUDA planes only."""
+    with torch.cuda.device(plane.device):
+        limit = library().epik_rowgather_counts_group_smem_limit()
+    if limit < 0:
+        check(int(-limit), "the group layout's shared memory limit")
+    G = counts_group(plane.shape[1], B, K, limit)
+    return G, group_smem(G, plane.shape[1], B, K), limit
+
+
 def counts_topk_smem(plane: torch.Tensor, B: int, K: int) -> tuple[int, int]:
     """(bytes of shared memory a :func:`rowgather_sum_counts_topk` launch at
-    this width asks, bytes a block of it may take on the plane's card), from
-    the CUDA source's own formula and the card's opt-in limit less the
-    kernel's static shared memory. CUDA planes only."""
-    lib = library()
-    with torch.cuda.device(plane.device):
-        need = lib.epik_rowgather_sum_counts_topk_smem(plane.shape[1], B, K)
-        limit = lib.epik_rowgather_sum_counts_topk_smem_limit(_CELL[plane.dtype])
-    if limit < 0:
-        check(int(-limit), "rowgather_sum_counts_topk")
-    return need, limit
+    this width asks, at the G :func:`counts_group` chooses, bytes a block of
+    it may take on the plane's card: the opt-in limit less the kernel's
+    static shared memory). CUDA planes only."""
+    return _group_layout(plane, B, K)[1:]
 
 
 def counts_topk_fits(plane: torch.Tensor, B: int, K: int) -> bool:
     """Whether the classic plane's fused kernel takes a tree of B branches at
-    the plane's width: B <= 2**16 (16-bit ids) and its bw sums, bw counts and
-    B ids within the card's shared memory (about B = 22,000 at bw ~ B). The
-    plain version on the CPU has no limit."""
+    the plane's width: B <= 2**16 (16-bit ids) and a block of one read (bw
+    sums, bw counts, the row ids, B ids) within the card's shared memory
+    (about B = 22,000 at bw ~ B). The plain version on the CPU has no
+    limit."""
     if plane.device.type != "cuda":
         return True
     if B > _MAX_TOPK_B:
@@ -462,8 +508,9 @@ def _check_counts_topk_args(plane, rows, m_f32, amb_read, amb_dS, amb_hit, B: in
         raise ValueError(f"K={K} must lie in [1, min({MAX_K}, B={B})]")
     _check_amb(amb_read, {"amb_dS": (amb_dS, torch.float32),
                           "amb_hit": (amb_hit, torch.bool)}, B, dev)
-    # the limit: 16-bit ids, and bw sums + bw counts + ceil(B/32) mask words +
-    # B ids + the candidates within the card's opt-in shared memory
+    # the limit: 16-bit ids, and a block of one read (bw sums + bw counts +
+    # the row ids + ceil(B/32) mask words + B ids + the candidates) within the
+    # card's opt-in shared memory
     if dev.type == "cuda":
         if B > _MAX_TOPK_B:
             raise ValueError(f"B={B}: the fused kernel's ids are 16 bits (B <= {_MAX_TOPK_B})")
@@ -486,14 +533,16 @@ def _sum_counts_topk(fn, plane, rows, m_f32, amb_read, amb_dS, amb_hit, *, B, K,
     if R == 0:
         return out
     slot = _slots(amb_read, R, plane.device)
+    perm = locality_order(rows)
+    G = _group_layout(plane, B, K)[0]
     lib = library()
     with torch.cuda.device(plane.device):
         err = lib.epik_rowgather_sum_counts_topk(
-            plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(), m_f32.data_ptr(),
-            slot.data_ptr() if slot is not None else None,
+            plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(), perm.data_ptr(),
+            m_f32.data_ptr(), slot.data_ptr() if slot is not None else None,
             amb_dS.data_ptr() if slot is not None else None,
             amb_hit.data_ptr() if slot is not None else None, out.data_ptr(),
-            R, W, plane.shape[1], B, K, k, float(log_eps), _stream(plane.device))
+            R, W, plane.shape[1], B, K, k, float(log_eps), G, _stream(plane.device))
     check(err, fn.__name__)
     _count(fn)
     return out
@@ -511,7 +560,9 @@ def rowgather_sum_counts_topk(plane: torch.Tensor, rows: torch.Tensor, m_f32: to
 
     Every index must lie in [0, n_rows), misses pointing at an all-zero row;
     ``amb_read`` holds distinct reads. On the card, B must be within
-    :func:`counts_topk_fits`'s limit (a wider tree raises ValueError)."""
+    :func:`counts_topk_fits`'s limit (a wider tree raises ValueError). The
+    kernel takes the reads in :func:`locality_order`, G of them a block
+    (:func:`counts_group`); each read's row of the pack is its own."""
     _check_counts_topk_args(plane, rows, m_f32, amb_read, amb_dS, amb_hit, B, K,
                             torch.float32)
     return _sum_counts_topk(rowgather_sum_counts_topk, plane, rows, m_f32, amb_read, amb_dS,
@@ -562,15 +613,18 @@ def cols_smem(plane: torch.Tensor, K: int, counts: bool) -> tuple[int, int]:
     """(bytes of shared memory a :func:`rowgather_sum_cols` launch
     (``counts``: :func:`rowgather_sum_counts_cols`) at the plane's width asks,
     bytes a block of it may take on the plane's card), from the CUDA source's
-    own formula (the fused kernels' layout at B = bwl) and the card's opt-in
-    limit less the kernel's static shared memory. CUDA planes only."""
+    own formula (the shifted fused kernel's layout, or the group layout at
+    its G, at B = bwl) and the card's opt-in limit less the kernel's static
+    shared memory. CUDA planes only."""
     bw = plane.shape[1]
+    if counts:
+        return _group_layout(plane, bw, min(K, bw))[1:]
     lib = library()
     with torch.cuda.device(plane.device):
-        need = lib.epik_rowgather_sum_cols_smem(bw, min(K, bw), int(counts))
-        limit = lib.epik_rowgather_sum_cols_smem_limit(int(counts))
+        need = lib.epik_rowgather_sum_cols_smem(bw, min(K, bw))
+        limit = lib.epik_rowgather_sum_cols_smem_limit()
     if limit < 0:
-        check(int(-limit), "rowgather_sum_counts_cols" if counts else "rowgather_sum_cols")
+        check(int(-limit), "rowgather_sum_cols")
     return need, limit
 
 
@@ -593,8 +647,8 @@ def cols_fits(plane: torch.Tensor, K: int) -> bool:
 
 def counts_cols_fits(plane: torch.Tensor, K: int) -> bool:
     """Whether :func:`rowgather_sum_counts_cols` takes a shard of the plane's
-    width: as :func:`cols_fits` with bwl counts beside the sums (about bwl =
-    22,000)."""
+    width: bwl <= 2**16 and a group-layout block of one read at B = bwl
+    within the card's shared memory (about bwl = 22,000)."""
     return _cols_fit(plane, K, True)
 
 
@@ -634,14 +688,19 @@ def _sum_cols(fn, plane, rows, m_f32, amb_read, delta, hit, *, K, k, log_eps, co
         return out, cnt
     slot = _slots(amb_read, R, plane.device)
     lib = library()
+    amb = ((slot.data_ptr(), delta.data_ptr()) if slot is not None else (None, None))
     with torch.cuda.device(plane.device):
-        err = lib.epik_rowgather_sum_cols(
-            plane.data_ptr(), rows.data_ptr(), m_f32.data_ptr(),
-            slot.data_ptr() if slot is not None else None,
-            delta.data_ptr() if slot is not None else None,
-            hit.data_ptr() if slot is not None and counts else None, out.data_ptr(),
-            cnt.data_ptr() if counts else None, R, W, bw, Kl, col0, k, float(log_eps),
-            int(counts), _stream(plane.device))
+        if counts:
+            perm = locality_order(rows)
+            G = _group_layout(plane, bw, Kl)[0]
+            err = lib.epik_rowgather_sum_counts_cols(
+                plane.data_ptr(), rows.data_ptr(), perm.data_ptr(), m_f32.data_ptr(), *amb,
+                hit.data_ptr() if slot is not None else None, out.data_ptr(), cnt.data_ptr(),
+                R, W, bw, Kl, col0, k, float(log_eps), G, _stream(plane.device))
+        else:
+            err = lib.epik_rowgather_sum_cols(
+                plane.data_ptr(), rows.data_ptr(), m_f32.data_ptr(), *amb, out.data_ptr(), R,
+                W, bw, Kl, col0, k, float(log_eps), _stream(plane.device))
     check(err, fn.__name__)
     _count(fn)
     return out, cnt
@@ -680,7 +739,9 @@ def rowgather_sum_counts_cols(plane: torch.Tensor, rows: torch.Tensor, m_f32: to
     pack, int32 (R, Kl) the candidates' exact counts).
 
     On the card, bwl must be within :func:`counts_cols_fits`'s limit (a wider
-    shard raises ValueError)."""
+    shard raises ValueError). The kernel takes the reads in
+    :func:`locality_order`, G of them a block (:func:`counts_group` at B =
+    bwl); each read's rows of the outputs are its own."""
     _check_cols_args(rowgather_sum_counts_cols, plane, rows, m_f32, K, col0,
                      {"amb_dS": (amb_dS, torch.float32), "amb_hit": (amb_hit, torch.bool)},
                      amb_read)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Layout variants of four of the port's kernels, timed in turns on one card:
+"""Layout variants of five of the port's kernels, timed in turns on one card:
 
-    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols]
+    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols|group] [--parent PATH]
 
 * kernel 1d, the gather alone (``rowgather_sum``, f32 and int16), on
   ``chip_smoke.py``'s D652 pair rows (the first batch of 16,384 reads of the
@@ -36,6 +36,20 @@
   at 1 tile of 32 warps (the layout the sorted block replaced) and at 2 and 4
   tiles of 8 warps, several blocks an SM, with the cp.async.bulk write-out
   and with a thread block cluster a read.
+
+* the fused counts kernels in the group layout, 1b (``rowgather_sum_counts_topk``
+  and ``_bf16``) and 1f (``rowgather_sum_counts_cols``), on ``chip_smoke.py``'s
+  D652 classic rows with their first hits (the first batch of 16,384 reads of
+  the classic and the bf16 step, recorded; 1f on the f32 rows as one shard,
+  B = bwl = 1,408): G reads a block (a launch argument; the shipped choice,
+  G = 4 at D652, and G = 2, 8) against blocks an SM (``-D
+  EPIK_GROUP_MIN_BLOCKS``, the register budget), threads a block
+  (``EPIK_GROUP_THREADS``) and loads in flight a thread
+  (``EPIK_GROUP_UNROLL``), and the shipped layout in read order; with
+  ``--parent``, the parent checkout's kernels (its ``rowgather_sum.cu``
+  built the same way, called through its own entry points) in the same
+  turns. Each variant's blocks an SM, from the occupancy calculator, is
+  written beside its time.
 
 Each variant is built by ``nvcc`` from this checkout's sources (the shipped
 ones with ``-D`` overrides of their layout macros, or the variant source)
@@ -98,6 +112,20 @@ SUM = {
     "sum_slice512": (["-DEPIK_SLICE_LANES=32", "-DEPIK_SLICE_READS=8"], True),
     "sum_slice256_min_blocks8": (["-DEPIK_SLICE_MIN_BLOCKS=8"], True),
 }
+#: the group layout's variants: name -> (nvcc -D flags, G or None for the
+#: wrapper's choice, locality order)
+GROUP = {
+    "group": ([], None, True),
+    "group_read_order": ([], None, False),
+    "group_unroll4": (["-DEPIK_GROUP_UNROLL=4"], None, True),
+    "group_unroll12": (["-DEPIK_GROUP_UNROLL=12"], None, True),
+    "group_unroll16": (["-DEPIK_GROUP_UNROLL=16"], None, True),
+    "group_g4_min_blocks2": (["-DEPIK_GROUP_MIN_BLOCKS=2"], 4, True),
+    "group_g4_min_blocks4": (["-DEPIK_GROUP_MIN_BLOCKS=4"], 4, True),
+    "group_g8_min_blocks2": (["-DEPIK_GROUP_MIN_BLOCKS=2"], 8, True),
+    "group_g2_threads128_min_blocks6": (["-DEPIK_GROUP_THREADS=128",
+                                         "-DEPIK_GROUP_MIN_BLOCKS=6"], 2, True),
+}
 #: kernel A's variants: name -> nvcc -D flags
 COLS = {
     "cols": [],
@@ -109,7 +137,8 @@ COLS = {
 
 def build(jobs: dict, out_dir: str) -> dict:
     """``jobs``: name -> (source, -D flags). One ``nvcc`` each, all at
-    once: name -> loaded library."""
+    once, the source's own directory on the include path: name -> loaded
+    library."""
     from epik_tpu_torch.kernels._build import NVCC_FLAGS, _nvcc
 
     os.makedirs(out_dir, exist_ok=True)
@@ -117,8 +146,8 @@ def build(jobs: dict, out_dir: str) -> dict:
     for name, (src, defines) in jobs.items():
         so = os.path.join(out_dir, f"{name}.so")
         procs[name] = (so, subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, *defines, "-shared", "-I", CSRC, "-o", so, src],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            [_nvcc(), *NVCC_FLAGS, *defines, "-shared", "-I", os.path.dirname(src), "-o", so,
+             src], stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
     libs = {}
     for name, (so, p) in procs.items():
         log = p.communicate()[0]
@@ -428,10 +457,148 @@ def cols_times(torch, np, dev, out: dict) -> None:
           torch.from_numpy(m_b).to(dev))
 
 
+def group_times(torch, np, dev, out: dict, parent: str | None) -> None:
+    """The group layout's variants (and the parent's fused counts kernels) on
+    D652's classic rows with their first hits: 1b in f32 and bf16, 1f on the
+    f32 rows as one shard."""
+    import gc
+
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.kernels import rowgather as rg
+
+    src = os.path.join(CSRC, "rowgather_sum.cu")
+    builds = {}
+    for name, (defines, _, _) in GROUP.items():
+        builds.setdefault(" ".join(defines), (name, (src, defines)))
+    jobs = dict(builds.values())
+    if parent is not None:
+        jobs["parent"] = (os.path.join(parent, CSRC, "rowgather_sum.cu"), [])
+    libs = build(jobs, os.path.join("build", "sweep", "group"))
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    for name in jobs:
+        lib = libs[name]
+        if name == "parent":
+            lib.epik_rowgather_sum_counts_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, i, i, i,
+                                                           i, i, i, f, vp]
+            lib.epik_rowgather_sum_cols.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
+                                                    i, f, i, vp]
+            continue
+        lib.epik_rowgather_sum_counts_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i,
+                                                       i, i, i, i, f, i, vp]
+        lib.epik_rowgather_sum_counts_cols.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i,
+                                                       i, i, i, i, f, i, vp]
+        lib.epik_rowgather_counts_group_smem.argtypes = [i, i, i, i]
+        lib.epik_rowgather_counts_group_smem.restype = ctypes.c_longlong
+        lib.epik_rowgather_counts_group_smem_limit.restype = ctypes.c_longlong
+        lib.epik_rowgather_counts_group_blocks_per_sm.argtypes = [i] * 6
+    lib_of = {name: libs[builds[" ".join(d)][0]] for name, (d, _, _) in GROUP.items()}
+    if parent is not None:
+        lib_of["parent"] = libs["parent"]
+    db, records = d652_fixture()
+    tree = parse_newick(db.tree())
+    for cell, fields, fused in (("f32", {"plane_mode": "classic"}, "rowgather_sum_counts_topk"),
+                                ("bf16", {"precision": "bf16"},
+                                 "rowgather_sum_counts_topk_bf16")):
+        placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
+        calls = []
+        with recording(step_mod, fused, calls, limit=1):
+            placer.place(records[:BATCH])
+        (plane, rows, m, reads, dS, hit), kw = calls[0]
+        if reads is None:
+            raise AssertionError(f"D652 {cell}: the first batch has no first hits")
+        R, W = rows.shape
+        bw, B, K = plane.shape[1], kw["B"], kw["K"]
+        slot = rg._slots(reads, R, dev)
+        orders = {True: rg.locality_order(rows),
+                  False: torch.arange(R, dtype=torch.int32, device=dev)}
+        code = 0 if cell == "f32" else 2
+        forms = {"topk": (B, K, rg.rowgather_sum_counts_topk_plain(plane, rows, m, reads, dS, hit,
+                                                                  **kw))}
+        if cell == "f32":
+            dS_w = torch.zeros((dS.shape[0], bw), device=dev)
+            hit_w = torch.zeros((dS.shape[0], bw), dtype=torch.bool, device=dev)
+            dS_w[:, :B], hit_w[:, :B] = dS, hit
+            ckw = dict(K=K, k=kw["k"], log_eps=kw["log_eps"], col0=0)
+            forms["cols"] = (bw, min(K, bw), rg.rowgather_sum_counts_cols_plain(
+                plane, rows, m, reads, dS_w, hit_w, **ckw))
+        for form, (Bf, Kf, want) in forms.items():
+            limit = lib_of["group"].epik_rowgather_counts_group_smem_limit()
+            G_of = {name: (g or rg.counts_group(bw, Bf, Kf, limit))
+                    for name, (_, g, _) in GROUP.items()}
+            out_t = torch.empty((R, 4 * Kf + 2 if form == "topk" else 2 * Kf + 3), device=dev)
+            cnt = torch.empty((R, Kf), dtype=torch.int32, device=dev)
+            dsp, hp = ((dS.data_ptr(), hit.data_ptr()) if form == "topk"
+                       else (dS_w.data_ptr(), hit_w.data_ptr()))
+            slot_p = slot.data_ptr()
+            stream = torch.cuda.current_stream().cuda_stream
+
+            def call(name):
+                lib = lib_of[name]
+                if name == "parent":
+                    err = (lib.epik_rowgather_sum_counts_topk(
+                        plane.data_ptr(), code, rows.data_ptr(), m.data_ptr(), slot_p,
+                        dsp, hp, out_t.data_ptr(), R, W, bw, Bf, Kf, kw["k"], kw["log_eps"],
+                        stream) if form == "topk" else lib.epik_rowgather_sum_cols(
+                        plane.data_ptr(), rows.data_ptr(), m.data_ptr(), slot_p, dsp,
+                        hp, out_t.data_ptr(), cnt.data_ptr(), R, W, bw, Kf, 0, kw["k"],
+                        kw["log_eps"], 1, stream))
+                else:
+                    perm = orders[GROUP[name][2]].data_ptr()
+                    err = (lib.epik_rowgather_sum_counts_topk(
+                        plane.data_ptr(), code, rows.data_ptr(), perm, m.data_ptr(),
+                        slot_p, dsp, hp, out_t.data_ptr(), R, W, bw, Bf, Kf, kw["k"],
+                        kw["log_eps"], G_of[name], stream) if form == "topk"
+                        else lib.epik_rowgather_sum_counts_cols(
+                        plane.data_ptr(), rows.data_ptr(), perm, m.data_ptr(), slot_p,
+                        dsp, hp, out_t.data_ptr(), cnt.data_ptr(), R, W, bw, Kf, 0, kw["k"],
+                        kw["log_eps"], G_of[name], stream))
+                if err:
+                    raise RuntimeError(f"{name}: CUDA error {err}")
+
+            def check(name):
+                out_t.zero_()
+                call(name)
+                torch.cuda.synchronize()
+                got = out_t.cpu().numpy()
+                if form == "topk":
+                    w = want.cpu().numpy()
+                    np.testing.assert_array_equal(got[:, :Kf], w[:, :Kf], err_msg=name)
+                    np.testing.assert_array_equal(got[:, 2 * Kf:], w[:, 2 * Kf:], err_msg=name)
+                    np.testing.assert_allclose(got[:, Kf:2 * Kf], w[:, Kf:2 * Kf], rtol=1e-4,
+                                               atol=1e-30, err_msg=name)
+                else:
+                    w = want[0].cpu().numpy()
+                    np.testing.assert_array_equal(got[:, :-1], w[:, :-1], err_msg=name)
+                    np.testing.assert_allclose(got[:, -1], w[:, -1], rtol=1e-6, atol=0.0,
+                                               err_msg=name)
+                    if not torch.equal(cnt, want[1]):
+                        raise AssertionError(f"1f {name}: counts differ")
+
+            names = [*GROUP, *(["parent"] if parent is not None else [])]
+            layouts = {}
+            for name in GROUP:
+                lib, G = lib_of[name], G_of[name]
+                layouts[name] = {
+                    "G": G, "smem": lib.epik_rowgather_counts_group_smem(G, bw, Bf, Kf),
+                    "blocks_per_sm": lib.epik_rowgather_counts_group_blocks_per_sm(
+                        G, bw, Bf, Kf, code, int(form == "cols"))}
+            out[f"group_{form}_{cell}"] = {"shape": [R, W, bw], "B": Bf, "layouts": layouts,
+                                           "ms": in_turns(torch, names, call, check)}
+        del placer, calls, plane, rows, m, reads, dS, hit, forms
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols"), default=None,
-                    help="sweep one kernel only")
+    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols", "group"),
+                    default=None, help="sweep one kernel only")
+    ap.add_argument("--parent", default=None,
+                    help="a checkout of the parent commit: its fused counts kernels join the "
+                         "group sweep's turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, chip_smoke.REPO)
     sys.path.insert(0, os.path.join(chip_smoke.REPO, "tests"))
@@ -452,6 +619,8 @@ def main(argv=None) -> int:
         cols_times(torch, np, dev, out)
     if args.only in (None, "sum"):
         sum_times(torch, dev, out)
+    if args.only in (None, "group"):
+        group_times(torch, np, dev, out, args.parent)
     print(card_line())
     print(json.dumps(out))
     return 0

@@ -2,7 +2,7 @@
 """CUDA-event times of the port's device steps and kernels, for this checkout
 of the port or another one, on one card.
 
-    python3 step_times.py [--repo PATH] [--profile]
+    python3 step_times.py [--repo PATH] [--profile] [--only d652]
 
 On ``chip_smoke.py``'s D652 database (652 leaves, 1,303 branches, k = 10) with
 its first batch of 16,384 reads (IUPAC reads among them), and
@@ -22,7 +22,13 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   them ``rowgather_sum_counts`` and ``_bf16``), and on the same rows the
   gather apart: with counts (kernel 1c, ``rowgather_sum_counts`` and
   ``_bf16``) on the classic planes, alone (kernel 1d, ``rowgather_sum``) on
-  the int16 plane;
+  the int16 plane; on the classic planes also the unfused pair of the fused
+  counts kernel (1c, the first hits added, ``finish_topk_counts``) and that
+  finish alone on 1c's sums;
+* with ``lookup_where="device"`` (the classic plane), the step the batch
+  takes (the device tokenizer's, or ``place_batch_device_densedb`` where the
+  keys are looked up on the device), its fused counts kernel and the
+  unfused pair on its rows;
 * ``ShardedTorchPlacer`` on a 1x1 mesh, the column-sharded dense step with
   the default config (the pair plane in one column shard) and with
   ``plane_mode="classic"``, and the kernel each shard ends in, where the port
@@ -30,7 +36,10 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   with the shard's column finish fused in); in a port without them, the
   gather alone (``rowgather_sum`` / ``rowgather_sum_counts``) that the step
   ran before its column finish; on the classic plane also kernel A's counts
-  form (``finish_cols_partial_counts``) on the shard's sums and counts.
+  form (``finish_cols_partial_counts``) on the shard's sums and counts with
+  their first hits, and the unfused pair (1c, the first hits, kernel A).
+
+``--only d652`` stops there.
 
 On ``chip_smoke.py``'s config-4 database (10,000 leaves, 19,999 branches,
 k = 10) with 4,096 clean 150 bp reads and 4,096 400 bp reads, and
@@ -114,6 +123,7 @@ from chip_smoke import (
     cuda_ms,
     d652_fixture,
     recording,
+    unfused_pair,
 )
 
 
@@ -190,6 +200,7 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     del placer, st
     torch.cuda.empty_cache()
     variant_times(torch, dev, out, db, tree, seqs)
+    lookup_device_times(torch, dev, out, db, tree, seqs)
     sharded_dense_times(torch, out, db, tree, seqs)
 
 
@@ -247,7 +258,10 @@ def sharded_dense_times(torch, out: dict, db, tree, seqs, prefix: str = "d652",
                         configs=(("", {}), ("_classic", {"plane_mode": "classic"}))) -> None:
     """The column-sharded dense step on a 1x1 mesh under each of ``configs``
     (name suffix, PlacerConfig fields) and the kernel its shard ends in (its
-    first call recorded) into ``out``, where the port has the step."""
+    first call recorded) into ``out``, where the port has the step; on the
+    classic plane also kernel A's counts form on the shard's sums and counts
+    with its first hits, and the unfused pair (1c, the first hits, kernel A)."""
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.parallel import sharding as sh_mod
     from epik_tpu_torch.parallel.mesh import make_mesh
@@ -277,10 +291,14 @@ def sharded_dense_times(torch, out: dict, db, tree, seqs, prefix: str = "d652",
                                                                                 **k_kw))
         out[f"{prefix}_sharded{suffix}_{kernel}_shape"] = [*k_args[1].shape, k_args[0].shape[1]]
         if not placer._shifted:  # kernel A's counts form on the shard's sums and counts
-            S, C = sh_mod.rowgather_sum_counts(k_args[0], k_args[1])
+            S, C = sh_mod.add_first_hits(*sh_mod.rowgather_sum_counts(k_args[0], k_args[1]),
+                                         *k_args[3:6])
             fkw = {n: k_kw[n] for n in ("K", "k", "log_eps", "col0")}
             out[f"{prefix}_sharded{suffix}_finish_cols_partial_counts_ms"] = cuda_ms(
                 torch, lambda: sh_mod.finish_cols_partial_counts(S, C, k_args[2], **fkw))
+            if kernel == fused:  # the unfused pair: 1c, the first hits added, kernel A
+                out[f"{prefix}_sharded{suffix}_unfused_pair_ms"] = cuda_ms(
+                    torch, unfused_pair(kernels_mod, kcalls[0], cols=True))
             del S, C
         del placer, calls, kcalls, args, k_args
         torch.cuda.empty_cache()
@@ -435,6 +453,17 @@ def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
         gather = kernels_mod.KERNELS[apart]
         scale = {"scale": kw["scale"]} if "scale" in kw else {}
         out[f"{prefix}_{apart}_ms"] = cuda_ms(torch, lambda: gather(args[0], args[1], **scale))
+    if kernel.startswith("rowgather_sum_counts_topk"):
+        # the unfused pair on the same rows: 1c, the first hits added, the
+        # counts finish; and the finish alone on 1c's sums
+        out[f"{prefix}_unfused_pair_ms"] = cuda_ms(torch, unfused_pair(kernels_mod, calls[0],
+                                                                       cols=False))
+        B, m = kw["B"], args[2]
+        S, C = gather(args[0], args[1])
+        S, C = kernels_mod.rowgather.add_first_hits(S[:, :B], C[:, :B], *args[3:6])
+        fkw = {n: kw[n] for n in ("K", "k", "log_eps")}
+        out[f"{prefix}_finish_topk_counts_ms"] = cuda_ms(
+            torch, lambda: kernels_mod.finish_topk_counts(S, C, m, **fkw))
 
 
 def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
@@ -455,6 +484,41 @@ def variant_times(torch, dev, out: dict, db, tree, seqs) -> None:
                             APART.get(name))
         del placer
         torch.cuda.empty_cache()
+
+
+def lookup_device_times(torch, dev, out: dict, db, tree, seqs) -> None:
+    """The D652 step under ``lookup_where="device"`` (the classic plane; the
+    device tokenizer where it takes the batch, else the keys looked up on the
+    device, ``place_batch_device_densedb``), the fused counts kernel it ends
+    in and, on the same rows, the unfused pair (1c, the first hits,
+    ``finish_topk_counts``)."""
+    from epik_tpu_torch import kernels as kernels_mod
+    from epik_tpu_torch.engine import placer as placer_mod
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+
+    kernel = "rowgather_sum_counts_topk"
+    placer = TorchPlacer(db, tree, config=PlacerConfig(lookup_where="device"), device=dev)
+    steps = {"place_batch_dense_bytes": [], "place_batch_device_densedb": []}
+    kcalls = []
+    with recording(placer_mod, "place_batch_dense_bytes", steps["place_batch_dense_bytes"],
+                   limit=1), \
+            recording(placer_mod, "place_batch_device_densedb",
+                      steps["place_batch_device_densedb"], limit=1), \
+            recording(step_mod, kernel, kcalls, limit=1):
+        placer.place([(f"r{i}", s) for i, s in enumerate(seqs)])
+    name, ((args, kw),) = next((n, c) for n, c in steps.items() if c)
+    out["d652_lookup_device_step"] = name
+    out["d652_lookup_device_step_ms"] = cuda_ms(torch, lambda: getattr(step_mod, name)(*args,
+                                                                                      **kw))
+    (k_args, k_kw), = kcalls
+    out[f"d652_lookup_device_{kernel}_ms"] = cuda_ms(
+        torch, lambda: kernels_mod.KERNELS[kernel](*k_args, **k_kw))
+    out["d652_lookup_device_unfused_pair_ms"] = cuda_ms(
+        torch, unfused_pair(kernels_mod, kcalls[0], cols=False))
+    del placer, steps, kcalls, args, k_args
+    torch.cuda.empty_cache()
 
 
 def wide_classic_times(torch, dev, out: dict) -> None:
@@ -598,6 +662,8 @@ def main(argv=None) -> int:
     ap.add_argument("--repo", default=None, help="checkout whose port is timed")
     ap.add_argument("--profile", action="store_true",
                     help="print the dense, the codes and the CSR step's time by operator")
+    ap.add_argument("--only", choices=("d652",), default=None,
+                    help="time D652's steps and kernels only")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.repo or chip_smoke.REPO))
     import torch
@@ -615,17 +681,21 @@ def main(argv=None) -> int:
     from epik_tpu_torch.ops import csr as csr_mod
 
     dev = torch.device("cuda")
+    out = {"port": os.path.dirname(os.path.abspath(epik_tpu_torch.__file__)),
+           "device": torch.cuda.get_device_name(0), "skipped": []}
+    dense_times(torch, dev, out, args.profile)
+    torch.cuda.empty_cache()
+    if args.only == "d652":
+        print(card_line())
+        print(json.dumps(out))
+        return 0
     db, ref = bigtree_db()
     tree = parse_newick(db.tree())
+    out["B"] = tree.get_node_count()
     reads = reads_from_reference(ref, BT_BATCH, length=150, mutation_rate=0.02, seed=11)
     long_reads = reads_from_reference(ref, BT_LONG, length=400, mutation_rate=0.02, seed=12)
     seqs = list(dict.fromkeys(s for _, s in reads))
     long_seqs = list(dict.fromkeys(s for _, s in long_reads))
-    out = {"port": os.path.dirname(os.path.abspath(epik_tpu_torch.__file__)),
-           "device": torch.cuda.get_device_name(0), "B": tree.get_node_count(),
-           "skipped": []}
-    dense_times(torch, dev, out, args.profile)
-    torch.cuda.empty_cache()
     codes_times(torch, dev, out, args.profile)
 
     placer = TorchPlacer(db, tree, config=PlacerConfig(dense_db="off"), device=dev)

@@ -197,7 +197,7 @@ def test_cli_sharded_classic_past_the_fused_limit_matches_jax_cli(fixture_dir, c
                                                                   monkeypatch):
     """``--engine sharded --plane-mode classic`` on a 1x1 mesh with the fused
     counts kernel refusing the shard (``counts_cols_fits``, as it does on the
-    card past bwl 22,032): every batch runs the gather with counts and kernel
+    card past bwl 22,064): every batch runs the gather with counts and kernel
     A's counts form (``finish_cols_partial_counts``) apart; the jplace
     matches the JAX CLI's sharded classic run."""
     from epik_tpu_torch.parallel import sharding

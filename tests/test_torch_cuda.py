@@ -40,11 +40,16 @@ from epik_tpu_torch.kernels.finish_cols import (
     finish_cols_partial_plain,
 )
 from epik_tpu_torch.kernels.rowgather import (
+    GROUP_BLOCK_RESERVE,
+    GROUP_MAX,
+    GROUP_MIN_BLOCKS,
     cols_fits,
     cols_smem,
     counts_cols_fits,
+    counts_group,
     counts_topk_fits,
     counts_topk_smem,
+    group_smem,
     locality_order,
     rowgather_sum,
     rowgather_sum_cols,
@@ -784,22 +789,47 @@ def test_rowgather_sum_cols_at_and_past_its_limit(cuda, counts):
         _check_partial(got, want)
 
 
+def _group_limit(cuda):
+    """Bytes a group-layout block may take on the card."""
+    return counts_topk_smem(torch.empty((2, 128), device=cuda), 100, 7)[1]
+
+
+def _group_48kb_edge(cuda, B_of):
+    """A width bw and a K whose group-layout block (at its G) asks within 64
+    bytes of 48 KB, under the kernel's 384 static bytes: the widest bw (a
+    multiple of 8) with such a K (``B_of(bw)`` branches)."""
+    edge, limit = 48 * 1024, _group_limit(cuda)
+    for bw in range(2048, 256, -8):
+        B = B_of(bw)
+        for K in range(1, min(64, B) + 1):
+            if edge - 64 < group_smem(counts_group(bw, B, K, limit), bw, B, K) <= edge:
+                return bw, K
+    raise AssertionError("no group layout at the 48 KB edge")
+
+
 @pytest.mark.parametrize("counts", [False, True])
 def test_cols_kernels_at_the_48kb_edge(cuda, counts):
-    """Both column kernels at the widest width whose dynamic shared memory
-    is within 48 KB, which it is not with the kernels' static bytes (the
-    launch must opt in): kernel B (with the 8 KB of staged row offsets) and
-    kernel A (its 256 bytes of reductions)."""
+    """Both column kernels where their dynamic shared memory is within 48 KB
+    but not with the kernels' static bytes (the launch must opt in): the
+    shifted kernel B (with its 8 KB of staged row offsets) at the widest such
+    width, the counts form (the group layout, 384 static bytes) at a width
+    and K within 64 bytes of the edge, and kernel A (its 256 bytes of
+    reductions)."""
     edge = 48 * 1024
-    bw = max(b for b in range(256, 12000, 4)
-             if cols_smem(torch.empty((2, b), device=cuda), 7, counts)[0] <= edge)
-    need, _ = cols_smem(torch.empty((2, bw), device=cuda), 7, counts)
-    assert need > edge - 256
+    K = 7
+    if counts:
+        bw, K = _group_48kb_edge(cuda, lambda b: b)
+        assert edge - 64 < cols_smem(torch.empty((2, bw), device=cuda), K, True)[0] <= edge
+    else:
+        bw = max(b for b in range(256, 12000, 4)
+                 if cols_smem(torch.empty((2, b), device=cuda), 7, counts)[0] <= edge)
+        need, _ = cols_smem(torch.empty((2, bw), device=cuda), 7, counts)
+        assert need > edge - 256
     rng = np.random.default_rng(bw)
     plane, rows, m, reads, delta, hit = _cols_case(cuda, rng, 64, bw, counts, True, n_rows=200,
                                                    W=40)
     args = (plane, rows, m, reads, delta, hit, counts, 0)
-    (got, got_c), (want, want_c) = _cols_call(False, *args), _cols_call(True, *args)
+    (got, got_c), (want, want_c) = _cols_call(False, *args, K=K), _cols_call(True, *args, K=K)
     _check_partial(got, want)
     if counts:
         assert torch.equal(got_c, want_c)
@@ -1585,6 +1615,127 @@ def test_rowgather_sum_counts_topk_at_and_past_its_limit(cuda):
                           {"rowgather_sum_counts": 1, "finish_topk_counts": 1}), counts
         assert not got[-1].any()  # the zero totals row
         _check_full_pack(got[:-1].cpu().numpy(), want.cpu().numpy(), K, B)
+
+
+def test_counts_group_bytes_equal_the_cuda_source(cuda):
+    """The group layout's bytes by the Python formula (``group_smem``) equal
+    the CUDA source's (``epik_rowgather_counts_group_smem``) over G, widths
+    and K; the wrappers ask the bytes of ``counts_group``'s G, the largest up
+    to GROUP_MAX of which GROUP_MIN_BLOCKS blocks fit the card's limit (one
+    block at the widest trees), and the card's occupancy calculator holds
+    that many blocks of the compiled kernels an SM."""
+    from epik_tpu_torch.kernels._build import library
+
+    lib = library()
+    for G in (1, 2, 3, 7, 8, 9, 16, 32):
+        for bw, B in ((128, 40), (1408, 1303), (4608, 4500), (22016, 22016), (22272, 22199),
+                      (65536, 65536)):
+            for K in (1, 7, 64):
+                assert lib.epik_rowgather_counts_group_smem(G, bw, B, K) == \
+                    group_smem(G, bw, B, K), (G, bw, B, K)
+    limit = _group_limit(cuda)
+    assert 230_000 < limit < 232_448  # the opt-in bytes less the static ones
+    for bw, B in ((1408, 1303), (4608, 4500), (12288, 12000), (22016, 22016)):
+        G = counts_group(bw, B, 7, limit)
+        assert 1 <= G <= GROUP_MAX
+        fits = [GROUP_MIN_BLOCKS * (group_smem(g, bw, B, 7) + GROUP_BLOCK_RESERVE)
+                 <= limit + GROUP_BLOCK_RESERVE for g in (G, G + 1)]
+        assert (G == 1 or fits[0]) and (G == GROUP_MAX or not fits[1])
+        plane = torch.empty((2, bw), device=cuda)
+        assert counts_topk_smem(plane, B, 7) == (group_smem(G, bw, B, 7), limit)
+        Gc = counts_group(bw, bw, 7, limit)
+        assert cols_smem(plane, 7, True) == (group_smem(Gc, bw, bw, 7), limit)
+        if G > 1:  # the register budget and the bytes give the blocks aimed at
+            for cell, cols in ((0, 0), (2, 0), (0, 1)):
+                assert lib.epik_rowgather_counts_group_blocks_per_sm(
+                    G, bw, B, 7, cell, cols) >= GROUP_MIN_BLOCKS, (bw, cell, cols)
+    assert counts_group(22016, 22016, 7, limit) == 1
+
+
+def _group_steps(cuda, B_of):
+    """Widths (multiples of 8) around the steps of ``counts_group``: the
+    first below GROUP_MAX and the one to G = 1, each with the width 8 below
+    it, as (bw, G) pairs."""
+    limit = _group_limit(cuda)
+    out, prev = [], None
+    for bw in range(256, 24000, 8):
+        G = counts_group(bw, B_of(bw), 7, limit)
+        if prev is not None and G < prev and (prev == GROUP_MAX or G == 1):
+            out += [(bw - 8, prev), (bw, G)]
+        prev = G
+    return out
+
+
+def _group_case(cuda, rng, bw, B, R, W, n_rows, G, cols):
+    """``_classic_case`` without its first hits, then first hits for the
+    read in the middle of every other group of G reads of the locality order
+    and of the last group (read 0, which names no row, keeps none); the
+    contributions padded to bw columns for the column kernel: (plane, rows,
+    m, reads, dS, hit) on the card."""
+    p, rows, m, _, _, _ = _classic_case(rng, n_rows, bw, B, R, W, False)
+    perm = locality_order(torch.from_numpy(rows)).numpy()
+    last = (R - 1) // G * G
+    pos = sorted({*range(G // 2, R, 2 * G), last + (R - last) // 2})
+    reads = np.array([r for r in perm[pos] if r != 0], np.int64)
+    width = bw if cols else B
+    hit = np.zeros((reads.size, width), bool)
+    hit[:, :B] = rng.random((reads.size, B)) < 0.3
+    dS = np.where(hit, rng.uniform(1e-4, 0.1, hit.shape), 0.0).astype(np.float32)
+    return _to(cuda, p, rows, m, reads, dS, hit)
+
+
+@pytest.mark.parametrize("kind", ["f32", "bf16", "cols"])
+@pytest.mark.parametrize("edge", ["ragged", "steps", "48kb"])
+def test_counts_group_layout_edges(cuda, kind, edge):
+    """The group layout (``rowgather_sum_counts_topk[_bf16]``, and
+    ``rowgather_sum_counts_cols`` with col0 > 0) against its plain version at
+    its edges, first hits on the read in the middle of a group: R not a
+    multiple of G at D652's widths and window count; the widths where G
+    steps down from GROUP_MAX and to G = 1 (each with the width below); a
+    block within 64 bytes of 48 KB. Scores, ids, counts, n and zero_sum
+    bit-equal (wr within rtol 1e-4; the partial pack but e_s, e_s within
+    rtol 1e-6, and the candidates' counts); two launches alike."""
+    cols = kind == "cols"
+    B_of = (lambda b: b) if cols else (lambda b: b - 5)
+    limit = _group_limit(cuda)
+    if edge == "ragged":
+        cases = [(1408, 7, 143, 2000)]
+    elif edge == "steps":
+        steps = _group_steps(cuda, B_of)
+        assert [G for _, G in steps][-1] == 1 and len(steps) == 4, steps
+        cases = [(bw, 7, 30, 120) for bw, _ in steps]
+    else:
+        cases = [(*_group_48kb_edge(cuda, B_of), 40, 200)]
+    for bw, K, W, n_rows in cases:
+        B = B_of(bw)
+        G = counts_group(bw, B, K, limit)
+        R = 5 * G + 3 if edge == "ragged" else 2 * G + 1
+        rng = np.random.default_rng(bw + K)
+        plane, rows, m, reads, dS, hit = _group_case(cuda, rng, bw, B - (5 if cols else 0), R,
+                                                     W, n_rows, G, cols)
+        reset_launch_counts()
+        if cols:
+            args = (plane, rows, m, reads, dS, hit, True, 3 * bw)
+            (got, got_c), (again, again_c) = (_cols_call(False, *args, K=K),
+                                              _cols_call(False, *args, K=K))
+            want, want_c = _cols_call(True, *args, K=K)
+            name = "rowgather_sum_counts_cols"
+            assert torch.equal(got, again) and torch.equal(got_c, again_c)
+            _check_partial(got, want, f"bwl {bw}, G {G}")
+            assert torch.equal(got_c, want_c)
+            assert (got[:, K:2 * K] >= 3 * bw).all()
+        else:
+            fn = rowgather_sum_counts_topk
+            if kind == "bf16":
+                plane, fn = plane.to(torch.bfloat16), rowgather_sum_counts_topk_bf16
+            kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
+            got, again = fn(plane, rows, m, reads, dS, hit, **kw), fn(plane, rows, m, reads,
+                                                                      dS, hit, **kw)
+            want = rowgather_sum_counts_topk_plain(plane, rows, m, reads, dS, hit, **kw)
+            name = fn.__name__
+            assert torch.equal(got, again)
+            _check_full_pack(got.cpu().numpy(), want.cpu().numpy(), K, B)
+        assert {n: c for n, c in launch_counts().items() if c} == {name: 2}, (bw, G)
 
 
 def test_csr_step_launches_the_counts_finish(cuda):
