@@ -72,10 +72,15 @@ prints no result line):
                * config 4 through ``python -m epik_tpu_torch place`` with no
                  flags (phase 7's database saved and loaded, its FASTA): the
                  51.8 GB base plane fits the card and the pair plane does not,
-                 so the CLI takes the unpaired dense route; the fused kernel
-                 at (4,096 x 143) rows and bw 20,096 against its plain
-                 version on the first batch, its time, the device step's; the
-                 launches counted; 256 reads against the oracle, within 1e-4;
+                 so the CLI takes the unpaired dense route, and there the
+                 route the width rule (``kernels/rowgather.py::shifted_fused``)
+                 gives at 20,096 columns: the gather, the delta add and
+                 ``finish_topk``; the launches counted, the pair's kernels
+                 launched and the fused kernel never; the fused kernel at
+                 (4,096 x 143) rows and bw 20,096 against its plain version on
+                 the first batch whichever route the step took, its time
+                 beside its unfused pair's on the same rows, the device
+                 step's; 256 reads against the oracle, within 1e-4;
                * D652 under ``--pair-plane off``, ``--plane-mode classic``,
                  ``--precision int16``, ``--precision bf16`` (the CLI) and
                  ``lookup_where="device"``, ``tokenize_where="host"`` (the
@@ -84,7 +89,9 @@ prints no result line):
                  fused counts kernel ``rowgather_sum_counts_topk[_bf16]``
                  over the classic f32 or bf16 plane) against its plain
                  version on the first batch, bit for bit (wr within rtol
-                 1e-4), no gather or finish apart launched, and the sums with
+                 1e-4), beside its time the unfused pair's and its group
+                 layout (G, blocks an SM), no gather or finish apart
+                 launched, and the sums with
                  counts alone (``rowgather_sum_counts[_bf16]``, past the
                  limit) on the same rows; the fused counts kernel on the same
                  rows without their first hits, and beside its time the
@@ -102,21 +109,25 @@ prints no result line):
                  past it (the classic step then runs the sums with counts and
                  ``finish_topk_counts`` apart, the same bits), and
                  ``finish_topk_counts`` at B = 65,537 in both forms.
-10. sharded dense -- the column-sharded dense engine, one kernel per shard:
-               kernel 1 with the shard's column finish in its epilogue
-               (``rowgather_sum_cols``; classic ``rowgather_sum_counts_cols``):
+10. sharded dense -- the column-sharded dense engine, one kernel per shard
+               where the width rule takes it: kernel 1 with the shard's
+               column finish in its epilogue (``rowgather_sum_cols`` up to
+               1,024 columns; classic ``rowgather_sum_counts_cols``), else
+               the gather, the delta add and kernel A:
                * D652 through ``python -m epik_tpu_torch place --engine sharded``
-                 on a 1x1 mesh (the pair plane in one shard of 1,408 columns),
-                 the counts zeroed before and read after: the fused column
-                 kernel must have launched, the gather, the gather with counts
-                 and kernel A never; 256 reads against the oracle; the fused
-                 kernel against its plain version on the recorded call (the
-                 pack bit-equal but e_s, rtol 1e-6; two launches alike), its
-                 CUDA-event time, bound and ``embedding_bag``'s (S alone), the
-                 sharded step's time; the CLI's reads/s;
-               * D652 on a 1x4 mesh laid on the card (4 shards of 384 columns)
-                 through run_pipeline, within 1e-4 of the 1x1 jplace, the
-                 fused kernel checked on each shard;
+                 on a 1x1 mesh (the pair plane in one shard of 1,408 columns,
+                 where the rule gives the unfused pair), the counts zeroed
+                 before and read after: the route's kernels must have
+                 launched, no other dense kernel; 256 reads against the
+                 oracle; the fused kernel against its plain version on the
+                 recorded call (the pack bit-equal but e_s, rtol 1e-6; two
+                 launches alike), its CUDA-event time beside its unfused
+                 pair's, its group layout, bound and ``embedding_bag``'s (S
+                 alone), the sharded step's time; the CLI's reads/s;
+               * D652 on a 1x4 mesh laid on the card (4 shards of 384 columns,
+                 the fused column kernel's main path) through run_pipeline,
+                 within 1e-4 of the 1x1 jplace, the fused kernel launched on
+                 every shard and checked on each;
                * D652 ``plane_mode="classic"`` on 1x1 through the library: the
                  fused counts kernel (its candidates' counts bit-equal too)
                  against its plain version and the oracle, and beside its
@@ -126,14 +137,20 @@ prints no result line):
                * config 4 through ``--engine sharded`` with no other flag: the
                  51.8 GB unpaired column plane (the pair plane is over the
                  budget), 12,288 clean reads, the IUPAC and short reads, the
-                 reads the oracle checks and the 4,096 400 bp reads; 256 reads
-                 against the oracle; the fused kernel checked at (4,096 x 143)
-                 rows, bwl 20,096;
+                 reads the oracle checks and the 4,096 400 bp reads; the
+                 route of the width rule (the gather, the delta add and
+                 kernel A; the fused kernel never); 256 reads against the
+                 oracle; the fused kernel checked at (4,096 x 143) rows, bwl
+                 20,096, whichever route the shard took, and timed beside its
+                 unfused pair;
                * both fused kernels at the widest shard their shared memory
-                 takes and one group of four columns past it, where the shard
-                 runs the gather, the adds and kernel A apart (the same pack
-                 but e_s), and kernel A in both forms at bwl = 70,016 (ids in
-                 the global workspace), against their plain versions.
+                 takes and one group of four columns past it: at the limit
+                 the fused kernel against its plain version, and the route
+                 the shard takes (past the limit, and for the shifted form
+                 past the width rule, the gather, the adds and kernel A
+                 apart: the same pack but e_s), and kernel A in both forms at
+                 bwl = 70,016 (ids in the global workspace), against their
+                 plain versions.
 
 11. amino   -- BASELINE.md config 2 at full size (652 leaves, 1,303 branches,
                amino k = 8, ~400k k-mers, the 2.25 GB shifted plane, the radix
@@ -150,7 +167,8 @@ prints no result line):
                  step's time, the tokenizer's and the lookup's apart;
                  ``place()`` reads/s;
                * ``--pair-plane on`` (the pair radix), ``--precision int16``
-                 and ``--engine sharded`` (1x1, the host-tokenized rows step),
+                 and ``--engine sharded`` (1x1, the host-tokenized rows step,
+                 on the width rule's route for a shard of 1,408 columns),
                  then DNA k = 14 at D652's leaves and reference (the codes
                  tokenizer over 28-bit keys) with 8,192 of D652's reads, each
                  against the oracle with its kernel launched.
@@ -186,12 +204,14 @@ prints no result line):
                * D652 through ``place --engine sharded --num-processes 2``,
                  ranks 0 and 1 on the one card (gloo, a 2x1 mesh): each rank's
                  jplace equal to phase 10's 1x1 run read by read;
-                 ``rowgather_sum_cols``'s launches, the all-gather's ms per
+                 the same kernels launched as in that run, the all-gather's ms per
                  batch and the reads/s of each rank;
                * ``tools/multihost_worker.py`` in its ``csr`` mode on two ranks
                  of the card: ``PARITY OK`` on both;
                * two D652 batches through ``place --profile-dir``: the Chrome
-                 trace names the ``rowgather_sum_topk`` kernel;
+                 trace names the fused shifted kernel (the group layout's
+                 ``rowgather_group_kernel<float, 4, false, false>``) and no
+                 other instance of the template;
                * ``stats``, ``convert`` (.eptk -> .ipk -> .eptk, byte-equal) and
                  ``diff`` (phase 5's jplace against rank 0's) on D652.
 
@@ -269,6 +289,9 @@ BATCH = 16384
 N_READS = 65536
 PARITY_READS = 256
 TIMING_REPS = 20
+#: the fused shifted kernel's name in a profiler trace: the group template's
+#: f32 shifted slim-pack instance (csrc/rowgather_sum.cu)
+SHIFTED_KERNEL = "rowgather_group_kernel<float, 4, false, false>"
 
 #: the big-tree phase (BASELINE.md config 4, tools/bench_bigtree.py:30,47-55)
 BT_BATCH = 4096
@@ -345,6 +368,12 @@ KERNEL_META = {
     # kernel 1 with one shard's column finish fused in (the sharded dense steps)
     "rowgather_sum_cols": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                            "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # config 4's width (bw 20,096; phases 9 and 10), which the width rule
+    # routes to the unfused pair: its gather, #1's / 1e's time beside it
+    "rowgather_sum_config4": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                              "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_sharded_config4": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
+                                      "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_counts_cols": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                   "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     # the fused kernel 1 on the amino main path (phase 11)
@@ -412,13 +441,32 @@ def bound(nbytes: float, ops: float) -> tuple[float, str]:
 
 
 def entry(name: str, launches: int, err: float, ms: float, plain_ms: float,
-          nbytes: float, ops: float, library_ms: float | None) -> dict:
-    """One kernel's entry of the ``{"kernels": [...]}`` line."""
+          nbytes: float, ops: float, library_ms: float | None, **extra) -> dict:
+    """One kernel's entry of the ``{"kernels": [...]}`` line; ``extra``: the
+    fused kernels' ``pair_ms`` (their unfused pair on the same rows), ``G``
+    and ``blocks_per_sm`` (their group layout's launch)."""
     bound_ms, bound_by = bound(nbytes, ops)
     return {"name": name, "route": "cuda", "source": KERNEL_META[name][0],
             "replaces": KERNEL_META[name][1], "launches": launches, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, **extra}
+
+
+def group_launch(torch, plane, B: int, K: int, counts: bool, cols: bool) -> dict:
+    """The group layout's launch at the plane's width: G (the wrapper's
+    choice) and the blocks of it an SM holds (the card's occupancy
+    calculator for the compiled kernel)."""
+    from epik_tpu_torch.kernels import rowgather as rg
+    from epik_tpu_torch.kernels._build import library
+
+    lib = library()
+    limit = lib.epik_rowgather_group_smem_limit()
+    bw = plane.shape[1]
+    G = (rg.counts_group if counts else rg.shifted_group)(bw, B, K, limit)
+    cell = {torch.float32: 0, torch.int16: 1, torch.bfloat16: 2}[plane.dtype]
+    per_sm = (lib.epik_rowgather_counts_group_blocks_per_sm if counts
+              else lib.epik_rowgather_shifted_group_blocks_per_sm)
+    return {"G": G, "blocks_per_sm": per_sm(G, bw, B, K, cell, int(cols))}
 
 
 def nbytes(*tensors) -> int:
@@ -700,14 +748,17 @@ def check_cols_kernel(torch, np, name: str, call, what: str, time_it: bool = Tru
     """A fused column kernel (``rowgather_sum_cols`` or
     ``rowgather_sum_counts_cols``) against its plain version on a recorded
     call: check_partial, two launches alike. With ``time_it``, CUDA-event
-    times of the kernel, its plain version and one ``embedding_bag`` (the
-    sums alone), and the bound's (bytes, operations)."""
+    times of the kernel, its plain version, its unfused pair and one
+    ``embedding_bag`` (the sums alone), the bound's (bytes, operations) and
+    the group layout's launch."""
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.kernels import KERNELS
     from epik_tpu_torch.kernels import rowgather as rowgather_mod
 
     fn, plain = KERNELS[name], getattr(rowgather_mod, name + "_plain")
     args, kw = call
-    got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **kw)
+    pkw = {n: v for n, v in kw.items() if n != "pair_rows"}  # the plain version's keywords
+    got, again, want = fn(*args, **kw), fn(*args, **kw), plain(*args, **pkw)
     torch.cuda.synchronize()
     counts = name == "rowgather_sum_counts_cols"
     same = (torch.equal(got[0], again[0]) and torch.equal(got[1], again[1]) if counts
@@ -720,7 +771,8 @@ def check_cols_kernel(torch, np, name: str, call, what: str, time_it: bool = Tru
         return out
     plane, rows, m = args[:3]
     out["ms"] = cuda_ms(torch, lambda: fn(*args, **kw))
-    out["plain_ms"] = cuda_ms(torch, lambda: plain(*args, **kw), reps=3, warmup=1)
+    out["plain_ms"] = cuda_ms(torch, lambda: plain(*args, **pkw), reps=3, warmup=1)
+    out["pair_ms"] = cuda_ms(torch, unfused_pair(kernels_mod, call, cols=True))
     rows_long = rows.long()
     out["library_ms"] = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(
         rows_long, plane, mode="sum"))
@@ -735,10 +787,12 @@ def check_cols_kernel(torch, np, name: str, call, what: str, time_it: bool = Tru
     out["io"] = (int(torch.unique(rows).numel()) * bw * 4 + nbytes(rows, m)
                  + nbytes(*(t for t in args[3:] if t is not None)) + written,
                  (2 if counts else 1) * rows.numel() * bw + FINISH_OPS * R * bw)
+    out["layout"] = group_launch(torch, plane, bw, Kl, counts, cols=True)
     log(f"{name} {out['shape']} bwl={out['bw']} ({what}): bit-equal to its plain version but "
         f"e_s (largest difference {out['err']:.3g}), two launches alike; kernel "
-        f"{out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, embedding_bag (S alone) "
-        f"{out['library_ms']:.4f} ms, bound {bound(*out['io'])[0]:.4f} ms ({out['io'][0]} bytes)")
+        f"{out['ms']:.4f} ms ({out['layout']}), the unfused pair {out['pair_ms']:.4f} ms, plain "
+        f"{out['plain_ms']:.4f} ms, embedding_bag (S alone) {out['library_ms']:.4f} ms, bound "
+        f"{bound(*out['io'])[0]:.4f} ms ({out['io'][0]} bytes)")
     return out
 
 
@@ -1660,6 +1714,7 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
 
     fn = KERNELS[name]
     args, kw = call
+    pkw = {n: v for n, v in kw.items() if n != "pair_rows"}  # the plain versions' keywords
     plane, rows = args[0], args[1]
     bw = plane.shape[1]
     cell = plane.element_size()
@@ -1674,13 +1729,13 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
         m, amb_read, delta = args[2:5]
         K, B = kw["K"], kw["B"]
         got, again = fn(*args, **kw), fn(*args, **kw)
-        want = rowgather_sum_topk_plain(*args, **kw)
+        want = rowgather_sum_topk_plain(*args, **pkw)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"{name} ({what}): two launches differ")
         err = check_finish(np, got.cpu().numpy(), want.cpu().numpy(), K, B, f"{name} ({what})")
         ms = cuda_ms(torch, lambda: fn(*args, **kw))
-        plain_ms = cuda_ms(torch, lambda: rowgather_sum_topk_plain(*args, **kw), reps=3,
+        plain_ms = cuda_ms(torch, lambda: rowgather_sum_topk_plain(*args, **pkw), reps=3,
                            warmup=1)
         amb = nbytes(amb_read, delta) if amb_read is not None else 0
         io = (n_distinct * bw * cell + nbytes(rows, m) + amb + rows.shape[0] * (2 * K + 3) * 4,
@@ -1741,26 +1796,66 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
 
 
 def unfused_pair(kernels_mod, call, cols: bool):
-    """What a recorded call of the fused counts kernel (``cols``: its column
-    form) computes, by the kernels apart: the sums with counts (1c), the
+    """What a recorded call of a fused kernel computes, by the kernels apart
+    (a function of no arguments). The counts form (the call's arguments
+    (plane, rows, m, amb_read, dS, hit)): the sums with counts (1c), the
     first hits added, then ``finish_topk_counts`` into the full body
-    (``cols``: kernel A's counts form). A function of no arguments."""
+    (``cols``: kernel A's counts form). The shifted form ((plane, rows, m,
+    amb_read, delta), as :func:`fused_call` gives it): the gather alone (1d,
+    in the call's read order), the delta rows added, then ``finish_topk``
+    (``cols``: kernel A)."""
     from epik_tpu_torch.kernels.rowgather import add_first_hits
 
-    (plane, rows, m, amb_read, dS, hit), kw = call
+    args, kw = call
+    fkw = {n: kw[n] for n in ("K", "k", "log_eps", "col0") if n in kw}
+    if len(args) == 5:
+        plane, rows, m, amb_read, delta = args
+        gkw = {n: kw[n] for n in ("scale", "pair_rows") if n in kw}
+        B = kw.get("B", plane.shape[1])
+
+        def shifted():
+            Sp = kernels_mod.rowgather_sum(plane, rows, **gkw)
+            if amb_read is not None and amb_read.numel() > 0:
+                Sp[amb_read, :B] = Sp[amb_read, :B] + delta
+            if cols:
+                return kernels_mod.finish_cols_partial(Sp, m, **fkw)
+            return kernels_mod.finish_topk(Sp[:, :B], m, **fkw)
+        return shifted
+    plane, rows, m, amb_read, dS, hit = args
     sums = (kernels_mod.rowgather_sum_counts_bf16 if plane.element_size() == 2
             else kernels_mod.rowgather_sum_counts)
     if cols:
         return lambda: kernels_mod.finish_cols_partial_counts(
-            *add_first_hits(*sums(plane, rows), amb_read, dS, hit), m, **kw)
+            *add_first_hits(*sums(plane, rows), amb_read, dS, hit), m, **fkw)
     B = kw["B"]
-    fkw = {n: kw[n] for n in ("K", "k", "log_eps")}
 
     def run():
         S, C = sums(plane, rows)
         return kernels_mod.finish_topk_counts(
             *add_first_hits(S[:, :B], C[:, :B], amb_read, dS, hit), m, **fkw)
     return run
+
+
+def fused_call(torch, call):
+    """A recorded call of ``engine.step._shifted_finish`` (plane, rows, m,
+    arows, step keywords) as a call of the fused kernel it routes between:
+    ((plane, rows, m, amb_read, delta), keywords of ``rowgather_sum_topk``,
+    or over an int16 plane of ``rowgather_sum_topk_int16`` with its scale,
+    with the step's read order)."""
+    from epik_tpu_torch.ops.dense import amb_deltas
+
+    (plane, rows, m, arows), kw = call
+    scale = kw.get("plane_scale", 1.0)
+    amb_read = delta = None
+    if kw["Amax"] > 0:
+        amb_read, delta = amb_deltas(plane, arows, zero_row=kw["zero_row"], B=kw["B"],
+                                     k=kw["k"], eps=kw["eps"], log_eps=kw["log_eps"],
+                                     plane_scale=scale)
+    fkw = {n: kw[n] for n in ("B", "K", "k", "log_eps")}
+    fkw["pair_rows"] = kw.get("pair_rows", False)
+    if plane.dtype == torch.int16:
+        fkw["scale"] = scale
+    return (plane, rows, m, amb_read, delta), fkw
 
 
 def run_cli(torch, argv):
@@ -1961,6 +2056,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     from epik_tpu_torch.io.db import load, save
     from epik_tpu_torch.io.jplace import jplace_writer
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels.rowgather import shifted_fused
     from epik_tpu_torch.tools.jplace_diff import parse_jplace
 
     summary = {}
@@ -1978,10 +2074,10 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     out_dir = os.path.join(fx["work"], "dense_cli")
     os.makedirs(out_dir)
     argv = ["place", "-i", c4_path, "-o", out_dir, "--batch-size", str(BT_BATCH), fx["fasta"]]
-    step_calls, fused_calls = [], []
+    step_calls, route_calls = [], []
     reset_launch_counts()
     with recording(placer_mod, "place_batch_dense_bytes", step_calls), \
-            recording(step_mod, "rowgather_sum_topk", fused_calls):
+            recording(step_mod, "_shifted_finish", route_calls, limit=1):
         rc, cli_out, cli_s = run_cli(torch, argv)
     counts = launch_counts()
     log("cli: python -m epik_tpu_torch " + " ".join(argv))
@@ -1989,8 +2085,15 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
         log("  | " + line)
     if rc != 0 or "(1 device(s), dense)" not in cli_out:
         raise AssertionError(f"config 4 CLI: rc {rc}, not on the dense route")
-    if counts["rowgather_sum_topk"] <= 0 or counts["rowgather_sum"] or counts["finish_topk"]:
-        raise AssertionError(f"config 4 CLI: launches {counts}")
+    # the width rule sends config 4's width to the unfused pair, up front
+    c4_call = fused_call(torch, route_calls[0])
+    c4_plane, c4_B = c4_call[0][0], c4_call[1]["B"]
+    if shifted_fused(c4_plane.shape[1]):
+        raise AssertionError(f"config 4: the width rule takes bw {c4_plane.shape[1]} to the "
+                             f"fused kernel; this phase holds the unfused pair's route")
+    route = ("rowgather_sum", "finish_topk")
+    if any(counts[n] <= 0 for n in route) or counts["rowgather_sum_topk"]:
+        raise AssertionError(f"config 4 CLI: launches {counts}, the route {route}")
     rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
     if set(rows_by_name) != {name for name, _ in fx["records"]}:
         raise AssertionError("config 4 CLI: jplace names differ")
@@ -1998,27 +2101,44 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     pl_ms = placement_ms(cli_out)
     n_reads = len(fx["records"])
     summary.update(config4_cli_s=cli_s, config4_dense_pipeline_reads_per_s=n_reads / pl_ms * 1e3,
-                   config4_fused_launches=counts["rowgather_sum_topk"])
+                   config4_fused_launches=counts["rowgather_sum_topk"], config4_route=route,
+                   config4_route_launches=[counts[n] for n in route])
     (plane, direct, buf, arows), kw_s = step_calls[0][0][:4], step_calls[0][1]
     log(f"config 4 dense (unpaired shifted plane {tuple(plane.shape)} f32 = "
         f"{plane.numel() * 4} bytes, {len(step_calls)} steps): {n_reads} reads, pipeline "
         f"{pl_ms} ms = {n_reads / pl_ms * 1e3:.0f} reads/s, whole CLI {cli_s:.1f} s [{card}]; "
         f"launches {counts}; parity on {len(fx['parity_records'])} reads (IUPAC, short, "
         f"400 bp): largest score difference {worst:.3g}")
+    # the fused kernel on the first batch's rows whichever route the step took,
+    # and its unfused pair on the same rows
     err_c4, ms_c4, plain_c4, io_c4, lib_c4, shape_c4 = check_dense_kernel(
-        torch, np, "rowgather_sum_topk", fused_calls[0], "config 4, first batch")
+        torch, np, "rowgather_sum_topk", c4_call, "config 4, first batch")
+    pair_c4 = cuda_ms(torch, unfused_pair(kernels_mod, c4_call, cols=False))
+    layout_c4 = group_launch(torch, c4_plane, c4_B, c4_call[1]["K"], counts=False, cols=False)
     summary.update(config4_fused_ms=ms_c4, config4_fused_plain_ms=plain_c4,
-                   config4_fused_bound_ms=bound(*io_c4)[0], config4_embedding_bag_ms=lib_c4)
+                   config4_fused_bound_ms=bound(*io_c4)[0], config4_embedding_bag_ms=lib_c4,
+                   config4_unfused_pair_ms=pair_c4)
     step_ms = cuda_ms(torch, lambda: step_mod.place_batch_dense_bytes(
         plane, direct, buf, arows, **kw_s), reps=5)
     summary["config4_dense_step_ms"] = step_ms
     log(f"rowgather_sum_topk {shape_c4} bw={plane.shape[1]} B={kw_s['B']} (config 4, unpaired): "
-        f"bit-equal but log_sum, two launches alike; kernel {ms_c4:.4f} ms, plain "
-        f"{plain_c4:.4f} ms, embedding_bag (sums only) {lib_c4:.4f} ms, bound "
-        f"{bound(*io_c4)[0]:.4f} ms ({io_c4[0]} bytes); device step "
-        f"(tokenize + amb delta rows + fused kernel) at R={buf.shape[0]}: {step_ms:.4f} ms "
-        f"[{card}]")
-    del plane, direct, buf, arows, step_calls, fused_calls
+        f"bit-equal but log_sum, two launches alike; kernel {ms_c4:.4f} ms ({layout_c4}), the "
+        f"unfused pair on the same rows (rowgather_sum in locality order, the delta add, "
+        f"finish_topk) {pair_c4:.4f} ms, plain {plain_c4:.4f} ms, embedding_bag (sums only) "
+        f"{lib_c4:.4f} ms, bound {bound(*io_c4)[0]:.4f} ms ({io_c4[0]} bytes); the route "
+        f"{route}; device step (tokenize + amb delta rows + the route) at R={buf.shape[0]}: "
+        f"{step_ms:.4f} ms [{card}]")
+    # the route's gather, on the same rows, with #1's time beside it
+    g_err, g_ms, g_plain, g_io, g_lib, _ = check_dense_kernel(
+        torch, np, "rowgather_sum", ((c4_plane, c4_call[0][1]), {}),
+        "config 4, first batch, the unfused pair's gather")
+    c4_entry = entry("rowgather_sum_config4", counts["rowgather_sum"], g_err, g_ms, g_plain,
+                     *g_io, g_lib, fused="rowgather_sum_topk", fused_ms=ms_c4,
+                     fused_max_abs_err=err_c4, fused_bound_ms=bound(*io_c4)[0],
+                     pair_ms=pair_c4, route=list(route), **layout_c4)
+    log(f"rowgather_sum {shape_c4} (config 4, the route's gather): {g_ms:.4f} ms, bound "
+        f"{bound(*g_io)[0]:.4f} ms [{card}]")
+    del plane, direct, buf, arows, step_calls, route_calls, c4_call, c4_plane
     torch.cuda.empty_cache()
 
     # ---- 9b. D652 under the six configs ---------------------------------------------------
@@ -2063,6 +2183,15 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
         worst = check_parity(oracle_out, rows_by_name, f"D652 {name}", rule)
         err, ms, plain_ms, io_k, lib_ms, shape = check_dense_kernel(
             torch, np, kernel, calls[0], f"D652 {name}")
+        (pargs, pkw) = calls[0]
+        extra = group_launch(torch, pargs[0], pkw["B"], pkw["K"], counts="counts" in kernel,
+                             cols=False)
+        if kernel.startswith("rowgather_sum_topk"):  # the unfused pair on the same rows
+            extra["pair_ms"] = cuda_ms(torch, unfused_pair(kernels_mod, calls[0], cols=False))
+            summary[f"d652_{name}_unfused_pair_ms"] = extra["pair_ms"]
+            log(f"{kernel} (D652 {name}): {ms:.4f} ms ({extra}); the unfused pair on the same "
+                f"rows (rowgather_sum, the delta add, finish_topk) {extra['pair_ms']:.4f} ms "
+                f"[{card}]")
         if kernel.startswith("rowgather_sum_counts_topk") and name != "lookup_device":
             # the sums with counts alone run past the fused kernel's limit:
             # held against their plain version on the rows the path gave
@@ -2076,11 +2205,11 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
                 f"{bound(*apart[sums][3])[0]:.4f} ms [{card}]")
             # the same rows without their first hits, and the unfused pair
             # (1c, the first hits added, finish_topk_counts) beside the kernel
-            (pargs, pkw) = calls[0]
             no_amb = check_dense_kernel(torch, np, kernel, ((*pargs[:3], None, None, None), pkw),
                                         f"D652 {name}, no first hits")
             err = max(err, no_amb[0])
-            pair_ms = cuda_ms(torch, unfused_pair(kernels_mod, calls[0], cols=False))
+            pair_ms = extra["pair_ms"] = cuda_ms(torch, unfused_pair(kernels_mod, calls[0],
+                                                                      cols=False))
             summary[f"d652_{name}_unfused_pair_ms"] = pair_ms
             log(f"{kernel} (D652 {name}): {ms:.4f} ms with the first hits, {no_amb[1]:.4f} ms "
                 f"without (bit-equal to its plain version but wr); the unfused pair on the "
@@ -2103,7 +2232,8 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
             f"bound {bound(*io_k)[0]:.4f} ms")
         if kernel not in seen and kernel != "rowgather_sum_topk":
             seen.add(kernel)
-            kernels.append(entry(kernel, counts[kernel], err, ms, plain_ms, *io_k, lib_ms))
+            kernels.append(entry(kernel, counts[kernel], err, ms, plain_ms, *io_k, lib_ms,
+                                 **extra))
 
     # ---- 9c. a batch of short reads and a read of 65,536 bp (the host tokenizer) ----------
     placer = TorchPlacer(db, tree, device=dev)
@@ -2138,6 +2268,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     # rows
     for sums, (err, ms, plain_ms, io_k, lib_ms, _) in apart.items():
         kernels.append(entry(sums, wide_launches[sums], err, ms, plain_ms, *io_k, lib_ms))
+    kernels.append(c4_entry)
     return kernels, summary, errs
 
 
@@ -2161,8 +2292,10 @@ def cols_limit_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
         cols_fits,
         cols_smem,
         counts_cols_fits,
+        rowgather_sum_cols,
         rowgather_sum_cols_plain,
         rowgather_sum_counts_cols_plain,
+        shifted_fused,
     )
     from epik_tpu_torch.parallel.sharding import _classic_cols, _shifted_cols
     from torch_fixtures import counts_rows, finish_rows
@@ -2196,6 +2329,11 @@ def cols_limit_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
             if fits != (bw == lo):
                 raise AssertionError(f"cols fits at bwl={bw} (counts {counts}): {fits}")
             ckw = dict(kw, col0=bw)
+            if not counts and fits:  # the fused kernel at its limit, whatever the route
+                want = rowgather_sum_cols_plain(plane, rows, m, reads, delta, **ckw)
+                e = check_partial(np, rowgather_sum_cols(plane, rows, m, reads, delta, **ckw),
+                                  want, f"rowgather_sum_cols at bwl={bw}")
+                errs["rowgather_sum_cols"] = max(errs.get("rowgather_sum_cols", 0.0), e)
             reset_launch_counts()
             if counts:
                 got = _classic_cols(plane, rows, m, reads, delta, hit, **ckw)
@@ -2205,6 +2343,7 @@ def cols_limit_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
             else:
                 got = _shifted_cols(plane, rows, m, reads, delta, **ckw)
                 want = rowgather_sum_cols_plain(plane, rows, m, reads, delta, **ckw)
+                fits = fits and shifted_fused(bw, cols=True)  # the route the rule gives
                 expect = ({"rowgather_sum_cols": 1} if fits else
                           {"rowgather_sum": 1, "finish_cols_partial": 1})
             got_counts = {n: c for n, c in launch_counts().items() if c}
@@ -2255,7 +2394,12 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         finish_cols_partial_counts,
         finish_cols_partial_counts_plain,
     )
-    from epik_tpu_torch.kernels.rowgather import add_first_hits, rowgather_sum_counts
+    from epik_tpu_torch.kernels.rowgather import (
+        add_first_hits,
+        cols_fits,
+        rowgather_sum_counts,
+        shifted_fused,
+    )
     from epik_tpu_torch.parallel import sharding as sharding_mod
     from epik_tpu_torch.parallel.mesh import make_mesh
     from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
@@ -2266,25 +2410,29 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     tree = parse_newick(db.tree())
     newick = to_newick(tree, jplace_edges=True)
     names = [n for n, _ in d652["records"]]
-    apart = ("rowgather_sum", "rowgather_sum_counts", "finish_cols_partial",
-             "finish_cols_partial_counts", "rowgather_sum_topk", "rowgather_sum_counts_topk")
+    kinds = ("rowgather_sum", "rowgather_sum_counts", "finish_cols_partial",
+             "finish_cols_partial_counts", "rowgather_sum_topk", "rowgather_sum_counts_topk",
+             "rowgather_sum_cols", "rowgather_sum_counts_cols")
 
-    def check_counts(counts, what, fused="rowgather_sum_cols"):
-        """The fused column kernel launched, nothing apart (and, on a mesh of
-        n shards, a multiple of n launches)."""
-        if counts[fused] <= 0 or any(counts[n] for n in apart):
-            raise AssertionError(f"{what}: launches {counts}")
+    def check_counts(counts, what, route=("rowgather_sum_cols",)):
+        """The route's kernels launched (the fused column kernel, or where
+        the width rule routes the shard past it the gather and kernel A),
+        nothing else of the dense kernels."""
+        if any(counts[n] <= 0 for n in route) or any(counts[n] for n in kinds if n not in route):
+            raise AssertionError(f"{what}: launches {counts}, the route {route}")
 
     def sharded_cli(db_path, fasta, out_dir, batch, what, step_name):
         """``--engine sharded`` in process: (rows, counts, reads/s, the first
-        recorded step call and fused kernel call)."""
+        recorded step call and the first shard's call at its router, as
+        ((plane, rows, m, amb_read, delta), keywords) of the fused column
+        kernel, the route)."""
         os.makedirs(out_dir)
         argv = ["place", "-i", db_path, "-o", out_dir, "--batch-size", str(batch), "--engine",
                 "sharded", fasta]
         steps, fused = [], []
         reset_launch_counts()
         with recording(sharding_mod, step_name, steps, limit=1), \
-                recording(sharding_mod, "rowgather_sum_cols", fused, limit=1):
+                recording(sharding_mod, "_shifted_cols", fused, limit=1):
             rc, cli_out, _ = run_cli(torch, argv)
         counts = launch_counts()
         log("cli: python -m epik_tpu_torch " + " ".join(argv))
@@ -2293,18 +2441,23 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         if rc != 0 or "sharded mesh 1x1 (dense)" not in cli_out or not steps:
             raise AssertionError(f"{what}: rc {rc}, not the sharded dense route through "
                                  f"{step_name}")
-        check_counts(counts, what)
+        plane = fused[0][0][0]
+        route = (("rowgather_sum_cols",)
+                 if shifted_fused(plane.shape[1], cols=True) and cols_fits(plane, 7)
+                 else ("rowgather_sum", "finish_cols_partial"))
+        check_counts(counts, what, route)
         rows = parse_jplace(os.path.join(out_dir, "placements_" + os.path.basename(fasta)
                                          + ".jplace"))
-        return rows, counts, placement_ms(cli_out), steps[0], fused[0]
+        return rows, counts, placement_ms(cli_out), steps[0], fused[0], route
 
     # ---- 10a. D652 through the CLI, --engine sharded: a 1x1 mesh, the pair plane ------
-    rows1, counts1, pl_ms, (s_args, s_kw), f_call = sharded_cli(
+    rows1, counts1, pl_ms, (s_args, s_kw), f_call, route1 = sharded_cli(
         d652["db_path"], d652["fasta"], os.path.join(d652["work"], "out_sharded_1x1"), BATCH,
         "D652 sharded 1x1", "sharded_dense_paired_step")
     if set(rows1) != set(names):
         raise AssertionError("D652 sharded 1x1: jplace names differ")
-    d652["sharded_rows"] = rows1  # phase 13's two ranks must equal it
+    # phase 13's two ranks (1x1 shards each) must equal it, on the same route
+    d652.update(sharded_rows=rows1, sharded_route=route1)
     worst = check_parity(d652["oracle_out"], rows1, "D652 sharded 1x1")
     summary["d652_sharded_cli_reads_per_s"] = len(names) / pl_ms * 1e3
     planes = s_args[0]
@@ -2315,8 +2468,10 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         f"{summary['d652_sharded_cli_reads_per_s']:.0f} reads/s [{card}]; launches "
         f"{ {n: c for n, c in counts1.items() if c} }; parity on {PARITY_READS} reads: largest "
         f"score difference {worst:.3g}; sharded dense step (tokenize + amb delta rows + "
-        f"rowgather_sum_cols + merge) at R={s_args[2].shape[0]}: "
+        f"{' + '.join(route1)} + merge) at R={s_args[2].shape[0]}: "
         f"{summary['d652_sharded_step_ms']:.4f} ms")
+    summary["d652_sharded_route"] = route1
+    # the fused column kernel on the shard's rows whichever route it took
     checks["d652_1x1"] = check_cols_kernel(torch, np, "rowgather_sum_cols", f_call,
                                            "D652 sharded 1x1")
     del planes, s_args, f_call
@@ -2331,8 +2486,11 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
             or placer._bwl != -(-tree.get_node_count() // 512) * 128):
         raise AssertionError(f"D652 1x4: route {placer.route}, paired {placer._paired}, "
                              f"shard width {placer._bwl}")
+    if not shifted_fused(placer._bwl, cols=True):  # 1e's main path
+        raise AssertionError(f"D652 1x4: the width rule sends shards of {placer._bwl} columns "
+                             f"to the unfused pair; no path here launches rowgather_sum_cols")
     calls4 = []
-    with recording(sharding_mod, "rowgather_sum_cols", calls4, limit=4):
+    with recording(sharding_mod, "_shifted_cols", calls4, limit=4):
         stats4, counts4, rows4 = run_placer(
             torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_1x4.jplace"),
             newick, BATCH)
@@ -2366,7 +2524,7 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         stats_c, counts_c, rows_c = run_placer(
             torch, placer, d652["fasta"], os.path.join(d652["work"], "sharded_classic.jplace"),
             newick, BATCH)
-    check_counts(counts_c, "D652 sharded classic", fused="rowgather_sum_counts_cols")
+    check_counts(counts_c, "D652 sharded classic", route=("rowgather_sum_counts_cols",))
     worst_c = check_parity(d652["oracle_out"], rows_c, "D652 sharded classic")
     summary["d652_sharded_classic_reads_per_s"] = stats_c.num_seq_placed / stats_c.wall_seconds
     (sc_args, sc_kw) = steps_c[0]
@@ -2423,10 +2581,12 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     sub_fasta = os.path.join(fx["work"], "c4_sharded.fasta")
     write_fasta(sub_fasta, sub)
     t0 = time.monotonic()
-    rows_4, counts_4, pl_ms4, (s_args, s_kw), f_call = sharded_cli(
+    rows_4, counts_4, pl_ms4, (s_args, s_kw), f_call, route_4 = sharded_cli(
         fx["c4_path"], sub_fasta, os.path.join(fx["work"], "out_sharded_c4"), BT_BATCH,
         "config 4 sharded", "sharded_dense_bytes_step")
     summary["config4_sharded_cli_s"] = time.monotonic() - t0
+    if route_4 != ("rowgather_sum", "finish_cols_partial"):  # the width rule's, up front
+        raise AssertionError(f"config 4 sharded: the route {route_4}, not the unfused pair")
     if set(rows_4) != {n for n, _ in sub}:
         raise AssertionError("config 4 sharded: jplace names differ")
     worst_4 = check_parity(fx["oracle_c4"], rows_4, "config 4 sharded dense")
@@ -2441,8 +2601,11 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
         f"{ {n: c for n, c in counts_4.items() if c} }; parity on "
         f"{len(fx['parity_records'])} reads: largest score difference {worst_4:.3g}; sharded "
         f"dense step at R={s_args[2].shape[0]}: {summary['config4_sharded_step_ms']:.4f} ms")
+    # the fused column kernel on the shard's rows whichever route it took
     checks["config4"] = check_cols_kernel(torch, np, "rowgather_sum_cols", f_call,
                                           "config 4 sharded 1x1")
+    summary["config4_sharded_route"] = route_4
+    c4_call = f_call
     del s_args, f_call, plane_c4
     torch.cuda.empty_cache()
 
@@ -2450,19 +2613,37 @@ def sharded_dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tupl
     errs, past = cols_limit_checks(torch, np, card, dev)
 
     for name, c in checks.items():
-        summary.update({f"{name}_cols_{key}": c[key] for key in ("ms", "plain_ms", "library_ms")})
+        summary.update({f"{name}_cols_{key}": c[key]
+                        for key in ("ms", "plain_ms", "library_ms", "pair_ms")})
         summary[f"{name}_cols_bound_ms"] = bound(*c["io"])[0]
     summary.update(finish_cols_partial_counts_d652_ms=ka["ms"],
                    finish_cols_partial_counts_d652_plain_ms=ka["plain_ms"])
-    main_s, main_c = checks["d652_1x1"], checks["d652_classic"]
+    # 1e's main path is D652's 1x4 mesh (the 1x1 shard takes the pair: a tie)
+    main_s, main_c = checks["d652_1x4"], checks["d652_classic"]
+    at_1x1 = checks["d652_1x1"]
     err_s = max([checks[n]["err"] for n in ("d652_1x1", "d652_1x4", "config4")]
                 + [errs.get("rowgather_sum_cols", 0.0)])
     err_c = max(main_c["err"], errs.get("rowgather_sum_counts_cols", 0.0))
+    c4 = checks["config4"]
+    # the route's gather, on the same rows, with 1e's time beside it
+    g_err, g_ms, g_plain, g_io, g_lib, _ = check_dense_kernel(
+        torch, np, "rowgather_sum", (c4_call[0][:2], {}),
+        "config 4 sharded 1x1, the unfused pair's gather")
+    c4_entry = entry("rowgather_sum_sharded_config4", counts_4["rowgather_sum"], g_err, g_ms,
+                     g_plain, *g_io, g_lib, fused="rowgather_sum_cols", fused_ms=c4["ms"],
+                     fused_max_abs_err=c4["err"], fused_bound_ms=bound(*c4["io"])[0],
+                     pair_ms=c4["pair_ms"], route=list(route_4), **c4["layout"])
+    del c4_call
     kernels = [
-        entry("rowgather_sum_cols", counts1["rowgather_sum_cols"], err_s, main_s["ms"],
-              main_s["plain_ms"], *main_s["io"], main_s["library_ms"]),
+        entry("rowgather_sum_cols", counts4["rowgather_sum_cols"], err_s, main_s["ms"],
+              main_s["plain_ms"], *main_s["io"], main_s["library_ms"], pair_ms=main_s["pair_ms"],
+              **main_s["layout"], d652_1x1_ms=at_1x1["ms"], d652_1x1_pair_ms=at_1x1["pair_ms"],
+              d652_1x1_bound_ms=bound(*at_1x1["io"])[0], d652_1x1_route=list(route1),
+              d652_1x1_launches=counts1["rowgather_sum_cols"]),
+        c4_entry,
         entry("rowgather_sum_counts_cols", counts_c["rowgather_sum_counts_cols"], err_c,
-              main_c["ms"], main_c["plain_ms"], *main_c["io"], main_c["library_ms"]),
+              main_c["ms"], main_c["plain_ms"], *main_c["io"], main_c["library_ms"],
+              pair_ms=main_c["pair_ms"], **main_c["layout"]),
         # kernel A's counts form: its main path is a classic shard past the
         # fused kernel's limit (10e); timed on D652 classic's sums and counts
         entry("finish_cols_partial_counts", past.get("finish_cols_partial_counts", 0),
@@ -2540,12 +2721,14 @@ def amino_cli(torch, name: str, argv: list, records, step_mod_name: str, kernel:
 def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
     """Phase 11 (see the module docstring). Returns the fused kernel's
     config-2 entry and the phase's summary numbers."""
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine import step as step_mod
     from epik_tpu_torch.engine.placer import TorchPlacer
     from epik_tpu_torch.engine.reference import ReferencePlacer
     from epik_tpu_torch.io.build import reference_like_db
     from epik_tpu_torch.io.db import load, save
+    from epik_tpu_torch.kernels.rowgather import shifted_fused
     from epik_tpu_torch.ops.tokenize import tokenize_codes, tokenize_radix
 
     summary = {}
@@ -2600,6 +2783,9 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
         torch, np, "rowgather_sum_topk", amb[0], "config 2, the batch with delta rows")
     err = max(err, check_dense_kernel(torch, np, "rowgather_sum_topk", clean[0],
                                       "config 2, a batch without")[0])
+    aa_pair = cuda_ms(torch, unfused_pair(kernels_mod, amb[0], cols=False))
+    aa_layout = group_launch(torch, amb[0][0][0], amb[0][1]["B"], amb[0][1]["K"], counts=False,
+                             cols=False)
     plane, rows_t = amb[0][0][:2]
     rows_long = rows_t.long()
     lib_ms = cuda_ms(torch, lambda: torch.nn.functional.embedding_bag(rows_long, plane,
@@ -2616,7 +2802,7 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
         raise AssertionError("config 2: the radix rows differ from the host's binary search")
     summary.update(
         config2_fused_ms=ms, config2_fused_plain_ms=plain_ms, config2_fused_bound_ms=bound(
-            *io_k)[0], config2_embedding_bag_ms=lib_ms,
+            *io_k)[0], config2_embedding_bag_ms=lib_ms, config2_unfused_pair_ms=aa_pair,
         config2_step_ms=cuda_ms(torch, lambda: step_mod.place_batch_dense_codes(
             plane, radix, buf, arows, **kw_s), reps=5),
         config2_tokenize_lookup_ms=cuda_ms(torch, lambda: tokenize_radix(
@@ -2627,8 +2813,9 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
         config2_hit_share=float((want_rows < db.num_kmers).sum()) / float(ok_np.sum()))
     log(f"rowgather_sum_topk {shape} bw={plane.shape[1]} B={B} (config 2, a batch with "
         f"{int(amb[0][0][3].numel())} delta rows, one without): bit-equal but log_sum, two "
-        f"launches alike; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag (sums "
-        f"only) {lib_ms:.4f} ms, bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes) [{card}]")
+        f"launches alike; kernel {ms:.4f} ms ({aa_layout}), the unfused pair on the same rows "
+        f"{aa_pair:.4f} ms, plain {plain_ms:.4f} ms, embedding_bag (sums only) {lib_ms:.4f} ms, "
+        f"bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes) [{card}]")
     log(f"config 2 codes step at R={buf.shape[0]} (Lmax {kw_s['Lmax']}): "
         f"{summary['config2_step_ms']:.4f} ms; tokenize + radix lookup "
         f"{summary['config2_tokenize_lookup_ms']:.4f} ms (tokenize "
@@ -2668,10 +2855,18 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
         rows, counts, rate, step, _, cli_out = amino_cli(
             torch, f"config 2 {name}", argv(f"out_{name}", *flags), records, step_name,
             kernel if name != "sharded" else "rowgather_sum_topk")
-        if line not in cli_out or counts[kernel] <= 0 or (
-                name == "sharded" and (counts["rowgather_sum_topk"] or counts["rowgather_sum"]
-                                       or counts["finish_cols_partial"])):
-            raise AssertionError(f"config 2 {name}: launches {counts}\n{cli_out}")
+        route = (kernel,)
+        if name == "sharded":  # the shard's route, by the width rule
+            bwl = step[0][0][0].shape[1]
+            route = (("rowgather_sum_cols",) if shifted_fused(bwl, cols=True)
+                     else ("rowgather_sum", "finish_cols_partial"))
+            summary["config2_sharded_route"] = route
+        shifted = ("rowgather_sum_topk", "rowgather_sum", "finish_cols_partial",
+                   "rowgather_sum_cols")
+        if line not in cli_out or any(counts[n] <= 0 for n in route) or (
+                name == "sharded" and any(counts[n] for n in shifted if n not in route)):
+            raise AssertionError(f"config 2 {name}: launches {counts}, the route {route}\n"
+                                 f"{cli_out}")
         worst = check_parity(oracle, rows, f"config 2 {name}", rule)
         summary[f"config2_{name}_cli_reads_per_s"] = rate
         extra = ""
@@ -2723,7 +2918,7 @@ def amino_phase(torch, np, card: str, dev, d652: dict) -> tuple[list, dict]:
     shutil.rmtree(work, ignore_errors=True)
     # embedding_bag computes the sums alone, not the finish
     kernels = [entry("rowgather_sum_topk_config2", summary["config2_fused_launches"], err, ms,
-                     plain_ms, *io_k, lib_ms)]
+                     plain_ms, *io_k, lib_ms, pair_ms=aa_pair, **aa_layout)]
     return kernels, summary
 
 
@@ -3100,17 +3295,17 @@ def surface_phase(torch, np, card: str, dev, d652: dict) -> dict:
             raise AssertionError(f"D652 2 ranks: rank {rank} differs from the 1x1 run on "
                                  f"{len(bad)} reads, e.g. {bad[:3]}")
         launched = cli_launches(text)
-        if launched.get("rowgather_sum_cols", 0) <= 0 or set(launched) != {"rowgather_sum_cols"}:
-            raise AssertionError(f"D652 2 ranks: rank {rank} launched {launched}")
+        if set(launched) != set(d652["sharded_route"]) or min(launched.values()) <= 0:
+            raise AssertionError(f"D652 2 ranks: rank {rank} launched {launched}, not the "
+                                 f"1x1 run's route {d652['sharded_route']}")
         gather = text.split("All-gather: ")[1].splitlines()[0]
         pl_ms = placement_ms(text)
         summary[f"d652_2rank_r{rank}_reads_per_s"] = len(want) / pl_ms * 1e3
         summary[f"d652_2rank_r{rank}_gather_ms_per_batch"] = float(
             gather.split(", ")[1].split(" ms")[0])
-        summary[f"d652_2rank_r{rank}_rowgather_sum_cols_launches"] = launched[
-            "rowgather_sum_cols"]
+        summary[f"d652_2rank_r{rank}_launches"] = launched
         log(f"D652 2 ranks, rank {rank}: {len(want)} reads equal to the 1x1 run read by read; "
-            f"rowgather_sum_cols launches {launched['rowgather_sum_cols']}; all-gather "
+            f"launches {launched}; all-gather "
             f"{gather}; pipeline {pl_ms} ms = "
             f"{summary[f'd652_2rank_r{rank}_reads_per_s']:.0f} reads/s [{card}]")
 
@@ -3139,10 +3334,14 @@ def surface_phase(torch, np, card: str, dev, d652: dict) -> dict:
         trace = f.read()
     events = json.loads(trace)["traceEvents"]
     kernels = [e for e in events if e.get("cat") == "kernel"]
-    fused = [e for e in kernels if "rowgather_sum_topk" in e.get("name", "")]
-    if not fused:
-        raise AssertionError(f"--profile-dir: the trace names no rowgather_sum_topk kernel "
-                             f"({len(kernels)} kernel events)")
+    # the fused shifted kernel is the group layout's template (csrc/rowgather_sum.cu)
+    # in its shifted f32 slim-pack instance: <T, V, kCounts, kCols>
+    group = [e for e in kernels if "rowgather_group_kernel<" in e.get("name", "")]
+    fused = [e for e in group if SHIFTED_KERNEL in e["name"]]
+    if not fused or len(fused) != len(group):
+        raise AssertionError(f"--profile-dir: {len(fused)} events of {SHIFTED_KERNEL}, "
+                             f"{len(group)} of the group template ({len(kernels)} kernel "
+                             f"events)")
     summary.update(profile_trace_bytes=len(trace), profile_kernel_events=len(kernels),
                    profile_fused_us=sum(e.get("dur", 0) for e in fused) / len(fused))
     log(f"--profile-dir: {len(trace)} bytes of Chrome trace, {len(kernels)} kernel events, "
@@ -3181,6 +3380,7 @@ def main() -> int:
     import numpy as np
 
     sys.path.insert(0, os.path.join(REPO, "tests"))
+    from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.cli.main import main as cli_main
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine.placer import TorchPlacer
@@ -3305,13 +3505,15 @@ def main() -> int:
         f"{ms1 + ms2_d652:.4f} ms [{card}]")
 
     # the fused kernel: the sums, the ambiguous delta rows and the finish
-    def check_fused(plane, rows_, m_, amb_read, delta, B_, K_, what):
-        """The fused kernel against its plain version, two launches alike."""
+    def check_fused(plane, rows_, m_, amb_read, delta, B_, K_, what, pair_rows=False):
+        """The fused kernel against its plain version, two launches alike
+        (``pair_rows``: in read order, as the paired step runs it)."""
         fkw = dict(B=B_, K=K_, k=placer.k, log_eps=float(placer.log_eps))
         want = rowgather_sum_topk_plain(plane, rows_, m_, amb_read, delta, **fkw)
         want = want.cpu().numpy()
-        got = rowgather_sum_topk(plane, rows_, m_, amb_read, delta, **fkw)
-        again = rowgather_sum_topk(plane, rows_, m_, amb_read, delta, **fkw)
+        got = rowgather_sum_topk(plane, rows_, m_, amb_read, delta, pair_rows=pair_rows, **fkw)
+        again = rowgather_sum_topk(plane, rows_, m_, amb_read, delta, pair_rows=pair_rows,
+                                   **fkw)
         torch.cuda.synchronize()
         if not torch.equal(got, again):
             raise AssertionError(f"rowgather_sum_topk ({what}): two launches differ")
@@ -3322,7 +3524,8 @@ def main() -> int:
     amb_read, delta = amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B, **step_kw)
     if amb_read.numel() == 0:
         raise AssertionError("the first D652 batch holds no ambiguous read")
-    err1f, want = check_fused(st.plane, rows, m_f32, amb_read, delta, B, K, "IUPAC batch")
+    err1f, want = check_fused(st.plane, rows, m_f32, amb_read, delta, B, K, "IUPAC batch",
+                              pair_rows=True)
     ar = amb_read.cpu().numpy()
     if np.array_equal(want[ar], f_p[ar]):
         raise AssertionError("rowgather_sum_topk: the delta rows changed nothing")
@@ -3334,7 +3537,7 @@ def main() -> int:
                                     Lmax=Lmax_c)
     m_c = (lens_c - (placer.k - 1)).float()
     err1f = max(err1f, check_fused(st.plane, rows_c, m_c, None, None, B, K,
-                                   "clean batch")[0])
+                                   "clean batch", pair_rows=True)[0])
     del rows_c, lens_c, m_c
     for Sp_e, m_e, K_e in engineered:
         R_e, B_e = Sp_e.shape
@@ -3347,9 +3550,13 @@ def main() -> int:
         if not np.array_equal(want_e, want_f):
             raise AssertionError("rowgather_sum_topk_plain: engineered rows differ from "
                                  "finish_topk_plain")
-    fkw = dict(B=B, **kw)
+    fkw = dict(B=B, pair_rows=True, **kw)
     ms1f = cuda_ms(torch, lambda: rowgather_sum_topk(st.plane, rows, m_f32, amb_read, delta,
                                                       **fkw))
+    pair_ms1f = cuda_ms(torch, unfused_pair(kernels_mod, (
+        (st.plane, rows, m_f32, amb_read, delta), fkw), cols=False))
+    layout1f = group_launch(torch, st.plane, B, K, counts=False, cols=False)
+    del fkw["pair_rows"]
     plain_ms1f = cuda_ms(torch, lambda: rowgather_sum_topk_plain(
         st.plane, rows, m_f32, amb_read, delta, **fkw), reps=5, warmup=1)
     # the distinct plane rows, the row ids, m, the delta rows read once and
@@ -3360,9 +3567,10 @@ def main() -> int:
             rows.numel() * st.plane.shape[1] + FINISH_OPS * rows.shape[0] * B)
     log(f"rowgather_sum_topk {tuple(rows.shape)} B={B} K={K} ({amb_read.numel()} reads "
         f"with delta rows): bit-equal but log_sum on the IUPAC and the clean batch and "
-        f"on engineered rows, two launches alike; kernel {ms1f:.4f} ms, plain "
-        f"{plain_ms1f:.4f} ms, bound {bound(*io1f)[0]:.4f} ms; the unfused pair "
-        f"rowgather_sum + finish_topk {ms1 + ms2_d652:.4f} ms [{card}]")
+        f"on engineered rows, two launches alike; kernel {ms1f:.4f} ms ({layout1f}), plain "
+        f"{plain_ms1f:.4f} ms, bound {bound(*io1f)[0]:.4f} ms; the unfused pair on the same "
+        f"rows (rowgather_sum in read order, the delta add, finish_topk) {pair_ms1f:.4f} ms, "
+        f"the gather and the finish timed apart {ms1 + ms2_d652:.4f} ms [{card}]")
 
     step_kw = dict(B=B, K=K, Amax=Amax, Lmax=Lmax, num_kmers=st.n_keys, **step_kw)
     step_ms = cuda_ms(torch, lambda: place_batch_dense_paired(
@@ -3475,12 +3683,13 @@ def main() -> int:
     kernels = [
         # the gather alone runs past the fused kernels' limits only: the
         # single-device step at B = 40,000 (phase 9) and a sharded shard past
-        # rowgather_sum_cols's limit (phase 10)
+        # rowgather_sum_cols's limit (phase 10); config 4's paths, which the
+        # width rule routes to it, have entries of their own
         entry("rowgather_sum", dn["wide_rowgather_sum_launches"] + past.get("rowgather_sum", 0),
               err1, ms1, plain_ms1, *io1, lib_ms1),
         # embedding_bag computes the gather's sums alone, without the finish
         entry("rowgather_sum_topk", counts["rowgather_sum_topk"], err1f, ms1f, plain_ms1f,
-              *io1f, lib_ms1),
+              *io1f, lib_ms1, pair_ms=pair_ms1f, **layout1f),
         *bt_kernels,
         *sh_kernels,
         *dn_kernels,

@@ -50,6 +50,7 @@ from ..kernels.rowgather import (
     rowgather_sum_counts_topk_bf16,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
+    shifted_fused,
     topk_fits,
 )
 from ..ops.csr import (
@@ -89,9 +90,10 @@ def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: 
                              eps: float) -> torch.Tensor:
     """Dense shifted step over the pair plane: slot tokenizer, the ambiguous
     first-hit delta rows when ``Amax > 0``, then kernel 1 with the delta add
-    and the finish fused in (``rowgather_sum_topk``, reads in batch order: a
-    read order that groups shared plane rows bought no L2 reuse on the H100,
-    PERF.md). Returns the slim (R, 2K+3) f32 pack on the plane's device."""
+    and the finish fused in, or its unfused pair (``_shifted_finish``; the
+    pair rows in batch order: a read order that groups shared plane rows
+    bought them no L2 reuse on the H100, PERF.md). Returns the slim (R, 2K+3)
+    f32 pack on the plane's device."""
     rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
     return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
                            zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True)
@@ -102,18 +104,20 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
                     pair_rows: bool = False) -> torch.Tensor:
     """The shifted plane's sums (an int16 plane's dequantized by
     ``plane_scale``), the ambiguous reads' delta rows when ``Amax > 0``, and
-    the finish, into the slim pack: kernel 1 with the finish fused in, or
-    past its shared-memory limit (``topk_fits``) the gather, the delta add
-    (the same f32 add) and ``finish_topk`` apart (``pair_rows``: the rows
-    are the pair plane's, which the gather takes in read order)."""
+    the finish, into the slim pack: kernel 1 with the finish fused in where
+    the width rule takes it (``shifted_fused``, the crossover measured on the
+    H100) and its shared memory fits (``topk_fits``), else the gather, the
+    delta add (the same f32 add) and ``finish_topk`` apart, decided before
+    any launch (``pair_rows``: the rows are the pair plane's, which both
+    routes take in read order)."""
     quant = plane.dtype == torch.int16
     scale = plane_scale if quant else None
     amb_read = delta = None
     if Amax > 0:
         amb_read, delta = amb_deltas(plane, arows, zero_row=zero_row, B=B, k=k, eps=eps,
                                      log_eps=log_eps, plane_scale=plane_scale)
-    kw = dict(B=B, K=K, k=k, log_eps=log_eps)
-    if topk_fits(plane, B, K):
+    kw = dict(B=B, K=K, k=k, log_eps=log_eps, pair_rows=pair_rows)
+    if shifted_fused(plane.shape[1]) and topk_fits(plane, B, K):
         if quant:
             return rowgather_sum_topk_int16(plane, rows, m_f32, amb_read, delta, scale=scale,
                                             **kw)

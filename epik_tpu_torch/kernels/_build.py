@@ -45,34 +45,32 @@ _PROTOTYPES = {
     "epik_rowgather_sum": [_VP, _INT, _VP, _VP, _VP, _INT, _INT, _INT, _F32, _VP],
     # (plane, cell, rows, perm, S, C, R, W, bw, stream)
     "epik_rowgather_sum_counts": [_VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
-    # (plane, cell, rows, m, slot, delta, out, R, W, bw, B, K, k, log_eps, scale, stream)
-    "epik_rowgather_sum_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT,
-                                _INT, _INT, _F32, _F32, _VP],
-    # (bw, B, K) -> bytes
-    "epik_rowgather_sum_topk_smem": [_INT, _INT, _INT],
-    # (cell) -> bytes, or minus a CUDA error
-    "epik_rowgather_sum_topk_smem_limit": [_INT],
-    # (plane, cell, rows, perm, m, slot, delta, hit, out, R, W, bw, B, K, k, log_eps, G,
-    #  stream)
-    "epik_rowgather_sum_counts_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
-                                       _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP],
-    # (plane, rows, perm, m, slot, delta, hit, out, cnt, R, W, bw, K, col0, k, log_eps, G,
-    #  stream)
-    "epik_rowgather_sum_counts_cols": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _VP, _INT,
-                                       _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP],
+    # (plane, cell, rows, perm, m, amb, amb64, A, slot, delta, out, R, W, bw, B, K, k,
+    #  log_eps, scale, G, stream)
+    "epik_rowgather_sum_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
+                                _INT, _INT, _INT, _INT, _INT, _INT, _F32, _F32, _INT, _VP],
+    # (plane, rows, perm, m, amb, amb64, A, slot, delta, out, R, W, bw, K, col0, k, log_eps,
+    #  G, stream)
+    "epik_rowgather_sum_cols": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP, _INT,
+                                _INT, _INT, _INT, _INT, _INT, _F32, _INT, _VP],
+    # (plane, cell, rows, perm, m, amb, amb64, A, slot, delta, hit, out, R, W, bw, B, K, k,
+    #  log_eps, G, stream)
+    "epik_rowgather_sum_counts_topk": [_VP, _INT, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP,
+                                       _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT,
+                                       _VP],
+    # (plane, rows, perm, m, amb, amb64, A, slot, delta, hit, out, cnt, R, W, bw, K, col0, k,
+    #  log_eps, G, stream)
+    "epik_rowgather_sum_counts_cols": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
+                                       _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT,
+                                       _VP],
     # (G, bw, B, K) -> bytes
+    "epik_rowgather_shifted_group_smem": [_INT, _INT, _INT, _INT],
     "epik_rowgather_counts_group_smem": [_INT, _INT, _INT, _INT],
     # () -> bytes, or minus a CUDA error
-    "epik_rowgather_counts_group_smem_limit": [],
+    "epik_rowgather_group_smem_limit": [],
     # (G, bw, B, K, cell, cols) -> blocks an SM, or minus a CUDA error
+    "epik_rowgather_shifted_group_blocks_per_sm": [_INT, _INT, _INT, _INT, _INT, _INT],
     "epik_rowgather_counts_group_blocks_per_sm": [_INT, _INT, _INT, _INT, _INT, _INT],
-    # (plane, rows, m, slot, delta, out, R, W, bw, K, col0, k, log_eps, stream)
-    "epik_rowgather_sum_cols": [_VP, _VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _INT, _INT,
-                                _INT, _F32, _VP],
-    # (bw, K) -> bytes
-    "epik_rowgather_sum_cols_smem": [_INT, _INT],
-    # () -> bytes, or minus a CUDA error
-    "epik_rowgather_sum_cols_smem_limit": [],
     # (R, B, K, variant, out int[3])
     "epik_finish_topk_layout": [_INT, _INT, _INT, _INT, ctypes.POINTER(_INT)],
     # (Sp, ld, m, out, R, B, K, k, log_eps, ws, blocks, stream)
@@ -102,12 +100,9 @@ _PROTOTYPES = {
 }
 #: entry points that return something else than a CUDA error code
 _RESTYPES = {
-    "epik_rowgather_sum_topk_smem": ctypes.c_longlong,
-    "epik_rowgather_sum_topk_smem_limit": ctypes.c_longlong,
+    "epik_rowgather_shifted_group_smem": ctypes.c_longlong,
     "epik_rowgather_counts_group_smem": ctypes.c_longlong,
-    "epik_rowgather_counts_group_smem_limit": ctypes.c_longlong,
-    "epik_rowgather_sum_cols_smem": ctypes.c_longlong,
-    "epik_rowgather_sum_cols_smem_limit": ctypes.c_longlong,
+    "epik_rowgather_group_smem_limit": ctypes.c_longlong,
 }
 
 

@@ -1,8 +1,8 @@
 // The per-read placement finish, shared by finish_topk.cu,
-// accumulate_packed_topk.cu, rowgather_sum.cu (rowgather_sum_topk, through
-// cols_list rowgather_sum_cols, and the group layout's rowgather_sum_counts_topk
-// and rowgather_sum_counts_cols: a warp a read through warp_finish /
-// warp_cols, the list finish at G = 1) and, through cols_list, finish_cols.cu
+// accumulate_packed_topk.cu, rowgather_sum.cu (the group layout's
+// rowgather_sum_topk, rowgather_sum_cols, rowgather_sum_counts_topk and
+// rowgather_sum_counts_cols: a warp a read through warp_finish / warp_cols,
+// the list finish and cols_list at G = 1) and, through cols_list, finish_cols.cu
 // (the column-sharded finish of one shard): score correction, LWR log-sum
 // over all branches and top-K, written into one row of the slim result pack
 // [scores K | idx K | log_sum | n | zero_sum] (SlimRow) or of the full pack's

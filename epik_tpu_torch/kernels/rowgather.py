@@ -22,10 +22,15 @@ says how its design meets that.
   shifted steps' whole device work after the tokenizer: the sums (an int16
   plane's dequantized), each ambiguous read's first-hit delta row added, and
   the finish of ``finish_topk`` into the slim (R, 2K+3) pack, in one kernel,
-  so the sums never reach device memory. Its block holds the bw sums and the
-  B touched ids in shared memory: :func:`topk_fits` says whether a width
-  launches on the card, and past it the steps run :func:`rowgather_sum` and
-  ``finish_topk`` apart (the same bits);
+  so the sums never reach device memory. The group layout's shifted form: a
+  block takes G reads (:func:`shifted_group`) of the locality order, or of
+  read order on the pair plane's rows, gathers them in 512-byte column
+  slices into its shared memory (G x bw sums) and finishes them a warp a
+  read.
+  :func:`topk_fits` says whether a width launches on the card at all (G = 1:
+  about B = 36,400 at bw ~ B), and :func:`shifted_fused` whether it beats
+  :func:`rowgather_sum` and ``finish_topk`` apart (the same bits), which
+  the steps run otherwise;
 * :func:`rowgather_sum_counts_topk` / :func:`rowgather_sum_counts_topk_bf16` --
   the classic dense steps' whole device work after the tokenizer: the sums
   and exact counts over the classic f32 or bf16 plane, each ambiguous read's
@@ -45,11 +50,11 @@ says how its design meets that.
   (``finish_cols.finish_cols_partial`` / ``_counts``) into its partial pack
   (R, 2 Kl + 3) ``[values | global ids | n_s | max_s | e_s]`` (and the
   classic form's candidate counts), in one kernel, so the shard's sums never
-  reach device memory; the classic form in the group layout at B = bwl.
+  reach device memory; both forms in the group layout at B = bwl.
   :func:`cols_fits` / :func:`counts_cols_fits` say whether a shard width
-  launches on the card (about bwl = 37,000 / 22,000), and past it the step
-  runs the gather and the finish apart (the same bits but ``e_s``'s order of
-  adds).
+  launches on the card (about bwl = 36,400 / 22,000), and past it (the
+  shifted form also past :func:`shifted_fused`'s width) the step runs the
+  gather and the finish apart (the same bits but ``e_s``'s order of adds).
 
 Each dispatches on the tensors' device: the plain PyTorch version for CPU
 tensors, the CUDA kernel for CUDA tensors (or an error).
@@ -57,6 +62,7 @@ tensors, the CUDA kernel for CUDA tensors (or an error).
 
 from __future__ import annotations
 
+import functools
 import threading
 
 import torch
@@ -66,7 +72,8 @@ from .finish import MAX_K, finish_topk_counts_plain, finish_topk_plain
 from .finish_cols import finish_cols_partial_counts_plain, finish_cols_partial_plain
 
 __all__ = ["GROUP_BLOCK_RESERVE", "GROUP_MAX", "GROUP_MIN_BLOCKS", "GROUP_ROW_IDS",
-           "GROUP_THREADS", "add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
+           "GROUP_THREADS", "SHIFTED_COLS_MAX_BW", "SHIFTED_GROUP_MAX", "SHIFTED_TOPK_MAX_BW",
+           "add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
            "counts_group", "counts_topk_fits", "counts_topk_smem", "group_smem",
            "locality_order", "rowgather_sum", "rowgather_sum_cols",
            "rowgather_sum_cols_plain", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
@@ -74,7 +81,8 @@ __all__ = ["GROUP_BLOCK_RESERVE", "GROUP_MAX", "GROUP_MIN_BLOCKS", "GROUP_ROW_ID
            "rowgather_sum_counts_plain", "rowgather_sum_counts_topk",
            "rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_topk_plain",
            "rowgather_sum_plain", "rowgather_sum_topk", "rowgather_sum_topk_int16",
-           "rowgather_sum_topk_plain", "topk_fits"]
+           "rowgather_sum_topk_plain", "shifted_fused", "shifted_group", "topk_fits",
+           "topk_smem"]
 
 _count_lock = threading.Lock()
 #: the C entry points' plane cell codes
@@ -85,10 +93,12 @@ _MAX_TOPK_B = 1 << 16
 #: (kGroupThreads, kGroupRowIds): threads, staged row ids
 GROUP_THREADS = 256
 GROUP_ROW_IDS = 2048
-#: the choice of G: at most GROUP_MAX reads a block, as many as fit
-#: GROUP_MIN_BLOCKS blocks within the card's shared memory (the kernel's
-#: register budget, EPIK_GROUP_MIN_BLOCKS)
+#: the choice of G: at most GROUP_MAX reads a block (the shifted form, with
+#: half the bytes a read, SHIFTED_GROUP_MAX), as many as fit GROUP_MIN_BLOCKS
+#: blocks within the card's shared memory (the kernel's register budget,
+#: EPIK_GROUP_MIN_BLOCKS, both forms)
 GROUP_MAX = 4
+SHIFTED_GROUP_MAX = 8
 GROUP_MIN_BLOCKS = 3
 #: the shared memory an SM spends beside each block's dynamic bytes (the
 #: kernel's 384 static bytes and the 1 KB the card reserves a block), rounded
@@ -276,31 +286,122 @@ def rowgather_sum_topk_plain(plane: torch.Tensor, rows: torch.Tensor, m_f32: tor
     return finish_topk_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps)
 
 
-def topk_smem(plane: torch.Tensor, B: int, K: int) -> tuple[int, int]:
-    """(bytes of shared memory a fused launch at this width asks, bytes a
-    block of it may take on the plane's card), from the CUDA source's own
-    formula and the card's opt-in limit less the kernel's static shared
-    memory. CUDA planes only."""
-    lib = library()
-    with torch.cuda.device(plane.device):
-        need = lib.epik_rowgather_sum_topk_smem(plane.shape[1], B, K)
-        limit = lib.epik_rowgather_sum_topk_smem_limit(_CELL[plane.dtype])
+def group_smem(G: int, bw: int, B: int, K: int, counts: bool = True) -> int:
+    """Bytes of dynamic shared memory of a group-layout block of G reads at
+    (bw, B, K), the CUDA source's formula (``group_smem``): G x bw sums (and
+    with ``counts`` G x bw counts), the staged row ids, ceil(B / 32) mask
+    words, B 16-bit ids (padded to 4 bytes) and the warps' K candidates
+    (value and id)."""
+    words = (2 if counts else 1) * G * bw + GROUP_ROW_IDS + (B + 31) // 32 + (B + 1) // 2
+    return words * 4 + GROUP_THREADS // 32 * K * 8
+
+
+def _group_size(bw: int, B: int, K: int, limit: int, counts: bool) -> int:
+    """The largest G up to the form's maximum of whose blocks an SM holds
+    GROUP_MIN_BLOCKS (each with its reserve, within one block's limit and one
+    reserve), else 1 (one block an SM; whether that fits is
+    the fits functions' question)."""
+    G = GROUP_MAX if counts else SHIFTED_GROUP_MAX
+    while G > 1 and GROUP_MIN_BLOCKS * (group_smem(G, bw, B, K, counts)
+                                        + GROUP_BLOCK_RESERVE) > limit + GROUP_BLOCK_RESERVE:
+        G -= 1
+    return G
+
+
+def counts_group(bw: int, B: int, K: int, limit: int) -> int:
+    """G, the reads a counts-form block (:func:`rowgather_sum_counts_topk`,
+    :func:`rowgather_sum_counts_cols`) takes at (bw, B, K) on a card whose
+    block may take ``limit`` bytes of shared memory: the largest G up to
+    GROUP_MAX of whose blocks an SM holds GROUP_MIN_BLOCKS, else 1."""
+    return _group_size(bw, B, K, limit, True)
+
+
+def shifted_group(bw: int, B: int, K: int, limit: int) -> int:
+    """G, the reads a shifted-form block (:func:`rowgather_sum_topk`,
+    :func:`rowgather_sum_cols`) takes at (bw, B, K) on a card whose block may
+    take ``limit`` bytes of shared memory: the largest G up to
+    SHIFTED_GROUP_MAX of whose blocks an SM holds GROUP_MIN_BLOCKS, else 1."""
+    return _group_size(bw, B, K, limit, False)
+
+
+@functools.lru_cache(maxsize=None)
+def _group_limit(device: torch.device) -> int:
+    """Bytes a group-layout block may take on ``device``: the opt-in limit
+    less the kernel's static shared memory (a property of the card, so it is
+    asked once)."""
+    with torch.cuda.device(device):
+        limit = library().epik_rowgather_group_smem_limit()
     if limit < 0:
-        check(int(-limit), "rowgather_sum_topk")
-    return need, limit
+        check(int(-limit), "the group layout's shared memory limit")
+    return limit
+
+
+@functools.lru_cache(maxsize=None)
+def _layout(device: torch.device, bw: int, B: int, K: int, counts: bool) -> tuple[int, int, int]:
+    limit = _group_limit(device)
+    G = _group_size(bw, B, K, limit, counts)
+    return G, group_smem(G, bw, B, K, counts), limit
+
+
+def _group_layout(plane: torch.Tensor, B: int, K: int, counts: bool) -> tuple[int, int, int]:
+    """(G, bytes of the launch, bytes a block may take on the plane's card:
+    the opt-in limit less the kernel's static shared memory) of a
+    group-layout launch at the plane's width, worked out once a shape (the
+    wrappers ask it on every call). CUDA planes only."""
+    return _layout(plane.device, plane.shape[1], B, K, counts)
+
+
+def topk_smem(plane: torch.Tensor, B: int, K: int) -> tuple[int, int]:
+    """(bytes of shared memory a :func:`rowgather_sum_topk` launch at this
+    width asks at the G :func:`shifted_group` chooses, bytes a block of it
+    may take on the plane's card). CUDA planes only."""
+    return _group_layout(plane, B, K, False)[1:]
 
 
 def topk_fits(plane: torch.Tensor, B: int, K: int) -> bool:
     """Whether the fused kernel takes a tree of B branches at the plane's
-    width: B <= 2**16 (16-bit ids) and its shared memory within the card's
-    limit (about B = 37,000 at bw ~ B). The plain version on the CPU has no
-    limit."""
+    width: B <= 2**16 (16-bit ids) and a block of one read
+    (bw sums, the row ids, ceil(B / 32) mask words, B ids) within the card's
+    shared memory (about B = 36,400 at bw ~ B). The plain version on the CPU
+    has no limit."""
     if plane.device.type != "cuda":
         return True
     if B > _MAX_TOPK_B:
         return False
     need, limit = topk_smem(plane, B, K)
     return need <= limit
+
+
+#: the widest plane (columns) at which a shifted step runs its fused kernel
+#: (rowgather_sum_topk[_int16]) rather than the unfused pair (rowgather_sum,
+#: the delta add, finish_topk), and the widest shard at which a sharded
+#: shifted step runs rowgather_sum_cols rather than rowgather_sum, the delta
+#: add and finish_cols_partial. Set from both routes timed through their
+#: public wrappers in turns on an H100 (kernel_sweep.py --only shifted: CUDA
+#: events from an idle card, the host's work before the launches included,
+#: and with the card busy ahead, the device's work alone), on the paths' rows
+#: and on D652's unpaired rows over its plane cut or repeated to 1,024-19,712
+#: columns. #1: the fused kernel ahead by 5-16% up to 1,664 columns (D652's
+#: pair rows 2.02 ms against 2.29, 1,664 columns 2.96 against 3.13), behind
+#: from 1,792 (3.38 against 3.31; config 4's 20,096 13.8 against 12.2). 1e,
+#: whose pair ends in kernel A (0.24 ms) where #1's ends in finish_topk
+#: (0.52 ms at D652's B): ahead at 384 columns (D652's 1x4 shard, 0.63
+#: against 0.66; 0.54 against 0.62 device time), tied at 768 and 1,024
+#: (1.19 against 1.19; 1.92 against 1.92), behind from 1,216 (2.44 against
+#: 2.31), and tied on D652's 1x1 shard of 1,408 columns of pair rows (2.06
+#: against 2.04; 1.94 against 1.96 device time), which therefore runs the
+#: pair.
+SHIFTED_TOPK_MAX_BW = 1664
+SHIFTED_COLS_MAX_BW = 1024
+
+
+def shifted_fused(bw: int, cols: bool = False) -> bool:
+    """Whether a shifted step at plane width ``bw`` (``cols``: a sharded
+    step's shard of ``bw`` columns) runs the fused kernel rather than its
+    unfused pair, where both launch (:func:`topk_fits`, :func:`cols_fits`):
+    the crossover measured on an H100, a rule of the width alone, decided
+    before any launch."""
+    return bw <= (SHIFTED_COLS_MAX_BW if cols else SHIFTED_TOPK_MAX_BW)
 
 
 def _check_amb(amb_read, rows_of_read: dict, B: int, dev: torch.device) -> None:
@@ -336,8 +437,9 @@ def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
     if not 1 <= K <= min(MAX_K, B):
         raise ValueError(f"K={K} must lie in [1, min({MAX_K}, B={B})]")
     _check_amb(amb_read, {"amb_delta": (amb_delta, torch.float32)}, B, dev)
-    # the limit: 16-bit ids, and bw sums + ceil(B/32) mask words + B ids +
-    # the candidates within the card's opt-in shared memory
+    # the limit: 16-bit ids, and a block of one read (bw sums + the row ids +
+    # ceil(B/32) mask words + B ids + the candidates) within the card's opt-in
+    # shared memory
     if dev.type == "cuda":
         if B > _MAX_TOPK_B:
             raise ValueError(f"B={B}: the fused kernel's ids are 16 bits (B <= {_MAX_TOPK_B})")
@@ -348,17 +450,22 @@ def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
                              f"block may take on {dev}; run rowgather_sum + finish_topk")
 
 
-def _slots(amb_read, R: int, dev: torch.device):
-    """int32 (R,): each ambiguous read's row of the delta rows, else -1; None
-    when no read has one."""
+def _amb_args(amb_read, amb_delta, R: int, dev: torch.device):
+    """The group entry points' (amb, amb64, A, slot, delta) arguments and the
+    tensors they point into: the ambiguous reads' ids and an int32 (R,)
+    scratch that the launch fills with each read's row of the delta rows (or
+    -1) on the stream, a memset and one small kernel where three PyTorch
+    calls would sit on the host's path to the launch."""
     if amb_read is None or amb_read.numel() == 0:
-        return None
-    slot = torch.full((R,), -1, dtype=torch.int32, device=dev)
-    slot[amb_read] = torch.arange(amb_read.numel(), dtype=torch.int32, device=dev)
-    return slot
+        return (None, 0, 0, None, None), ()
+    amb = amb_read.contiguous()
+    slot = torch.empty((R,), dtype=torch.int32, device=dev)
+    return ((amb.data_ptr(), int(amb.dtype == torch.int64), amb.numel(), slot.data_ptr(),
+             amb_delta.data_ptr()), (amb, slot))
 
 
-def _sum_topk(fn, plane, rows, m_f32, amb_read, amb_delta, *, B, K, k, log_eps, scale):
+def _sum_topk(fn, plane, rows, m_f32, amb_read, amb_delta, *, B, K, k, log_eps, scale,
+              pair_rows):
     R, W = rows.shape
     if plane.device.type == "cpu":
         return rowgather_sum_topk_plain(plane, rows, m_f32, amb_read, amb_delta, B=B,
@@ -367,23 +474,24 @@ def _sum_topk(fn, plane, rows, m_f32, amb_read, amb_delta, *, B, K, k, log_eps, 
     out = torch.empty((R, 2 * K + 3), dtype=torch.float32, device=plane.device)
     if R == 0:
         return out
-    slot = _slots(amb_read, R, plane.device)
+    amb, _held = _amb_args(amb_read, amb_delta, R, plane.device)
+    perm = None if pair_rows else locality_order(rows)
+    G = _group_layout(plane, B, K, False)[0]
     lib = library()
     with torch.cuda.device(plane.device):
         err = lib.epik_rowgather_sum_topk(
-            plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(), m_f32.data_ptr(),
-            slot.data_ptr() if slot is not None else None,
-            amb_delta.data_ptr() if slot is not None else None, out.data_ptr(),
-            R, W, plane.shape[1], B, K, k, float(log_eps), float(scale or 1.0),
-            _stream(plane.device))
+            plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(),
+            perm.data_ptr() if perm is not None else None, m_f32.data_ptr(), *amb,
+            out.data_ptr(), R, W, plane.shape[1], B, K, k, float(log_eps),
+            float(scale or 1.0), G, _stream(plane.device))
     check(err, fn.__name__)
     _count(fn)
     return out
 
 
 def rowgather_sum_topk(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
-                       amb_read, amb_delta, *, B: int, K: int, k: int,
-                       log_eps: float) -> torch.Tensor:
+                       amb_read, amb_delta, *, B: int, K: int, k: int, log_eps: float,
+                       pair_rows: bool = False) -> torch.Tensor:
     """plane f32 (n_rows, bw), rows int32 (R, W), m_f32 f32 (R,) window
     counts; ``amb_read`` (A,) the reads with an ambiguous first-hit delta row
     and ``amb_delta`` f32 (A, B) those rows (both None when there are none)
@@ -391,21 +499,26 @@ def rowgather_sum_topk(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Ten
 
     Every index must lie in [0, n_rows), misses pointing at an all-zero row;
     ``amb_read`` holds distinct reads. On the card, B must be within
-    :func:`topk_fits`'s limit (a wider tree raises ValueError)."""
+    :func:`topk_fits`'s limit (a wider tree raises ValueError). The kernel
+    takes the reads in :func:`locality_order`, or in read order where
+    ``pair_rows`` (the rows index a pair plane, which reads rarely share, as
+    :func:`rowgather_sum` does), G of them a block (:func:`shifted_group`);
+    each read's row of the pack is its own."""
     _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B, K, torch.float32, None)
     return _sum_topk(rowgather_sum_topk, plane, rows, m_f32, amb_read, amb_delta, B=B,
-                     K=K, k=k, log_eps=log_eps, scale=None)
+                     K=K, k=k, log_eps=log_eps, scale=None, pair_rows=pair_rows)
 
 
 def rowgather_sum_topk_int16(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
                              amb_read, amb_delta, *, B: int, K: int, k: int,
-                             log_eps: float, scale: float) -> torch.Tensor:
+                             log_eps: float, scale: float,
+                             pair_rows: bool = False) -> torch.Tensor:
     """:func:`rowgather_sum_topk` over an int16 plane: the sums in exact
     int32, then ``f32(sum) / f32(scale)`` (each correctly rounded) before the
     delta add and the finish."""
     _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B, K, torch.int16, scale)
     return _sum_topk(rowgather_sum_topk_int16, plane, rows, m_f32, amb_read, amb_delta,
-                     B=B, K=K, k=k, log_eps=log_eps, scale=scale)
+                     B=B, K=K, k=k, log_eps=log_eps, scale=scale, pair_rows=pair_rows)
 
 
 #: kernel launches since the last reset (CUDA only; the plain path never counts)
@@ -437,46 +550,12 @@ def rowgather_sum_counts_topk_plain(plane: torch.Tensor, rows: torch.Tensor,
     return finish_topk_counts_plain(S, C, m_f32, K=K, k=k, log_eps=log_eps, full=True)
 
 
-def group_smem(G: int, bw: int, B: int, K: int) -> int:
-    """Bytes of dynamic shared memory of a group-layout block of G reads at
-    (bw, B, K), the CUDA source's formula (``group_smem``): G x bw sums and
-    counts, the staged row ids, ceil(B / 32) mask words, B 16-bit ids
-    (padded to 4 bytes) and the warps' K candidates (value and id)."""
-    words = 2 * G * bw + GROUP_ROW_IDS + (B + 31) // 32 + (B + 1) // 2
-    return words * 4 + GROUP_THREADS // 32 * K * 8
-
-
-def counts_group(bw: int, B: int, K: int, limit: int) -> int:
-    """G, the reads a group-layout block takes at (bw, B, K) on a card whose
-    block may take ``limit`` bytes of shared memory: the largest G up to
-    GROUP_MAX of whose blocks an SM holds GROUP_MIN_BLOCKS (n blocks, each
-    with its reserve, within one block's limit and one reserve), else 1 (one
-    block an SM; whether that fits is :func:`counts_topk_fits`'s
-    question)."""
-    n, reserve = GROUP_MIN_BLOCKS, GROUP_BLOCK_RESERVE
-    G = GROUP_MAX
-    while G > 1 and n * (group_smem(G, bw, B, K) + reserve) > limit + reserve:
-        G -= 1
-    return G
-
-
-def _group_layout(plane: torch.Tensor, B: int, K: int) -> tuple[int, int, int]:
-    """(G, bytes of the launch, bytes a block may take on the plane's card)
-    of a group-layout launch at the plane's width. CUDA planes only."""
-    with torch.cuda.device(plane.device):
-        limit = library().epik_rowgather_counts_group_smem_limit()
-    if limit < 0:
-        check(int(-limit), "the group layout's shared memory limit")
-    G = counts_group(plane.shape[1], B, K, limit)
-    return G, group_smem(G, plane.shape[1], B, K), limit
-
-
 def counts_topk_smem(plane: torch.Tensor, B: int, K: int) -> tuple[int, int]:
     """(bytes of shared memory a :func:`rowgather_sum_counts_topk` launch at
     this width asks, at the G :func:`counts_group` chooses, bytes a block of
     it may take on the plane's card: the opt-in limit less the kernel's
     static shared memory). CUDA planes only."""
-    return _group_layout(plane, B, K)[1:]
+    return _group_layout(plane, B, K, True)[1:]
 
 
 def counts_topk_fits(plane: torch.Tensor, B: int, K: int) -> bool:
@@ -532,17 +611,16 @@ def _sum_counts_topk(fn, plane, rows, m_f32, amb_read, amb_dS, amb_hit, *, B, K,
     out = torch.empty((R, 4 * K + 2), dtype=torch.float32, device=plane.device)
     if R == 0:
         return out
-    slot = _slots(amb_read, R, plane.device)
+    amb, _held = _amb_args(amb_read, amb_dS, R, plane.device)
     perm = locality_order(rows)
-    G = _group_layout(plane, B, K)[0]
+    G = _group_layout(plane, B, K, True)[0]
     lib = library()
     with torch.cuda.device(plane.device):
         err = lib.epik_rowgather_sum_counts_topk(
             plane.data_ptr(), _CELL[plane.dtype], rows.data_ptr(), perm.data_ptr(),
-            m_f32.data_ptr(), slot.data_ptr() if slot is not None else None,
-            amb_dS.data_ptr() if slot is not None else None,
-            amb_hit.data_ptr() if slot is not None else None, out.data_ptr(),
-            R, W, plane.shape[1], B, K, k, float(log_eps), G, _stream(plane.device))
+            m_f32.data_ptr(), *amb, amb_hit.data_ptr() if amb[0] is not None else None,
+            out.data_ptr(), R, W, plane.shape[1], B, K, k, float(log_eps), G,
+            _stream(plane.device))
     check(err, fn.__name__)
     _count(fn)
     return out
@@ -613,19 +691,11 @@ def cols_smem(plane: torch.Tensor, K: int, counts: bool) -> tuple[int, int]:
     """(bytes of shared memory a :func:`rowgather_sum_cols` launch
     (``counts``: :func:`rowgather_sum_counts_cols`) at the plane's width asks,
     bytes a block of it may take on the plane's card), from the CUDA source's
-    own formula (the shifted fused kernel's layout, or the group layout at
-    its G, at B = bwl) and the card's opt-in limit less the kernel's static
-    shared memory. CUDA planes only."""
+    own formula (the group layout's shifted or counts form at its G, at B =
+    bwl) and the card's opt-in limit less the kernel's static shared memory.
+    CUDA planes only."""
     bw = plane.shape[1]
-    if counts:
-        return _group_layout(plane, bw, min(K, bw))[1:]
-    lib = library()
-    with torch.cuda.device(plane.device):
-        need = lib.epik_rowgather_sum_cols_smem(bw, min(K, bw))
-        limit = lib.epik_rowgather_sum_cols_smem_limit()
-    if limit < 0:
-        check(int(-limit), "rowgather_sum_cols")
-    return need, limit
+    return _group_layout(plane, bw, min(K, bw), counts)[1:]
 
 
 def _cols_fit(plane: torch.Tensor, K: int, counts: bool) -> bool:
@@ -639,9 +709,10 @@ def _cols_fit(plane: torch.Tensor, K: int, counts: bool) -> bool:
 
 def cols_fits(plane: torch.Tensor, K: int) -> bool:
     """Whether :func:`rowgather_sum_cols` takes a shard of the plane's width:
-    bwl <= 2**16 (16-bit ids) and bwl sums, ceil(bwl / 32) mask words, bwl
-    ids and the candidates within the card's shared memory (about bwl =
-    37,000). The plain version on the CPU has no limit."""
+    bwl <= 2**16 (16-bit ids) and a group-layout block of one read at B =
+    bwl (bwl sums, the row ids, ceil(bwl / 32) mask words, bwl ids) within
+    the card's shared memory (about bwl = 36,400). The plain version on the
+    CPU has no limit."""
     return _cols_fit(plane, K, False)
 
 
@@ -676,7 +747,8 @@ def _check_cols_args(fn, plane, rows, m_f32, K: int, col0: int, amb: dict, amb_r
                              f"the gather and finish_cols_partial{'_counts' if counts else ''}")
 
 
-def _sum_cols(fn, plane, rows, m_f32, amb_read, delta, hit, *, K, k, log_eps, col0):
+def _sum_cols(fn, plane, rows, m_f32, amb_read, delta, hit, *, K, k, log_eps, col0,
+              pair_rows=False):
     R, W = rows.shape
     bw = plane.shape[1]
     Kl = min(K, bw)
@@ -686,29 +758,28 @@ def _sum_cols(fn, plane, rows, m_f32, amb_read, delta, hit, *, K, k, log_eps, co
     cnt = torch.empty((R, Kl), dtype=torch.int32, device=plane.device) if counts else None
     if R == 0:
         return out, cnt
-    slot = _slots(amb_read, R, plane.device)
+    amb, _held = _amb_args(amb_read, delta, R, plane.device)
+    perm = None if pair_rows else locality_order(rows)
+    G = _group_layout(plane, bw, Kl, counts)[0]
     lib = library()
-    amb = ((slot.data_ptr(), delta.data_ptr()) if slot is not None else (None, None))
+    head = (plane.data_ptr(), rows.data_ptr(), perm.data_ptr() if perm is not None else None,
+            m_f32.data_ptr(), *amb)
     with torch.cuda.device(plane.device):
         if counts:
-            perm = locality_order(rows)
-            G = _group_layout(plane, bw, Kl)[0]
             err = lib.epik_rowgather_sum_counts_cols(
-                plane.data_ptr(), rows.data_ptr(), perm.data_ptr(), m_f32.data_ptr(), *amb,
-                hit.data_ptr() if slot is not None else None, out.data_ptr(), cnt.data_ptr(),
-                R, W, bw, Kl, col0, k, float(log_eps), G, _stream(plane.device))
+                *head, hit.data_ptr() if amb[0] is not None else None, out.data_ptr(),
+                cnt.data_ptr(), R, W, bw, Kl, col0, k, float(log_eps), G, _stream(plane.device))
         else:
-            err = lib.epik_rowgather_sum_cols(
-                plane.data_ptr(), rows.data_ptr(), m_f32.data_ptr(), *amb, out.data_ptr(), R,
-                W, bw, Kl, col0, k, float(log_eps), _stream(plane.device))
+            err = lib.epik_rowgather_sum_cols(*head, out.data_ptr(), R, W, bw, Kl, col0, k,
+                                              float(log_eps), G, _stream(plane.device))
     check(err, fn.__name__)
     _count(fn)
     return out, cnt
 
 
 def rowgather_sum_cols(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,
-                       amb_read, amb_delta, *, K: int, k: int, log_eps: float,
-                       col0: int) -> torch.Tensor:
+                       amb_read, amb_delta, *, K: int, k: int, log_eps: float, col0: int,
+                       pair_rows: bool = False) -> torch.Tensor:
     """One shard's shifted f32 plane (n_rows, bwl), rows int32 (R, W), m_f32
     f32 (R,) window counts; ``amb_read`` (A,) the reads with an ambiguous
     first-hit delta row and ``amb_delta`` f32 (A, bwl) those rows (both None
@@ -718,14 +789,17 @@ def rowgather_sum_cols(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Ten
 
     Every index must lie in [0, n_rows), misses pointing at an all-zero row;
     ``amb_read`` holds distinct reads. On the card, bwl must be within
-    :func:`cols_fits`'s limit (a wider shard raises ValueError)."""
+    :func:`cols_fits`'s limit (a wider shard raises ValueError). The kernel
+    takes the reads in :func:`locality_order`, or in read order where
+    ``pair_rows``, G of them a block (:func:`shifted_group` at B = bwl); each
+    read's row of the pack is its own."""
     _check_cols_args(rowgather_sum_cols, plane, rows, m_f32, K, col0,
                      {"amb_delta": (amb_delta, torch.float32)}, amb_read)
     kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
     if plane.device.type == "cpu":
         return rowgather_sum_cols_plain(plane, rows, m_f32, amb_read, amb_delta, **kw)
     return _sum_cols(rowgather_sum_cols, plane, rows, m_f32, amb_read, amb_delta, None,
-                     **kw)[0]
+                     pair_rows=pair_rows, **kw)[0]
 
 
 def rowgather_sum_counts_cols(plane: torch.Tensor, rows: torch.Tensor, m_f32: torch.Tensor,

@@ -77,6 +77,7 @@ from ..kernels.rowgather import (
     rowgather_sum_cols,
     rowgather_sum_counts,
     rowgather_sum_counts_cols,
+    shifted_fused,
 )
 from ..ops.csr import (
     ORDER_INF,
@@ -439,13 +440,16 @@ def _pad_cells(x: torch.Tensor, value) -> torch.Tensor:
 def _shifted_cols(plane, rows, m_f32, amb_read, delta, *, K: int, k: int, log_eps: float,
                   col0: int, pair_rows: bool = False) -> torch.Tensor:
     """One shard's partial pack from its shifted plane: kernel 1 with the
-    delta add and the column finish fused in, or past its shared-memory limit
-    (:func:`cols_fits`) the gather, the same f32 add at the ambiguous reads
-    and ``finish_cols_partial`` apart (``pair_rows``: the rows are the pair
-    plane's, which the gather takes in read order)."""
+    delta add and the column finish fused in where the width rule takes it
+    (:func:`shifted_fused`, the crossover measured on the H100) and its
+    shared memory fits (:func:`cols_fits`), else the gather, the same f32 add
+    at the ambiguous reads and ``finish_cols_partial`` apart, decided before
+    any launch (``pair_rows``: the rows are the pair plane's, which both
+    routes take in read order)."""
     kw = dict(K=K, k=k, log_eps=log_eps, col0=col0)
-    if cols_fits(plane, K):
-        return rowgather_sum_cols(plane, rows, m_f32, amb_read, delta, **kw)
+    if shifted_fused(plane.shape[1], cols=True) and cols_fits(plane, K):
+        return rowgather_sum_cols(plane, rows, m_f32, amb_read, delta, pair_rows=pair_rows,
+                                  **kw)
     Sp = rowgather_sum(plane, rows, pair_rows=pair_rows)
     if amb_read is not None and amb_read.numel() > 0:
         Sp[amb_read] = Sp[amb_read] + delta

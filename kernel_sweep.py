@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Layout variants of five of the port's kernels, timed in turns on one card:
 
-    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols|group] [--parent PATH]
+    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols|group|shifted] [--parent PATH]
 
 * kernel 1d, the gather alone (``rowgather_sum``, f32 and int16), on
   ``chip_smoke.py``'s D652 pair rows (the first batch of 16,384 reads of the
@@ -51,6 +51,30 @@
   turns. Each variant's blocks an SM, from the occupancy calculator, is
   written beside its time.
 
+* the fused shifted kernels in the group layout's shifted form, #1 / 1a
+  (``rowgather_sum_topk`` and ``_int16``) and 1e (``rowgather_sum_cols``),
+  each on the rows its path gives it (the first batch of ``chip_smoke.py``'s
+  fixtures, recorded at the step's router, so whichever route it takes):
+  D652's pair rows (16,381 x 72; 1e on them as the 1x1 shard), D652's
+  unpaired rows in f32 and int16 (16,378 x 143), the 1x4 and 1x2 meshes'
+  first shards (bwl 384, 768), config 2's codes rows (4,096 x 137) and
+  config 4's rows at bw
+  20,096 (#1 and 1e): G reads a block (a launch argument; the shipped choice
+  and G = 2, 4, 16), blocks an SM (``-D EPIK_GROUP_MIN_BLOCKS``), loads in
+  flight (``EPIK_GROUP_UNROLL``), 256- and 1,024-byte slices (the shipped
+  512, ``EPIK_SHIFTED_LANES``) and the other read order; beside them, in the
+  same turns, the shipped kernel through its public wrapper ("fused"), the
+  unfused pair through this checkout's wrappers (``rowgather_sum`` in the
+  step's order, the delta add, ``finish_topk`` / ``finish_cols_partial``)
+  and, with ``--parent``, the parent checkout's fused kernels (its
+  ``rowgather_sum.cu`` built the same way, called through its own entry
+  points); then the wrapper and the pair in turns again with the card kept
+  busy ahead of them (``queued``: their device time, and the host's time in
+  each call); then the shipped kernel, the wrapper, the pair and the parent
+  over D652's unpaired rows on its plane's columns cut or repeated to widths
+  of 1,024 to 19,712, around and between the paths' widths, which set the
+  crossover (``kernels/rowgather.py::shifted_fused``).
+
 Each variant is built by ``nvcc`` from this checkout's sources (the shipped
 ones with ``-D`` overrides of their layout macros, or the variant source)
 into ``build/sweep/``, loaded with ``ctypes`` and held bit-equal to the plain
@@ -65,11 +89,26 @@ import argparse
 import ctypes
 import json
 import os
+import statistics
 import subprocess
 import sys
+import time
 
 import chip_smoke
-from chip_smoke import BATCH, card_line, cuda_ms, d652_fixture, recording
+from chip_smoke import (
+    AA_BATCH,
+    BATCH,
+    BT_BATCH,
+    TIMING_REPS,
+    card_line,
+    check_finish,
+    check_partial,
+    cuda_ms,
+    d652_fixture,
+    fused_call,
+    recording,
+    unfused_pair,
+)
 
 CSRC = os.path.join("epik_tpu_torch", "kernels", "csrc")
 TILES_SRC = os.path.join("kernel_variants", "accumulate_sums_tiles.cu")
@@ -126,6 +165,27 @@ GROUP = {
     "group_g2_threads128_min_blocks6": (["-DEPIK_GROUP_THREADS=128",
                                          "-DEPIK_GROUP_MIN_BLOCKS=6"], 2, True),
 }
+#: the shifted group's variants: name -> (nvcc -D flags, G or None for the
+#: wrapper's choice, the read order: "step" the step's (read order on pair
+#: rows, else the locality order) or "other" the other of the two)
+SHIFTED = {
+    "shifted": ([], None, "step"),
+    "shifted_other_order": ([], None, "other"),
+    "shifted_g2": ([], 2, "step"),
+    "shifted_g4": ([], 4, "step"),
+    "shifted_g16_min_blocks2": (["-DEPIK_GROUP_MIN_BLOCKS=2"], 16, "step"),
+    "shifted_min_blocks4": (["-DEPIK_GROUP_MIN_BLOCKS=4"], None, "step"),
+    "shifted_min_blocks6": (["-DEPIK_GROUP_MIN_BLOCKS=6"], 4, "step"),
+    "shifted_unroll4": (["-DEPIK_GROUP_UNROLL=4"], None, "step"),
+    "shifted_unroll16": (["-DEPIK_GROUP_UNROLL=16"], None, "step"),
+    "shifted_lanes16": (["-DEPIK_SHIFTED_LANES=16"], None, "step"),
+    "shifted_lanes64": (["-DEPIK_SHIFTED_LANES=64"], None, "step"),
+}
+#: the width sweep: D652's plane columns cut or repeated to these widths
+SHIFTED_WIDTHS = (1024, 1216, 1536, 1664, 1792, 1920, 2112, 2816, 5632, 11264, 19712)
+#: cycles of ``torch.cuda._sleep`` queued ahead of a queued timing (~1 ms on
+#: an H100, several times the host's work before a wrapper's launches)
+AHEAD_CYCLES = 2_000_000
 #: kernel A's variants: name -> nvcc -D flags
 COLS = {
     "cols": [],
@@ -157,6 +217,43 @@ def build(jobs: dict, out_dir: str) -> dict:
             f.write(log)
         libs[name] = ctypes.CDLL(so)
     return libs
+
+
+def queued_times(torch, fn, reps: int = TIMING_REPS, warmup: int = 3) -> tuple[float, float]:
+    """(median device ms, median host us) of ``fn`` with the card kept busy
+    ahead of it (``torch.cuda._sleep``): the start event runs when the queue
+    ahead drains, by which time the host has enqueued ``fn``'s launches, so
+    the events time the device's work alone, while the host's clock times
+    the work in ``fn`` before it returns (its checks, its small PyTorch
+    calls, the launches)."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    device, host = [], []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(AHEAD_CYCLES)
+        a.record()
+        t0 = time.perf_counter()
+        fn()
+        host.append((time.perf_counter() - t0) * 1e6)
+        b.record()
+        b.synchronize()
+        device.append(a.elapsed_time(b))
+    return statistics.median(device), statistics.median(host)
+
+
+def parent_slots(torch, amb_read, R: int, dev):
+    """The slot map the parent's group entry points take made by the caller,
+    as its wrappers made it (inside the timed call, as this checkout's entry
+    points make theirs): int32 (R,), each ambiguous read's row of the delta
+    rows, else -1; None when no read has one."""
+    if amb_read is None or amb_read.numel() == 0:
+        return None
+    slot = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    slot[amb_read] = torch.arange(amb_read.numel(), dtype=torch.int32, device=dev)
+    return slot
 
 
 def in_turns(torch, names, call, check) -> dict:
@@ -468,6 +565,7 @@ def group_times(torch, np, dev, out: dict, parent: str | None) -> None:
     from epik_tpu_torch.engine.config import PlacerConfig
     from epik_tpu_torch.engine.placer import TorchPlacer
     from epik_tpu_torch.kernels import rowgather as rg
+    from epik_tpu_torch.kernels._build import _PROTOTYPES
 
     src = os.path.join(CSRC, "rowgather_sum.cu")
     builds = {}
@@ -480,19 +578,17 @@ def group_times(torch, np, dev, out: dict, parent: str | None) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     for name in jobs:
         lib = libs[name]
-        if name == "parent":
-            lib.epik_rowgather_sum_counts_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, i, i, i,
-                                                           i, i, i, f, vp]
-            lib.epik_rowgather_sum_cols.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i, i, i, i, i,
-                                                    i, f, i, vp]
+        if name == "parent":  # the parent's entry points: the slot map made by the caller
+            lib.epik_rowgather_sum_counts_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i,
+                                                           i, i, i, i, i, f, i, vp]
+            lib.epik_rowgather_sum_counts_cols.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i,
+                                                           i, i, i, i, i, f, i, vp]
             continue
-        lib.epik_rowgather_sum_counts_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, vp, vp, i, i,
-                                                       i, i, i, i, f, i, vp]
-        lib.epik_rowgather_sum_counts_cols.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, vp, i, i,
-                                                       i, i, i, i, f, i, vp]
+        for fn_name in ("epik_rowgather_sum_counts_topk", "epik_rowgather_sum_counts_cols"):
+            getattr(lib, fn_name).argtypes = _PROTOTYPES[fn_name]
         lib.epik_rowgather_counts_group_smem.argtypes = [i, i, i, i]
         lib.epik_rowgather_counts_group_smem.restype = ctypes.c_longlong
-        lib.epik_rowgather_counts_group_smem_limit.restype = ctypes.c_longlong
+        lib.epik_rowgather_group_smem_limit.restype = ctypes.c_longlong
         lib.epik_rowgather_counts_group_blocks_per_sm.argtypes = [i] * 6
     lib_of = {name: libs[builds[" ".join(d)][0]] for name, (d, _, _) in GROUP.items()}
     if parent is not None:
@@ -511,7 +607,6 @@ def group_times(torch, np, dev, out: dict, parent: str | None) -> None:
             raise AssertionError(f"D652 {cell}: the first batch has no first hits")
         R, W = rows.shape
         bw, B, K = plane.shape[1], kw["B"], kw["K"]
-        slot = rg._slots(reads, R, dev)
         orders = {True: rg.locality_order(rows),
                   False: torch.arange(R, dtype=torch.int32, device=dev)}
         code = 0 if cell == "f32" else 2
@@ -525,36 +620,32 @@ def group_times(torch, np, dev, out: dict, parent: str | None) -> None:
             forms["cols"] = (bw, min(K, bw), rg.rowgather_sum_counts_cols_plain(
                 plane, rows, m, reads, dS_w, hit_w, **ckw))
         for form, (Bf, Kf, want) in forms.items():
-            limit = lib_of["group"].epik_rowgather_counts_group_smem_limit()
+            limit = lib_of["group"].epik_rowgather_group_smem_limit()
             G_of = {name: (g or rg.counts_group(bw, Bf, Kf, limit))
                     for name, (_, g, _) in GROUP.items()}
             out_t = torch.empty((R, 4 * Kf + 2 if form == "topk" else 2 * Kf + 3), device=dev)
             cnt = torch.empty((R, Kf), dtype=torch.int32, device=dev)
-            dsp, hp = ((dS.data_ptr(), hit.data_ptr()) if form == "topk"
-                       else (dS_w.data_ptr(), hit_w.data_ptr()))
-            slot_p = slot.data_ptr()
+            dS_f, hit_f = (dS, hit) if form == "topk" else (dS_w, hit_w)
+            amb, held = rg._amb_args(reads, dS_f, R, dev)  # held: the kernels read them
             stream = torch.cuda.current_stream().cuda_stream
 
             def call(name):
                 lib = lib_of[name]
-                if name == "parent":
-                    err = (lib.epik_rowgather_sum_counts_topk(
-                        plane.data_ptr(), code, rows.data_ptr(), m.data_ptr(), slot_p,
-                        dsp, hp, out_t.data_ptr(), R, W, bw, Bf, Kf, kw["k"], kw["log_eps"],
-                        stream) if form == "topk" else lib.epik_rowgather_sum_cols(
-                        plane.data_ptr(), rows.data_ptr(), m.data_ptr(), slot_p, dsp,
-                        hp, out_t.data_ptr(), cnt.data_ptr(), R, W, bw, Kf, 0, kw["k"],
-                        kw["log_eps"], 1, stream))
+                # the parent's kernels take the shipped variant's order and G
+                perm = orders[GROUP["group" if name == "parent" else name][2]].data_ptr()
+                G = G_of["group" if name == "parent" else name]
+                if name == "parent":  # its entry points take the slot map made by the caller
+                    slot = parent_slots(torch, reads, R, dev)
+                    ambs = (slot.data_ptr(), dS_f.data_ptr(), hit_f.data_ptr())
                 else:
-                    perm = orders[GROUP[name][2]].data_ptr()
-                    err = (lib.epik_rowgather_sum_counts_topk(
-                        plane.data_ptr(), code, rows.data_ptr(), perm, m.data_ptr(),
-                        slot_p, dsp, hp, out_t.data_ptr(), R, W, bw, Bf, Kf, kw["k"],
-                        kw["log_eps"], G_of[name], stream) if form == "topk"
-                        else lib.epik_rowgather_sum_counts_cols(
-                        plane.data_ptr(), rows.data_ptr(), perm, m.data_ptr(), slot_p,
-                        dsp, hp, out_t.data_ptr(), cnt.data_ptr(), R, W, bw, Kf, 0, kw["k"],
-                        kw["log_eps"], G_of[name], stream))
+                    ambs = (*amb, hit_f.data_ptr())
+                err = (lib.epik_rowgather_sum_counts_topk(
+                    plane.data_ptr(), code, rows.data_ptr(), perm, m.data_ptr(), *ambs,
+                    out_t.data_ptr(), R, W, bw, Bf, Kf, kw["k"], kw["log_eps"], G, stream)
+                    if form == "topk" else lib.epik_rowgather_sum_counts_cols(
+                    plane.data_ptr(), rows.data_ptr(), perm, m.data_ptr(), *ambs,
+                    out_t.data_ptr(), cnt.data_ptr(), R, W, bw, Kf, 0, kw["k"],
+                    kw["log_eps"], G, stream))
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
 
@@ -592,13 +683,242 @@ def group_times(torch, np, dev, out: dict, parent: str | None) -> None:
         torch.cuda.empty_cache()
 
 
+def _cols_call(torch, call, B: int):
+    """A recorded fused shifted call (:func:`chip_smoke.fused_call`) as the
+    call of the column kernel on the same plane as one shard (col0 = 0, B =
+    bwl): the delta rows padded to the plane's width."""
+    (plane, rows, m, amb_read, delta), kw = call
+    if delta is not None:
+        wide = torch.zeros((delta.shape[0], plane.shape[1]), device=delta.device)
+        wide[:, :B] = delta
+        delta = wide
+    ckw = {n: kw[n] for n in ("K", "k", "log_eps", "pair_rows")}
+    return (plane, rows, m, amb_read, delta), dict(ckw, col0=0)
+
+
+def _widened(torch, call, bw: int):
+    """D652's unpaired call over its plane's columns cut to ``bw`` columns,
+    or repeated and cut, B = bw - 105 (each whole copy's 105 padding columns
+    but the last's fall inside B), the delta rows cut or repeated likewise."""
+    (plane, rows, m, amb_read, delta), kw = call
+    bw0, B0 = plane.shape[1], kw["B"]
+    r = -(-bw // bw0)
+    wide = plane.repeat(1, r)[:, :bw].contiguous()
+    B = bw - (bw0 - B0)
+    d = None
+    if delta is not None:
+        d = torch.zeros((delta.shape[0], B), device=delta.device)
+        for c in range(r):
+            lo, hi = bw0 * c, min(bw0 * c + B0, B)
+            if hi > lo:
+                d[:, lo:hi] = delta[:, :hi - lo]
+    return (wide, rows, m, amb_read, d), dict(kw, B=B)
+
+
+def shifted_times(torch, np, dev, out: dict, parent: str | None) -> None:
+    """The fused shifted kernels' variants, their unfused pairs and the
+    parent's kernels on the paths' rows, then over D652's widened plane."""
+    import gc
+
+    from epik_tpu_torch import kernels as kernels_mod
+    from epik_tpu_torch.core.tree import parse_newick
+    from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.engine.placer import TorchPlacer
+    from epik_tpu_torch.io.build import reads_from_reference
+    from epik_tpu_torch.kernels import rowgather as rg
+    from epik_tpu_torch.kernels._build import _PROTOTYPES
+    from epik_tpu_torch.parallel import sharding as sh_mod
+    from epik_tpu_torch.parallel.mesh import make_mesh
+
+    src = os.path.join(CSRC, "rowgather_sum.cu")
+    builds = {}
+    for name, (defines, _, _) in SHIFTED.items():
+        builds.setdefault(" ".join(defines), (name, (src, defines)))
+    jobs = dict(builds.values())
+    if parent is not None:
+        jobs["parent"] = (os.path.join(parent, CSRC, "rowgather_sum.cu"), [])
+    libs = build(jobs, os.path.join("build", "sweep", "shifted"))
+    vp, i, f, ll = ctypes.c_void_p, ctypes.c_int, ctypes.c_float, ctypes.c_longlong
+    for name, lib in libs.items():
+        if name == "parent":  # the parent's entry points: the slot map made by the caller
+            lib.epik_rowgather_sum_topk.argtypes = [vp, i, vp, vp, vp, vp, vp, i, i, i, i, i, i,
+                                                    f, f, vp]
+            lib.epik_rowgather_sum_cols.argtypes = [vp, vp, vp, vp, vp, vp, i, i, i, i, i, i, f,
+                                                    vp]
+            continue
+        for fn_name in ("epik_rowgather_sum_topk", "epik_rowgather_sum_cols",
+                        "epik_rowgather_shifted_group_smem", "epik_rowgather_group_smem_limit",
+                        "epik_rowgather_shifted_group_blocks_per_sm"):
+            getattr(lib, fn_name).argtypes = _PROTOTYPES[fn_name]
+        lib.epik_rowgather_shifted_group_smem.restype = ll
+        lib.epik_rowgather_group_smem_limit.restype = ll
+    lib_of = {name: libs[builds[" ".join(d)][0]] for name, (d, _, _) in SHIFTED.items()}
+    if parent is not None:
+        lib_of["parent"] = libs["parent"]
+    limit = lib_of["shifted"].epik_rowgather_group_smem_limit()
+    every = [*SHIFTED, "fused", "pair", *(["parent"] if parent is not None else [])]
+
+    def sweep(key, call, cols, names=every):
+        """Each of ``names`` on a fused shifted call ((plane, rows, m, amb_read,
+        delta), keywords), the column form where ``cols``, held against the
+        plain version, then timed in turns; then the shipped wrapper
+        ("fused") and the unfused pair in turns again with the card busy
+        ahead of them (:func:`queued_times`)."""
+        (plane, rows, m, amb_read, delta), kw = call
+        R, W = rows.shape
+        bw = plane.shape[1]
+        B = bw if cols else kw["B"]
+        K = min(kw["K"], bw)
+        pair_rows = kw.get("pair_rows", False)
+        scale = float(kw.get("scale") or 1.0)
+        code = 0 if plane.dtype == torch.float32 else 1
+        amb, held = rg._amb_args(amb_read, delta, R, dev)  # held: the kernels read them
+        order = rg.locality_order(rows)  # held: the kernels read it
+        perm_of = {"step": None if pair_rows else order.data_ptr(),
+                   "other": order.data_ptr() if pair_rows else None}
+        pkw = {n: v for n, v in kw.items() if n != "pair_rows"}
+        plain = rg.rowgather_sum_cols_plain if cols else rg.rowgather_sum_topk_plain
+        want = plain(plane, rows, m, amb_read, delta, **pkw)
+        out_t = torch.empty((R, 2 * K + 3), device=dev)
+        G_of = {name: g or rg.shifted_group(bw, B, K, limit)
+                for name, (_, g, _) in SHIFTED.items()}
+        pair = unfused_pair(kernels_mod, call, cols)
+        wrapper = (rg.rowgather_sum_cols if cols else rg.rowgather_sum_topk_int16 if code
+                   else rg.rowgather_sum_topk)
+        wkw = {n: v for n, v in kw.items() if cols or code or n != "scale"}
+        stream = torch.cuda.current_stream().cuda_stream
+        head = (plane.data_ptr(), rows.data_ptr())
+        tail = (out_t.data_ptr(), R, W, bw)
+
+        def run(name):
+            if name == "pair":
+                return pair()
+            if name == "fused":
+                return wrapper(plane, rows, m, amb_read, delta, **wkw)
+            lib = lib_of[name]
+            if name == "parent":
+                slot = parent_slots(torch, amb_read, R, dev)  # its entry points take the map
+                amb_p = (m.data_ptr(), *((slot.data_ptr(), delta.data_ptr()) if slot is not None
+                                         else (None, None)), *tail)
+                err = (lib.epik_rowgather_sum_cols(*head, *amb_p, K, kw["col0"], kw["k"],
+                                                   kw["log_eps"], stream) if cols else
+                       lib.epik_rowgather_sum_topk(head[0], code, head[1], *amb_p, B, K, kw["k"],
+                                                   kw["log_eps"], scale, stream))
+            else:
+                perm = perm_of[SHIFTED[name][2]]
+                err = (lib.epik_rowgather_sum_cols(*head, perm, m.data_ptr(), *amb, *tail, K,
+                                                   kw["col0"], kw["k"], kw["log_eps"],
+                                                   G_of[name], stream) if cols
+                       else lib.epik_rowgather_sum_topk(head[0], code, head[1], perm,
+                                                        m.data_ptr(), *amb, *tail, B, K,
+                                                        kw["k"], kw["log_eps"], scale,
+                                                        G_of[name], stream))
+            if err:
+                raise RuntimeError(f"{name} ({key}): CUDA error {err}")
+            return out_t
+
+        def check(name):
+            out_t.zero_()
+            got = run(name)
+            torch.cuda.synchronize()
+            what = f"{name} ({key})"
+            if cols:
+                check_partial(np, got, want, what)
+            else:
+                check_finish(np, got.cpu().numpy(), want.cpu().numpy(), K, B, what)
+
+        layouts = {name: {"G": G_of[name],
+                          "smem": lib_of[name].epik_rowgather_shifted_group_smem(G_of[name], bw,
+                                                                               B, K),
+                          "blocks_per_sm": lib_of[name].epik_rowgather_shifted_group_blocks_per_sm(
+                              G_of[name], bw, B, K, code, int(cols))}
+                   for name in SHIFTED if name in names}
+        queued = {}
+        for name in ("fused", "pair", "pair", "fused"):
+            dev_ms, host_us = queued_times(torch, lambda: run(name))
+            queued.setdefault(name, {"device_ms": [], "host_us": []})
+            queued[name]["device_ms"].append(dev_ms)
+            queued[name]["host_us"].append(host_us)
+        out[f"shifted_{key}"] = {
+            "shape": [R, W, bw], "B": B, "cols": cols, "pair_rows": pair_rows,
+            "amb_reads": 0 if amb_read is None else int(amb_read.numel()),
+            "distinct_rows": int(torch.unique(rows).numel()), "layouts": layouts,
+            "ms": in_turns(torch, list(names), run, check), "queued": queued}
+        log_line = {n: min(t) for n, t in out[f"shifted_{key}"]["ms"].items()}
+        log_line.update({f"{n}_queued": min(q["device_ms"]) for n, q in queued.items()})
+        log_line.update({f"{n}_host_us": min(q["host_us"]) for n, q in queued.items()})
+        print(f"shifted {key}: {log_line}", flush=True)
+        del held
+
+    def recorded(placer, records, module=step_mod, name="_shifted_finish"):
+        calls = []
+        with recording(module, name, calls, limit=1):
+            placer.place(records)
+        return calls[0]
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    few = ["shifted", "fused", "pair", *(["parent"] if parent is not None else [])]
+    db, records = d652_fixture()
+    tree = parse_newick(db.tree())
+    placer = TorchPlacer(db, tree, device=dev)
+    call = fused_call(torch, recorded(placer, records[:BATCH]))
+    sweep("d652_pair", call, False)
+    sweep("d652_sharded_1x1", _cols_call(torch, call, call[1]["B"]), True)
+    del placer, call
+    free()
+    for n_model in (4, 2):  # shards of 384 and 768 columns
+        placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=n_model,
+                                                               devices=[dev] * n_model))
+        call = recorded(placer, records[:BATCH], sh_mod, "_shifted_cols")
+        sweep(f"d652_sharded_1x{n_model}", call, True)
+        del placer, call
+        free()
+    placer = TorchPlacer(db, tree, config=PlacerConfig(precision="int16"), device=dev)
+    call = fused_call(torch, recorded(placer, records[:BATCH]))
+    sweep("d652_unpaired_int16", call, False)
+    del placer, call
+    free()
+    placer = TorchPlacer(db, tree, config=PlacerConfig(pair_plane="off"), device=dev)
+    call = fused_call(torch, recorded(placer, records[:BATCH]))
+    del placer
+    sweep("d652_unpaired_f32", call, False)
+    for bw in SHIFTED_WIDTHS:
+        wide = _widened(torch, call, bw)
+        sweep(f"d652_bw{bw}", wide, False, few)
+        sweep(f"d652_bw{bw}_cols", _cols_call(torch, wide, wide[1]["B"]), True, few)
+        del wide
+        free()
+    del call
+    free()
+    db, aa_records = chip_smoke.config2_fixture()
+    placer = TorchPlacer(db, parse_newick(db.tree()), device=dev)
+    call = fused_call(torch, recorded(placer, aa_records[:AA_BATCH]))
+    sweep("config2", call, False)
+    del placer, call
+    free()
+    db, ref = chip_smoke.bigtree_db()
+    placer = TorchPlacer(db, parse_newick(db.tree()), device=dev)
+    reads = reads_from_reference(ref, BT_BATCH, length=150, mutation_rate=0.02, seed=11)
+    call = fused_call(torch, recorded(placer, reads))
+    del placer
+    sweep("config4", call, False, few + ["shifted_other_order"])
+    sweep("config4_cols", _cols_call(torch, call, call[1]["B"]), True,
+          few + ["shifted_other_order"])
+    del call
+    free()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols", "group"),
+    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols", "group", "shifted"),
                     default=None, help="sweep one kernel only")
     ap.add_argument("--parent", default=None,
-                    help="a checkout of the parent commit: its fused counts kernels join the "
-                         "group sweep's turns")
+                    help="a checkout of the parent commit: its fused kernels join the group "
+                         "and the shifted sweeps' turns")
     args = ap.parse_args(argv)
     sys.path.insert(0, chip_smoke.REPO)
     sys.path.insert(0, os.path.join(chip_smoke.REPO, "tests"))
@@ -621,6 +941,8 @@ def main(argv=None) -> int:
         sum_times(torch, dev, out)
     if args.only in (None, "group"):
         group_times(torch, np, dev, out, args.parent)
+    if args.only in (None, "shifted"):
+        shifted_times(torch, np, dev, out, args.parent)
     print(card_line())
     print(json.dumps(out))
     return 0

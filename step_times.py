@@ -13,13 +13,20 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   on its sums, and their sum: what the dense step ran before the fusion;
   where the gather takes a read order, also the gather in locality order,
   its sort included, and the sort (``locality_order``) alone;
-* the fused kernel (``rowgather_sum_topk``);
+* the fused kernel (``rowgather_sum_topk``) and, on the same rows, its
+  unfused pair (the gather in the step's order, the delta add,
+  ``finish_topk``), and the dense step with the width rule
+  (``kernels/rowgather.py::shifted_fused``) set to each route in turns,
+  where the port has the rule (``dense_step_by_route``; the sharded shifted
+  step's likewise, ``d652_sharded_step_by_route``);
 * under ``pair_plane="off"``, ``precision="int16"``, ``plane_mode="classic"``
   and ``precision="bf16"`` (each its own plane), the unpaired dense step
   (``place_batch_dense_bytes``) and the kernel it ends in
   (``rowgather_sum_topk``, ``rowgather_sum_topk_int16``, and on the classic
   planes ``rowgather_sum_counts_topk`` and ``_bf16``, or in a port without
-  them ``rowgather_sum_counts`` and ``_bf16``), and on the same rows the
+  them ``rowgather_sum_counts`` and ``_bf16``; the shifted kernels from the
+  call at the step's router, and beside them their unfused pair and the
+  route the step took), and on the same rows the
   gather apart: with counts (kernel 1c, ``rowgather_sum_counts`` and
   ``_bf16``) on the classic planes, alone (kernel 1d, ``rowgather_sum``) on
   the int16 plane; on the classic planes also the unfused pair of the fused
@@ -33,7 +40,9 @@ its first batch of 16,384 reads (IUPAC reads among them), and
   the default config (the pair plane in one column shard) and with
   ``plane_mode="classic"``, and the kernel each shard ends in, where the port
   has it: ``rowgather_sum_cols`` / ``rowgather_sum_counts_cols`` (the gather
-  with the shard's column finish fused in); in a port without them, the
+  with the shard's column finish fused in; the shifted one from the call at
+  the shard's router, with its unfused pair beside it and the route the
+  step took); in a port without them, the
   gather alone (``rowgather_sum`` / ``rowgather_sum_counts``) that the step
   ran before its column finish; on the classic plane also kernel A's counts
   form (``finish_cols_partial_counts``) on the shard's sums and counts with
@@ -122,9 +131,44 @@ from chip_smoke import (
     card_line,
     cuda_ms,
     d652_fixture,
+    fused_call,
     recording,
     unfused_pair,
 )
+
+
+def _fused_kw(fn, call):
+    """A fused shifted call (:func:`chip_smoke.fused_call`) for the wrapper
+    ``fn`` of the port timed: without ``pair_rows`` where the wrapper takes
+    none (a port whose fused kernel had one read order)."""
+    args, kw = call
+    if "pair_rows" not in inspect.signature(fn).parameters:
+        kw = {n: v for n, v in kw.items() if n != "pair_rows"}
+    return args, kw
+
+
+def route_turns(torch, step, cols: bool):
+    """The shifted ``step`` timed with the width rule set to each side in
+    turns (fused, pair, pair, fused): what the step pays on either route, the
+    kernels each side launched beside its times; None in a port without the
+    rule."""
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
+    from epik_tpu_torch.kernels import rowgather as rg
+
+    name = "SHIFTED_COLS_MAX_BW" if cols else "SHIFTED_TOPK_MAX_BW"
+    if not hasattr(rg, name):
+        return None
+    keep = getattr(rg, name)
+    times = {}
+    try:
+        for side in ("fused", "pair", "pair", "fused"):
+            setattr(rg, name, 1 << 20 if side == "fused" else 0)
+            reset_launch_counts()
+            times.setdefault(side, {"ms": []})["ms"].append(cuda_ms(torch, step))
+            times[side]["launched"] = sorted(n for n, c in launch_counts().items() if c)
+    finally:
+        setattr(rg, name, keep)
+    return times
 
 
 def print_profile(torch, fn, title: str) -> None:
@@ -166,6 +210,10 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     out["dense_R"] = len(seqs)
     out["dense_step_ms"] = cuda_ms(torch, lambda: place_batch_dense_paired(
         st.plane, st.combo, buf_t, arows_t, **step_kw))
+    routes = route_turns(torch, lambda: place_batch_dense_paired(
+        st.plane, st.combo, buf_t, arows_t, **step_kw), cols=False)
+    if routes is not None:
+        out["dense_step_by_route"] = routes
     if profile:
         print_profile(torch, lambda: place_batch_dense_paired(
             st.plane, st.combo, buf_t, arows_t, **step_kw),
@@ -193,8 +241,11 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
         amb_read, delta = dense_mod.amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B,
                                                k=k, eps=float(placer.eps),
                                                log_eps=float(placer.log_eps))
-        out["rowgather_sum_topk_ms"] = cuda_ms(
-            torch, lambda: fused(st.plane, rows, m_f32, amb_read, delta, B=B, **kw))
+        call = ((st.plane, rows, m_f32, amb_read, delta), dict(B=B, pair_rows=True, **kw))
+        f_args, f_kw = _fused_kw(fused, call)
+        out["rowgather_sum_topk_ms"] = cuda_ms(torch, lambda: fused(*f_args, **f_kw))
+        out["d652_pair_unfused_pair_ms"] = cuda_ms(torch, unfused_pair(kernels_mod, call,
+                                                                       cols=False))
     else:
         out["skipped"].append("rowgather_sum_topk: the port has no fused kernel 1")
     del placer, st
@@ -248,6 +299,8 @@ def codes_times(torch, dev, out: dict, profile: bool = False) -> None:
     out["config2_rowgather_sum_topk_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum_topk(
         st.plane, rows, m_f32, amb_read, delta, **fin))
     out["config2_rowgather_sum_topk_shape"] = list(rows.shape)
+    out["config2_unfused_pair_ms"] = cuda_ms(torch, unfused_pair(
+        kernels_mod, ((st.plane, rows, m_f32, amb_read, delta), fin), cols=False))
     if profile:
         print_profile(torch, step, f"config 2 codes step, R={len(seqs)}, Amax={Amax}")
     del placer, st, key, rows, amb_read, delta
@@ -263,6 +316,7 @@ def sharded_dense_times(torch, out: dict, db, tree, seqs, prefix: str = "d652",
     with its first hits, and the unfused pair (1c, the first hits, kernel A)."""
     from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.engine.config import PlacerConfig
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.parallel import sharding as sh_mod
     from epik_tpu_torch.parallel.mesh import make_mesh
 
@@ -277,19 +331,32 @@ def sharded_dense_times(torch, out: dict, db, tree, seqs, prefix: str = "d652",
         fused = "rowgather_sum_cols" if placer._shifted else "rowgather_sum_counts_cols"
         kernel = fused if hasattr(sh_mod, fused) else (
             "rowgather_sum" if placer._shifted else "rowgather_sum_counts")
+        # the shifted shard's call at its router, whichever route it takes
+        at = "_shifted_cols" if kernel == "rowgather_sum_cols" else kernel
         calls, kcalls = [], []
+        reset_launch_counts()
         with recording(sh_mod, name, calls, limit=1), \
-                recording(sh_mod, kernel, kcalls, limit=1):
+                recording(sh_mod, at, kcalls, limit=1):
             placer.place([(f"r{i}", s) for i, s in enumerate(seqs)])
+        if at == "_shifted_cols":
+            out[f"{prefix}_sharded{suffix}_route"] = sorted(
+                n for n, c in launch_counts().items() if c)
         args, kw = calls[0]
         out[f"{prefix}_sharded{suffix}_R"] = args[2].shape[0]
         out[f"{prefix}_sharded{suffix}_step_ms"] = cuda_ms(
             torch, lambda: getattr(sh_mod, name)(*args, **kw))
+        if at == "_shifted_cols":
+            routes = route_turns(torch, lambda: getattr(sh_mod, name)(*args, **kw), cols=True)
+            if routes is not None:
+                out[f"{prefix}_sharded{suffix}_step_by_route"] = routes
         fn = getattr(sh_mod, kernel)
-        (k_args, k_kw), = kcalls
+        k_args, k_kw = _fused_kw(fn, kcalls[0])
         out[f"{prefix}_sharded{suffix}_{kernel}_ms"] = cuda_ms(torch, lambda: fn(*k_args,
                                                                                 **k_kw))
         out[f"{prefix}_sharded{suffix}_{kernel}_shape"] = [*k_args[1].shape, k_args[0].shape[1]]
+        if at == "_shifted_cols":  # the unfused pair: 1d, the delta add, kernel A
+            out[f"{prefix}_sharded{suffix}_unfused_pair_ms"] = cuda_ms(
+                torch, unfused_pair(kernels_mod, kcalls[0], cols=True))
         if not placer._shifted:  # kernel A's counts form on the shard's sums and counts
             S, C = sh_mod.add_first_hits(*sh_mod.rowgather_sum_counts(k_args[0], k_args[1]),
                                          *k_args[3:6])
@@ -429,6 +496,7 @@ def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
     counts, which the step runs past the fused kernel's limit)."""
     from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.engine import step as step_mod
+    from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
 
     st = placer.state
     buf, arows, Amax, Lmax, _ = placer._stage_bytes(seqs)
@@ -441,11 +509,19 @@ def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
         return step_mod.place_batch_dense_bytes(st.plane, st.direct, buf_t, arows_t,
                                                 **step_kw)
 
+    shifted = kernel.startswith("rowgather_sum_topk")
     calls = []
-    with recording(step_mod, kernel, calls):
+    reset_launch_counts()
+    with recording(step_mod, "_shifted_finish" if shifted else kernel, calls):
         step()
     out[f"{prefix}_step_ms"] = cuda_ms(torch, step)
     fn = kernels_mod.KERNELS[kernel]
+    if shifted:  # the fused kernel and its unfused pair, from the router's call
+        out[f"{prefix}_route"] = sorted(n for n, c in launch_counts().items() if c)
+        pair_call = fused_call(torch, calls[0])
+        out[f"{prefix}_unfused_pair_ms"] = cuda_ms(torch, unfused_pair(kernels_mod, pair_call,
+                                                                       cols=False))
+        calls = [_fused_kw(fn, pair_call)]
     args, kw = calls[0]
     out[f"{prefix}_{kernel}_ms"] = cuda_ms(torch, lambda: fn(*args, **kw))
     out[f"{prefix}_{kernel}_shape"] = list(args[1].shape)

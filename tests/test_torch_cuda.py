@@ -43,6 +43,9 @@ from epik_tpu_torch.kernels.rowgather import (
     GROUP_BLOCK_RESERVE,
     GROUP_MAX,
     GROUP_MIN_BLOCKS,
+    SHIFTED_COLS_MAX_BW,
+    SHIFTED_GROUP_MAX,
+    SHIFTED_TOPK_MAX_BW,
     cols_fits,
     cols_smem,
     counts_cols_fits,
@@ -66,6 +69,8 @@ from epik_tpu_torch.kernels.rowgather import (
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
     rowgather_sum_topk_plain,
+    shifted_fused,
+    shifted_group,
     topk_fits,
     topk_smem,
 )
@@ -285,16 +290,18 @@ def test_accumulate_sums_bit_equal(cuda, R, PP, B, engineered):
 
 
 @pytest.mark.parametrize("n_rows,bw,B,R,W", [
-    (2000, 1408, 1303, 300, 72),  # D652's widths
+    (2000, 1408, 1303, 300, 72),  # D652's widths (G = 8)
     (64, 128, 40, 50, 9),
-    (300, 4608, 4500, 24, 17),  # bw/4 > 1024: threads loop over column chunks
-    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row offsets
+    (300, 4608, 4500, 24, 17),  # G = 2: 36 slices a read
+    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row ids
 ])
 @pytest.mark.parametrize("amb", [False, True])
-def test_rowgather_sum_topk_bit_equal(cuda, n_rows, bw, B, R, W, amb):
+@pytest.mark.parametrize("pair_rows", [False, True])
+def test_rowgather_sum_topk_bit_equal(cuda, n_rows, bw, B, R, W, amb, pair_rows):
     """Kernel 1 with the finish fused in against its plain version: the
     whole pack bit-equal but log_sum (rtol 1e-6), with and without delta
-    rows; two launches alike."""
+    rows, the reads in locality order and in read order; two launches
+    alike."""
     rng = np.random.default_rng(n_rows + W)
     plane_np = _plane(rng, n_rows, bw)
     plane_np[:, B:] = 0.0
@@ -314,8 +321,9 @@ def test_rowgather_sum_topk_bit_equal(cuda, n_rows, bw, B, R, W, amb):
         delta = torch.from_numpy(d).to(cuda)
     K = min(7, B)
     kw = dict(B=B, K=K, k=10, log_eps=-4.2597)
-    got = rowgather_sum_topk(plane, rows, m, reads, delta, **kw)
-    assert torch.equal(rowgather_sum_topk(plane, rows, m, reads, delta, **kw), got)
+    got = rowgather_sum_topk(plane, rows, m, reads, delta, pair_rows=pair_rows, **kw)
+    assert torch.equal(rowgather_sum_topk(plane, rows, m, reads, delta, pair_rows=pair_rows,
+                                          **kw), got)
     want = rowgather_sum_topk_plain(plane, rows, m, reads, delta, **kw).cpu().numpy()
     _check_pack(got.cpu().numpy(), want, K, B)
     assert want[0, 2 * K + 1] == 0
@@ -704,33 +712,36 @@ def _cols_case(cuda, rng, R, bwl, counts, amb, n_rows=400, W=72):
     return (*_to(cuda, p, rows, m, reads, delta), None)
 
 
-def _cols_call(plain, plane, rows, m, reads, delta, hit, counts, col0, K=7):
+def _cols_call(plain, plane, rows, m, reads, delta, hit, counts, col0, K=7, pair_rows=False):
     """The fused column kernel (or with ``plain`` its plain version) on one
-    shard's inputs: (pack, the counts form's candidate counts or None)."""
+    shard's inputs (the shifted kernel in read order where ``pair_rows``):
+    (pack, the counts form's candidate counts or None)."""
     kw = dict(K=K, k=10, log_eps=-4.2597, col0=col0)
     if counts:
         fn = rowgather_sum_counts_cols_plain if plain else rowgather_sum_counts_cols
         return fn(plane, rows, m, reads, delta, hit, **kw)
-    fn = rowgather_sum_cols_plain if plain else rowgather_sum_cols
-    return fn(plane, rows, m, reads, delta, **kw), None
+    if plain:
+        return rowgather_sum_cols_plain(plane, rows, m, reads, delta, **kw), None
+    return rowgather_sum_cols(plane, rows, m, reads, delta, pair_rows=pair_rows, **kw), None
 
 
-@pytest.mark.parametrize("counts", [False, True])
+@pytest.mark.parametrize("counts,pair_rows", [(False, False), (False, True), (True, False)])
 @pytest.mark.parametrize("amb", [True, False])
 @pytest.mark.parametrize("R,bwl,n_shards", [(16384, 1408, 1), (16384, 384, 4), (4096, 20096, 1)])
-def test_rowgather_sum_cols_bit_equal(cuda, R, bwl, n_shards, counts, amb):
+def test_rowgather_sum_cols_bit_equal(cuda, R, bwl, n_shards, counts, amb, pair_rows):
     """Kernel B, the gather with one shard's column finish in its epilogue,
     against its plain version at the sharded dense shapes (D652 1x1 and 1x4,
-    config 4 1x1): the pack but e_s bit-equal (and the counts), e_s within
-    rtol 1e-6, two launches alike."""
+    config 4 1x1; the shifted form in locality order and in read order): the
+    pack but e_s bit-equal (and the counts), e_s within rtol 1e-6, two
+    launches alike."""
     for s in range(n_shards):
         rng = np.random.default_rng(R + bwl + s + 2 * counts + amb)
         plane, rows, m, reads, delta, hit = _cols_case(cuda, rng, R, bwl, counts, amb,
                                                        n_rows=4000 if bwl < 5000 else 400)
         assert counts_cols_fits(plane, 7) if counts else cols_fits(plane, 7)
         args = (plane, rows, m, reads, delta, hit, counts, s * bwl)
-        got, got_c = _cols_call(False, *args)
-        again, again_c = _cols_call(False, *args)
+        got, got_c = _cols_call(False, *args, pair_rows=pair_rows)
+        again, again_c = _cols_call(False, *args, pair_rows=pair_rows)
         want, want_c = _cols_call(True, *args)
         assert torch.equal(got, again)
         _check_partial(got, want, f"shard {s}")
@@ -750,13 +761,15 @@ def _limit_bw(counts, K=7):
     return lo
 
 
-@pytest.mark.parametrize("counts", [False, True])
-def test_rowgather_sum_cols_at_and_past_its_limit(cuda, counts):
+@pytest.mark.parametrize("counts,pair_rows", [(False, False), (False, True), (True, False)])
+def test_rowgather_sum_cols_at_and_past_its_limit(cuda, counts, pair_rows):
     """At the widest shard the fused column kernel takes it launches and
     matches its plain version; one group of four columns past it (the
-    plane's rows are whole groups of 4) the wrapper raises and the shard runs
-    the gather, the adds and kernel A apart: the same pack but e_s (rtol
-    1e-6) and the same counts."""
+    plane's rows are whole groups of 4) the wrapper raises; the shard runs
+    the gather, the adds and kernel A apart past it, and the shifted shard
+    at both widths (past the width rule, ``shifted_fused``): the same pack
+    but e_s (rtol 1e-6) and the same counts (``pair_rows``: the shifted
+    shard in read order)."""
     from epik_tpu_torch.parallel.sharding import _classic_cols, _shifted_cols
 
     bw_at = _limit_bw(counts)
@@ -774,7 +787,12 @@ def test_rowgather_sum_cols_at_and_past_its_limit(cuda, counts):
         want, want_c = _cols_call(True, *args)
         if not fits:
             with pytest.raises(ValueError, match="shared memory"):
-                _cols_call(False, *args)
+                _cols_call(False, *args, pair_rows=pair_rows)
+        else:
+            got, got_c = _cols_call(False, *args, pair_rows=pair_rows)
+            _check_partial(got, want, f"the fused kernel at bwl {bw}")
+            if counts:
+                assert torch.equal(got_c, want_c)
         reset_launch_counts()
         if counts:
             got, got_c = _classic_cols(plane, rows, m, reads, delta, hit, **kw)
@@ -782,8 +800,8 @@ def test_rowgather_sum_cols_at_and_past_its_limit(cuda, counts):
             expect = ({"rowgather_sum_counts_cols": 1} if fits else
                       {"rowgather_sum_counts": 1, "finish_cols_partial_counts": 1})
         else:
-            got = _shifted_cols(plane, rows, m, reads, delta, **kw)
-            expect = ({"rowgather_sum_cols": 1} if fits else
+            got = _shifted_cols(plane, rows, m, reads, delta, pair_rows=pair_rows, **kw)
+            expect = ({"rowgather_sum_cols": 1} if fits and shifted_fused(bw, cols=True) else
                       {"rowgather_sum": 1, "finish_cols_partial": 1})
         assert {n: c for n, c in launch_counts().items() if c} == expect
         _check_partial(got, want)
@@ -811,10 +829,9 @@ def _group_48kb_edge(cuda, B_of):
 def test_cols_kernels_at_the_48kb_edge(cuda, counts):
     """Both column kernels where their dynamic shared memory is within 48 KB
     but not with the kernels' static bytes (the launch must opt in): the
-    shifted kernel B (with its 8 KB of staged row offsets) at the widest such
-    width, the counts form (the group layout, 384 static bytes) at a width
-    and K within 64 bytes of the edge, and kernel A (its 256 bytes of
-    reductions)."""
+    shifted kernel B (the group layout's shifted form, 384 static bytes) at
+    the widest such width, the counts form at a width and K within 64 bytes
+    of the edge, and kernel A (its 256 bytes of reductions)."""
     edge = 48 * 1024
     K = 7
     if counts:
@@ -1147,13 +1164,17 @@ def test_finish_past_16_bit_ids(cuda, R, B, K):
 @pytest.mark.parametrize("n_rows,bw,B,R,W", [
     (2000, 1408, 1303, 300, 143),  # D652's widths, unpaired
     (64, 128, 40, 50, 9),
-    (300, 4608, 4500, 24, 17),  # more than 1,024 column groups
-    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row offsets
+    (300, 4608, 4500, 24, 17),  # more than 1,024 column groups; the fused kernel at G = 2
+    (40, 128, 100, 3, 2500),  # W > one shared-memory tile of row ids
+    (40, 132, 100, 3, 2500),  # a width not a multiple of 8: 8-byte vectors
 ])
-def test_int16_variants_bit_equal(cuda, n_rows, bw, B, R, W):
+@pytest.mark.parametrize("pair_rows", [False, True])
+def test_int16_variants_bit_equal(cuda, n_rows, bw, B, R, W, pair_rows):
     """Kernel 1 over an int16 plane: the dequantized sums and the fused pack
-    bit-equal to their plain versions (exact int32 sums, one correctly
-    rounded divide), with delta rows, two launches alike."""
+    bit-equal to their plain versions (exact int32 sums, carried between
+    tiles of row ids as they are, one correctly rounded divide), with delta
+    rows, the reads in locality order and in read order, two launches
+    alike."""
     rng = np.random.default_rng(n_rows * 3 + W)
     q = rng.integers(1, 32001, (n_rows, bw)).astype(np.int16)
     q[rng.random((n_rows, bw)) > 0.3] = 0
@@ -1163,13 +1184,14 @@ def test_int16_variants_bit_equal(cuda, n_rows, bw, B, R, W):
     _, rows, m, reads, delta = _dense_case(rng, n_rows, bw, B, R, W, True)
     rows, m, reads, delta = (torch.from_numpy(x).to(cuda) for x in (rows, m, reads, delta))
     scale = 32000.0 / 4.2597
-    sums = rowgather_sum(plane, rows, scale=scale)
+    sums = rowgather_sum(plane, rows, scale=scale, pair_rows=pair_rows)
     torch.cuda.synchronize()
     assert torch.equal(sums, rowgather_sum_plain(plane, rows, scale))
     K = min(7, B)
-    kw = dict(B=B, K=K, k=10, log_eps=-4.2597, scale=scale)
+    kw = dict(B=B, K=K, k=10, log_eps=-4.2597, scale=scale, pair_rows=pair_rows)
     got = rowgather_sum_topk_int16(plane, rows, m, reads, delta, **kw)
     assert torch.equal(rowgather_sum_topk_int16(plane, rows, m, reads, delta, **kw), got)
+    del kw["pair_rows"]
     want = rowgather_sum_topk_plain(plane, rows, m, reads, delta, **kw).cpu().numpy()
     _check_pack(got.cpu().numpy(), want, K, B)
 
@@ -1736,6 +1758,275 @@ def test_counts_group_layout_edges(cuda, kind, edge):
             assert torch.equal(got, again)
             _check_full_pack(got.cpu().numpy(), want.cpu().numpy(), K, B)
         assert {n: c for n, c in launch_counts().items() if c} == {name: 2}, (bw, G)
+
+
+def test_shifted_group_bytes_equal_the_cuda_source(cuda):
+    """The shifted form's bytes by the Python formula (``group_smem(...,
+    counts=False)``) equal the CUDA source's
+    (``epik_rowgather_shifted_group_smem``) over G, widths and K; the
+    wrappers ask the bytes of ``shifted_group``'s G, the largest up to
+    SHIFTED_GROUP_MAX of which GROUP_MIN_BLOCKS blocks fit the card's limit
+    (one block at the widest trees), and the card's occupancy calculator
+    holds that many blocks of the compiled kernels an SM."""
+    from epik_tpu_torch.kernels._build import library
+
+    lib = library()
+    for G in (1, 2, 3, 7, 8, 9, 16, 32):
+        for bw, B in ((128, 40), (384, 384), (1408, 1303), (4608, 4500), (20096, 19999),
+                      (36352, 36352), (65536, 65536)):
+            for K in (1, 7, 64):
+                assert lib.epik_rowgather_shifted_group_smem(G, bw, B, K) == \
+                    group_smem(G, bw, B, K, counts=False), (G, bw, B, K)
+    limit = _group_limit(cuda)
+    for bw, B in ((384, 384), (1408, 1303), (1408, 1408), (4608, 4500), (20096, 19999)):
+        G = shifted_group(bw, B, 7, limit)
+        assert 1 <= G <= SHIFTED_GROUP_MAX
+        fits = [GROUP_MIN_BLOCKS * (group_smem(g, bw, B, 7, False) + GROUP_BLOCK_RESERVE)
+                <= limit + GROUP_BLOCK_RESERVE for g in (G, G + 1)]
+        assert (G == 1 or fits[0]) and (G == SHIFTED_GROUP_MAX or not fits[1])
+        plane = torch.empty((2, bw), device=cuda)
+        assert topk_smem(plane, B, 7) == (group_smem(G, bw, B, 7, False), limit)
+        Gc = shifted_group(bw, bw, 7, limit)
+        assert cols_smem(plane, 7, False) == (group_smem(Gc, bw, bw, 7, False), limit)
+        if G > 1:  # the register budget and the bytes give the blocks aimed at
+            for cell, cols in ((0, 0), (1, 0), (0, 1)):
+                assert lib.epik_rowgather_shifted_group_blocks_per_sm(
+                    G, bw, B, 7, cell, cols) >= GROUP_MIN_BLOCKS, (bw, cell, cols)
+    assert shifted_group(1408, 1303, 7, limit) == SHIFTED_GROUP_MAX  # D652
+    assert shifted_group(20096, 19999, 7, limit) == 1  # config 4
+
+
+def _shifted_case(cuda, rng, bw, B, R, W, n_rows, G, cell, pair_rows):
+    """A shifted plane (f32, or int16 with its scale), rows with misses and
+    an n == 0 read, m with a Q1 read, and delta rows for the read in the
+    middle of every other group of G reads of the order the kernel takes
+    (the locality order, or read order) and of the last group: (plane,
+    rows, m, reads, delta, scale) on the card."""
+    plane, rows, m, _, _ = _dense_case(rng, n_rows, bw, B, R, W, False)
+    scale = None
+    if cell == "int16":
+        q = rng.integers(1, 32001, (n_rows, bw)).astype(np.int16)
+        q[plane == 0] = 0
+        plane, scale = q, 32000.0 / 4.2597
+    order = (np.arange(R) if pair_rows
+             else locality_order(torch.from_numpy(rows)).numpy())
+    last = (R - 1) // G * G
+    pos = sorted({*range(G // 2, R, 2 * G), last + (R - last) // 2})
+    reads = np.array([r for r in order[pos] if r != 0], np.int64)
+    delta = rng.uniform(-2.0, 6.0, (reads.size, B)).astype(np.float32)
+    delta[rng.random(delta.shape) < 0.7] = 0.0
+    return (*_to(cuda, plane, rows, m, reads, delta), scale)
+
+
+def _shifted_steps(cuda, B_of):
+    """For every G ``shifted_group`` can pick, the first width (a multiple of
+    8) at which it picks it, as (bw, G) pairs from SHIFTED_GROUP_MAX down to
+    1."""
+    limit = _group_limit(cuda)
+    out = {}
+    for bw in range(128, 40000, 8):
+        out.setdefault(shifted_group(bw, B_of(bw), 7, limit), bw)
+    return sorted(((bw, G) for G, bw in out.items()), key=lambda x: -x[1])
+
+
+@pytest.mark.parametrize("kind", ["f32", "int16", "cols"])
+@pytest.mark.parametrize("edge", ["ragged", "steps", "tiles", "48kb"])
+def test_shifted_group_layout_edges(cuda, kind, edge):
+    """The group layout's shifted form (``rowgather_sum_topk[_int16]``, and
+    ``rowgather_sum_cols`` with col0 > 0) against its plain version at its
+    edges, delta rows on the read in the middle of a group, in locality
+    order and in read order: R not a multiple of G at D652's widths and
+    window count; every G the wrapper can pick, at the first width that
+    picks it; windows over two tiles of staged row ids (an int16 plane's
+    int32 sums carried between tiles); a block within 64 bytes of 48 KB. The
+    slim pack bit-equal but log_sum (rtol 1e-6), the partial pack but e_s
+    (rtol 1e-6); two launches alike."""
+    cols = kind == "cols"
+    B_of = (lambda b: b) if cols else (lambda b: b - 5)
+    limit = _group_limit(cuda)
+    if edge == "ragged":
+        cases = [(1408, 7, 143, 2000)]
+    elif edge == "steps":
+        steps = _shifted_steps(cuda, B_of)
+        assert [G for _, G in steps] == list(range(SHIFTED_GROUP_MAX, 0, -1)), steps
+        cases = [(bw, 7, 30, 120) for bw, _ in steps]
+    elif edge == "tiles":
+        G = shifted_group(1408, B_of(1408), 7, limit)
+        cases = [(1408, 7, 2 * (2048 // G) + 3, 400)]
+    else:
+        edge_b, found = 48 * 1024, None
+        for bw in range(2048, 256, -8):
+            for K in range(1, min(64, B_of(bw)) + 1):
+                G = shifted_group(bw, B_of(bw), K, limit)
+                if edge_b - 64 < group_smem(G, bw, B_of(bw), K, False) <= edge_b:
+                    found = found or (bw, K)
+        assert found is not None
+        cases = [(*found, 40, 200)]
+    for bw, K, W, n_rows in cases:
+        B = B_of(bw)
+        G = shifted_group(bw, B, K, limit)
+        R = 5 * G + 3 if edge == "ragged" else 2 * G + 1
+        for pair_rows in (False, True):
+            rng = np.random.default_rng(bw + K + W)
+            plane, rows, m, reads, delta, scale = _shifted_case(
+                cuda, rng, bw, B, R, W, n_rows, G, "int16" if kind == "int16" else "f32",
+                pair_rows)
+            if cols:  # the shard's delta rows span its bwl columns
+                delta = torch.cat([delta, torch.zeros((delta.shape[0], bw - B), device=cuda)], 1)
+            reset_launch_counts()
+            if cols:
+                kw = dict(K=K, k=10, log_eps=-4.2597, col0=3 * bw)
+                got, again = (rowgather_sum_cols(plane, rows, m, reads, delta, pair_rows=pair_rows,
+                                                 **kw) for _ in range(2))
+                want = rowgather_sum_cols_plain(plane, rows, m, reads, delta, **kw)
+                name = "rowgather_sum_cols"
+                _check_partial(got, want, f"bwl {bw}, G {G}")
+                assert (got[:, K:2 * K] >= 3 * bw).all()
+            else:
+                fn = rowgather_sum_topk_int16 if kind == "int16" else rowgather_sum_topk
+                kw = dict(B=B, K=K, k=10, log_eps=-4.2597,
+                          **({"scale": scale} if scale is not None else {}))
+                got, again = (fn(plane, rows, m, reads, delta, pair_rows=pair_rows, **kw)
+                              for _ in range(2))
+                want = rowgather_sum_topk_plain(plane, rows, m, reads, delta, **kw)
+                name = fn.__name__
+                _check_pack(got.cpu().numpy(), want.cpu().numpy(), K, B)
+            assert torch.equal(got, again)
+            assert {n: c for n, c in launch_counts().items() if c} == {name: 2}, (bw, G)
+
+
+@pytest.mark.parametrize("pair_rows", [False, True])
+def test_rowgather_sum_topk_at_and_past_its_limit(cuda, pair_rows):
+    """The fused shifted kernel at the widest B its shared memory takes (at
+    bw = B rounded up to 128) launches and matches its plain version, f32 and
+    int16, in locality order and in read order (``pair_rows``); one branch
+    past it the wrapper raises. At both the dense step takes the unfused
+    pair, past the width rule (``shifted_fused``): the same pack but
+    log_sum."""
+    from epik_tpu_torch.engine.step import _shifted_finish
+    from epik_tpu_torch.ops.dense import amb_deltas
+
+    lo, hi = 1024, 1 << 16
+    while lo < hi:
+        mid = (lo + hi + 1) // 2
+        need, limit = topk_smem(torch.empty((2, -(-mid // 128) * 128), device=cuda), mid, 7)
+        lo, hi = (mid, hi) if need <= limit else (lo, mid - 1)
+    assert 34000 < lo < 39000, lo
+    for B, fits in ((lo, True), (lo + 1, False)):
+        bw = -(-B // 128) * 128
+        rng = np.random.default_rng(B)
+        plane, rows, m, _, _ = _dense_case(rng, 120, bw, B, 16, 30, False)
+        arows = np.full((16, 2), 119, np.int32)
+        arows[1::4, 0] = rng.integers(0, 119, 4)
+        for cell in ("f32", "int16"):
+            scale = None
+            if cell == "int16":
+                q = rng.integers(1, 32001, plane.shape).astype(np.int16)
+                q[plane == 0] = 0
+                plane_c, scale = q, 32000.0 / 4.2597
+            else:
+                plane_c = plane
+            p_t, rows_t, m_t, arows_t = _to(cuda, plane_c, rows, m, arows)
+            assert topk_fits(p_t, B, 7) == fits
+            kw = dict(B=B, K=7, k=10, log_eps=-4.2597)
+            reads, delta = amb_deltas(p_t, arows_t, zero_row=119, B=B, k=10, eps=5.5e-5,
+                                      log_eps=-4.2597, plane_scale=scale or 1.0)
+            skw = {"scale": scale} if scale is not None else {}
+            want = rowgather_sum_topk_plain(p_t, rows_t, m_t, reads, delta, **kw, **skw)
+            fn = rowgather_sum_topk_int16 if scale is not None else rowgather_sum_topk
+            if fits:
+                _check_pack(fn(p_t, rows_t, m_t, reads, delta, pair_rows=pair_rows, **kw,
+                               **skw).cpu().numpy(), want.cpu().numpy(), 7, B)
+            else:
+                with pytest.raises(ValueError, match="shared memory"):
+                    fn(p_t, rows_t, m_t, reads, delta, pair_rows=pair_rows, **kw, **skw)
+            reset_launch_counts()
+            got = _shifted_finish(p_t, rows_t, m_t, arows_t, Amax=2, zero_row=119, eps=5.5e-5,
+                                  plane_scale=scale or 1.0, pair_rows=pair_rows, **kw)
+            fused = fits and shifted_fused(bw)
+            assert {n: c for n, c in launch_counts().items() if c} == (
+                {fn.__name__: 1} if fused else {"rowgather_sum": 1, "finish_topk": 1})
+            _check_pack(got.cpu().numpy(), want.cpu().numpy(), 7, B)
+
+
+@pytest.mark.parametrize("cols", [False, True])
+def test_shifted_width_rule_routes(cuda, cols):
+    """The width rule on the card: at the widest plane (shard) the rule
+    gives the fused kernel, the step launches it; 128 columns wider, the
+    unfused pair; the same pack both ways (but log_sum / e_s)."""
+    from epik_tpu_torch.engine.step import _shifted_finish
+    from epik_tpu_torch.parallel.sharding import _shifted_cols
+
+    top = SHIFTED_COLS_MAX_BW if cols else SHIFTED_TOPK_MAX_BW
+    for bw in (top // 128 * 128, top // 128 * 128 + 128):
+        B = bw if cols else bw - 5
+        rng = np.random.default_rng(bw)
+        plane, rows, m, _, _ = _dense_case(rng, 120, bw, B, 40, 30, False)
+        arows = np.full((40, 2), 119, np.int32)
+        arows[1::4, 0] = rng.integers(0, 119, 10)
+        p_t, rows_t, m_t, arows_t = _to(cuda, plane, rows, m, arows)
+        fused = shifted_fused(bw, cols=cols)
+        assert fused == (bw <= top)
+        reset_launch_counts()
+        if cols:
+            from epik_tpu_torch.ops.dense import amb_deltas
+
+            reads, delta = amb_deltas(p_t, arows_t, zero_row=119, B=bw, k=10, eps=5.5e-5,
+                                      log_eps=-4.2597)
+            kw = dict(K=7, k=10, log_eps=-4.2597, col0=0)
+            got = _shifted_cols(p_t, rows_t, m_t, reads, delta, **kw)
+            _check_partial(got, rowgather_sum_cols_plain(p_t, rows_t, m_t, reads, delta, **kw))
+            expect = ({"rowgather_sum_cols": 1} if fused
+                      else {"rowgather_sum": 1, "finish_cols_partial": 1})
+        else:
+            from epik_tpu_torch.ops.dense import amb_deltas
+
+            kw = dict(B=B, K=7, k=10, log_eps=-4.2597)
+            reads, delta = amb_deltas(p_t, arows_t, zero_row=119, B=B, k=10, eps=5.5e-5,
+                                      log_eps=-4.2597)
+            got = _shifted_finish(p_t, rows_t, m_t, arows_t, Amax=2, zero_row=119, eps=5.5e-5,
+                                  **kw)
+            _check_pack(got.cpu().numpy(), rowgather_sum_topk_plain(
+                p_t, rows_t, m_t, reads, delta, **kw).cpu().numpy(), 7, B)
+            expect = ({"rowgather_sum_topk": 1} if fused
+                      else {"rowgather_sum": 1, "finish_topk": 1})
+        assert {n: c for n, c in launch_counts().items() if c} == expect, bw
+
+
+@pytest.mark.parametrize("ids", ["int64", "int32", "strided"])
+@pytest.mark.parametrize("cols", [False, True])
+def test_shifted_slot_map_from_read_ids(cuda, ids, cols):
+    """The shifted forms make their slot map on the card from the ambiguous
+    reads' ids (int64 or int32, contiguous or a strided view, not sorted):
+    each read's delta row lands on it, in locality order and in read order;
+    the pack bit-equal to the plain version but log_sum / e_s (rtol 1e-6)."""
+    bw, R, W = 1408, 50, 30
+    B = bw if cols else 1303
+    rng = np.random.default_rng(16 + int(cols))
+    plane, rows, m, _, _ = _dense_case(rng, 120, bw, B, R, W, False)
+    reads = torch.from_numpy(rng.permutation(R)[:12].astype(np.int64)).to(cuda)
+    if ids == "int32":
+        reads = reads.to(torch.int32)
+    elif ids == "strided":
+        reads = torch.stack([reads, reads + 1], 1)[:, 0]
+        assert not reads.is_contiguous()
+    delta = rng.uniform(-2.0, 6.0, (12, B)).astype(np.float32)
+    delta[rng.random(delta.shape) < 0.7] = 0.0
+    plane, rows, m, delta = _to(cuda, plane, rows, m, delta)
+    for pair_rows in (False, True):
+        reset_launch_counts()
+        if cols:
+            kw = dict(K=7, k=10, log_eps=-4.2597, col0=bw)
+            got = rowgather_sum_cols(plane, rows, m, reads, delta, pair_rows=pair_rows, **kw)
+            _check_partial(got, rowgather_sum_cols_plain(plane, rows, m, reads, delta, **kw))
+            name = "rowgather_sum_cols"
+        else:
+            kw = dict(B=B, K=7, k=10, log_eps=-4.2597)
+            got = rowgather_sum_topk(plane, rows, m, reads, delta, pair_rows=pair_rows, **kw)
+            _check_pack(got.cpu().numpy(), rowgather_sum_topk_plain(
+                plane, rows, m, reads, delta, **kw).cpu().numpy(), 7, B)
+            name = "rowgather_sum_topk"
+        assert {n: c for n, c in launch_counts().items() if c} == {name: 1}
 
 
 def test_csr_step_launches_the_counts_finish(cuda):
