@@ -213,7 +213,26 @@ prints no result line):
                  ``rowgather_group_kernel<float, 4, false, false>``) and no
                  other instance of the template;
                * ``stats``, ``convert`` (.eptk -> .ipk -> .eptk, byte-equal) and
-                 ``diff`` (phase 5's jplace against rank 0's) on D652.
+                 ``diff`` (phase 5's jplace against rank 0's) on D652;
+               * 13f, a model group over two processes: D652 through ``place
+                 --engine sharded --n-model 2 --num-processes 2``, ranks 0 and
+                 1 on the card, one 768-column shard of the pair plane each (a
+                 1x2 mesh whose row spans both ranks; the shards' partial
+                 packs cross between them, ``parallel/exchange.py``): each
+                 rank's jplace equal read by read to the single-process 1x2
+                 run laid on the card (``ShardedTorchPlacer(make_mesh(1, 2,
+                 devices=[cuda] * 2))`` through the port's writer);
+                 ``rowgather_sum_cols`` launched on each rank (its counts on
+                 the kernels line's entry, ``model_group_launches``); each
+                 rank's reads/s, all-gather and model-exchange ms a batch;
+                 ``tools/multihost_worker.py --slots 1 --n-model 2`` in its
+                 dense, csr, tiles and scatter modes: ``PARITY OK`` on both
+                 ranks, with their launches; the worker's file mode on two
+                 D652 batches in csr mode (the IUPAC batch through the
+                 host-staged CSR step, a clean one through the bytes step):
+                 the (R, B) sums and counts the CSR merges exchange, their ms
+                 and MB a batch, every read equal to the single-process 1x2
+                 run. The card is freed between the runs.
 
 14. wide classic -- the classic dense route past the fused counts kernel's
                limit, where the gather with counts (kernel 1c,
@@ -664,11 +683,15 @@ def score_cells_on(torch, dev, rng, PP: int, B: int, tile_w: int):
     return torch.from_numpy(b).to(dev), torch.from_numpy(s).to(dev)
 
 
-def plain_cols_finish(Sps, m_f32, *, B: int, K: int, k: int, log_eps: float):
+def plain_cols_finish(Sps, m_f32, *, B: int, K: int, k: int, log_eps: float, exchange=None):
     """The column finish in torch ops alone: kernel A's plain version on each
-    shard around the same merge."""
+    shard around the same merge (``exchange``: the recorded call's, None in
+    one process, where every shard is at hand)."""
     from epik_tpu_torch.kernels.finish_cols import finish_cols_partial_plain
     from epik_tpu_torch.parallel.sharding import _merge_cols
+
+    if exchange is not None:
+        raise ValueError("plain_cols_finish: the shards of one process only")
 
     bwl = Sps[0].shape[1]
     parts = [finish_cols_partial_plain(S, m_f32, K=K, k=k, log_eps=log_eps, col0=s * bwl)
@@ -3368,6 +3391,109 @@ def surface_phase(torch, np, card: str, dev, d652: dict) -> dict:
     text = cli("diff", d652["jplace"], os.path.join(work, "rank0", name))
     log(f"stats, convert (.eptk -> .ipk -> .eptk byte-equal, {os.path.getsize(ipk)} bytes of "
         f".ipk), diff of phase 5's jplace against rank 0's: {text.strip().splitlines()[-1]}")
+
+    summary.update(model_groups_phase(torch, card, dev, d652, work))
+    return summary
+
+
+def model_groups_phase(torch, card: str, dev, d652: dict, work: str) -> dict:
+    """Phase 13f (see the module docstring): a model group over two ranks of
+    the card. D652 through ``place --engine sharded --n-model 2
+    --num-processes 2`` against the single-process 1x2 run on the card; the
+    worker's one-slot layout in every mode; the CSR merges' (R, B) exchange
+    at D652's B. Returns the sub-phase's summary."""
+    from epik_tpu_torch.core.tree import parse_newick, to_newick
+    from epik_tpu_torch.parallel.mesh import make_mesh
+    from epik_tpu_torch.parallel.sharding import ShardedTorchPlacer
+    from epik_tpu_torch.tools.jplace_diff import parse_jplace
+
+    summary = {}
+    t_phase = time.monotonic()
+    platform = ["--platform", PLATFORM]
+    name = "placements_" + os.path.basename(d652["fasta"]) + ".jplace"
+
+    # the two ranks, each holding one 768-column shard of the pair plane
+    base = [sys.executable, "-m", "epik_tpu_torch", "place", "-i", d652["db_path"],
+            "--batch-size", str(BATCH), "--engine", "sharded", "--n-model", "2", "--verbose",
+            *platform]
+    for rank in (0, 1):
+        os.makedirs(os.path.join(work, f"mg_rank{rank}"))
+    outs = run_ranks(lambda rank, port: base + [
+        "-o", os.path.join(work, f"mg_rank{rank}"), "--num-processes", "2", "--process-id",
+        str(rank), "--coordinator", f"127.0.0.1:{port}", d652["fasta"]], 600,
+        "D652 1x2 over 2 ranks")
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+    # the single-process 1x2 run laid on the card, through the port's writer
+    db = d652["db"]
+    tree = parse_newick(db.tree())
+    placer = ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=2, devices=[dev] * 2))
+    if placer.route != "dense" or not placer._paired:
+        raise AssertionError(f"D652 1x2: route {placer.route}, paired {placer._paired}")
+    stats, counts, want = run_placer(torch, placer, d652["fasta"],
+                                     os.path.join(work, "mg_single.jplace"),
+                                     to_newick(tree, jplace_edges=True), BATCH)
+    del placer
+    gc.collect()
+    torch.cuda.empty_cache()
+    if counts["rowgather_sum_cols"] <= 0:
+        raise AssertionError(f"D652 1x2 in one process: launches {counts}")
+    launches = []
+    for rank, text in enumerate(outs):
+        if "sharded mesh 1x2 (dense)" not in text:
+            raise AssertionError(f"D652 1x2 over 2 ranks: rank {rank} is not on the 1x2 dense mesh")
+        got = parse_jplace(os.path.join(work, f"mg_rank{rank}", name))
+        if got != want:
+            bad = [n for n in want if got.get(n) != want[n]]
+            raise AssertionError(f"D652 1x2 over 2 ranks: rank {rank} differs from the "
+                                 f"single-process 1x2 run on {len(bad)} reads, e.g. {bad[:3]}")
+        launched = cli_launches(text)
+        if launched.get("rowgather_sum_cols", 0) <= 0:
+            raise AssertionError(f"D652 1x2 over 2 ranks: rank {rank} launched {launched}")
+        gather = text.split("All-gather: ")[1].splitlines()[0]
+        exchange = text.split("Model exchange: ")[1].splitlines()[0]
+        pl_ms = placement_ms(text)
+        launches.append(launched["rowgather_sum_cols"])
+        summary[f"mg_r{rank}_reads_per_s"] = len(want) / pl_ms * 1e3
+        summary[f"mg_r{rank}_gather_ms_per_batch"] = float(gather.split(", ")[1].split(" ms")[0])
+        summary[f"mg_r{rank}_exchange_ms_per_batch"] = float(
+            exchange.split(", ")[1].split(" ms")[0])
+        summary[f"mg_r{rank}_launches"] = launched
+        log(f"D652 1x2 over 2 ranks, rank {rank}: {len(want)} reads equal to the single-process "
+            f"1x2 run read by read; launches {launched}; all-gather {gather}; model exchange "
+            f"{exchange}; pipeline {pl_ms} ms = {summary[f'mg_r{rank}_reads_per_s']:.0f} "
+            f"reads/s [{card}]")
+    summary["model_groups_launches"] = launches
+    log(f"D652 1x2 in one process on the card: {stats.summary()}; launches "
+        f"{ {n: c for n, c in counts.items() if c} } [{card}]")
+
+    # the worker's one-slot layout: one data group over both ranks, every mode
+    worker = [sys.executable, "-m", "epik_tpu_torch.tools.multihost_worker"]
+    outs = run_ranks(lambda rank, port: worker + [
+        str(rank), "2", str(port), "dense,csr,tiles,scatter", "--slots", "1", "--n-model", "2",
+        *platform], 300, "worker 1 slot a rank")
+    for rank, text in enumerate(outs):
+        oks = [ln for ln in text.splitlines() if ln.startswith("PARITY OK")]
+        if len(oks) != 4 or not all("(mesh 1x2, 1 all-gather(s))" in ln and
+                                    "1 model exchange(s)" in ln for ln in oks):
+            raise AssertionError(f"worker 1 slot a rank: rank {rank} printed {oks}")
+    log(f"multihost_worker --slots 1 --n-model 2, dense/csr/tiles/scatter: PARITY OK on both "
+        f"ranks [{card}]")
+
+    # the CSR merges' (R, B) sums and counts through the exchange at D652's B: the
+    # IUPAC batch (the host-staged CSR step, the first hits too) and a clean one
+    outs = run_ranks(lambda rank, port: worker + [
+        str(rank), "2", str(port), "csr", "--slots", "1", "--n-model", "2", *platform,
+        "--database", d652["db_path"], "--fasta", d652["fasta"], "--reads", str(2 * BATCH),
+        "--batch-size", str(BATCH)], 300, "worker D652 csr")
+    for rank, text in enumerate(outs):
+        line = next((ln for ln in text.splitlines() if ln.startswith("FILE OK")), None)
+        if line is None:
+            raise AssertionError(f"worker D652 csr: rank {rank} printed no FILE OK")
+        summary[f"mg_csr_r{rank}"] = line
+    summary["model_groups_s"] = time.monotonic() - t_phase
+    log(f"13f model groups across processes: {summary['model_groups_s']:.1f} s [{card}]")
     return summary
 
 
@@ -3702,6 +3828,8 @@ def main() -> int:
     for e in kernels:  # the wide-tree checks of phase 9, the limit checks of phase 10
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0),
                                cols_errs.get(e["name"], 0.0))
+        if e["name"] == "rowgather_sum_cols":  # phase 13f's ranks, each its own count
+            e["model_group_launches"] = sf["model_groups_launches"]
         if e["name"] == "rowgather_sum_counts":  # past both fused counts kernels' limits
             e["launches"] += past.get("rowgather_sum_counts", 0)
     log(f"summary: plane_bytes={plane_bytes} step_ms={step_ms} "

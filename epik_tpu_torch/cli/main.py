@@ -12,7 +12,8 @@ single-device :class:`~epik_tpu_torch.engine.placer.TorchPlacer`;
 ``sharded``, the multi-device
 :class:`~epik_tpu_torch.parallel.sharding.ShardedTorchPlacer` over every card
 (``--n-model`` model shards, the other cards data-parallel; with ``--platform
-cpu`` over ``n_model`` repeats of the CPU device); ``native``, the C++ scalar
+cpu`` over ``n_model`` repeats of the CPU device, or, multi-process, one CPU
+slot a rank, as a one-card rank contributes its card); ``native``, the C++ scalar
 placer; ``reference``, the scalar oracle. It streams the FASTA through
 ``engine.pipeline.run_pipeline`` into the jplace writer, and prints the same
 lines as the JAX CLI to the same ``placements_<input>.jplace``.
@@ -22,8 +23,12 @@ flags (``--coordinator``, ``--num-processes``, ``--process-id``,
 ``--collective-timeout``) start one rank of a ``--engine sharded`` job over
 gloo (``parallel/mesh.py::init_distributed``): each rank places every batch's
 data groups on its own devices, gathers the others', and writes the whole
-jplace to its own ``-o``; a batch that stalls past the timeout, or whose
-collective breaks, exits with code 42 for a restart with ``--resume``.
+jplace to its own ``-o``; where ``--n-model`` lays a data group over several
+ranks (``--n-model 2 --num-processes 2`` on one card a rank), its ranks
+exchange the shards' partial results before the merge
+(``parallel/exchange.py``). A batch that stalls past the timeout, or whose
+collective (the all-gather or an exchange) breaks, exits with code 42 for a
+restart with ``--resume``.
 """
 
 from __future__ import annotations
@@ -166,7 +171,8 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
                                        keep_factor=keep_factor, threads=threads,
                                        precision=precision, plane_mode=plane_mode,
                                        pair_plane=pair_plane, tile_payload=tile_payload,
-                                       platform=platform, n_model=n_model)
+                                       platform=platform, n_model=n_model,
+                                       multi=multi and (num_processes or 1) > 1)
 
     tree_as_newick = to_newick(tree, jplace_edges=True)
     jplace_filename = make_output_filename(input_file, outputdir)
@@ -230,6 +236,10 @@ def place_queries(database, states, omega, mu, outputdir, threads, max_ram,
         if getattr(inner, "gathers", 0):
             print(f"All-gather: {inner.gathers} over {stats.num_iterations} batches, "
                   f"{inner.gather_seconds * 1e3 / max(1, stats.num_iterations):.3f} ms per batch")
+        if getattr(inner, "model_exchanges", 0):
+            print(f"Model exchange: {inner.model_exchanges} over {stats.num_iterations} "
+                  f"batches, {inner.model_exchange_seconds * 1e3 / max(1, stats.num_iterations):.3f}"
+                  f" ms per batch")
 
     bar.update(reader.bytes_read(), prefix="Done. ",
                postfix=to_human_readable(stats.num_seq_placed))
@@ -296,7 +306,7 @@ def _stop_profiler(prof, profile_dir: str) -> str:
 
 
 def _make_engine(engine: str, db, tree, *, keep_at_most, keep_factor, threads, precision,
-                 plane_mode, pair_plane, tile_payload, platform, n_model):
+                 plane_mode, pair_plane, tile_payload, platform, n_model, multi=False):
     """(placer, engine line) for ``--engine`` (JAX ``place_queries``
     :240-289)."""
     if engine == "reference":
@@ -321,8 +331,10 @@ def _make_engine(engine: str, db, tree, *, keep_at_most, keep_factor, threads, p
         from ..parallel.sharding import ShardedTorchPlacer
 
         # the CPU mesh repeats the one CPU device, as JAX's virtual host
-        # devices do; "cuda" spans every card (and raises without CUDA)
-        devices = [torch.device("cpu")] * n_model if platform == "cpu" else None
+        # devices do; a rank of several contributes one CPU slot, as a rank
+        # on one card does; "cuda" spans every card (and raises without CUDA)
+        devices = ([torch.device("cpu")] * (1 if multi else n_model) if platform == "cpu"
+                   else None)
         mesh = make_mesh(n_model=n_model, devices=devices)
         placer = ShardedTorchPlacer(db, tree, mesh, keep_at_most=keep_at_most,
                                     keep_factor=keep_factor, config=cfg)

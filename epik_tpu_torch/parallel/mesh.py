@@ -7,15 +7,19 @@ batch's reads into contiguous groups, one per mesh row; axis ``"model"``
 splits the database by branch columns (the dense planes, the posting tiles)
 or by key hash (the CSR tables), one shard per mesh column.
 
-One process drives every device of its mesh rows; the collectives of the JAX
+One process drives every device of its mesh cells; the collectives of the JAX
 package's ``shard_map`` steps become sums, maxima and concatenations over the
 shards' tensors in shard order (``sharding.py``). Across processes
 (:func:`init_distributed` first): each process contributes its local devices,
 in rank order, to one global grid, as JAX's ``make_mesh`` lays out the global
-device list; each process runs the data groups whose devices it owns, and the
-placer all-gathers the groups' host packs so that every rank holds the whole
-batch (``sharding.py::ShardedTorchPlacer._fetch``, JAX's
-``process_allgather``). A model group (a mesh row) stays within one process.
+device list, and owns the cells its devices fill. A mesh row (a model group)
+may span processes: each rank runs the kernels of the shards it holds, and
+the row's ranks exchange the shards' partial results before the merge
+(``exchange.py``, one gloo group a spanning row), so that each rank of the
+row merges every shard in shard order. Each row's lowest rank (its lead)
+contributes the merged pack, and the placer all-gathers the rows' host packs
+so that every rank holds the whole batch
+(``sharding.py::ShardedTorchPlacer._fetch``, JAX's ``process_allgather``).
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ import time
 import torch
 
 __all__ = ["BatchWatchdog", "CollectiveError", "DATA_AXIS", "MODEL_AXIS", "Mesh", "STALL_EXIT_CODE",
-           "init_distributed", "make_mesh"]
+           "collective_timeout", "init_distributed", "make_mesh"]
 
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
@@ -122,13 +126,13 @@ class BatchWatchdog:
 @dataclasses.dataclass(frozen=True)
 class Mesh:
     """An ``(n_data, n_model)`` grid of ``torch.device``; ``devices[d][m]``
-    runs model shard ``m`` of data group ``d``. ``owners[d]`` is the rank of
-    the process that owns row ``d`` (empty: one process owns every row), and
-    ``rank`` this process's; a row another process owns names that process's
-    device and is never touched here."""
+    runs model shard ``m`` of data group ``d``. ``owners[d][m]`` is the rank
+    of the process that owns cell ``(d, m)`` (empty: one process owns every
+    cell), and ``rank`` this process's; a cell another process owns names
+    that process's device and is never touched here."""
 
     devices: tuple[tuple[torch.device, ...], ...]
-    owners: tuple[int, ...] = ()
+    owners: tuple[tuple[int, ...], ...] = ()
     rank: int = 0
 
     @property
@@ -136,15 +140,30 @@ class Mesh:
         """Axis sizes, as ``jax.sharding.Mesh.shape`` gives them."""
         return {DATA_AXIS: len(self.devices), MODEL_AXIS: len(self.devices[0])}
 
+    def owner(self, d: int, m: int) -> int:
+        """The rank that runs shard ``m`` of data group ``d``."""
+        return self.owners[d][m] if self.owners else self.rank
+
+    def local_shards(self, d: int) -> tuple[int, ...]:
+        """The model shards of data group ``d`` this process holds."""
+        return tuple(m for m in range(len(self.devices[d])) if self.owner(d, m) == self.rank)
+
+    def row_ranks(self, d: int) -> tuple[int, ...]:
+        """The ranks that hold a shard of data group ``d``, ascending."""
+        return tuple(sorted({self.owner(d, m) for m in range(len(self.devices[d]))}))
+
+    def lead(self, d: int) -> int:
+        """The rank that contributes data group ``d``'s pack: its lowest."""
+        return self.row_ranks(d)[0]
+
     @property
     def local_rows(self) -> tuple[int, ...]:
-        """The data groups this process runs, in group order."""
-        return tuple(d for d in range(len(self.devices))
-                     if not self.owners or self.owners[d] == self.rank)
+        """The data groups this process holds a shard of, in group order."""
+        return tuple(d for d in range(len(self.devices)) if self.local_shards(d))
 
     @property
     def multi_process(self) -> bool:
-        return len(set(self.owners)) > 1
+        return len({r for row in self.owners for r in row}) > 1
 
 
 def _indexed(device) -> torch.device:
@@ -178,8 +197,9 @@ def make_mesh(n_data: int | None = None, n_model: int = 1,
 
     After :func:`init_distributed`, ``devices`` are this process's own, and
     the mesh is laid over every process's devices in rank order (JAX's
-    global device list); a mesh row whose devices belong to two processes
-    raises ValueError: a model group stays within one process."""
+    global device list); a mesh row may hold the devices of several
+    processes. A process that holds no cell of the mesh raises ValueError:
+    it would sit outside every collective."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("make_mesh: no CUDA device; pass devices= to build a "
@@ -207,20 +227,24 @@ def make_mesh(n_data: int | None = None, n_model: int = 1,
     if n_data < 1 or n_data * n_model > n_dev:
         raise ValueError(
             f"mesh {n_data}x{n_model} needs {n_data * n_model} devices, have {n_dev}")
-    owners = []
-    for d in range(n_data):
-        row = set(owner[d * n_model:(d + 1) * n_model])
-        if len(row) > 1:
-            raise ValueError(
-                f"mesh {n_data}x{n_model} over {world} processes: model group {d} spans "
-                f"the devices of ranks {sorted(row)}; every process must hold whole "
-                f"model groups (a multiple of n_model={n_model} devices each)")
-        owners.append(row.pop())
-    if world > 1 and len(set(owners)) < world:
+    owners = tuple(tuple(owner[d * n_model:(d + 1) * n_model]) for d in range(n_data))
+    held = {r for row in owners for r in row}
+    if world > 1 and len(held) < world:
         raise ValueError(f"mesh {n_data}x{n_model} over {world} processes: ranks "
-                         f"{sorted(set(range(world)) - set(owners))} own no model group")
+                         f"{sorted(set(range(world)) - held)} own no model group: they hold "
+                         f"no shard of the mesh")
     return Mesh(tuple(tuple(devices[d * n_model:(d + 1) * n_model]) for d in range(n_data)),
-                tuple(owners) if world > 1 else (), rank)
+                owners if world > 1 else (), rank)
+
+
+#: the collective time limit :func:`init_distributed` was given (None: torch's default)
+_timeout: datetime.timedelta | None = None
+
+
+def collective_timeout() -> datetime.timedelta | None:
+    """The time limit of the job's collectives, for the groups made after
+    :func:`init_distributed` (``dist.new_group`` does not inherit it)."""
+    return _timeout
 
 
 def init_distributed(coordinator_address: str | None = None,
@@ -230,20 +254,23 @@ def init_distributed(coordinator_address: str | None = None,
     """Join the multi-process job: ``torch.distributed`` over gloo, with the
     coordinator (rank 0 serves it) at ``host:port``.
 
-    Gloo, not NCCL: the only exchange across processes is the all-gather of
-    the placed batch's host packs (JAX's ``process_allgather`` on numpy
-    arrays), which reach the host in ``place_wait`` anyway; gloo runs on the
-    CPU, and lets two ranks share one card, which NCCL refuses.
-    ``initialization_timeout`` (seconds) bounds the start and every
-    collective, so that a rank that never starts surfaces as an error. A
-    failure to join raises."""
+    Gloo, not NCCL: the exchanges across processes are the all-gather of the
+    placed batch's host packs (JAX's ``process_allgather`` on numpy arrays)
+    and, on a row that spans processes, the model-axis exchange of the
+    shards' partial results (``exchange.py``), both staged through host
+    memory; gloo runs on the CPU, and lets two ranks share one card, which
+    NCCL refuses. ``initialization_timeout`` (seconds) bounds the start and
+    every collective, the row groups' too, so that a rank that never starts
+    surfaces as an error. A failure to join raises."""
     import torch.distributed as dist
 
+    global _timeout
     if coordinator_address is None or num_processes is None or process_id is None:
         raise ValueError("init_distributed needs the coordinator address, the number of "
                          "processes and this process's id")
     kw = {}
     if initialization_timeout is not None:
         kw["timeout"] = datetime.timedelta(seconds=float(initialization_timeout))
+    _timeout = kw.get("timeout")
     dist.init_process_group("gloo", init_method=f"tcp://{coordinator_address}",
                             world_size=int(num_processes), rank=int(process_id), **kw)

@@ -32,6 +32,11 @@ Ports ``epik_tpu/parallel/sharding.py``:
 * :class:`ShardedTorchPlacer` (``ShardedJaxPlacer`` :810-1410), its routing,
   dispatch, budget retries and assembly.
 
+Each step takes ``exchange``: on a mesh row whose shards lie in several
+processes, a step runs the kernels of this process's shards, then
+``exchange.py::ModelExchange.gather`` brings the other ranks' shard tensors,
+and the merge runs on every shard in shard order, as in one process.
+
 The JAX package's ``_pad_split``/``_pad_i32`` (:1413-1425) are
 ``engine/staging.py``'s ``pad_u64_split``/``pad_i32``.
 """
@@ -89,6 +94,7 @@ from ..ops.csr import (
 from ..ops.dense import amb_classic_deltas, amb_deltas
 from ..ops.hashtable import BUCKET, _next_pow2, build_table
 from ..ops.tokenize import tokenize_combo, tokenize_core, tokenize_packed
+from .exchange import ModelExchange
 from .mesh import DATA_AXIS, MODEL_AXIS, CollectiveError, Mesh
 
 __all__ = ["ShardedTorchPlacer", "finish_scores_cols", "finish_scores_cols_shifted",
@@ -329,18 +335,24 @@ def _top(x: torch.Tensor, n: int):
     return vals[:, :n], idx[:, :n]
 
 
-def finish_scores_cols_shifted(Sps: list[torch.Tensor], m_f32: torch.Tensor, *, B: int,
-                               K: int, k: int, log_eps: float):
+def finish_scores_cols_shifted(Sps: list[torch.Tensor | None], m_f32: torch.Tensor, *, B: int,
+                               K: int, k: int, log_eps: float, exchange=None):
     """Column-sharded finish from the shards' SHIFTED sums S' = S - C*log_eps,
     each f32 (R, bwl) on its shard's device (padded columns stay untouched):
     one ``finish_cols_partial`` per shard (its count, maximum, exp-sum and
     top-K candidates), then the merge (:func:`_merge_cols`). Per-branch
-    counts are never materialized (reported as -1). Returns (scores, idx,
-    counts, wr, n, zero_sum, log_sum) on the first shard's device."""
-    bwl = Sps[0].shape[1]
-    m_on = _on_devices([Sp.device for Sp in Sps], lambda dev: m_f32.to(dev).contiguous())
-    partials = [finish_cols_partial(Sp, m_on[Sp.device], K=K, k=k, log_eps=log_eps,
-                                    col0=s * bwl) for s, Sp in enumerate(Sps)]
+    counts are never materialized (reported as -1). ``Sps[s]`` is None for a
+    shard another process holds, whose partial pack ``exchange`` brings
+    (:func:`_all_shards`). Returns (scores, idx, counts, wr, n, zero_sum,
+    log_sum) on the first shard's device (across processes, this process's
+    first)."""
+    local = [Sp for Sp in Sps if Sp is not None]
+    bwl = local[0].shape[1]
+    m_on = _on_devices([Sp.device for Sp in local], lambda dev: m_f32.to(dev).contiguous())
+    partials = [None if Sp is None else
+                (finish_cols_partial(Sp, m_on[Sp.device], K=K, k=k, log_eps=log_eps,
+                                     col0=s * bwl),) for s, Sp in enumerate(Sps)]
+    partials = [p[0] for p in _all_shards(partials, exchange)]
     return _merge_cols(partials, m_f32, B=B, K=K, k=k, log_eps=log_eps)
 
 
@@ -367,6 +379,15 @@ def _on_devices(devices, make) -> dict:
         if dev not in out:
             out[dev] = make(dev)
     return out
+
+
+def _all_shards(parts: list, exchange) -> list:
+    """Every shard's tuple of tensors, in shard order, for the merge. In one
+    process ``parts`` holds them all; on a row that spans processes
+    ``parts[s]`` is None for a shard another rank holds, and ``exchange``
+    (``exchange.py::ModelExchange.gather``) fills it in, so that every rank
+    of the row merges the same tensors in the same order."""
+    return parts if exchange is None else exchange(parts)
 
 
 def _merge_cols(partials, m_f32, *, B: int, K: int, k: int, log_eps: float, counts=None):
@@ -470,8 +491,8 @@ def _classic_cols(plane, rows, m_f32, amb_read, dS, hit, *, K: int, k: int, log_
 
 
 def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int, Amax: int,
-                k: int, zero_row: int, eps: float, log_eps: float,
-                pair_rows: bool = False) -> torch.Tensor:
+                k: int, zero_row: int, eps: float, log_eps: float, pair_rows: bool = False,
+                exchange=None) -> torch.Tensor:
     """The body of the three column-sharded dense steps, for one data group.
     ``tokenize(s, device)`` gives the group's (rows, lens) on the device of
     shard s (lens None where ``m_f32`` is given), run once per distinct
@@ -485,51 +506,57 @@ def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int
     row (JAX :408-411). Then the merge into the slim (R, 2K+3) pack (shifted)
     or the full (R+1, 4K+2) pack with zero totals (classic), on the first
     shard's device. JAX pads the rows to a multiple of 16 with the zero row;
-    that adds nothing to a sum, so the port does not."""
-    devs = [p.device for p in planes]
-    tok = _on_devices(devs, lambda dev: (*tokenize(devs.index(dev), dev), arows.to(dev)))
+    that adds nothing to a sum, so the port does not. ``planes[s]`` is None
+    for a shard another process holds; ``exchange`` then brings its partial
+    pack (and counts) before the merge (:func:`_all_shards`)."""
+    devs = [None if p is None else p.device for p in planes]
+    here = [dev for dev in devs if dev is not None]
+    tok = _on_devices(here, lambda dev: (*tokenize(devs.index(dev), dev), arows.to(dev)))
     if m_f32 is None:
-        m_f32 = _m_f32(tok[devs[0]][1], k)
-    m_on = _on_devices(devs, lambda dev: m_f32.to(dev).contiguous())
+        m_f32 = _m_f32(tok[here[0]][1], k)
+    m_on = _on_devices(here, lambda dev: m_f32.to(dev).contiguous())
     fkw = dict(K=K, k=k, log_eps=log_eps)
-    parts, counts = [], []
+    parts = [None] * len(planes)
     for s, plane in enumerate(planes):
+        if plane is None:
+            continue
         rows, _, arows_d = tok[plane.device]
         bwl = plane.shape[1]
         akw = dict(zero_row=zero_row, B=bwl, k=k, eps=eps)
         if shifted:
             amb = amb_deltas(plane, arows_d, log_eps=log_eps, **akw) if Amax > 0 else (None,
                                                                                        None)
-            parts.append(_shifted_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl,
-                                       pair_rows=pair_rows, **fkw))
+            parts[s] = (_shifted_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl,
+                                      pair_rows=pair_rows, **fkw),)
         else:
             amb = amb_classic_deltas(plane, arows_d, **akw) if Amax > 0 else (None, None, None)
-            part, cnt = _classic_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl, **fkw)
-            parts.append(part)
-            counts.append(cnt)
-    outs = _merge_cols(parts, m_f32, B=B, counts=None if shifted else counts, **fkw)
+            parts[s] = _classic_cols(plane, rows, m_on[plane.device], *amb, col0=s * bwl, **fkw)
+    parts = _all_shards(parts, exchange)
+    outs = _merge_cols([p[0] for p in parts], m_f32, B=B,
+                       counts=None if shifted else [p[1] for p in parts], **fkw)
     return _pack_slim(outs) if shifted else pack_outputs(outs, 0, 0)
 
 
 def sharded_dense_bytes_step(planes, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,
                              Lmax: int, num_kmers: int, log_eps: float, eps: float,
-                             shifted: bool) -> torch.Tensor:
+                             shifted: bool, exchange=None) -> torch.Tensor:
     """Column-sharded dense step with the device tokenizer, for one data
     group: ``planes`` and ``direct`` (the replicated key -> row table) one
     tensor per model shard on the shard's device; ``buf`` the group's packed
     reads, ``arows`` int32 (R, Amax) its ambiguous reads' plane rows, both
     anywhere. Kernel 1's sums per shard (shifted, or classic with counts),
-    then the column finish (:func:`_dense_step`)."""
+    then the column finish (:func:`_dense_step`; ``exchange``: the row's
+    model-axis exchange across processes, None in one process)."""
     return _dense_step(
         planes, lambda s, dev: tokenize_packed(buf.to(dev), direct[s], k=k, Lmax=Lmax,
                                                num_kmers=num_kmers),
         arows, None, shifted=shifted, B=B, K=K, Amax=Amax, k=k, zero_row=num_kmers, eps=eps,
-        log_eps=log_eps)
+        log_eps=log_eps, exchange=exchange)
 
 
 def sharded_dense_paired_step(planes, combo, buf, arows, *, B: int, K: int, Amax: int, k: int,
-                              Lmax: int, num_kmers: int, log_eps: float,
-                              eps: float) -> torch.Tensor:
+                              Lmax: int, num_kmers: int, log_eps: float, eps: float,
+                              exchange=None) -> torch.Tensor:
     """Column-sharded dense step over the pair plane (shifted only), for one
     data group: each shard's pair rows are the column slice of the global pair
     rows, so the slot sums compose per column as on one device. ``combo``: the
@@ -538,26 +565,26 @@ def sharded_dense_paired_step(planes, combo, buf, arows, *, B: int, K: int, Amax
     return _dense_step(
         planes, lambda s, dev: tokenize_combo(buf.to(dev), combo[s], k=k, Lmax=Lmax),
         arows, None, shifted=True, B=B, K=K, Amax=Amax, k=k, zero_row=num_kmers, eps=eps,
-        log_eps=log_eps, pair_rows=True)
+        log_eps=log_eps, pair_rows=True, exchange=exchange)
 
 
 def sharded_dense_rows_step(planes, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,
                             zero_row: int, log_eps: float, eps: float,
-                            shifted: bool) -> torch.Tensor:
+                            shifted: bool, exchange=None) -> torch.Tensor:
     """Column-sharded dense step over plane rows resolved on the host, for
     one data group: ``rows`` int32 (R, Wmax) and ``arows`` int32 (R, Amax)
     (padding and misses on ``zero_row``) and the host's window counts
     ``m_f32`` (R,), anywhere. Any k, reads shorter than k and reads past
     65,535 bp."""
-    return _dense_step(planes, lambda s, dev: (rows.to(dev), None), arows,
-                       m_f32.to(planes[0].device), shifted=shifted, B=B, K=K, Amax=Amax, k=k,
-                       zero_row=zero_row, eps=eps, log_eps=log_eps)
+    return _dense_step(planes, lambda s, dev: (rows.to(dev), None), arows, m_f32,
+                       shifted=shifted, B=B, K=K, Amax=Amax, k=k, zero_row=zero_row, eps=eps,
+                       log_eps=log_eps, exchange=exchange)
 
 
 def sharded_tiles_bytes_step(tiles, direct, buf, tiles_ov=None, *, B: int, bwl: int,
                              K: int, k: int, Lmax: int, num_kmers: int, PT: int,
                              log_eps: float, tile_scale: float = 0.0, PT_OV: int = 0,
-                             OV: int = 0, N_OV: int = 0) -> torch.Tensor:
+                             OV: int = 0, N_OV: int = 0, exchange=None) -> torch.Tensor:
     """Column-sharded posting-tile step for one data group.
 
     ``tiles``, ``direct`` and ``tiles_ov``: one tensor per model shard, each
@@ -570,11 +597,18 @@ def sharded_tiles_bytes_step(tiles, direct, buf, tiles_ov=None, *, B: int, bwl: 
     otherwise the f32 pairs through kernel 4 (``accumulate_sums``). Then the
     column finish. Returns the slim (R, 2K+3) pack on the first shard's
     device, plus each read's overflow-window count as a last column when
-    ``PT_OV > 0`` (the host retries with a bigger OV when it exceeds OV)."""
+    ``PT_OV > 0`` (the host retries with a bigger OV when it exceeds OV).
+    ``tiles[s]`` is None for a shard another process holds; ``exchange``
+    brings its partial pack (:func:`finish_scores_cols_shifted`). The
+    overflow counts need no exchange: every shard tokenizes the same reads
+    through the same direct table, so every rank of the row counts alike."""
     trash = tile_width(bwl) - 1
     tok = {}
     Sps = []
     for s, til in enumerate(tiles):
+        if til is None:
+            Sps.append(None)
+            continue
         dev = til.device
         if dev not in tok:
             tok[dev] = tokenize_packed(buf.to(dev), direct[s], k=k, Lmax=Lmax,
@@ -596,8 +630,9 @@ def sharded_tiles_bytes_step(tiles, direct, buf, tiles_ov=None, *, B: int, bwl: 
             b = _pad_cells(g[..., 0], trash)
             sc = _pad_cells(g[..., 1], 0).view(torch.float32)
             Sps.append(accumulate_sums(b, sc, B=bwl))
-    rows, lens = tok[tiles[0].device]
-    outs = finish_scores_cols_shifted(Sps, _m_f32(lens, k), B=B, K=K, k=k, log_eps=log_eps)
+    rows, lens = next(iter(tok.values()))
+    outs = finish_scores_cols_shifted(Sps, _m_f32(lens, k), B=B, K=K, k=k, log_eps=log_eps,
+                                      exchange=exchange)
     pack = _pack_slim(outs)
     if tile_scale > 0.0 and PT_OV > 0:
         cnt_ov = (rows < N_OV).sum(dim=1)
@@ -618,9 +653,9 @@ def _merge_max(parts: list[torch.Tensor]) -> torch.Tensor:
     return functools.reduce(torch.maximum, [p.to(lead) for p in parts])
 
 
-def sharded_csr_bytes_step(shards: list[CsrState], buf, *, R: int, B: int, K: int,
-                           Pb: int, k: int, Lmax: int, log_eps: float,
-                           flat: bool = False) -> torch.Tensor:
+def sharded_csr_bytes_step(shards: list[CsrState | None], buf, *, R: int, B: int, K: int,
+                           Pb: int, k: int, Lmax: int, log_eps: float, flat: bool = False,
+                           exchange=None) -> torch.Tensor:
     """Hash-sharded CSR step with on-device tokenization, for one data group
     of clean DNA reads: every shard looks up the full key stream of the
     group's packed reads ``buf`` in its own table (a key misses everywhere but
@@ -630,10 +665,15 @@ def sharded_csr_bytes_step(shards: list[CsrState], buf, *, R: int, B: int, K: in
     row-pointer form); S and C merge over the shards, then the counts
     finish. Returns the (R+1, 2K+3) slim pack with the largest per-read
     posting count (the largest shard total with ``flat``) in its totals
-    row."""
+    row. ``shards[s]`` is None for a shard another process holds; ``exchange``
+    brings its S, C and total (:func:`_all_shards`), so that the totals row,
+    which decides the budget retries, is the whole row's on every rank."""
     tok = {}
-    S, C, e_tot = [], [], []
+    parts = []
     for st in shards:
+        if st is None:
+            parts.append(None)
+            continue
         dev = st.table.device
         if dev not in tok:
             key, ok, _, lens = tokenize_core(buf.to(dev), k=k, Lmax=Lmax)
@@ -643,30 +683,33 @@ def sharded_csr_bytes_step(shards: list[CsrState], buf, *, R: int, B: int, K: in
             e_read = torch.arange(R, dtype=torch.int64, device=dev).repeat_interleave(W)
             tok[dev] = (e_hi, e_lo, e_read, lens)
         e_hi, e_lo, e_read, _ = tok[dev]
-        S_s, C_s, e_s = exact_postings(st.table, st.seed1, st.seed2, st.post_b, st.post_s,
-                                       st.row_off, e_hi, e_lo, e_read, R=R, B=B, P=Pb,
-                                       flat=flat)
-        S.append(S_s)
-        C.append(C_s)
-        e_tot.append(e_s)
-    lens = tok[shards[0].table.device][3]
+        parts.append(exact_postings(st.table, st.seed1, st.seed2, st.post_b, st.post_s,
+                                    st.row_off, e_hi, e_lo, e_read, R=R, B=B, P=Pb, flat=flat))
+    lens = next(iter(tok.values()))[3]
+    S, C, e_tot = zip(*_all_shards(parts, exchange))
     slim = finish_topk_counts(_merge_sum(S), _merge_sum(C), _m_f32(lens, k), K=K, k=k,
                               log_eps=log_eps, full=False)
     return append_totals(slim, _merge_max(e_tot), 0)
 
 
-def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_read,
+def sharded_csr_step(shards: list[CsrState | None], e_hi, e_lo, e_read, a_hi, a_lo, a_read,
                      a_order, m_f32, *, R: int, B: int, K: int, Pb: int, PAb: int, k: int,
-                     log_eps: float, eps: float, flat: bool = False) -> torch.Tensor:
+                     log_eps: float, eps: float, flat: bool = False,
+                     exchange=None) -> torch.Tensor:
     """Hash-sharded CSR step on host-staged key streams, for one data group:
     per shard the exact postings (kernel 4 with counts, per-read budget Pb;
     with ``flat`` its row-pointer form over a flat budget Pb) and the
     ambiguous first hit (budget PAb); S and C merge by sum, the first
     hit by minimum over processing order plus a sum of V masked to the
     shard that owns it (each key lives on exactly one shard). Returns the
-    (R+1, 2K+3) slim pack with both budget totals in its last row."""
-    S, C, firsts, Vs, e_tot, a_tot = [], [], [], [], [], []
+    (R+1, 2K+3) slim pack with both budget totals in its last row.
+    ``shards[s]`` is None for a shard another process holds; ``exchange``
+    brings its six tensors (:func:`_all_shards`)."""
+    parts = []
     for st in shards:
+        if st is None:
+            parts.append(None)
+            continue
         dev = st.table.device
         S_s, C_s, e_s = exact_postings(st.table, st.seed1, st.seed2, st.post_b, st.post_s,
                                        st.row_off, e_hi.to(dev), e_lo.to(dev), e_read.to(dev),
@@ -674,10 +717,9 @@ def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_r
         first, V, a_s = accumulate_amb_firsthit(
             st.table, st.seed1, st.seed2, st.post_b, st.post_s, st.row_off, a_hi.to(dev),
             a_lo.to(dev), a_read.to(dev), a_order.to(dev), R=R, B=B, PA=PAb, k=k, eps=eps)
-        for acc, x in ((S, S_s), (C, C_s), (firsts, first), (Vs, V), (e_tot, e_s),
-                       (a_tot, a_s)):
-            acc.append(x)
-    lead = shards[0].table.device
+        parts.append((S_s, C_s, first, V, e_s, a_s))
+    S, C, firsts, Vs, e_tot, a_tot = zip(*_all_shards(parts, exchange))
+    lead = S[0].device
     S, C = _merge_sum(S), _merge_sum(C)
     first_g = functools.reduce(torch.minimum, [f.to(lead) for f in firsts])
     hit = first_g < ORDER_INF
@@ -698,9 +740,8 @@ def sharded_csr_step(shards: list[CsrState], e_hi, e_lo, e_read, a_hi, a_lo, a_r
 def _shards_per_device(mesh: Mesh) -> int:
     """The most distinct model shards one device of the mesh holds (1 on a
     mesh of distinct devices; n_model on a mesh laid on one device). Counted
-    over every process's rows, so that every rank decides alike."""
-    owners = mesh.owners or (mesh.rank,) * len(mesh.devices)
-    cells = {(m, owner, dev) for owner, row in zip(owners, mesh.devices)
+    over every process's cells, so that every rank decides alike."""
+    cells = {(m, mesh.owner(d, m), dev) for d, row in enumerate(mesh.devices)
              for m, dev in enumerate(row)}
     per = {}
     for _, owner, dev in cells:
@@ -711,16 +752,20 @@ def _shards_per_device(mesh: Mesh) -> int:
 def _per_device(mesh: Mesh, n_model: int, make) -> list[list | None]:
     """``out[d][m]`` = ``make(m, device)`` for mesh row d and model column m,
     built once per distinct device of each column and shared by its rows;
-    ``out[d]`` is None for a row another process owns."""
+    ``out[d][m]`` is None for a cell another process holds, ``out[d]`` None
+    for a row where this process holds no cell."""
     cache = {}
     out = []
-    local = set(mesh.local_rows)
     for d, row in enumerate(mesh.devices):
-        if d not in local:
+        local = mesh.local_shards(d)
+        if not local:
             out.append(None)
             continue
         cells = []
         for m in range(n_model):
+            if m not in local:
+                cells.append(None)
+                continue
             if (m, row[m]) not in cache:
                 cache[(m, row[m])] = make(m, row[m])
             cells.append(cache[(m, row[m])])
@@ -797,9 +842,13 @@ class ShardedTorchPlacer(HostStaging):
     one card) holds all their planes, so their bytes add up there.
 
     On a mesh over several processes (``mesh.init_distributed``) each rank
-    builds the shards of the rows it owns and runs their data groups;
-    ``place_wait`` all-gathers the groups' packs, so every rank returns the
-    whole batch and takes the same budget retries (JAX's ``_fetch`` :1302-1314).
+    builds the shards of the cells it owns and runs their kernels; where a
+    data group's shards lie in several processes, the step exchanges the
+    shards' partial results within the row (``exchange.py``) and every rank
+    of the row merges them alike (``model_exchanges``,
+    ``model_exchange_seconds``). ``place_wait`` all-gathers the groups'
+    packs, each from its row's lead rank, so every rank returns the whole
+    batch and takes the same budget retries (JAX's ``_fetch`` :1302-1314).
     The budget is the least over the ranks, so every rank takes the same
     route. Every rank must place the same batches in the same order."""
 
@@ -841,7 +890,10 @@ class ShardedTorchPlacer(HostStaging):
         #: all-gathers of the data groups' packs across processes, and their time
         self.gathers = 0
         self.gather_seconds = 0.0
-        budget = (device_budget(mesh.devices[min(self._local)][0])
+        #: the model-axis exchanges of the rows that span processes
+        self._exchange = ModelExchange(mesh)
+        d0 = min(self._local)
+        budget = (device_budget(mesh.devices[d0][mesh.local_shards(d0)[0]])
                   if cfg.dense_db_budget is None else cfg.dense_db_budget)
         if mesh.multi_process:
             budget = _agreed_budget(budget)
@@ -942,6 +994,15 @@ class ShardedTorchPlacer(HostStaging):
             self._table = self._replicated(direct_table(db.keys, self.k, db.num_kmers))
 
     @property
+    def model_exchanges(self) -> int:
+        """Model-axis exchanges this process took part in (0 in one process)."""
+        return self._exchange.exchanges
+
+    @property
+    def model_exchange_seconds(self) -> float:
+        return self._exchange.seconds
+
+    @property
     def route(self) -> str:
         """``"dense"`` (every batch on the column-sharded plane), ``"tiles"``
         (clean batches on the posting tiles, the rest on the CSR tables) or
@@ -1008,8 +1069,8 @@ class ShardedTorchPlacer(HostStaging):
                     else functools.partial(sharded_dense_bytes_step, shifted=self._shifted,
                                            **kw))
             bufs, arows_g = groups(buf), groups(arows)
-            out = self._run_groups(lambda d: step(self._planes[d], self._table[d], bufs[d],
-                                                  arows_g[d]))
+            out = self._run_groups(lambda d, x: step(self._planes[d], self._table[d], bufs[d],
+                                                     arows_g[d], exchange=x))
             return _Pending(sequence_map, seqs, m_signed, out, K)
         tokens = self._tokenize(seqs)
         ex, am = tokens.exact_read, tokens.amb_read
@@ -1024,7 +1085,8 @@ class ShardedTorchPlacer(HostStaging):
         step = functools.partial(sharded_dense_rows_step, Amax=Amax,
                                  zero_row=self.db.num_kmers, shifted=self._shifted, **kw)
         rows_g, arows_g, m_g = groups(rows), groups(arows), groups(m_pad)
-        out = self._run_groups(lambda d: step(self._planes[d], rows_g[d], arows_g[d], m_g[d]))
+        out = self._run_groups(lambda d, x: step(self._planes[d], rows_g[d], arows_g[d], m_g[d],
+                                                 exchange=x))
         return _Pending(sequence_map, seqs, m_signed, out, K)
 
     def _place_async_tiles(self, sequence_map, seqs):
@@ -1054,9 +1116,9 @@ class ShardedTorchPlacer(HostStaging):
             PT_OV=self._tile_pt_ov, N_OV=self._tile_n_ov)
 
         def run(OV: int) -> list[torch.Tensor | None]:
-            return self._run_groups(lambda d: step(
+            return self._run_groups(lambda d, x: step(
                 self._tiles[d], self._direct[d], buf_t[d * R_loc:(d + 1) * R_loc],
-                self._tiles_ov[d] if self._tiles_ov else None, OV=OV))
+                self._tiles_ov[d] if self._tiles_ov else None, OV=OV, exchange=x))
 
         m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         if self._tile_pt_ov == 0:
@@ -1095,8 +1157,8 @@ class ShardedTorchPlacer(HostStaging):
                                          flat=self._flat)
 
                 def run_bytes(Pb_: int, _PAb: int) -> list[torch.Tensor | None]:
-                    return self._run_groups(lambda d: step(
-                        self._csr[d], buf_t[d * R_loc:(d + 1) * R_loc], Pb=Pb_))
+                    return self._run_groups(lambda d, x: step(
+                        self._csr[d], buf_t[d * R_loc:(d + 1) * R_loc], Pb=Pb_, exchange=x))
 
                 return _Pending(sequence_map, seqs, lens_arr - self.k + 1, run_bytes(Pb, 0),
                                 K, ("csr", Pb, 0, run_bytes))
@@ -1135,23 +1197,29 @@ class ShardedTorchPlacer(HostStaging):
                                  flat=self._flat)
 
         def run(Pb_: int, PAb_: int) -> list[torch.Tensor | None]:
-            return self._run_groups(lambda d: step(self._csr[d], *staged[d], Pb=Pb_, PAb=PAb_))
+            return self._run_groups(lambda d, x: step(self._csr[d], *staged[d], Pb=Pb_, PAb=PAb_,
+                                                      exchange=x))
 
         return _Pending(sequence_map, seqs, m_signed, run(Pb, PAb), K, ("csr", Pb, PAb, run))
 
     # -- wait + assembly ------------------------------------------------------
 
     def _run_groups(self, step) -> list[torch.Tensor | None]:
-        """``step(d)`` for each data group d this process owns, None for the
-        groups of other processes."""
-        return [step(d) if d in self._local else None for d in range(self.n_data)]
+        """``step(d, exchange)`` for each data group d this process holds a
+        shard of, in group order, with the row's model-axis exchange (None
+        where the row lies in this process); None for the other groups."""
+        return [step(d, self._exchange.row(d)) if d in self._local else None
+                for d in range(self.n_data)]
 
     def _fetch(self, out: list[torch.Tensor | None], tag) -> np.ndarray:
         """The data groups' packs as one (n_data, rows, width) host array. On
-        a mesh over several processes each rank holds its own groups' packs;
-        an all-gather gives every rank the whole batch, so that each rank
-        assembles it and decides the budget retries alike."""
-        packs = {d: o.cpu().numpy() for d, o in enumerate(out) if o is not None}
+        a mesh over several processes each row's lead rank holds its pack
+        (every rank of the row merged the same one); an all-gather gives
+        every rank the whole batch, so that each rank assembles it and
+        decides the budget retries alike."""
+        rank = self.mesh.rank
+        packs = {d: o.cpu().numpy() for d, o in enumerate(out)
+                 if o is not None and self.mesh.lead(d) == rank}
         if self.mesh.multi_process:
             t0 = time.perf_counter()
             packs = _gather_groups(packs, tag)

@@ -5,7 +5,8 @@ data groups' packs all-gathered at fetch time. Ports
 parity runs of ``tools/multihost_worker.py`` (4 mesh slots a rank on the
 CPU, n_model 2), the kill-restart-resume story and the watchdog; and adds the
 mesh layout over processes, a budget retry on one rank's half, and the CLI's
-multi-process flags against a single-process run.
+multi-process flags against a single-process run. Model groups that span
+processes: ``tests/test_torch_model_groups.py``.
 
 Each spawned pair has its own time limit, and running past it fails the
 test; only an address or bind error on the loopback coordinator skips.
@@ -180,15 +181,9 @@ def test_global_mesh_lays_ranks_in_order(monkeypatch, rank):
     _fake_world(monkeypatch, rank, [["cpu"] * 4, ["cpu"] * 4])
     mesh = make_mesh(n_model=2, devices=[torch.device("cpu")] * 4)
     assert mesh.shape == {"data": 4, "model": 2}
-    assert mesh.owners == (0, 0, 1, 1) and mesh.rank == rank and mesh.multi_process
+    assert mesh.owners == ((0, 0), (0, 0), (1, 1), (1, 1))
+    assert mesh.rank == rank and mesh.multi_process
     assert mesh.local_rows == ((0, 1) if rank == 0 else (2, 3))
-
-
-def test_model_group_across_processes_raises(monkeypatch):
-    """One slot a rank with n_model 2: model group 0 would span ranks 0 and 1."""
-    _fake_world(monkeypatch, 0, [["cpu"], ["cpu"]])
-    with pytest.raises(ValueError, match=r"model group 0 spans the devices of ranks \[0, 1\]"):
-        make_mesh(n_model=2, devices=[torch.device("cpu")])
 
 
 def test_every_rank_owns_a_model_group(monkeypatch):
