@@ -11,8 +11,12 @@ prints no result line):
                (one nvcc per source, all at once);
 3. fixture  -- the D652 database (652 leaves, k=10, ~410k k-mers) and a FASTA of
                65,536 150 bp reads plus a few IUPAC and shorter-than-k reads;
-4. kernels  -- the dense path's kernel, the row gather with the ambiguous
-               delta rows and the finish fused in (``rowgather_sum_topk``),
+4. kernels  -- the slot tokenizer's kernel against the torch ops it replaces
+               (its plain version) at the path's batch and at the benchmark
+               cell's 2,000 reads, bit for bit, two launches alike, and
+               CUDA-event times of both; the dense path's kernel, the row
+               gather with the ambiguous delta rows and the finish fused in
+               (``rowgather_sum_topk``),
                against its plain PyTorch version at the path's shapes (R =
                16,384) on a batch with IUPAC reads and on a clean one, and on
                the finish's engineered rows, two launches alike; the gather
@@ -21,8 +25,9 @@ prints no result line):
                device step time; place() reads/s;
 5. main     -- ``python -m epik_tpu_torch place`` (in process) over the FASTA,
                with every kernel's launch count zeroed just before and read
-               just after: the fused kernel must have launched, the gather
-               and the finish apart never;
+               just after: the fused kernel must have launched, the tokenizer
+               kernel as often (once a batch), the gather and the finish
+               apart never;
 6. parity   -- the scalar oracle (``ReferencePlacer``) on the first 256 reads
                against the jplace, score sets within 1e-4;
 7. big tree -- BASELINE.md config 4 (10,000 leaves, 19,999 branches, k=10,
@@ -305,6 +310,8 @@ import time
 
 REPO = os.path.dirname(os.path.abspath(__file__))
 BATCH = 16384
+#: the benchmark cell's batch (``placebench``'s d652.illumina150, the CLI's default)
+CELL_BATCH = 2000
 N_READS = 65536
 PARITY_READS = 256
 TIMING_REPS = 20
@@ -420,6 +427,9 @@ KERNEL_META = {
                                    "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_int16_wide_shifted": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                          "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # the pair-plane slot tokenizer: XLA ops in the JAX package, no Pallas kernel
+    "tokenize_combo_fused": ("epik_tpu_torch/kernels/csrc/tokenize.cu",
+                             "epik_tpu/engine/placer.py:1038"),
 }
 
 
@@ -1816,6 +1826,50 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
     # and a compare per gathered cell
     io = (n_distinct * bw * cell + nbytes(rows, S, C), 2 * rows.numel() * bw)
     return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
+
+
+def tokenizer_check(torch, card: str, placer, seqs, dev) -> dict:
+    """The slot tokenizer's kernel (``tokenize_combo_fused``) against the torch
+    ops it replaces (``tokenize_combo`` + ``_m_f32``, its plain version) on
+    ``seqs`` and on their first ``CELL_BATCH``: rows, lengths and the bits of
+    m_f32 equal, two launches alike; CUDA-event times of both (the torch ops'
+    include the card's waits between their ~60 launches). Returns, per batch
+    (suffix "" and "_cell"), ms, plain_ms and the bytes the kernel must move:
+    the packed rows read once, one combo cell a distinct slot row (a lower
+    bound of the distinct cells read) and the outputs written once."""
+    from epik_tpu_torch.engine.step import _m_f32
+    from epik_tpu_torch.kernels.tokenize import tokenize_combo_fused
+    from epik_tpu_torch.ops.tokenize import tokenize_combo
+
+    st, k = placer.state, placer.k
+    out = {}
+    for tag, batch in (("", seqs), ("_cell", seqs[:CELL_BATCH])):
+        buf, _, _, Lmax, _ = placer._stage_bytes(batch)
+        buf_t = torch.from_numpy(buf).to(dev)
+        got = tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax)
+        again = tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax)
+        rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
+        want = (rows, lens, _m_f32(lens, k))
+        torch.cuda.synchronize()
+        for name, a, b, c in zip(("rows", "lens", "m_f32"), got, again, want):
+            if a.dtype == torch.float32:
+                a, b, c = (x.view(torch.int32) for x in (a, b, c))
+            if not torch.equal(a, c):
+                raise AssertionError(f"tokenize_combo_fused ({len(batch)} reads): {name} "
+                                     f"differ from the plain version")
+            if not torch.equal(a, b):
+                raise AssertionError(f"tokenize_combo_fused ({len(batch)} reads): two "
+                                     f"launches differ")
+        ms = cuda_ms(torch, lambda: tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax))
+        plain_ms = cuda_ms(torch, lambda: _m_f32(
+            tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)[1], k))
+        io = (nbytes(buf_t, *got) + 4 * int(torch.unique(rows).numel()), 0)
+        out.update({f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"io{tag}": io})
+        log(f"tokenize_combo_fused {tuple(buf.shape)} -> rows {tuple(rows.shape)}, Lmax "
+            f"{Lmax}: bit-equal to the torch ops (rows, lens, the bits of m_f32), two "
+            f"launches alike; kernel {ms:.4f} ms, torch ops {plain_ms:.4f} ms, bound "
+            f"{bound(*io)[0]:.5f} ms ({io[0]} bytes) [{card}]")
+    return out
 
 
 def unfused_pair(kernels_mod, call, cols: bool):
@@ -3318,9 +3372,10 @@ def surface_phase(torch, np, card: str, dev, d652: dict) -> dict:
             raise AssertionError(f"D652 2 ranks: rank {rank} differs from the 1x1 run on "
                                  f"{len(bad)} reads, e.g. {bad[:3]}")
         launched = cli_launches(text)
-        if set(launched) != set(d652["sharded_route"]) or min(launched.values()) <= 0:
+        route = {*d652["sharded_route"], "tokenize_combo_fused"}
+        if set(launched) != route or min(launched.values()) <= 0:
             raise AssertionError(f"D652 2 ranks: rank {rank} launched {launched}, not the "
-                                 f"1x1 run's route {d652['sharded_route']}")
+                                 f"1x1 run's route {sorted(route)}")
         gather = text.split("All-gather: ")[1].splitlines()[0]
         pl_ms = placement_ms(text)
         summary[f"d652_2rank_r{rank}_reads_per_s"] = len(want) / pl_ms * 1e3
@@ -3576,6 +3631,7 @@ def main() -> int:
     K = min(placer.config.keep_at_most, B)
     log(f"main-path shapes: rows {tuple(rows.shape)}, Sp ({rows.shape[0]}, {B}), "
         f"K={K}, Amax={Amax}")
+    tok = tokenizer_check(torch, card, placer, seqs, dev)
 
     sp_k = rowgather_sum(st.plane, rows, pair_rows=True)  # as the paired step gathers
     sp_p = rowgather_sum_plain(st.plane, rows)
@@ -3738,6 +3794,8 @@ def main() -> int:
         raise AssertionError("the fused kernel 1 never launched on the main path")
     if counts["rowgather_sum"] or counts["finish_topk"]:
         raise AssertionError(f"the dense path ran the gather or the finish apart: {counts}")
+    if counts["tokenize_combo_fused"] != counts["rowgather_sum_topk"]:
+        raise AssertionError(f"the tokenizer kernel did not launch once a batch: {counts}")
     jplace = os.path.join(out_dir, "placements_q.fasta.jplace")
     with open(jplace) as f:
         content = json.load(f)
@@ -3816,6 +3874,11 @@ def main() -> int:
         # embedding_bag computes the gather's sums alone, without the finish
         entry("rowgather_sum_topk", counts["rowgather_sum_topk"], err1f, ms1f, plain_ms1f,
               *io1f, lib_ms1, pair_ms=pair_ms1f, **layout1f),
+        # bit-equal (checked), so no difference; no one library call tokenizes
+        entry("tokenize_combo_fused", counts["tokenize_combo_fused"], 0.0, tok["ms"],
+              tok["plain_ms"], *tok["io"], None, cell_reads=CELL_BATCH, cell_ms=tok["ms_cell"],
+              cell_plain_ms=tok["plain_ms_cell"],
+              cell_bound_ms=bound(*tok["io_cell"])[0]),
         *bt_kernels,
         *sh_kernels,
         *dn_kernels,

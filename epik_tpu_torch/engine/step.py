@@ -53,6 +53,7 @@ from ..kernels.rowgather import (
     shifted_fused,
     topk_fits,
 )
+from ..kernels.tokenize import tokenize_combo_fused
 from ..ops.csr import (
     ORDER_INF,
     accumulate_amb_firsthit,
@@ -61,7 +62,6 @@ from ..ops.csr import (
 )
 from ..ops.dense import amb_classic_deltas, amb_deltas, lookup_rows
 from ..ops.tokenize import (
-    tokenize_combo,
     tokenize_packed,
     tokenize_paired,
     tokenize_radix,
@@ -88,14 +88,15 @@ def _m_f32(lens: torch.Tensor, k: int) -> torch.Tensor:
 def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: int,
                              k: int, Lmax: int, num_kmers: int, log_eps: float,
                              eps: float) -> torch.Tensor:
-    """Dense shifted step over the pair plane: slot tokenizer, the ambiguous
+    """Dense shifted step over the pair plane: the slot tokenizer's one
+    kernel (rows and window counts, ``tokenize_combo_fused``), the ambiguous
     first-hit delta rows when ``Amax > 0``, then kernel 1 with the delta add
     and the finish fused in, or its unfused pair (``_shifted_finish``; the
     pair rows in batch order: a read order that groups shared plane rows
     bought them no L2 reuse on the H100, PERF.md). Returns the slim (R, 2K+3)
     f32 pack on the plane's device."""
-    rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
-    return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
+    rows, _, m_f32 = tokenize_combo_fused(buf, combo, k=k, Lmax=Lmax)
+    return _shifted_finish(plane, rows, m_f32, arows, B=B, K=K, Amax=Amax, k=k,
                            zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True)
 
 

@@ -29,7 +29,10 @@
   :func:`accumulate_sums.accumulate_sums_counts` -- kernel 4, the segment
   accumulate of (branch, score) cells, without and with counts;
   :func:`accumulate_sums.accumulate_sums_counts_csr`, its row-pointer form with
-  counts over the scatter engine's flat cells.
+  counts over the scatter engine's flat cells;
+* :func:`tokenize.tokenize_combo_fused` -- the pair-plane slot tokenizer: the
+  slot rows, lengths and window counts of a packed read buffer (the dense
+  pair-plane steps).
 
 Each wrapper counts its kernel launches in a ``launches`` attribute;
 :func:`reset_launch_counts` zeroes them and :func:`launch_counts` reads them.
@@ -50,6 +53,7 @@ from .rowgather import (
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
 )
+from .tokenize import tokenize_combo_fused
 
 __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accumulate_sums",
            "accumulate_sums_counts", "accumulate_sums_counts_csr", "finish_cols_partial",
@@ -58,7 +62,8 @@ __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accum
            "reset_launch_counts", "rowgather_sum", "rowgather_sum_cols",
            "rowgather_sum_counts", "rowgather_sum_counts_bf16", "rowgather_sum_counts_cols",
            "rowgather_sum_counts_topk",
-           "rowgather_sum_counts_topk_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16"]
+           "rowgather_sum_counts_topk_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16",
+           "tokenize_combo_fused"]
 
 #: name -> wrapper, for every kernel of the port
 KERNELS = {
@@ -80,6 +85,7 @@ KERNELS = {
     "accumulate_sums": accumulate_sums,
     "accumulate_sums_counts": accumulate_sums_counts,
     "accumulate_sums_counts_csr": accumulate_sums_counts_csr,
+    "tokenize_combo_fused": tokenize_combo_fused,
 }
 
 

@@ -97,6 +97,8 @@ _PROTOTYPES = {
     "epik_accumulate_sums_csr": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP],
     # (B, counts, row_ptr, out int[5])
     "epik_accumulate_sums_layout": [_INT, _INT, _INT, ctypes.POINTER(_INT)],
+    # (buf, combo, rows, lens, m, R, Lmax, k, stream)
+    "epik_tokenize_combo": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
 }
 #: entry points that return something else than a CUDA error code
 _RESTYPES = {

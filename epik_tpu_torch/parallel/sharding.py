@@ -84,6 +84,7 @@ from ..kernels.rowgather import (
     rowgather_sum_counts_cols,
     shifted_fused,
 )
+from ..kernels.tokenize import tokenize_combo_fused
 from ..ops.csr import (
     ORDER_INF,
     accumulate_amb_firsthit,
@@ -93,7 +94,7 @@ from ..ops.csr import (
 )
 from ..ops.dense import amb_classic_deltas, amb_deltas
 from ..ops.hashtable import BUCKET, _next_pow2, build_table
-from ..ops.tokenize import tokenize_combo, tokenize_core, tokenize_packed
+from ..ops.tokenize import tokenize_core, tokenize_packed
 from .exchange import ModelExchange
 from .mesh import DATA_AXIS, MODEL_AXIS, CollectiveError, Mesh
 
@@ -563,7 +564,7 @@ def sharded_dense_paired_step(planes, combo, buf, arows, *, B: int, K: int, Amax
     replicated slot -> row table, one tensor per shard; the rest as
     :func:`sharded_dense_bytes_step`."""
     return _dense_step(
-        planes, lambda s, dev: tokenize_combo(buf.to(dev), combo[s], k=k, Lmax=Lmax),
+        planes, lambda s, dev: tokenize_combo_fused(buf.to(dev), combo[s], k=k, Lmax=Lmax)[:2],
         arows, None, shifted=True, B=B, K=K, Amax=Amax, k=k, zero_row=num_kmers, eps=eps,
         log_eps=log_eps, pair_rows=True, exchange=exchange)
 

@@ -9,6 +9,9 @@ its first batch of 16,384 reads (IUPAC reads among them), and
 ``TorchPlacer`` on the dense route, it times:
 
 * the dense device step;
+* the slot tokenizer's kernel (``tokenize_combo_fused``) and the torch ops
+  it replaces (``tokenize_combo`` + ``_m_f32``), on the batch and on its
+  first 2,000 reads (the benchmark cell's batch);
 * the gather alone (``rowgather_sum``) and the finish alone (``finish_topk``)
   on its sums, and their sum: what the dense step ran before the fusion;
   where the gather takes a read order, also the gather in locality order,
@@ -126,6 +129,7 @@ from chip_smoke import (
     BATCH,
     BT_BATCH,
     BT_LONG,
+    CELL_BATCH,
     TIMING_REPS,
     bigtree_db,
     card_line,
@@ -192,7 +196,7 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine.placer import TorchPlacer
-    from epik_tpu_torch.engine.step import place_batch_dense_paired
+    from epik_tpu_torch.engine.step import _m_f32, place_batch_dense_paired
     from epik_tpu_torch.ops import dense as dense_mod
     from epik_tpu_torch.ops.tokenize import tokenize_combo
 
@@ -218,6 +222,17 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
         print_profile(torch, lambda: place_batch_dense_paired(
             st.plane, st.combo, buf_t, arows_t, **step_kw),
             f"dense step, R={len(seqs)}, Amax={Amax}")
+    fused_tok = getattr(kernels_mod, "tokenize_combo_fused", None)
+    if fused_tok is None:
+        out["skipped"].append("tokenize_combo_fused: the port has no tokenizer kernel")
+    for tag, batch in (("", seqs), ("_2000", seqs[:CELL_BATCH])):
+        b, _, _, L, _ = placer._stage_bytes(batch)
+        b_t = torch.from_numpy(b).to(dev)
+        out[f"tokenize_combo_torch{tag}_ms"] = cuda_ms(
+            torch, lambda: _m_f32(tokenize_combo(b_t, st.combo, k=k, Lmax=L)[1], k))
+        if fused_tok is not None:
+            out[f"tokenize_combo_fused{tag}_ms"] = cuda_ms(
+                torch, lambda: fused_tok(b_t, st.combo, k=k, Lmax=L))
     rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
     m_signed = (lens - (k - 1)).float()
     m_f32 = torch.where(m_signed >= 0, m_signed, m_signed + float(2**64))

@@ -74,6 +74,7 @@ from epik_tpu_torch.kernels.rowgather import (
     topk_fits,
     topk_smem,
 )
+from epik_tpu_torch.kernels.tokenize import tokenize_combo_fused
 from torch_fixtures import (
     cell_order_sums,
     counts_rows,
@@ -372,6 +373,9 @@ def test_launch_counts(cuda):
     accumulate_sums_counts(b, s, B=100)
     ptr = torch.tensor([0, 5, 5, 12, 20], dtype=torch.int64, device=cuda)
     accumulate_sums_counts_csr(b.view(-1), s.view(-1), ptr, R=4, B=100)
+    buf = torch.zeros((4, 152 // 4 + 152 // 8 + 2), dtype=torch.uint8, device=cuda)
+    combo = torch.zeros(4**5 + 4**4 + 1, dtype=torch.int32, device=cuda)
+    tokenize_combo_fused(buf, combo, k=4, Lmax=152)
     # the plain versions never count
     rowgather_sum_plain(plane, rows)
     rowgather_sum_topk_plain(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
@@ -398,7 +402,7 @@ def test_launch_counts(cuda):
                                "finish_cols_partial": 1, "finish_cols_partial_counts": 1,
                                "accumulate_packed_topk": 1, "accumulate_packed_sums": 1,
                                "accumulate_sums": 1, "accumulate_sums_counts": 1,
-                               "accumulate_sums_counts_csr": 1}
+                               "accumulate_sums_counts_csr": 1, "tokenize_combo_fused": 1}
 
 
 def test_wrappers_raise_on_bad_input(cuda):
@@ -984,7 +988,8 @@ def test_sharded_dense_placer_cuda_matches_cpu(cuda, n_data, n_model, cfg, monke
     a batch of reads shorter than k. Same edges; scores within f32 rounding
     of the exp in the ambiguous first hit. Every shard of every step launches
     one fused column kernel (shifted ``rowgather_sum_cols``, classic
-    ``rowgather_sum_counts_cols``) and nothing apart; the torch finish
+    ``rowgather_sum_counts_cols``) and nothing apart, beside the pair plane's
+    tokenizer kernel; the torch finish
     (``partial_from_corrected``) never runs on a card tensor."""
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.kernels import finish_cols as finish_cols_mod
@@ -1021,6 +1026,8 @@ def test_sharded_dense_placer_cuda_matches_cpu(cuda, n_data, n_model, cfg, monke
                                    rtol=1e-6, atol=1e-6)
     counts = {n: c for n, c in launch_counts().items() if c}
     fused = "rowgather_sum_cols" if gpu._shifted else "rowgather_sum_counts_cols"
+    # the pair plane's device tokenizer is one kernel too
+    assert (counts.pop("tokenize_combo_fused", 0) > 0) == gpu._paired, counts
     assert list(counts) == [fused] and counts[fused] % n_model == 0, counts
 
 
@@ -1067,7 +1074,9 @@ def test_sharded_dense_steps_launch_one_kernel_per_shard(cuda, kind, cfg):
     torch.cuda.synchronize()
     fused = "rowgather_sum_counts_cols" if kind.endswith("classic") else "rowgather_sum_cols"
     assert steps[0] > 0
-    assert {n: c for n, c in launch_counts().items() if c} == {fused: 2 * steps[0]}
+    # the paired step tokenizes once a step: both shards lie on the one card
+    tok = {"tokenize_combo_fused": steps[0]} if kind == "paired" else {}
+    assert {n: c for n, c in launch_counts().items() if c} == {fused: 2 * steps[0], **tok}
 
 
 def _dense_case(rng, n_rows, bw, B, R, W, amb):

@@ -98,11 +98,14 @@ def test_step_matches_jax(fx):
 def test_step_is_tokenizer_deltas_and_fused_kernel(fx):
     """The dense step is the tokenizer, the ambiguous reads' delta rows and
     the fused kernel 1, nothing else: those three on the step's inputs give
-    its pack bit for bit, ambiguous reads and all; on the CPU no kernel
+    its pack bit for bit, ambiguous reads and all; so do the tokenizer
+    kernel's wrapper (its rows, lengths and window counts those of the torch
+    tokenizer and ``_m_f32``) and ``_shifted_finish``. On the CPU no kernel
     launch is counted."""
-    from epik_tpu_torch.engine.step import _m_f32
+    from epik_tpu_torch.engine.step import _m_f32, _shifted_finish
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels.rowgather import rowgather_sum_topk
+    from epik_tpu_torch.kernels.tokenize import tokenize_combo_fused
     from epik_tpu_torch.ops.dense import amb_deltas
     from epik_tpu_torch.ops.tokenize import tokenize_combo
 
@@ -124,6 +127,12 @@ def test_step_is_tokenizer_deltas_and_fused_kernel(fx):
     got = rowgather_sum_topk(st.plane, rows, _m_f32(lens, k), amb_read, delta, B=port.B,
                              **kw)
     assert torch.equal(got, want)
+    rows_f, lens_f, m_f = tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax)
+    assert torch.equal(rows_f, rows) and torch.equal(lens_f, lens)
+    assert torch.equal(m_f.view(torch.int32), _m_f32(lens, k).view(torch.int32))
+    fin = _shifted_finish(st.plane, rows_f, m_f, arows_t, B=port.B, Amax=Amax,
+                          zero_row=st.n_keys, eps=float(port.eps), pair_rows=True, **kw)
+    assert torch.equal(fin, want)
     assert not any(launch_counts().values())
 
 
