@@ -43,7 +43,9 @@ three routes, chosen at construction by the JAX package's rules
 recorder of ``utils/spans.py`` is on, each part is a span (``place.stage``,
 ``place.launch``, ``place.sync``, ``place.retry``, ``place.assemble``) inside
 the ``place`` span that ``run_pipeline`` opens, which the placer notes with
-the batch's reads, its distinct reads and the route it took.
+the batch's reads, its distinct reads and the route it took, and on the dense
+route with the gather it runs (``gather``) and, where the gather and the
+finish run apart, the bytes of the sums between them (``sums_bytes``).
 
 The device defaults to the card (``device="cuda"``), and the CPU runs only
 when the caller names it; ``"cuda"`` without CUDA raises, so the placer never
@@ -80,6 +82,7 @@ from .outputs import (
 from .staging import HostStaging, _bucket, _bucket_lmax, key_matrix, pad_i32, pad_u64_split
 from .state import CsrState, PlaneState, build_csr_state, build_plane_state, pair_tables
 from .step import (
+    fused_finish,
     place_batch_csr,
     place_batch_dense_bytes,
     place_batch_dense_codes,
@@ -89,6 +92,7 @@ from .step import (
     place_batch_device_densedb,
     place_batch_tiles_bytes,
     place_batch_tiles_paired,
+    sums_bytes,
 )
 from .tables import direct_table, enumerate_pairs_generic
 from .tiles import Q_MAX, TileState, build_tile_state, tile_bytes
@@ -363,8 +367,22 @@ class TorchPlacer(HostStaging):
         spans.note("reads", len(records))
         spans.note("distinct", len(seqs))
         spans.note("route", route)
+        if self.route == "dense" and spans.enabled():
+            self._note_gather(len(seqs))
         with spans.span("place.launch"):
             return launch()
+
+    def _note_gather(self, R: int) -> None:
+        """Note which gather a dense step runs (``gather``: ``fused``, or
+        ``pair`` for the gather and the finish apart) and, for the pair, the
+        bytes of the (R, bw) sums it writes and reads back
+        (``sums_bytes``)."""
+        plane = self.state.plane
+        if fused_finish(plane, self.B, self._K(), shifted=self._shifted):
+            spans.note("gather", "fused")
+        else:
+            spans.note("gather", "pair")
+            spans.note("sums_bytes", sums_bytes(plane, R, shifted=self._shifted))
 
     def _prepare(self, sequence_map, seqs):
         """Stage a batch on the route it takes. Every ``_prepare_*`` gives

@@ -69,10 +69,11 @@ from ..ops.tokenize import (
 )
 from .outputs import U64
 
-__all__ = ["place_batch_csr", "place_batch_dense_bytes", "place_batch_dense_codes",
-           "place_batch_dense_codes_paired", "place_batch_dense_paired",
-           "place_batch_dense_rows", "place_batch_device_densedb",
-           "place_batch_tiles_bytes", "place_batch_tiles_paired"]
+__all__ = ["fused_finish", "place_batch_csr", "place_batch_dense_bytes",
+           "place_batch_dense_codes", "place_batch_dense_codes_paired",
+           "place_batch_dense_paired", "place_batch_dense_rows",
+           "place_batch_device_densedb", "place_batch_tiles_bytes",
+           "place_batch_tiles_paired", "sums_bytes"]
 
 #: tile cells per read are padded with trash to a multiple of one warp's chunk
 _PP_ALIGN = 32
@@ -83,6 +84,25 @@ def _m_f32(lens: torch.Tensor, k: int) -> torch.Tensor:
     shorter than k has m = 2**64 + m_signed, which f32 rounds to 2**64."""
     m_signed = (lens - (k - 1)).to(torch.float32)
     return torch.where(m_signed >= 0, m_signed, m_signed + float(U64))
+
+
+def fused_finish(plane, B: int, K: int, *, shifted: bool) -> bool:
+    """Whether a dense step over ``plane`` ends in a fused kernel rather than
+    the gather and the finish apart: on the shifted plane where the width
+    rule takes #1 (``shifted_fused``) and its shared memory fits
+    (``topk_fits``), on the classic plane where the counts kernel's fits
+    (``counts_topk_fits``). Decided before any launch, from the plane's
+    width, B and K alone."""
+    if shifted:
+        return shifted_fused(plane.shape[1]) and topk_fits(plane, B, K)
+    return counts_topk_fits(plane, B, K)
+
+
+def sums_bytes(plane, R: int, *, shifted: bool) -> int:
+    """Bytes of the (R, bw) intermediate that the gather writes and the
+    finish reads back where they run apart: f32 sums, and on the classic
+    plane int32 counts beside them."""
+    return R * plane.shape[1] * (4 if shifted else 8)
 
 
 def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: int,
@@ -118,7 +138,7 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
         amb_read, delta = amb_deltas(plane, arows, zero_row=zero_row, B=B, k=k, eps=eps,
                                      log_eps=log_eps, plane_scale=plane_scale)
     kw = dict(B=B, K=K, k=k, log_eps=log_eps, pair_rows=pair_rows)
-    if shifted_fused(plane.shape[1]) and topk_fits(plane, B, K):
+    if fused_finish(plane, B, K, shifted=True):
         if quant:
             return rowgather_sum_topk_int16(plane, rows, m_f32, amb_read, delta, scale=scale,
                                             **kw)
@@ -143,7 +163,7 @@ def _classic_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
         amb_read, dS, hit = amb_classic_deltas(plane, arows, zero_row=zero_row, B=B, k=k,
                                                eps=eps)
     kw = dict(K=K, k=k, log_eps=log_eps)
-    if counts_topk_fits(plane, B, K):
+    if fused_finish(plane, B, K, shifted=False):
         fused = rowgather_sum_counts_topk_bf16 if bf16 else rowgather_sum_counts_topk
         return append_totals(fused(plane, rows, m_f32, amb_read, dS, hit, B=B, **kw), 0, 0)
     S, C = (rowgather_sum_counts_bf16 if bf16 else rowgather_sum_counts)(plane, rows)

@@ -204,14 +204,15 @@ class Tally:
     """The operator's view of a run's spans in bounded memory: for each span
     name its count, wall and CPU sums and a uniform sample of ``SAMPLE`` wall
     times (the 95th percentile is exact up to that count); the routes
-    ``place`` took and the collections' generations, counted; the other
-    counters' sums and largest values."""
+    ``place`` took, the dense steps' gathers and the collections'
+    generations, counted; the other counters' sums and largest values."""
 
     SAMPLE = 4096
 
     def __init__(self):
         self.names: dict[str, list] = {}  # name -> [count, wall ns, CPU ns, sample]
-        self.labels: dict[str, dict] = {"route": {}, "generation": {}}  # key -> value -> count
+        # key -> value -> count
+        self.labels: dict[str, dict] = {"route": {}, "gather": {}, "generation": {}}
         self.sums: dict[str, int] = {}
         self.peaks: dict[str, int] = {}
         self._draw = random.Random(0)
@@ -242,9 +243,10 @@ class Tally:
 
     def table(self) -> list[str]:
         """For each span name its count, mean and 95th-percentile wall ms and
-        off-CPU share; then the routes, the collections by generation, the
-        share of reads left after the dedup, the H2D bytes a batch and the
-        budget retries."""
+        off-CPU share; then the routes, the dense steps' gathers, the
+        collections by generation, the share of reads left after the dedup,
+        the H2D bytes a batch, the sums the unfused gather wrote a batch and
+        the budget retries."""
         width = max((len(name) for name in self.names), default=4)
         lines = [f"{'span':<{width}} {'count':>7} {'mean ms':>9} {'p95 ms':>9} {'off-CPU':>8}"]
         for name in sorted(self.names):
@@ -252,7 +254,8 @@ class Tally:
             off = 100.0 * (wall - cpu) / wall if wall else 0.0
             lines.append(f"{name:<{width}} {n:>7} {wall / n / 1e6:>9.3f} "
                          f"{_p95(sample) / 1e6:>9.3f} {off:>7.1f}%")
-        for key, title in (("route", "routes"), ("generation", "collections, by generation")):
+        for key, title in (("route", "routes"), ("gather", "gathers"),
+                           ("generation", "collections, by generation")):
             if self.labels[key]:
                 lines.append(f"{title}: " + ", ".join(
                     f"{v} {n}" for v, n in sorted(self.labels[key].items())))
@@ -264,6 +267,10 @@ class Tally:
         batches = self.names.get("place.stage", [0])[0]
         if batches and "h2d_bytes" in sums:
             lines.append(f"H2D: {sums['h2d_bytes'] / batches / 1024:.1f} KiB a batch")
+        pairs = self.labels["gather"].get("pair")
+        if pairs and "sums_bytes" in sums:
+            lines.append(f"sums written and read back: {sums['sums_bytes'] / pairs / 2**20:.3f} "
+                         f"MiB a batch, largest {self.peaks['sums_bytes'] / 2**20:.3f}")
         retries = self.names.get("place.retry", [0])[0]
         if retries:
             amb = f", ambiguous {self.peaks['budget_amb']}" if "budget_amb" in self.peaks else ""

@@ -195,6 +195,44 @@ def test_route_is_noted_on_place(small, tmp_path, recorder, route, config, iupac
         assert names.count("place.sync") == n_sync
 
 
+@pytest.mark.parametrize("config,past_the_rule,gather", [
+    (PlacerConfig(), False, "fused"),
+    (PlacerConfig(), True, "pair"),
+    (PlacerConfig(plane_mode="classic"), False, "fused"),
+    (PlacerConfig(plane_mode="classic"), True, "pair"),
+    (PlacerConfig(dense_db="off"), False, None),
+])
+def test_gather_is_noted_on_both_sides_of_the_width_rule(small, tmp_path, recorder, monkeypatch,
+                                                         config, past_the_rule, gather):
+    """The dense route's ``place`` span notes the gather its step runs: the
+    fused kernel, or past the width rule (the shifted plane one step of 128
+    columns past ``SHIFTED_TOPK_MAX_BW``; the classic plane past the counts
+    kernel's limit) the pair, with the bytes of the (R, bw) sums between
+    gather and finish: f32, and int32 counts beside them on the classic
+    plane. The tiles route notes neither."""
+    from epik_tpu_torch.engine import step
+    from epik_tpu_torch.kernels import rowgather
+
+    db, tree, batches = small
+    placer = TorchPlacer(db, tree, config=config, device="cpu")
+    if past_the_rule:
+        bw = placer.state.plane.shape[1]
+        if placer._shifted:
+            monkeypatch.setattr(rowgather, "SHIFTED_TOPK_MAX_BW", bw - 128)
+        else:
+            monkeypatch.setattr(step, "counts_topk_fits", lambda plane, B, K: False)
+    _place(placer, tree, batches, tmp_path / "a.jplace")
+    place = [s for s in spans.drain() if s.name == "place"]
+    assert len(place) == len(batches)
+    for s in place:
+        assert s.attrs.get("gather") == gather
+        if gather == "pair":
+            cell = 4 if placer._shifted else 8
+            assert s.attrs["sums_bytes"] == s.attrs["distinct"] * bw * cell
+        else:
+            assert "sums_bytes" not in s.attrs
+
+
 def test_budget_retries_are_spans(small, tmp_path, recorder):
     """A CSR budget far below the postings: each batch re-runs, in a
     ``place.retry`` span that notes the budget it ran with."""
@@ -243,6 +281,30 @@ def test_cli_verbose_prints_the_spans(small, tmp_path, capsys):
     assert rows["place.stage"][1] == "4" and "routes: dense.bytes 4" in text
     assert "dedup: 40 distinct of 40 reads (100.0%)" in text and "H2D: " in text
     assert not spans.enabled() and spans.drain() == []
+
+
+@pytest.mark.parametrize("past_the_rule", [False, True])
+def test_cli_verbose_prints_the_gathers(small, tmp_path, capsys, monkeypatch, past_the_rule):
+    """``place --verbose`` counts the dense steps' gathers and, past the
+    width rule, prints the sums the pair wrote and read back a batch."""
+    from epik_tpu_torch.kernels import rowgather
+
+    db, tree, batches = small
+    if past_the_rule:  # the small tree's plane is 128 columns wide
+        monkeypatch.setattr(rowgather, "SHIFTED_TOPK_MAX_BW", 0)
+    save(db, tmp_path / "DB.eptk")
+    with open(tmp_path / "q.fasta", "w") as f:
+        for name, seq in itertools.chain(*batches):
+            f.write(f">{name}\n{seq.decode()}\n")
+    assert main(["place", "-i", str(tmp_path / "DB.eptk"), "-o", str(tmp_path), "--platform",
+                 "cpu", "--batch-size", "10", "--verbose", str(tmp_path / "q.fasta")]) == 0
+    text = capsys.readouterr().out
+    if past_the_rule:
+        mib = f"{10 * 128 * 4 / 2**20:.3f}"
+        assert "gathers: pair 4" in text
+        assert f"sums written and read back: {mib} MiB a batch, largest {mib}" in text
+    else:
+        assert "gathers: fused 4" in text and "sums written" not in text
 
 
 def _made(name, batch, thread, start, end, cpu, parent=None, **attrs):
@@ -308,6 +370,21 @@ def test_tally_reads_every_counter():
                           "dedup: 8 distinct of 10 reads (80.0%)",
                           "H2D: 0.1 KiB a batch",
                           "retries: 1, largest budget 4096, ambiguous 512"]
+
+
+def test_tally_reads_the_gathers():
+    """The operator's table counts the dense steps' gathers and gives the
+    sums the pair wrote and read back, a batch that ran the pair and the
+    largest."""
+    tally = spans.Tally()
+    for b, gather, nbytes in ((0, "fused", None), (1, "pair", 1 << 20), (2, "pair", 2 << 20)):
+        attrs = {"route": "dense.bytes", "gather": gather}
+        if nbytes:
+            attrs["sums_bytes"] = nbytes
+        tally.add(_made("place", b, 3, 0, 1, 1, **attrs))
+    lines = tally.table()
+    assert "routes: dense.bytes 3" in lines and "gathers: fused 1, pair 2" in lines
+    assert lines[-1] == "sums written and read back: 1.500 MiB a batch, largest 2.000"
 
 
 def test_tally_memory_is_bounded():
