@@ -80,8 +80,12 @@ prints no result line):
                  so the CLI takes the unpaired dense route, and there the
                  route the width rule (``kernels/rowgather.py::shifted_fused``)
                  gives at 20,096 columns: the gather, the delta add and
-                 ``finish_topk``; the launches counted, the pair's kernels
-                 launched and the fused kernel never; the fused kernel at
+                 ``finish_topk``, the gather over the plane's posted cells
+                 (``rowgather_sum_posted``: 0.06% of them posted); the
+                 launches counted, the posted gather and the finish launched,
+                 1d and the fused kernel never; the posted gather against 1d
+                 (``rowgather_sum``) on the first batch's rows, bit for bit,
+                 their times in turns through the wrappers; the fused kernel at
                  (4,096 x 143) rows and bw 20,096 against its plain version on
                  the first batch whichever route the step took, its time
                  beside its unfused pair's on the same rows, the device
@@ -265,8 +269,9 @@ prints no result line):
                  counts (bit-equal but e_s, rtol 1e-6), its time and bound.
 
 15. wide shifted -- the shifted dense route past the fused kernel's limit,
-               where the gather alone (kernel 1d, ``rowgather_sum``, in
-               locality order and column slices) and
+               where the gather alone (over the f32 plane's posted cells,
+               ``rowgather_sum_posted``; over the int16 plane kernel 1d,
+               ``rowgather_sum``, in locality order and column slices) and
                ``finish_topk`` run apart: BASELINE.md config 4's recipe at
                20,000 leaves on D652's 520,000 bp reference (B = 39,999, bw
                40,064, ~410k k-mers; the reference is cut only where the 65.7
@@ -274,13 +279,22 @@ prints no result line):
                reads, the first 6 with IUPAC codes, in batches of 4,096:
                * ``python -m epik_tpu_torch place`` with no flags (the f32
                  plane), then with ``--precision int16`` (~33 GB), the counts
-                 zeroed before and read after: the dense route, 1d and
-                 ``finish_topk`` once per batch and nothing else (the fused
-                 kernel's ``topk_fits`` refuses B = 39,999); 128 reads against
-                 the oracle (f32: score sets within 1e-4; int16: the
-                 jplace_diff rule); 1d against its plain version on the
-                 path's first batch, bit for bit, two launches alike, its
-                 time, bound and ``embedding_bag``'s (f32).
+                 zeroed before and read after: the dense route, the gather
+                 (f32: the posted gather; int16: 1d) and ``finish_topk`` once
+                 per batch and nothing else (the fused kernel's
+                 ``topk_fits`` refuses B = 39,999); 128 reads against the
+                 oracle (f32: score sets within 1e-4; int16: the jplace_diff
+                 rule); 1d against its plain version on the path's first
+                 batch, bit for bit, two launches alike, its time, bound and
+                 ``embedding_bag``'s (f32); on the f32 plane the posted
+                 gather against 1d on the same rows, their times in turns.
+16. posted  -- the posted gather against 1d at the ``wol10k.illumina150``
+               cell's shapes: a synthetic shifted f32 plane of the cell's
+               644,814 rows x 21,248 columns (54.8 GB), ~12 posted cells a key,
+               and 2,000 reads of 141 windows slid over a key sequence of
+               1,000,000 windows (2% misses), as 150 bp reads of a 1 Mb
+               reference give them: bit for bit, their times in turns through
+               the wrappers, each beside its bound.
 
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
@@ -427,6 +441,15 @@ KERNEL_META = {
                                    "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_int16_wide_shifted": ("epik_tpu_torch/kernels/csrc/rowgather_sum.cu",
                                          "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # the gather over a shifted f32 plane's posted cells (the unfused shifted
+    # steps past the width rule): config 4's CLI (phase 9), the wide shifted
+    # tree's f32 CLI (phase 15), the wol10k cell's shapes (phase 16)
+    "rowgather_sum_posted_config4": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
+                                     "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_posted_wide_shifted": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
+                                          "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_posted_wol10k": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
+                                    "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     # the pair-plane slot tokenizer: XLA ops in the JAX package, no Pallas kernel
     "tokenize_combo_fused": ("epik_tpu_torch/kernels/csrc/tokenize.cu",
                              "epik_tpu/engine/placer.py:1038"),
@@ -1153,18 +1176,19 @@ def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
         argv = ["place", "-i", path, "-o", out_dir, "--batch-size", str(WS_BATCH), *flags, fasta]
         calls = []
         reset_launch_counts()
-        with recording(step_mod, "rowgather_sum", calls, limit=1):
+        with recording(step_mod, "_shifted_finish", calls, limit=1):
             rc, cli_out, wall = run_cli(torch, argv)
         counts = {n: c for n, c in launch_counts().items() if c}
+        gather = "rowgather_sum" if cell == "int16" else "rowgather_sum_posted"
         log("cli: python -m epik_tpu_torch " + " ".join(argv))
         for line in cli_out.splitlines():
             log("  | " + line)
         if rc != 0 or "(1 device(s), dense)" not in cli_out:
             raise AssertionError(f"wide shifted {cell}: rc {rc}, not on the dense route")
-        if counts != {"rowgather_sum": n_batches, "finish_topk": n_batches}:
+        if counts != {gather: n_batches, "finish_topk": n_batches}:
             raise AssertionError(f"wide shifted {cell}: launches {counts}, expected "
-                                 f"rowgather_sum and finish_topk once per batch ({n_batches})")
-        plane = calls[0][0][0]
+                                 f"{gather} and finish_topk once per batch ({n_batches})")
+        (plane, rows), skw = calls[0][0][:2], calls[0][1]
         if plane.dtype != (torch.int16 if cell == "int16" else torch.float32):
             raise AssertionError(f"wide shifted {cell}: a {plane.dtype} plane")
         rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
@@ -1173,7 +1197,9 @@ def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
         worst = check_parity(oracle, rows_by_name, f"wide shifted {cell}", rule)
         rate = WS_READS / placement_ms(cli_out) * 1e3
         err, ms, plain_ms, io_k, lib_ms, shape = check_dense_kernel(
-            torch, np, "rowgather_sum", calls[0], f"wide shifted {cell}, first batch")
+            torch, np, "rowgather_sum",
+            ((plane, rows), {"scale": skw["plane_scale"]} if cell == "int16" else {}),
+            f"wide shifted {cell}, first batch")
         summary.update({f"wide_shifted_{cell}_plane_bytes": nbytes(plane),
                         f"wide_shifted_{cell}_reads_per_s": rate,
                         f"wide_shifted_{cell}_cli_s": wall,
@@ -1187,9 +1213,14 @@ def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
             f"embedding_bag {'none (no int16 weight)' if lib_ms is None else f'{lib_ms:.4f} ms'}"
             f", bound {bound(*io_k)[0]:.4f} ms ({io_k[0]} bytes)")
         tag = "rowgather_sum" + ("_int16" if cell == "int16" else "")
-        kernels.append(entry(f"{tag}_wide_shifted", counts["rowgather_sum"], err, ms, plain_ms,
-                             *io_k, lib_ms))
-        del calls, plane
+        kernels.append(entry(f"{tag}_wide_shifted", counts.get("rowgather_sum", 0), err, ms,
+                             plain_ms, *io_k, lib_ms))
+        if cell == "f32":
+            kernels.append(posted_vs_1d(torch, np, plane, skw["posted"], rows,
+                                        "wide shifted f32, first batch",
+                                        "rowgather_sum_posted_wide_shifted", counts[gather]))
+            summary["wide_shifted_f32_posted_ms"] = kernels[-1]["ms"]
+        del calls, plane, rows, skw
         gc.collect()  # the CLI's placer, before the next plane is built
         torch.cuda.empty_cache()
     shutil.rmtree(work, ignore_errors=True)
@@ -1828,6 +1859,116 @@ def check_dense_kernel(torch, np, name: str, call, what: str):
     return err, ms, plain_ms, io, lib_ms, tuple(rows.shape)
 
 
+def posted_vs_1d(torch, np, plane, posted, rows, what: str, name: str, launches: int) -> dict:
+    """The posted gather (``rowgather_sum_posted``) against 1d
+    (``rowgather_sum``) and the posted gather's plain version on the same
+    rows, bit for bit, two launches alike; both kernels timed through their
+    wrappers in turns (1d, posted, posted, 1d: CUDA-event medians, 1d's
+    locality sort included), each beside its bound: 1d's the distinct rows
+    read once, the row ids and the sums written; the posted gather's the
+    windows' cells (8 bytes each) and their offsets, the row ids and the sums
+    written. Returns the posted gather's kernel entry."""
+    from epik_tpu_torch.kernels._build import library
+    from epik_tpu_torch.kernels.rowgather import (
+        rowgather_sum,
+        rowgather_sum_posted,
+        rowgather_sum_posted_plain,
+    )
+
+    bw = plane.shape[1]
+
+    def run_posted():
+        return rowgather_sum_posted(posted.off, posted.cells, rows, bw=bw)
+
+    def run_1d():
+        return rowgather_sum(plane, rows)
+
+    got, again, want = run_posted(), run_posted(), run_1d()
+    plain = rowgather_sum_posted_plain(posted.off, posted.cells, rows, bw)
+    torch.cuda.synchronize()
+    for other, against in ((want, "1d"), (plain, "its plain version"),
+                           (again, "a second launch")):
+        if not torch.equal(got.view(torch.int32), other.view(torch.int32)):
+            raise AssertionError(f"rowgather_sum_posted ({what}): not bit-equal to {against}")
+    del got, again, want, plain
+    times = {"1d": [], "posted": []}
+    for side in ("1d", "posted", "posted", "1d"):
+        times[side].append(cuda_ms(torch, run_1d if side == "1d" else run_posted))
+    plain_ms = cuda_ms(torch, lambda: rowgather_sum_posted_plain(posted.off, posted.cells,
+                                                                 rows, bw), reps=3, warmup=1)
+    rl = rows.long()
+    cells = int((posted.off[rl + 1] - posted.off[rl]).sum())
+    n_distinct = int(torch.unique(rows).numel())
+    sums = rows.shape[0] * bw * 4
+    io_posted = (cells * 8 + rows.numel() * (4 + 16) + sums, cells)
+    io_1d = (n_distinct * bw * 4 + rows.numel() * 4 + sums, rows.numel() * bw)
+    ms, ms_1d = statistics.median(times["posted"]), statistics.median(times["1d"])
+    bound_ms, bound_1d = bound(*io_posted)[0], bound(*io_1d)[0]
+    extra = {"ms_1d": ms_1d, "turns_ms": times, "bound_1d_ms": bound_1d,
+             "share": bound_ms / ms, "share_1d": bound_1d / ms_1d, "cells_read": cells,
+             "distinct_rows": n_distinct, "shape": [*rows.shape, bw],
+             "blocks_per_sm": library().epik_rowgather_posted_blocks_per_sm(bw)}
+    log(f"rowgather_sum_posted {tuple(rows.shape)} bw={bw} ({what}): bit-equal to 1d and its "
+        f"plain version, two launches alike; in turns {times['posted']} ms against 1d's "
+        f"{times['1d']} ms; bound {bound_ms:.4f} ms ({cells} cells, "
+        f"{100 * bound_ms / ms:.1f}%), 1d's {bound_1d:.4f} ms ({n_distinct} distinct rows, "
+        f"{100 * bound_1d / ms_1d:.1f}%); plain {plain_ms:.2f} ms; "
+        f"{extra['blocks_per_sm']} blocks an SM")
+    return entry(name, launches, 0.0, ms, plain_ms, *io_posted, None, **extra)
+
+
+def wol10k_shaped(torch, np, dev, seed: int = 10575, *, bw: int = 21_248, B: int = 21_149,
+                  R: int = CELL_BATCH, W: int = 141):
+    """(plane, posted cells, rows, seconds to build the posted cells) at the
+    ``wol10k.illumina150`` cell's shapes (or another width, B, R and W): a
+    shifted f32 plane of 644,813 keys and the zero row x 21,248 columns, a
+    Poisson number of posted cells a key (mean 12) among 21,149 branches,
+    values in (0, 4.2) and every 97th at 1e-37; 2,000 reads of 141 windows
+    slid over a sequence of 1,000,000 window keys, 2% of them misses (the
+    zero row)."""
+    from epik_tpu_torch.engine.state import build_posted
+
+    rng = np.random.default_rng(seed)
+    n_keys = 644_813
+    lens = rng.poisson(12.0, n_keys)
+    r = torch.from_numpy(np.repeat(np.arange(n_keys), lens)).to(dev)
+    c = torch.from_numpy(rng.integers(0, B, r.numel())).to(dev)
+    v = torch.from_numpy(rng.uniform(1e-6, 4.2, r.numel()).astype(np.float32)).to(dev)
+    v[::97] = 1e-37
+    plane = torch.zeros((n_keys + 1, bw), dtype=torch.float32, device=dev)
+    plane.index_put_((r, c), v)
+    del r, c, v
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    posted = build_posted(plane)
+    torch.cuda.synchronize()
+    build_s = time.monotonic() - t0
+    seq = rng.integers(0, n_keys, 1_000_000)
+    seq[rng.random(seq.size) < 0.02] = n_keys
+    starts = rng.integers(0, seq.size - W, R)
+    rows = torch.from_numpy(seq[starts[:, None] + np.arange(W)].astype(np.int32)).to(dev)
+    return plane, posted, rows, build_s
+
+
+def posted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
+    """Phase 16 (see the module docstring). Returns the posted gather's
+    kernel entry at the wol10k cell's shapes and the phase's summary."""
+    plane, posted, rows, build_s = wol10k_shaped(torch, np, dev)
+    summary = {"wol10k_posted_build_s": build_s, "wol10k_posted_nnz": posted.nnz,
+               "wol10k_posted_bytes": posted.nbytes, "wol10k_plane_bytes": nbytes(plane)}
+    log(f"wol10k-shaped plane {tuple(plane.shape)} f32 = {nbytes(plane)} bytes: {posted.nnz} "
+        f"posted cells ({100 * posted.nnz / plane.numel():.4f}%), the index {posted.nbytes} "
+        f"bytes, read back from the plane in {build_s:.3f} s [{card}]")
+    e = posted_vs_1d(torch, np, plane, posted, rows, "the wol10k cell's shapes",
+                     "rowgather_sum_posted_wol10k", 0)
+    summary.update(wol10k_posted_ms=e["ms"], wol10k_1d_ms=e["ms_1d"],
+                   wol10k_posted_bound_ms=e["bound_ms"], wol10k_1d_bound_ms=e["bound_1d_ms"])
+    del plane, posted, rows
+    gc.collect()
+    torch.cuda.empty_cache()
+    return [e], summary
+
+
 def tokenizer_check(torch, card: str, placer, seqs, dev) -> dict:
     """The slot tokenizer's kernel (``tokenize_combo_fused``) against the torch
     ops it replaces (``tokenize_combo`` + ``_m_f32``, its plain version) on
@@ -2168,8 +2309,9 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     if shifted_fused(c4_plane.shape[1]):
         raise AssertionError(f"config 4: the width rule takes bw {c4_plane.shape[1]} to the "
                              f"fused kernel; this phase holds the unfused pair's route")
-    route = ("rowgather_sum", "finish_topk")
-    if any(counts[n] <= 0 for n in route) or counts["rowgather_sum_topk"]:
+    route = ("rowgather_sum_posted", "finish_topk")
+    if (any(counts[n] <= 0 for n in route) or counts["rowgather_sum_topk"]
+            or counts["rowgather_sum"]):
         raise AssertionError(f"config 4 CLI: launches {counts}, the route {route}")
     rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
     if set(rows_by_name) != {name for name, _ in fx["records"]}:
@@ -2213,9 +2355,18 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
                      *g_io, g_lib, fused="rowgather_sum_topk", fused_ms=ms_c4,
                      fused_max_abs_err=err_c4, fused_bound_ms=bound(*io_c4)[0],
                      pair_ms=pair_c4, route=list(route), **layout_c4)
-    log(f"rowgather_sum {shape_c4} (config 4, the route's gather): {g_ms:.4f} ms, bound "
+    log(f"rowgather_sum {shape_c4} (config 4, 1d on the route's rows): {g_ms:.4f} ms, bound "
         f"{bound(*g_io)[0]:.4f} ms [{card}]")
-    del plane, direct, buf, arows, step_calls, route_calls, c4_call, c4_plane
+    # the route's gather: the plane's posted cells, against 1d on the same rows
+    c4_posted = route_calls[0][1].get("posted")
+    if c4_posted is None:
+        raise AssertionError("config 4 CLI: the step was given no posted cells")
+    c4_posted_entry = posted_vs_1d(torch, np, c4_plane, c4_posted, c4_call[0][1],
+                                   "config 4, first batch", "rowgather_sum_posted_config4",
+                                   counts["rowgather_sum_posted"])
+    summary.update(config4_posted_ms=c4_posted_entry["ms"],
+                   config4_posted_1d_ms=c4_posted_entry["ms_1d"])
+    del plane, direct, buf, arows, step_calls, route_calls, c4_call, c4_plane, c4_posted
     torch.cuda.empty_cache()
 
     # ---- 9b. D652 under the six configs ---------------------------------------------------
@@ -2345,7 +2496,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     # rows
     for sums, (err, ms, plain_ms, io_k, lib_ms, _) in apart.items():
         kernels.append(entry(sums, wide_launches[sums], err, ms, plain_ms, *io_k, lib_ms))
-    kernels.append(c4_entry)
+    kernels.extend([c4_entry, c4_posted_entry])
     return kernels, summary, errs
 
 
@@ -3857,6 +4008,11 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     ws_kernels, ws = wide_shifted_phase(torch, np, card, dev)
+
+    # ---- 16. the posted gather at the wol10k cell's shapes ------------------------------------
+    gc.collect()
+    torch.cuda.empty_cache()
+    po_kernels, po = posted_phase(torch, np, card, dev)
     shutil.rmtree(fx["work"], ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
     imported = [m for m in sys.modules
@@ -3887,6 +4043,7 @@ def main() -> int:
         *lc_kernels,
         *wc_kernels,
         *ws_kernels,
+        *po_kernels,
     ]
     for e in kernels:  # the wide-tree checks of phase 9, the limit checks of phase 10
         e["max_abs_err"] = max(e["max_abs_err"], extra_err.get(e["name"], 0.0),
@@ -3907,6 +4064,7 @@ def main() -> int:
     log("summary surface: " + " ".join(f"{k}={v}" for k, v in sf.items()))
     log("summary wide classic: " + " ".join(f"{k}={v}" for k, v in wc.items()))
     log("summary wide shifted: " + " ".join(f"{k}={v}" for k, v in ws.items()))
+    log("summary posted: " + " ".join(f"{k}={v}" for k, v in po.items()))
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,

@@ -357,7 +357,8 @@ def _make_engine(engine: str, db, tree, *, keep_at_most, keep_factor, threads, p
     placer = TorchPlacer(db, tree, keep_at_most=keep_at_most, keep_factor=keep_factor,
                          config=cfg, device=platform)
     n_dev = torch.cuda.device_count() if placer.device.type == "cuda" else 1
-    return placer, f"torch/{placer.device.type} ({n_dev} device(s), {placer.route})"
+    return placer, (f"torch/{placer.device.type} ({n_dev} device(s), {placer.route})"
+                    f"{placer.posted_line()}")
 
 
 def _existing_file(path: str) -> str:

@@ -22,7 +22,10 @@ three routes, chosen at construction by the JAX package's rules
   over 65,535 bp), and every batch without one, is tokenized on the host:
   plane rows found on the host (``place_batch_dense_rows``) or, with
   ``lookup_where="device"``, keys looked up in the cuckoo table on the device
-  (``place_batch_device_densedb``);
+  (``place_batch_device_densedb``). Where a shifted f32 plane's steps gather
+  apart from the finish (past the width rule) and at most 1/32 of its cells
+  are posted, the state also holds those cells (``state.posted_index``),
+  which the gather reads instead of the plane's rows;
 * ``tiles`` -- the big-tree posting-tile path (DNA, k <= 13), when the dense
   plane is not taken and the tiles fit: every clean batch runs the tile step
   (packed or f32 payload; with the packed payload, ``pair_plane="on"`` and
@@ -66,6 +69,7 @@ import torch
 from ..core.alphabet import get_alphabet
 from ..core.scoring import score_threshold
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, tile_width
+from ..kernels.rowgather import posted_fits
 from ..ops.csr import ORDER_INF
 from ..ops.radix_lookup import DeviceRadix, build_radix
 from ..utils import spans
@@ -80,7 +84,14 @@ from .outputs import (
     unpack_outputs_slim,
 )
 from .staging import HostStaging, _bucket, _bucket_lmax, key_matrix, pad_i32, pad_u64_split
-from .state import CsrState, PlaneState, build_csr_state, build_plane_state, pair_tables
+from .state import (
+    CsrState,
+    PlaneState,
+    build_csr_state,
+    build_plane_state,
+    pair_tables,
+    posted_index,
+)
 from .step import (
     fused_finish,
     place_batch_csr,
@@ -213,6 +224,7 @@ class TorchPlacer(HostStaging):
             self._dense_flags(shift_ok)
             self.state = state if state is not None else self._build_state(budget)
             self._check_state()
+            self._index_posted(dense_budget)
             return "dense"
         if (cfg.accumulate != "scatter" and shift_ok and self.alphabet.sigma == 4
                 and self.k <= _MAX_DIRECT_K and n_keys > 0
@@ -336,6 +348,32 @@ class TorchPlacer(HostStaging):
                 f"{self._shifted}, device tokenizer={self._fast_bytes}, codes tokenizer="
                 f"{self._want_codes})")
 
+    def _index_posted(self, budget: int) -> None:
+        """Give the state its shifted f32 plane's posted cells where the
+        dense step gathers apart from the finish (``fused_finish`` false:
+        past the width rule or the fused kernel's limit), the posted gather
+        takes the plane's width (``posted_fits``) and the plane is sparse
+        enough, the index within ``budget`` beside the state
+        (:func:`~.state.posted_index`); else the step keeps 1d."""
+        st = self.state
+        if (not self._shifted or st.plane.dtype != torch.float32 or st.posted is not None
+                or fused_finish(st.plane, self.B, self._K(), shifted=True)
+                or not posted_fits(st.plane.shape[1], st.plane.device)):
+            return
+        posted = posted_index(st.plane, budget=budget - st.nbytes)
+        if posted is not None:
+            self.state = dataclasses.replace(st, posted=posted)
+
+    def posted_line(self) -> str:
+        """The posted index's size, for the CLI's engine line ("" without
+        one): its cells, its bytes and the share of the plane's cells."""
+        st = self.state
+        if st is None or st.posted is None:
+            return ""
+        p = st.posted
+        return (f", posted cells {p.nnz:,} ({p.nbytes / 2**20:.1f} MiB, "
+                f"{100.0 * p.nnz / st.plane.numel():.3f}% of the plane)")
+
     @property
     def csr(self) -> CsrState:
         """The CSR step's device state (cuckoo table, postings), built on
@@ -374,14 +412,14 @@ class TorchPlacer(HostStaging):
 
     def _note_gather(self, R: int) -> None:
         """Note which gather a dense step runs (``gather``: ``fused``, or
-        ``pair`` for the gather and the finish apart) and, for the pair, the
-        bytes of the (R, bw) sums it writes and reads back
-        (``sums_bytes``)."""
+        ``pair`` for the gather and the finish apart, ``posted`` where the
+        gather apart reads the plane's posted cells) and, apart, the bytes of
+        the (R, bw) sums it writes and reads back (``sums_bytes``)."""
         plane = self.state.plane
         if fused_finish(plane, self.B, self._K(), shifted=self._shifted):
             spans.note("gather", "fused")
         else:
-            spans.note("gather", "pair")
+            spans.note("gather", "pair" if self.state.posted is None else "posted")
             spans.note("sums_bytes", sums_bytes(plane, R, shifted=self._shifted))
 
     def _prepare(self, sequence_map, seqs):
@@ -424,10 +462,11 @@ class TorchPlacer(HostStaging):
                   num_kmers=st.n_keys, log_eps=float(self.log_eps), eps=float(self.eps))
         if self._paired:
             step = functools.partial(place_batch_dense_paired, st.plane, st.combo, buf_t,
-                                     arows_t, **kw)
+                                     arows_t, posted=st.posted, **kw)
         else:
             step = functools.partial(place_batch_dense_bytes, st.plane, st.direct, buf_t,
-                                     arows_t, shifted=self._shifted, plane_scale=st.scale, **kw)
+                                     arows_t, shifted=self._shifted, plane_scale=st.scale,
+                                     posted=st.posted, **kw)
         return "dense.bytes", lambda: _Pending(sequence_map, seqs, m_signed, step(), self._K())
 
     def _stage_bytes(self, seqs):
@@ -466,10 +505,11 @@ class TorchPlacer(HostStaging):
                   eps=float(self.eps))
         if self._paired_codes:
             step = functools.partial(place_batch_dense_codes_paired, st.plane, st.radix,
-                                     st.pair_radix, buf_t, arows_t, n_pairs=st.n_pairs, **kw)
+                                     st.pair_radix, buf_t, arows_t, n_pairs=st.n_pairs,
+                                     posted=st.posted, **kw)
         else:
             step = functools.partial(place_batch_dense_codes, st.plane, st.radix, buf_t,
-                                     arows_t, plane_scale=st.scale, **kw)
+                                     arows_t, plane_scale=st.scale, posted=st.posted, **kw)
         return "dense.codes", lambda: _Pending(sequence_map, seqs, m_signed, step(), self._K())
 
     def _stage_codes(self, seqs):
@@ -528,7 +568,7 @@ class TorchPlacer(HostStaging):
             step = functools.partial(
                 place_batch_dense_rows, st.plane, self._to_device(rows), self._to_device(arows),
                 m_f32, Amax=Amax, zero_row=st.n_keys, shifted=self._shifted,
-                plane_scale=st.scale, **kw)
+                plane_scale=st.scale, posted=st.posted, **kw)
         else:
             Amax = _bucket(apr, 8)
             e_hi, e_lo = key_matrix(tokens.exact_keys, tokens.exact_read, R, Wmax)

@@ -15,7 +15,10 @@
   :func:`plane_state_from_numpy` takes the JAX placer's own arrays instead,
   so tests can feed both engines the same state. :func:`build_plane_shard`
   builds one model shard of the column-sharded f32 plane (the sharded
-  placer's dense route) from the same cells.
+  placer's dense route) from the same cells. :func:`posted_index` reads a
+  shifted f32 plane's non-zero cells back into a row-compressed copy
+  (:class:`PostedCells`) where the plane is sparse enough, for the gather
+  that reads only them (``kernels/rowgather.py::rowgather_sum_posted``).
 * The CSR step: the cuckoo table over the keys (payload: the key's row) and
   the postings, as ``JaxPlacer.table``/``_dev_postings``/``_dev_row_off``
   hold them (:2272-2305), built by :func:`build_csr_state`.
@@ -33,14 +36,43 @@ from ..ops.hashtable import build_table
 from ..ops.radix_lookup import DeviceRadix
 from .tables import build_combo_table, direct_table, enumerate_pairs
 
-__all__ = ["CsrState", "PlaneState", "build_csr_state", "build_plane_shard",
-           "build_plane_state", "pair_tables", "plane_cells", "plane_state_from_numpy"]
+__all__ = ["POSTED_MAX_SHARE", "CsrState", "PlaneState", "PostedCells", "build_csr_state",
+           "build_plane_shard", "build_plane_state", "build_posted", "pair_tables",
+           "plane_cells", "plane_state_from_numpy", "posted_index"]
 
 #: pair rows built per device step (bounds the build's extra memory to
 #: one chunk of rows)
 _PAIR_CHUNK = 1 << 16
 #: the plane's cell type per ``precision`` (int16 only on the shifted plane)
 _DTYPES = {"exact": torch.float32, "bf16": torch.bfloat16, "int16": torch.int16}
+#: plane cells the posted index's build reads a step (bounds its extra
+#: memory to a chunk's mask and positions)
+_POSTED_CHUNK_CELLS = 1 << 26
+#: the largest share of a plane's cells posted for which the posted index is
+#: built: its 8 bytes a cell then move at most a quarter of a plane row's
+#: bytes, and in a genome-scale tree's plane (~12 postings a key over 21,248
+#: columns) 0.056% are posted
+POSTED_MAX_SHARE = 1 / 32
+
+
+@dataclasses.dataclass
+class PostedCells:
+    """A plane's non-zero cells, row by row: row ``r``'s in
+    ``cells[off[r]:off[r + 1]]``, in column order, an all-zero row's range
+    empty."""
+
+    #: int64 (n_rows + 1,)
+    off: torch.Tensor
+    #: int32 (nnz, 2): the column and the f32 value's bits
+    cells: torch.Tensor
+
+    @property
+    def nnz(self) -> int:
+        return self.cells.shape[0]
+
+    @property
+    def nbytes(self) -> int:
+        return self.off.numel() * 8 + self.cells.numel() * 4
 
 
 @dataclasses.dataclass
@@ -59,6 +91,9 @@ class PlaneState:
     #: with the codes pair plane: the (k+1)-mer pair key -> pair index
     #: (plane row n_keys + 1 + index) over the sorted pair keys
     pair_radix: DeviceRadix | None = None
+    #: the shifted f32 plane's posted cells, where the unfused shifted steps
+    #: gather through them (:func:`posted_index`)
+    posted: PostedCells | None = None
 
     @property
     def n_pairs(self) -> int:
@@ -68,7 +103,8 @@ class PlaneState:
     def nbytes(self) -> int:
         return (sum(t.numel() * t.element_size()
                     for t in (self.plane, self.combo, self.direct) if t is not None)
-                + sum(r.nbytes for r in (self.radix, self.pair_radix) if r is not None))
+                + sum(r.nbytes for r in (self.radix, self.pair_radix, self.posted)
+                      if r is not None))
 
 
 def _writable(a: np.ndarray, dtype=None) -> torch.Tensor:
@@ -197,6 +233,57 @@ def _fill_plane(n_keys: int, rows, cols, vals, *, width: int, dtype, pairs,
             plane[base + s : base + e] = (plane.index_select(0, pu_t[s:e])
                                           + plane.index_select(0, pv_t[s:e]))
     return plane
+
+
+def _row_chunks(plane: torch.Tensor):
+    step = max(1, _POSTED_CHUNK_CELLS // max(1, plane.shape[1]))
+    for s in range(0, plane.shape[0], step):
+        yield s, min(s + step, plane.shape[0])
+
+
+def build_posted(plane: torch.Tensor, counts: torch.Tensor | None = None) -> PostedCells:
+    """The non-zero cells of ``plane`` (f32), read back from it on its device
+    a chunk of rows at a time, so the index and the plane cannot differ (the
+    pair rows, the nudged cells and the zero row included); ``counts``, each
+    row's number of them, where already counted."""
+    if plane.dtype != torch.float32 or plane.dim() != 2:
+        raise ValueError(f"the posted index is of an f32 plane, got {plane.dtype} "
+                         f"{tuple(plane.shape)}")
+    n_rows, dev = plane.shape[0], plane.device
+    if counts is None:
+        counts = _posted_counts(plane)
+    off = torch.zeros(n_rows + 1, dtype=torch.int64, device=dev)
+    torch.cumsum(counts, 0, out=off[1:])
+    off_host = off.cpu()
+    cells = torch.empty((int(off_host[-1]), 2), dtype=torch.int32, device=dev)
+    for s, e in _row_chunks(plane):
+        a, b = int(off_host[s]), int(off_host[e])
+        if a == b:
+            continue
+        chunk = plane[s:e]
+        at = torch.nonzero(chunk)  # (row, column), row-major: a row's in column order
+        cells[a:b, 0] = at[:, 1]
+        cells[a:b, 1] = chunk[at[:, 0], at[:, 1]].view(torch.int32)
+    return PostedCells(off=off, cells=cells)
+
+
+def _posted_counts(plane: torch.Tensor) -> torch.Tensor:
+    counts = torch.empty(plane.shape[0], dtype=torch.int64, device=plane.device)
+    for s, e in _row_chunks(plane):
+        counts[s:e] = torch.count_nonzero(plane[s:e], dim=1)
+    return counts
+
+
+def posted_index(plane: torch.Tensor, *, budget: int) -> PostedCells | None:
+    """The posted index of a shifted f32 ``plane`` (:func:`build_posted`)
+    where at most ``POSTED_MAX_SHARE`` of its cells are posted and the index
+    takes at most ``budget`` bytes, else None: a rule of the plane's width
+    and density, as the plane shows them."""
+    counts = _posted_counts(plane)
+    nnz = int(counts.sum())
+    if nnz > plane.numel() * POSTED_MAX_SHARE or (plane.shape[0] + 1 + nnz) * 8 > budget:
+        return None
+    return build_posted(plane, counts)
 
 
 @dataclasses.dataclass

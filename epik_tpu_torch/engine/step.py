@@ -25,8 +25,9 @@
   scatter engine's flat posting budget (``accumulate="scatter"``).
 
 The shifted dense steps end in kernel 1 with the finish fused in (the slim
-(R, 2K+3) pack), or past its shared-memory limit in the gather and the finish
-apart; the classic ones in kernel 1 with counts and the counts finish fused
+(R, 2K+3) pack), or past its width rule or its shared-memory limit in the
+gather and the finish apart (the gather over the plane's posted cells where
+the state holds them); the classic ones in kernel 1 with counts and the counts finish fused
 in (the full (R+1, 4K+2) pack), or past its limit in the gather with counts
 and the counts finish apart; the CSR step in kernel 4 with counts (or its
 row-pointer form over the flat cells) and the counts finish
@@ -48,6 +49,7 @@ from ..kernels.rowgather import (
     rowgather_sum_counts_bf16,
     rowgather_sum_counts_topk,
     rowgather_sum_counts_topk_bf16,
+    rowgather_sum_posted,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
     shifted_fused,
@@ -107,7 +109,7 @@ def sums_bytes(plane, R: int, *, shifted: bool) -> int:
 
 def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: int,
                              k: int, Lmax: int, num_kmers: int, log_eps: float,
-                             eps: float) -> torch.Tensor:
+                             eps: float, posted=None) -> torch.Tensor:
     """Dense shifted step over the pair plane: the slot tokenizer's one
     kernel (rows and window counts, ``tokenize_combo_fused``), the ambiguous
     first-hit delta rows when ``Amax > 0``, then kernel 1 with the delta add
@@ -117,12 +119,13 @@ def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: 
     f32 pack on the plane's device."""
     rows, _, m_f32 = tokenize_combo_fused(buf, combo, k=k, Lmax=Lmax)
     return _shifted_finish(plane, rows, m_f32, arows, B=B, K=K, Amax=Amax, k=k,
-                           zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True)
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True,
+                           posted=posted)
 
 
 def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
                     zero_row: int, log_eps: float, eps: float, plane_scale: float = 1.0,
-                    pair_rows: bool = False) -> torch.Tensor:
+                    pair_rows: bool = False, posted=None) -> torch.Tensor:
     """The shifted plane's sums (an int16 plane's dequantized by
     ``plane_scale``), the ambiguous reads' delta rows when ``Amax > 0``, and
     the finish, into the slim pack: kernel 1 with the finish fused in where
@@ -130,7 +133,10 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
     H100) and its shared memory fits (``topk_fits``), else the gather, the
     delta add (the same f32 add) and ``finish_topk`` apart, decided before
     any launch (``pair_rows``: the rows are the pair plane's, which both
-    routes take in read order)."""
+    routes take in read order). Apart, an f32 plane's sums come from its
+    posted cells where ``posted`` (the state's
+    :class:`~.state.PostedCells`) is given (``rowgather_sum_posted``, the
+    same bits), else from its rows (``rowgather_sum``)."""
     quant = plane.dtype == torch.int16
     scale = plane_scale if quant else None
     amb_read = delta = None
@@ -143,7 +149,10 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
             return rowgather_sum_topk_int16(plane, rows, m_f32, amb_read, delta, scale=scale,
                                             **kw)
         return rowgather_sum_topk(plane, rows, m_f32, amb_read, delta, **kw)
-    Sp = rowgather_sum(plane, rows, scale=scale, pair_rows=pair_rows)
+    if posted is not None and not quant:
+        Sp = rowgather_sum_posted(posted.off, posted.cells, rows, bw=plane.shape[1])
+    else:
+        Sp = rowgather_sum(plane, rows, scale=scale, pair_rows=pair_rows)
     if amb_read is not None and amb_read.numel() > 0:
         Sp[amb_read, :B] = Sp[amb_read, :B] + delta
     return finish_topk(Sp[:, :B], m_f32, K=K, k=k, log_eps=log_eps)
@@ -173,7 +182,8 @@ def _classic_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
 
 def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,
                             Lmax: int, num_kmers: int, log_eps: float, eps: float,
-                            shifted: bool, plane_scale: float = 1.0) -> torch.Tensor:
+                            shifted: bool, plane_scale: float = 1.0,
+                            posted=None) -> torch.Tensor:
     """Unpaired dense step: the device tokenizer through the direct key ->
     row table (one row per window, the miss row ``num_kmers``), then the
     shifted or the classic sums and finish. Returns the slim (R, 2K+3) pack
@@ -183,12 +193,12 @@ def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: 
     rows, lens = tokenize_packed(buf, direct, k=k, Lmax=Lmax, num_kmers=num_kmers)
     return place_batch_dense_rows(plane, rows, arows, _m_f32(lens, k), B=B, K=K, Amax=Amax,
                                   k=k, zero_row=num_kmers, log_eps=log_eps, eps=eps,
-                                  shifted=shifted, plane_scale=plane_scale)
+                                  shifted=shifted, plane_scale=plane_scale, posted=posted)
 
 
 def place_batch_dense_codes(plane, radix, buf, arows, *, B: int, K: int, Amax: int, k: int,
                             sigma: int, Lmax: int, num_kmers: int, log_eps: float,
-                            eps: float, plane_scale: float = 1.0) -> torch.Tensor:
+                            eps: float, plane_scale: float = 1.0, posted=None) -> torch.Tensor:
     """Generic-alphabet dense step over the shifted plane (f32, or int16
     dequantized by ``plane_scale``): the codes tokenizer and the radix lookup
     (``radix``, a :class:`~..ops.radix_lookup.DeviceRadix`; a miss and a bad
@@ -198,13 +208,13 @@ def place_batch_dense_codes(plane, radix, buf, arows, *, B: int, K: int, Amax: i
     rows, lens = tokenize_radix(buf, radix, k=k, sigma=sigma, Lmax=Lmax, num_kmers=num_kmers)
     return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
                            zero_row=num_kmers, log_eps=log_eps, eps=eps,
-                           plane_scale=plane_scale)
+                           plane_scale=plane_scale, posted=posted)
 
 
 def place_batch_dense_codes_paired(plane, radix, pair_radix, buf, arows, *, B: int, K: int,
                                    Amax: int, k: int, sigma: int, Lmax: int, num_kmers: int,
                                    n_pairs: int, log_eps: float,
-                                   eps: float) -> torch.Tensor:
+                                   eps: float, posted=None) -> torch.Tensor:
     """Generic-alphabet dense step over the codes pair plane (shifted f32):
     one plane row per two windows (``tokenize_radix_paired``: a pair row found
     by ``pair_radix``, else the hitting window's row), then the shifted sums,
@@ -213,19 +223,21 @@ def place_batch_dense_codes_paired(plane, radix, pair_radix, buf, arows, *, B: i
     rows, lens = tokenize_radix_paired(buf, radix, pair_radix, k=k, sigma=sigma, Lmax=Lmax,
                                        num_kmers=num_kmers, n_pairs=n_pairs)
     return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
-                           zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True)
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True,
+                           posted=posted)
 
 
 def place_batch_dense_rows(plane, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,
                            zero_row: int, log_eps: float, eps: float, shifted: bool,
-                           plane_scale: float = 1.0) -> torch.Tensor:
+                           plane_scale: float = 1.0, posted=None) -> torch.Tensor:
     """Dense step over plane rows resolved on the host (int32 (R, Wmax),
     padding and misses on ``zero_row``) and the host's window counts
     ``m_f32``: the shifted or the classic sums and finish (the slim or the
-    full pack)."""
+    full pack); ``posted``, a shifted plane's posted cells."""
     kw = dict(B=B, K=K, Amax=Amax, k=k, zero_row=zero_row, log_eps=log_eps, eps=eps)
     if shifted:
-        return _shifted_finish(plane, rows, m_f32, arows, plane_scale=plane_scale, **kw)
+        return _shifted_finish(plane, rows, m_f32, arows, plane_scale=plane_scale,
+                               posted=posted, **kw)
     return _classic_finish(plane, rows, m_f32, arows, **kw)
 
 

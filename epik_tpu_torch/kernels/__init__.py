@@ -1,7 +1,9 @@
 """Hand-written CUDA kernels of the port, each beside its plain PyTorch version.
 
 * :func:`rowgather.rowgather_sum` -- kernel 1, the row gather + sum (f32 or
-  int16 plane); :func:`rowgather.rowgather_sum_counts` and
+  int16 plane); :func:`rowgather.rowgather_sum_posted`, the same sums over a
+  shifted f32 plane read from its posted cells alone;
+  :func:`rowgather.rowgather_sum_counts` and
   :func:`rowgather.rowgather_sum_counts_bf16`, the same with exact counts over
   the classic plane (f32 or bf16); :func:`rowgather.rowgather_sum_topk` and
   :func:`rowgather.rowgather_sum_topk_int16`, the gather with the ambiguous
@@ -50,6 +52,7 @@ from .rowgather import (
     rowgather_sum_counts_cols,
     rowgather_sum_counts_topk,
     rowgather_sum_counts_topk_bf16,
+    rowgather_sum_posted,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
 )
@@ -62,12 +65,14 @@ __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accum
            "reset_launch_counts", "rowgather_sum", "rowgather_sum_cols",
            "rowgather_sum_counts", "rowgather_sum_counts_bf16", "rowgather_sum_counts_cols",
            "rowgather_sum_counts_topk",
-           "rowgather_sum_counts_topk_bf16", "rowgather_sum_topk", "rowgather_sum_topk_int16",
+           "rowgather_sum_counts_topk_bf16", "rowgather_sum_posted", "rowgather_sum_topk",
+           "rowgather_sum_topk_int16",
            "tokenize_combo_fused"]
 
 #: name -> wrapper, for every kernel of the port
 KERNELS = {
     "rowgather_sum": rowgather_sum,
+    "rowgather_sum_posted": rowgather_sum_posted,
     "rowgather_sum_topk": rowgather_sum_topk,
     "rowgather_sum_topk_int16": rowgather_sum_topk_int16,
     "rowgather_sum_counts": rowgather_sum_counts,

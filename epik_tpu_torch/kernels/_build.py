@@ -63,6 +63,12 @@ _PROTOTYPES = {
     "epik_rowgather_sum_counts_cols": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
                                        _VP, _VP, _INT, _INT, _INT, _INT, _INT, _INT, _F32, _INT,
                                        _VP],
+    # (off, cells, rows, out, R, W, bw, stream)
+    "epik_rowgather_sum_posted": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
+    # (bw) -> bytes; () -> bytes, or minus a CUDA error; (bw) -> blocks an SM
+    "epik_rowgather_posted_smem": [_INT],
+    "epik_rowgather_posted_smem_limit": [],
+    "epik_rowgather_posted_blocks_per_sm": [_INT],
     # (G, bw, B, K) -> bytes
     "epik_rowgather_shifted_group_smem": [_INT, _INT, _INT, _INT],
     "epik_rowgather_counts_group_smem": [_INT, _INT, _INT, _INT],
@@ -105,6 +111,8 @@ _RESTYPES = {
     "epik_rowgather_shifted_group_smem": ctypes.c_longlong,
     "epik_rowgather_counts_group_smem": ctypes.c_longlong,
     "epik_rowgather_group_smem_limit": ctypes.c_longlong,
+    "epik_rowgather_posted_smem": ctypes.c_longlong,
+    "epik_rowgather_posted_smem_limit": ctypes.c_longlong,
 }
 
 

@@ -18,6 +18,11 @@ says how its design meets that.
   rows run together) and in 256-byte column slices, slice outermost, so a
   row that several reads name comes from the L2 after its first read; each
   read's sums (and counts) still land in its own row;
+* :func:`rowgather_sum_posted` -- :func:`rowgather_sum`'s sums over a
+  shifted f32 plane read from a row-compressed copy of its posted (non-zero)
+  cells instead of its rows, bit for bit the same: the unfused shifted steps
+  run it where the plane is sparse enough to hold the copy
+  (``engine/state.py::build_posted``); one block a read, no read order;
 * :func:`rowgather_sum_topk` / :func:`rowgather_sum_topk_int16` -- the dense
   shifted steps' whole device work after the tokenizer: the sums (an int16
   plane's dequantized), each ambiguous read's first-hit delta row added, and
@@ -75,12 +80,14 @@ __all__ = ["GROUP_BLOCK_RESERVE", "GROUP_MAX", "GROUP_MIN_BLOCKS", "GROUP_ROW_ID
            "GROUP_THREADS", "SHIFTED_COLS_MAX_BW", "SHIFTED_GROUP_MAX", "SHIFTED_TOPK_MAX_BW",
            "add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
            "counts_group", "counts_topk_fits", "counts_topk_smem", "group_smem",
-           "locality_order", "rowgather_sum", "rowgather_sum_cols",
+           "locality_order", "posted_fits", "posted_smem", "rowgather_sum",
+           "rowgather_sum_cols",
            "rowgather_sum_cols_plain", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
            "rowgather_sum_counts_cols", "rowgather_sum_counts_cols_plain",
            "rowgather_sum_counts_plain", "rowgather_sum_counts_topk",
            "rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_topk_plain",
-           "rowgather_sum_plain", "rowgather_sum_topk", "rowgather_sum_topk_int16",
+           "rowgather_sum_plain", "rowgather_sum_posted", "rowgather_sum_posted_plain",
+           "rowgather_sum_topk", "rowgather_sum_topk_int16",
            "rowgather_sum_topk_plain", "shifted_fused", "shifted_group", "topk_fits",
            "topk_smem"]
 
@@ -89,6 +96,8 @@ _count_lock = threading.Lock()
 _CELL = {torch.float32: 0, torch.int16: 1, torch.bfloat16: 2}
 #: the fused kernel's touched ids are 16 bits
 _MAX_TOPK_B = 1 << 16
+#: the posted gather sorts its cells by a 16-bit column id
+_POSTED_MAX_BW = 1 << 16
 #: the group layout's block, as csrc/rowgather_sum.cu compiles it
 #: (kGroupThreads, kGroupRowIds): threads, staged row ids
 GROUP_THREADS = 256
@@ -214,6 +223,116 @@ def rowgather_sum(plane: torch.Tensor, rows: torch.Tensor, *, scale: float | Non
 
 #: kernel launches since the last reset (CUDA only; the plain path never counts)
 rowgather_sum.launches = 0
+
+
+def rowgather_sum_posted_plain(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor,
+                               bw: int) -> torch.Tensor:
+    """Plain version: the posted cells of each window's row added to zeros,
+    window after window (f32 adds, the kernel's order). Bit-equal to
+    :func:`rowgather_sum_plain` over the shifted f32 plane the index was
+    read from: that adds a 0.0 for every cell not posted, and x + 0.0 == x
+    for the sums of a shifted plane, which are never below zero."""
+    R, W = rows.shape
+    acc = torch.zeros((R, bw), dtype=torch.float32, device=rows.device)
+    cols = cells[:, 0].long()
+    vals = cells[:, 1].contiguous().view(torch.float32)
+    reads = torch.arange(R, device=rows.device)
+    for w in range(W):
+        r = rows[:, w].long()
+        start = off[r]
+        n = off[r + 1] - start
+        total = int(n.sum())
+        if total == 0:
+            continue
+        first = torch.cumsum(n, 0) - n  # each read's first place among the window's cells
+        src = (torch.arange(total, device=rows.device)
+               + torch.repeat_interleave(start - first, n))
+        read = torch.repeat_interleave(reads, n)
+        # a row's columns are distinct: no (read, column) twice in one window
+        c = cols[src]
+        acc[read, c] = acc[read, c] + vals[src]
+    return acc
+
+
+def posted_smem(bw: int, device: torch.device) -> tuple[int, int]:
+    """(bytes of shared memory a :func:`rowgather_sum_posted` launch at width
+    ``bw`` asks, bytes a block of it may take on ``device``), from the CUDA
+    source. CUDA devices only."""
+    return _posted_layout(torch.device(device), bw)
+
+
+@functools.lru_cache(maxsize=None)
+def _posted_layout(device: torch.device, bw: int) -> tuple[int, int]:
+    lib = library()
+    with torch.cuda.device(device):
+        limit = lib.epik_rowgather_posted_smem_limit()
+    if limit < 0:
+        check(int(-limit), "the posted gather's shared memory limit")
+    return lib.epik_rowgather_posted_smem(bw), limit
+
+
+def posted_fits(bw: int, device) -> bool:
+    """Whether :func:`rowgather_sum_posted` takes a plane ``bw`` columns wide
+    on ``device``: column ids of the kernel's 16-bit sort keys, and a block's
+    bw sums, its sorted cells and its window tile within the card's shared
+    memory (about 53,000 columns on an H100). The plain version on the CPU
+    has no limit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    need, limit = posted_smem(bw, device)
+    return bw <= _POSTED_MAX_BW and need <= limit
+
+
+def rowgather_sum_posted(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor, *,
+                         bw: int) -> torch.Tensor:
+    """The gather 1d over a shifted f32 plane's posted cells: off int64
+    (n_rows + 1,) and cells int32 (nnz, 2) (column, f32 value bits; a row's
+    cells in [off[row], off[row + 1]), the all-zero row's range empty), rows
+    int32 (R, W) -> f32 (R, bw), bit for bit :func:`rowgather_sum` over the
+    plane the index was read from (``engine/state.py::build_posted``).
+
+    Every index must lie in [0, n_rows). The kernel (``csrc/
+    rowgather_posted.cu``) reads each window's posted cells and no other
+    cell: one block a read, its sums in shared memory, added in window
+    order; on the card bw must be within :func:`posted_fits`'s limit (a
+    wider plane raises ValueError)."""
+    if rows.dtype != torch.int32 or rows.dim() != 2 or not rows.is_contiguous():
+        raise ValueError(f"rows must be contiguous 2-D int32, got {rows.dtype} "
+                         f"{tuple(rows.shape)}")
+    if off.dtype != torch.int64 or off.dim() != 1 or not off.is_contiguous() or off.numel() < 2:
+        raise ValueError(f"off must be contiguous 1-D int64 (n_rows + 1,), got {off.dtype} "
+                         f"{tuple(off.shape)}")
+    if (cells.dtype != torch.int32 or cells.dim() != 2 or cells.shape[1] != 2
+            or not cells.is_contiguous()):
+        raise ValueError(f"cells must be contiguous int32 (nnz, 2), got {cells.dtype} "
+                         f"{tuple(cells.shape)}")
+    if not (off.device == cells.device == rows.device):
+        raise ValueError(f"off on {off.device}, cells on {cells.device}, rows on {rows.device}")
+    if bw <= 0 or bw % 4:
+        raise ValueError(f"bw={bw} must be a positive multiple of 4")
+    if rows.device.type == "cpu":
+        return rowgather_sum_posted_plain(off, cells, rows, bw)
+    _no_kernel("rowgather_sum_posted", rows.device)
+    if not posted_fits(bw, rows.device):
+        need, limit = posted_smem(bw, rows.device)
+        raise ValueError(f"bw={bw}: the posted gather takes at most {_POSTED_MAX_BW} columns "
+                         f"and {limit} bytes of shared memory a block on {rows.device} (it "
+                         f"asks {need}); run rowgather_sum")
+    R, W = rows.shape
+    out = torch.empty((R, bw), dtype=torch.float32, device=rows.device)
+    if R == 0:
+        return out
+    lib = library()
+    with torch.cuda.device(rows.device):
+        err = lib.epik_rowgather_sum_posted(off.data_ptr(), cells.data_ptr(), rows.data_ptr(),
+                                            out.data_ptr(), R, W, bw, _stream(rows.device))
+    check(err, "rowgather_sum_posted")
+    _count(rowgather_sum_posted)
+    return out
+
+
+rowgather_sum_posted.launches = 0
 
 
 def locality_order(rows: torch.Tensor) -> torch.Tensor:

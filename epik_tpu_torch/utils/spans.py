@@ -267,7 +267,8 @@ class Tally:
         batches = self.names.get("place.stage", [0])[0]
         if batches and "h2d_bytes" in sums:
             lines.append(f"H2D: {sums['h2d_bytes'] / batches / 1024:.1f} KiB a batch")
-        pairs = self.labels["gather"].get("pair")
+        gathers = self.labels["gather"]
+        pairs = gathers.get("pair", 0) + gathers.get("posted", 0)
         if pairs and "sums_bytes" in sums:
             lines.append(f"sums written and read back: {sums['sums_bytes'] / pairs / 2**20:.3f} "
                          f"MiB a batch, largest {self.peaks['sums_bytes'] / 2**20:.3f}")

@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Layout variants of five of the port's kernels, timed in turns on one card:
 
-    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols|group|shifted] [--parent PATH]
+    python3 kernel_sweep.py [--only gather|row_ptr|sum|cols|group|shifted|posted]
+                            [--parent PATH]
 
 * kernel 1d, the gather alone (``rowgather_sum``, f32 and int16), on
   ``chip_smoke.py``'s D652 pair rows (the first batch of 16,384 reads of the
@@ -74,6 +75,15 @@
   over D652's unpaired rows on its plane's columns cut or repeated to widths
   of 1,024 to 19,712, around and between the paths' widths, which set the
   crossover (``kernels/rowgather.py::shifted_fused``).
+
+* the gather over a shifted f32 plane's posted cells
+  (``rowgather_sum_posted``) against 1d (``rowgather_sum``), both through
+  their wrappers, in turns, at the ``wol10k.illumina150`` cell's shapes
+  (``chip_smoke.wol10k_shaped``: 644,814 rows x 21,248 columns, ~12 posted
+  cells a key, 2,000 reads of 141 windows) and at config 4's (644,814 x
+  20,096, 4,096 reads of 143 windows); beside them the posted kernel's
+  variants (``-D EPIK_POSTED_THREADS / _CELLS / _MIN_BLOCKS``): 128 and 512
+  threads, 512 and 2,048 cells a tile, and no register budget.
 
 Each variant is built by ``nvcc`` from this checkout's sources (the shipped
 ones with ``-D`` overrides of their layout macros, or the variant source)
@@ -187,6 +197,15 @@ SHIFTED_WIDTHS = (1024, 1216, 1536, 1664, 1792, 1920, 2112, 2816, 5632, 11264, 1
 #: an H100, several times the host's work before a wrapper's launches)
 AHEAD_CYCLES = 2_000_000
 #: kernel A's variants: name -> nvcc -D flags
+#: the posted gather's variants: name -> nvcc -D flags
+POSTED = {
+    "posted_256x1024": [],
+    "posted_128_threads": ["-DEPIK_POSTED_THREADS=128"],
+    "posted_512_threads": ["-DEPIK_POSTED_THREADS=512"],
+    "posted_512_cells": ["-DEPIK_POSTED_CELLS=512"],
+    "posted_2048_cells": ["-DEPIK_POSTED_CELLS=2048"],
+    "posted_no_register_budget": ["-DEPIK_POSTED_MIN_BLOCKS=1"],
+}
 COLS = {
     "cols": [],
     "cols_wide_no_register_cap": ["-DEPIK_COLS_WIDE_MIN_BLOCKS=1"],
@@ -451,10 +470,12 @@ def sum_times(torch, dev, out: dict) -> None:
     for cell, fields in (("f32", {}), ("int16", {"precision": "int16"})):
         placer = TorchPlacer(db, tree, config=PlacerConfig(**fields), device=dev)
         calls = []
-        with recording(step_mod, "rowgather_sum", calls, limit=1):
+        # the router's call: the f32 plane's step gathers its posted cells
+        with recording(step_mod, "_shifted_finish", calls, limit=1):
             placer.place(reads)
-        (plane, rows), kw = calls[0]
-        sweep(f"wide_shifted_{cell}", plane, rows, kw.get("scale"))
+        (plane, rows), kw = calls[0][0][:2], calls[0][1]
+        sweep(f"wide_shifted_{cell}", plane, rows,
+              kw["plane_scale"] if cell == "int16" else None)
         del placer, calls, plane, rows
         gc.collect()
         torch.cuda.empty_cache()
@@ -912,9 +933,70 @@ def shifted_times(torch, np, dev, out: dict, parent: str | None) -> None:
     free()
 
 
+def posted_times(torch, np, dev, out: dict) -> None:
+    """The posted gather and 1d through their wrappers and the posted
+    kernel's variants, in turns, at the wol10k cell's and config 4's
+    shapes."""
+    import gc
+
+    from epik_tpu_torch.kernels._build import library
+    from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_posted
+
+    src = os.path.join(CSRC, "rowgather_posted.cu")
+    libs = build({n: (src, d) for n, d in POSTED.items()}, os.path.join("build", "sweep",
+                                                                          "posted"))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    for lib in libs.values():
+        lib.epik_rowgather_sum_posted.argtypes = [vp, vp, vp, vp, i, i, i, vp]
+        lib.epik_rowgather_posted_blocks_per_sm.argtypes = [i]
+    for key, shape in (("wol10k", dict(bw=21_248, B=21_149, R=2000, W=141)),
+                       ("config4", dict(bw=20_096, B=19_999, R=4096, W=143))):
+        plane, posted, rows, build_s = chip_smoke.wol10k_shaped(torch, np, dev, **shape)
+        R, W = rows.shape
+        bw = plane.shape[1]
+        S = torch.empty((R, bw), device=dev)
+        want = rowgather_sum(plane, rows)
+
+        def call(name):
+            if name == "1d":
+                return rowgather_sum(plane, rows)
+            if name == "posted":
+                return rowgather_sum_posted(posted.off, posted.cells, rows, bw=bw)
+            err = libs[name].epik_rowgather_sum_posted(
+                posted.off.data_ptr(), posted.cells.data_ptr(), rows.data_ptr(), S.data_ptr(),
+                R, W, bw, torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return S
+
+        def check(name):
+            S.zero_()
+            got = call(name)
+            torch.cuda.synchronize()
+            if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+                raise AssertionError(f"{name} ({key}): not bit-equal to 1d")
+
+        names = ["1d", "posted", *POSTED, "posted", "1d"]
+        times = {}
+        for name in names:
+            if name not in times:
+                check(name)
+            times.setdefault(name, []).append(cuda_ms(torch, lambda: call(name)))
+        out[f"posted_{key}"] = {
+            "shape": [R, W, bw], "nnz": posted.nnz, "index_bytes": posted.nbytes,
+            "build_s": build_s, "ms": times,
+            "blocks_per_sm": {n: lib.epik_rowgather_posted_blocks_per_sm(bw)
+                              for n, lib in libs.items()},
+            "shipped_blocks_per_sm": library().epik_rowgather_posted_blocks_per_sm(bw)}
+        del plane, posted, rows, S, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols", "group", "shifted"),
+    ap.add_argument("--only", choices=("gather", "row_ptr", "sum", "cols", "group", "shifted",
+                                       "posted"),
                     default=None, help="sweep one kernel only")
     ap.add_argument("--parent", default=None,
                     help="a checkout of the parent commit: its fused kernels join the group "
@@ -943,6 +1025,8 @@ def main(argv=None) -> int:
         group_times(torch, np, dev, out, args.parent)
     if args.only in (None, "shifted"):
         shifted_times(torch, np, dev, out, args.parent)
+    if args.only in (None, "posted"):
+        posted_times(torch, np, dev, out)
     print(card_line())
     print(json.dumps(out))
     return 0

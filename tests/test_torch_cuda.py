@@ -54,6 +54,8 @@ from epik_tpu_torch.kernels.rowgather import (
     counts_topk_smem,
     group_smem,
     locality_order,
+    posted_fits,
+    posted_smem,
     rowgather_sum,
     rowgather_sum_cols,
     rowgather_sum_cols_plain,
@@ -66,6 +68,8 @@ from epik_tpu_torch.kernels.rowgather import (
     rowgather_sum_counts_topk_bf16,
     rowgather_sum_counts_topk_plain,
     rowgather_sum_plain,
+    rowgather_sum_posted,
+    rowgather_sum_posted_plain,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
     rowgather_sum_topk_plain,
@@ -352,6 +356,9 @@ def test_launch_counts(cuda):
     plane_q = torch.zeros((8, 128), dtype=torch.int16, device=cuda)
     reset_launch_counts()
     Sp = rowgather_sum(plane, rows)
+    off = torch.zeros(9, dtype=torch.int64, device=cuda)
+    cells = torch.zeros((0, 2), dtype=torch.int32, device=cuda)
+    rowgather_sum_posted(off, cells, rows, bw=128)
     rowgather_sum_topk(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     rowgather_sum_topk_int16(plane_q, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0,
                              scale=2.0)
@@ -378,6 +385,7 @@ def test_launch_counts(cuda):
     tokenize_combo_fused(buf, combo, k=4, Lmax=152)
     # the plain versions never count
     rowgather_sum_plain(plane, rows)
+    rowgather_sum_posted_plain(off, cells, rows, 128)
     rowgather_sum_topk_plain(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     rowgather_sum_counts_plain(plane, rows)
     rowgather_sum_counts_topk_plain(plane, rows, m, None, None, None, B=100, K=3, k=4,
@@ -392,7 +400,8 @@ def test_launch_counts(cuda):
     rowgather_sum_cols_plain(plane, rows, m, None, None, K=3, k=4, log_eps=-1.0, col0=0)
     rowgather_sum_counts_cols_plain(plane, rows, m, None, None, None, K=3, k=4, log_eps=-1.0,
                                     col0=0)
-    assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_topk": 1,
+    assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_posted": 1,
+                               "rowgather_sum_topk": 1,
                                "rowgather_sum_topk_int16": 1, "rowgather_sum_counts": 1,
                                "rowgather_sum_counts_bf16": 1,
                                "rowgather_sum_counts_topk": 1,
@@ -2257,3 +2266,112 @@ def test_new_routes_cuda_match_cpu(cuda, route):
         assert counts["accumulate_sums_counts_csr"] == 3 + gpu.overflow_retries
         assert counts["finish_topk_counts"] == counts["accumulate_sums_counts_csr"]
         assert counts["accumulate_sums_counts"] == counts["accumulate_packed_topk"] == 0
+
+
+# ---- the gather over a shifted plane's posted cells (rowgather_sum_posted) ---------------
+
+
+def _posted_plane(cuda, rng, n_rows: int, bw: int, per_row: float, wide_row: int = 0):
+    """A shifted f32 plane on the card: ~per_row posted cells a row at
+    random columns (values over a wide range of magnitudes, some 1e-37), row
+    0 with ``wide_row`` more, the last row all zero; and its posted cells."""
+    from epik_tpu_torch.engine.state import build_posted
+
+    n = int(per_row * (n_rows - 1))
+    r = torch.from_numpy(rng.integers(0, n_rows - 1, n)).to(cuda)
+    c = torch.from_numpy(rng.integers(0, bw, n)).to(cuda)
+    v = torch.from_numpy((10.0 ** rng.uniform(-6, 1.5, n)).astype(np.float32)).to(cuda)
+    v[::17] = 1e-37
+    plane = torch.zeros((n_rows, bw), dtype=torch.float32, device=cuda)
+    plane.index_put_((r, c), v)
+    if wide_row:
+        cols = torch.from_numpy(rng.choice(bw, wide_row, replace=False)).to(cuda)
+        vals = rng.uniform(0.1, 3.0, wide_row).astype(np.float32)
+        plane[0, cols] = torch.from_numpy(vals).to(cuda)
+    return plane, build_posted(plane)
+
+
+@pytest.mark.parametrize("case,n_rows,bw,R,W,per_row", [
+    ("wol10k", 50_001, 21_248, 2000, 141, 12.0),  # the cell's batch and width
+    ("config4", 50_001, 20_096, 4096, 143, 12.0),  # config 4's
+    ("misses", 5_001, 1_792, 300, 141, 12.0),  # a third of the windows on the zero row
+    ("repeats", 5_001, 1_792, 300, 141, 12.0),  # a row named in several windows of a read
+    ("short", 5_001, 1_792, 300, 141, 12.0),  # reads shorter than k: every window missed
+    ("long", 2_001, 4_096, 9, 2_600, 12.0),  # window tiles and cell tiles past one
+    ("wide_row", 2_001, 4_096, 40, 300, 6.0),  # a row of 3,000 cells: a window past a tile
+    ("empty", 2_001, 1_792, 0, 141, 12.0),  # no read
+])
+def test_rowgather_sum_posted_bit_equal_to_1d(cuda, case, n_rows, bw, R, W, per_row):
+    """``rowgather_sum_posted`` on the card against ``rowgather_sum`` (1d) on
+    the same rows and against the plain version, bit for bit; one launch."""
+    rng = np.random.default_rng(n_rows + bw + R)
+    plane, p = _posted_plane(cuda, rng, n_rows, bw, per_row,
+                             wide_row=3_000 if case == "wide_row" else 0)
+    zero = n_rows - 1
+    rows = rng.integers(0, n_rows - 1, (R, W)).astype(np.int32)
+    if case == "misses":
+        rows[rng.random(rows.shape) < 0.33] = zero
+    elif case == "repeats":
+        rows[:, 5] = rows[:, 2]
+        rows[:, 40:60] = rows[:, [1]]
+    elif case == "short":
+        rows[::4] = zero
+    elif case == "wide_row":
+        rows[:, ::7] = 0
+    rows = torch.from_numpy(rows).to(cuda)
+    reset_launch_counts()
+    got = rowgather_sum_posted(p.off, p.cells, rows, bw=bw)
+    torch.cuda.synchronize()
+    assert launch_counts()["rowgather_sum_posted"] == (1 if R else 0)
+    assert got.shape == (R, bw) and got.dtype == torch.float32
+    want = rowgather_sum(plane, rows)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    if R * W <= 300 * 141:
+        plain = rowgather_sum_posted_plain(p.off.cpu(), p.cells.cpu(), rows.cpu(), bw)
+        assert torch.equal(got.cpu().view(torch.int32), plain.view(torch.int32))
+
+
+def test_rowgather_sum_posted_limit(cuda):
+    """The posted gather's shared memory, from the CUDA source: the bw sums,
+    1,024 sorted cells, 256 window starts and 257 scan entries; wol10k's and
+    config 4's widths fit with 2 blocks an SM, a plane past the limit raises."""
+    from epik_tpu_torch.kernels._build import library
+
+    need, limit = posted_smem(21_248, cuda)
+    assert need == 21_248 * 4 + 1024 * 8 + 256 * 8 + 257 * 4
+    assert posted_fits(21_248, cuda) and posted_fits(20_096, cuda) and posted_fits(40_064, cuda)
+    assert library().epik_rowgather_posted_blocks_per_sm(21_248) == 2
+    past = (limit // 4 + 128) // 128 * 128
+    assert not posted_fits(past, cuda)
+    p = _posted_plane(cuda, np.random.default_rng(5), 11, 128, 3.0)[1]
+    with pytest.raises(ValueError, match="posted gather takes at most"):
+        rowgather_sum_posted(p.off, p.cells, torch.zeros((2, 3), dtype=torch.int32,
+                                                         device=cuda), bw=past)
+
+
+@pytest.mark.parametrize("amb", [False, True])
+def test_unfused_step_gives_the_same_pack_through_both_gathers(cuda, amb):
+    """``engine.step.place_batch_dense_rows`` past the width rule (config 4's
+    width) with and without the posted cells: the same slim pack, bit for
+    bit; the posted gather and ``finish_topk`` one launch each, 1d none."""
+    from epik_tpu_torch.engine.step import place_batch_dense_rows
+
+    rng = np.random.default_rng(23 + amb)
+    n_rows, bw, B, R, W = 20_001, 20_096, 19_999, 512, 143
+    plane, p = _posted_plane(cuda, rng, n_rows, bw, 12.0)
+    rows = torch.from_numpy(rng.integers(0, n_rows, (R, W)).astype(np.int32)).to(cuda)
+    arows = torch.full((R, 2), n_rows - 1, dtype=torch.int32, device=cuda)
+    if amb:
+        arows[3::5, 0] = torch.from_numpy(rng.integers(0, n_rows - 1, arows[3::5].shape[0])
+                                          .astype(np.int32)).to(cuda)
+    m = torch.full((R,), float(W), device=cuda)
+    kw = dict(B=B, K=7, Amax=2 if amb else 0, k=10, zero_row=n_rows - 1, log_eps=-4.2597,
+              eps=5.5e-5, shifted=True)
+    assert not shifted_fused(bw)
+    want = place_batch_dense_rows(plane, rows, arows, m, **kw)
+    reset_launch_counts()
+    got = place_batch_dense_rows(plane, rows, arows, m, posted=p, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+    counts = {n: c for n, c in launch_counts().items() if c}
+    assert counts == {"rowgather_sum_posted": 1, "finish_topk": 1}

@@ -121,7 +121,7 @@ def test_library_name_follows_sources(tmp_path):
     assert lib.path() != second and [p.name for p in lib.sources()] == ["a.cu"]
     assert [p.name for p in _build.KernelLibrary().sources()] == [
         "accumulate_packed_topk.cu", "accumulate_sums.cu", "finish_cols.cu",
-        "finish_topk.cu", "rowgather_sum.cu", "tokenize.cu"]
+        "finish_topk.cu", "rowgather_posted.cu", "rowgather_sum.cu", "tokenize.cu"]
 
 
 def test_compile_runs_one_nvcc_per_source_then_links(tmp_path, monkeypatch):

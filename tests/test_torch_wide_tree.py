@@ -3,8 +3,10 @@ harness on the CPU, and the sizes of the Web-of-Life-scale configuration.
 
 A tree of 896 leaves (1,791 branches) gives a plane of 1,792 columns, the
 first width past ``SHIFTED_TOPK_MAX_BW`` (1,664): the dense step runs the
-gather 1d (``rowgather_sum``) and ``finish_topk`` apart, over the direct-table
-tokenizer (``tokenize_packed``). At the configuration's full size the pair
+gather and ``finish_topk`` apart, over the direct-table tokenizer
+(``tokenize_packed``); ~12 postings a key post 0.7% of the plane's cells, so
+the gather reads the plane's posted cells (``rowgather_sum_posted``), not
+its rows (1d, ``rowgather_sum``). At the configuration's full size the pair
 plane is over the card's budget, so the router takes the unpaired plane;
 here the CPU's budget holds the pair plane, and ``pair_plane="off"`` stands
 in for that budget. The jplace is held to ``placebench/reference.py``, the
@@ -69,15 +71,17 @@ def counted(name):
 
     setattr(step, name, call)
 
-for name in ("tokenize_packed", "rowgather_sum", "finish_topk", "rowgather_sum_topk",
-             "amb_deltas"):
+for name in ("tokenize_packed", "rowgather_sum", "rowgather_sum_posted", "finish_topk",
+             "rowgather_sum_topk", "amb_deltas"):
     counted(name)
 placer = {}
 
 def wrap(p):
     bw = p.state.plane.shape[1]
+    posted = p.state.posted
     placer.update(route=p.route, paired=p._paired, direct=p.state.direct is not None,
-                  B=p.B, bw=bw, fused=shifted_fused(bw))
+                  B=p.B, bw=bw, fused=shifted_fused(bw),
+                  posted_share=None if posted is None else posted.nnz / p.state.plane.numel())
     return p
 
 r = harness.run_cell(root, "wide.short", seed, 0.5, False, device="cpu",
@@ -114,14 +118,16 @@ def test_wide_tree_takes_the_unfused_pair_and_matches_the_reference(tmp_path):
     assert run.returncode == 0, run.stderr[-3000:]
     line = json.loads(run.stdout.strip().splitlines()[-1])
     p = line["placer"]
+    share = p.pop("posted_share")
     assert p == {"route": "dense", "paired": False, "direct": True, "B": 1791, "bw": 1792,
                  "fused": False}
+    assert 0 < share < 1 / 32
     calls = line["calls"]
-    # every batch: the direct-table tokenizer, 1d, the delta rows of its IUPAC
-    # read and finish_topk; never the fused kernel
-    assert calls["tokenize_packed"] == calls["rowgather_sum"] == calls["finish_topk"] > 0
-    assert calls["amb_deltas"] == calls["rowgather_sum"]
-    assert "rowgather_sum_topk" not in calls
+    # every batch: the direct-table tokenizer, the posted gather, the delta
+    # rows of its IUPAC read and finish_topk; never the fused kernel, nor 1d
+    assert calls["tokenize_packed"] == calls["rowgather_sum_posted"] == calls["finish_topk"] > 0
+    assert calls["amb_deltas"] == calls["rowgather_sum_posted"]
+    assert "rowgather_sum_topk" not in calls and "rowgather_sum" not in calls
     assert line["correct"] is True, line["checks"]
     assert line["failed"] == 0 and line["numbers"]["reads_checked"] >= 4 * 20
 
