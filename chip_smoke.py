@@ -1216,7 +1216,7 @@ def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
         kernels.append(entry(f"{tag}_wide_shifted", counts.get("rowgather_sum", 0), err, ms,
                              plain_ms, *io_k, lib_ms))
         if cell == "f32":
-            kernels.append(posted_vs_1d(torch, np, plane, skw["posted"], rows,
+            kernels.append(posted_vs_1d(torch, np, plane, skw["gather"], rows,
                                         "wide shifted f32, first batch",
                                         "rowgather_sum_posted_wide_shifted", counts[gather]))
             summary["wide_shifted_f32_posted_ms"] = kernels[-1]["ms"]
@@ -1662,7 +1662,7 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
     summary.update(column_finish_ms=fin["finish_ms"], column_finish_plain_ms=fin["finish_plain_ms"],
                    finish_cols_partial_ms=fin["partial_ms"])
     seqs = list(dict.fromkeys(s for _, s in clean))
-    _, OV, rerun = placer._place_async_tiles({s: ["x"] for s in seqs}, seqs).budget
+    _, OV, rerun = placer._prepare_tiles({s: ["x"] for s in seqs}, seqs)[1]().budget
     summary["sharded_tile_step_ms"] = cuda_ms(torch, lambda: rerun(OV))
     log(f"accumulate_packed_sums {tuple(p.shape)} B={bwl}: bit-equal on the path's and "
         f"engineered cells; kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, scatter_add "
@@ -1675,13 +1675,13 @@ def sharded_phase(torch, np, card: str, dev, fx: dict) -> tuple[list, dict]:
 
     # ---- 8c. the sharded path through the pipeline ----------------------------------------
     csr_steps = [0]
-    place_csr = placer._place_async_csr
+    place_csr = placer._prepare_csr
 
     def counting_csr(*args, _f=place_csr):
         csr_steps[0] += 1
         return _f(*args)
 
-    placer._place_async_csr = counting_csr
+    placer._prepare_csr = counting_csr
     placer.overflow_retries = 0
     tile_steps = []
     with recording(sharding_mod, "sharded_tiles_bytes_step", tile_steps):
@@ -1971,14 +1971,14 @@ def posted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
 
 def tokenizer_check(torch, card: str, placer, seqs, dev) -> dict:
     """The slot tokenizer's kernel (``tokenize_combo_fused``) against the torch
-    ops it replaces (``tokenize_combo`` + ``_m_f32``, its plain version) on
+    ops it replaces (``tokenize_combo`` + ``window_counts``, its plain version) on
     ``seqs`` and on their first ``CELL_BATCH``: rows, lengths and the bits of
     m_f32 equal, two launches alike; CUDA-event times of both (the torch ops'
     include the card's waits between their ~60 launches). Returns, per batch
     (suffix "" and "_cell"), ms, plain_ms and the bytes the kernel must move:
     the packed rows read once, one combo cell a distinct slot row (a lower
     bound of the distinct cells read) and the outputs written once."""
-    from epik_tpu_torch.engine.step import _m_f32
+    from epik_tpu_torch.engine.step import window_counts
     from epik_tpu_torch.kernels.tokenize import tokenize_combo_fused
     from epik_tpu_torch.ops.tokenize import tokenize_combo
 
@@ -1990,7 +1990,7 @@ def tokenizer_check(torch, card: str, placer, seqs, dev) -> dict:
         got = tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax)
         again = tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax)
         rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
-        want = (rows, lens, _m_f32(lens, k))
+        want = (rows, lens, window_counts(lens, k))
         torch.cuda.synchronize()
         for name, a, b, c in zip(("rows", "lens", "m_f32"), got, again, want):
             if a.dtype == torch.float32:
@@ -2002,7 +2002,7 @@ def tokenizer_check(torch, card: str, placer, seqs, dev) -> dict:
                 raise AssertionError(f"tokenize_combo_fused ({len(batch)} reads): two "
                                      f"launches differ")
         ms = cuda_ms(torch, lambda: tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax))
-        plain_ms = cuda_ms(torch, lambda: _m_f32(
+        plain_ms = cuda_ms(torch, lambda: window_counts(
             tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)[1], k))
         io = (nbytes(buf_t, *got) + 4 * int(torch.unique(rows).numel()), 0)
         out.update({f"ms{tag}": ms, f"plain_ms{tag}": plain_ms, f"io{tag}": io})
@@ -2103,7 +2103,7 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
     (the launches counted); finish_topk_counts at B = 65,537 in both forms.
     Returns each kernel's largest difference and the launches of the
     steps past the limits."""
-    from epik_tpu_torch.engine.step import _classic_finish, _shifted_finish
+    from epik_tpu_torch.engine.step import _classic_finish, _shifted_finish, dense_gather
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels.finish import finish_topk, finish_topk_counts, finish_topk_plain
     from epik_tpu_torch.kernels.rowgather import (
@@ -2150,7 +2150,8 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
             else:
                 raise AssertionError(f"rowgather_sum_topk launched at B={B}, past its limit")
             got = _shifted_finish(plane, rows, m, arows, B=B, Amax=2, zero_row=n_rows - 1,
-                                  eps=5.5e-5, **kw)
+                                  eps=5.5e-5, gather=dense_gather(plane, B, 7, shifted=True),
+                                  **kw)
             name = "rowgather_sum"
         counts = launch_counts()
         torch.cuda.synchronize()
@@ -2227,7 +2228,8 @@ def wide_tree_checks(torch, np, card: str, dev) -> tuple[dict, dict]:
                     raise AssertionError(f"{fused} launched at B={B}, past its limit")
             reset_launch_counts()
             got = _classic_finish(plane, rows, m, arows, B=B, Amax=2, zero_row=119,
-                                  eps=5.5e-5, **kw)
+                                  eps=5.5e-5, gather=dense_gather(plane, B, 7, shifted=False),
+                                  **kw)
             counts = {n: c for n, c in launch_counts().items() if c}
             torch.cuda.synchronize()
             expect = {fused: 1} if fits else {sums: 1, "finish_topk_counts": 1}
@@ -2358,8 +2360,8 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     log(f"rowgather_sum {shape_c4} (config 4, 1d on the route's rows): {g_ms:.4f} ms, bound "
         f"{bound(*g_io)[0]:.4f} ms [{card}]")
     # the route's gather: the plane's posted cells, against 1d on the same rows
-    c4_posted = route_calls[0][1].get("posted")
-    if c4_posted is None:
+    c4_posted = route_calls[0][1].get("gather")  # the gather decided by the placer
+    if not hasattr(c4_posted, "cells"):
         raise AssertionError("config 4 CLI: the step was given no posted cells")
     c4_posted_entry = posted_vs_1d(torch, np, c4_plane, c4_posted, c4_call[0][1],
                                    "config 4, first batch", "rowgather_sum_posted_config4",
@@ -3905,7 +3907,8 @@ def main() -> int:
         f"rows (rowgather_sum in read order, the delta add, finish_topk) {pair_ms1f:.4f} ms, "
         f"the gather and the finish timed apart {ms1 + ms2_d652:.4f} ms [{card}]")
 
-    step_kw = dict(B=B, K=K, Amax=Amax, Lmax=Lmax, num_kmers=st.n_keys, **step_kw)
+    step_kw = dict(B=B, K=K, Amax=Amax, Lmax=Lmax, num_kmers=st.n_keys, gather=placer._gather,
+                   **step_kw)
     step_ms = cuda_ms(torch, lambda: place_batch_dense_paired(
         st.plane, st.combo, buf_t, arows_t, **step_kw))
     log(f"device step (tokenize + amb delta rows + fused kernel 1) at R={len(seqs)}: "

@@ -11,6 +11,7 @@ import math
 
 import numpy as np
 
+from .staging import wrapped_m
 from .types import ArrayPlacedCollection
 
 __all__ = ["POW10_ZERO", "U64", "_Pending", "_SplitPending", "assemble_arrays",
@@ -29,10 +30,13 @@ def unpack_outputs(arr: np.ndarray, K: int):
 
 
 def pack_totals(arr: np.ndarray) -> tuple[int, int]:
-    """The full pack's totals row: the batch's exact and ambiguous postings,
-    which the CSR step's budgets must hold."""
-    totals = arr[-1]
-    return (int(totals[0]) << 20) + int(totals[1]), (int(totals[2]) << 20) + int(totals[3])
+    """The totals row of a pack with one (rows, width), or of each group's
+    pack in (groups, rows, width): the exact and ambiguous postings, in
+    20-bit halves, which the CSR step's budgets must hold; the largest over
+    the groups."""
+    totals = arr[..., -1, :4].reshape(-1, 4).astype(np.int64)
+    return (int(((totals[:, 0] << 20) + totals[:, 1]).max()),
+            int(((totals[:, 2] << 20) + totals[:, 3]).max()))
 
 
 def unpack_body(body: np.ndarray, K: int):
@@ -171,11 +175,7 @@ def assemble_arrays(
         # 0..K-1, score ts = f32(log_eps * m / k) with the size_t-wrapped
         # window count m (quirk Q1), weight ratio power/(B*power) in
         # double with underflow-to-zero (Q3).
-        m_f64 = m_signed.astype(np.float64)
-        m_w32 = np.where(
-            m_signed >= 0, m_f64, m_f64 + float(U64)
-        ).astype(np.float32)
-        ts32 = log_eps * m_w32 / np.float32(k)  # f32 math
+        ts32 = log_eps * wrapped_m(m_signed) / np.float32(k)  # f32 math
         power = 10.0 ** ts32.astype(np.float64)
         score_sum = float(B) * power
         wr_fb = np.divide(

@@ -42,12 +42,11 @@ three routes, chosen at construction by the JAX package's rules
   (JAX's scatter engine, ``accumulate_exact``).
 
 ``place`` -> ``place_async`` (dedup, host staging, the device step) ->
-``place_wait`` (one result transfer, budget retries, assembly). While the
-recorder of ``utils/spans.py`` is on, each part is a span (``place.stage``,
-``place.launch``, ``place.sync``, ``place.retry``, ``place.assemble``) inside
-the ``place`` span that ``run_pipeline`` opens, which the placer notes with
-the batch's reads, its distinct reads and the route it took, and on the dense
-route with the gather it runs (``gather``) and, where the gather and the
+``place_wait`` (one result transfer, budget retries, assembly) are the
+surface it shares with the sharded placer (``surface.py::PlacerSurface``),
+which opens the ``place.*`` spans; on the dense route the placer notes on
+the ``place`` span the gather its steps run (``gather``), decided once at
+construction (``step.py::dense_gather``), and, where the gather and the
 finish run apart, the bytes of the sums between them (``sums_bytes``).
 
 The device defaults to the card (``device="cuda"``), and the CPU runs only
@@ -61,29 +60,18 @@ from __future__ import annotations
 
 import dataclasses
 import functools
-import threading
 
 import numpy as np
 import torch
 
-from ..core.alphabet import get_alphabet
-from ..core.scoring import score_threshold
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, tile_width
 from ..kernels.rowgather import posted_fits
 from ..ops.csr import ORDER_INF
 from ..ops.radix_lookup import DeviceRadix, build_radix
 from ..utils import spans
-from .config import PlacerConfig, check_supported, device_budget
-from .outputs import (
-    _Pending,
-    _SplitPending,
-    assemble_arrays,
-    merge_split,
-    pack_totals,
-    unpack_outputs,
-    unpack_outputs_slim,
-)
-from .staging import HostStaging, _bucket, _bucket_lmax, key_matrix, pad_i32, pad_u64_split
+from .config import PlacerConfig, device_budget
+from .outputs import _Pending, _SplitPending
+from .staging import _bucket, key_matrix, pad_i32, pad_u64_split, wrapped_m
 from .state import (
     CsrState,
     PlaneState,
@@ -93,7 +81,7 @@ from .state import (
     posted_index,
 )
 from .step import (
-    fused_finish,
+    dense_gather,
     place_batch_csr,
     place_batch_dense_bytes,
     place_batch_dense_codes,
@@ -105,33 +93,16 @@ from .step import (
     place_batch_tiles_paired,
     sums_bytes,
 )
+from .surface import MAX_DIRECT_K, MAX_PAIR_K, MAX_TILE_PLEN, PlacerSurface
 from .tables import direct_table, enumerate_pairs_generic
 from .tiles import Q_MAX, TileState, build_tile_state, tile_bytes
-from .types import PlacedCollection
 
 __all__ = ["TorchPlacer"]
 
-#: the packed read format stores lengths as uint16
-_MAX_READ_LEN = 0xFFFF
-#: largest k with a pair plane: the (k+1)-mer combo table is 4**(k+1) int32
-_MAX_PAIR_K = 12
-#: largest k with a direct key -> row table (4**13 int32 = 268 MB)
-_MAX_DIRECT_K = 13
 #: keys the codes tokenizer builds: sigma**k < 2**48
 _MAX_RADIX_KEY_BITS = 48
 #: the radix lookup's largest bucket (probe count) the codes path takes
 _MAX_RADIX_BUCKET = 32
-#: longest posting list the tiles take (placer.py:1844)
-_MAX_TILE_PLEN = 128
-
-
-def _wrapped_m(m_signed: np.ndarray) -> np.ndarray:
-    """The correction term's window count as f32, size_t-wrapped (quirk Q1):
-    float32(2**64 - small) == float32(2**64), so the wrap collapses."""
-    return np.where(
-        m_signed >= 0, m_signed.astype(np.float32),
-        np.float32(float(1 << 64)) + m_signed.astype(np.float32),
-    ).astype(np.float32)
 
 
 def _resolve_device(device) -> torch.device:
@@ -143,7 +114,7 @@ def _resolve_device(device) -> torch.device:
     return dev
 
 
-class TorchPlacer(HostStaging):
+class TorchPlacer(PlacerSurface):
     """Single-device placer with the reference's ``place(batch)`` surface.
 
     ``state``: a prebuilt :class:`~.state.PlaneState` (the dense route, e.g.
@@ -157,33 +128,14 @@ class TorchPlacer(HostStaging):
                  config: PlacerConfig | None = None, *, device="cuda",
                  state: PlaneState | TileState | None = None):
         self.device = _resolve_device(device)
-        self.db = db
-        self.tree = tree
-        # copy: never mutate a caller-supplied config; explicit kwargs win
-        self.config = dataclasses.replace(config) if config else PlacerConfig()
-        if keep_at_most is not None:
-            self.config.keep_at_most = keep_at_most
-        if keep_factor is not None:
-            self.config.keep_factor = keep_factor
-        check_supported(self.config)
-        self.alphabet = get_alphabet(db.sequence_type)
-        self.k = db.kmer_size
-        self.B = tree.get_node_count()
-        # quirk Q10: threshold from db.omega() after load
-        self.eps = np.float32(score_threshold(db.omega, self.k, self.alphabet.sigma))
-        self.log_eps = np.float32(np.log10(self.eps))
-        # pendant/distal precompute (reference: place.cpp:98-125)
-        num, tot = tree.tree_index()
-        self.distal = tree.branch_lengths / 2.0
-        mean = np.where(num > 1, tot / np.maximum(num, 1), 0.0)
-        self.pendant = mean + self.distal
-        self._init_staging()
+        super().__init__(db, tree, keep_at_most, keep_factor, config)
+        # a retried per-read budget is a multiple of 512, the flat one not
+        # (placer.py:2777)
+        self._csr_floor = (self.config.min_bucket if self.config.accumulate == "scatter"
+                           else max(self.config.min_bucket, 512))
         lens = np.diff(db.row_off)
         self._avg_plen = float(lens.mean()) if lens.size else 1.0
         self._max_plen = int(lens.max()) if lens.size else 0
-        #: budget-overflow re-dispatches (the tiles' OV, the CSR step's P/PA)
-        self.overflow_retries = 0
-        self._retry_lock = threading.Lock()
         self._csr_cache: CsrState | None = None
         self.state: PlaneState | None = None
         self.tiles: TileState | None = None
@@ -191,6 +143,8 @@ class TorchPlacer(HostStaging):
         # by _route for the dense route
         self._host_lookup = self._fast_bytes = self._shifted = self._plane_q = False
         self._paired = self._want_codes = self._fast_codes = self._paired_codes = False
+        #: the dense steps' gather (``step.py::dense_gather``), set by _pick_gather
+        self._gather = None
         self.route = self._route(state)
 
     # -- routing (placer.py:1796-2026) ---------------------------------------------
@@ -224,16 +178,16 @@ class TorchPlacer(HostStaging):
             self._dense_flags(shift_ok)
             self.state = state if state is not None else self._build_state(budget)
             self._check_state()
-            self._index_posted(dense_budget)
+            self._pick_gather(dense_budget)
             return "dense"
         if (cfg.accumulate != "scatter" and shift_ok and self.alphabet.sigma == 4
-                and self.k <= _MAX_DIRECT_K and n_keys > 0
+                and self.k <= MAX_DIRECT_K and n_keys > 0
                 and cfg.precision == "exact" and cfg.tokenize_where in ("auto", "device")
-                and self._max_plen <= _MAX_TILE_PLEN
+                and self._max_plen <= MAX_TILE_PLEN
                 and tile_bytes(n_keys, self._max_plen) <= dense_budget):
             # the pair-fused tiles (placer.py:2087-2092); the build falls back
             # to the unpaired tiles without a pair or over the budget
-            paired = packed and cfg.pair_plane == "on" and self.k + 1 <= _MAX_DIRECT_K
+            paired = packed and cfg.pair_plane == "on" and self.k + 1 <= MAX_DIRECT_K
             self.tiles = state if state is not None else build_tile_state(
                 db, k=self.k, B=self.B, log_eps=self.log_eps, packed=packed,
                 device=self.device, paired=paired, budget=dense_budget)
@@ -250,7 +204,7 @@ class TorchPlacer(HostStaging):
         sigma = self.alphabet.sigma
         self._host_lookup = cfg.lookup_where in ("auto", "host")
         self._fast_bytes = (cfg.tokenize_where in ("auto", "device") and sigma == 4
-                            and self.k <= _MAX_DIRECT_K)
+                            and self.k <= MAX_DIRECT_K)
         # the device-cuckoo dense path stays classic; int16 is shifted-only
         self._shifted = ((cfg.plane_mode == "shifted" or cfg.precision == "int16")
                          and cfg.precision in ("exact", "int16")
@@ -286,7 +240,7 @@ class TorchPlacer(HostStaging):
         if self._want_codes:
             return self._build_codes_state(budget, kw)
         if (self._fast_bytes and self._shifted and not self._plane_q
-                and cfg.pair_plane in ("auto", "on") and self.k <= _MAX_PAIR_K
+                and cfg.pair_plane in ("auto", "on") and self.k <= MAX_PAIR_K
                 and self.db.num_kmers > 0):
             pu, pv, combo = pair_tables(self.db, self.k)
             n_pairs = int(pu.shape[0])
@@ -348,21 +302,22 @@ class TorchPlacer(HostStaging):
                 f"{self._shifted}, device tokenizer={self._fast_bytes}, codes tokenizer="
                 f"{self._want_codes})")
 
-    def _index_posted(self, budget: int) -> None:
-        """Give the state its shifted f32 plane's posted cells where the
-        dense step gathers apart from the finish (``fused_finish`` false:
-        past the width rule or the fused kernel's limit), the posted gather
-        takes the plane's width (``posted_fits``) and the plane is sparse
-        enough, the index within ``budget`` beside the state
-        (:func:`~.state.posted_index`); else the step keeps 1d."""
+    def _pick_gather(self, budget: int) -> None:
+        """The dense steps' gather, decided once (:func:`~.step.dense_gather`).
+        Where it runs apart from the finish on a shifted f32 plane whose
+        width the posted gather takes (``posted_fits``) and the plane is
+        sparse enough, the state gets the plane's posted cells within
+        ``budget`` beside it (:func:`~.state.posted_index`), which the gather
+        then reads; else the gather apart reads the plane's rows (1d)."""
         st = self.state
-        if (not self._shifted or st.plane.dtype != torch.float32 or st.posted is not None
-                or fused_finish(st.plane, self.B, self._K(), shifted=True)
-                or not posted_fits(st.plane.shape[1], st.plane.device)):
-            return
-        posted = posted_index(st.plane, budget=budget - st.nbytes)
-        if posted is not None:
-            self.state = dataclasses.replace(st, posted=posted)
+        self._gather = dense_gather(st.plane, self.B, self._K(), shifted=self._shifted,
+                                    posted=st.posted)
+        if (self._gather == "rows" and self._shifted and st.plane.dtype == torch.float32
+                and posted_fits(st.plane.shape[1], st.plane.device)):
+            posted = posted_index(st.plane, budget=budget - st.nbytes)
+            if posted is not None:
+                self.state = dataclasses.replace(st, posted=posted)
+                self._gather = posted
 
     def posted_line(self) -> str:
         """The posted index's size, for the CLI's engine line ("" without
@@ -385,132 +340,69 @@ class TorchPlacer(HostStaging):
                     self._csr_cache = build_csr_state(self.db, device=self.device)
         return self._csr_cache
 
-    # -- the place surface ----------------------------------------------------
+    # -- the engine's part of the place surface --------------------------------
 
-    def place(self, records: list[tuple[str, bytes]]) -> PlacedCollection:
-        """Synchronous place (reference surface: place.cpp:201)."""
-        return self.place_wait(self.place_async(records))
-
-    def place_async(self, records: list[tuple[str, bytes]]):
-        """Stage a batch and enqueue its device step without waiting for it."""
-        with spans.span("place.stage"):
-            # dedup by content (quirk Q8; reference: place.cpp:73-81,207)
-            sequence_map: dict[bytes, list[str]] = {}
-            for header, seq in records:
-                sequence_map.setdefault(seq, []).append(header)
-            seqs = list(sequence_map.keys())
-            if not seqs:
-                return _Pending(sequence_map, [], None, None, self._K())
-            route, launch = self._prepare(sequence_map, seqs)
-        spans.note("reads", len(records))
-        spans.note("distinct", len(seqs))
-        spans.note("route", route)
-        if self.route == "dense" and spans.enabled():
-            self._note_gather(len(seqs))
-        with spans.span("place.launch"):
-            return launch()
-
-    def _note_gather(self, R: int) -> None:
-        """Note which gather a dense step runs (``gather``: ``fused``, or
-        ``pair`` for the gather and the finish apart, ``posted`` where the
-        gather apart reads the plane's posted cells) and, apart, the bytes of
-        the (R, bw) sums it writes and reads back (``sums_bytes``)."""
-        plane = self.state.plane
-        if fused_finish(plane, self.B, self._K(), shifted=self._shifted):
+    def _note_batch(self, R: int) -> None:
+        """On the dense route, note which gather its steps run (``gather``:
+        ``fused``, or ``pair`` for the gather and the finish apart,
+        ``posted`` where the gather apart reads the plane's posted cells)
+        and, apart, the bytes of the (R, bw) sums it writes and reads back
+        (``sums_bytes``)."""
+        if self.route != "dense":
+            return
+        if self._gather == "fused":
             spans.note("gather", "fused")
-        else:
-            spans.note("gather", "pair" if self.state.posted is None else "posted")
-            spans.note("sums_bytes", sums_bytes(plane, R, shifted=self._shifted))
+            return
+        spans.note("gather", "pair" if self._gather == "rows" else "posted")
+        spans.note("sums_bytes", sums_bytes(self.state.plane, R, shifted=self._shifted))
 
-    def _prepare(self, sequence_map, seqs):
-        """Stage a batch on the route it takes. Every ``_prepare_*`` gives
-        (the route's name, ``launch``), ``launch()`` enqueuing the device step
-        and returning the pending batch, or None for a batch its route
-        declines. ``dense.host`` is a batch of the dense route that the host
-        tokenizes, ``tiles+csr`` a tiles batch split for its IUPAC reads."""
-        if self.route == "dense":
-            fast = (self._prepare_dense if self._fast_bytes
-                    else self._prepare_codes if self._fast_codes else None)
-            prepared = fast(sequence_map, seqs) if fast is not None else None
-            return prepared or self._prepare_dense_host(sequence_map, seqs)
-        if self.route == "tiles":
-            prepared = self._prepare_tiles(sequence_map, seqs)
-            if prepared is not None:
-                return prepared
-        return self._prepare_csr(sequence_map, seqs)
+    def _fetch(self, out: torch.Tensor, seqs) -> np.ndarray:
+        """A step's result on the host, as one group."""
+        return out.cpu().numpy()[None]
 
     def _to_device(self, a: np.ndarray) -> torch.Tensor:
         """A staged host array on the device, its bytes counted (``h2d_bytes``)."""
         spans.add("h2d_bytes", a.nbytes)
         return torch.from_numpy(a).to(self.device)
 
-    def _K(self) -> int:
-        return min(self.config.keep_at_most, self.B)
-
     def _prepare_dense(self, sequence_map, seqs):
-        """The device-tokenizer dense step (JAX ``_place_async_bytes``,
-        placer.py:2447-2476, 2575-2612): the pair plane, or the unpaired
-        plane through the direct table. None for a batch the device tokenizer
-        cannot take; the caller tokenizes it on the host."""
-        staged = self._stage_bytes(seqs)
+        """The dense route: the device tokenizer's step where it takes the
+        batch, else the host tokenizer's (``dense.host``)."""
+        prepared = (self._prepare_device(sequence_map, seqs)
+                    if self._fast_bytes or self._fast_codes else None)
+        return prepared or self._prepare_dense_host(sequence_map, seqs)
+
+    def _prepare_device(self, sequence_map, seqs):
+        """The device-tokenizer dense steps: on a DNA database (JAX
+        ``_place_async_bytes``, placer.py:2447-2476, 2575-2612) over the pair
+        plane, or the unpaired plane through the direct table
+        (``dense.bytes``); else the codes steps (JAX ``_place_async_codes``,
+        placer.py:2614-2621) over the unpaired plane, or the codes pair plane
+        (``dense.codes``). None for a batch the device tokenizer cannot
+        take."""
+        staged = (self._stage_bytes if self._fast_bytes else self._stage_codes)(seqs)
         if staged is None:
             return None
         buf, arows, Amax, Lmax, m_signed = staged
         st = self.state
-        buf_t, arows_t = self._to_device(buf), self._to_device(arows)
+        args = (self._to_device(buf), self._to_device(arows))
         kw = dict(B=self.B, K=self._K(), Amax=Amax, k=self.k, Lmax=Lmax,
-                  num_kmers=st.n_keys, log_eps=float(self.log_eps), eps=float(self.eps))
+                  num_kmers=st.n_keys, log_eps=float(self.log_eps), eps=float(self.eps),
+                  gather=self._gather)
+        sigma = self.alphabet.sigma
         if self._paired:
-            step = functools.partial(place_batch_dense_paired, st.plane, st.combo, buf_t,
-                                     arows_t, posted=st.posted, **kw)
-        else:
-            step = functools.partial(place_batch_dense_bytes, st.plane, st.direct, buf_t,
-                                     arows_t, shifted=self._shifted, plane_scale=st.scale,
-                                     posted=st.posted, **kw)
-        return "dense.bytes", lambda: _Pending(sequence_map, seqs, m_signed, step(), self._K())
-
-    def _stage_bytes(self, seqs):
-        """Host staging of the device-tokenizer dense steps (JAX
-        placer.py:2478-2612): one packed uint8 buffer, plus the host-tokenized
-        ambiguity rows of the reads that hold IUPAC characters (quirks Q6/Q7).
-
-        Returns (buf, arows, Amax, Lmax, m_signed), or None where JAX returns
-        None (every read shorter than k, or a read longer than the packed
-        format's uint16 length). Unlike the JAX version, R is not padded to a
-        bucket: eager PyTorch has no compile cache."""
-        R = len(seqs)
-        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R)
-        Lmax_true = int(lens_arr.max())
-        if Lmax_true < self.k or Lmax_true > _MAX_READ_LEN:
-            return None
-        Lmax = _bucket_lmax(Lmax_true)
-        m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
-        buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R)
-        arows, Amax = self._amb_rows(seqs, amb_mask, R)
-        return buf, arows, Amax, Lmax, m_signed
-
-    def _prepare_codes(self, sequence_map, seqs):
-        """The codes dense step (JAX ``_place_async_codes``, placer.py:
-        2614-2621): the unpaired plane, or the codes pair plane. None for a
-        batch the codes tokenizer cannot take; the caller tokenizes it on
-        the host."""
-        staged = self._stage_codes(seqs)
-        if staged is None:
-            return None
-        buf, arows, Amax, Lmax, m_signed = staged
-        st = self.state
-        buf_t, arows_t = self._to_device(buf), self._to_device(arows)
-        kw = dict(B=self.B, K=self._K(), Amax=Amax, k=self.k, sigma=self.alphabet.sigma,
-                  Lmax=Lmax, num_kmers=st.n_keys, log_eps=float(self.log_eps),
-                  eps=float(self.eps))
-        if self._paired_codes:
+            step = functools.partial(place_batch_dense_paired, st.plane, st.combo, *args, **kw)
+        elif self._fast_bytes:
+            step = functools.partial(place_batch_dense_bytes, st.plane, st.direct, *args,
+                                     shifted=self._shifted, plane_scale=st.scale, **kw)
+        elif self._paired_codes:
             step = functools.partial(place_batch_dense_codes_paired, st.plane, st.radix,
-                                     st.pair_radix, buf_t, arows_t, n_pairs=st.n_pairs,
-                                     posted=st.posted, **kw)
+                                     st.pair_radix, *args, sigma=sigma, n_pairs=st.n_pairs, **kw)
         else:
-            step = functools.partial(place_batch_dense_codes, st.plane, st.radix, buf_t,
-                                     arows_t, plane_scale=st.scale, posted=st.posted, **kw)
-        return "dense.codes", lambda: _Pending(sequence_map, seqs, m_signed, step(), self._K())
+            step = functools.partial(place_batch_dense_codes, st.plane, st.radix, *args,
+                                     sigma=sigma, plane_scale=st.scale, **kw)
+        route = "dense.bytes" if self._fast_bytes else "dense.codes"
+        return route, lambda: _Pending(sequence_map, seqs, m_signed, step(), self._K())
 
     def _stage_codes(self, seqs):
         """Host staging of the codes steps (JAX ``_stage_codes``, placer.py:
@@ -521,12 +413,11 @@ class TorchPlacer(HostStaging):
         Returns (buf, arows, Amax, Lmax, m_signed), or None where JAX returns
         None (every read shorter than k, or a read longer than the uint16
         length). R is not padded."""
-        R = len(seqs)
-        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R)
-        Lmax_true = int(lens_arr.max())
-        if Lmax_true < self.k or Lmax_true > _MAX_READ_LEN:
+        gate = self._read_lengths(seqs)
+        if gate is None:
             return None
-        Lmax = _bucket_lmax(Lmax_true)
+        lens_arr, Lmax = gate
+        R = len(seqs)
         flat = np.frombuffer(b"".join(seqs), np.uint8)
         starts = np.concatenate([[0], np.cumsum(lens_arr)])
         buf = np.zeros((R, Lmax + 2), np.uint8)
@@ -552,7 +443,7 @@ class TorchPlacer(HostStaging):
         R = len(seqs)
         tokens = self._tokenize(seqs)
         m_signed = tokens.seq_lengths - self.k + 1  # int64, may be negative
-        m_f32 = self._to_device(_wrapped_m(m_signed))
+        m_f32 = self._to_device(wrapped_m(m_signed))
         wpr = int(np.bincount(tokens.exact_read, minlength=R).max()) if tokens.exact_read.size else 1
         apr = int(np.bincount(tokens.amb_read, minlength=R).max()) if tokens.amb_read.size else 1
         # JAX pads the window columns to a multiple of 16 (its jit cache);
@@ -560,7 +451,7 @@ class TorchPlacer(HostStaging):
         Wmax = max(1, wpr)
         st = self.state
         kw = dict(B=self.B, K=self._K(), k=self.k, log_eps=float(self.log_eps),
-                  eps=float(self.eps))
+                  eps=float(self.eps), gather=self._gather)
         if self._host_lookup:
             Amax = _bucket(apr, 8) if tokens.amb_keys.size else 0
             rows = self._rows_matrix(tokens.exact_keys, tokens.exact_read, R, Wmax)
@@ -568,7 +459,7 @@ class TorchPlacer(HostStaging):
             step = functools.partial(
                 place_batch_dense_rows, st.plane, self._to_device(rows), self._to_device(arows),
                 m_f32, Amax=Amax, zero_row=st.n_keys, shifted=self._shifted,
-                plane_scale=st.scale, posted=st.posted, **kw)
+                plane_scale=st.scale, **kw)
         else:
             Amax = _bucket(apr, 8)
             e_hi, e_lo = key_matrix(tokens.exact_keys, tokens.exact_read, R, Wmax)
@@ -614,12 +505,11 @@ class TorchPlacer(HostStaging):
         amb_mask)`` when it holds IUPAC reads, else ``(step, OV, m_signed)``:
         ``step(OV)`` enqueues the device step with the two-level overflow
         budget OV (None, and ignored, without the two-level split)."""
-        R = len(seqs)
-        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R)
-        Lmax_true = int(lens_arr.max())
-        if Lmax_true < self.k or Lmax_true > _MAX_READ_LEN:
+        gate = self._read_lengths(seqs)
+        if gate is None:
             return None
-        Lmax = _bucket_lmax(Lmax_true)
+        lens_arr, Lmax = gate
+        R = len(seqs)
         ts = self.tiles
         W = Lmax - self.k + 1
         # packed exactness gate: per-(read, branch) integer sums are bounded
@@ -670,7 +560,7 @@ class TorchPlacer(HostStaging):
         R = len(seqs)
         tokens = self._tokenize(seqs)
         m_signed = tokens.seq_lengths - self.k + 1  # int64, may be negative
-        m_f32 = _wrapped_m(m_signed)
+        m_f32 = wrapped_m(m_signed)
         n_e = tokens.exact_keys.shape[0]
         n_a = tokens.amb_keys.shape[0]
         E = _bucket(n_e, cfg.min_bucket)
@@ -699,65 +589,3 @@ class TorchPlacer(HostStaging):
             R=R, B=self.B, K=self._K(), k=self.k, log_eps=float(self.log_eps),
             eps=float(self.eps), flat=flat)
         return (lambda p, pa: step(P=p, PA=pa)), P, PA, m_signed
-
-    def _count_retry(self) -> None:
-        with self._retry_lock:  # the pipeline waits on batches from several threads
-            self.overflow_retries += 1
-
-    def place_wait(self, pending):
-        """Fetch a batch's result, re-running its step while a budget was too
-        small (placer.py:2720-2785), and assemble its jplace rows."""
-        if isinstance(pending, _SplitPending):
-            clean, amb = self.place_wait(pending.clean), self.place_wait(pending.amb)
-            with spans.span("place.assemble"):
-                return merge_split(pending, clean, amb)
-        if pending.out is None:
-            return PlacedCollection(sequence_map=pending.sequence_map, placed_seqs=[])
-        K = pending.K
-        with spans.span("place.sync"):
-            arr = pending.out.cpu().numpy()
-        budget = pending.budget
-        if budget is None:
-            # the dense steps: the shifted plane's slim (R, 2K+3) pack or the
-            # classic plane's full (R+1, 4K+2) one, whose widths differ for
-            # every K >= 1 (placer.py:2753-2758)
-            unpack = unpack_outputs_slim if arr.shape[1] == 2 * K + 3 else unpack_outputs
-        elif budget[0] == "tiles_ov":
-            # the last column carries each read's true overflow-window count
-            _, OV, rerun = budget
-            while arr.shape[0] and int(arr[:, -1].max()) > OV:
-                self._count_retry()
-                OV = _bucket(int(arr[:, -1].max()), 8)  # rerun clamps to W
-                with spans.span("place.retry"):
-                    spans.note("budget", OV)
-                    arr = rerun(OV).cpu().numpy()
-            arr = arr[:, :-1]
-            unpack = unpack_outputs_slim
-        else:
-            _, P, PA, rerun = budget
-            # the per-read budget is a multiple of 512, the flat one not
-            # (placer.py:2777)
-            lo = (self.config.min_bucket if self.config.accumulate == "scatter"
-                  else max(self.config.min_bucket, 512))
-            while True:
-                e_total, a_total = pack_totals(arr)
-                if e_total <= P and a_total <= PA:
-                    break
-                # budget overflow: grow the budget bucket and re-run
-                self._count_retry()
-                P = _bucket(e_total, lo) if e_total > P else P
-                PA = _bucket(a_total, self.config.min_bucket) if a_total > PA else PA
-                with spans.span("place.retry"):
-                    spans.note("budget", P)
-                    spans.note("budget_amb", PA)
-                    arr = rerun(P, PA).cpu().numpy()
-            unpack = unpack_outputs
-        with spans.span("place.assemble"):
-            scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum = unpack(arr, K)[:6]
-            return assemble_arrays(
-                pending.seqs, pending.sequence_map, pending.m_signed,
-                scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum, K,
-                distal=self.distal, pendant=self.pendant, log_eps=self.log_eps,
-                k=self.k, B=self.B, keep_at_most=self.config.keep_at_most,
-                keep_factor=self.config.keep_factor,
-            )

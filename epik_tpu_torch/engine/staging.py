@@ -21,7 +21,7 @@ from .. import native
 from ..core.kmers import BatchTokens, tokenize_batch
 
 __all__ = ["HostStaging", "_bucket", "_bucket_lmax", "key_matrix", "pack_reads",
-           "pad_i32", "pad_u64_split"]
+           "pad_i32", "pad_u64_split", "wrapped_m"]
 
 #: padding key of the CSR step's key stream: never a real key, always a miss
 SENTINEL_KEY = np.uint64(0xFFFFFFFFFFFFFFFF)
@@ -42,6 +42,15 @@ def _bucket_lmax(lmax_true: int) -> int:
         return -(-lmax_true // 8) * 8
     gran = 1 << (lmax_true.bit_length() - 4)
     return -(-lmax_true // gran) * gran
+
+
+def wrapped_m(m_signed: np.ndarray) -> np.ndarray:
+    """The correction term's window count as f32, size_t-wrapped (quirk Q1):
+    float32(2**64 - small) == float32(2**64), so the wrap collapses."""
+    return np.where(
+        m_signed >= 0, m_signed.astype(np.float32),
+        np.float32(float(1 << 64)) + m_signed.astype(np.float32),
+    ).astype(np.float32)
 
 
 def pack_reads(codes: np.ndarray, lens: np.ndarray) -> np.ndarray:

@@ -24,14 +24,15 @@
   with ``dense=True`` (per-read posting cells) or, with ``flat``, the
   scatter engine's flat posting budget (``accumulate="scatter"``).
 
-The shifted dense steps end in kernel 1 with the finish fused in (the slim
-(R, 2K+3) pack), or past its width rule or its shared-memory limit in the
-gather and the finish apart (the gather over the plane's posted cells where
-the state holds them); the classic ones in kernel 1 with counts and the counts finish fused
-in (the full (R+1, 4K+2) pack), or past its limit in the gather with counts
-and the counts finish apart; the CSR step in kernel 4 with counts (or its
-row-pointer form over the flat cells) and the counts finish
-(``finish_topk_counts``).
+The dense steps take their gather as one value, decided once by the placer
+(:func:`dense_gather`). The shifted ones end in kernel 1 with the finish
+fused in (the slim (R, 2K+3) pack), or past its width rule or its
+shared-memory limit in the gather and the finish apart (the gather over the
+plane's posted cells where the state holds them); the classic ones in kernel
+1 with counts and the counts finish fused in (the full (R+1, 4K+2) pack), or
+past its limit in the gather with counts and the counts finish apart; the
+CSR step in kernel 4 with counts (or its row-pointer form over the flat
+cells) and the counts finish (``finish_topk_counts``).
 """
 
 from __future__ import annotations
@@ -71,33 +72,40 @@ from ..ops.tokenize import (
 )
 from .outputs import U64
 
-__all__ = ["fused_finish", "place_batch_csr", "place_batch_dense_bytes",
+__all__ = ["dense_gather", "place_batch_csr", "place_batch_dense_bytes",
            "place_batch_dense_codes", "place_batch_dense_codes_paired",
            "place_batch_dense_paired", "place_batch_dense_rows",
            "place_batch_device_densedb", "place_batch_tiles_bytes",
-           "place_batch_tiles_paired", "sums_bytes"]
+           "place_batch_tiles_paired", "sums_bytes", "window_counts"]
 
 #: tile cells per read are padded with trash to a multiple of one warp's chunk
 _PP_ALIGN = 32
 
 
-def _m_f32(lens: torch.Tensor, k: int) -> torch.Tensor:
-    """The correction term's window count, size_t-wrapped (quirk Q1): a read
-    shorter than k has m = 2**64 + m_signed, which f32 rounds to 2**64."""
+def window_counts(lens: torch.Tensor, k: int) -> torch.Tensor:
+    """The correction term's window count m of each read as f32,
+    size_t-wrapped (quirk Q1): a read shorter than k has m = 2**64 +
+    m_signed, which f32 rounds to 2**64."""
     m_signed = (lens - (k - 1)).to(torch.float32)
     return torch.where(m_signed >= 0, m_signed, m_signed + float(U64))
 
 
-def fused_finish(plane, B: int, K: int, *, shifted: bool) -> bool:
-    """Whether a dense step over ``plane`` ends in a fused kernel rather than
-    the gather and the finish apart: on the shifted plane where the width
-    rule takes #1 (``shifted_fused``) and its shared memory fits
-    (``topk_fits``), on the classic plane where the counts kernel's fits
-    (``counts_topk_fits``). Decided before any launch, from the plane's
-    width, B and K alone."""
-    if shifted:
-        return shifted_fused(plane.shape[1]) and topk_fits(plane, B, K)
-    return counts_topk_fits(plane, B, K)
+def dense_gather(plane, B: int, K: int, *, shifted: bool, posted=None):
+    """The gather of every dense step over ``plane``, decided once from the
+    plane's width, B, K and its device: ``"fused"``, a kernel with the
+    finish fused in, on the shifted plane where the width rule takes #1
+    (``shifted_fused``) and its shared memory fits (``topk_fits``), on the
+    classic plane where the counts kernel's fits (``counts_topk_fits``);
+    else the plane's posted cells ``posted`` where given (a shifted f32
+    plane's :class:`~.state.PostedCells`, read by ``rowgather_sum_posted``),
+    else ``"rows"``: the gather apart over the plane's rows (1d, or the
+    gather with counts on the classic plane). The steps take this value as
+    ``gather``."""
+    fused = (shifted_fused(plane.shape[1]) and topk_fits(plane, B, K) if shifted
+             else counts_topk_fits(plane, B, K))
+    if fused:
+        return "fused"
+    return "rows" if posted is None else posted
 
 
 def sums_bytes(plane, R: int, *, shifted: bool) -> int:
@@ -109,34 +117,32 @@ def sums_bytes(plane, R: int, *, shifted: bool) -> int:
 
 def place_batch_dense_paired(plane, combo, buf, arows, *, B: int, K: int, Amax: int,
                              k: int, Lmax: int, num_kmers: int, log_eps: float,
-                             eps: float, posted=None) -> torch.Tensor:
+                             eps: float, gather) -> torch.Tensor:
     """Dense shifted step over the pair plane: the slot tokenizer's one
     kernel (rows and window counts, ``tokenize_combo_fused``), the ambiguous
     first-hit delta rows when ``Amax > 0``, then kernel 1 with the delta add
-    and the finish fused in, or its unfused pair (``_shifted_finish``; the
-    pair rows in batch order: a read order that groups shared plane rows
-    bought them no L2 reuse on the H100, PERF.md). Returns the slim (R, 2K+3)
-    f32 pack on the plane's device."""
+    and the finish fused in, or its unfused pair, as ``gather`` says
+    (``_shifted_finish``; the pair rows in batch order: a read order that
+    groups shared plane rows bought them no L2 reuse on the H100, PERF.md).
+    Returns the slim (R, 2K+3) f32 pack on the plane's device."""
     rows, _, m_f32 = tokenize_combo_fused(buf, combo, k=k, Lmax=Lmax)
     return _shifted_finish(plane, rows, m_f32, arows, B=B, K=K, Amax=Amax, k=k,
                            zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True,
-                           posted=posted)
+                           gather=gather)
 
 
 def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
-                    zero_row: int, log_eps: float, eps: float, plane_scale: float = 1.0,
-                    pair_rows: bool = False, posted=None) -> torch.Tensor:
+                    zero_row: int, log_eps: float, eps: float, gather,
+                    plane_scale: float = 1.0, pair_rows: bool = False) -> torch.Tensor:
     """The shifted plane's sums (an int16 plane's dequantized by
     ``plane_scale``), the ambiguous reads' delta rows when ``Amax > 0``, and
-    the finish, into the slim pack: kernel 1 with the finish fused in where
-    the width rule takes it (``shifted_fused``, the crossover measured on the
-    H100) and its shared memory fits (``topk_fits``), else the gather, the
-    delta add (the same f32 add) and ``finish_topk`` apart, decided before
-    any launch (``pair_rows``: the rows are the pair plane's, which both
-    routes take in read order). Apart, an f32 plane's sums come from its
-    posted cells where ``posted`` (the state's
-    :class:`~.state.PostedCells`) is given (``rowgather_sum_posted``, the
-    same bits), else from its rows (``rowgather_sum``)."""
+    the finish, into the slim pack, through the gather of
+    :func:`dense_gather`: ``"fused"``, kernel 1 with the finish fused in;
+    else the gather, the delta add (the same f32 add) and ``finish_topk``
+    apart, the sums from the plane's rows (``"rows"``, ``rowgather_sum``) or,
+    where ``gather`` is an f32 plane's :class:`~.state.PostedCells`, from its
+    posted cells (``rowgather_sum_posted``, the same bits). ``pair_rows``: the
+    rows are the pair plane's, which both routes take in read order."""
     quant = plane.dtype == torch.int16
     scale = plane_scale if quant else None
     amb_read = delta = None
@@ -144,35 +150,36 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
         amb_read, delta = amb_deltas(plane, arows, zero_row=zero_row, B=B, k=k, eps=eps,
                                      log_eps=log_eps, plane_scale=plane_scale)
     kw = dict(B=B, K=K, k=k, log_eps=log_eps, pair_rows=pair_rows)
-    if fused_finish(plane, B, K, shifted=True):
+    if gather == "fused":
         if quant:
             return rowgather_sum_topk_int16(plane, rows, m_f32, amb_read, delta, scale=scale,
                                             **kw)
         return rowgather_sum_topk(plane, rows, m_f32, amb_read, delta, **kw)
-    if posted is not None and not quant:
-        Sp = rowgather_sum_posted(posted.off, posted.cells, rows, bw=plane.shape[1])
-    else:
+    if gather == "rows":
         Sp = rowgather_sum(plane, rows, scale=scale, pair_rows=pair_rows)
+    else:
+        Sp = rowgather_sum_posted(gather.off, gather.cells, rows, bw=plane.shape[1])
     if amb_read is not None and amb_read.numel() > 0:
         Sp[amb_read, :B] = Sp[amb_read, :B] + delta
     return finish_topk(Sp[:, :B], m_f32, K=K, k=k, log_eps=log_eps)
 
 
 def _classic_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: int,
-                    zero_row: int, log_eps: float, eps: float) -> torch.Tensor:
+                    zero_row: int, log_eps: float, eps: float, gather: str) -> torch.Tensor:
     """The classic plane's sums S and exact counts C (an f32 or a bf16
     plane), the ambiguous first hit when ``Amax > 0``, and the counts finish,
-    into the full (R+1, 4K+2) pack with zero totals: kernel 1 with counts and
-    the finish fused in, or past its shared-memory limit
-    (``counts_topk_fits``) the gather with counts, the same adds of the first
-    hit and ``finish_topk_counts`` apart."""
+    into the full (R+1, 4K+2) pack with zero totals: with ``gather``
+    ``"fused"`` kernel 1 with counts and the finish fused in, with ``"rows"``
+    (past its shared-memory limit, :func:`dense_gather`) the gather with
+    counts, the same adds of the first hit and ``finish_topk_counts``
+    apart."""
     bf16 = plane.dtype == torch.bfloat16
     amb_read = dS = hit = None
     if Amax > 0:
         amb_read, dS, hit = amb_classic_deltas(plane, arows, zero_row=zero_row, B=B, k=k,
                                                eps=eps)
     kw = dict(K=K, k=k, log_eps=log_eps)
-    if fused_finish(plane, B, K, shifted=False):
+    if gather == "fused":
         fused = rowgather_sum_counts_topk_bf16 if bf16 else rowgather_sum_counts_topk
         return append_totals(fused(plane, rows, m_f32, amb_read, dS, hit, B=B, **kw), 0, 0)
     S, C = (rowgather_sum_counts_bf16 if bf16 else rowgather_sum_counts)(plane, rows)
@@ -182,8 +189,7 @@ def _classic_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
 
 def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: int, k: int,
                             Lmax: int, num_kmers: int, log_eps: float, eps: float,
-                            shifted: bool, plane_scale: float = 1.0,
-                            posted=None) -> torch.Tensor:
+                            shifted: bool, gather, plane_scale: float = 1.0) -> torch.Tensor:
     """Unpaired dense step: the device tokenizer through the direct key ->
     row table (one row per window, the miss row ``num_kmers``), then the
     shifted or the classic sums and finish. Returns the slim (R, 2K+3) pack
@@ -191,14 +197,14 @@ def place_batch_dense_bytes(plane, direct, buf, arows, *, B: int, K: int, Amax: 
     JAX pads the rows to a multiple of 16 with the zero row; that adds
     nothing to a sum, so the port does not."""
     rows, lens = tokenize_packed(buf, direct, k=k, Lmax=Lmax, num_kmers=num_kmers)
-    return place_batch_dense_rows(plane, rows, arows, _m_f32(lens, k), B=B, K=K, Amax=Amax,
+    return place_batch_dense_rows(plane, rows, arows, window_counts(lens, k), B=B, K=K, Amax=Amax,
                                   k=k, zero_row=num_kmers, log_eps=log_eps, eps=eps,
-                                  shifted=shifted, plane_scale=plane_scale, posted=posted)
+                                  shifted=shifted, gather=gather, plane_scale=plane_scale)
 
 
 def place_batch_dense_codes(plane, radix, buf, arows, *, B: int, K: int, Amax: int, k: int,
                             sigma: int, Lmax: int, num_kmers: int, log_eps: float,
-                            eps: float, plane_scale: float = 1.0, posted=None) -> torch.Tensor:
+                            eps: float, gather, plane_scale: float = 1.0) -> torch.Tensor:
     """Generic-alphabet dense step over the shifted plane (f32, or int16
     dequantized by ``plane_scale``): the codes tokenizer and the radix lookup
     (``radix``, a :class:`~..ops.radix_lookup.DeviceRadix`; a miss and a bad
@@ -206,15 +212,15 @@ def place_batch_dense_codes(plane, radix, buf, arows, *, B: int, K: int, Amax: i
     ambiguous delta rows and the finish (``_shifted_finish``). Returns the
     slim (R, 2K+3) pack."""
     rows, lens = tokenize_radix(buf, radix, k=k, sigma=sigma, Lmax=Lmax, num_kmers=num_kmers)
-    return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
-                           zero_row=num_kmers, log_eps=log_eps, eps=eps,
-                           plane_scale=plane_scale, posted=posted)
+    return _shifted_finish(plane, rows, window_counts(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
+                           zero_row=num_kmers, log_eps=log_eps, eps=eps, gather=gather,
+                           plane_scale=plane_scale)
 
 
 def place_batch_dense_codes_paired(plane, radix, pair_radix, buf, arows, *, B: int, K: int,
                                    Amax: int, k: int, sigma: int, Lmax: int, num_kmers: int,
-                                   n_pairs: int, log_eps: float,
-                                   eps: float, posted=None) -> torch.Tensor:
+                                   n_pairs: int, log_eps: float, eps: float,
+                                   gather) -> torch.Tensor:
     """Generic-alphabet dense step over the codes pair plane (shifted f32):
     one plane row per two windows (``tokenize_radix_paired``: a pair row found
     by ``pair_radix``, else the hitting window's row), then the shifted sums,
@@ -222,37 +228,38 @@ def place_batch_dense_codes_paired(plane, radix, pair_radix, buf, arows, *, B: i
     pack."""
     rows, lens = tokenize_radix_paired(buf, radix, pair_radix, k=k, sigma=sigma, Lmax=Lmax,
                                        num_kmers=num_kmers, n_pairs=n_pairs)
-    return _shifted_finish(plane, rows, _m_f32(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
+    return _shifted_finish(plane, rows, window_counts(lens, k), arows, B=B, K=K, Amax=Amax, k=k,
                            zero_row=num_kmers, log_eps=log_eps, eps=eps, pair_rows=True,
-                           posted=posted)
+                           gather=gather)
 
 
 def place_batch_dense_rows(plane, rows, arows, m_f32, *, B: int, K: int, Amax: int, k: int,
                            zero_row: int, log_eps: float, eps: float, shifted: bool,
-                           plane_scale: float = 1.0, posted=None) -> torch.Tensor:
+                           gather, plane_scale: float = 1.0) -> torch.Tensor:
     """Dense step over plane rows resolved on the host (int32 (R, Wmax),
     padding and misses on ``zero_row``) and the host's window counts
     ``m_f32``: the shifted or the classic sums and finish (the slim or the
-    full pack); ``posted``, a shifted plane's posted cells."""
-    kw = dict(B=B, K=K, Amax=Amax, k=k, zero_row=zero_row, log_eps=log_eps, eps=eps)
+    full pack) through ``gather`` (:func:`dense_gather`)."""
+    kw = dict(B=B, K=K, Amax=Amax, k=k, zero_row=zero_row, log_eps=log_eps, eps=eps,
+              gather=gather)
     if shifted:
-        return _shifted_finish(plane, rows, m_f32, arows, plane_scale=plane_scale,
-                               posted=posted, **kw)
+        return _shifted_finish(plane, rows, m_f32, arows, plane_scale=plane_scale, **kw)
     return _classic_finish(plane, rows, m_f32, arows, **kw)
 
 
 def place_batch_device_densedb(table, seed1: int, seed2: int, plane, e_hi, e_lo, a_hi,
                                a_lo, m_f32, *, B: int, K: int, k: int, zero_row: int,
-                               log_eps: float, eps: float) -> torch.Tensor:
+                               log_eps: float, eps: float, gather: str) -> torch.Tensor:
     """Classic dense step with the keys resolved on the device: the window
     keys (R, Wmax) and the ambiguous keys (R, Amax) in processing order,
     sentinel-padded, through the cuckoo table (``ops/hashtable.py::lookup``,
     payload the plane row; a miss takes ``zero_row``), then the classic sums,
-    the ambiguous first hit and the counts finish into the full pack."""
+    the ambiguous first hit and the counts finish into the full pack
+    (``gather``: :func:`dense_gather`)."""
     rows = lookup_rows(table, seed1, seed2, e_hi, e_lo, zero_row=zero_row)
     arows = lookup_rows(table, seed1, seed2, a_hi, a_lo, zero_row=zero_row)
     return _classic_finish(plane, rows, m_f32, arows, B=B, K=K, Amax=arows.shape[1], k=k,
-                           zero_row=zero_row, log_eps=log_eps, eps=eps)
+                           zero_row=zero_row, log_eps=log_eps, eps=eps, gather=gather)
 
 
 def _pad_trash(x: torch.Tensor, value) -> torch.Tensor:
@@ -280,7 +287,7 @@ def place_batch_tiles_bytes(tiles, direct, buf, tiles_ov=None, *, B: int, K: int
     Reads with ambiguous characters are not handled here: the placer sends
     them to the CSR step."""
     rows, lens = tokenize_packed(buf, direct, k=k, Lmax=Lmax, num_kmers=num_kmers)
-    m_f32 = _m_f32(lens, k)
+    m_f32 = window_counts(lens, k)
     R, W = rows.shape
     trash = tile_width(B) - 1
     g = tiles[rows.long()]  # (R, W, PT) packed, (R, W, 2*PT) f32 pairs
@@ -316,7 +323,7 @@ def place_batch_tiles_paired(tiles, direct, direct11, buf, *, B: int, K: int, k:
     rows, lens = tokenize_paired(buf, direct, direct11, k=k, Lmax=Lmax, num_kmers=num_kmers)
     R, Wp = rows.shape
     g = tiles[rows.long()].reshape(R, Wp * 2 * PT)
-    return accumulate_packed_topk(_pad_trash(g, (tile_width(B) - 1) << 16), _m_f32(lens, k),
+    return accumulate_packed_topk(_pad_trash(g, (tile_width(B) - 1) << 16), window_counts(lens, k),
                                   B=B, K=K, k=k, log_eps=log_eps, scale=scale)
 
 

@@ -1,7 +1,7 @@
 // The pair-plane slot tokenizer: from the packed read buffer to one combo-table
 // row per 2-window slot, each read's length and its window count m, in one
 // launch. It computes what ops/tokenize.py::tokenize_combo and
-// engine/step.py::_m_f32 compute together, bit for bit.
+// engine/step.py::window_counts compute together, bit for bit.
 //
 // Replaces no TPU kernel: the JAX package's device_tokenize_combo
 // (epik_tpu/engine/placer.py:1038) is XLA ops, ported as torch ops. On the

@@ -1,8 +1,8 @@
 """The pair-plane slot tokenizer as one kernel.
 
 ``tokenize_combo_fused(buf, combo, k=, Lmax=)`` computes what
-``ops/tokenize.py::tokenize_combo`` and ``engine/step.py::_m_f32`` compute
-together on the dense pair-plane steps: from the packed read buffer
+``ops/tokenize.py::tokenize_combo`` and ``engine/step.py::window_counts``
+compute together on the dense pair-plane steps: from the packed read buffer
 (``staging.pack_reads``) and the combo table (``tables.build_combo_table``),
 one plane row per 2-window slot, each read's length and its window count
 ``m_f32`` (wrapped to 2**64 below k, quirk Q1). On the card that is one
@@ -53,10 +53,10 @@ def tokenize_combo_fused(buf: torch.Tensor, combo: torch.Tensor, *, k: int, Lmax
     W = Lmax - k + 1."""
     _check_args(buf, combo, k, Lmax)
     if buf.device.type == "cpu":
-        from ..engine.step import _m_f32  # engine.step imports this module
+        from ..engine.step import window_counts  # engine.step imports this module
 
         rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
-        return rows, lens, _m_f32(lens, k)
+        return rows, lens, window_counts(lens, k)
     if buf.device.type != "cuda":
         raise ValueError(f"tokenize_combo_fused: no kernel for device {buf.device}")
     R = buf.shape[0]

@@ -29,8 +29,9 @@ Ports ``epik_tpu/parallel/sharding.py``:
   with counts (per-read cells) or, with ``accumulate="scatter"``, its
   row-pointer form over a flat posting budget (JAX's ``dense_acc=False``),
   and the counts finish (``finish_topk_counts``, slim pack);
-* :class:`ShardedTorchPlacer` (``ShardedJaxPlacer`` :810-1410), its routing,
-  dispatch, budget retries and assembly.
+* :class:`ShardedTorchPlacer` (``ShardedJaxPlacer`` :810-1410), its routing
+  and dispatch; the dedup, budget retries and assembly are the surface it
+  shares with the single-device placer (``engine/surface.py``).
 
 Each step takes ``exchange``: on a mesh row whose shards lie in several
 processes, a step runs the kernels of this process's shards, then
@@ -46,30 +47,20 @@ from __future__ import annotations
 import dataclasses
 import functools
 import math
-import threading
 import time
 import zlib
 
 import numpy as np
 import torch
 
-from ..core.alphabet import get_alphabet
-from ..core.scoring import score_threshold
-from ..engine.config import PlacerConfig, check_supported, device_budget
-from ..engine.outputs import _Pending, assemble_arrays, unpack_body, unpack_outputs_slim
-from ..engine.placer import (
-    _MAX_DIRECT_K,
-    _MAX_PAIR_K,
-    _MAX_READ_LEN,
-    _MAX_TILE_PLEN,
-    _wrapped_m,
-)
-from ..engine.staging import HostStaging, _bucket, _bucket_lmax, pad_i32, pad_u64_split
+from ..engine.config import PlacerConfig, device_budget
+from ..engine.outputs import _Pending
+from ..engine.staging import _bucket, pad_i32, pad_u64_split, wrapped_m
 from ..engine.state import CsrState, build_plane_shard, pair_tables
-from ..engine.step import _m_f32
+from ..engine.step import window_counts
+from ..engine.surface import MAX_DIRECT_K, MAX_PAIR_K, MAX_TILE_PLEN, PlacerSurface
 from ..engine.tables import direct_table
 from ..engine.tiles import Q_MAX
-from ..engine.types import PlacedCollection
 from ..kernels.accumulate_packed import MAX_PACKED_BRANCHES, accumulate_packed_sums, tile_width
 from ..kernels.accumulate_sums import accumulate_sums
 from ..kernels.finish import POW10_ZERO, finish_topk_counts
@@ -514,7 +505,7 @@ def _dense_step(planes, tokenize, arows, m_f32, *, shifted: bool, B: int, K: int
     here = [dev for dev in devs if dev is not None]
     tok = _on_devices(here, lambda dev: (*tokenize(devs.index(dev), dev), arows.to(dev)))
     if m_f32 is None:
-        m_f32 = _m_f32(tok[here[0]][1], k)
+        m_f32 = window_counts(tok[here[0]][1], k)
     m_on = _on_devices(here, lambda dev: m_f32.to(dev).contiguous())
     fkw = dict(K=K, k=k, log_eps=log_eps)
     parts = [None] * len(planes)
@@ -632,7 +623,7 @@ def sharded_tiles_bytes_step(tiles, direct, buf, tiles_ov=None, *, B: int, bwl: 
             sc = _pad_cells(g[..., 1], 0).view(torch.float32)
             Sps.append(accumulate_sums(b, sc, B=bwl))
     rows, lens = next(iter(tok.values()))
-    outs = finish_scores_cols_shifted(Sps, _m_f32(lens, k), B=B, K=K, k=k, log_eps=log_eps,
+    outs = finish_scores_cols_shifted(Sps, window_counts(lens, k), B=B, K=K, k=k, log_eps=log_eps,
                                       exchange=exchange)
     pack = _pack_slim(outs)
     if tile_scale > 0.0 and PT_OV > 0:
@@ -688,7 +679,7 @@ def sharded_csr_bytes_step(shards: list[CsrState | None], buf, *, R: int, B: int
                                     st.row_off, e_hi, e_lo, e_read, R=R, B=B, P=Pb, flat=flat))
     lens = next(iter(tok.values()))[3]
     S, C, e_tot = zip(*_all_shards(parts, exchange))
-    slim = finish_topk_counts(_merge_sum(S), _merge_sum(C), _m_f32(lens, k), K=K, k=k,
+    slim = finish_topk_counts(_merge_sum(S), _merge_sum(C), window_counts(lens, k), K=K, k=k,
                               log_eps=log_eps, full=False)
     return append_totals(slim, _merge_max(e_tot), 0)
 
@@ -805,10 +796,11 @@ def _gather_groups(local: dict, tag) -> dict:
     return merged
 
 
-class ShardedTorchPlacer(HostStaging):
+class ShardedTorchPlacer(PlacerSurface):
     """Multi-device placer over a :class:`~.mesh.Mesh`, with the
     ``place``/``place_async``/``place_wait`` surface that
-    ``engine/pipeline.py::run_pipeline`` drives.
+    ``engine/pipeline.py::run_pipeline`` drives
+    (``engine/surface.py::PlacerSurface``).
 
     Routing (``ShardedJaxPlacer`` :851-1013):
 
@@ -847,41 +839,21 @@ class ShardedTorchPlacer(HostStaging):
     data group's shards lie in several processes, the step exchanges the
     shards' partial results within the row (``exchange.py``) and every rank
     of the row merges them alike (``model_exchanges``,
-    ``model_exchange_seconds``). ``place_wait`` all-gathers the groups'
-    packs, each from its row's lead rank, so every rank returns the whole
-    batch and takes the same budget retries (JAX's ``_fetch`` :1302-1314).
+    ``model_exchange_seconds``). ``_fetch`` all-gathers the groups' packs,
+    each from its row's lead rank, so every rank returns the whole batch and
+    takes the same budget retries (JAX's ``_fetch`` :1302-1314).
     The budget is the least over the ranks, so every rank takes the same
     route. Every rank must place the same batches in the same order."""
 
     def __init__(self, db, tree, mesh: Mesh, keep_at_most: int | None = None,
                  keep_factor: float | None = None, config: PlacerConfig | None = None):
-        self.db = db
-        self.tree = tree
+        super().__init__(db, tree, keep_at_most, keep_factor, config)
         self.mesh = mesh
         self.n_data = mesh.shape[DATA_AXIS]
         self.n_model = mesh.shape[MODEL_AXIS]
-        # copy: never mutate a caller-supplied config; explicit kwargs win
-        self.config = dataclasses.replace(config) if config else PlacerConfig()
-        if keep_at_most is not None:
-            self.config.keep_at_most = keep_at_most
-        if keep_factor is not None:
-            self.config.keep_factor = keep_factor
-        check_supported(self.config)
-        self.alphabet = get_alphabet(db.sequence_type)
-        self.k = db.kmer_size
-        self.B = tree.get_node_count()
-        self._init_staging()
-        #: budget-overflow re-dispatches (the tiles' OV, the CSR steps' Pb/PAb)
-        self.overflow_retries = 0
-        self._retry_lock = threading.Lock()
-        self.eps = np.float32(score_threshold(db.omega, self.k, self.alphabet.sigma))
-        self.log_eps = np.float32(np.log10(self.eps))
-        num, tot = tree.tree_index()
-        self.distal = tree.branch_lengths / 2.0
-        mean = np.where(num > 1, tot / np.maximum(num, 1), 0.0)
-        self.pendant = mean + self.distal
-
         cfg = self.config
+        #: a retried per-read budget rounds to min_bucket, as in JAX (:1316-1387)
+        self._csr_floor = cfg.min_bucket
         #: the device tokenizers, the tiles and the CSR bytes step are DNA-only
         #: (the JAX package's sigma == 4 gates, :892, 984, 1200): an amino
         #: database takes the host-tokenized rows step or the CSR key streams
@@ -924,9 +896,9 @@ class ShardedTorchPlacer(HostStaging):
         self._csr = _per_device(mesh, self.n_model, self._sdb.shard_state)
         lens = np.diff(db.row_off)
         max_plen = int(lens.max()) if lens.size else 0
-        if (not self._flat and self._dna and self.k <= _MAX_DIRECT_K and shift_ok
+        if (not self._flat and self._dna and self.k <= MAX_DIRECT_K and shift_ok
                 and db.num_kmers > 0
-                and 0 < max_plen <= _MAX_TILE_PLEN and cfg.precision == "exact"
+                and 0 < max_plen <= MAX_TILE_PLEN and cfg.precision == "exact"
                 and cfg.tokenize_where in ("auto", "device")):
             (tiles, bwl_t, PT, t_scale, tiles_ov, PT_OV, n_ov, frac_over,
              perm) = shard_tiles_columns(db, self.n_model, self.B, float(self.log_eps))
@@ -972,10 +944,10 @@ class ShardedTorchPlacer(HostStaging):
         self._shifted = (cfg.plane_mode == "shifted" and cfg.precision == "exact"
                          and shift_ok)
         self._fast_bytes = (cfg.tokenize_where in ("auto", "device") and self._dna
-                            and self.k <= _MAX_DIRECT_K)
+                            and self.k <= MAX_DIRECT_K)
         pairs = None
         if (self._fast_bytes and self._shifted and cfg.pair_plane in ("auto", "on")
-                and self.k <= _MAX_PAIR_K and db.num_kmers > 0):
+                and self.k <= MAX_PAIR_K and db.num_kmers > 0):
             pu, pv, combo = pair_tables(db, self.k)
             n_pairs = int(pu.shape[0])
             paired_bytes = (db.num_kmers + 1 + n_pairs) * self._bwl * 4 * self._per_dev
@@ -1016,32 +988,9 @@ class ShardedTorchPlacer(HostStaging):
         gran = 256 if R_true > 2048 else 64
         return -(-per // gran) * gran
 
-    def _K(self) -> int:
-        return min(self.config.keep_at_most, self.B)
+    # -- the engine's part of the place surface --------------------------------
 
-    # -- the place surface ----------------------------------------------------
-
-    def place(self, records: list[tuple[str, bytes]]) -> PlacedCollection:
-        """Synchronous place (reference surface: place.cpp:201)."""
-        return self.place_wait(self.place_async(records))
-
-    def place_async(self, records: list[tuple[str, bytes]]) -> _Pending:
-        """Stage a batch and enqueue its device steps without waiting."""
-        sequence_map: dict[bytes, list[str]] = {}
-        for header, seq in records:
-            sequence_map.setdefault(seq, []).append(header)
-        seqs = list(sequence_map.keys())
-        if not seqs:
-            return _Pending(sequence_map, [], None, None, self._K())
-        if self._dense_db:
-            return self._place_async_dense(sequence_map, seqs)
-        if self._tiles_mode:
-            pending = self._place_async_tiles(sequence_map, seqs)
-            if pending is not None:
-                return pending
-        return self._place_async_csr(sequence_map, seqs)
-
-    def _place_async_dense(self, sequence_map, seqs) -> _Pending:
+    def _prepare_dense(self, sequence_map, seqs):
         """Column-sharded dense dispatch (``_place_async_dense`` :1112-1183):
         with the device tokenizer, one packed buffer and the host-tokenized
         ambiguous rows, through the paired or the bytes step; otherwise (no
@@ -1052,28 +1001,29 @@ class ShardedTorchPlacer(HostStaging):
         R_loc = self._padded_batch_geometry(R_true)
         R_tot = self.n_data * R_loc
         K = self._K()
-        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R_true)
-        m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
-        Lmax_true = int(lens_arr.max())
         kw = dict(B=self.B, K=K, k=self.k, log_eps=float(self.log_eps), eps=float(self.eps))
 
         def groups(a: np.ndarray) -> list[torch.Tensor]:
             t = torch.from_numpy(a)
             return [t[d * R_loc:(d + 1) * R_loc] for d in range(self.n_data)]
 
-        if self._fast_bytes and self.k <= Lmax_true <= _MAX_READ_LEN:
-            Lmax = _bucket_lmax(Lmax_true)
-            buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R_tot)
-            arows, Amax = self._amb_rows(seqs, amb_mask, R_tot)
+        staged = self._stage_bytes(seqs, R_tot) if self._fast_bytes else None
+        if staged is not None:
+            buf, arows, Amax, Lmax, m_signed = staged
             kw.update(Amax=Amax, Lmax=Lmax, num_kmers=self.db.num_kmers)
             step = (functools.partial(sharded_dense_paired_step, **kw) if self._paired
                     else functools.partial(sharded_dense_bytes_step, shifted=self._shifted,
                                            **kw))
             bufs, arows_g = groups(buf), groups(arows)
-            out = self._run_groups(lambda d, x: step(self._planes[d], self._table[d], bufs[d],
-                                                     arows_g[d], exchange=x))
-            return _Pending(sequence_map, seqs, m_signed, out, K)
+
+            def launch_bytes() -> _Pending:
+                out = self._run_groups(lambda d, x: step(self._planes[d], self._table[d],
+                                                         bufs[d], arows_g[d], exchange=x))
+                return _Pending(sequence_map, seqs, m_signed, out, K)
+
+            return "dense.bytes", launch_bytes
         tokens = self._tokenize(seqs)
+        m_signed = tokens.seq_lengths - self.k + 1  # int64, may be negative
         ex, am = tokens.exact_read, tokens.amb_read
         # JAX pads the window columns to a multiple of 16 (its jit cache);
         # extra zero-row slots add nothing to a sum
@@ -1082,25 +1032,27 @@ class ShardedTorchPlacer(HostStaging):
         rows = self._rows_matrix(tokens.exact_keys, ex, R_tot, Wmax)
         arows = self._rows_matrix(tokens.amb_keys, am, R_tot, Amax)
         m_pad = np.zeros(R_tot, np.float32)
-        m_pad[:R_true] = _wrapped_m(m_signed)
+        m_pad[:R_true] = wrapped_m(m_signed)
         step = functools.partial(sharded_dense_rows_step, Amax=Amax,
                                  zero_row=self.db.num_kmers, shifted=self._shifted, **kw)
         rows_g, arows_g, m_g = groups(rows), groups(arows), groups(m_pad)
-        out = self._run_groups(lambda d, x: step(self._planes[d], rows_g[d], arows_g[d], m_g[d],
-                                                 exchange=x))
-        return _Pending(sequence_map, seqs, m_signed, out, K)
 
-    def _place_async_tiles(self, sequence_map, seqs):
+        def launch_rows() -> _Pending:
+            out = self._run_groups(lambda d, x: step(self._planes[d], rows_g[d], arows_g[d],
+                                                     m_g[d], exchange=x))
+            return _Pending(sequence_map, seqs, m_signed, out, K)
+
+        return "dense.host", launch_rows
+
+    def _prepare_tiles(self, sequence_map, seqs):
         """Column-sharded tile dispatch; None for a batch the tile step cannot
         take (an IUPAC read, reads too long for the packed payload, no read
         of k characters): the CSR step takes it whole."""
-        R_true = len(seqs)
-        R_loc = self._padded_batch_geometry(R_true)
-        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R_true)
-        Lmax_true = int(lens_arr.max())
-        if not self.k <= Lmax_true <= _MAX_READ_LEN:
+        gate = self._read_lengths(seqs)
+        if gate is None:
             return None
-        Lmax = _bucket_lmax(Lmax_true)
+        lens_arr, Lmax = gate
+        R_loc = self._padded_batch_geometry(len(seqs))
         W = Lmax - self.k + 1
         # packed exactness gate: per-(read, branch) integer sums are bounded
         # by W * 64000 and must stay < 2**24 for exact f32 sums
@@ -1123,27 +1075,24 @@ class ShardedTorchPlacer(HostStaging):
 
         m_signed = lens_arr - self.k + 1  # host copy for assembly (quirk Q1)
         if self._tile_pt_ov == 0:
-            return _Pending(sequence_map, seqs, m_signed, run(0), self._K())
+            return "tiles", lambda: _Pending(sequence_map, seqs, m_signed, run(0), self._K())
         # static overflow-window budget: expected overflow windows per read
         # x2 safety, bucketed; place_wait retries on a read above it
         OV = min(W, _bucket(max(8, int(W * self._tile_frac_over * 2.0) + 4), 8))
-        return _Pending(sequence_map, seqs, m_signed, run(OV), self._K(),
-                        ("tiles_ov", OV, lambda ov: run(min(ov, W))))
+        return "tiles", lambda: _Pending(sequence_map, seqs, m_signed, run(OV), self._K(),
+                                         ("tiles_ov", OV, lambda ov: run(min(ov, W))))
 
-    def _place_async_csr(self, sequence_map, seqs) -> _Pending:
+    def _prepare_csr(self, sequence_map, seqs):
         """Hash-sharded CSR dispatch: clean DNA batches through the bytes
-        step, the rest through host-staged key streams."""
+        step (``csr.bytes``), the rest through host-staged key streams."""
         cfg = self.config
-        R_true = len(seqs)
-        R_loc = self._padded_batch_geometry(R_true)
+        R_loc = self._padded_batch_geometry(len(seqs))
         R_tot = self.n_data * R_loc
         K = self._K()
-        nd = self.n_data
         est = max(1, int(self._sdb.avg_plen * cfg.budget_headroom))
-        lens_arr = np.fromiter((len(s) for s in seqs), np.int64, count=R_true)
-        Lmax_true = int(lens_arr.max())
-        if self._dna and self.k <= _MAX_BYTES_K and self.k <= Lmax_true <= _MAX_READ_LEN:
-            Lmax = _bucket_lmax(Lmax_true)
+        gate = self._read_lengths(seqs) if self._dna and self.k <= _MAX_BYTES_K else None
+        if gate is not None:
+            lens_arr, Lmax = gate
             buf, amb_mask = self._pack_reads_fast(seqs, lens_arr, Lmax, R_tot)
             if not amb_mask.any():
                 W = Lmax - self.k + 1
@@ -1161,10 +1110,11 @@ class ShardedTorchPlacer(HostStaging):
                     return self._run_groups(lambda d, x: step(
                         self._csr[d], buf_t[d * R_loc:(d + 1) * R_loc], Pb=Pb_, exchange=x))
 
-                return _Pending(sequence_map, seqs, lens_arr - self.k + 1, run_bytes(Pb, 0),
-                                K, ("csr", Pb, 0, run_bytes))
+                return "csr.bytes", lambda: _Pending(sequence_map, seqs, lens_arr - self.k + 1,
+                                                     run_bytes(Pb, 0), K,
+                                                     ("csr", Pb, 0, run_bytes))
 
-        groups = [seqs[g * R_loc:(g + 1) * R_loc] for g in range(nd)]
+        groups = [seqs[g * R_loc:(g + 1) * R_loc] for g in range(self.n_data)]
         toks = [self._tokenize(g) for g in groups]
         m_signed = np.concatenate([t.seq_lengths - self.k + 1 for t in toks])
         E = _bucket(max(t.exact_keys.shape[0] for t in toks), cfg.min_bucket)
@@ -1183,9 +1133,7 @@ class ShardedTorchPlacer(HostStaging):
         def stage_group(t):
             e_hi, e_lo = pad_u64_split(t.exact_keys, E)
             a_hi, a_lo = pad_u64_split(t.amb_keys, A)
-            ms = t.seq_lengths - self.k + 1
-            m_f32 = np.where(ms >= 0, ms.astype(np.float32),
-                             np.float32(float(1 << 64)) + ms.astype(np.float32))
+            m_f32 = wrapped_m(t.seq_lengths - self.k + 1)
             m_pad = np.zeros(R_loc, np.float32)
             m_pad[: m_f32.shape[0]] = m_f32
             return (i64(e_hi), i64(e_lo), i64(pad_i32(t.exact_read, E, R_loc)),
@@ -1201,9 +1149,8 @@ class ShardedTorchPlacer(HostStaging):
             return self._run_groups(lambda d, x: step(self._csr[d], *staged[d], Pb=Pb_, PAb=PAb_,
                                                       exchange=x))
 
-        return _Pending(sequence_map, seqs, m_signed, run(Pb, PAb), K, ("csr", Pb, PAb, run))
-
-    # -- wait + assembly ------------------------------------------------------
+        return "csr", lambda: _Pending(sequence_map, seqs, m_signed, run(Pb, PAb), K,
+                                       ("csr", Pb, PAb, run))
 
     def _run_groups(self, step) -> list[torch.Tensor | None]:
         """``step(d, exchange)`` for each data group d this process holds a
@@ -1212,81 +1159,20 @@ class ShardedTorchPlacer(HostStaging):
         return [step(d, self._exchange.row(d)) if d in self._local else None
                 for d in range(self.n_data)]
 
-    def _fetch(self, out: list[torch.Tensor | None], tag) -> np.ndarray:
+    def _fetch(self, out: list[torch.Tensor | None], seqs) -> np.ndarray:
         """The data groups' packs as one (n_data, rows, width) host array. On
         a mesh over several processes each row's lead rank holds its pack
         (every rank of the row merged the same one); an all-gather gives
         every rank the whole batch, so that each rank assembles it and
-        decides the budget retries alike."""
+        decides the budget retries alike. The batch is known to every rank
+        by its distinct reads' count and its first read (``seqs``)."""
         rank = self.mesh.rank
         packs = {d: o.cpu().numpy() for d, o in enumerate(out)
                  if o is not None and self.mesh.lead(d) == rank}
         if self.mesh.multi_process:
             t0 = time.perf_counter()
-            packs = _gather_groups(packs, tag)
+            packs = _gather_groups(packs, (len(seqs), zlib.crc32(seqs[0])))
             with self._retry_lock:
                 self.gather_seconds += time.perf_counter() - t0
                 self.gathers += 1
         return np.stack([packs[d] for d in range(self.n_data)])
-
-    def _count_retry(self) -> None:
-        with self._retry_lock:  # the pipeline waits on batches from several threads
-            self.overflow_retries += 1
-
-    def place_wait(self, pending: _Pending) -> PlacedCollection:
-        """Fetch a batch's packs, re-running its steps while a static budget
-        was too small (``ShardedJaxPlacer.place_wait`` :1316-1387), and
-        assemble its jplace rows."""
-        if pending.out is None:
-            return PlacedCollection(sequence_map=pending.sequence_map, placed_seqs=[])
-        R_true = len(pending.seqs)
-        # the batch as every rank knows it: its unique reads and the first one
-        tag = (R_true, zlib.crc32(pending.seqs[0]))
-        arr = self._fetch(pending.out, tag)
-        budget = pending.budget
-        if budget is None:
-            # the slim (R, 2K+3) pack, or the classic dense steps' full (R+1,
-            # 4K+2) one with its totals row; their widths differ for every K
-            body = arr if arr.shape[2] == 2 * pending.K + 3 else arr[:, :-1, :]
-        elif budget[0] == "tiles_ov":
-            # the last column carries each read's true overflow-window count
-            _, OV, rerun = budget
-            while int(arr[:, :, -1].max()) > OV:
-                self._count_retry()
-                OV = _bucket(int(arr[:, :, -1].max()), 8)  # rerun clamps to W
-                arr = self._fetch(rerun(OV), tag)
-            body = arr[:, :, :-1]
-        else:
-            # the last row carries the budget totals in 20-bit halves; a hot
-            # shard (skewed posting lengths) overflows the uniform estimate
-            _, Pb, PAb, rerun = budget
-            while True:
-                totals = arr[:, -1, :].astype(np.int64)
-                e_tot = int(((totals[:, 0] << 20) + totals[:, 1]).max())
-                a_tot = int(((totals[:, 2] << 20) + totals[:, 3]).max())
-                if e_tot <= Pb and a_tot <= PAb:
-                    break
-                self._count_retry()
-                Pb = _bucket(e_tot, self.config.min_bucket) if e_tot > Pb else Pb
-                PAb = _bucket(a_tot, self.config.min_bucket) if a_tot > PAb else PAb
-                arr = self._fetch(rerun(Pb, PAb), tag)
-            body = arr[:, :-1, :]
-        return self._assemble_flat(pending, body.reshape(-1, body.shape[2])[:R_true])
-
-    def _assemble_flat(self, pending: _Pending, flat: np.ndarray) -> PlacedCollection:
-        """Array-backed jplace rows from the batch's (R_true, 2K+3) slim pack
-        or (R_true, 4K+2) full rows (the shared vectorised assembly of
-        ``engine/outputs.py``)."""
-        K = pending.K
-        if flat.shape[1] == 2 * K + 3:
-            scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum = unpack_outputs_slim(
-                flat, K)[:6]
-        else:
-            scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum = unpack_body(flat, K)
-        return assemble_arrays(
-            pending.seqs, pending.sequence_map, pending.m_signed,
-            scores_k, idx_k, counts_k, wr_k, n_touched, zero_sum, K,
-            distal=self.distal, pendant=self.pendant, log_eps=self.log_eps,
-            k=self.k, B=self.B, keep_at_most=self.config.keep_at_most,
-            keep_factor=self.config.keep_factor,
-        )

@@ -10,7 +10,7 @@ its first batch of 16,384 reads (IUPAC reads among them), and
 
 * the dense device step;
 * the slot tokenizer's kernel (``tokenize_combo_fused``) and the torch ops
-  it replaces (``tokenize_combo`` + ``_m_f32``), on the batch and on its
+  it replaces (``tokenize_combo`` + ``window_counts``), on the batch and on its
   first 2,000 reads (the benchmark cell's batch);
 * the gather alone (``rowgather_sum``) and the finish alone (``finish_topk``)
   on its sums, and their sum: what the dense step ran before the fusion;
@@ -196,7 +196,7 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     from epik_tpu_torch import kernels as kernels_mod
     from epik_tpu_torch.core.tree import parse_newick
     from epik_tpu_torch.engine.placer import TorchPlacer
-    from epik_tpu_torch.engine.step import _m_f32, place_batch_dense_paired
+    from epik_tpu_torch.engine.step import dense_gather, place_batch_dense_paired, window_counts
     from epik_tpu_torch.ops import dense as dense_mod
     from epik_tpu_torch.ops.tokenize import tokenize_combo
 
@@ -211,17 +211,18 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
     kw = dict(K=K, k=k, log_eps=float(placer.log_eps))
     step_kw = dict(B=B, Amax=Amax, Lmax=Lmax, num_kmers=st.n_keys, eps=float(placer.eps),
                    **kw)
+
+    def dense_step():  # the gather as the width rule gives it at each call
+        return place_batch_dense_paired(st.plane, st.combo, buf_t, arows_t, gather=dense_gather(
+            st.plane, B, K, shifted=True), **step_kw)
+
     out["dense_R"] = len(seqs)
-    out["dense_step_ms"] = cuda_ms(torch, lambda: place_batch_dense_paired(
-        st.plane, st.combo, buf_t, arows_t, **step_kw))
-    routes = route_turns(torch, lambda: place_batch_dense_paired(
-        st.plane, st.combo, buf_t, arows_t, **step_kw), cols=False)
+    out["dense_step_ms"] = cuda_ms(torch, dense_step)
+    routes = route_turns(torch, dense_step, cols=False)
     if routes is not None:
         out["dense_step_by_route"] = routes
     if profile:
-        print_profile(torch, lambda: place_batch_dense_paired(
-            st.plane, st.combo, buf_t, arows_t, **step_kw),
-            f"dense step, R={len(seqs)}, Amax={Amax}")
+        print_profile(torch, dense_step, f"dense step, R={len(seqs)}, Amax={Amax}")
     fused_tok = getattr(kernels_mod, "tokenize_combo_fused", None)
     if fused_tok is None:
         out["skipped"].append("tokenize_combo_fused: the port has no tokenizer kernel")
@@ -229,7 +230,7 @@ def dense_times(torch, dev, out: dict, profile: bool = False) -> None:
         b, _, _, L, _ = placer._stage_bytes(batch)
         b_t = torch.from_numpy(b).to(dev)
         out[f"tokenize_combo_torch{tag}_ms"] = cuda_ms(
-            torch, lambda: _m_f32(tokenize_combo(b_t, st.combo, k=k, Lmax=L)[1], k))
+            torch, lambda: window_counts(tokenize_combo(b_t, st.combo, k=k, Lmax=L)[1], k))
         if fused_tok is not None:
             out[f"tokenize_combo_fused{tag}_ms"] = cuda_ms(
                 torch, lambda: fused_tok(b_t, st.combo, k=k, Lmax=L))
@@ -297,7 +298,8 @@ def codes_times(torch, dev, out: dict, profile: bool = False) -> None:
     def step():
         return step_mod.place_batch_dense_codes(
             st.plane, st.radix, buf_t, arows_t, Amax=Amax, num_kmers=st.n_keys,
-            eps=float(placer.eps), plane_scale=st.scale, sigma=ck["sigma"], Lmax=Lmax, **fin)
+            eps=float(placer.eps), plane_scale=st.scale, sigma=ck["sigma"], Lmax=Lmax,
+            gather=placer._gather, **fin)
 
     out["config2_R"] = len(seqs)
     out["config2_radix_form"] = st.radix.form
@@ -310,7 +312,7 @@ def codes_times(torch, dev, out: dict, profile: bool = False) -> None:
         torch, lambda: tokenize_radix(buf_t, st.radix, num_kmers=st.n_keys, **ck))
     amb_read, delta = amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=B, k=k,
                                  eps=float(placer.eps), log_eps=float(placer.log_eps))
-    m_f32 = step_mod._m_f32(lens, k)
+    m_f32 = step_mod.window_counts(lens, k)
     out["config2_rowgather_sum_topk_ms"] = cuda_ms(torch, lambda: kernels_mod.rowgather_sum_topk(
         st.plane, rows, m_f32, amb_read, delta, **fin))
     out["config2_rowgather_sum_topk_shape"] = list(rows.shape)
@@ -395,7 +397,7 @@ def sharded_tile_times(torch, out: dict, db, tree, seqs) -> None:
 
     placer = sh_mod.ShardedTorchPlacer(db, tree, make_mesh(n_data=1, n_model=1),
                                        config=PlacerConfig(dense_db="off"))
-    _, OV, rerun = placer._place_async_tiles({s: ["x"] for s in seqs}, seqs).budget
+    _, OV, rerun = placer._prepare_tiles({s: ["x"] for s in seqs}, seqs)[1]().budget
     out["sharded_tile_step_ms"] = cuda_ms(torch, lambda: rerun(OV))
     calls = []
     with recording(sh_mod, "finish_scores_cols_shifted", calls, limit=1):
@@ -522,7 +524,7 @@ def unpaired_step_times(torch, dev, out: dict, placer, seqs, prefix: str,
 
     def step():
         return step_mod.place_batch_dense_bytes(st.plane, st.direct, buf_t, arows_t,
-                                                **step_kw)
+                                                gather=placer._gather, **step_kw)
 
     shifted = kernel.startswith("rowgather_sum_topk")
     calls = []

@@ -42,7 +42,11 @@ from epik_tpu_torch.cli.main import main as port_main
 from epik_tpu_torch.engine.config import PlacerConfig
 from epik_tpu_torch.engine.placer import TorchPlacer
 from epik_tpu_torch.engine.state import plane_state_from_numpy
-from epik_tpu_torch.engine.step import place_batch_dense_codes, place_batch_dense_codes_paired
+from epik_tpu_torch.engine.step import (
+    dense_gather,
+    place_batch_dense_codes,
+    place_batch_dense_codes_paired,
+)
 from epik_tpu_torch.engine.tables import enumerate_pairs_generic
 from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
 from epik_tpu_torch.ops.radix_lookup import DeviceRadix
@@ -206,7 +210,8 @@ def test_codes_step_matches_jax(dbs, placers, db_name, cfg_name):
     got = place_batch_dense_codes(
         st.plane, st.radix, buf_t, torch.from_numpy(arows), B=kw["B"], K=K, Amax=kw["Amax"],
         k=kw["k"], sigma=kw["sigma"], Lmax=kw["Lmax"], num_kmers=kw["num_kmers"],
-        log_eps=kw["log_eps"], eps=kw["eps"], plane_scale=kw["plane_scale"]).numpy()
+        log_eps=kw["log_eps"], eps=kw["eps"], plane_scale=kw["plane_scale"],
+        gather=dense_gather(st.plane, kw["B"], K, shifted=True)).numpy()
     assert not any(launch_counts().values())  # the plain versions on the CPU
     assert_pack_close(got, want, K, slim=True)
 
@@ -259,7 +264,8 @@ def test_codes_paired_step_matches_jax(dbs, placers, db_name):
     got = place_batch_dense_codes_paired(
         _t(arrays[0]), radix, pair_radix, buf_t, arows_t, B=kw["B"], K=K, Amax=kw["Amax"],
         k=kw["k"], sigma=kw["sigma"], Lmax=kw["Lmax"], num_kmers=kw["num_kmers"],
-        n_pairs=kw["n_pairs"], log_eps=kw["log_eps"], eps=kw["eps"]).numpy()
+        n_pairs=kw["n_pairs"], log_eps=kw["log_eps"], eps=kw["eps"],
+        gather=dense_gather(_t(arrays[0]), kw["B"], K, shifted=True)).numpy()
     assert_pack_close(got, want, K, slim=True)
 
 

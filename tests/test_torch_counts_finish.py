@@ -42,7 +42,7 @@ from epik_tpu.engine.placer import (
 from epik_tpu.io.build import reads_from_reference, reference_like_db
 
 from epik_tpu_torch.engine import step as step_mod
-from epik_tpu_torch.engine.step import place_batch_dense_rows
+from epik_tpu_torch.engine.step import dense_gather, place_batch_dense_rows
 from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
 from epik_tpu_torch.kernels.finish import finish_topk_counts, finish_topk_counts_plain
 from epik_tpu_torch.kernels.rowgather import (
@@ -224,10 +224,13 @@ def test_classic_step_past_the_fused_limit_is_bit_equal(classic, cell, monkeypat
     args = (plane_t, torch.from_numpy(rows), torch.from_numpy(arows), torch.from_numpy(m))
     kw = dict(B=jp.B, K=min(7, jp.B), Amax=arows.shape[1], k=jp.k, zero_row=db.num_kmers,
               log_eps=float(jp.log_eps), eps=float(jp.eps), shifted=False)
-    fused = place_batch_dense_rows(*args, **kw)
+    fused = place_batch_dense_rows(*args, gather=dense_gather(plane_t, jp.B, kw["K"],
+                                                              shifted=False), **kw)
     with monkeypatch.context() as mp:
         mp.setattr(step_mod, "counts_topk_fits", lambda plane, B, K: False)
-        apart = place_batch_dense_rows(*args, **kw)
+        gather = dense_gather(plane_t, jp.B, kw["K"], shifted=False)
+        assert gather == "rows"
+        apart = place_batch_dense_rows(*args, gather=gather, **kw)
     assert torch.equal(apart, fused)
     assert fused.shape == (rows.shape[0] + 1, 4 * kw["K"] + 2) and not fused[-1].any()
 

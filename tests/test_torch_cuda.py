@@ -1134,7 +1134,7 @@ def test_rowgather_sum_topk_past_its_limit(cuda):
     """A tree past the fused kernel's shared-memory limit: the wrapper
     raises stating the bytes, and the dense step runs the gather, the delta
     add and ``finish_topk`` apart, bit-equal to the fused plain version."""
-    from epik_tpu_torch.engine.step import _shifted_finish
+    from epik_tpu_torch.engine.step import _shifted_finish, dense_gather
 
     rng = np.random.default_rng(40)
     B, R, W = 40000, 16, 30
@@ -1152,7 +1152,8 @@ def test_rowgather_sum_topk_past_its_limit(cuda):
     arows[reads, 0] = rng.integers(0, 119, reads.size)
     arows_t = torch.from_numpy(arows).to(cuda)
     reset_launch_counts()
-    got = _shifted_finish(t[0], t[1], t[2], arows_t, Amax=2, zero_row=119, eps=5.5e-5, **kw)
+    got = _shifted_finish(t[0], t[1], t[2], arows_t, Amax=2, zero_row=119, eps=5.5e-5,
+                          gather=dense_gather(t[0], B, K, shifted=True), **kw)
     counts = launch_counts()
     assert counts["rowgather_sum"] == 1 and counts["finish_topk"] == 1
     assert counts["rowgather_sum_topk"] == 0
@@ -1626,7 +1627,7 @@ def test_rowgather_sum_counts_topk_at_and_past_its_limit(cuda):
     version; one branch past it the wrapper raises stating the bytes and the
     classic step runs ``rowgather_sum_counts`` + ``finish_topk_counts``: the
     same bits."""
-    from epik_tpu_torch.engine.step import _classic_finish
+    from epik_tpu_torch.engine.step import _classic_finish, dense_gather
     from epik_tpu_torch.ops.dense import amb_classic_deltas
 
     K = 7
@@ -1649,7 +1650,8 @@ def test_rowgather_sum_counts_topk_at_and_past_its_limit(cuda):
             with pytest.raises(ValueError, match="shared memory"):
                 rowgather_sum_counts_topk(plane, rows, m, reads, dS, hit, **kw)
         reset_launch_counts()
-        got = _classic_finish(plane, rows, m, arows, Amax=2, zero_row=119, eps=5.5e-5, **kw)
+        got = _classic_finish(plane, rows, m, arows, Amax=2, zero_row=119, eps=5.5e-5,
+                              gather=dense_gather(plane, B, K, shifted=False), **kw)
         counts = {n: c for n, c in launch_counts().items() if c}
         assert counts == ({"rowgather_sum_counts_topk": 1} if fits else
                           {"rowgather_sum_counts": 1, "finish_topk_counts": 1}), counts
@@ -1921,7 +1923,7 @@ def test_rowgather_sum_topk_at_and_past_its_limit(cuda, pair_rows):
     past it the wrapper raises. At both the dense step takes the unfused
     pair, past the width rule (``shifted_fused``): the same pack but
     log_sum."""
-    from epik_tpu_torch.engine.step import _shifted_finish
+    from epik_tpu_torch.engine.step import _shifted_finish, dense_gather
     from epik_tpu_torch.ops.dense import amb_deltas
 
     lo, hi = 1024, 1 << 16
@@ -1960,7 +1962,8 @@ def test_rowgather_sum_topk_at_and_past_its_limit(cuda, pair_rows):
                     fn(p_t, rows_t, m_t, reads, delta, pair_rows=pair_rows, **kw, **skw)
             reset_launch_counts()
             got = _shifted_finish(p_t, rows_t, m_t, arows_t, Amax=2, zero_row=119, eps=5.5e-5,
-                                  plane_scale=scale or 1.0, pair_rows=pair_rows, **kw)
+                                  plane_scale=scale or 1.0, pair_rows=pair_rows,
+                                  gather=dense_gather(p_t, B, 7, shifted=True), **kw)
             fused = fits and shifted_fused(bw)
             assert {n: c for n, c in launch_counts().items() if c} == (
                 {fn.__name__: 1} if fused else {"rowgather_sum": 1, "finish_topk": 1})
@@ -1972,7 +1975,7 @@ def test_shifted_width_rule_routes(cuda, cols):
     """The width rule on the card: at the widest plane (shard) the rule
     gives the fused kernel, the step launches it; 128 columns wider, the
     unfused pair; the same pack both ways (but log_sum / e_s)."""
-    from epik_tpu_torch.engine.step import _shifted_finish
+    from epik_tpu_torch.engine.step import _shifted_finish, dense_gather
     from epik_tpu_torch.parallel.sharding import _shifted_cols
 
     top = SHIFTED_COLS_MAX_BW if cols else SHIFTED_TOPK_MAX_BW
@@ -2003,7 +2006,7 @@ def test_shifted_width_rule_routes(cuda, cols):
             reads, delta = amb_deltas(p_t, arows_t, zero_row=119, B=B, k=10, eps=5.5e-5,
                                       log_eps=-4.2597)
             got = _shifted_finish(p_t, rows_t, m_t, arows_t, Amax=2, zero_row=119, eps=5.5e-5,
-                                  **kw)
+                                  gather=dense_gather(p_t, B, 7, shifted=True), **kw)
             _check_pack(got.cpu().numpy(), rowgather_sum_topk_plain(
                 p_t, rows_t, m_t, reads, delta, **kw).cpu().numpy(), 7, B)
             expect = ({"rowgather_sum_topk": 1} if fused
@@ -2354,7 +2357,7 @@ def test_unfused_step_gives_the_same_pack_through_both_gathers(cuda, amb):
     """``engine.step.place_batch_dense_rows`` past the width rule (config 4's
     width) with and without the posted cells: the same slim pack, bit for
     bit; the posted gather and ``finish_topk`` one launch each, 1d none."""
-    from epik_tpu_torch.engine.step import place_batch_dense_rows
+    from epik_tpu_torch.engine.step import dense_gather, place_batch_dense_rows
 
     rng = np.random.default_rng(23 + amb)
     n_rows, bw, B, R, W = 20_001, 20_096, 19_999, 512, 143
@@ -2368,9 +2371,11 @@ def test_unfused_step_gives_the_same_pack_through_both_gathers(cuda, amb):
     kw = dict(B=B, K=7, Amax=2 if amb else 0, k=10, zero_row=n_rows - 1, log_eps=-4.2597,
               eps=5.5e-5, shifted=True)
     assert not shifted_fused(bw)
-    want = place_batch_dense_rows(plane, rows, arows, m, **kw)
+    want = place_batch_dense_rows(plane, rows, arows, m,
+                                  gather=dense_gather(plane, B, 7, shifted=True), **kw)
     reset_launch_counts()
-    got = place_batch_dense_rows(plane, rows, arows, m, posted=p, **kw)
+    got = place_batch_dense_rows(plane, rows, arows, m,
+                                 gather=dense_gather(plane, B, 7, shifted=True, posted=p), **kw)
     torch.cuda.synchronize()
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     counts = {n: c for n, c in launch_counts().items() if c}

@@ -48,6 +48,7 @@ from epik_tpu_torch.engine.config import PlacerConfig
 from epik_tpu_torch.engine.placer import TorchPlacer
 from epik_tpu_torch.engine.state import build_csr_state, plane_state_from_numpy
 from epik_tpu_torch.engine.step import (
+    dense_gather,
     place_batch_dense_bytes,
     place_batch_dense_rows,
     place_batch_device_densedb,
@@ -221,6 +222,7 @@ def test_dense_bytes_step_matches_jax(fx, placers, name):
         st.plane, st.direct, torch.from_numpy(buf), torch.from_numpy(arows), B=kw["B"],
         K=K, Amax=kw["Amax"], k=kw["k"], Lmax=kw["Lmax"], num_kmers=kw["num_kmers"],
         log_eps=kw["log_eps"], eps=kw["eps"], shifted=kw["shifted"],
+        gather=dense_gather(st.plane, kw["B"], K, shifted=kw["shifted"]),
         plane_scale=kw["plane_scale"]).numpy()
     assert not any(launch_counts().values())
     assert_pack_close(got, want, K, slim=kw["shifted"])
@@ -254,6 +256,8 @@ def test_dense_rows_step_matches_jax(fx, placers):
         got = place_batch_dense_rows(st.plane, torch.from_numpy(rows), torch.from_numpy(arows),
                                      torch.from_numpy(m_f32), zero_row=db.num_kmers,
                                      shifted=jax_p._shifted, plane_scale=st.scale,
+                                     gather=dense_gather(st.plane, jax_p.B, K,
+                                                         shifted=jax_p._shifted),
                                      **kw).numpy()
         assert_pack_close(got, want, K, slim=jax_p._shifted)
 
@@ -286,7 +290,8 @@ def test_device_densedb_step_matches_jax(fx, placers):
     got = place_batch_device_densedb(
         cs.table, cs.seed1, cs.seed2, st.plane,
         *(torch.from_numpy(a.astype(np.int64)) for a in (e_hi, e_lo, a_hi, a_lo)),
-        torch.from_numpy(m_f32), zero_row=db.num_kmers, **kw).numpy()
+        torch.from_numpy(m_f32), zero_row=db.num_kmers,
+        gather=dense_gather(st.plane, jax_p.B, K, shifted=False), **kw).numpy()
     assert_pack_close(got, want, K, slim=False)
 
 
@@ -385,10 +390,15 @@ def test_fused_fallback_is_bit_equal(fx, placers, monkeypatch):
                   num_kmers=st.n_keys, log_eps=float(port.log_eps), eps=float(port.eps),
                   shifted=True, plane_scale=st.scale)
         args = (st.plane, st.direct, torch.from_numpy(buf), torch.from_numpy(arows))
-        fused = place_batch_dense_bytes(*args, **kw)
+
+        def gather():
+            return dense_gather(st.plane, kw["B"], kw["K"], shifted=True)
+
+        fused = place_batch_dense_bytes(*args, gather=gather(), **kw)
         with monkeypatch.context() as mp:
             mp.setattr(step_mod, "topk_fits", lambda plane, B, K: False)
-            apart = place_batch_dense_bytes(*args, **kw)
+            assert gather() == "rows"
+            apart = place_batch_dense_bytes(*args, gather=gather(), **kw)
         assert torch.equal(apart, fused)
 
 

@@ -22,7 +22,7 @@ from epik_tpu.io.build import build_db, random_db, reads_from_reference, referen
 from epik_tpu_torch.engine.config import PlacerConfig
 from epik_tpu_torch.engine.placer import TorchPlacer
 from epik_tpu_torch.engine.state import plane_state_from_numpy
-from epik_tpu_torch.engine.step import place_batch_dense_paired
+from epik_tpu_torch.engine.step import dense_gather, place_batch_dense_paired
 
 TREE = "((A:0.1,B:0.2):0.3,C:0.4):0.0;"
 
@@ -85,7 +85,8 @@ def test_step_matches_jax(fx):
     got = place_batch_dense_paired(
         st.plane, st.combo, torch.from_numpy(buf), torch.from_numpy(arows),
         B=kw["B"], K=K, Amax=kw["Amax"], k=kw["k"], Lmax=kw["Lmax"],
-        num_kmers=kw["num_kmers"], log_eps=kw["log_eps"], eps=kw["eps"]).numpy()
+        num_kmers=kw["num_kmers"], log_eps=kw["log_eps"], eps=kw["eps"],
+        gather=dense_gather(st.plane, kw["B"], K, shifted=True)).numpy()
     assert got.shape == want.shape == (kw["R"], 2 * K + 3)
     n = want[:, 2 * K + 1].astype(int)
     np.testing.assert_array_equal(got[:, 2 * K + 1:], want[:, 2 * K + 1:])  # n, zero_sum
@@ -100,9 +101,9 @@ def test_step_is_tokenizer_deltas_and_fused_kernel(fx):
     the fused kernel 1, nothing else: those three on the step's inputs give
     its pack bit for bit, ambiguous reads and all; so do the tokenizer
     kernel's wrapper (its rows, lengths and window counts those of the torch
-    tokenizer and ``_m_f32``) and ``_shifted_finish``. On the CPU no kernel
-    launch is counted."""
-    from epik_tpu_torch.engine.step import _m_f32, _shifted_finish
+    tokenizer and ``window_counts``) and ``_shifted_finish``. On the CPU no
+    kernel launch is counted."""
+    from epik_tpu_torch.engine.step import _shifted_finish, window_counts
     from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
     from epik_tpu_torch.kernels.rowgather import rowgather_sum_topk
     from epik_tpu_torch.kernels.tokenize import tokenize_combo_fused
@@ -119,19 +120,20 @@ def test_step_is_tokenizer_deltas_and_fused_kernel(fx):
     reset_launch_counts()
     want = place_batch_dense_paired(st.plane, st.combo, buf_t, arows_t, B=port.B, Amax=Amax,
                                     Lmax=Lmax, num_kmers=st.n_keys, eps=float(port.eps),
-                                    **kw)
+                                    gather=port._gather, **kw)
     rows, lens = tokenize_combo(buf_t, st.combo, k=k, Lmax=Lmax)
     amb_read, delta = amb_deltas(st.plane, arows_t, zero_row=st.n_keys, B=port.B, k=k,
                                  eps=float(port.eps), log_eps=float(port.log_eps))
     assert amb_read.numel() > 0
-    got = rowgather_sum_topk(st.plane, rows, _m_f32(lens, k), amb_read, delta, B=port.B,
+    got = rowgather_sum_topk(st.plane, rows, window_counts(lens, k), amb_read, delta, B=port.B,
                              **kw)
     assert torch.equal(got, want)
     rows_f, lens_f, m_f = tokenize_combo_fused(buf_t, st.combo, k=k, Lmax=Lmax)
     assert torch.equal(rows_f, rows) and torch.equal(lens_f, lens)
-    assert torch.equal(m_f.view(torch.int32), _m_f32(lens, k).view(torch.int32))
+    assert torch.equal(m_f.view(torch.int32), window_counts(lens, k).view(torch.int32))
     fin = _shifted_finish(st.plane, rows_f, m_f, arows_t, B=port.B, Amax=Amax,
-                          zero_row=st.n_keys, eps=float(port.eps), pair_rows=True, **kw)
+                          zero_row=st.n_keys, eps=float(port.eps), pair_rows=True,
+                          gather=port._gather, **kw)
     assert torch.equal(fin, want)
     assert not any(launch_counts().values())
 

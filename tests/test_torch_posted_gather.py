@@ -234,9 +234,12 @@ def test_router_gives_the_same_pack_through_both_gathers(monkeypatch, amb, pair_
         monkeypatch.setattr(step_mod, name, counted)
     kw = dict(B=B, K=7, Amax=2 if amb else 0, k=6, zero_row=n_rows - 1, log_eps=-4.2597,
               eps=5.5e-5, pair_rows=pair_rows)
-    apart = step_mod._shifted_finish(plane, rows, m, arows, **kw)
+    gather = step_mod.dense_gather(plane, B, 7, shifted=True)
+    assert gather == "rows"
+    apart = step_mod._shifted_finish(plane, rows, m, arows, gather=gather, **kw)
     assert seen == {"rowgather_sum": 1, "finish_topk": 1}
-    posted = step_mod._shifted_finish(plane, rows, m, arows, posted=build_posted(plane), **kw)
+    gather = step_mod.dense_gather(plane, B, 7, shifted=True, posted=build_posted(plane))
+    posted = step_mod._shifted_finish(plane, rows, m, arows, gather=gather, **kw)
     assert seen == {"rowgather_sum": 1, "rowgather_sum_posted": 1, "finish_topk": 2}
     assert torch.equal(posted.view(torch.int32), apart.view(torch.int32))
     if amb:
@@ -255,6 +258,7 @@ def test_placer_places_the_same_through_both_gathers(fx, past_the_rule, fields):
     assert placer.state.posted is not None
     got = placer.place(reads)
     placer.state = dataclasses.replace(placer.state, posted=None)
+    placer._gather = "rows"
     want = placer.place(reads)
     for a, b in zip(got.placed_seqs, want.placed_seqs, strict=True):
         assert a.sequence == b.sequence and a.placements == b.placements

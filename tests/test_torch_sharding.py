@@ -390,7 +390,7 @@ def test_long_reads_leave_packed_tiles(fx):
     long_reads = reads_from_reference(ref, 6, length=400, mutation_rate=0.05, seed=76)
     port = _port(db, tree, 1, 2)
     seqs = [s for _, s in long_reads]
-    assert port._place_async_tiles({}, seqs) is None
+    assert port._prepare_tiles({}, seqs) is None
     pending = port.place_async(long_reads)
     assert pending.budget[0] == "csr" and pending.budget[2] == 0  # the bytes step
     _both_close(db, tree, long_reads, port.place_wait(pending), _jax(db, tree, 1, 2))

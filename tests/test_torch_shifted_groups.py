@@ -183,7 +183,8 @@ def test_router_takes_the_side_of_the_width_rule(monkeypatch, side, int16):
                                            "rowgather_sum", "finish_topk"])
     kw = dict(B=B, K=7, k=6, log_eps=-4.2597)
     got = step_mod._shifted_finish(plane, rows, m, arows, Amax=2, zero_row=n_rows - 1, eps=5.5e-5,
-                                   plane_scale=scale, **kw)
+                                   plane_scale=scale,
+                                   gather=step_mod.dense_gather(plane, B, 7, shifted=True), **kw)
     fused = "rowgather_sum_topk_int16" if int16 else "rowgather_sum_topk"
     want_seen = {fused: 1} if side == "fused" else {"rowgather_sum": 1, "finish_topk": 1}
     assert {n: c for n, c in seen.items() if c} == want_seen
@@ -257,7 +258,9 @@ def test_router_at_the_paths_widths(monkeypatch, bw, B, route):
                                            "finish_topk"])
     kw = dict(B=B, K=7, k=6, log_eps=-4.2597)
     got = step_mod._shifted_finish(plane, rows, m, arows, Amax=0, zero_row=n_rows - 1,
-                                   eps=5.5e-5, pair_rows=True, **kw).numpy()
+                                   eps=5.5e-5, pair_rows=True,
+                                   gather=step_mod.dense_gather(plane, B, 7, shifted=True),
+                                   **kw).numpy()
     want_seen = ({"rowgather_sum_topk": 1} if route == "fused"
                  else {"rowgather_sum": 1, "finish_topk": 1})
     assert {n: c for n, c in seen.items() if c} == want_seen

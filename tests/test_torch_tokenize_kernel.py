@@ -1,6 +1,7 @@
 """The pair-plane slot tokenizer kernel (``kernels/tokenize.py::
 tokenize_combo_fused``, ``kernels/csrc/tokenize.cu``) against its plain
-version, ``ops/tokenize.py::tokenize_combo`` with ``engine/step.py::_m_f32``.
+version, ``ops/tokenize.py::tokenize_combo`` with
+``engine/step.py::window_counts``.
 
 On the CPU: the wrapper returns the plain version; a numpy model of the
 kernel's arithmetic (one 32-bit word of codes a slot, its 2-bit groups
@@ -24,7 +25,7 @@ import pytest
 import torch
 
 from epik_tpu_torch.engine.staging import pack_reads
-from epik_tpu_torch.engine.step import _m_f32
+from epik_tpu_torch.engine.step import window_counts
 from epik_tpu_torch.kernels import launch_counts, reset_launch_counts
 from epik_tpu_torch.kernels._build import CSRC, _PROTOTYPES
 from epik_tpu_torch.kernels.tokenize import MAX_K, tokenize_combo_fused
@@ -117,7 +118,7 @@ def _assert_bits_equal(got, want):
 
 def _plain(buf, combo, k, Lmax):
     rows, lens = tokenize_combo(buf, combo, k=k, Lmax=Lmax)
-    return rows, lens, _m_f32(lens, k)
+    return rows, lens, window_counts(lens, k)
 
 
 @pytest.mark.parametrize("seed", [1, 2])
@@ -125,7 +126,7 @@ def _plain(buf, combo, k, Lmax):
                                                    ("random_even_w", 9, 40, 24)],
                          ids=lambda v: str(v))
 def test_cpu_path_is_the_plain_version(name, k, Lmax, R, seed):
-    """The wrapper on the CPU is ``tokenize_combo`` + ``_m_f32``, and the
+    """The wrapper on the CPU is ``tokenize_combo`` + ``window_counts``, and the
     kernel's arithmetic modelled in numpy gives the same rows, lengths and
     window counts (the m wrap of reads shorter than k included)."""
     buf, combo = _case(name, k, Lmax, R, seed)
@@ -231,7 +232,7 @@ def test_pair_plane_step_is_the_kernel_and_shifted_finish(cuda):
     st, k = port.state, port.k
     buf_t, arows_t = torch.from_numpy(buf).to(cuda), torch.from_numpy(arows).to(cuda)
     kw = dict(B=port.B, K=port._K(), Amax=Amax, k=k, log_eps=float(port.log_eps),
-              eps=float(port.eps))
+              eps=float(port.eps), gather=port._gather)
     reset_launch_counts()
     step = place_batch_dense_paired(st.plane, st.combo, buf_t, arows_t, Lmax=Lmax,
                                     num_kmers=st.n_keys, **kw)

@@ -214,13 +214,13 @@ def test_gather_is_noted_on_both_sides_of_the_width_rule(small, tmp_path, record
     from epik_tpu_torch.kernels import rowgather
 
     db, tree, batches = small
-    placer = TorchPlacer(db, tree, config=config, device="cpu")
-    if past_the_rule:
-        bw = placer.state.plane.shape[1]
-        if placer._shifted:
-            monkeypatch.setattr(rowgather, "SHIFTED_TOPK_MAX_BW", bw - 128)
+    if past_the_rule:  # the small tree's plane is 128 columns wide
+        if config.plane_mode == "shifted":
+            monkeypatch.setattr(rowgather, "SHIFTED_TOPK_MAX_BW", 0)
         else:
             monkeypatch.setattr(step, "counts_topk_fits", lambda plane, B, K: False)
+    placer = TorchPlacer(db, tree, config=config, device="cpu")
+    bw = placer.state.plane.shape[1] if placer.route == "dense" else None
     _place(placer, tree, batches, tmp_path / "a.jplace")
     place = [s for s in spans.drain() if s.name == "place"]
     assert len(place) == len(batches)
