@@ -79,13 +79,16 @@ prints no result line):
                  51.8 GB base plane fits the card and the pair plane does not,
                  so the CLI takes the unpaired dense route, and there the
                  route the width rule (``kernels/rowgather.py::shifted_fused``)
-                 gives at 20,096 columns: the gather, the delta add and
-                 ``finish_topk``, the gather over the plane's posted cells
-                 (``rowgather_sum_posted``: 0.06% of them posted); the
-                 launches counted, the posted gather and the finish launched,
-                 1d and the fused kernel never; the posted gather against 1d
-                 (``rowgather_sum``) on the first batch's rows, bit for bit,
-                 their times in turns through the wrappers; the fused kernel at
+                 gives at 20,096 columns: the gather over the plane's posted
+                 cells (0.06% of them posted) with the delta add and the
+                 finish fused in (``rowgather_sum_posted_topk``); the
+                 launches counted, it alone launched, 1d, the posted gather
+                 alone, ``finish_topk`` and #1 never; the posted gather
+                 against 1d (``rowgather_sum``) on the first batch's rows,
+                 bit for bit, their times in turns through the wrappers; the
+                 fused posted gather against the posted gather, the delta add
+                 and ``finish_topk`` apart (the pair), the pack bit for bit
+                 but log_sum, their times in turns; the fused kernel at
                  (4,096 x 143) rows and bw 20,096 against its plain version on
                  the first batch whichever route the step took, its time
                  beside its unfused pair's on the same rows, the device
@@ -269,32 +272,37 @@ prints no result line):
                  counts (bit-equal but e_s, rtol 1e-6), its time and bound.
 
 15. wide shifted -- the shifted dense route past the fused kernel's limit,
-               where the gather alone (over the f32 plane's posted cells,
-               ``rowgather_sum_posted``; over the int16 plane kernel 1d,
-               ``rowgather_sum``, in locality order and column slices) and
-               ``finish_topk`` run apart: BASELINE.md config 4's recipe at
+               where over the f32 plane the gather over its posted cells
+               with the finish fused in (``rowgather_sum_posted_topk``) and
+               over the int16 plane kernel 1d (``rowgather_sum``, in
+               locality order and column slices) and ``finish_topk`` apart
+               run: BASELINE.md config 4's recipe at
                20,000 leaves on D652's 520,000 bp reference (B = 39,999, bw
                40,064, ~410k k-mers; the reference is cut only where the 65.7
                GB f32 plane would be over the card's budget), 8,192 150 bp
                reads, the first 6 with IUPAC codes, in batches of 4,096:
                * ``python -m epik_tpu_torch place`` with no flags (the f32
                  plane), then with ``--precision int16`` (~33 GB), the counts
-                 zeroed before and read after: the dense route, the gather
-                 (f32: the posted gather; int16: 1d) and ``finish_topk`` once
-                 per batch and nothing else (the fused kernel's
+                 zeroed before and read after: the dense route, once per
+                 batch the fused posted gather (f32) or 1d and
+                 ``finish_topk`` (int16) and nothing else (#1's
                  ``topk_fits`` refuses B = 39,999); 128 reads against the
                  oracle (f32: score sets within 1e-4; int16: the jplace_diff
                  rule); 1d against its plain version on the path's first
                  batch, bit for bit, two launches alike, its time, bound and
                  ``embedding_bag``'s (f32); on the f32 plane the posted
-                 gather against 1d on the same rows, their times in turns.
+                 gather against 1d and the fused posted gather against the
+                 pair on the same rows, their times in turns.
 16. posted  -- the posted gather against 1d at the ``wol10k.illumina150``
                cell's shapes: a synthetic shifted f32 plane of the cell's
                644,814 rows x 21,248 columns (54.8 GB), ~12 posted cells a key,
                and 2,000 reads of 141 windows slid over a key sequence of
                1,000,000 windows (2% misses), as 150 bp reads of a 1 Mb
                reference give them: bit for bit, their times in turns through
-               the wrappers, each beside its bound.
+               the wrappers, each beside its bound; then the cell's route,
+               the fused posted gather, against the pair (the posted gather
+               and ``finish_topk`` apart), the pack bit for bit but log_sum,
+               their times in turns, bounds and blocks an SM.
 
 Every kernel's entry carries its bound: the larger of the bytes it must move
 (each input read once, each output written once) over the card's HBM rate and
@@ -450,6 +458,15 @@ KERNEL_META = {
                                           "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     "rowgather_sum_posted_wol10k": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
                                     "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    # the posted gather with the finish fused in (the route past the width rule
+    # where it fits): config 4's CLI (phase 9), the wide shifted tree's f32
+    # CLI (phase 15), the wol10k cell's shapes (phase 16)
+    "rowgather_sum_posted_topk_config4": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
+                                          "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_posted_topk_wide_shifted": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
+                                               "epik_tpu/ops/pallas/rowgather_mq.py:117"),
+    "rowgather_sum_posted_topk_wol10k": ("epik_tpu_torch/kernels/csrc/rowgather_posted.cu",
+                                         "epik_tpu/ops/pallas/rowgather_mq.py:117"),
     # the pair-plane slot tokenizer: XLA ops in the JAX package, no Pallas kernel
     "tokenize_combo_fused": ("epik_tpu_torch/kernels/csrc/tokenize.cu",
                              "epik_tpu/engine/placer.py:1038"),
@@ -1179,15 +1196,17 @@ def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
         with recording(step_mod, "_shifted_finish", calls, limit=1):
             rc, cli_out, wall = run_cli(torch, argv)
         counts = {n: c for n, c in launch_counts().items() if c}
-        gather = "rowgather_sum" if cell == "int16" else "rowgather_sum_posted"
         log("cli: python -m epik_tpu_torch " + " ".join(argv))
         for line in cli_out.splitlines():
             log("  | " + line)
         if rc != 0 or "(1 device(s), dense)" not in cli_out:
             raise AssertionError(f"wide shifted {cell}: rc {rc}, not on the dense route")
-        if counts != {gather: n_batches, "finish_topk": n_batches}:
+        # f32: the posted gather with the finish fused in; int16: 1d + finish_topk
+        route = (("rowgather_sum", "finish_topk") if cell == "int16"
+                 else ("rowgather_sum_posted_topk",))
+        if counts != {n: n_batches for n in route}:
             raise AssertionError(f"wide shifted {cell}: launches {counts}, expected "
-                                 f"{gather} and finish_topk once per batch ({n_batches})")
+                                 f"{route} once per batch ({n_batches})")
         (plane, rows), skw = calls[0][0][:2], calls[0][1]
         if plane.dtype != (torch.int16 if cell == "int16" else torch.float32):
             raise AssertionError(f"wide shifted {cell}: a {plane.dtype} plane")
@@ -1216,10 +1235,20 @@ def wide_shifted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
         kernels.append(entry(f"{tag}_wide_shifted", counts.get("rowgather_sum", 0), err, ms,
                              plain_ms, *io_k, lib_ms))
         if cell == "f32":
-            kernels.append(posted_vs_1d(torch, np, plane, skw["gather"], rows,
+            posted = skw["gather"].cells
+            kernels.append(posted_vs_1d(torch, np, plane, posted, rows,
                                         "wide shifted f32, first batch",
-                                        "rowgather_sum_posted_wide_shifted", counts[gather]))
+                                        "rowgather_sum_posted_wide_shifted", 0))
             summary["wide_shifted_f32_posted_ms"] = kernels[-1]["ms"]
+            (_, _, m, amb_read, delta), fkw = fused_call(torch, calls[0])
+            kernels.append(posted_topk_vs_pair(
+                torch, np, posted, rows, m, amb_read, delta,
+                dict(bw=plane.shape[1], **{n: fkw[n] for n in ("B", "K", "k", "log_eps")}),
+                "wide shifted f32, first batch", "rowgather_sum_posted_topk_wide_shifted",
+                counts["rowgather_sum_posted_topk"]))
+            summary["wide_shifted_f32_posted_topk_ms"] = kernels[-1]["ms"]
+            summary["wide_shifted_f32_pair_ms"] = kernels[-1]["pair_ms"]
+            del posted, m, amb_read, delta
         del calls, plane, rows, skw
         gc.collect()  # the CLI's placer, before the next plane is built
         torch.cuda.empty_cache()
@@ -1917,7 +1946,83 @@ def posted_vs_1d(torch, np, plane, posted, rows, what: str, name: str, launches:
     return entry(name, launches, 0.0, ms, plain_ms, *io_posted, None, **extra)
 
 
-def wol10k_shaped(torch, np, dev, seed: int = 10575, *, bw: int = 21_248, B: int = 21_149,
+def posted_topk_vs_pair(torch, np, posted, rows, m, amb_read, delta, kw: dict, what: str,
+                        name: str, launches: int) -> dict:
+    """The posted gather with the finish fused in (``rowgather_sum_posted_topk``,
+    keywords ``kw``: bw, B, K, k, log_eps) against the pair it stands for
+    (``rowgather_sum_posted``, the delta rows added, ``finish_topk``) and its
+    plain version on the card: scores, ids, n and zero_sum bit for bit,
+    log_sum within rtol 1e-6, two launches alike; both timed through their
+    wrappers in turns (pair, fused, fused, pair: CUDA-event medians), each
+    beside its bound: the fused kernel's the windows' cells (8 bytes each),
+    their offsets and row ids, the window counts read and the pack written;
+    the pair's that and the (R, bw) sums written and read back. Returns the
+    fused kernel's entry."""
+    from epik_tpu_torch.kernels._build import library
+    from epik_tpu_torch.kernels.finish import finish_topk
+    from epik_tpu_torch.kernels.rowgather import (
+        rowgather_sum_posted,
+        rowgather_sum_posted_topk,
+        rowgather_sum_posted_topk_plain,
+    )
+
+    bw, B, K = kw["bw"], kw["B"], kw["K"]
+    args = (posted.off, posted.cells, rows, m, amb_read, delta)
+
+    def run_fused():
+        return rowgather_sum_posted_topk(*args, **kw)
+
+    def run_pair():
+        Sp = rowgather_sum_posted(posted.off, posted.cells, rows, bw=bw)
+        if amb_read is not None and amb_read.numel() > 0:
+            Sp[amb_read, :B] = Sp[amb_read, :B] + delta
+        return finish_topk(Sp[:, :B], m, K=K, k=kw["k"], log_eps=kw["log_eps"])
+
+    got, again, want = run_fused(), run_fused(), run_pair()
+    plain = rowgather_sum_posted_topk_plain(*args, **kw)
+    torch.cuda.synchronize()
+    if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+        raise AssertionError(f"rowgather_sum_posted_topk ({what}): two launches differ")
+    got_np = got.cpu().numpy()
+    err = check_finish(np, got_np, want.cpu().numpy(), K, B,
+                       f"rowgather_sum_posted_topk ({what}) against the pair")
+    err = max(err, check_finish(np, got_np, plain.cpu().numpy(), K, B,
+                                f"rowgather_sum_posted_topk ({what}) against its plain version"))
+    n_touched = got_np[:, 2 * K + 1]
+    del got, again, want, plain
+    times = {"pair": [], "fused": []}
+    for side in ("pair", "fused", "fused", "pair"):
+        times[side].append(cuda_ms(torch, run_pair if side == "pair" else run_fused))
+    plain_ms = cuda_ms(torch, lambda: rowgather_sum_posted_topk_plain(*args, **kw), reps=3,
+                       warmup=1)
+    rl = rows.long()
+    cells = int((posted.off[rl + 1] - posted.off[rl]).sum())
+    R = rows.shape[0]
+    io = (cells * 8 + rows.numel() * (4 + 16) + R * 4 + R * (2 * K + 3) * 4, cells)
+    sums = R * bw * 4 + R * B * 4
+    ms, pair_ms = statistics.median(times["fused"]), statistics.median(times["pair"])
+    bound_ms, bound_pair = bound(*io)[0], bound(io[0] + sums, io[1])[0]
+    extra = {"pair_ms": pair_ms, "turns_ms": times, "bound_pair_ms": bound_pair,
+             "share": bound_ms / ms, "share_pair": bound_pair / pair_ms, "cells_read": cells,
+             "touched_mean": float(n_touched.mean()), "touched_max": float(n_touched.max()),
+             "shape": [*rows.shape, bw, B],
+             "blocks_per_sm": library().epik_rowgather_posted_topk_blocks_per_sm(bw, B)}
+    log(f"rowgather_sum_posted_topk {tuple(rows.shape)} bw={bw} B={B} ({what}): the pair's pack "
+        f"(log_sum within rtol 1e-6) and its plain version's, two launches alike; in turns "
+        f"{times['fused']} ms against the pair's {times['pair']} ms; bound {bound_ms:.4f} ms "
+        f"({cells} cells, {100 * bound_ms / ms:.1f}%), the pair's {bound_pair:.4f} ms "
+        f"({100 * bound_pair / pair_ms:.1f}%); touched a read {extra['touched_mean']:.0f} "
+        f"(largest {extra['touched_max']:.0f}); plain {plain_ms:.2f} ms; "
+        f"{extra['blocks_per_sm']} blocks an SM")
+    return entry(name, launches, err, ms, plain_ms, *io, None, **extra)
+
+
+#: the wol10k.illumina150 cell's plane width and branches
+WOL10K_BW = 21_248
+WOL10K_B = 21_149
+
+
+def wol10k_shaped(torch, np, dev, seed: int = 10575, *, bw: int = WOL10K_BW, B: int = WOL10K_B,
                   R: int = CELL_BATCH, W: int = 141):
     """(plane, posted cells, rows, seconds to build the posted cells) at the
     ``wol10k.illumina150`` cell's shapes (or another width, B, R and W): a
@@ -1953,7 +2058,7 @@ def wol10k_shaped(torch, np, dev, seed: int = 10575, *, bw: int = 21_248, B: int
 def posted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
     """Phase 16 (see the module docstring). Returns the posted gather's
     kernel entry at the wol10k cell's shapes and the phase's summary."""
-    plane, posted, rows, build_s = wol10k_shaped(torch, np, dev)
+    plane, posted, rows, build_s = wol10k_shaped(torch, np, dev, bw=WOL10K_BW, B=WOL10K_B)
     summary = {"wol10k_posted_build_s": build_s, "wol10k_posted_nnz": posted.nnz,
                "wol10k_posted_bytes": posted.nbytes, "wol10k_plane_bytes": nbytes(plane)}
     log(f"wol10k-shaped plane {tuple(plane.shape)} f32 = {nbytes(plane)} bytes: {posted.nnz} "
@@ -1963,10 +2068,18 @@ def posted_phase(torch, np, card: str, dev) -> tuple[list, dict]:
                      "rowgather_sum_posted_wol10k", 0)
     summary.update(wol10k_posted_ms=e["ms"], wol10k_1d_ms=e["ms_1d"],
                    wol10k_posted_bound_ms=e["bound_ms"], wol10k_1d_bound_ms=e["bound_1d_ms"])
-    del plane, posted, rows
+    # the cell's route: the finish fused into the posted gather, against the pair
+    m = torch.full((rows.shape[0],), float(rows.shape[1]), device=dev)
+    f = posted_topk_vs_pair(torch, np, posted, rows, m, None, None,
+                            dict(bw=WOL10K_BW, B=WOL10K_B, K=7, k=10, log_eps=-4.2597),
+                            "the wol10k cell's shapes", "rowgather_sum_posted_topk_wol10k", 0)
+    summary.update(wol10k_posted_topk_ms=f["ms"], wol10k_pair_ms=f["pair_ms"],
+                   wol10k_posted_topk_bound_ms=f["bound_ms"],
+                   wol10k_posted_topk_blocks_per_sm=f["blocks_per_sm"])
+    del plane, posted, rows, m
     gc.collect()
     torch.cuda.empty_cache()
-    return [e], summary
+    return [e, f], summary
 
 
 def tokenizer_check(torch, card: str, placer, seqs, dev) -> dict:
@@ -2311,9 +2424,10 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     if shifted_fused(c4_plane.shape[1]):
         raise AssertionError(f"config 4: the width rule takes bw {c4_plane.shape[1]} to the "
                              f"fused kernel; this phase holds the unfused pair's route")
-    route = ("rowgather_sum_posted", "finish_topk")
-    if (any(counts[n] <= 0 for n in route) or counts["rowgather_sum_topk"]
-            or counts["rowgather_sum"]):
+    route = ("rowgather_sum_posted_topk",)
+    if (any(counts[n] <= 0 for n in route)
+            or any(counts[n] for n in ("rowgather_sum_topk", "rowgather_sum",
+                                       "rowgather_sum_posted", "finish_topk"))):
         raise AssertionError(f"config 4 CLI: launches {counts}, the route {route}")
     rows_by_name = parse_jplace(os.path.join(out_dir, "placements_q.fasta.jplace"))
     if set(rows_by_name) != {name for name, _ in fx["records"]}:
@@ -2359,15 +2473,23 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
                      pair_ms=pair_c4, route=list(route), **layout_c4)
     log(f"rowgather_sum {shape_c4} (config 4, 1d on the route's rows): {g_ms:.4f} ms, bound "
         f"{bound(*g_io)[0]:.4f} ms [{card}]")
-    # the route's gather: the plane's posted cells, against 1d on the same rows
+    # the route's gather: the plane's posted cells, against 1d on the same rows,
+    # and with the finish fused in (the route) against the pair
     c4_posted = route_calls[0][1].get("gather")  # the gather decided by the placer
-    if not hasattr(c4_posted, "cells"):
-        raise AssertionError("config 4 CLI: the step was given no posted cells")
-    c4_posted_entry = posted_vs_1d(torch, np, c4_plane, c4_posted, c4_call[0][1],
+    if not getattr(c4_posted, "fused", False):
+        raise AssertionError("config 4 CLI: the step was given no fused posted gather")
+    c4_posted_entry = posted_vs_1d(torch, np, c4_plane, c4_posted.cells, c4_call[0][1],
                                    "config 4, first batch", "rowgather_sum_posted_config4",
                                    counts["rowgather_sum_posted"])
+    c4_topk_entry = posted_topk_vs_pair(
+        torch, np, c4_posted.cells, *c4_call[0][1:],
+        dict(bw=c4_plane.shape[1], **{n: c4_call[1][n] for n in ("B", "K", "k", "log_eps")}),
+        "config 4, first batch", "rowgather_sum_posted_topk_config4",
+        counts["rowgather_sum_posted_topk"])
     summary.update(config4_posted_ms=c4_posted_entry["ms"],
-                   config4_posted_1d_ms=c4_posted_entry["ms_1d"])
+                   config4_posted_1d_ms=c4_posted_entry["ms_1d"],
+                   config4_posted_topk_ms=c4_topk_entry["ms"],
+                   config4_posted_pair_ms=c4_topk_entry["pair_ms"])
     del plane, direct, buf, arows, step_calls, route_calls, c4_call, c4_plane, c4_posted
     torch.cuda.empty_cache()
 
@@ -2498,7 +2620,7 @@ def dense_phase(torch, np, card: str, dev, fx: dict, d652: dict) -> tuple[list, 
     # rows
     for sums, (err, ms, plain_ms, io_k, lib_ms, _) in apart.items():
         kernels.append(entry(sums, wide_launches[sums], err, ms, plain_ms, *io_k, lib_ms))
-    kernels.extend([c4_entry, c4_posted_entry])
+    kernels.extend([c4_entry, c4_posted_entry, c4_topk_entry])
     return kernels, summary, errs
 
 

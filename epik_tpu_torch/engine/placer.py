@@ -23,9 +23,10 @@ three routes, chosen at construction by the JAX package's rules
   plane rows found on the host (``place_batch_dense_rows``) or, with
   ``lookup_where="device"``, keys looked up in the cuckoo table on the device
   (``place_batch_device_densedb``). Where a shifted f32 plane's steps gather
-  apart from the finish (past the width rule) and at most 1/32 of its cells
-  are posted, the state also holds those cells (``state.posted_index``),
-  which the gather reads instead of the plane's rows;
+  apart from #1 (past the width rule) and at most 1/32 of its cells are
+  posted, the state also holds those cells (``state.posted_index``), which
+  the gather reads instead of the plane's rows, with the finish fused in
+  where its shared memory fits (``step.PostedGather``);
 * ``tiles`` -- the big-tree posting-tile path (DNA, k <= 13), when the dense
   plane is not taken and the tiles fit: every clean batch runs the tile step
   (packed or f32 payload; with the packed payload, ``pair_plane="on"`` and
@@ -47,7 +48,8 @@ surface it shares with the sharded placer (``surface.py::PlacerSurface``),
 which opens the ``place.*`` spans; on the dense route the placer notes on
 the ``place`` span the gather its steps run (``gather``), decided once at
 construction (``step.py::dense_gather``), and, where the gather and the
-finish run apart, the bytes of the sums between them (``sums_bytes``).
+finish run apart, the bytes of the sums between them (``sums_bytes``; none
+where the finish is fused into the gather).
 
 The device defaults to the card (``device="cuda"``), and the CPU runs only
 when the caller names it; ``"cuda"`` without CUDA raises, so the placer never
@@ -81,6 +83,7 @@ from .state import (
     posted_index,
 )
 from .step import (
+    PostedGather,
     dense_gather,
     place_batch_csr,
     place_batch_dense_bytes,
@@ -304,11 +307,12 @@ class TorchPlacer(PlacerSurface):
 
     def _pick_gather(self, budget: int) -> None:
         """The dense steps' gather, decided once (:func:`~.step.dense_gather`).
-        Where it runs apart from the finish on a shifted f32 plane whose
-        width the posted gather takes (``posted_fits``) and the plane is
-        sparse enough, the state gets the plane's posted cells within
-        ``budget`` beside it (:func:`~.state.posted_index`), which the gather
-        then reads; else the gather apart reads the plane's rows (1d)."""
+        Where it runs apart from #1 on a shifted f32 plane whose width the
+        posted gather takes (``posted_fits``) and the plane is sparse enough,
+        the state gets the plane's posted cells within ``budget`` beside it
+        (:func:`~.state.posted_index`), which the gather then reads (a
+        :class:`~.step.PostedGather`, the finish fused in where it fits);
+        else the gather apart reads the plane's rows (1d)."""
         st = self.state
         self._gather = dense_gather(st.plane, self.B, self._K(), shifted=self._shifted,
                                     posted=st.posted)
@@ -317,7 +321,8 @@ class TorchPlacer(PlacerSurface):
             posted = posted_index(st.plane, budget=budget - st.nbytes)
             if posted is not None:
                 self.state = dataclasses.replace(st, posted=posted)
-                self._gather = posted
+                self._gather = dense_gather(st.plane, self.B, self._K(), shifted=True,
+                                            posted=posted)
 
     def posted_line(self) -> str:
         """The posted index's size, for the CLI's engine line ("" without
@@ -344,17 +349,20 @@ class TorchPlacer(PlacerSurface):
 
     def _note_batch(self, R: int) -> None:
         """On the dense route, note which gather its steps run (``gather``:
-        ``fused``, or ``pair`` for the gather and the finish apart,
-        ``posted`` where the gather apart reads the plane's posted cells)
-        and, apart, the bytes of the (R, bw) sums it writes and reads back
-        (``sums_bytes``)."""
+        ``fused``; ``posted_fused``, the posted gather with the finish fused
+        in; ``pair`` for the gather and the finish apart, ``posted`` where
+        the gather apart reads the plane's posted cells) and, apart, the
+        bytes of the (R, bw) sums it writes and reads back (``sums_bytes``)."""
         if self.route != "dense":
             return
-        if self._gather == "fused":
-            spans.note("gather", "fused")
-            return
-        spans.note("gather", "pair" if self._gather == "rows" else "posted")
-        spans.note("sums_bytes", sums_bytes(self.state.plane, R, shifted=self._shifted))
+        gather = self._gather
+        if isinstance(gather, PostedGather):
+            note = gather.note
+        else:
+            note = "pair" if gather == "rows" else "fused"
+        spans.note("gather", note)
+        if note in ("pair", "posted"):
+            spans.note("sums_bytes", sums_bytes(self.state.plane, R, shifted=self._shifted))
 
     def _fetch(self, out: torch.Tensor, seqs) -> np.ndarray:
         """A step's result on the host, as one group."""

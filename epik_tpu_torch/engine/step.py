@@ -27,8 +27,9 @@
 The dense steps take their gather as one value, decided once by the placer
 (:func:`dense_gather`). The shifted ones end in kernel 1 with the finish
 fused in (the slim (R, 2K+3) pack), or past its width rule or its
-shared-memory limit in the gather and the finish apart (the gather over the
-plane's posted cells where the state holds them); the classic ones in kernel
+shared-memory limit in the gather over the plane's posted cells with the
+finish fused in, where the state holds them (:class:`PostedGather`), else in
+the gather and the finish apart; the classic ones in kernel
 1 with counts and the counts finish fused in (the full (R+1, 4K+2) pack), or
 past its limit in the gather with counts and the counts finish apart; the
 CSR step in kernel 4 with counts (or its row-pointer form over the flat
@@ -36,6 +37,8 @@ cells) and the counts finish (``finish_topk_counts``).
 """
 
 from __future__ import annotations
+
+import dataclasses
 
 import torch
 
@@ -45,12 +48,14 @@ from ..kernels.finish import finish_topk, finish_topk_counts
 from ..kernels.rowgather import (
     add_first_hits,
     counts_topk_fits,
+    posted_topk_fits,
     rowgather_sum,
     rowgather_sum_counts,
     rowgather_sum_counts_bf16,
     rowgather_sum_counts_topk,
     rowgather_sum_counts_topk_bf16,
     rowgather_sum_posted,
+    rowgather_sum_posted_topk,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
     shifted_fused,
@@ -71,8 +76,9 @@ from ..ops.tokenize import (
     tokenize_radix_paired,
 )
 from .outputs import U64
+from .state import PostedCells
 
-__all__ = ["dense_gather", "place_batch_csr", "place_batch_dense_bytes",
+__all__ = ["PostedGather", "dense_gather", "place_batch_csr", "place_batch_dense_bytes",
            "place_batch_dense_codes", "place_batch_dense_codes_paired",
            "place_batch_dense_paired", "place_batch_dense_rows",
            "place_batch_device_densedb", "place_batch_tiles_bytes",
@@ -90,22 +96,41 @@ def window_counts(lens: torch.Tensor, k: int) -> torch.Tensor:
     return torch.where(m_signed >= 0, m_signed, m_signed + float(U64))
 
 
+@dataclasses.dataclass(frozen=True, eq=False)
+class PostedGather:
+    """The dense gather over a shifted f32 plane's posted cells ``cells``:
+    with ``fused``, the finish fused into it (``rowgather_sum_posted_topk``),
+    else ``rowgather_sum_posted`` and ``finish_topk`` apart."""
+
+    cells: PostedCells
+    fused: bool
+
+    @property
+    def note(self) -> str:
+        """The ``gather`` the ``place`` span notes."""
+        return "posted_fused" if self.fused else "posted"
+
+
 def dense_gather(plane, B: int, K: int, *, shifted: bool, posted=None):
     """The gather of every dense step over ``plane``, decided once from the
     plane's width, B, K and its device: ``"fused"``, a kernel with the
     finish fused in, on the shifted plane where the width rule takes #1
     (``shifted_fused``) and its shared memory fits (``topk_fits``), on the
     classic plane where the counts kernel's fits (``counts_topk_fits``);
-    else the plane's posted cells ``posted`` where given (a shifted f32
-    plane's :class:`~.state.PostedCells`, read by ``rowgather_sum_posted``),
-    else ``"rows"``: the gather apart over the plane's rows (1d, or the
-    gather with counts on the classic plane). The steps take this value as
+    else, where the plane's posted cells ``posted`` are given (a shifted f32
+    plane's :class:`~.state.PostedCells`), a :class:`PostedGather`, the
+    finish fused into the posted gather where its shared memory fits at the
+    width and B (``posted_topk_fits``) and apart past it; else
+    ``"rows"``: the gather apart over the plane's rows (1d, or the gather
+    with counts on the classic plane). The steps take this value as
     ``gather``."""
     fused = (shifted_fused(plane.shape[1]) and topk_fits(plane, B, K) if shifted
              else counts_topk_fits(plane, B, K))
     if fused:
         return "fused"
-    return "rows" if posted is None else posted
+    if posted is None:
+        return "rows"
+    return PostedGather(posted, posted_topk_fits(plane.shape[1], B, plane.device))
 
 
 def sums_bytes(plane, R: int, *, shifted: bool) -> int:
@@ -137,12 +162,14 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
     """The shifted plane's sums (an int16 plane's dequantized by
     ``plane_scale``), the ambiguous reads' delta rows when ``Amax > 0``, and
     the finish, into the slim pack, through the gather of
-    :func:`dense_gather`: ``"fused"``, kernel 1 with the finish fused in;
-    else the gather, the delta add (the same f32 add) and ``finish_topk``
-    apart, the sums from the plane's rows (``"rows"``, ``rowgather_sum``) or,
-    where ``gather`` is an f32 plane's :class:`~.state.PostedCells`, from its
-    posted cells (``rowgather_sum_posted``, the same bits). ``pair_rows``: the
-    rows are the pair plane's, which both routes take in read order."""
+    :func:`dense_gather`: ``"fused"``, kernel 1 with the finish fused in; a
+    fused :class:`PostedGather`, the posted gather with the delta add and the
+    finish fused in (``rowgather_sum_posted_topk``); else the gather, the
+    delta add (the same f32 add) and ``finish_topk`` apart, the sums from the
+    plane's rows (``"rows"``, ``rowgather_sum``) or from its posted cells (a
+    :class:`PostedGather` apart, ``rowgather_sum_posted``, the same bits).
+    ``pair_rows``: the rows are the pair plane's, which #1 and 1d take in read
+    order."""
     quant = plane.dtype == torch.int16
     scale = plane_scale if quant else None
     amb_read = delta = None
@@ -158,7 +185,11 @@ def _shifted_finish(plane, rows, m_f32, arows, *, B: int, K: int, Amax: int, k: 
     if gather == "rows":
         Sp = rowgather_sum(plane, rows, scale=scale, pair_rows=pair_rows)
     else:
-        Sp = rowgather_sum_posted(gather.off, gather.cells, rows, bw=plane.shape[1])
+        p, bw = gather.cells, plane.shape[1]
+        if gather.fused:
+            return rowgather_sum_posted_topk(p.off, p.cells, rows, m_f32, amb_read, delta, bw=bw,
+                                             B=B, K=K, k=k, log_eps=log_eps)
+        Sp = rowgather_sum_posted(p.off, p.cells, rows, bw=bw)
     if amb_read is not None and amb_read.numel() > 0:
         Sp[amb_read, :B] = Sp[amb_read, :B] + delta
     return finish_topk(Sp[:, :B], m_f32, K=K, k=k, log_eps=log_eps)

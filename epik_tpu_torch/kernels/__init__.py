@@ -2,7 +2,9 @@
 
 * :func:`rowgather.rowgather_sum` -- kernel 1, the row gather + sum (f32 or
   int16 plane); :func:`rowgather.rowgather_sum_posted`, the same sums over a
-  shifted f32 plane read from its posted cells alone;
+  shifted f32 plane read from its posted cells alone, and
+  :func:`rowgather.rowgather_sum_posted_topk`, with the ambiguous delta rows
+  and the finish fused in (the unfused shifted steps' posted route);
   :func:`rowgather.rowgather_sum_counts` and
   :func:`rowgather.rowgather_sum_counts_bf16`, the same with exact counts over
   the classic plane (f32 or bf16); :func:`rowgather.rowgather_sum_topk` and
@@ -53,6 +55,7 @@ from .rowgather import (
     rowgather_sum_counts_topk,
     rowgather_sum_counts_topk_bf16,
     rowgather_sum_posted,
+    rowgather_sum_posted_topk,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
 )
@@ -65,7 +68,8 @@ __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accum
            "reset_launch_counts", "rowgather_sum", "rowgather_sum_cols",
            "rowgather_sum_counts", "rowgather_sum_counts_bf16", "rowgather_sum_counts_cols",
            "rowgather_sum_counts_topk",
-           "rowgather_sum_counts_topk_bf16", "rowgather_sum_posted", "rowgather_sum_topk",
+           "rowgather_sum_counts_topk_bf16", "rowgather_sum_posted",
+           "rowgather_sum_posted_topk", "rowgather_sum_topk",
            "rowgather_sum_topk_int16",
            "tokenize_combo_fused"]
 
@@ -73,6 +77,7 @@ __all__ = ["KERNELS", "accumulate_packed_sums", "accumulate_packed_topk", "accum
 KERNELS = {
     "rowgather_sum": rowgather_sum,
     "rowgather_sum_posted": rowgather_sum_posted,
+    "rowgather_sum_posted_topk": rowgather_sum_posted_topk,
     "rowgather_sum_topk": rowgather_sum_topk,
     "rowgather_sum_topk_int16": rowgather_sum_topk_int16,
     "rowgather_sum_counts": rowgather_sum_counts,

@@ -65,10 +65,17 @@ _PROTOTYPES = {
                                        _VP],
     # (off, cells, rows, out, R, W, bw, stream)
     "epik_rowgather_sum_posted": [_VP, _VP, _VP, _VP, _INT, _INT, _INT, _VP],
-    # (bw) -> bytes; () -> bytes, or minus a CUDA error; (bw) -> blocks an SM
+    # (off, cells, rows, m, amb, amb64, A, slot, delta, out, R, W, bw, B, K, k, log_eps, stream)
+    "epik_rowgather_sum_posted_topk": [_VP, _VP, _VP, _VP, _VP, _INT, _INT, _VP, _VP, _VP,
+                                       _INT, _INT, _INT, _INT, _INT, _INT, _F32, _VP],
+    # (bw) -> bytes; () -> bytes, or minus a CUDA error; (bw) -> blocks an SM; the fused
+    # form's at (bw, B)
     "epik_rowgather_posted_smem": [_INT],
     "epik_rowgather_posted_smem_limit": [],
     "epik_rowgather_posted_blocks_per_sm": [_INT],
+    "epik_rowgather_posted_topk_smem": [_INT, _INT],
+    "epik_rowgather_posted_topk_smem_limit": [],
+    "epik_rowgather_posted_topk_blocks_per_sm": [_INT, _INT],
     # (G, bw, B, K) -> bytes
     "epik_rowgather_shifted_group_smem": [_INT, _INT, _INT, _INT],
     "epik_rowgather_counts_group_smem": [_INT, _INT, _INT, _INT],
@@ -113,6 +120,8 @@ _RESTYPES = {
     "epik_rowgather_group_smem_limit": ctypes.c_longlong,
     "epik_rowgather_posted_smem": ctypes.c_longlong,
     "epik_rowgather_posted_smem_limit": ctypes.c_longlong,
+    "epik_rowgather_posted_topk_smem": ctypes.c_longlong,
+    "epik_rowgather_posted_topk_smem_limit": ctypes.c_longlong,
 }
 
 

@@ -2,8 +2,10 @@
 // accumulate_packed_topk.cu, rowgather_sum.cu (the group layout's
 // rowgather_sum_topk, rowgather_sum_cols, rowgather_sum_counts_topk and
 // rowgather_sum_counts_cols: a warp a read through warp_finish / warp_cols,
-// the list finish and cols_list at G = 1) and, through cols_list, finish_cols.cu
-// (the column-sharded finish of one shard): score correction, LWR log-sum
+// the list finish and cols_list at G = 1), rowgather_posted.cu (the posted
+// gather with the finish fused in: the list finish, warp_finish past the
+// list's room) and, through cols_list, finish_cols.cu (the column-sharded
+// finish of one shard): score correction, LWR log-sum
 // over all branches and top-K, written into one row of the slim result pack
 // [scores K | idx K | log_sum | n | zero_sum] (SlimRow) or of the full pack's
 // body [scores K | wr K | idx K | counts K | n | zero_sum] (FullRow). Math,

@@ -165,6 +165,7 @@
 #include <cstdint>
 
 #include "finish_row.cuh"
+#include "slot_map.cuh"
 
 namespace {
 
@@ -574,33 +575,6 @@ int launch_slices(const void* plane, const void* rows, const void* perm, void* S
             static_cast<const int32_t*>(perm), static_cast<float*>(S), static_cast<int*>(C), R,
             W, bw, static_cast<int>(n_groups), scale);
   }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// The group kernel's slot map: slot[amb[i]] = i for the A ambiguous reads
-// (distinct read ids, int64 where amb64, else int32), -1 for every other read.
-__global__ void slot_map_kernel(const void* __restrict__ amb, int amb64, int A,
-                                int32_t* __restrict__ slot) {
-  const int i = blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= A) return;
-  const long long r = amb64 ? static_cast<const long long*>(amb)[i]
-                            : static_cast<long long>(static_cast<const int32_t*>(amb)[i]);
-  slot[r] = i;
-}
-
-// Fills the int32 (R,) `slot` on `stream` from the A ambiguous reads `amb`;
-// *map: the slot map the group kernel reads, null where A == 0.
-int map_slots(const void* amb, int amb64, int A, void* slot, int R, cudaStream_t stream,
-              const void** map) {
-  *map = nullptr;
-  if (A <= 0) return 0;
-  if (amb == nullptr || slot == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  const cudaError_t err = cudaMemsetAsync(slot, 0xff, static_cast<size_t>(R) * sizeof(int32_t),
-                                          stream);
-  if (err != cudaSuccess) return static_cast<int>(err);
-  slot_map_kernel<<<(A + 255) / 256, 256, 0, stream>>>(amb, amb64, A,
-                                                       static_cast<int32_t*>(slot));
-  *map = slot;
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -23,6 +23,10 @@ says how its design meets that.
   cells instead of its rows, bit for bit the same: the unfused shifted steps
   run it where the plane is sparse enough to hold the copy
   (``engine/state.py::build_posted``); one block a read, no read order;
+  :func:`rowgather_sum_posted_topk`, the same gather with the ambiguous delta
+  rows and the finish of ``finish_topk`` fused in, so the sums never reach
+  device memory (where :func:`posted_topk_fits` takes the shape, which the
+  steps then run in place of the posted gather and ``finish_topk``);
 * :func:`rowgather_sum_topk` / :func:`rowgather_sum_topk_int16` -- the dense
   shifted steps' whole device work after the tokenizer: the sums (an int16
   plane's dequantized), each ambiguous read's first-hit delta row added, and
@@ -80,13 +84,14 @@ __all__ = ["GROUP_BLOCK_RESERVE", "GROUP_MAX", "GROUP_MIN_BLOCKS", "GROUP_ROW_ID
            "GROUP_THREADS", "SHIFTED_COLS_MAX_BW", "SHIFTED_GROUP_MAX", "SHIFTED_TOPK_MAX_BW",
            "add_first_hits", "cols_fits", "cols_smem", "counts_cols_fits",
            "counts_group", "counts_topk_fits", "counts_topk_smem", "group_smem",
-           "locality_order", "posted_fits", "posted_smem", "rowgather_sum",
-           "rowgather_sum_cols",
+           "locality_order", "posted_fits", "posted_smem", "posted_topk_fits",
+           "posted_topk_smem", "rowgather_sum", "rowgather_sum_cols",
            "rowgather_sum_cols_plain", "rowgather_sum_counts", "rowgather_sum_counts_bf16",
            "rowgather_sum_counts_cols", "rowgather_sum_counts_cols_plain",
            "rowgather_sum_counts_plain", "rowgather_sum_counts_topk",
            "rowgather_sum_counts_topk_bf16", "rowgather_sum_counts_topk_plain",
            "rowgather_sum_plain", "rowgather_sum_posted", "rowgather_sum_posted_plain",
+           "rowgather_sum_posted_topk", "rowgather_sum_posted_topk_plain",
            "rowgather_sum_topk", "rowgather_sum_topk_int16",
            "rowgather_sum_topk_plain", "shifted_fused", "shifted_group", "topk_fits",
            "topk_smem"]
@@ -284,19 +289,8 @@ def posted_fits(bw: int, device) -> bool:
     return bw <= _POSTED_MAX_BW and need <= limit
 
 
-def rowgather_sum_posted(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor, *,
-                         bw: int) -> torch.Tensor:
-    """The gather 1d over a shifted f32 plane's posted cells: off int64
-    (n_rows + 1,) and cells int32 (nnz, 2) (column, f32 value bits; a row's
-    cells in [off[row], off[row + 1]), the all-zero row's range empty), rows
-    int32 (R, W) -> f32 (R, bw), bit for bit :func:`rowgather_sum` over the
-    plane the index was read from (``engine/state.py::build_posted``).
-
-    Every index must lie in [0, n_rows). The kernel (``csrc/
-    rowgather_posted.cu``) reads each window's posted cells and no other
-    cell: one block a read, its sums in shared memory, added in window
-    order; on the card bw must be within :func:`posted_fits`'s limit (a
-    wider plane raises ValueError)."""
+def _check_posted_args(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor,
+                       bw: int) -> None:
     if rows.dtype != torch.int32 or rows.dim() != 2 or not rows.is_contiguous():
         raise ValueError(f"rows must be contiguous 2-D int32, got {rows.dtype} "
                          f"{tuple(rows.shape)}")
@@ -311,6 +305,22 @@ def rowgather_sum_posted(off: torch.Tensor, cells: torch.Tensor, rows: torch.Ten
         raise ValueError(f"off on {off.device}, cells on {cells.device}, rows on {rows.device}")
     if bw <= 0 or bw % 4:
         raise ValueError(f"bw={bw} must be a positive multiple of 4")
+
+
+def rowgather_sum_posted(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor, *,
+                         bw: int) -> torch.Tensor:
+    """The gather 1d over a shifted f32 plane's posted cells: off int64
+    (n_rows + 1,) and cells int32 (nnz, 2) (column, f32 value bits; a row's
+    cells in [off[row], off[row + 1]), the all-zero row's range empty), rows
+    int32 (R, W) -> f32 (R, bw), bit for bit :func:`rowgather_sum` over the
+    plane the index was read from (``engine/state.py::build_posted``).
+
+    Every index must lie in [0, n_rows). The kernel (``csrc/
+    rowgather_posted.cu``) reads each window's posted cells and no other
+    cell: one block a read, its sums in shared memory, added in window
+    order; on the card bw must be within :func:`posted_fits`'s limit (a
+    wider plane raises ValueError)."""
+    _check_posted_args(off, cells, rows, bw)
     if rows.device.type == "cpu":
         return rowgather_sum_posted_plain(off, cells, rows, bw)
     _no_kernel("rowgather_sum_posted", rows.device)
@@ -333,6 +343,101 @@ def rowgather_sum_posted(off: torch.Tensor, cells: torch.Tensor, rows: torch.Ten
 
 
 rowgather_sum_posted.launches = 0
+
+
+def rowgather_sum_posted_topk_plain(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor,
+                                    m_f32: torch.Tensor, amb_read, amb_delta, *, bw: int, B: int,
+                                    K: int, k: int, log_eps: float) -> torch.Tensor:
+    """Plain version: ``finish_topk_plain(rowgather_sum_posted_plain(off,
+    cells, rows, bw)[:, :B] + delta)``, ``delta`` holding ``amb_delta`` at the
+    rows ``amb_read`` and zeros elsewhere: the pack of the posted gather,
+    the delta add and ``finish_topk`` apart."""
+    Sp = _with_deltas(rowgather_sum_posted_plain(off, cells, rows, bw)[:, :B], amb_read,
+                      amb_delta)
+    return finish_topk_plain(Sp, m_f32, K=K, k=k, log_eps=log_eps)
+
+
+def posted_topk_smem(bw: int, B: int, device: torch.device) -> tuple[int, int]:
+    """(bytes of shared memory a :func:`rowgather_sum_posted_topk` launch at
+    (bw, B) asks, bytes a block of it may take on ``device``), from the CUDA
+    source. CUDA devices only."""
+    return _posted_topk_layout(torch.device(device), bw, B)
+
+
+@functools.lru_cache(maxsize=None)
+def _posted_topk_layout(device: torch.device, bw: int, B: int) -> tuple[int, int]:
+    lib = library()
+    with torch.cuda.device(device):
+        limit = lib.epik_rowgather_posted_topk_smem_limit()
+    if limit < 0:
+        check(int(-limit), "the fused posted gather's shared memory limit")
+    return lib.epik_rowgather_posted_topk_smem(bw, B), limit
+
+
+def posted_topk_fits(bw: int, B: int, device) -> bool:
+    """Whether :func:`rowgather_sum_posted_topk` takes a plane ``bw`` columns
+    wide and B branches on ``device``: the posted gather's 16-bit column ids,
+    and a block's bw sums, B touched bits and the gather's staging (over which
+    the finish lays its top-K candidates and touched list) within the card's
+    shared memory (about 51,000 columns at B ~ bw on an H100, the posted
+    gather's limit less the bits). The plain version on the CPU has no
+    limit."""
+    device = torch.device(device)
+    if device.type != "cuda":
+        return True
+    need, limit = posted_topk_smem(bw, B, device)
+    return bw <= _POSTED_MAX_BW and need <= limit
+
+
+def rowgather_sum_posted_topk(off: torch.Tensor, cells: torch.Tensor, rows: torch.Tensor,
+                              m_f32: torch.Tensor, amb_read, amb_delta, *, bw: int, B: int,
+                              K: int, k: int, log_eps: float) -> torch.Tensor:
+    """The posted gather with the finish fused in: off, cells, rows and bw
+    as :func:`rowgather_sum_posted` takes them, m_f32 f32 (R,) window counts,
+    ``amb_read`` (A,) the reads with an ambiguous first-hit delta row and
+    ``amb_delta`` f32 (A, B) those rows (both None when there are none) -> f32
+    (R, 2K+3) slim pack: scores, ids, n and zero_sum bit for bit those of
+    :func:`rowgather_sum_posted`, the delta add and ``finish_topk`` apart,
+    log_sum within rtol 1e-6 (its exp-sum adds in another order).
+
+    Every index must lie in [0, n_rows); ``amb_read`` holds distinct reads.
+    The kernel (``csrc/rowgather_posted.cu``, ``rowgather_posted_topk_kernel``)
+    gathers a read as the posted gather does, one block a read, marking the
+    columns it adds to; then keeps its sums in shared memory and finishes the
+    read from them over the list of the touched branches (past the list's
+    room, 5,410 at K = 7, one warp walks the marks); on the card the shape
+    must be within :func:`posted_topk_fits`'s limit (past it raises
+    ValueError)."""
+    _check_posted_args(off, cells, rows, bw)
+    dev = rows.device
+    R = rows.shape[0]
+    _check_finish_args(m_f32, R, B, K, bw, dev)
+    _check_amb(amb_read, {"amb_delta": (amb_delta, torch.float32)}, B, dev)
+    if dev.type == "cpu":
+        return rowgather_sum_posted_topk_plain(off, cells, rows, m_f32, amb_read, amb_delta,
+                                               bw=bw, B=B, K=K, k=k, log_eps=log_eps)
+    _no_kernel("rowgather_sum_posted_topk", dev)
+    if not posted_topk_fits(bw, B, dev):
+        need, limit = posted_topk_smem(bw, B, dev)
+        raise ValueError(f"bw={bw}, B={B}: the fused posted gather takes at most "
+                         f"{_POSTED_MAX_BW} columns and {limit} bytes of shared memory a block "
+                         f"on {dev} (it asks {need}); run rowgather_sum_posted + finish_topk")
+    out = torch.empty((R, 2 * K + 3), dtype=torch.float32, device=dev)
+    if R == 0:
+        return out
+    amb, _held = _amb_args(amb_read, amb_delta, R, dev)
+    lib = library()
+    with torch.cuda.device(dev):
+        err = lib.epik_rowgather_sum_posted_topk(
+            off.data_ptr(), cells.data_ptr(), rows.data_ptr(), m_f32.data_ptr(), *amb,
+            out.data_ptr(), R, rows.shape[1], bw, B, K, k, float(log_eps), _stream(dev))
+    check(err, "rowgather_sum_posted_topk")
+    _count(rowgather_sum_posted_topk)
+    return out
+
+
+#: kernel launches since the last reset (CUDA only; the plain path never counts)
+rowgather_sum_posted_topk.launches = 0
 
 
 def locality_order(rows: torch.Tensor) -> torch.Tensor:
@@ -541,20 +646,24 @@ def _check_amb(amb_read, rows_of_read: dict, B: int, dev: torch.device) -> None:
                              f"{t.dtype} {tuple(t.shape)} on {t.device}")
 
 
-def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
-                     dtype, scale) -> None:
-    _check_args(plane, rows, (dtype,))
-    _check_scale(plane, scale)
-    R = rows.shape[0]
-    dev = plane.device
+def _check_finish_args(m_f32, R: int, B: int, K: int, bw: int, dev: torch.device) -> None:
+    """m_f32 (R,) f32 on ``dev``, 1 <= B <= bw, 1 <= K <= min(MAX_K, B)."""
     if (m_f32.dtype != torch.float32 or m_f32.shape != (R,) or not m_f32.is_contiguous()
             or m_f32.device != dev):
         raise ValueError(f"m_f32 must be contiguous float32 ({R},) on {dev}, got "
                          f"{m_f32.dtype} {tuple(m_f32.shape)} on {m_f32.device}")
-    if not 1 <= B <= plane.shape[1]:
-        raise ValueError(f"B={B} must lie in [1, bw={plane.shape[1]}]")
+    if not 1 <= B <= bw:
+        raise ValueError(f"B={B} must lie in [1, bw={bw}]")
     if not 1 <= K <= min(MAX_K, B):
         raise ValueError(f"K={K} must lie in [1, min({MAX_K}, B={B})]")
+
+
+def _check_topk_args(plane, rows, m_f32, amb_read, amb_delta, B: int, K: int,
+                     dtype, scale) -> None:
+    _check_args(plane, rows, (dtype,))
+    _check_scale(plane, scale)
+    dev = plane.device
+    _check_finish_args(m_f32, rows.shape[0], B, K, plane.shape[1], dev)
     _check_amb(amb_read, {"amb_delta": (amb_delta, torch.float32)}, B, dev)
     # the limit: 16-bit ids, and a block of one read (bw sums + the row ids +
     # ceil(B/32) mask words + B ids + the candidates) within the card's opt-in

@@ -268,6 +268,8 @@ class Tally:
         if batches and "h2d_bytes" in sums:
             lines.append(f"H2D: {sums['h2d_bytes'] / batches / 1024:.1f} KiB a batch")
         gathers = self.labels["gather"]
+        # the routes that write the sums and read them back (not fused, nor
+        # posted_fused: those finish from shared memory)
         pairs = gathers.get("pair", 0) + gathers.get("posted", 0)
         if pairs and "sums_bytes" in sums:
             lines.append(f"sums written and read back: {sums['sums_bytes'] / pairs / 2**20:.3f} "

@@ -83,7 +83,13 @@
   cells a key, 2,000 reads of 141 windows) and at config 4's (644,814 x
   20,096, 4,096 reads of 143 windows); beside them the posted kernel's
   variants (``-D EPIK_POSTED_THREADS / _CELLS / _MIN_BLOCKS``): 128 and 512
-  threads, 512 and 2,048 cells a tile, and no register budget.
+  threads, 512 and 2,048 cells a tile, and no register budget. Then, at the
+  same shapes, the posted gather with the finish fused in
+  (``rowgather_sum_posted_topk``, the route where it fits) against the pair
+  it stands for (the posted gather and ``finish_topk``), both through their
+  wrappers, with the same variants of the fused kernel, each held to the
+  pair's pack first (log_sum within rtol 1e-6), and each variant's blocks an
+  SM.
 
 Each variant is built by ``nvcc`` from this checkout's sources (the shipped
 ones with ``-D`` overrides of their layout macros, or the variant source)
@@ -936,11 +942,17 @@ def shifted_times(torch, np, dev, out: dict, parent: str | None) -> None:
 def posted_times(torch, np, dev, out: dict) -> None:
     """The posted gather and 1d through their wrappers and the posted
     kernel's variants, in turns, at the wol10k cell's and config 4's
-    shapes."""
+    shapes; then the fused posted gather and the pair through their wrappers
+    and the fused kernel's variants, in turns, at the same shapes."""
     import gc
 
     from epik_tpu_torch.kernels._build import library
-    from epik_tpu_torch.kernels.rowgather import rowgather_sum, rowgather_sum_posted
+    from epik_tpu_torch.kernels.finish import finish_topk
+    from epik_tpu_torch.kernels.rowgather import (
+        rowgather_sum,
+        rowgather_sum_posted,
+        rowgather_sum_posted_topk,
+    )
 
     src = os.path.join(CSRC, "rowgather_posted.cu")
     libs = build({n: (src, d) for n, d in POSTED.items()}, os.path.join("build", "sweep",
@@ -949,6 +961,9 @@ def posted_times(torch, np, dev, out: dict) -> None:
     for lib in libs.values():
         lib.epik_rowgather_sum_posted.argtypes = [vp, vp, vp, vp, i, i, i, vp]
         lib.epik_rowgather_posted_blocks_per_sm.argtypes = [i]
+        lib.epik_rowgather_sum_posted_topk.argtypes = [vp, vp, vp, vp, vp, i, i, vp, vp, vp, i,
+                                                       i, i, i, i, i, ctypes.c_float, vp]
+        lib.epik_rowgather_posted_topk_blocks_per_sm.argtypes = [i, i]
     for key, shape in (("wol10k", dict(bw=21_248, B=21_149, R=2000, W=141)),
                        ("config4", dict(bw=20_096, B=19_999, R=4096, W=143))):
         plane, posted, rows, build_s = chip_smoke.wol10k_shaped(torch, np, dev, **shape)
@@ -988,7 +1003,50 @@ def posted_times(torch, np, dev, out: dict) -> None:
             "blocks_per_sm": {n: lib.epik_rowgather_posted_blocks_per_sm(bw)
                               for n, lib in libs.items()},
             "shipped_blocks_per_sm": library().epik_rowgather_posted_blocks_per_sm(bw)}
-        del plane, posted, rows, S, want
+        del S, want
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        # ---- the finish fused in, against the pair ---------------------------------
+        B, K = shape["B"], 7
+        m = torch.full((R,), float(W), device=dev)
+        fkw = dict(K=K, k=10, log_eps=-4.2597)
+        pack = torch.empty((R, 2 * K + 3), device=dev)
+
+        def pair():
+            return finish_topk(rowgather_sum_posted(posted.off, posted.cells, rows,
+                                                    bw=bw)[:, :B], m, **fkw)
+
+        want = pair().cpu().numpy()
+
+        def fused(name):
+            if name == "pair":
+                return pair()
+            if name == "posted_topk":
+                return rowgather_sum_posted_topk(posted.off, posted.cells, rows, m, None, None,
+                                                 bw=bw, B=B, **fkw)
+            err = libs[name].epik_rowgather_sum_posted_topk(
+                posted.off.data_ptr(), posted.cells.data_ptr(), rows.data_ptr(), m.data_ptr(),
+                None, 0, 0, None, None, pack.data_ptr(), R, W, bw, B, K, 10, -4.2597,
+                torch.cuda.current_stream().cuda_stream)
+            if err:
+                raise RuntimeError(f"{name}: CUDA error {err}")
+            return pack
+
+        names = ["pair", "posted_topk", *POSTED, "posted_topk", "pair"]
+        times = {}
+        for name in names:
+            if name not in times:
+                pack.zero_()
+                got = fused(name).cpu().numpy()
+                check_finish(np, got, want, K, B, f"{name} ({key}) against the pair")
+            times.setdefault(name, []).append(cuda_ms(torch, lambda: fused(name)))
+        out[f"posted_topk_{key}"] = {
+            "shape": [R, W, bw, B], "ms": times,
+            "blocks_per_sm": {n: lib.epik_rowgather_posted_topk_blocks_per_sm(bw, B)
+                              for n, lib in libs.items()},
+            "shipped_blocks_per_sm": library().epik_rowgather_posted_topk_blocks_per_sm(bw, B)}
+        del plane, posted, rows, m, pack
         gc.collect()
         torch.cuda.empty_cache()
 

@@ -56,6 +56,8 @@ from epik_tpu_torch.kernels.rowgather import (
     locality_order,
     posted_fits,
     posted_smem,
+    posted_topk_fits,
+    posted_topk_smem,
     rowgather_sum,
     rowgather_sum_cols,
     rowgather_sum_cols_plain,
@@ -70,6 +72,8 @@ from epik_tpu_torch.kernels.rowgather import (
     rowgather_sum_plain,
     rowgather_sum_posted,
     rowgather_sum_posted_plain,
+    rowgather_sum_posted_topk,
+    rowgather_sum_posted_topk_plain,
     rowgather_sum_topk,
     rowgather_sum_topk_int16,
     rowgather_sum_topk_plain,
@@ -359,6 +363,8 @@ def test_launch_counts(cuda):
     off = torch.zeros(9, dtype=torch.int64, device=cuda)
     cells = torch.zeros((0, 2), dtype=torch.int32, device=cuda)
     rowgather_sum_posted(off, cells, rows, bw=128)
+    rowgather_sum_posted_topk(off, cells, rows, m, None, None, bw=128, B=100, K=3, k=4,
+                              log_eps=-1.0)
     rowgather_sum_topk(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     rowgather_sum_topk_int16(plane_q, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0,
                              scale=2.0)
@@ -386,6 +392,8 @@ def test_launch_counts(cuda):
     # the plain versions never count
     rowgather_sum_plain(plane, rows)
     rowgather_sum_posted_plain(off, cells, rows, 128)
+    rowgather_sum_posted_topk_plain(off, cells, rows, m, None, None, bw=128, B=100, K=3, k=4,
+                                    log_eps=-1.0)
     rowgather_sum_topk_plain(plane, rows, m, None, None, B=100, K=3, k=4, log_eps=-1.0)
     rowgather_sum_counts_plain(plane, rows)
     rowgather_sum_counts_topk_plain(plane, rows, m, None, None, None, B=100, K=3, k=4,
@@ -401,7 +409,7 @@ def test_launch_counts(cuda):
     rowgather_sum_counts_cols_plain(plane, rows, m, None, None, None, K=3, k=4, log_eps=-1.0,
                                     col0=0)
     assert launch_counts() == {"rowgather_sum": 1, "rowgather_sum_posted": 1,
-                               "rowgather_sum_topk": 1,
+                               "rowgather_sum_posted_topk": 1, "rowgather_sum_topk": 1,
                                "rowgather_sum_topk_int16": 1, "rowgather_sum_counts": 1,
                                "rowgather_sum_counts_bf16": 1,
                                "rowgather_sum_counts_topk": 1,
@@ -2352,12 +2360,20 @@ def test_rowgather_sum_posted_limit(cuda):
                                                          device=cuda), bw=past)
 
 
+@pytest.mark.parametrize("route", ["posted_fused", "posted"])
 @pytest.mark.parametrize("amb", [False, True])
-def test_unfused_step_gives_the_same_pack_through_both_gathers(cuda, amb):
+def test_unfused_step_gives_the_same_pack_through_both_gathers(cuda, monkeypatch, amb, route):
     """``engine.step.place_batch_dense_rows`` past the width rule (config 4's
-    width) with and without the posted cells: the same slim pack, bit for
-    bit; the posted gather and ``finish_topk`` one launch each, 1d none."""
+    width) with and without the posted cells: the same slim pack (bit for
+    bit but, through the fused posted gather, log_sum within rtol 1e-6); the
+    fused posted gather one launch (``posted_fused``) or, past its limit,
+    the posted gather and ``finish_topk`` one launch each (``posted``), 1d
+    none."""
+    from epik_tpu_torch.engine import step as step_mod
     from epik_tpu_torch.engine.step import dense_gather, place_batch_dense_rows
+
+    if route == "posted":
+        monkeypatch.setattr(step_mod, "posted_topk_fits", lambda bw, B, device: False)
 
     rng = np.random.default_rng(23 + amb)
     n_rows, bw, B, R, W = 20_001, 20_096, 19_999, 512, 143
@@ -2374,9 +2390,145 @@ def test_unfused_step_gives_the_same_pack_through_both_gathers(cuda, amb):
     want = place_batch_dense_rows(plane, rows, arows, m,
                                   gather=dense_gather(plane, B, 7, shifted=True), **kw)
     reset_launch_counts()
-    got = place_batch_dense_rows(plane, rows, arows, m,
-                                 gather=dense_gather(plane, B, 7, shifted=True, posted=p), **kw)
+    gather = dense_gather(plane, B, 7, shifted=True, posted=p)
+    assert gather.note == route
+    got = place_batch_dense_rows(plane, rows, arows, m, gather=gather, **kw)
     torch.cuda.synchronize()
-    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
     counts = {n: c for n, c in launch_counts().items() if c}
-    assert counts == {"rowgather_sum_posted": 1, "finish_topk": 1}
+    if route == "posted":
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+        assert counts == {"rowgather_sum_posted": 1, "finish_topk": 1}
+    else:
+        _check_pack(got.cpu().numpy(), want.cpu().numpy(), 7, B)
+        assert counts == {"rowgather_sum_posted_topk": 1}
+
+
+# ---- the posted gather with the finish fused in (rowgather_sum_posted_topk) -------------
+
+
+def _posted_pair(off, cells, rows, m, amb_read, amb_delta, bw: int, B: int, K: int):
+    """The pair the fused posted gather stands for: ``rowgather_sum_posted``,
+    the delta rows added, ``finish_topk``."""
+    Sp = rowgather_sum_posted(off, cells, rows, bw=bw)[:, :B]
+    if amb_read is not None:
+        Sp[amb_read] = Sp[amb_read] + amb_delta
+    return finish_topk(Sp, m, K=K, k=10, log_eps=-4.2597)
+
+
+def _posted_topk_rows(cuda, rng, case: str, n_rows: int, bw: int, B: int, R: int, W: int):
+    """(plane, its posted cells, rows, m) for a fused posted gather case: a
+    plane of ~12 posted cells a row among the first B columns; ``short``:
+    every fifth read's windows all on the zero row (n = 0); ``few``: every
+    fourth read one window, on a row of fewer than K cells (n < K); ``all``:
+    row 0 posts every one of the B branches and every third read names it
+    (n = B, no untouched branch); ``over``: row 0 posts 5,500 branches, past
+    the 5,410 ids of the kernel's touched list at K = 7 (those reads take the
+    mask finish, the others the list, in one launch); any other case: as
+    drawn."""
+    from epik_tpu_torch.engine.state import build_posted
+
+    plane, _ = _posted_plane(cuda, rng, n_rows, bw, 12.0)
+    plane[:, B:] = 0.0
+    if case in ("all", "over"):
+        wide = B if case == "all" else 5_500
+        plane[0, :wide] = torch.from_numpy(rng.uniform(0.01, 4.2, wide).astype(np.float32)
+                                           ).to(cuda)
+    p = build_posted(plane)
+    zero = n_rows - 1
+    rows = rng.integers(1, n_rows - 1, (R, W)).astype(np.int32)
+    if case == "short":
+        rows[::5] = zero
+    elif case == "few":  # one window on a row of fewer than K cells
+        sparse = np.flatnonzero(p.off.diff().cpu().numpy()[1:-1] < 7) + 1
+        rows[::4, 0] = rng.choice(sparse, rows[::4].shape[0])
+        rows[::4, 1:] = zero
+    elif case in ("all", "over"):
+        rows[::3, 7] = 0
+    m = rng.integers(W, W + 20, R).astype(np.float32)
+    m[::7] = 2.0**64  # reads shorter than k: the wrapped window count (quirk Q1)
+    return plane, p, torch.from_numpy(rows).to(cuda), torch.from_numpy(m).to(cuda)
+
+
+@pytest.mark.parametrize("amb", [False, True])
+@pytest.mark.parametrize("case,n_rows,bw,B,R,W", [
+    ("wol10k", 50_001, 21_248, 21_149, 2000, 141),  # the cell's batch and width
+    ("config4", 50_001, 20_096, 19_999, 4096, 143),  # config 4's
+    ("wide", 20_001, 40_064, 39_999, 512, 143),  # the wide shifted tree's, 1 block an SM
+    ("short", 5_001, 1_792, 1_700, 300, 141),  # n = 0
+    ("few", 5_001, 1_792, 1_700, 300, 141),  # n < K: the slots past n
+    ("all", 2_001, 21_248, 21_149, 60, 141),  # every branch touched: the whole mask
+    ("over", 2_001, 21_248, 21_149, 60, 141),  # past the touched list: the mask finish
+    ("empty", 2_001, 1_792, 1_700, 0, 141),  # no read
+])
+def test_rowgather_sum_posted_topk_matches_the_pair(cuda, case, n_rows, bw, B, R, W, amb):
+    """``rowgather_sum_posted_topk`` on the card against the posted gather,
+    the delta add and ``finish_topk`` apart: scores, ids, n and zero_sum bit
+    for bit, log_sum within rtol 1e-6; with and without delta rows (some
+    negative, some touching branches the windows do not); two launches
+    alike; one launch; and against the plain version on the small cases."""
+    rng = np.random.default_rng(n_rows + bw + R + amb)
+    plane, p, rows, m = _posted_topk_rows(cuda, rng, case, n_rows, bw, B, R, W)
+    amb_read = amb_delta = None
+    if amb and R:
+        amb_read = torch.arange(2, R, 6, device=cuda)
+        d = rng.uniform(-1.0, 2.5, (amb_read.numel(), B)).astype(np.float32)
+        d[d < 1.5] = 0.0
+        amb_delta = torch.from_numpy(d).to(cuda)
+    args = (p.off, p.cells, rows, m, amb_read, amb_delta)
+    kw = dict(bw=bw, B=B, K=7, k=10, log_eps=-4.2597)
+    reset_launch_counts()
+    got = rowgather_sum_posted_topk(*args, **kw)
+    again = rowgather_sum_posted_topk(*args, **kw)
+    torch.cuda.synchronize()
+    assert launch_counts()["rowgather_sum_posted_topk"] == (2 if R else 0)
+    assert got.shape == (R, 17) and got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = _posted_pair(*args, bw, B, 7)
+    _check_pack(got.cpu().numpy(), want.cpu().numpy(), 7, B)
+    n = got[:, 15].cpu().numpy()
+    if case == "short":
+        assert (n == 0).any()
+    elif case == "few":
+        assert (n < 7).sum() >= R // 8
+    elif case == "all":
+        assert (n[::3] == B).all()
+    elif case == "over":
+        assert (n[::3] > 5_410).all() and (n[1::3] <= 5_410).all()
+    if R * W <= 300 * 141:
+        plain = rowgather_sum_posted_topk_plain(*(a.cpu() if a is not None else None
+                                                   for a in args), **kw)
+        _check_pack(got.cpu().numpy(), plain.numpy(), 7, B)
+
+
+def test_rowgather_sum_posted_topk_limit(cuda):
+    """The fused posted gather's shared memory, from the CUDA source: the bw
+    sums, the B touched bits in whole pairs of words and the gather's staging
+    (the finish's candidates and touched list laid over it); 2 blocks an SM
+    at the wol10k cell's 21,248 columns, as the posted gather alone; at the
+    widest plane ``posted_topk_fits`` takes (B = bw - 64) the pack of the
+    pair, one past it refused and raising."""
+    from epik_tpu_torch.kernels._build import library
+
+    staging = 1024 * 8 + 256 * 8 + 257 * 4
+    need, limit = posted_topk_smem(21_248, 21_149, cuda)
+    assert need == 21_248 * 4 + 662 * 4 + staging
+    assert posted_topk_smem(65_536, 65_536, cuda)[0] == 65_536 * 4 + 2_048 * 4 + staging
+    assert library().epik_rowgather_posted_topk_blocks_per_sm(21_248, 21_149) == 2
+    assert posted_topk_fits(21_248, 21_149, cuda) and posted_topk_fits(20_096, 19_999, cuda)
+    assert posted_topk_fits(40_064, 39_999, cuda)
+    bw = (limit - staging) // 16 * 4
+    while posted_topk_fits(bw + 4, bw - 60, cuda):
+        bw += 4
+    while not posted_topk_fits(bw, bw - 64, cuda):
+        bw -= 4
+    assert not posted_topk_fits(bw + 4, bw - 60, cuda)
+    rng = np.random.default_rng(bw)
+    plane, p, rows, m = _posted_topk_rows(cuda, rng, "limit", 2_001, bw, bw - 64, 64, 141)
+    kw = dict(bw=bw, B=bw - 64, K=7, k=10, log_eps=-4.2597)
+    got = rowgather_sum_posted_topk(p.off, p.cells, rows, m, None, None, **kw)
+    want = _posted_pair(p.off, p.cells, rows, m, None, None, bw, bw - 64, 7)
+    _check_pack(got.cpu().numpy(), want.cpu().numpy(), 7, bw - 64)
+    with pytest.raises(ValueError, match="fused posted gather takes at most"):
+        rowgather_sum_posted_topk(p.off, p.cells, rows[:, :3].contiguous(), m, None, None,
+                                  **dict(kw, bw=bw + 4, B=bw - 60))
+

@@ -375,15 +375,18 @@ def test_tally_reads_every_counter():
 def test_tally_reads_the_gathers():
     """The operator's table counts the dense steps' gathers and gives the
     sums the pair wrote and read back, a batch that ran the pair and the
-    largest."""
+    largest; a batch whose finish was fused into the posted gather counts
+    among the gathers and not there."""
     tally = spans.Tally()
-    for b, gather, nbytes in ((0, "fused", None), (1, "pair", 1 << 20), (2, "pair", 2 << 20)):
+    for b, gather, nbytes in ((0, "fused", None), (1, "pair", 1 << 20), (2, "pair", 2 << 20),
+                              (3, "posted_fused", None)):
         attrs = {"route": "dense.bytes", "gather": gather}
         if nbytes:
             attrs["sums_bytes"] = nbytes
         tally.add(_made("place", b, 3, 0, 1, 1, **attrs))
     lines = tally.table()
-    assert "routes: dense.bytes 3" in lines and "gathers: fused 1, pair 2" in lines
+    assert "routes: dense.bytes 4" in lines
+    assert "gathers: fused 1, pair 2, posted_fused 1" in lines
     assert lines[-1] == "sums written and read back: 1.500 MiB a batch, largest 2.000"
 
 

@@ -71,8 +71,8 @@ def counted(name):
 
     setattr(step, name, call)
 
-for name in ("tokenize_packed", "rowgather_sum", "rowgather_sum_posted", "finish_topk",
-             "rowgather_sum_topk", "amb_deltas"):
+for name in ("tokenize_packed", "rowgather_sum", "rowgather_sum_posted",
+             "rowgather_sum_posted_topk", "finish_topk", "rowgather_sum_topk", "amb_deltas"):
     counted(name)
 placer = {}
 
@@ -123,11 +123,13 @@ def test_wide_tree_takes_the_unfused_pair_and_matches_the_reference(tmp_path):
                  "fused": False}
     assert 0 < share < 1 / 32
     calls = line["calls"]
-    # every batch: the direct-table tokenizer, the posted gather, the delta
-    # rows of its IUPAC read and finish_topk; never the fused kernel, nor 1d
-    assert calls["tokenize_packed"] == calls["rowgather_sum_posted"] == calls["finish_topk"] > 0
-    assert calls["amb_deltas"] == calls["rowgather_sum_posted"]
-    assert "rowgather_sum_topk" not in calls and "rowgather_sum" not in calls
+    # every batch: the direct-table tokenizer, the delta rows of its IUPAC
+    # read and the posted gather with the finish fused in; never #1, 1d, the
+    # posted gather alone nor finish_topk
+    assert calls["tokenize_packed"] == calls["rowgather_sum_posted_topk"] > 0
+    assert calls["amb_deltas"] == calls["rowgather_sum_posted_topk"]
+    for name in ("rowgather_sum_topk", "rowgather_sum", "rowgather_sum_posted", "finish_topk"):
+        assert name not in calls
     assert line["correct"] is True, line["checks"]
     assert line["failed"] == 0 and line["numbers"]["reads_checked"] >= 4 * 20
 
